@@ -1,0 +1,92 @@
+"""Predict configuration and model-architecture lookup.
+
+The predict keys of the JAX package's `cfg/default.yaml`, with the same
+defaults, plus `device`. `model_yaml_load` resolves a scaled name such as
+`yolov8l.yaml` to the unified architecture at scale `l`, as the JAX package
+does; the built-in architectures live in `cfg/models.py`, and `yaml` is
+imported only when a caller names a file on disk.
+"""
+
+from __future__ import annotations
+
+import copy
+import re
+from pathlib import Path
+from types import SimpleNamespace
+
+from .models import MODELS
+
+DEFAULT_CFG = {
+    "imgsz": 640,                # square letterbox size, a multiple of 32
+    "conf": None,                # None = 0.25 for predict
+    "iou": 0.7,                  # NMS IoU threshold
+    "max_det": 300,              # detections kept per image
+    "max_nms": 2048,             # candidates entering NMS after the top-k gate
+    "half": False,               # bf16 image into layer 0 (params stay f32)
+    "batch": 16,                 # images per device batch
+    "agnostic_nms": False,       # class-agnostic suppression
+    "contrast_mode": "channel",  # 'channel' | 'reference' contrast luminance
+    "matmul_precision": "default",  # default | tensorfloat32 | float32
+    "device": None,              # None = 'cuda'
+}
+
+_FLOAT_KEYS = {"conf", "iou"}
+_INT_KEYS = {"imgsz", "max_det", "max_nms", "batch"}
+_BOOL_KEYS = {"half", "agnostic_nms"}
+_PRECISIONS = ("default", "tensorfloat32", "float32")
+
+
+def get_cfg(overrides: dict | None = None) -> SimpleNamespace:
+    """Merge `overrides` into the predict defaults, type-checked."""
+    cfg = dict(DEFAULT_CFG)
+    for k, v in (overrides or {}).items():
+        if k not in cfg:
+            raise SyntaxError(f"'{k}' is not a valid predict config key")
+        if v is not None:
+            if k in _FLOAT_KEYS:
+                if not isinstance(v, (int, float)) or not 0.0 <= v <= 1.0:
+                    raise ValueError(f"'{k}={v}' must be a number in [0, 1]")
+                v = float(v)
+            elif k in _INT_KEYS:
+                if not isinstance(v, int) or isinstance(v, bool):
+                    raise TypeError(f"'{k}={v}' must be an int")
+            elif k in _BOOL_KEYS and not isinstance(v, bool):
+                raise TypeError(f"'{k}={v}' must be a bool")
+            elif k == "contrast_mode" and v not in ("channel", "reference"):
+                raise ValueError(f"contrast_mode '{v}' is not channel|reference")
+            elif k == "matmul_precision" and v not in _PRECISIONS:
+                raise ValueError(f"matmul_precision '{v}' is not one of "
+                                 f"{_PRECISIONS}")
+        cfg[k] = v
+    if cfg["imgsz"] % 32:
+        raise ValueError(f"imgsz={cfg['imgsz']} must be a multiple of 32")
+    return SimpleNamespace(**cfg)
+
+
+def model_yaml_load(path) -> dict:
+    """Architecture dict for `path`, with the scale letter from its name.
+
+    'yolov8l.yaml' resolves to the unified 'yolov8.yaml' with scale 'l'. A
+    file on disk wins over the built-in architectures of the same name.
+    """
+    path = Path(path)
+    m = re.search(r"v\d+([nslmx])", path.stem)
+    scale = m.group(1) if m else ""
+    unified = Path(re.sub(r"(\d+)([nslmx])(.+)?$", r"\1\3", str(path)))
+    d = None
+    for candidate in (unified, path):
+        if candidate.is_file():
+            import yaml
+            with open(candidate, encoding="utf-8") as f:
+                d = yaml.safe_load(f) or {}
+            break
+    else:
+        for name in (unified.name, path.name):
+            if name in MODELS:
+                d = copy.deepcopy(MODELS[name])
+                break
+    if d is None:
+        raise FileNotFoundError(f"model architecture not found: {path}")
+    d["scale"] = scale
+    d["yaml_file"] = str(path)
+    return d

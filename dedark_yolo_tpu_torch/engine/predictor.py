@@ -1,0 +1,173 @@
+"""DetectionPredictor: batched inference (JAX engine/predictor.py:113-378).
+
+Host letterbox, then one device step per batch: u8 -> float, the graph
+(layer 0 runs the fused enhance kernel on CUDA), DFL decode, fixed-shape NMS
+with multi_label=False. Boxes go back to original-image pixels with the
+reference's letterbox inverse. Batches are dispatched depth-2: batch i+1 is
+letterboxed and submitted before batch i's results are read back and
+demuxed, and results stream in source order.
+
+Not ported: TTA, ensembles, exported artifacts (AutoBackend),
+save_enhanced/visualize, video and streams.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..cfg import get_cfg
+from ..data.augment import letterbox
+from ..ops.boxes import scale_boxes
+from ..ops.nms import non_max_suppression
+from .results import Results
+
+
+def resolve_device(device) -> torch.device:
+    """None means cuda; cuda without a CUDA device raises, never falls back."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return dev
+
+
+def load_source(source):
+    """Yield (path, BGR uint8 image) from an array, an image file, or a
+    list of those."""
+    if isinstance(source, np.ndarray):
+        yield "array", source
+        return
+    if isinstance(source, (list, tuple)):
+        for s in source:
+            yield from load_source(s)
+        return
+    p = Path(source)
+    if p.is_file():
+        import cv2
+        img = cv2.imread(str(p))
+        if img is None:
+            raise FileNotFoundError(f"could not read image: {p}")
+        yield str(p), img
+    else:
+        raise FileNotFoundError(f"source not found: {source}")
+
+
+@contextlib.contextmanager
+def matmul_precision(name):
+    """'float32' turns TF32 off for cuDNN convs and CUDA matmuls;
+    'default'/'tensorfloat32' turns it on. Restores both flags on exit."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    tf32 = name != "float32"
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+class DetectionPredictor:
+    def __init__(self, args=None, model=None, names=None):
+        self.args = args if args is not None else get_cfg()
+        if self.args.conf is None:
+            self.args.conf = 0.25  # predict default (reference model.py:213)
+        self.device = resolve_device(self.args.device)
+        self.model = model
+        self.names = names or (model.names if model is not None else {})
+        # mean ms per image of each stage over every image seen
+        self.speed = {"preprocess": 0.0, "inference": 0.0, "postprocess": 0.0}
+        self._totals = dict(self.speed)
+        self.seen = 0
+
+    @torch.inference_mode()
+    def step(self, img_u8):
+        """(B, S, S, 3) uint8 RGB on the host -> dets (B, max_det, 6), counts."""
+        a = self.args
+        dtype = torch.bfloat16 if a.half else torch.float32
+        img = torch.from_numpy(img_u8).to(self.device).to(dtype) / 255.0
+        with matmul_precision(a.matmul_precision):
+            boxes, scores = self.model.decode(self.model(img))
+            return non_max_suppression(
+                boxes.float(), scores.float(), conf_thres=float(a.conf),
+                iou_thres=float(a.iou), max_det=int(a.max_det),
+                max_nms=int(a.max_nms), multi_label=False,
+                agnostic=bool(a.agnostic_nms))
+
+    def __call__(self, source):
+        return list(self.stream_inference(source))
+
+    def stream_inference(self, source):
+        a = self.args
+        imgsz = int(a.imgsz)
+        batch_size = max(1, int(a.batch))
+        self.model.to(self.device).eval()
+        buf_paths, buf_imgs, buf_orig = [], [], []
+
+        def dispatch(t_pre):
+            nonlocal buf_paths, buf_imgs, buf_orig
+            if not buf_imgs:
+                return None
+            n = len(buf_imgs)
+            t0 = time.perf_counter()
+            while len(buf_imgs) < batch_size:
+                buf_imgs.append(np.zeros_like(buf_imgs[0]))
+            out = self.step(np.stack(buf_imgs))
+            t_disp = time.perf_counter() - t0
+            rec = (out, n, t_pre, t_disp, buf_paths, buf_orig)
+            buf_paths, buf_imgs, buf_orig = [], [], []
+            return rec
+
+        def demux(rec):
+            (dets, counts), n, t_pre, t_disp, paths, origs = rec
+            t1 = time.perf_counter()
+            dets = dets.cpu().numpy()
+            counts = counts.cpu().numpy()
+            t2 = time.perf_counter()
+            speed = {"preprocess": t_pre / n * 1000,
+                     "inference": (t_disp + t2 - t1) / n * 1000}
+            results = []
+            for i in range(n):
+                k = int(counts[i])
+                det = dets[i, :k].copy()
+                orig = origs[i]
+                if k:
+                    det[:, :4] = scale_boxes((imgsz, imgsz),
+                                             torch.from_numpy(det[:, :4]),
+                                             orig.shape[:2]).numpy()
+                results.append(Results(
+                    orig_img=np.ascontiguousarray(orig[..., ::-1]),
+                    path=paths[i], names=self.names, boxes=det, speed=speed))
+            speed["postprocess"] = (time.perf_counter() - t2) / n * 1000
+            self.seen += n
+            for key, v in speed.items():
+                self._totals[key] += v * n
+                self.speed[key] = self._totals[key] / self.seen
+            yield from results
+
+        pending = None
+        t_pre = 0.0
+        for path, img in load_source(source):
+            t0 = time.perf_counter()
+            lb, _, _ = letterbox(img, imgsz)
+            buf_imgs.append(np.ascontiguousarray(lb[..., ::-1]))  # RGB
+            buf_paths.append(path)
+            buf_orig.append(img)
+            t_pre += time.perf_counter() - t0
+            if len(buf_imgs) == batch_size:
+                newly = dispatch(t_pre)
+                t_pre = 0.0
+                if pending is not None:
+                    yield from demux(pending)
+                pending = newly
+        newly = dispatch(t_pre)
+        if pending is not None:
+            yield from demux(pending)
+        if newly is not None:
+            yield from demux(newly)

@@ -1,0 +1,211 @@
+"""lowlight_recovery, layer 0 of the detector: the plain PyTorch filter chain.
+
+Port of the JAX package's `nn/enhance.py` (reference ultralytics/nn/modules/
+llie.py:11-54): bilinear-resize the NHWC input to 256x256, regress 15 filter
+parameters with `ExtractParameters2`, then run DeDark -> WhiteBalance ->
+Gamma -> Contrast -> USM at full resolution. Images stay NHWC here, the JAX
+layout, so the tests compare like with like.
+
+On a CUDA tensor, `LowlightRecovery` with contrast_mode='channel' runs the
+whole chain through the hand-written kernel (`ops/enhance_kernel.py`);
+everything below is the plain version that the kernel is held against and
+that the CPU runs.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+NUM_FILTER_PARAMS = 15
+DEDARK_SLOT = 0
+WB_SLOTS = slice(1, 4)
+GAMMA_SLOT = 4
+CONTRAST_SLOT = 13
+USM_SLOT = 14
+
+DEFOG_RANGE = (0.1, 1.0)
+GAMMA_RANGE = 3.0
+WB_LOG_RANGE = 0.5
+USM_RANGE = (0.0, 5.0)
+
+DEFAULT_A = 0.8
+DEFAULT_ICA = 0.5
+
+
+def tanh_range(x, lo, hi):
+    return torch.tanh(x) * (hi - lo) / 2.0 + (hi + lo) / 2.0
+
+
+def rgb2lum(img):
+    """Channel luminance of an NHWC image -> (..., 1)."""
+    lum = 0.27 * img[..., 0] + 0.67 * img[..., 1] + 0.06 * img[..., 2]
+    return lum[..., None]
+
+
+def rgb2lum_reference_nchw(img):
+    """The reference's rgb2lum as it executes on NCHW tensors: a mix of image
+    COLUMNS 0..2 per (batch, row, channel), broadcast across the row (JAX
+    enhance.py:79-91). In NHWC: (B, H, 1, C)."""
+    lum = (0.27 * img[:, :, 0, :] + 0.67 * img[:, :, 1, :]
+           + 0.06 * img[:, :, 2, :])
+    return lum[:, :, None, :]
+
+
+def regress_filter_params(features):
+    """Squash the raw (B, 15) features into per-filter parameters."""
+    dedark_w = tanh_range(features[:, DEDARK_SLOT:DEDARK_SLOT + 1],
+                          *DEFOG_RANGE)
+    mask = torch.tensor([0.0, 1.0, 1.0], dtype=features.dtype,
+                        device=features.device)
+    scale = torch.exp(tanh_range(features[:, WB_SLOTS] * mask,
+                                 -WB_LOG_RANGE, WB_LOG_RANGE))
+    lum = 1e-5 + 0.27 * scale[:, 0] + 0.67 * scale[:, 1] + 0.06 * scale[:, 2]
+    log_g = math.log(GAMMA_RANGE)
+    gamma = torch.exp(tanh_range(features[:, GAMMA_SLOT:GAMMA_SLOT + 1],
+                                 -log_g, log_g))
+    return {"dedark_w": dedark_w, "wb": scale / lum[:, None], "gamma": gamma,
+            "contrast": torch.tanh(features[:, CONTRAST_SLOT:CONTRAST_SLOT + 1]),
+            "usm": tanh_range(features[:, USM_SLOT:USM_SLOT + 1], *USM_RANGE)}
+
+
+def apply_point_filters(img, params, dedark_A, IcA, contrast_mode="channel"):
+    """DeDark -> WB -> Gamma -> Contrast, all per pixel (JAX enhance.py:118-145).
+
+    img (B, H, W, 3) in [0, 1]; dedark_A (B, 3); IcA (B, H, W, 1).
+    contrast_mode 'reference' reproduces the torch fork's column luminance.
+    """
+    w = params["dedark_w"][:, None, None, :]
+    A = dedark_A[:, None, None, :]
+    tx = torch.clamp(1.0 - w * IcA, min=0.01)
+    x = (img - A) / tx + A
+    x = x * params["wb"][:, None, None, :]
+    x = torch.pow(torch.clamp(x, min=1e-4), params["gamma"][:, None, None, :])
+    p = params["contrast"][:, None, None, :]
+    lum_fn = rgb2lum_reference_nchw if contrast_mode == "reference" else rgb2lum
+    lum = torch.clamp(lum_fn(x), 0.0, 1.0)
+    clum = -torch.cos(math.pi * lum) * 0.5 + 0.5
+    return (1.0 - p) * x + p * (x / (lum + 1e-6) * clum)
+
+
+def gaussian_kernel_25(sigma=5.0):
+    """1-D 25-tap Gaussian, normalised in float64 (reference filtersB.py:155-161)."""
+    x = np.arange(-12, 13, dtype=np.float64)
+    k = np.exp(-0.5 * np.square(x / sigma))
+    return k / k.sum()
+
+
+@lru_cache(maxsize=16)
+def _usm_blur_matrix(n: int):
+    """(n, n) matrix of the 25-tap blur along one axis with 'reflect'
+    boundary folded in: B[o, reflect(o + k - 12)] += g[k]."""
+    g = gaussian_kernel_25()
+    B = np.zeros((n, n), np.float64)
+    for o in range(n):
+        for k in range(25):
+            i = o + k - 12
+            if i < 0:
+                i = -i
+            if i >= n:
+                i = 2 * n - 2 - i
+            B[o, i] += g[k]
+    return B.astype(np.float32)
+
+
+@lru_cache(maxsize=32)
+def _blur_matrix(n: int, device: torch.device, dtype: torch.dtype):
+    return torch.from_numpy(_usm_blur_matrix(n)).to(device=device, dtype=dtype)
+
+
+def usm_filter(img, usm_param):
+    """Unsharp mask, 25x25 sigma=5 Gaussian with reflect padding, as two
+    banded products (JAX enhance.py:176-190). img (B, H, W, 3); usm (B, 1)."""
+    Bv = _blur_matrix(img.shape[1], img.device, img.dtype)
+    Bh = _blur_matrix(img.shape[2], img.device, img.dtype)
+    blur = torch.einsum("oh,bhwc->bowc", Bv, img)
+    blur = torch.einsum("ow,bhwc->bhoc", Bh, blur)
+    return (img - blur) * usm_param[:, None, None, :] + img
+
+
+def apply_filter_chain(img, features, dedark_A, IcA, contrast_mode="channel"):
+    """The full 5-filter chain from the raw (B, 15) features."""
+    params = regress_filter_params(features)
+    x = apply_point_filters(img, params, dedark_A, IcA, contrast_mode)
+    return usm_filter(x, params["usm"])
+
+
+def torch_bilinear_resize(x, out_h: int, out_w: int):
+    """NHWC resize by F.interpolate(bilinear, align_corners=False), no
+    antialias: the reference's downsample to 256 (llie.py:43), which the JAX
+    package emulates with matrices (enhance.py:236-264)."""
+    if tuple(x.shape[1:3]) == (out_h, out_w):
+        return x
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w),
+                      mode="bilinear", align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1)
+
+
+class _ConvBlock(nn.Module):
+    def __init__(self, c1, c2):
+        super().__init__()
+        self.conv_block = nn.Sequential(nn.Conv2d(c1, c2, 3, 2, 1),
+                                        nn.LeakyReLU(0.1))
+
+    def forward(self, x):
+        return self.conv_block(x)
+
+
+class ExtractParameters2(nn.Module):
+    """5 x (conv3x3 s2 + LeakyReLU 0.1) 3->16->32->32->32->32 on a 256x256
+    NCHW input, NCHW flatten 2048 -> fc 64 -> fc 15 (reference
+    common.py:52-78; the flatten order is the reference's)."""
+
+    def __init__(self, out_dim: int = NUM_FILTER_PARAMS):
+        super().__init__()
+        widths = (3, 16, 32, 32, 32, 32)
+        self.conv_layers = nn.Sequential(*(_ConvBlock(a, b) for a, b
+                                           in zip(widths, widths[1:])))
+        self.fc1 = nn.Linear(2048, 64)
+        self.fc2 = nn.Linear(64, out_dim)
+
+    def forward(self, x):
+        x = self.conv_layers(x).reshape(x.shape[0], -1)
+        return self.fc2(F.leaky_relu(self.fc1(x), 0.1))
+
+
+class LowlightRecovery(nn.Module):
+    """Layer 0 (reference llie.py:11-54). forward(x NHWC in [0,1]) -> NHWC.
+
+    Priors default to the reference's A=0.8 and a materialised
+    full-resolution IcA=0.5. The 256x256 resize runs in the image's dtype;
+    the regressor runs in its parameters' dtype, as flax promotes a bf16
+    image against f32 params. The 'channel' chain (the kernel's) returns the
+    image's dtype, as the JAX kernel does; 'reference' promotes like the JAX
+    plain chain.
+    """
+
+    def __init__(self, contrast_mode: str = "channel"):
+        super().__init__()
+        self.contrast_mode = contrast_mode
+        self.extractor = ExtractParameters2()
+
+    def forward(self, x, dedark_A=None, IcA=None):
+        b, h, w, _ = x.shape
+        if dedark_A is None:
+            dedark_A = torch.full((b, 3), DEFAULT_A, dtype=x.dtype,
+                                  device=x.device)
+        if IcA is None:
+            IcA = torch.full((b, h, w, 1), DEFAULT_ICA, dtype=x.dtype,
+                             device=x.device)
+        small = torch_bilinear_resize(x, 256, 256).permute(0, 3, 1, 2)
+        features = self.extractor(small.to(self.extractor.fc1.weight.dtype))
+        if self.contrast_mode == "channel":
+            from ..ops.enhance_kernel import FusedEnhance
+            return FusedEnhance.apply(x, features, dedark_A, IcA)
+        return apply_filter_chain(x, features, dedark_A, IcA,
+                                  self.contrast_mode)

@@ -1,0 +1,257 @@
+"""Model-dict parser and the DetectionModel walk (JAX nn/graph.py).
+
+`parse_model` is a copy of the JAX package's (graph.py:145-278): the same
+`[from, repeats, module, args]` schema and channel rules as the reference
+(ultralytics/nn/tasks.py:803-921). `DetectionModel` builds one torch module
+per row and walks them with the save-list (graph.py:484-551), in the plain
+form only: no lazy upsample/concat, remat, space-to-depth stem or FPN fuse,
+which are exact rewrites of the same params in the JAX package.
+
+Layout: the image enters NHWC in [0, 1]; layer 0 (lowlight_recovery) works
+on NHWC, the backbone on NCHW (a permuted view, so channels_last memory);
+the head returns per-level (B, H, W, 4*reg_max + nc) maps.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from dataclasses import dataclass
+from typing import Any, List, Optional, Tuple
+
+from torch import nn
+
+from . import layers as L
+from .enhance import LowlightRecovery
+from .heads import Detect, decode_detections
+
+
+def make_divisible(x, divisor=8):
+    return math.ceil(x / divisor) * divisor
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    i: int                      # layer index
+    f: Tuple[int, ...]          # from-layer indices (-1 = previous)
+    n: int                      # effective repeats (after depth scaling)
+    name: str                   # module name from the architecture
+    args: Tuple[Any, ...]       # resolved constructor args
+    c2: int                     # output channels
+    stride: int                 # cumulative spatial stride of the output
+
+
+_CONVLIKE = {
+    "Conv", "ConvTranspose", "GhostConv", "Bottleneck", "GhostBottleneck", "SPP",
+    "SPPF", "DWConv", "Focus", "BottleneckCSP", "C1", "C2", "C2f", "C3", "C3Ghost",
+    "C3x", "C3TR", "RepC3", "FasterC2f_N", "FasterC2f", "PconvBottleneck",
+    "PconvBottleneck_n", "SCConvBottleneck", "SCC2f", "SC_PW_Bottleneck",
+    "SC_PW_C2f", "SC_Conv3_Bottleneck", "SC_Conv3_C2f", "Conv3_SC_C2f",
+    "Conv3_SC_Bottleneck", "SC_PW_PW_C2f", "Classify",
+}
+_REPEAT_BLOCKS = {
+    "BottleneckCSP", "C1", "C2", "C2f", "C3", "C3Ghost", "C3x", "C3TR", "RepC3",
+    "FasterC2f_N", "FasterC2f", "SCC2f", "SC_PW_C2f", "SC_Conv3_C2f",
+    "Conv3_SC_C2f", "SC_PW_PW_C2f",
+}
+_HEADS = {"Detect", "AsffDetect", "Segment", "Pose", "RTDETRDecoder"}
+_STRIDE2 = {"Focus", "HGStem"}
+
+
+def parse_model(d: dict, ch: int = 3):
+    """Parse a model dict into (specs, savelist, head_info)."""
+    nc = d.get("nc", 80)
+    scales = d.get("scales")
+    depth, width, max_channels = d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0), float("inf")
+    if scales:
+        scale = d.get("scale") or tuple(scales.keys())[0]
+        depth, width, max_channels = scales[scale]
+
+    ch_list: List[int] = [ch]
+    stride_list: List[int] = [1]
+    specs: List[LayerSpec] = []
+    save: List[int] = []
+    head = None
+
+    rows = list(d["backbone"]) + list(d["head"])
+    for i, (f, n, m, args) in enumerate(rows):
+        f_tuple = tuple(f) if isinstance(f, (list, tuple)) else (f,)
+        f_tuple = tuple(x if x == -1 else x % i for x in f_tuple)
+        args = list(args)
+        for j, a in enumerate(args):
+            if isinstance(a, list):
+                args[j] = tuple(a)
+            if isinstance(a, str):
+                if a == "nc":
+                    args[j] = nc
+                elif a in ("None", "none"):
+                    args[j] = None
+                elif a in ("True", "False"):
+                    args[j] = a == "True"
+        n_eff = max(round(n * depth), 1) if n > 1 else n
+
+        def in_ch(fi):
+            return ch_list[fi] if fi != -1 else ch_list[-1]
+
+        def in_stride(fi):
+            return stride_list[fi] if fi != -1 else stride_list[-1]
+
+        c1 = in_ch(f_tuple[0])
+        stride = in_stride(f_tuple[0])
+
+        if m == "Classify" and i == len(rows) - 1:
+            head = {"name": "Classify", "nc": args[0], "strides": (stride,),
+                    "from": f_tuple, "ch": (c1,), "index": i}
+            c2 = args[0]
+        elif m in _CONVLIKE:
+            c2 = args[0]
+            if c2 != nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            args = [c2, *args[1:]]
+            if m in _REPEAT_BLOCKS:
+                args.insert(1, n_eff)
+                n_eff = 1
+            s = args[2] if m in ("Conv", "DWConv") and len(args) > 2 else 1
+            if m in _STRIDE2:
+                s = 2 if m == "Focus" else 4
+            if m == "ConvTranspose":
+                stride = max(stride // (args[2] if len(args) > 2 else 2), 1)
+            else:
+                stride = stride * (s if isinstance(s, int) else 1)
+        elif m in ("HGStem",):
+            c2 = args[1]
+            stride = stride * 4
+        elif m in ("HGBlock",):
+            c2 = args[1]
+            args.insert(3, n_eff)
+            n_eff = 1
+        elif m == "nn.Upsample":
+            c2 = c1
+            sf = int(args[1]) if len(args) > 1 and args[1] else 2
+            stride = max(stride // sf, 1)
+        elif m == "nn.BatchNorm2d":
+            c2 = c1
+        elif m == "Concat":
+            c2 = sum(in_ch(x) for x in f_tuple)
+        elif m == "lowlight_recovery":
+            c2 = args[0]
+        elif m == "MFRU":
+            c2 = in_ch(f_tuple[2])
+            stride = in_stride(f_tuple[2])
+        elif m in ("AsffDoubLevel", "AsffTribeLevel"):
+            c2 = in_ch(f_tuple[args[0]])
+            stride = in_stride(f_tuple[args[0]])
+        elif m == "RFBblock":
+            c2 = (c1 // 4) * 4
+        elif m in ("PConv",):
+            c2 = c1
+        elif m in ("SCConv",):
+            c2 = c1
+            args = [c1, *args[1:]]
+        elif m in _HEADS:
+            ch_ins = [in_ch(x) for x in f_tuple]
+            strides_in = tuple(in_stride(x) for x in f_tuple)
+            if m == "Segment" and len(args) > 2:
+                args[2] = make_divisible(min(args[2], max_channels) * width, 8)
+            head = {"name": m, "nc": args[0], "strides": strides_in,
+                    "from": f_tuple, "ch": tuple(ch_ins), "index": i,
+                    "args": tuple(args)}
+            c2 = 0
+        elif m == "AIFI":
+            c2 = c1
+            args = [c1, *args]
+        elif m in ("CBAM", "ChannelAttention", "SpatialAttention"):
+            c2 = c1
+        else:
+            raise NotImplementedError(f"module '{m}' not supported by parse_model")
+
+        specs.append(LayerSpec(i=i, f=f_tuple, n=n_eff, name=m,
+                               args=tuple(args), c2=c2, stride=stride))
+        save.extend(x % i for x in f_tuple if x != -1)
+        if i == 0:
+            ch_list = []
+            stride_list = []
+        ch_list.append(c2)
+        stride_list.append(stride)
+
+    if head is None:
+        raise ValueError("model yaml has no Detect head")
+    return tuple(specs), sorted(set(save)), head
+
+
+def _build_module(spec: LayerSpec, cins: List[int], head: dict) -> nn.Module:
+    """The torch module of one row; `cins` are its inputs' channel counts."""
+    name, a, c1 = spec.name, list(spec.args), cins[0]
+    if spec.n > 1 and name not in _REPEAT_BLOCKS:
+        raise NotImplementedError(f"{name} repeated {spec.n} times is not ported")
+    if name == "Conv":
+        return L.Conv(c1, a[0], a[1] if len(a) > 1 else 1,
+                      a[2] if len(a) > 2 else 1)
+    if name == "C2f":
+        return L.C2f(c1, a[0], a[1], shortcut=a[2] if len(a) > 2 else False)
+    if name == "SPPF":
+        return L.SPPF(c1, a[0], a[1] if len(a) > 1 else 5)
+    if name == "lowlight_recovery":
+        if spec.i != 0:
+            raise NotImplementedError("lowlight_recovery must be row 0")
+        return LowlightRecovery()
+    if name == "AsffTribeLevel":
+        return L.AsffTribeLevel(a[0], cins)
+    if name == "Detect":
+        return Detect(head["nc"], cins, head["strides"])
+    if name == "nn.Upsample":
+        return L.Upsample(int(a[1]) if len(a) > 1 and a[1] else 2)
+    if name == "Concat":
+        return L.Concat()
+    raise NotImplementedError(f"module '{name}' is not ported to torch yet")
+
+
+class DetectionModel(nn.Module):
+    """Graph of the task model. forward(x NHWC in [0,1]) -> raw head maps.
+
+    `model.{i}` is row i, so state_dict keys are the reference's.
+    """
+
+    def __init__(self, cfg_dict: dict, nc: Optional[int] = None):
+        super().__init__()
+        self.yaml = copy.deepcopy(cfg_dict)
+        if nc and nc != self.yaml.get("nc"):
+            self.yaml["nc"] = nc
+        self.nc = self.yaml["nc"]
+        self.specs, self.save, self.head = parse_model(self.yaml, ch=3)
+        if self.head["name"] != "Detect":
+            raise NotImplementedError(
+                f"{self.head['name']} head is not ported to torch yet")
+        self.strides = self.head["strides"]
+        self.reg_max = 16
+        self.names = {i: str(i) for i in range(self.nc)}
+        outs, prev, mods = [], 3, []
+        for s in self.specs:
+            cins = [prev if f == -1 else outs[f] for f in s.f]
+            mods.append(_build_module(s, cins, self.head))
+            outs.append(s.c2)
+            prev = s.c2
+        self.model = nn.ModuleList(mods)
+
+    def forward(self, x):
+        if self.specs[0].name == "lowlight_recovery":
+            x = self.model[0](x)
+        # NHWC -> NCHW as a view (channels_last memory); a bf16 image is
+        # promoted to the params' dtype here, as flax promotes it at the
+        # first conv against f32 params
+        y = x.permute(0, 3, 1, 2).to(next(self.parameters()).dtype)
+        saved = {}
+        for spec, mod in zip(self.specs, self.model):
+            if spec.name != "lowlight_recovery":
+                if len(spec.f) == 1:
+                    inp = y if spec.f[0] == -1 else saved[spec.f[0]]
+                else:
+                    inp = [y if fi == -1 else saved[fi] for fi in spec.f]
+                y = mod(inp)
+            if spec.i in self.save:
+                saved[spec.i] = y
+        return y
+
+    def decode(self, raw):
+        """Raw maps -> (boxes_xywh (B, N, 4), scores (B, N, nc))."""
+        return decode_detections(raw, self.nc, self.strides, self.reg_max)

@@ -1,0 +1,53 @@
+"""Anchor-free grid anchors and DFL box decoding (JAX ops/anchors.py).
+
+Reference formulas: ultralytics/utils/tal.py:246-277, nn/modules/block.py:220-239.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+
+@lru_cache(maxsize=16)
+def _anchors_np(feat_shapes, strides, grid_cell_offset):
+    points, stride_list = [], []
+    for (h, w), s in zip(feat_shapes, strides):
+        sx = np.arange(w, dtype=np.float32) + grid_cell_offset
+        sy = np.arange(h, dtype=np.float32) + grid_cell_offset
+        gy, gx = np.meshgrid(sy, sx, indexing="ij")
+        points.append(np.stack([gx, gy], -1).reshape(-1, 2))
+        stride_list.append(np.full((h * w, 1), s, dtype=np.float32))
+    return np.concatenate(points), np.concatenate(stride_list)
+
+
+def make_anchors(feat_shapes, strides, grid_cell_offset=0.5, device="cpu"):
+    """Grid anchor centres for feature shapes [(h, w), ...].
+
+    Returns anchor_points (sum(h*w), 2) as (x, y) in grid units and
+    stride_tensor (sum(h*w), 1); row-major per level, levels in input order.
+    """
+    pts, st = _anchors_np(tuple(tuple(s) for s in feat_shapes),
+                          tuple(strides), grid_cell_offset)
+    return (torch.from_numpy(pts).to(device),
+            torch.from_numpy(st).to(device))
+
+
+def dist2bbox(distance, anchor_points, xywh=True, dim=-1):
+    """ltrb distances -> boxes around anchor points. Reference tal.py:262-271."""
+    lt, rb = distance.chunk(2, dim)
+    x1y1 = anchor_points - lt
+    x2y2 = anchor_points + rb
+    if xywh:
+        return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim)
+    return torch.cat([x1y1, x2y2], dim)
+
+
+def dfl_decode(pred_dist, reg_max=16):
+    """(..., 4*reg_max) bin logits -> (..., 4) expected distances:
+    softmax over the reg_max bins of each side, dotted with arange(reg_max)."""
+    x = pred_dist.reshape(*pred_dist.shape[:-1], 4, reg_max).float()
+    proj = torch.arange(reg_max, dtype=torch.float32, device=x.device)
+    return torch.softmax(x, dim=-1) @ proj

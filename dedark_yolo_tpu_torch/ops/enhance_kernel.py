@@ -1,0 +1,120 @@
+"""The fused low-light enhance chain: wrapper of `csrc/fused_enhance.cu`.
+
+Port of `dedark_yolo_tpu/ops/pallas/enhance_kernel.py::fused_enhance_pallas`
+and of its differentiable wrapper `fused_enhance_diff`. The wrapper runs the
+kernel on a CUDA tensor and raises if it cannot; on a CPU tensor it runs
+`fused_enhance_reference`, the plain version the kernel is held against.
+The per-image parameter vector and the Gaussian taps are made here, outside
+the kernel, as the JAX package makes them outside its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import torch
+
+from ..nn import enhance as E
+from . import _build
+
+NAME = "fused_enhance"
+_build.LAUNCHES.setdefault(NAME, 0)
+MIN_SIDE = 13  # one reflection covers the 12-pixel blur halo
+
+
+def param_vec(features, dedark_A):
+    """(B, 16) f32 kernel parameters in the JAX `_param_vec` slot order:
+    0 dedark_w, 1-3 A, 4-6 wb, 7 gamma, 8 contrast, 9 usm, 10-15 zero."""
+    p = E.regress_filter_params(features.float())
+    b = features.shape[0]
+    return torch.cat([p["dedark_w"], dedark_A.float(), p["wb"], p["gamma"],
+                      p["contrast"], p["usm"],
+                      features.new_zeros((b, 6), dtype=torch.float32)],
+                     dim=-1).contiguous()
+
+
+@lru_cache(maxsize=8)
+def gaussian_taps(device: torch.device):
+    """The 25 taps as f32, normalised in float64 like `gaussian_kernel_25`."""
+    return torch.tensor(E.gaussian_kernel_25(), dtype=torch.float32,
+                        device=device)
+
+
+def fused_enhance_reference(img, features, dedark_A, IcA):
+    """Plain version: the chain in f32, returned in the image's dtype."""
+    return E.apply_filter_chain(img.float(), features.float(),
+                                dedark_A.float(), IcA.float()).to(img.dtype)
+
+
+@lru_cache(maxsize=1)
+def _launch_fn():
+    fn = _build.load(NAME).fused_enhance_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_enhance(img, features, dedark_A, IcA):
+    """DeDark -> WB -> Gamma -> Contrast -> USM in one pass.
+
+    img (B, H, W, 3) f32 or bf16 in [0, 1], contiguous NHWC; features (B, 15);
+    dedark_A (B, 3); IcA (B, H, W, 1), staged in the image's dtype. Returns
+    the enhanced image in the image's dtype; the math runs in f32.
+    """
+    if img.device.type == "cpu":
+        return fused_enhance_reference(img, features, dedark_A, IcA)
+    if img.device.type != "cuda":
+        raise ValueError(f"fused_enhance runs on cuda or cpu, not {img.device}")
+    b, h, w, c = img.shape
+    if c != 3 or img.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"img must be (B, H, W, 3) f32/bf16, got "
+                         f"{tuple(img.shape)} {img.dtype}")
+    if h < MIN_SIDE or w < MIN_SIDE:
+        raise ValueError(f"fused_enhance needs H, W >= {MIN_SIDE}, got {h}x{w}")
+    if tuple(IcA.shape) != (b, h, w, 1) or tuple(features.shape) != (b, 15) \
+            or tuple(dedark_A.shape) != (b, 3):
+        raise ValueError("IcA must be (B, H, W, 1), features (B, 15), "
+                         "dedark_A (B, 3)")
+    ica = IcA.to(img.dtype)
+    if not (img.is_contiguous() and ica.is_contiguous()):
+        raise ValueError("fused_enhance needs contiguous NHWC img and IcA")
+    if any(t.device != img.device for t in (features, dedark_A, ica)):
+        raise ValueError("fused_enhance inputs must share one device")
+    pvec = param_vec(features, dedark_A)
+    taps = gaussian_taps(img.device)
+    out = torch.empty_like(img)
+    stream = torch.cuda.current_stream(img.device).cuda_stream
+    with torch.cuda.device(img.device):
+        rc = _launch_fn()(img.data_ptr(), ica.data_ptr(), pvec.data_ptr(),
+                          taps.data_ptr(), out.data_ptr(), b, h, w,
+                          int(img.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_enhance launch failed with CUDA error {rc}")
+    _build.LAUNCHES[NAME] += 1
+    return out
+
+
+class FusedEnhance(torch.autograd.Function):
+    """Kernel forward; the backward recomputes through the plain chain.
+
+    Saves only the raw (img, features, dedark_A, IcA), so no full-resolution
+    intermediate lives between forward and backward (the JAX custom VJP,
+    enhance_kernel.py:323-348).
+    """
+
+    @staticmethod
+    def forward(ctx, img, features, dedark_A, IcA):
+        ctx.save_for_backward(img, features, dedark_A, IcA)
+        return fused_enhance(img, features, dedark_A, IcA)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            out = E.apply_filter_chain(*inputs)
+            wrt = [t for t, n in zip(inputs, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, grad.to(out.dtype)))
+        return tuple(next(grads) if n else None for n in need)

@@ -1,0 +1,116 @@
+"""Batched fixed-shape NMS in plain torch (JAX ops/nms.py:28-135).
+
+The contract of the JAX function: a top-k gate over the (anchor, class)
+pairs (multi-label) or the per-anchor best class, capped at `max_nms`; the
+`max_wh` class offset; greedy suppression that stops once no candidate is
+left; (B, max_det, 6) [x1, y1, x2, y2, conf, cls] plus (B,) counts, and the
+kept anchor indices with `return_idx`. The greedy loop runs over the whole
+batch at once, so the host waits on the device once per iteration, not once
+per image per iteration.
+
+Ties: `jax.lax.top_k` puts the lower index first, and `torch.topk` promises
+no order, so the gate is a stable descending sort, sliced. `torch.argmax`
+returns the first maximum, as `jnp.argmax` does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .boxes import xywh2xyxy
+
+
+def _greedy(boxes, scores, iou_thres: float, max_det: int):
+    """boxes (B, K, 4) xyxy, class-offset; scores (B, K), 0 = no candidate.
+    Returns keep_idx (B, max_det) int64 (-1 invalid) and keep_scores."""
+    b = boxes.shape[0]
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    areas = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+    live = scores.clone()
+    keep_idx = torch.full((b, max_det), -1, dtype=torch.long,
+                          device=boxes.device)
+    keep_scores = torch.zeros((b, max_det), dtype=scores.dtype,
+                              device=boxes.device)
+    rows = torch.arange(b, device=boxes.device)
+    for i in range(max_det):
+        # an image whose candidates are all 0 is done; updating it further
+        # changes nothing, so the batch moves in lockstep without masks
+        best = live.argmax(dim=1)
+        best_score = live[rows, best]
+        active = best_score > 0.0
+        if not bool(active.any()):   # the one host sync of the iteration
+            break
+        bb = boxes[rows, best]                                   # (B, 4)
+        iw = (torch.minimum(x2, bb[:, 2:3])
+              - torch.maximum(x1, bb[:, 0:1])).clamp(min=0)
+        ih = (torch.minimum(y2, bb[:, 3:4])
+              - torch.maximum(y1, bb[:, 1:2])).clamp(min=0)
+        inter = iw * ih
+        barea = ((bb[:, 2] - bb[:, 0]).clamp(min=0)
+                 * (bb[:, 3] - bb[:, 1]).clamp(min=0))[:, None]
+        iou = inter / (areas + barea - inter + 1e-7)
+        live = torch.where(iou > iou_thres, torch.zeros_like(live), live)
+        live[rows, best] = 0.0
+        keep_idx[:, i] = torch.where(active, best, -1)
+        keep_scores[:, i] = torch.where(active, best_score,
+                                        torch.zeros_like(best_score))
+    return keep_idx, keep_scores
+
+
+def _top_k(x, k: int):
+    """Largest k along dim 1, lower index first among equal values."""
+    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def non_max_suppression(boxes_xywh, class_scores, conf_thres=0.25,
+                        iou_thres=0.45, max_det=300, max_nms=2048,
+                        multi_label=True, agnostic=False, max_wh=7680.0,
+                        return_idx=False):
+    """Batched fixed-shape NMS.
+
+    boxes_xywh (B, N, 4) pixels (cx, cy, w, h); class_scores (B, N, nc)
+    sigmoid probabilities.
+    Returns dets (B, max_det, 6) with conf 0 and cls -1 in invalid rows,
+    counts (B,), and with return_idx the kept anchor indices (B, max_det),
+    -1 where invalid.
+    """
+    b, n, nc = class_scores.shape
+    scores = class_scores
+    zero = scores.new_zeros(())
+    if multi_label and nc > 1:
+        flat = scores.reshape(b, n * nc)
+        flat = torch.where(flat > conf_thres, flat, zero)
+        cand_scores, flat_idx = _top_k(flat, min(max_nms, n * nc))
+        anchor_idx = flat_idx // nc
+        cls_idx = (flat_idx % nc).to(torch.float32)
+    else:
+        conf = scores.amax(dim=-1)
+        cls_full = scores.argmax(dim=-1).to(torch.float32)
+        conf = torch.where(conf > conf_thres, conf, zero)
+        cand_scores, anchor_idx = _top_k(conf, min(max_nms, n))
+        cls_idx = torch.gather(cls_full, 1, anchor_idx)
+
+    xyxy = xywh2xyxy(torch.gather(boxes_xywh, 1,
+                                  anchor_idx[..., None].expand(-1, -1, 4)))
+    offset = 0.0 if agnostic else max_wh
+    shifted = xyxy + (cls_idx * offset)[..., None]
+
+    keep_idx, keep_scores = _greedy(shifted, cand_scores, iou_thres, max_det)
+
+    valid = keep_idx >= 0
+    gather = keep_idx.clamp(min=0)
+    out_boxes = torch.gather(xyxy, 1, gather[..., None].expand(-1, -1, 4))
+    out_cls = torch.gather(cls_idx, 1, gather)
+    out_cls = torch.where(valid, out_cls, torch.full_like(out_cls, -1.0))
+    out_boxes = torch.where(valid[..., None], out_boxes,
+                            torch.zeros_like(out_boxes))
+    dets = torch.cat([out_boxes, keep_scores[..., None], out_cls[..., None]],
+                     -1)
+    counts = valid.sum(-1)
+    if return_idx:
+        out_anchor = torch.gather(anchor_idx, 1, gather)
+        out_anchor = torch.where(valid, out_anchor,
+                                 torch.full_like(out_anchor, -1))
+        return dets, counts, out_anchor.to(torch.int32)
+    return dets, counts
