@@ -9,11 +9,18 @@ line:
 
   env      card name and power limit (nvidia-smi), torch/CUDA versions, TF32
   build    nvcc of every csrc/*.cu, one process per source, all at once
-  kernel   every kernel against its plain PyTorch version on the card, at
-           the main path's shapes and at odd ones, with CUDA-event timings
+  kernel   every kernel (fused_enhance, usm, int8_conv) against its plain
+           PyTorch version on the card, at its main path's shapes and at
+           odd ones, with CUDA-event timings
   predict  YOLO("yolov8l.yaml", nc=3) predict on 16-frame batches at
-           imgsz 640, f32 then bf16, with the kernels' launch counts
-  cpu      the same weights and first frame through predict(device="cpu")
+           imgsz 640: f32 and bf16 (contrast_mode 'channel', the
+           fused_enhance kernel), then f32 with contrast_mode 'reference'
+           (point filters, then the usm kernel), each run's launch counts
+           checked against its path
+  cpu      the same weights and first frame through predict(device="cpu"),
+           and layer 0 in 'reference' mode on the card against the CPU
+  probe    tools.int8_probe at its default shape (24 layers, b32, 80x80,
+           C=Co=256): bf16 cuDNN chain vs the int8_conv kernel's chain
 
 then the card line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -31,6 +38,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+INT8_OP_PER_S = 1979e12     # H100 SXM int8 tensor cores, dense
 SEED = 0
 DARK_PARAM = 3.0            # exponent of the synthetic low-light frames
 CONF = 0.05                 # predict conf for random weights (see phase 4)
@@ -38,6 +46,13 @@ BATCH, IMGSZ = 16, 640
 
 # kernel phase: (batch, H, W); random priors at each, the defaults at the first
 KERNEL_SHAPES = [(16, 640, 640), (3, 481, 643), (1, 64, 96)]
+# usm: the reference-mode predict shape, a ragged one, the smallest side
+USM_SHAPES = [(16, 640, 640), (3, 481, 643), (1, 13, 13)]
+# int8_conv: (B, H, W, C, Co) unpadded; the probe's layer first, then the
+# JAX package's test shapes (M and Co tails, odd H and W)
+INT8_SHAPES = [(32, 80, 80, 256, 256), (2, 8, 10, 128, 128),
+               (1, 4, 6, 64, 512), (1, 10, 12, 64, 128), (1, 9, 11, 64, 128)]
+INT8_OUT_SCALE = 0.05
 # |kernel - plain| <= ATOL + RTOL * |plain|, compared in the working dtype.
 # f32: both compute in f32, but exp(g*log v) against pow, FMA contraction
 # and another association of the contrast scale differ by a few ulps, which
@@ -92,6 +107,13 @@ def enhance_inputs(b, h, w, dtype, default_priors, device):
     return t[0].to(dtype), t[1], t[2], t[3].to(dtype)
 
 
+def bound(nbytes, ops, op_rate):
+    """(least ms, what bounds it): bytes over HBM rate vs ops over op_rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / op_rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def enhance_bound(b, h, w, itemsize):
     """Least time for fused_enhance: bytes (img + IcA + features + A read
     once, out written once) over HBM rate vs flops over the f32 rate."""
@@ -100,10 +122,34 @@ def enhance_bound(b, h, w, itemsize):
     # per pixel: separable 25-tap blur, 2 passes x 3 channels x 25 FMA = 300
     # flops; point chain ~46 (tx 2, per channel 8 incl. exp/log, lum 5,
     # contrast 7, scale 3 mults); sharpen 3 x 3 = 9
-    flops = pix * (300 + 46 + 9)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return bound(nbytes, pix * (300 + 46 + 9), F32_FLOP_PER_S)
+
+
+def usm_bound(b, h, w, itemsize):
+    """usm: y read once, out written once, the strengths; per value 2 x 25
+    FMA of the separable blur and 3 flops of the sharpen."""
+    vals = b * h * w * 3
+    return bound(2 * vals * itemsize + b * 4, vals * 103, F32_FLOP_PER_S)
+
+
+def int8_bound(B, H, W, C, Co):
+    """int8_conv: 2*M*N*K ops against the padded input, weights, scales and
+    output moved once."""
+    nbytes = B * (H + 2) * (W + 2) * C + 9 * C * Co + 4 * Co + B * H * W * Co
+    return bound(nbytes, 2 * B * H * W * Co * 9 * C, INT8_OP_PER_S)
+
+
+def compare(torch, got, want, dtype):
+    """|kernel - plain| <= ATOL + RTOL * |plain| in `dtype`'s tolerance."""
+    g, r = got.float(), want.float()
+    err = (g - r).abs()
+    atol, rtol = TOL[str(dtype)[6:]]
+    at = int(err.argmax())
+    return {"max_abs_err": float(err.max()),
+            "plain_at_max_err": float(r.flatten()[at]),
+            "max_abs_plain": float(r.abs().max()), "atol": atol, "rtol": rtol,
+            "ok": bool(torch.isfinite(g).all())
+            and bool((err <= atol + rtol * r.abs()).all())}
 
 
 def phase_env(torch):
@@ -145,23 +191,14 @@ def phase_kernel(torch):
                 got = K.fused_enhance(*args)
                 want = K.fused_enhance_reference(*args)
                 torch.cuda.synchronize()
-                g, r = got.float(), want.float()
-                err = (g - r).abs()
-                atol, rtol = TOL[str(dtype).split(".")[1]]
-                ok = bool(torch.isfinite(g).all()) and \
-                    bool((err <= atol + rtol * r.abs()).all())
-                at = int(err.argmax())
+                rec = compare(torch, got, want, dtype)
                 checks.append({"shape": [b, h, w], "dtype": str(dtype)[6:],
-                               "default_priors": default_priors,
-                               "max_abs_err": float(err.max()),
-                               "plain_at_max_err": float(r.flatten()[at]),
-                               "max_abs_plain": float(r.abs().max()),
-                               "atol": atol, "rtol": rtol, "ok": ok})
+                               "default_priors": default_priors, **rec})
                 key = str(dtype)[6:]
                 if i == 0:
-                    worst[key] = max(worst.get(key, 0.0), float(err.max()))
+                    worst[key] = max(worst.get(key, 0.0), rec["max_abs_err"])
     if not all(c["ok"] for c in checks):
-        emit({"phase": "kernel", "checks": checks})
+        emit({"phase": "kernel", "kernel": "fused_enhance", "checks": checks})
         raise AssertionError("fused_enhance disagrees with its plain version")
     timing = {}
     b, h, w = KERNEL_SHAPES[0]
@@ -169,14 +206,137 @@ def phase_kernel(torch):
         for dtype in (torch.float32, torch.bfloat16):
             args = enhance_inputs(b, h, w, dtype, True, dev)
             key = str(dtype)[6:]
-            bound, by = enhance_bound(b, h, w, args[0].element_size())
+            ms_bound, by = enhance_bound(b, h, w, args[0].element_size())
             timing[key] = {
                 "ms": time_ms(lambda: K.fused_enhance(*args)),
                 "plain_ms": time_ms(lambda: K.fused_enhance_reference(*args)),
-                "bound_ms": bound, "bound_by": by,
+                "bound_ms": ms_bound, "bound_by": by,
                 "max_abs_err": worst[key]}
-    emit({"phase": "kernel", "checks": checks, "timing": timing})
+    emit({"phase": "kernel", "kernel": "fused_enhance", "checks": checks,
+          "timing": timing})
     return timing
+
+
+def usm_inputs(b, h, w, dtype, device):
+    """A point-filtered-like image (values up to 3) and strengths in the
+    filter's (0, 5) range."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng([SEED, b, h, w, 1])
+    y = rng.uniform(0.0, 3.0, (b, h, w, 3)).astype(np.float32)
+    s = rng.uniform(0.0, 5.0, (b, 1)).astype(np.float32)
+    return (torch.from_numpy(y).to(device).to(dtype),
+            torch.from_numpy(s).to(device))
+
+
+def phase_kernel_usm(torch):
+    from dedark_yolo_tpu_torch.ops import enhance_kernel as K
+    dev = torch.device("cuda")
+    checks, timing = [], {}
+    for i, (b, h, w) in enumerate(USM_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = usm_inputs(b, h, w, dtype, dev)
+            got, want = K.usm(*args), K.usm_reference(*args)
+            torch.cuda.synchronize()
+            rec = compare(torch, got, want, dtype)
+            checks.append({"shape": [b, h, w], "dtype": str(dtype)[6:], **rec})
+            if i == 0:
+                ms_bound, by = usm_bound(b, h, w, args[0].element_size())
+                with torch.no_grad():
+                    timing[str(dtype)[6:]] = {
+                        "ms": time_ms(lambda: K.usm(*args)),
+                        "plain_ms": time_ms(lambda: K.usm_reference(*args)),
+                        "bound_ms": ms_bound, "bound_by": by,
+                        "max_abs_err": rec["max_abs_err"]}
+    emit({"phase": "kernel", "kernel": "usm", "checks": checks,
+          "timing": timing})
+    if not all(c["ok"] for c in checks):
+        raise AssertionError("usm disagrees with its plain version")
+    return timing
+
+
+def int8_inputs(B, H, W, C, Co, device, saturate=False):
+    import numpy as np
+    import torch
+    if saturate:
+        return (torch.full((B, H + 2, W + 2, C), 127, dtype=torch.int8,
+                           device=device),
+                torch.full((3, 3, C, Co), 127, dtype=torch.int8,
+                           device=device),
+                torch.ones(Co, device=device))
+    rng = np.random.default_rng([SEED, B, H, W, C, Co])
+    x = rng.integers(-128, 127, (B, H + 2, W + 2, C), dtype=np.int8)
+    w = rng.integers(-128, 127, (3, 3, C, Co), dtype=np.int8)
+    # the probe's scale: acc * scale has a std of about 127, so outputs
+    # cover the int8 range and about a third saturate
+    scale = np.full(Co, 127.0 / (np.sqrt(9 * C) * 73.0 * 127.0 / np.sqrt(3)),
+                    np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (x, w, scale))
+
+
+def phase_kernel_int8(torch):
+    """act=None must be bit-exact; silu may differ by one int8 step on under
+    1% of outputs (the JAX package's bar, tests/test_int8_conv.py:71-73)."""
+    from dedark_yolo_tpu_torch.ops import int8_conv as I
+    dev = torch.device("cuda")
+    checks = []
+    cases = [(s, act, False) for s in INT8_SHAPES for act in (None, "silu")]
+    cases.append(((1, 4, 4, 128, 128), None, True))
+    for shape, act, saturate in cases:
+        args = int8_inputs(*shape, dev, saturate)
+        kw = {"out_scale": INT8_OUT_SCALE, "act": act} if act else {}
+        got = I.conv3x3_s1_w8a8(*args, **kw)
+        want = I.conv3x3_s1_w8a8_reference(*args, **kw)
+        torch.cuda.synchronize()
+        d = (got.int() - want.int()).abs()
+        rec = {"shape": list(shape), "act": act, "saturate": saturate,
+               "max_step": int(d.max()),
+               "frac_differ": float((d > 0).float().mean()),
+               "out_min": int(got.min()), "out_max": int(got.max())}
+        rec["ok"] = (rec["max_step"] == 0 if act is None else
+                     rec["max_step"] <= 1 and rec["frac_differ"] < 0.01)
+        if saturate:
+            rec["ok"] = rec["ok"] and rec["out_max"] == 127
+        checks.append(rec)
+    B, H, W, C, Co = INT8_SHAPES[0]
+    x, w, scale = int8_inputs(B, H, W, C, Co, dev)
+    kw = {"out_scale": INT8_OUT_SCALE, "act": "silu"}
+    ms_bound, by = int8_bound(B, H, W, C, Co)
+    timing = {"ms": time_ms(lambda: I.conv3x3_s1_w8a8(x, w, scale, **kw)),
+              "plain_ms": time_ms(
+                  lambda: I.conv3x3_s1_w8a8_reference(x, w, scale, **kw),
+                  iters=3, warmup=1),
+              "bound_ms": ms_bound, "bound_by": by, "act": "silu",
+              "max_abs_err": max(c["max_step"] for c in checks
+                                 if c["shape"] == [B, H, W, C, Co])}
+    timing.update(int_mm_yardstick(torch, I, x, w, scale))
+    emit({"phase": "kernel", "kernel": "int8_conv", "checks": checks,
+          "timing": timing})
+    if not all(c["ok"] for c in checks):
+        raise AssertionError("int8_conv disagrees with its plain version")
+    if not timing["library_matches_kernel"]:
+        raise AssertionError("torch._int_mm yardstick disagrees with int8_conv")
+    return timing
+
+
+def int_mm_yardstick(torch, I, x, w, scale):
+    """library_ms: torch._int_mm on the unfolded input (M, 9C) x (9C, Co),
+    the int32 product alone; the port never calls it. Its requantised result
+    is held to the kernel's act=None output."""
+    if not hasattr(torch, "_int_mm"):
+        return {"library_ms": None, "library": "torch._int_mm is missing",
+                "library_matches_kernel": True}
+    B, Hp, Wp, C = x.shape
+    H, W, Co = Hp - 2, Wp - 2, w.shape[3]
+    cols = torch.cat([x[:, dy:dy + H, dx:dx + W] for dy in range(3)
+                      for dx in range(3)], dim=-1).reshape(B * H * W, 9 * C)
+    wt = w.permute(3, 0, 1, 2).reshape(Co, 9 * C).contiguous()
+    acc = torch._int_mm(cols, wt.t())
+    q = torch.round(acc.float() * scale).clamp(-128, 127).to(torch.int8)
+    same = bool((q.reshape(B, H, W, Co) == I.conv3x3_s1_w8a8(x, w, scale)).all())
+    return {"library_ms": time_ms(lambda: torch._int_mm(cols, wt.t())),
+            "library": "torch._int_mm(unfolded x, w) -> int32, no requant",
+            "library_matches_kernel": same}
 
 
 def synthetic_frames(n):
@@ -243,15 +403,36 @@ def step_breakdown(torch, yolo, frames):
                  ("decode", decode), ("nms", nms))}
 
 
+def zero_launches():
+    from dedark_yolo_tpu_torch.ops import _build
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+
+
+def check_launches(path, launches, expected):
+    """Each kernel launched exactly as often as `path` must launch it (0 for
+    kernels not in `expected`)."""
+    want = {k: expected.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"{path}: kernel launches {launches}, "
+                             f"expected {want}")
+
+
+# predict runs: (key, predict options, kernel the path launches per batch)
+PREDICT_RUNS = [("f32", {"half": False}, "fused_enhance"),
+                ("bf16", {"half": True}, "fused_enhance"),
+                ("reference_f32", {"half": False,
+                                   "contrast_mode": "reference"}, "usm")]
+
+
 def phase_predict(torch, yolo, frames):
     from dedark_yolo_tpu_torch.ops import _build
-    reps = 4                                   # 4 batches of 16 per dtype
+    reps = 4                                   # 4 batches of 16 per run
     out = {}
-    for half in (False, True):
-        kw = dict(imgsz=IMGSZ, batch=BATCH, conf=CONF, half=half)
+    for key, opts, kernel in PREDICT_RUNS:
+        kw = dict(imgsz=IMGSZ, batch=BATCH, conf=CONF, **opts)
         yolo.predict(frames, **kw)             # warm-up batch
-        for k in _build.LAUNCHES:
-            _build.LAUNCHES[k] = 0
+        zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = yolo.predict(frames * reps, **kw)
@@ -264,11 +445,8 @@ def phase_predict(torch, yolo, frames):
             assert d.shape[1] == 6 and bool((d[:, 4] > CONF).all())
             assert bool(((d[:, 5] >= 0) & (d[:, 5] < 3)).all())
         if max(counts) == 0:
-            raise AssertionError(f"no detections at conf={CONF} (half={half})")
-        unused = [k for k, v in launches.items() if v == 0]
-        if unused:
-            raise AssertionError(f"kernels not launched by predict: {unused}")
-        key = "bf16" if half else "f32"
+            raise AssertionError(f"no detections at conf={CONF} ({key})")
+        check_launches(f"predict {key}", launches, {kernel: reps})
         out[key] = {"images": len(res), "seconds": secs,
                     "images_per_s": len(res) / secs,
                     "stage_ms": dict(yolo.predictor.speed),
@@ -299,11 +477,20 @@ def phase_cpu(torch, yolo, frame):
         bc, sc = cpu_model.model.decode(cpu_model.model(x))
         eg = yolo.model.model[0](x.cuda())
         ec = cpu_model.model.model[0](x)
+        # layer 0 in 'reference' mode: point filters, then the usm kernel
+        layer0s = (yolo.model.model[0], cpu_model.model.model[0])
+        for m in layer0s:
+            m.contrast_mode = "reference"
+        ref_rec = compare(torch, layer0s[0](x.cuda()).cpu(), layer0s[1](x),
+                          torch.float32)
+        for m in layer0s:
+            m.contrast_mode = "channel"
     box_err = float((bg.cpu() - bc).abs().max())
     score_err = float((sg.cpu() - sc).abs().max())
     n = len(cpu)
     rec = {"phase": "cpu", "gpu_count": len(gpu), "cpu_count": n,
            "layer0_max_abs_err": float((eg.cpu() - ec).abs().max()),
+           "layer0_reference_mode": ref_rec,
            "decoded_box_max_abs_err_px": box_err,
            "decoded_score_max_abs_err": score_err,
            "box_tol_px": BOX_TOL_PX, "score_tol": SCORE_TOL}
@@ -318,8 +505,21 @@ def phase_cpu(torch, yolo, frame):
             and score_err <= SCORE_TOL
             and rec["det_box_max_abs_err_px"] <= BOX_TOL_PX
             and rec["det_conf_max_abs_err"] <= SCORE_TOL
-            and rec["det_cls_equal"]):
+            and rec["det_cls_equal"] and ref_rec["ok"]):
         raise AssertionError(f"GPU and CPU predict disagree: {rec}")
+
+
+def phase_probe(torch):
+    """The int8 probe's chains at their default shape, few iterations."""
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.tools import int8_probe
+    zero_launches()
+    res = int8_probe.run(iters=2)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    emit({"phase": "probe", **res, "launches": launches})
+    check_launches("int8 probe", launches, {"int8_conv": res["int8_calls"]})
+    return launches
 
 
 def main():
@@ -337,6 +537,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     timing = phase_kernel(torch)
+    usm_timing = phase_kernel_usm(torch)
+    int8_timing = phase_kernel_int8(torch)
 
     from dedark_yolo_tpu_torch import YOLO
     frames = synthetic_frames(BATCH)
@@ -344,6 +546,7 @@ def main():
     calibrate_bn(torch, yolo.model, frames)
     pred = phase_predict(torch, yolo, frames)
     phase_cpu(torch, yolo, frames[0])
+    probe_launches = phase_probe(torch)
 
     print(smi)
     f32, bf16 = timing["float32"], timing["bfloat16"]
@@ -357,7 +560,25 @@ def main():
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": None,
         "shape": [BATCH, IMGSZ, IMGSZ, 3], "dtype": "float32",
-        "bf16": bf16}]})
+        "bf16": bf16}, {
+        "name": "usm", "route": "cuda",
+        "source": "dedark_yolo_tpu_torch/csrc/usm.cu",
+        "replaces": "dedark_yolo_tpu/ops/pallas/enhance_kernel.py:277",
+        "launches": pred["reference_f32"]["launches"]["usm"],
+        **{k: usm_timing["float32"][k] for k in
+           ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shape": [BATCH, IMGSZ, IMGSZ, 3], "dtype": "float32",
+        "bf16": usm_timing["bfloat16"]}, {
+        "name": "int8_conv", "route": "cuda",
+        "source": "dedark_yolo_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "dedark_yolo_tpu/ops/pallas/int8_conv.py:133",
+        "launches": probe_launches["int8_conv"],
+        **{k: int8_timing[k] for k in
+           ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "shape": list(INT8_SHAPES[0]), "dtype": "int8",
+        "act": int8_timing["act"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -26,40 +26,18 @@
 // re-read each other's halos (56^2 / 32^2 = 3.1x the tile), which the design
 // leaves to L2.
 // Shared memory: 3*56*56*4 + 56*32*4 = 44,800 B, under the 48 KB static limit.
+// The blur-and-sharpen stage lives in usm_tile.cuh, shared with usm.cu.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (no fast math: expf/logf/cosf keep full f32 accuracy).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "usm_tile.cuh"
 
 namespace {
 
-constexpr int PAD = 12;
-constexpr int TAPS = 2 * PAD + 1;
-constexpr int TH = 32;
-constexpr int TW = 32;
-constexpr int WH = TH + 2 * PAD;
-constexpr int WW = TW + 2 * PAD;
-constexpr int NTHREADS = 256;
+using namespace usm_tile;
+
 constexpr float PI_F = 3.14159265358979f;
-
-__device__ __forceinline__ float load(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store(float* p, long i, float v) { p[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, long i, float v) {
-  p[i] = __float2bfloat16(v);  // round to nearest even
-}
-
-// numpy 'reflect' (edge not repeated), one reflection; the clamp only guards
-// window positions past a ragged last tile, whose outputs are never stored.
-__device__ __forceinline__ int reflect(int i, int n) {
-  if (i < 0) i = -i;
-  if (i >= n) i = 2 * n - 2 - i;
-  return min(max(i, 0), n - 1);
-}
 
 // params: (B, 16) f32, slots 0 dedark_w, 1-3 A, 4-6 wb, 7 gamma, 8 contrast,
 // 9 usm (the JAX _param_vec order). taps: (25,) f32 Gaussian.
@@ -106,30 +84,7 @@ fused_enhance_kernel(const T* __restrict__ img, const T* __restrict__ ica,
   }
   __syncthreads();
 
-  const float usm_s = p[9];
-  T* o = out + (long)b * plane * 3;
-  for (int ch = 0; ch < 3; ++ch) {
-    for (int idx = tid; idx < WH * TW; idx += NTHREADS) {
-      const int r = idx / TW, c = idx % TW;
-      float acc = 0.0f;
-#pragma unroll
-      for (int k = 0; k < TAPS; ++k) acc += g[k] * y[ch][r][c + k];
-      hb[r][c] = acc;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < TH * TW; idx += NTHREADS) {
-      const int r = idx / TW, c = idx % TW;
-      const int gy = oy + r, gx = ox + c;
-      if (gy < H && gx < W) {
-        float blur = 0.0f;
-#pragma unroll
-        for (int k = 0; k < TAPS; ++k) blur += g[k] * hb[r + k][c];
-        const float center = y[ch][r + PAD][c + PAD];
-        store(o, ((long)gy * W + gx) * 3 + ch, (center - blur) * usm_s + center);
-      }
-    }
-    __syncthreads();
-  }
+  blur_sharpen(y, hb, g, p[9], out + (long)b * plane * 3, oy, ox, H, W);
 }
 
 }  // namespace

@@ -6,10 +6,13 @@ parameters with `ExtractParameters2`, then run DeDark -> WhiteBalance ->
 Gamma -> Contrast -> USM at full resolution. Images stay NHWC here, the JAX
 layout, so the tests compare like with like.
 
-On a CUDA tensor, `LowlightRecovery` with contrast_mode='channel' runs the
-whole chain through the hand-written kernel (`ops/enhance_kernel.py`);
-everything below is the plain version that the kernel is held against and
-that the CPU runs.
+`LowlightRecovery` runs the chain through the hand-written kernels of
+`ops/enhance_kernel.py`: with contrast_mode='channel' the whole chain in one
+kernel; with 'reference', whose column luminance that kernel does not
+compute, the point filters below as stock torch ops and then the blur and
+sharpen kernel (the JAX dispatcher's two-stage form, ops/pallas/
+enhance_kernel.py:316-319). Everything below is the plain version that the
+kernels are held against and that the CPU runs.
 """
 
 from __future__ import annotations
@@ -204,8 +207,9 @@ class LowlightRecovery(nn.Module):
                              device=x.device)
         small = torch_bilinear_resize(x, 256, 256).permute(0, 3, 1, 2)
         features = self.extractor(small.to(self.extractor.fc1.weight.dtype))
+        from ..ops.enhance_kernel import FusedEnhance, Usm
         if self.contrast_mode == "channel":
-            from ..ops.enhance_kernel import FusedEnhance
             return FusedEnhance.apply(x, features, dedark_A, IcA)
-        return apply_filter_chain(x, features, dedark_A, IcA,
-                                  self.contrast_mode)
+        params = regress_filter_params(features)
+        y = apply_point_filters(x, params, dedark_A, IcA, self.contrast_mode)
+        return Usm.apply(y, params["usm"])

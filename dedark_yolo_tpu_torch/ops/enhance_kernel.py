@@ -1,11 +1,14 @@
-"""The fused low-light enhance chain: wrapper of `csrc/fused_enhance.cu`.
+"""The low-light enhance kernels: wrappers of `csrc/fused_enhance.cu` and
+`csrc/usm.cu`.
 
-Port of `dedark_yolo_tpu/ops/pallas/enhance_kernel.py::fused_enhance_pallas`
-and of its differentiable wrapper `fused_enhance_diff`. The wrapper runs the
-kernel on a CUDA tensor and raises if it cannot; on a CPU tensor it runs
-`fused_enhance_reference`, the plain version the kernel is held against.
-The per-image parameter vector and the Gaussian taps are made here, outside
-the kernel, as the JAX package makes them outside its kernel.
+Port of `dedark_yolo_tpu/ops/pallas/enhance_kernel.py`: `fused_enhance_pallas`
+(the whole chain in one pass) with its differentiable wrapper
+`fused_enhance_diff`, and `usm_pallas` (blur and sharpen only, after a point
+chain run outside the kernel). Each wrapper runs its kernel on a CUDA tensor
+and raises if it cannot; on a CPU tensor it runs its `*_reference`, the plain
+version the kernel is held against. The per-image parameters and the
+Gaussian taps are made here, outside the kernels, as the JAX package makes
+them outside its kernels.
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ from ..nn import enhance as E
 from . import _build
 
 NAME = "fused_enhance"
+USM_NAME = "usm"
 _build.LAUNCHES.setdefault(NAME, 0)
+_build.LAUNCHES.setdefault(USM_NAME, 0)
 MIN_SIDE = 13  # one reflection covers the 12-pixel blur halo
 
 
@@ -47,6 +52,20 @@ def fused_enhance_reference(img, features, dedark_A, IcA):
                                 dedark_A.float(), IcA.float()).to(img.dtype)
 
 
+def _check_image(name, img):
+    """Raise unless img is a CUDA (B, H, W, 3) f32/bf16 tensor whose sides
+    one reflection of the 12-pixel blur halo covers."""
+    if img.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {img.device}")
+    if img.dim() != 4 or img.shape[3] != 3 \
+            or img.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name} needs a (B, H, W, 3) f32/bf16 image, got "
+                         f"{tuple(img.shape)} {img.dtype}")
+    if min(img.shape[1:3]) < MIN_SIDE:
+        raise ValueError(f"{name} needs H, W >= {MIN_SIDE}, got "
+                         f"{img.shape[1]}x{img.shape[2]}")
+
+
 @lru_cache(maxsize=1)
 def _launch_fn():
     fn = _build.load(NAME).fused_enhance_launch
@@ -64,14 +83,8 @@ def fused_enhance(img, features, dedark_A, IcA):
     """
     if img.device.type == "cpu":
         return fused_enhance_reference(img, features, dedark_A, IcA)
-    if img.device.type != "cuda":
-        raise ValueError(f"fused_enhance runs on cuda or cpu, not {img.device}")
-    b, h, w, c = img.shape
-    if c != 3 or img.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"img must be (B, H, W, 3) f32/bf16, got "
-                         f"{tuple(img.shape)} {img.dtype}")
-    if h < MIN_SIDE or w < MIN_SIDE:
-        raise ValueError(f"fused_enhance needs H, W >= {MIN_SIDE}, got {h}x{w}")
+    _check_image(NAME, img)
+    b, h, w, _ = img.shape
     if tuple(IcA.shape) != (b, h, w, 1) or tuple(features.shape) != (b, 15) \
             or tuple(dedark_A.shape) != (b, 3):
         raise ValueError("IcA must be (B, H, W, 1), features (B, 15), "
@@ -95,6 +108,19 @@ def fused_enhance(img, features, dedark_A, IcA):
     return out
 
 
+def _recompute_backward(plain, ctx, grad):
+    """Gradients of `plain` at the saved inputs, by running it again under
+    autograd, for the inputs that need one (None for the others)."""
+    need = ctx.needs_input_grad
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        out = plain(*inputs)
+        wrt = [t for t, n in zip(inputs, need) if n]
+        grads = iter(torch.autograd.grad(out, wrt, grad.to(out.dtype)))
+    return tuple(next(grads) if n else None for n in need)
+
+
 class FusedEnhance(torch.autograd.Function):
     """Kernel forward; the backward recomputes through the plain chain.
 
@@ -110,11 +136,62 @@ class FusedEnhance(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        saved = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
-            out = E.apply_filter_chain(*inputs)
-            wrt = [t for t, n in zip(inputs, need) if n]
-            grads = iter(torch.autograd.grad(out, wrt, grad.to(out.dtype)))
-        return tuple(next(grads) if n else None for n in need)
+        return _recompute_backward(E.apply_filter_chain, ctx, grad)
+
+
+def usm_reference(y, usm_param):
+    """Plain version of `usm`: `usm_filter` in f32, returned in y's dtype."""
+    return E.usm_filter(y.float(), usm_param.float()).to(y.dtype)
+
+
+@lru_cache(maxsize=1)
+def _usm_launch_fn():
+    fn = _build.load(USM_NAME).usm_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def usm(y, usm_param):
+    """Unsharp mask: reflect-padded 25-tap sigma-5 blur, (y - blur) * s + y.
+
+    y (B, H, W, 3) f32 or bf16, contiguous NHWC, the point-filtered image;
+    usm_param (B, 1). Returns y's dtype; the math runs in f32.
+    """
+    if y.device.type == "cpu":
+        return usm_reference(y, usm_param)
+    _check_image(USM_NAME, y)
+    b, h, w, _ = y.shape
+    if tuple(usm_param.shape) != (b, 1):
+        raise ValueError(f"usm_param must be (B, 1), got {tuple(usm_param.shape)}")
+    if not y.is_contiguous():
+        raise ValueError("usm needs a contiguous NHWC y")
+    if usm_param.device != y.device:
+        raise ValueError("usm inputs must share one device")
+    s = usm_param.float().contiguous()
+    taps = gaussian_taps(y.device)
+    out = torch.empty_like(y)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    with torch.cuda.device(y.device):
+        rc = _usm_launch_fn()(y.data_ptr(), s.data_ptr(), taps.data_ptr(),
+                              out.data_ptr(), b, h, w,
+                              int(y.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"usm launch failed with CUDA error {rc}")
+    _build.LAUNCHES[USM_NAME] += 1
+    return out
+
+
+class Usm(torch.autograd.Function):
+    """Kernel forward; the backward recomputes through the plain version. The
+    JAX package has no backward kernel here (its XLA chain is
+    differentiated), so neither does the port."""
+
+    @staticmethod
+    def forward(ctx, y, usm_param):
+        ctx.save_for_backward(y, usm_param)
+        return usm(y, usm_param)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _recompute_backward(usm_reference, ctx, grad)
