@@ -49,9 +49,11 @@ KERNEL_SHAPES = [(16, 640, 640), (3, 481, 643), (1, 64, 96)]
 # usm: the reference-mode predict shape, a ragged one, the smallest side
 USM_SHAPES = [(16, 640, 640), (3, 481, 643), (1, 13, 13)]
 # int8_conv: (B, H, W, C, Co) unpadded; the probe's layer first, then the
-# JAX package's test shapes (M and Co tails, odd H and W)
+# JAX package's test shapes (M and Co tails, odd H and W), then shapes whose
+# K block is 32 (C = 32 and 96; the others take 128 or 64) with Co tails
 INT8_SHAPES = [(32, 80, 80, 256, 256), (2, 8, 10, 128, 128),
-               (1, 4, 6, 64, 512), (1, 10, 12, 64, 128), (1, 9, 11, 64, 128)]
+               (1, 4, 6, 64, 512), (1, 10, 12, 64, 128), (1, 9, 11, 64, 128),
+               (1, 7, 13, 32, 40), (2, 9, 21, 96, 136)]
 INT8_OUT_SCALE = 0.05
 # |kernel - plain| <= ATOL + RTOL * |plain|, compared in the working dtype.
 # f32: both compute in f32, but exp(g*log v) against pow, FMA contraction
@@ -173,11 +175,10 @@ def phase_build():
     secs = time.perf_counter() - t0
     for name in sorted(p.stem for p in _build.CSRC.glob("*.cu")):
         _build.load(name)
+    ptxas = {k: _build.ptxas_lines(v) for k, v in logs.items()}
     emit({"phase": "build", "seconds": round(secs, 3),
-          "built": sorted(logs),
-          "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                        if "registers" in ln or "smem" in ln]
-                    for k, v in logs.items()}})
+          "built": sorted(logs), "ptxas": ptxas})
+    return ptxas
 
 
 def phase_kernel(torch):
@@ -255,51 +256,71 @@ def phase_kernel_usm(torch):
     return timing
 
 
-def int8_inputs(B, H, W, C, Co, device, saturate=False):
-    import numpy as np
+def int8_inputs(shape, device, inputs):
+    """The int8 phase's inputs at (B, H, W, C, Co): the probe's seeded draw
+    ('random'), the same with each channel's scale times its own factor in
+    [0.5, 2) ('channel_scales'), all 127 ('saturate'), or the draw with the
+    scales a view 4 bytes off a 16-byte boundary ('scale_view')."""
     import torch
-    if saturate:
+    from dedark_yolo_tpu_torch.tools.int8_probe import layer_inputs
+    B, H, W, C, Co = shape
+    if inputs == "saturate":
         return (torch.full((B, H + 2, W + 2, C), 127, dtype=torch.int8,
                            device=device),
                 torch.full((3, 3, C, Co), 127, dtype=torch.int8,
                            device=device),
                 torch.ones(Co, device=device))
-    rng = np.random.default_rng([SEED, B, H, W, C, Co])
-    x = rng.integers(-128, 127, (B, H + 2, W + 2, C), dtype=np.int8)
-    w = rng.integers(-128, 127, (3, 3, C, Co), dtype=np.int8)
-    # the probe's scale: acc * scale has a std of about 127, so outputs
-    # cover the int8 range and about a third saturate
-    scale = np.full(Co, 127.0 / (np.sqrt(9 * C) * 73.0 * 127.0 / np.sqrt(3)),
-                    np.float32)
-    return tuple(torch.from_numpy(a).to(device) for a in (x, w, scale))
+    x, w, scale = layer_inputs(*shape, device, SEED,
+                               channel_scales=inputs == "channel_scales")
+    if inputs == "scale_view":
+        scale = torch.cat([scale[:1], scale])[1:]
+    return x, w, scale
 
 
-def phase_kernel_int8(torch):
+def phase_kernel_int8(torch, ptxas=None):
     """act=None must be bit-exact; silu may differ by one int8 step on under
-    1% of outputs (the JAX package's bar, tests/test_int8_conv.py:71-73)."""
+    1% of outputs (the JAX package's bar, tests/test_int8_conv.py:71-73).
+    The timing record carries the plan, TOP/s, the share of the int8 peak
+    and the build's ptxas lines for the kernel. Each case also holds the
+    plan's shared memory (ops/int8_conv.py mirrors the .cu's layout) to the
+    library's own int8_conv_smem_bytes."""
+    from dedark_yolo_tpu_torch.ops import _build
     from dedark_yolo_tpu_torch.ops import int8_conv as I
     dev = torch.device("cuda")
+    lib_smem = _build.load(I.NAME).int8_conv_smem_bytes
     checks = []
-    cases = [(s, act, False) for s in INT8_SHAPES for act in (None, "silu")]
-    cases.append(((1, 4, 4, 128, 128), None, True))
-    for shape, act, saturate in cases:
-        args = int8_inputs(*shape, dev, saturate)
+    # (shape, act, inputs, see int8_inputs): every shape on the probe's
+    # draw; every other shape (K blocks 128, 64 and 32, Co tails) with
+    # per-channel scales; saturation; a misaligned scale view
+    cases = [(s, act, "random") for s in INT8_SHAPES for act in (None, "silu")]
+    cases += [(s, act, "channel_scales") for s in INT8_SHAPES[1:]
+              for act in (None, "silu")]
+    cases += [((1, 4, 4, 128, 128), None, "saturate"),
+              ((2, 8, 10, 128, 128), None, "scale_view")]
+    for shape, act, inputs in cases:
+        args = int8_inputs(shape, dev, inputs)
         kw = {"out_scale": INT8_OUT_SCALE, "act": act} if act else {}
         got = I.conv3x3_s1_w8a8(*args, **kw)
         want = I.conv3x3_s1_w8a8_reference(*args, **kw)
         torch.cuda.synchronize()
         d = (got.int() - want.int()).abs()
-        rec = {"shape": list(shape), "act": act, "saturate": saturate,
+        p = I.kernel_plan(*shape)
+        rec = {"shape": list(shape), "act": act, "inputs": inputs,
+               "bk": p["bk"], "bn": p["bn"], "tile": [p["th"], p["tw"]],
+               "stages": p["stages"], "smem_bytes": p["smem_bytes"],
+               "smem_matches_library":
+                   p["smem_bytes"] == lib_smem(p["bk"], p["stages"]),
                "max_step": int(d.max()),
                "frac_differ": float((d > 0).float().mean()),
                "out_min": int(got.min()), "out_max": int(got.max())}
         rec["ok"] = (rec["max_step"] == 0 if act is None else
                      rec["max_step"] <= 1 and rec["frac_differ"] < 0.01)
-        if saturate:
+        if inputs == "saturate":
             rec["ok"] = rec["ok"] and rec["out_max"] == 127
+        rec["ok"] = rec["ok"] and rec["smem_matches_library"]
         checks.append(rec)
     B, H, W, C, Co = INT8_SHAPES[0]
-    x, w, scale = int8_inputs(B, H, W, C, Co, dev)
+    x, w, scale = int8_inputs(INT8_SHAPES[0], dev, "random")
     kw = {"out_scale": INT8_OUT_SCALE, "act": "silu"}
     ms_bound, by = int8_bound(B, H, W, C, Co)
     timing = {"ms": time_ms(lambda: I.conv3x3_s1_w8a8(x, w, scale, **kw)),
@@ -309,6 +330,13 @@ def phase_kernel_int8(torch):
               "bound_ms": ms_bound, "bound_by": by, "act": "silu",
               "max_abs_err": max(c["max_step"] for c in checks
                                  if c["shape"] == [B, H, W, C, Co])}
+    ops = 2 * B * H * W * Co * 9 * C
+    plan = I.kernel_plan(B, H, W, C, Co)
+    timing.update({"tops": ops / timing["ms"] / 1e9,
+                   "peak_pct": 100 * ops / (timing["ms"] / 1e3) / INT8_OP_PER_S,
+                   "plan": {k: plan[k] for k in ("bk", "stages",
+                                                 "smem_bytes")},
+                   "ptxas": (ptxas or {}).get(I.NAME, [])})
     timing.update(int_mm_yardstick(torch, I, x, w, scale))
     emit({"phase": "kernel", "kernel": "int8_conv", "checks": checks,
           "timing": timing})
@@ -533,12 +561,12 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT))
     smi = phase_env(torch)
-    phase_build()
+    ptxas = phase_build()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     timing = phase_kernel(torch)
     usm_timing = phase_kernel_usm(torch)
-    int8_timing = phase_kernel_int8(torch)
+    int8_timing = phase_kernel_int8(torch, ptxas)
 
     from dedark_yolo_tpu_torch import YOLO
     frames = synthetic_frames(BATCH)
@@ -578,7 +606,7 @@ def main():
            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
         "shape": list(INT8_SHAPES[0]), "dtype": "int8",
-        "act": int8_timing["act"]}]})
+        **{k: int8_timing[k] for k in ("act", "tops", "peak_pct")}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -74,6 +74,13 @@ def build(names=None) -> dict[str, str]:
     return logs
 
 
+def ptxas_lines(log: str) -> list[str]:
+    """The lines of an nvcc log that report registers, shared memory,
+    spills and warnings."""
+    return [ln.strip() for ln in log.splitlines()
+            if any(k in ln for k in ("registers", "smem", "spill", "arning"))]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
     if name not in _libs:

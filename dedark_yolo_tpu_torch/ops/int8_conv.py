@@ -6,7 +6,12 @@ per-output-channel f32 scale); the JAX `th` and `taps` arguments choose the
 TPU kernel's VMEM tiling and have no counterpart here, so they are left out.
 On a CUDA tensor the wrapper runs the kernel or raises; on a CPU tensor it
 runs `conv3x3_s1_w8a8_reference`, the plain version the kernel is held
-against.
+against. `kernel_plan` is the launch plan (K block, tile, grid, TMA boxes,
+shared memory) in plain Python, so the CPU tests check it; the wrapper
+passes its K block and ring depth to the launch. The tile constants and
+`smem_bytes` mirror `csrc/int8_conv.cu`, which owns them: a CPU test reads
+the constants from the source, and the card's smoke run holds `smem_bytes`
+to the library's `int8_conv_smem_bytes`.
 """
 
 from __future__ import annotations
@@ -22,6 +27,68 @@ from . import _build
 NAME = "int8_conv"
 _build.LAUNCHES.setdefault(NAME, 0)
 ACTS = (None, "silu")
+
+# The kernel's fixed tile (csrc/int8_conv.cu): 16 x 8 output pixels (two
+# consumer warpgroups of 8 rows each) by 128 output channels.
+TH, TW, BN = 16, 8, 128
+BM = TH * TW
+MAX_STAGES = 8
+# two blocks share an SM: 228 KB of shared memory less 1 KB each the
+# system reserves, halved
+SMEM_LIMIT = 115_712
+SMEM_ALIGN = 1024             # the 128-byte swizzle repeats every 1024 bytes
+
+
+def smem_bytes(bk, stages):
+    """Dynamic shared memory of a launch (the .cu's `smem_bytes`): two
+    input halos of (TH+2)(TW+2) rows of bk bytes, each rounded up to
+    SMEM_ALIGN, and the ring of weight stages, which the epilogue reuses for
+    the int32 tile (BM rows of BN + 8 ints); a full and an empty mbarrier
+    per stage and per halo; slack to align the first halo."""
+    halo = -(-(TH + 2) * (TW + 2) * bk // SMEM_ALIGN) * SMEM_ALIGN
+    return (SMEM_ALIGN + max(2 * halo + stages * BN * bk, BM * (BN + 8) * 4)
+            + 16 * (stages + 2))
+
+
+def kernel_plan(B, H, W, C, Co):
+    """Launch plan of `csrc/int8_conv.cu` for an unpadded (B, H, W, C -> Co)
+    conv: the K block, tile, grid, the two TMA boxes and shared memory.
+
+    The M tile is a TH x TW rectangle of output pixels of one image (BM
+    rows, row r = ty*TW + tx); the N tile BN output channels. Block i is
+    N tile i % tiles_n of M tile i // tiles_n, M tiles in (b, ty, tx) order.
+    K runs over C/BK channel blocks, each over the 9 taps: k = (dy*3 + dx)*C
+    + c. A is one 4-D TMA box (BK, TW+2, TH+2, 1) of the padded input at
+    (c0, x0, y0, b) per channel block, its halo zero-filled past the edge;
+    tap (dy, dx) reads it from row dy, column dx. B is a 2-D box (BK, BN) of
+    the (Co, 9C) weight repack at (tap*C + c0, n0) per tap. The swizzle span
+    equals BK bytes, one shared row of a box.
+    """
+    if C % 32 or Co % 8:
+        raise ValueError(f"the kernel needs C % 32 == 0 and Co % 8 == 0, got "
+                         f"C={C}, Co={Co}")
+    if min(B, H, W, C, Co) < 1:
+        raise ValueError(f"empty conv shape {(B, H, W, C, Co)}")
+    bk = 128 if C % 128 == 0 else 64 if C % 64 == 0 else 32
+    tiles_y, tiles_x, tiles_n = -(-H // TH), -(-W // TW), -(-Co // BN)
+    stages = max(s for s in range(2, MAX_STAGES + 1)
+                 if smem_bytes(bk, s) <= SMEM_LIMIT)
+    Hp, Wp = H + 2, W + 2
+    return {
+        "bk": bk, "swizzle_bytes": bk, "bm": BM, "bn": BN, "th": TH, "tw": TW,
+        "tiles_y": tiles_y, "tiles_x": tiles_x, "tiles_n": tiles_n,
+        "blocks": B * tiles_y * tiles_x * tiles_n,
+        "c_blocks": C // bk, "stages": stages,
+        "halo_bytes": (TH + 2) * (TW + 2) * bk, "stage_bytes": BN * bk,
+        "epilogue_bytes": BM * (BN + 8) * 4,
+        "smem_bytes": smem_bytes(bk, stages),
+        # tensor maps, innermost dimension first; strides in bytes of dims 1..
+        "x_dims": (C, Wp, Hp, B), "x_strides": (C, Wp * C, Hp * Wp * C),
+        "x_box": (bk, TW + 2, TH + 2, 1),
+        "w_dims": (9 * C, Co), "w_strides": (9 * C,), "w_box": (bk, BN),
+        # one 8-row wgmma group is one halo row: the A descriptor's stride
+        "a_group_stride": (TW + 2) * bk,
+    }
 
 
 def _check(x_padded, w, scale, act):
@@ -54,11 +121,23 @@ def conv3x3_s1_w8a8_reference(x_padded, w, scale, out_scale=1.0, act=None):
     return torch.round(y).clamp(-128, 127).to(torch.int8)
 
 
+# int8_conv_launch(x, wt, scale, out, B, H, W, C, Co, inv_out, silu, stream,
+#                  bk, stages)
+PLAN_ARGS = ("bk", "stages")
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * len(PLAN_ARGS))
+# nonzero codes of int8_conv_launch that are not CUDA errors
+LAUNCH_ERRORS = {-1: "cuTensorMapEncodeTiled not found in the driver",
+                 -2: "cuTensorMapEncodeTiled refused a tensor map",
+                 -3: "the plan is outside csrc/int8_conv.cu's variants or "
+                     "shared memory"}
+
+
 @lru_cache(maxsize=1)
 def _launch_fn():
     fn = _build.load(NAME).int8_conv_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = LAUNCH_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -80,22 +159,24 @@ def conv3x3_s1_w8a8(x_padded, w, scale, out_scale=1.0, act=None):
                          f"{x_padded.device}")
     B, Hp, Wp, C = x_padded.shape
     H, W, Co = Hp - 2, Wp - 2, w.shape[3]
-    if C % 32 or Co % 8:
-        raise ValueError(f"the kernel needs C % 32 == 0 and Co % 8 == 0, got "
-                         f"C={C}, Co={Co}")
+    plan = kernel_plan(B, H, W, C, Co)
     if not x_padded.is_contiguous() or x_padded.data_ptr() % 16:
         raise ValueError("x_padded must be contiguous and 16-byte aligned")
     if any(t.device != x_padded.device for t in (w, scale)):
         raise ValueError("conv3x3_s1_w8a8 inputs must share one device")
     wt = w.permute(3, 0, 1, 2).reshape(Co, 9 * C).contiguous()  # K-contiguous
     s = scale.float().contiguous()
+    if s.data_ptr() % 16:  # the kernel reads the scales 4 at a time
+        s = s.clone()
     out = torch.empty((B, H, W, Co), dtype=torch.int8, device=x_padded.device)
     stream = torch.cuda.current_stream(x_padded.device).cuda_stream
     with torch.cuda.device(x_padded.device):
         rc = _launch_fn()(x_padded.data_ptr(), wt.data_ptr(), s.data_ptr(),
                           out.data_ptr(), B, H, W, C, Co, 1.0 / out_scale,
-                          int(act == "silu"), stream)
+                          int(act == "silu"), stream,
+                          *(plan[k] for k in PLAN_ARGS))
     if rc != 0:
-        raise RuntimeError(f"int8_conv launch failed with CUDA error {rc}")
+        raise RuntimeError(f"int8_conv launch failed: "
+                           f"{LAUNCH_ERRORS.get(rc, f'CUDA error {rc}')}")
     _build.LAUNCHES[NAME] += 1
     return out

@@ -37,14 +37,33 @@ OUT_SCALE = 0.05
 WARMUP = 2
 
 
+def requant_scale(ch):
+    """The probe's requantisation scale of a 3x3 conv over `ch` int8
+    channels: acc * scale has a std of about 127, so outputs cover the int8
+    range, about a third saturate, and the chain's int8 histogram stays
+    about stationary (scripts/int8_probe.py)."""
+    return 127.0 / (np.sqrt(9 * ch) * 73.0 * 127.0 / np.sqrt(3))
+
+
+def layer_inputs(B, H, W, C, Co, device, seed=0, channel_scales=False):
+    """One layer's seeded draw: padded int8 input (B, H+2, W+2, C), int8
+    weight (3, 3, C, Co) and the probe's (Co,) f32 scale, with
+    `channel_scales` each channel's times its own factor in [0.5, 2)."""
+    rng = np.random.default_rng([seed, B, H, W, C, Co])
+    x = rng.integers(-128, 127, (B, H + 2, W + 2, C), dtype=np.int8)
+    w = rng.integers(-128, 127, (3, 3, C, Co), dtype=np.int8)
+    scale = np.full(Co, requant_scale(C), np.float32)
+    if channel_scales:
+        scale *= rng.uniform(0.5, 2.0, Co).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (x, w, scale))
+
+
 def _chains(batch, hw, ch, layers, device):
     rng = np.random.default_rng(0)
     w8 = torch.from_numpy(rng.integers(-127, 127, (3, 3, ch, ch),
                                        dtype=np.int8)).to(device)
-    # keeps the chain's int8 histogram about stationary (scripts/int8_probe.py)
-    scale = torch.full((ch,), 127.0 / (np.sqrt(9 * ch) * 73.0 * 127.0
-                                       / np.sqrt(3)),
-                       dtype=torch.float32, device=device)
+    scale = torch.full((ch,), requant_scale(ch), dtype=torch.float32,
+                       device=device)
     wb = (w8.to(torch.bfloat16) / 127.0).permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
     xi8 = [torch.from_numpy(rng.integers(-128, 127, (batch, hw, hw, ch),

@@ -102,3 +102,18 @@ def test_int8_probe_runs_on_cpu(capsys):
     for r in res["rows"]:
         assert r["ms"] > 0 and r["peak_pct"] is None
     assert "not measured" in capsys.readouterr().out
+
+
+def test_layer_inputs_draw_and_channel_scales():
+    """The probe's seeded layer draw, and per-channel scales that differ
+    from channel to channel around the probe's one scale."""
+    shape = (1, 4, 6, 64, 24)
+    x, w, s = int8_probe.layer_inputs(*shape, "cpu")
+    x2, w2, s2 = int8_probe.layer_inputs(*shape, "cpu", channel_scales=True)
+    assert x.shape == (1, 6, 8, 64) and w.shape == (3, 3, 64, 24)
+    assert x.dtype == w.dtype == torch.int8 and s.dtype == torch.float32
+    assert torch.equal(x, x2) and torch.equal(w, w2)
+    assert (s == np.float32(int8_probe.requant_scale(64))).all()
+    r = s2 / s
+    assert 0.5 <= float(r.min()) and float(r.max()) < 2.0
+    assert len(torch.unique(s2)) == 24
