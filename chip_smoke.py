@@ -11,7 +11,8 @@ line:
   build    nvcc of every csrc/*.cu, one process per source, all at once
   kernel   every kernel (fused_enhance, usm, int8_conv) against its plain
            PyTorch version on the card, at its main path's shapes and at
-           odd ones, with CUDA-event timings
+           odd ones, with CUDA-event timings, each beside nvidia-smi's SM
+           clock, power draw and power limit
   predict  YOLO("yolov8l.yaml", nc=3) predict on 16-frame batches at
            imgsz 640: f32 and bf16 (contrast_mode 'channel', the
            fused_enhance kernel), then f32 with contrast_mode 'reference'
@@ -29,8 +30,6 @@ phase times the default precision (TF32 on) and checks with it off.
 """
 
 import json
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -44,8 +43,12 @@ DARK_PARAM = 3.0            # exponent of the synthetic low-light frames
 CONF = 0.05                 # predict conf for random weights (see phase 4)
 BATCH, IMGSZ = 16, 640
 
-# kernel phase: (batch, H, W); random priors at each, the defaults at the first
-KERNEL_SHAPES = [(16, 640, 640), (3, 481, 643), (1, 64, 96)]
+# kernel phase: (batch, H, W); random priors at each, the defaults at the
+# first; then the edge cases of the blur stage's plan: ragged strips and
+# segments, two strips by two segments, the smallest side, W and H below a
+# strip and a segment
+KERNEL_SHAPES = [(16, 640, 640), (3, 481, 643), (1, 64, 96), (1, 13, 13),
+                 (2, 37, 45)]
 # usm: the reference-mode predict shape, a ragged one, the smallest side
 USM_SHAPES = [(16, 640, 640), (3, 481, 643), (1, 13, 13)]
 # int8_conv: (B, H, W, C, Co) unpadded; the probe's layer first, then the
@@ -55,14 +58,10 @@ INT8_SHAPES = [(32, 80, 80, 256, 256), (2, 8, 10, 128, 128),
                (1, 4, 6, 64, 512), (1, 10, 12, 64, 128), (1, 9, 11, 64, 128),
                (1, 7, 13, 32, 40), (2, 9, 21, 96, 136)]
 INT8_OUT_SCALE = 0.05
-# |kernel - plain| <= ATOL + RTOL * |plain|, compared in the working dtype.
-# f32: both compute in f32, but exp(g*log v) against pow, FMA contraction
-# and another association of the contrast scale differ by a few ulps, which
-# gamma (<= 3), the DeDark division (tx >= 0.2) and the sharpen's
-# cancellation (s <= 5) amplify; the JAX package holds its own kernel to the
-# chain at the same 1e-4 (tests/test_pallas_enhance.py). bf16: both round
-# one f32 result to bf16 once, so they differ by at most one bf16 ulp.
-TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2 ** -7)}
+# The enhance kernels take their seeded inputs from, and are held to their
+# plain versions under the TOL of, dedark_yolo_tpu_torch/tools/enhance_ab.py
+# (f32 1e-4 + 1e-4*|plain|, bf16 one ulp).
+#
 # cpu phase, GPU (TF32 off) vs CPU predict on one frame: equal counts and
 # classes, boxes and scores within these. cuDNN's f32 convolutions sum in
 # another order than the CPU's, and the 60-layer random-weight network (its
@@ -73,40 +72,6 @@ BOX_TOL_PX, SCORE_TOL = 0.5, 2e-3
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def time_ms(fn, iters=20, warmup=3):
-    """Median CUDA-event time of fn() in ms."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
-def enhance_inputs(b, h, w, dtype, default_priors, device):
-    import numpy as np
-    import torch
-    rng = np.random.default_rng([SEED, b, h, w])
-    img = rng.uniform(0.02, 0.98, (b, h, w, 3)).astype(np.float32)
-    feats = rng.normal(0, 0.7, (b, 15)).astype(np.float32)
-    if default_priors:
-        A = np.full((b, 3), 0.8, np.float32)
-        ica = np.full((b, h, w, 1), 0.5, np.float32)
-    else:
-        A = rng.uniform(0.6, 0.9, (b, 3)).astype(np.float32)
-        ica = rng.uniform(0.2, 0.8, (b, h, w, 1)).astype(np.float32)
-    t = [torch.from_numpy(x).to(device) for x in (img, feats, A, ica)]
-    return t[0].to(dtype), t[1], t[2], t[3].to(dtype)
 
 
 def bound(nbytes, ops, op_rate):
@@ -141,24 +106,9 @@ def int8_bound(B, H, W, C, Co):
     return bound(nbytes, 2 * B * H * W * Co * 9 * C, INT8_OP_PER_S)
 
 
-def compare(torch, got, want, dtype):
-    """|kernel - plain| <= ATOL + RTOL * |plain| in `dtype`'s tolerance."""
-    g, r = got.float(), want.float()
-    err = (g - r).abs()
-    atol, rtol = TOL[str(dtype)[6:]]
-    at = int(err.argmax())
-    return {"max_abs_err": float(err.max()),
-            "plain_at_max_err": float(r.flatten()[at]),
-            "max_abs_plain": float(r.abs().max()), "atol": atol, "rtol": rtol,
-            "ok": bool(torch.isfinite(g).all())
-            and bool((err <= atol + rtol * r.abs()).all())}
-
-
 def phase_env(torch):
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    from dedark_yolo_tpu_torch.tools._ab import nvidia_smi
+    smi = nvidia_smi()
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
@@ -181,9 +131,28 @@ def phase_build():
     return ptxas
 
 
-def phase_kernel(torch):
+def plan_record(K, b, h, w, lib):
+    """The blur stage's plan at (b, h, w), its shared memory held to the
+    library's own `enhance_smem_bytes` (ops/enhance_kernel.py mirrors
+    csrc/usm_tile.cuh)."""
+    p = K.enhance_plan(b, h, w)
+    return {"seg_rows": p["seg_rows"], "grid": list(p["grid"]),
+            "smem_bytes": p["smem_bytes"],
+            "smem_matches_library": p["smem_bytes"] == lib.enhance_smem_bytes()}
+
+
+def phase_kernel(torch, ptxas=None):
+    """fused_enhance against its plain version at every KERNEL_SHAPES case;
+    timed at the first through the wrapper (`ms`) and, beside it, with the
+    (B, 16) parameter vector made by torch ops first (`ms_host_params`): the
+    cost of the form before the kernel regressed the parameters itself."""
+    from dedark_yolo_tpu_torch.ops import _build
     from dedark_yolo_tpu_torch.ops import enhance_kernel as K
+    from dedark_yolo_tpu_torch.tools._ab import (CLOCKS_QUERY, nvidia_smi,
+                                                 time_ms)
+    from dedark_yolo_tpu_torch.tools.enhance_ab import compare, enhance_inputs
     dev = torch.device("cuda")
+    lib = _build.load(K.NAME)
     checks, worst = [], {}
     for i, (b, h, w) in enumerate(KERNEL_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -192,7 +161,9 @@ def phase_kernel(torch):
                 got = K.fused_enhance(*args)
                 want = K.fused_enhance_reference(*args)
                 torch.cuda.synchronize()
-                rec = compare(torch, got, want, dtype)
+                rec = compare(got, want, dtype)
+                rec.update(plan_record(K, b, h, w, lib))
+                rec["ok"] = rec["ok"] and rec["smem_matches_library"]
                 checks.append({"shape": [b, h, w], "dtype": str(dtype)[6:],
                                "default_priors": default_priors, **rec})
                 key = str(dtype)[6:]
@@ -210,47 +181,46 @@ def phase_kernel(torch):
             ms_bound, by = enhance_bound(b, h, w, args[0].element_size())
             timing[key] = {
                 "ms": time_ms(lambda: K.fused_enhance(*args)),
+                "ms_host_params": time_ms(lambda: (
+                    K.param_vec(args[1], args[2]), K.fused_enhance(*args))),
+                "nvidia_smi": nvidia_smi(CLOCKS_QUERY),
                 "plain_ms": time_ms(lambda: K.fused_enhance_reference(*args)),
                 "bound_ms": ms_bound, "bound_by": by,
                 "max_abs_err": worst[key]}
     emit({"phase": "kernel", "kernel": "fused_enhance", "checks": checks,
-          "timing": timing})
+          "timing": timing, "ptxas": (ptxas or {}).get(K.NAME, [])})
     return timing
 
 
-def usm_inputs(b, h, w, dtype, device):
-    """A point-filtered-like image (values up to 3) and strengths in the
-    filter's (0, 5) range."""
-    import numpy as np
-    import torch
-    rng = np.random.default_rng([SEED, b, h, w, 1])
-    y = rng.uniform(0.0, 3.0, (b, h, w, 3)).astype(np.float32)
-    s = rng.uniform(0.0, 5.0, (b, 1)).astype(np.float32)
-    return (torch.from_numpy(y).to(device).to(dtype),
-            torch.from_numpy(s).to(device))
-
-
-def phase_kernel_usm(torch):
+def phase_kernel_usm(torch, ptxas=None):
+    from dedark_yolo_tpu_torch.ops import _build
     from dedark_yolo_tpu_torch.ops import enhance_kernel as K
+    from dedark_yolo_tpu_torch.tools._ab import (CLOCKS_QUERY, nvidia_smi,
+                                                 time_ms)
+    from dedark_yolo_tpu_torch.tools.enhance_ab import compare, usm_inputs
     dev = torch.device("cuda")
+    lib = _build.load(K.USM_NAME)
     checks, timing = [], {}
     for i, (b, h, w) in enumerate(USM_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             args = usm_inputs(b, h, w, dtype, dev)
             got, want = K.usm(*args), K.usm_reference(*args)
             torch.cuda.synchronize()
-            rec = compare(torch, got, want, dtype)
+            rec = compare(got, want, dtype)
+            rec.update(plan_record(K, b, h, w, lib))
+            rec["ok"] = rec["ok"] and rec["smem_matches_library"]
             checks.append({"shape": [b, h, w], "dtype": str(dtype)[6:], **rec})
             if i == 0:
                 ms_bound, by = usm_bound(b, h, w, args[0].element_size())
                 with torch.no_grad():
                     timing[str(dtype)[6:]] = {
                         "ms": time_ms(lambda: K.usm(*args)),
+                        "nvidia_smi": nvidia_smi(CLOCKS_QUERY),
                         "plain_ms": time_ms(lambda: K.usm_reference(*args)),
                         "bound_ms": ms_bound, "bound_by": by,
                         "max_abs_err": rec["max_abs_err"]}
     emit({"phase": "kernel", "kernel": "usm", "checks": checks,
-          "timing": timing})
+          "timing": timing, "ptxas": (ptxas or {}).get(K.USM_NAME, [])})
     if not all(c["ok"] for c in checks):
         raise AssertionError("usm disagrees with its plain version")
     return timing
@@ -286,6 +256,8 @@ def phase_kernel_int8(torch, ptxas=None):
     library's own int8_conv_smem_bytes."""
     from dedark_yolo_tpu_torch.ops import _build
     from dedark_yolo_tpu_torch.ops import int8_conv as I
+    from dedark_yolo_tpu_torch.tools._ab import (CLOCKS_QUERY, nvidia_smi,
+                                                 time_ms)
     dev = torch.device("cuda")
     lib_smem = _build.load(I.NAME).int8_conv_smem_bytes
     checks = []
@@ -324,6 +296,7 @@ def phase_kernel_int8(torch, ptxas=None):
     kw = {"out_scale": INT8_OUT_SCALE, "act": "silu"}
     ms_bound, by = int8_bound(B, H, W, C, Co)
     timing = {"ms": time_ms(lambda: I.conv3x3_s1_w8a8(x, w, scale, **kw)),
+              "nvidia_smi": nvidia_smi(CLOCKS_QUERY),
               "plain_ms": time_ms(
                   lambda: I.conv3x3_s1_w8a8_reference(x, w, scale, **kw),
                   iters=3, warmup=1),
@@ -351,6 +324,7 @@ def int_mm_yardstick(torch, I, x, w, scale):
     """library_ms: torch._int_mm on the unfolded input (M, 9C) x (9C, Co),
     the int32 product alone; the port never calls it. Its requantised result
     is held to the kernel's act=None output."""
+    from dedark_yolo_tpu_torch.tools._ab import time_ms
     if not hasattr(torch, "_int_mm"):
         return {"library_ms": None, "library": "torch._int_mm is missing",
                 "library_matches_kernel": True}
@@ -404,13 +378,46 @@ def calibrate_bn(torch, model, frames):
             h.remove()
 
 
+def layer0_parts(torch, m, x):
+    """The calls of `LowlightRecovery.forward` (m) on the batch x, one by
+    one, each on the outputs of the one before: the default priors, the
+    256x256 resize, the parameter CNN, then the fused_enhance kernel
+    ('channel'), or the plain parameter regression, the point filters and
+    the usm kernel ('reference')."""
+    from dedark_yolo_tpu_torch.nn import enhance as E
+    from dedark_yolo_tpu_torch.ops.enhance_kernel import FusedEnhance, Usm
+    b, h, w, _ = x.shape
+    priors = lambda: (
+        torch.full((b, 3), E.DEFAULT_A, dtype=x.dtype, device=x.device),
+        torch.full((b, h, w, 1), E.DEFAULT_ICA, dtype=x.dtype,
+                   device=x.device))
+    A, ica = priors()
+    resize = lambda: E.torch_bilinear_resize(x, 256, 256).permute(0, 3, 1, 2)
+    small = resize()
+    cnn = lambda: m.extractor(small.to(m.extractor.fc1.weight.dtype))
+    feats = cnn()
+    parts = {"priors": priors, "resize": resize, "params_cnn": cnn}
+    if m.contrast_mode == "channel":
+        parts["kernel"] = lambda: FusedEnhance.apply(x, feats, A, ica)
+        return parts
+    params = E.regress_filter_params(feats)
+    point = lambda: E.apply_point_filters(x, params, A, ica, m.contrast_mode)
+    y = point()
+    parts.update(regress=lambda: E.regress_filter_params(feats),
+                 point_filters=point,
+                 kernel=lambda: Usm.apply(y, params["usm"]))
+    return parts
+
+
 def step_breakdown(torch, yolo, frames):
     """CUDA-event medians of the parts of one predictor step on one batch
-    (after the timed run, so outside its launch counts)."""
+    (after the timed run, so outside its launch counts), and of layer 0's
+    own parts (`layer0_parts`)."""
     import numpy as np
     from dedark_yolo_tpu_torch.data.augment import letterbox
     from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
     from dedark_yolo_tpu_torch.ops.nms import non_max_suppression
+    from dedark_yolo_tpu_torch.tools._ab import time_ms
     p, a = yolo.predictor, yolo.predictor.args
     dtype = torch.bfloat16 if a.half else torch.float32
     u8 = np.stack([np.ascontiguousarray(letterbox(f, IMGSZ)[0][..., ::-1])
@@ -426,9 +433,13 @@ def step_breakdown(torch, yolo, frames):
         nms = lambda: non_max_suppression(
             boxes.float(), scores.float(), conf_thres=CONF, iou_thres=a.iou,
             max_det=a.max_det, max_nms=a.max_nms, multi_label=False)
-        return {name: time_ms(fn, iters=5, warmup=1) for name, fn in
-                (("upload", upload), ("layer0", enhance), ("forward", forward),
-                 ("decode", decode), ("nms", nms))}
+        parts = layer0_parts(torch, yolo.model.model[0], img)
+        out = {name: time_ms(fn, iters=5, warmup=1) for name, fn in
+               (("upload", upload), ("layer0", enhance), ("forward", forward),
+                ("decode", decode), ("nms", nms))}
+        out["layer0_parts"] = {name: time_ms(fn, iters=5, warmup=1)
+                               for name, fn in parts.items()}
+        return out
 
 
 def zero_launches():
@@ -491,6 +502,7 @@ def phase_cpu(torch, yolo, frame):
     """GPU (TF32 off) vs CPU on the same weights and frame."""
     from dedark_yolo_tpu_torch import YOLO
     from dedark_yolo_tpu_torch.data.augment import letterbox
+    from dedark_yolo_tpu_torch.tools.enhance_ab import compare
     kw = dict(imgsz=IMGSZ, batch=1, conf=CONF, matmul_precision="float32")
     gpu = yolo.predict([frame], **kw)[0]
     cpu_model = YOLO("yolov8l.yaml", nc=3, device="cpu", seed=SEED)
@@ -509,7 +521,7 @@ def phase_cpu(torch, yolo, frame):
         layer0s = (yolo.model.model[0], cpu_model.model.model[0])
         for m in layer0s:
             m.contrast_mode = "reference"
-        ref_rec = compare(torch, layer0s[0](x.cuda()).cpu(), layer0s[1](x),
+        ref_rec = compare(layer0s[0](x.cuda()).cpu(), layer0s[1](x),
                           torch.float32)
         for m in layer0s:
             m.contrast_mode = "channel"
@@ -564,8 +576,8 @@ def main():
     ptxas = phase_build()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    timing = phase_kernel(torch)
-    usm_timing = phase_kernel_usm(torch)
+    timing = phase_kernel(torch, ptxas)
+    usm_timing = phase_kernel_usm(torch, ptxas)
     int8_timing = phase_kernel_int8(torch, ptxas)
 
     from dedark_yolo_tpu_torch import YOLO

@@ -15,12 +15,14 @@
 // TFLOP/s f32: bytes bound it in f32; with bf16 staging (79 MB, 0.023 ms) the
 // operations do.
 //
-// Design: the tile of fused_enhance.cu without its point chain. One block per
-// 32x32 output tile of one image reads its 56x56 window of all three channels
-// once, with numpy 'reflect' indexing of the unpadded image, into shared
-// memory as f32, then blurs from there (usm_tile.cuh). Neighbouring tiles
-// re-read each other's halos (3.1x the tile) through L2. Math is f32; with
-// bf16 staging the loads and the store convert and the output is rounded once.
+// Design: the strip walk of fused_enhance.cu (usm_tile.cuh) with a plain load
+// in place of the point chain: each thread reads its window column's pixels
+// once per segment (the 24-column strip halo and 24-row segment halo come
+// from L2) one chunk of rows ahead, keeps the last 32 rows in registers for
+// the vertical pass, and the block stores each output row segment
+// contiguously, 16 bytes a thread where rows are 16-byte aligned. Math is
+// f32; with bf16 staging the loads and the store convert and the output is
+// rounded once.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (no fast math).
@@ -31,53 +33,55 @@ namespace {
 
 using namespace usm_tile;
 
-// usm: (B,) f32 sharpen strengths; taps: (25,) f32 Gaussian.
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-usm_kernel(const T* __restrict__ img, const float* __restrict__ usm,
-           const float* __restrict__ taps, T* __restrict__ out, int H, int W) {
-  __shared__ float y[3][WH][WW];
-  __shared__ float hb[WH][TW];
-  __shared__ float g[TAPS];
+struct RawPixel {
+  const T* im;
 
-  const int b = blockIdx.z;
-  const int oy = blockIdx.y * TH;
-  const int ox = blockIdx.x * TW;
-  const int tid = threadIdx.x;
-  if (tid < TAPS) g[tid] = taps[tid];
+  struct Raw {
+    float x[3];
+  };
 
-  const long plane = (long)H * W;
-  const T* im = img + (long)b * plane * 3;
-  for (int idx = tid; idx < WH * WW; idx += NTHREADS) {
-    const int r = idx / WW, c = idx % WW;
-    const long pix = (long)reflect(oy - PAD + r, H) * W + reflect(ox - PAD + c, W);
+  __device__ __forceinline__ void fetch(long pix, Raw& r) const {
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) y[ch][r][c] = load(im, pix * 3 + ch);
+    for (int ch = 0; ch < 3; ++ch) r.x[ch] = load(im, pix * 3 + ch);
   }
-  __syncthreads();
 
-  blur_sharpen(y, hb, g, usm[b], out + (long)b * plane * 3, oy, ox, H, W);
+  __device__ __forceinline__ void finish(const Raw& r, float (&y)[3]) const {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) y[ch] = r.x[ch];
+  }
+};
+
+// usm: (B,) f32 sharpen strengths.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+usm_kernel(const T* __restrict__ img, const float* __restrict__ usm,
+           T* __restrict__ out, int H, int W, int seg_rows) {
+  const int b = blockIdx.z;
+  const long plane = (long)H * W;
+  blur_sharpen_strip(RawPixel<T>{img + b * plane * 3}, usm[b],
+                     out + b * plane * 3, H, W, seg_rows);
 }
 
 }  // namespace
 
 // img, out: contiguous NHWC (B, H, W, 3) of one dtype (bf16 != 0:
 // __nv_bfloat16, else float); usm: (B,) f32. Requires H, W >= 13 (one
-// reflection covers the 12-pixel halo). Launches on `stream`, does not
+// reflection covers the 12-pixel halo). seg_rows: output rows a block walks
+// (ops/enhance_kernel.py::enhance_plan). Launches on `stream`, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
-extern "C" int usm_launch(const void* img, const void* usm, const void* taps,
-                          void* out, int B, int H, int W, int bf16,
-                          void* stream) {
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+extern "C" int usm_launch(const void* img, const void* usm, void* out, int B,
+                          int H, int W, int bf16, void* stream, int seg_rows) {
+  const dim3 grid((W + SW - 1) / SW, (H + seg_rows - 1) / seg_rows, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    usm_kernel<__nv_bfloat16><<<grid, NTHREADS, 0, st>>>(
+    usm_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(
         static_cast<const __nv_bfloat16*>(img), static_cast<const float*>(usm),
-        static_cast<const float*>(taps), static_cast<__nv_bfloat16*>(out), H, W);
+        static_cast<__nv_bfloat16*>(out), H, W, seg_rows);
   } else {
-    usm_kernel<float><<<grid, NTHREADS, 0, st>>>(
+    usm_kernel<float><<<grid, NT, 0, st>>>(
         static_cast<const float*>(img), static_cast<const float*>(usm),
-        static_cast<const float*>(taps), static_cast<float*>(out), H, W);
+        static_cast<float*>(out), H, W, seg_rows);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -64,10 +64,11 @@ def regress_filter_params(features):
     """Squash the raw (B, 15) features into per-filter parameters."""
     dedark_w = tanh_range(features[:, DEDARK_SLOT:DEDARK_SLOT + 1],
                           *DEFOG_RANGE)
-    mask = torch.tensor([0.0, 1.0, 1.0], dtype=features.dtype,
-                        device=features.device)
-    scale = torch.exp(tanh_range(features[:, WB_SLOTS] * mask,
-                                 -WB_LOG_RANGE, WB_LOG_RANGE))
+    # the JAX mask [0, 1, 1] on the WB features, without a host-to-device
+    # copy (a blocking one: it would synchronise the stream on every call)
+    wb = torch.cat([features[:, WB_SLOTS.start:WB_SLOTS.start + 1] * 0.0,
+                    features[:, WB_SLOTS.start + 1:WB_SLOTS.stop]], dim=1)
+    scale = torch.exp(tanh_range(wb, -WB_LOG_RANGE, WB_LOG_RANGE))
     lum = 1e-5 + 0.27 * scale[:, 0] + 0.67 * scale[:, 1] + 0.06 * scale[:, 2]
     log_g = math.log(GAMMA_RANGE)
     gamma = torch.exp(tanh_range(features[:, GAMMA_SLOT:GAMMA_SLOT + 1],

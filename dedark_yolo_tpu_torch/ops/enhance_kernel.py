@@ -6,9 +6,19 @@ Port of `dedark_yolo_tpu/ops/pallas/enhance_kernel.py`: `fused_enhance_pallas`
 `fused_enhance_diff`, and `usm_pallas` (blur and sharpen only, after a point
 chain run outside the kernel). Each wrapper runs its kernel on a CUDA tensor
 and raises if it cannot; on a CPU tensor it runs its `*_reference`, the plain
-version the kernel is held against. The per-image parameters and the
-Gaussian taps are made here, outside the kernels, as the JAX package makes
-them outside its kernels.
+version the kernel is held against. `fused_enhance`'s kernel regresses the
+per-image filter parameters from the features itself (the JAX package makes
+them outside its kernel, `param_vec` here), so that its wrapper launches one
+kernel and nothing else.
+
+Both kernels run one blur-and-sharpen stage (`csrc/usm_tile.cuh`): a block
+walks one strip of SW output columns of one image down one segment of rows,
+RO rows at a time. `enhance_plan` is that launch plan in plain Python (strip
+width, rows a segment, grid, shared memory), so the CPU tests walk it; the
+wrappers pass its rows a segment to the launch. Its constants and
+`smem_bytes` mirror `csrc/usm_tile.cuh`, which owns them: a CPU test reads
+them from the source, and the card's smoke run holds `smem_bytes` to the
+library's `enhance_smem_bytes`.
 """
 
 from __future__ import annotations
@@ -27,10 +37,57 @@ _build.LAUNCHES.setdefault(NAME, 0)
 _build.LAUNCHES.setdefault(USM_NAME, 0)
 MIN_SIDE = 13  # one reflection covers the 12-pixel blur halo
 
+# The stage's fixed shape (csrc/usm_tile.cuh): the blur radius, output
+# columns of a strip, rows of a chunk, outputs of one horizontal task.
+PAD, SW, RO, CO = 12, 72, 8, 9
+NT = SW + 2 * PAD             # threads of a block, one a window column
+# Rows a segment: at least MIN_SEG_ROWS (the 2*PAD-row halo of a segment is
+# computed twice), and as many segments as fit in WAVES waves of resident
+# blocks: at ~160 registers a thread, 4 blocks of NT threads share an SM
+# (65,536 registers) on 132 SMs. Two full waves measured fastest on an
+# H100 at 16x640x640 (96-row segments, 1,008 blocks; 80 rows, 1,152 blocks
+# and a third partial wave, was 3-8% slower); at B = 1 the MIN_SEG_ROWS
+# floor still gives more blocks than SMs.
+MIN_SEG_ROWS = 32
+BLOCKS_PER_SM, SM_COUNT, WAVES = 4, 132, 2
+MAX_GRID_YZ = 65_535
+
+
+def smem_bytes():
+    """Shared memory of a block (the .cu's `Smem`): RO rows of the
+    vertically blurred window, NT * 3 lanes, and RO output row segments,
+    SW * 3 lanes, all f32."""
+    return RO * (NT * 3 + SW * 3) * 4
+
+
+def enhance_plan(B, H, W):
+    """Launch plan of the blur stage for a (B, H, W, 3) image: block
+    (x, y, z) = (strip, segment, image) owns output columns [x*SW, x*SW +
+    SW) and rows [y*seg_rows, y*seg_rows + seg_rows), clipped to the image.
+    """
+    if min(H, W) < MIN_SIDE or B < 1:
+        raise ValueError(f"the blur needs B >= 1 and H, W >= {MIN_SIDE}, got "
+                         f"{(B, H, W)}")
+    if B > MAX_GRID_YZ:
+        raise ValueError(f"at most {MAX_GRID_YZ} images a launch, got {B}")
+    strips = -(-W // SW)
+    fit = WAVES * BLOCKS_PER_SM * SM_COUNT // (B * strips)
+    segments = max(1, min(fit, H // MIN_SEG_ROWS))
+    seg_rows = -(-H // segments)
+    seg_rows = -(-seg_rows // RO) * RO         # whole chunks
+    segments = -(-H // seg_rows)
+    return {"sw": SW, "ro": RO, "co": CO, "threads": NT,
+            "seg_rows": seg_rows, "strips": strips, "segments": segments,
+            "grid": (strips, segments, B), "blocks": strips * segments * B,
+            "smem_bytes": smem_bytes()}
+
 
 def param_vec(features, dedark_A):
-    """(B, 16) f32 kernel parameters in the JAX `_param_vec` slot order:
-    0 dedark_w, 1-3 A, 4-6 wb, 7 gamma, 8 contrast, 9 usm, 10-15 zero."""
+    """(B, 16) f32 per-image filter parameters in the JAX `_param_vec` slot
+    order: 0 dedark_w, 1-3 A, 4-6 wb, 7 gamma, 8 contrast, 9 usm, 10-15
+    zero. `csrc/fused_enhance.cu` computes the same values itself from the
+    features and A, so that the wrapper launches one kernel and nothing
+    else."""
     p = E.regress_filter_params(features.float())
     b = features.shape[0]
     return torch.cat([p["dedark_w"], dedark_A.float(), p["wb"], p["gamma"],
@@ -41,7 +98,9 @@ def param_vec(features, dedark_A):
 
 @lru_cache(maxsize=8)
 def gaussian_taps(device: torch.device):
-    """The 25 taps as f32, normalised in float64 like `gaussian_kernel_25`."""
+    """The 25 taps as f32, normalised in float64 like `gaussian_kernel_25`:
+    the values `csrc/usm_tile.cuh` compiles in (its `G`; a CPU test holds
+    the two equal bit for bit)."""
     return torch.tensor(E.gaussian_kernel_25(), dtype=torch.float32,
                         device=device)
 
@@ -66,10 +125,19 @@ def _check_image(name, img):
                          f"{img.shape[1]}x{img.shape[2]}")
 
 
+# fused_enhance_launch(img, ica, features, A, out, B, H, W, bf16, stream,
+#                      seg_rows)
+FUSED_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p, ctypes.c_int])
+# usm_launch(img, usm, out, B, H, W, bf16, stream, seg_rows)
+USM_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p, ctypes.c_int])
+
+
 @lru_cache(maxsize=1)
 def _launch_fn():
     fn = _build.load(NAME).fused_enhance_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = FUSED_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -94,14 +162,16 @@ def fused_enhance(img, features, dedark_A, IcA):
         raise ValueError("fused_enhance needs contiguous NHWC img and IcA")
     if any(t.device != img.device for t in (features, dedark_A, ica)):
         raise ValueError("fused_enhance inputs must share one device")
-    pvec = param_vec(features, dedark_A)
-    taps = gaussian_taps(img.device)
+    feats = features.float().contiguous()
+    A = dedark_A.float().contiguous()
+    plan = enhance_plan(b, h, w)
     out = torch.empty_like(img)
     stream = torch.cuda.current_stream(img.device).cuda_stream
     with torch.cuda.device(img.device):
-        rc = _launch_fn()(img.data_ptr(), ica.data_ptr(), pvec.data_ptr(),
-                          taps.data_ptr(), out.data_ptr(), b, h, w,
-                          int(img.dtype == torch.bfloat16), stream)
+        rc = _launch_fn()(img.data_ptr(), ica.data_ptr(), feats.data_ptr(),
+                          A.data_ptr(), out.data_ptr(), b, h, w,
+                          int(img.dtype == torch.bfloat16), stream,
+                          plan["seg_rows"])
     if rc != 0:
         raise RuntimeError(f"fused_enhance launch failed with CUDA error {rc}")
     _build.LAUNCHES[NAME] += 1
@@ -147,7 +217,7 @@ def usm_reference(y, usm_param):
 @lru_cache(maxsize=1)
 def _usm_launch_fn():
     fn = _build.load(USM_NAME).usm_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = USM_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -169,13 +239,13 @@ def usm(y, usm_param):
     if usm_param.device != y.device:
         raise ValueError("usm inputs must share one device")
     s = usm_param.float().contiguous()
-    taps = gaussian_taps(y.device)
+    plan = enhance_plan(b, h, w)
     out = torch.empty_like(y)
     stream = torch.cuda.current_stream(y.device).cuda_stream
     with torch.cuda.device(y.device):
-        rc = _usm_launch_fn()(y.data_ptr(), s.data_ptr(), taps.data_ptr(),
-                              out.data_ptr(), b, h, w,
-                              int(y.dtype == torch.bfloat16), stream)
+        rc = _usm_launch_fn()(y.data_ptr(), s.data_ptr(), out.data_ptr(),
+                              b, h, w, int(y.dtype == torch.bfloat16), stream,
+                              plan["seg_rows"])
     if rc != 0:
         raise RuntimeError(f"usm launch failed with CUDA error {rc}")
     _build.LAUNCHES[USM_NAME] += 1

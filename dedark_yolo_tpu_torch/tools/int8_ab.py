@@ -24,16 +24,15 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import statistics
-import subprocess
 from pathlib import Path
 
 import torch
 
 from ..ops import _build
 from ..ops import int8_conv as I
+from . import _ab
 from .int8_probe import layer_inputs
 
 INT8_OP_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
@@ -41,48 +40,16 @@ OUT_SCALE = 0.05
 SHAPE = (32, 80, 80, 256, 256)  # (B, H, W, C, Co), the probe's layer
 
 
-def _build_other(src: Path):
-    """Compile another source of the kernel; returns (library, ptxas log)."""
-    h = hashlib.sha256(src.read_bytes()
-                       + " ".join(_build.NVCC_FLAGS).encode())
-    out = _build.BUILD_DIR / f"libint8_conv_ab-{h.hexdigest()[:16]}.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                           str(src)], capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(
-            f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(out)), proc.stdout + proc.stderr
-
-
-def _time(call, iters):
-    for _ in range(3):
-        call()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        call()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
 def run(others=(), act="silu", iters=20, rounds=2):
     if not torch.cuda.is_available():
         raise SystemExit("int8_ab: no CUDA device")
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
+    smi = _ab.nvidia_smi()
     logs = _build.build([I.NAME])
     variants = [("csrc/int8_conv.cu", _build.load(I.NAME))]
     ptxas = {"csrc/int8_conv.cu": _build.ptxas_lines(logs.get(I.NAME, ""))}
     for src in others:
-        lib, log = _build_other(Path(src))
+        lib, log = _ab.build_other(Path(src), I.NAME)
         variants.append((src, lib))
         ptxas[src] = _build.ptxas_lines(log)
 
@@ -92,7 +59,7 @@ def run(others=(), act="silu", iters=20, rounds=2):
     wt = w.permute(3, 0, 1, 2).reshape(Co, 9 * C).contiguous()
     want = I.conv3x3_s1_w8a8_reference(x, w, scale, OUT_SCALE, act)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    calls, checks = [], {}
+    calls, checks = {}, {}
     for name, lib in variants:
         fn = lib.int8_conv_launch
         fn.argtypes, fn.restype = I.LAUNCH_ARGTYPES, ctypes.c_int
@@ -113,12 +80,8 @@ def run(others=(), act="silu", iters=20, rounds=2):
         checks[name]["ok"] = (checks[name]["max_step"] == 0 if act is None
                               else checks[name]["max_step"] <= 1
                               and checks[name]["frac_differ"] < 0.01)
-        calls.append(call)
-    turns = {name: [] for name, _ in variants}
-    order = list(range(len(variants)))
-    for _ in range(rounds):
-        for i in order + order[::-1]:
-            turns[variants[i][0]].append(_time(calls[i], iters))
+        calls[name] = call
+    turns = _ab.in_turns(calls, iters, rounds)
     ops = 2 * B * H * W * Co * 9 * C
     rows = []
     for name, _ in variants:
