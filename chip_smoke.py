@@ -9,24 +9,40 @@ line:
 
   env      card name and power limit (nvidia-smi), torch/CUDA versions, TF32
   build    nvcc of every csrc/*.cu, one process per source, all at once
-  kernel   every kernel (fused_enhance, usm, int8_conv) against its plain
-           PyTorch version on the card, at its main path's shapes and at
-           odd ones, with CUDA-event timings, each beside nvidia-smi's SM
-           clock, power draw and power limit
+  kernel   every kernel (fused_enhance, usm, int8_conv, nms) against its
+           plain PyTorch version on the card, at its main path's shapes and
+           at odd ones, with CUDA-event timings, each beside nvidia-smi's SM
+           clock, power draw and power limit; nms must equal `_greedy` bit
+           for bit
   predict  YOLO("yolov8l.yaml", nc=3) predict on 16-frame batches at
            imgsz 640: f32 and bf16 (contrast_mode 'channel', the
            fused_enhance kernel), then f32 with contrast_mode 'reference'
            (point filters, then the usm kernel), each run's launch counts
-           checked against its path
+           checked against its path (nms once a batch in each), no plain
+           version reached with a CUDA tensor; then the host ms inside the
+           predictor's step against the batch's device ms, the step called
+           behind 100 ms of queued device work (it must return before that
+           work ends), any synchronising call inside it an error
   cpu      the same weights and first frame through predict(device="cpu"),
            and layer 0 in 'reference' mode on the card against the CPU
   probe    tools.int8_probe at its default shape (24 layers, b32, 80x80,
            C=Co=256): bf16 cuDNN chain vs the int8_conv kernel's chain
+  train    DetectionTrainer: at imgsz 128, b2, one micro-step on the card
+           against the CPU (loss items, gradients, updated parameters, BN
+           stats, EMA; TF32 off); then yolov8l at b16, imgsz 640, f32,
+           default precision: a warm-up window and two timed accumulation
+           windows (8 micro-steps, 2 applied updates), fused_enhance
+           launched once per micro-step and nms never
 
 then the card line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The parity phases run with TF32 off for cuDNN and matmuls; the predict
-phase times the default precision (TF32 on) and checks with it off.
+phase and the full-size train run time the default precision (TF32 on).
+
+One phase alone, after the build (TF32 off first, as `main` does):
+
+    python3 -c "import chip_smoke as c, torch; p = c.phase_build(); \
+        c.phase_kernel_nms(torch, p)"      # or c.phase_train(torch)
 """
 
 import json
@@ -104,6 +120,22 @@ def int8_bound(B, H, W, C, Co):
     output moved once."""
     nbytes = B * (H + 2) * (W + 2) * C + 9 * C * Co + 4 * Co + B * H * W * Co
     return bound(nbytes, 2 * B * H * W * Co * 9 * C, INT8_OP_PER_S)
+
+
+# per candidate and greedy step: the argmax compare, the IoU (2 min, 2 max,
+# 2 subtractions and 2 clamps for the sides, a product, 2 additions, a
+# subtraction and a division) and the threshold test
+NMS_FLOPS = 16
+
+
+def nms_bound(b, k, max_det, keep_idx):
+    """nms: boxes and scores read once, keep_idx (int64) and keep_scores
+    written once; the operations of the steps this run's data needed (an
+    image stops one step after its last kept box, or at max_det)."""
+    kept = (keep_idx >= 0).sum(1)
+    steps = int((kept + (kept < max_det)).sum())
+    return bound(b * k * 20 + b * max_det * 12, steps * k * NMS_FLOPS,
+                 F32_FLOP_PER_S)
 
 
 def phase_env(torch):
@@ -341,6 +373,65 @@ def int_mm_yardstick(torch, I, x, w, scale):
             "library_matches_kernel": same}
 
 
+def phase_kernel_nms(torch, ptxas=None):
+    """nms against `_greedy` on every scene of tools/nms_scenes.py, equal
+    bit for bit in keep_idx and keep_scores; the wrapper refuses a K the
+    block cannot hold; the plan's shared memory and largest K held to the
+    library's. Every scene is timed (kernel and `_greedy`, beside the
+    bound of its own data); the predict scene (16 x 2048 candidates,
+    max_det 300) gives the kernel's entry in the kernels line."""
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.ops import nms as N
+    from dedark_yolo_tpu_torch.tools._ab import (CLOCKS_QUERY, nvidia_smi,
+                                                 time_ms)
+    from dedark_yolo_tpu_torch.tools.nms_scenes import SCENES, scene
+    dev = torch.device("cuda")
+    lib = _build.load(N.NAME)
+    plan = {"smem_bytes": N.smem_bytes(), "max_k": N.MAX_K,
+            "smem_matches_library": N.smem_bytes() == lib.nms_smem_bytes(),
+            "max_k_matches_library": N.MAX_K == lib.nms_max_k()}
+    checks, timing = [], {}
+    for name in SCENES:
+        boxes, scores, kw = scene(name, dev)
+        got_i, got_s = N.greedy_nms(boxes, scores, **kw)
+        want_i, want_s = N._greedy(boxes, scores, **kw)
+        torch.cuda.synchronize()
+        b, k = boxes.shape[:2]
+        kept = (want_i >= 0).sum(1)
+        ms_bound, by = nms_bound(b, k, kw["max_det"], want_i)
+        rec = {"scene": name, "b": b, "k": k, **kw,
+               "kept": [int(kept.min()), int(kept.max())],
+               "idx_equal": bool(torch.equal(got_i, want_i)),
+               "scores_equal": bool(torch.equal(got_s, want_s)),
+               "dtypes": [str(got_i.dtype)[6:], str(got_s.dtype)[6:]],
+               "ms": time_ms(lambda: N.greedy_nms(boxes, scores, **kw)),
+               "nvidia_smi": nvidia_smi(CLOCKS_QUERY),
+               "plain_ms": time_ms(lambda: N._greedy(boxes, scores, **kw),
+                                   iters=3, warmup=1),
+               "bound_ms": ms_bound, "bound_by": by}
+        rec["ok"] = rec["idx_equal"] and rec["scores_equal"]
+        checks.append(rec)
+        if name == "predict":
+            timing = {key: rec[key] for key in
+                      ("ms", "nvidia_smi", "plain_ms", "bound_ms", "bound_by")}
+            timing.update(max_abs_err=float((got_s - want_s).abs().max()),
+                          idx_mismatches=int((got_i != want_i).sum()),
+                          shape=[b, k], max_det=kw["max_det"])
+    too_many = torch.zeros((1, N.MAX_K + 1, 4), device=dev)
+    try:
+        N.greedy_nms(too_many, too_many[..., 0], 0.5, 10)
+        refuses = False
+    except ValueError:
+        refuses = True
+    emit({"phase": "kernel", "kernel": "nms", "plan": plan, "checks": checks,
+          "refuses_k_above_max": refuses, "timing": timing,
+          "ptxas": (ptxas or {}).get(N.NAME, [])})
+    if not (all(c["ok"] for c in checks) and refuses
+            and plan["smem_matches_library"] and plan["max_k_matches_library"]):
+        raise AssertionError("nms disagrees with _greedy or its plan")
+    return timing
+
+
 def synthetic_frames(n):
     """Seeded low-light BGR 480x640 frames: 32-px blocks of random colour
     with noise, darkened as (u8/255)**DARK_PARAM and scaled back to u8."""
@@ -457,11 +548,79 @@ def check_launches(path, launches, expected):
                              f"expected {want}")
 
 
-# predict runs: (key, predict options, kernel the path launches per batch)
+# predict runs: (key, predict options, layer 0's kernel; nms runs in each)
 PREDICT_RUNS = [("f32", {"half": False}, "fused_enhance"),
                 ("bf16", {"half": True}, "fused_enhance"),
                 ("reference_f32", {"half": False,
                                    "contrast_mode": "reference"}, "usm")]
+
+
+class no_plain_on_cuda:
+    """Within the block, the plain versions of the kernels that predict
+    runs (`_greedy`, the enhance chain, the blur) raise when a CUDA tensor
+    reaches them: on the card the forward goes through the kernels."""
+
+    def __enter__(self):
+        import torch
+        from dedark_yolo_tpu_torch.nn import enhance as E
+        from dedark_yolo_tpu_torch.ops import nms as N
+
+        def guard(mod, name):
+            fn = getattr(mod, name)
+
+            def checked(*args, **kwargs):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                    raise AssertionError(f"{name} reached with a CUDA tensor")
+                return fn(*args, **kwargs)
+            setattr(mod, name, checked)
+            return mod, name, fn
+
+        self.saved = [guard(N, "_greedy"), guard(E, "apply_filter_chain"),
+                      guard(E, "usm_filter")]
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def step_wait(torch, predictor, frames, n=4, ahead_ms=100.0):
+    """Per batch: host ms inside the predictor's step (letterboxed u8 batch
+    in, device tensors out) and the batch's device ms (CUDA events around
+    the step's work). Each step is called with `ahead_ms` of other work
+    (torch.cuda._sleep) queued on the device before it: a step that waited
+    on the device would take longer than that; one that does not takes its
+    own dispatch time. Any synchronising call inside the step raises
+    (torch.cuda.set_sync_debug_mode)."""
+    import numpy as np
+    from dedark_yolo_tpu_torch.data.augment import letterbox
+    from dedark_yolo_tpu_torch.tools._ab import nvidia_smi
+    u8 = np.stack([np.ascontiguousarray(letterbox(f, IMGSZ)[0][..., ::-1])
+                   for f in frames])
+    predictor.step(u8)                       # buffers and caches warm
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    host, device, ahead = [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(int(ahead_ms * 1e3 * clock_mhz))
+        ev[1].record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            predictor.step(u8)
+            host.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ev[2].record()
+        torch.cuda.synchronize()
+        ahead.append(ev[0].elapsed_time(ev[1]))
+        device.append(ev[1].elapsed_time(ev[2]))
+    return {"host_ms_in_step": host, "device_ms": device,
+            "device_work_ahead_ms": ahead,
+            "host_share": max(h / d for h, d in zip(host, device)),
+            "waited": any(h >= a for h, a in zip(host, ahead))}
 
 
 def phase_predict(torch, yolo, frames):
@@ -474,7 +633,8 @@ def phase_predict(torch, yolo, frames):
         zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = yolo.predict(frames * reps, **kw)
+        with no_plain_on_cuda():
+            res = yolo.predict(frames * reps, **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
@@ -485,13 +645,17 @@ def phase_predict(torch, yolo, frames):
             assert bool(((d[:, 5] >= 0) & (d[:, 5] < 3)).all())
         if max(counts) == 0:
             raise AssertionError(f"no detections at conf={CONF} ({key})")
-        check_launches(f"predict {key}", launches, {kernel: reps})
+        check_launches(f"predict {key}", launches, {kernel: reps, "nms": reps})
         out[key] = {"images": len(res), "seconds": secs,
                     "images_per_s": len(res) / secs,
                     "stage_ms": dict(yolo.predictor.speed),
                     "launches": launches,
                     "dets_per_image": [min(counts), max(counts)],
-                    "batch_breakdown_ms": step_breakdown(torch, yolo, frames)}
+                    "batch_breakdown_ms": step_breakdown(torch, yolo, frames),
+                    "step_wait": step_wait(torch, yolo.predictor, frames)}
+        if out[key]["step_wait"]["waited"]:
+            raise AssertionError(f"predict {key}: the step waited on the "
+                                 f"device: {out[key]['step_wait']}")
     emit({"phase": "predict", "model": "yolov8l.yaml", "nc": 3,
           "batch": BATCH, "imgsz": IMGSZ, "conf": CONF,
           "matmul_precision": "default", **out})
@@ -562,6 +726,182 @@ def phase_probe(torch):
     return launches
 
 
+# train phase: the parity size and the label rows an image
+TRAIN_SMALL, TRAIN_BOXES = 128, 8
+# small-size card vs CPU, TF32 off, one SGD micro-step that applies the
+# update (nbs = batch). cuDNN's convolutions sum in other orders than the
+# CPU's, and the f32 train forward of these random weights is itself
+# ill-conditioned: the port's and the JAX package's CPU forwards each sit
+# ~2e-4 of the largest map value from a float64 forward
+# (tests/test_torch_train_flagship.py), and the gradients of layer 0's
+# parameter CNN differ by 5e-3 of their largest entry between the two
+# packages on the CPU (tests/test_torch_train_slice.py). A leaf's gradient
+# is held by its norm: the bias of a BN whose output feeds another
+# train-mode BN gets a gradient that nearly cancels (a constant shift is
+# taken out by the next layer's batch mean, but for the activation between),
+# so its largest entry is a poor yardstick (4.9e-2 of it on an H100, where
+# the median leaf read 3.4e-3). So: loss items 5e-3 relative;
+# each gradient within 5e-2 of its norm; each parameter's and EMA entry's
+# move 5e-2 of the largest move of its tensor (plus 1e-6); BN running stats
+# 1e-3 absolute.
+TRAIN_TOL = {"items_rel": 5e-3, "grad_rel": 5e-2, "move_rel": 5e-2,
+             "stats_abs": 1e-3}
+
+
+def train_batch(n, imgsz, seed):
+    """The JAX loader's batch dict: seeded clean u8 frames (32-px colour
+    blocks with noise; the trainer darkens them) and TRAIN_BOXES label rows
+    an image, a quarter of them padding."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (n, imgsz // 32, imgsz // 32, 3)) / 255
+    img = np.kron(base, np.ones((1, 32, 32, 1)))
+    img = np.clip(img + rng.normal(0, 0.03, img.shape), 0, 1)
+    m = TRAIN_BOXES
+    xy = rng.uniform(0.2, 0.8, (n, m, 2))
+    wh = rng.uniform(0.05, 0.4, (n, m, 2))
+    return {"img": (img * 255).astype(np.uint8),
+            "cls": rng.integers(0, 3, (n, m)).astype(np.float32),
+            "bboxes": np.concatenate([xy, wh], -1).astype(np.float32),
+            "mask_gt": (rng.uniform(size=(n, m)) > 0.25).astype(np.float32)}
+
+
+def train_parity(torch):
+    """One micro-step of the flagship at TRAIN_SMALL, b2, on the card and on
+    the CPU from the same weights and batch: first the loss and gradients
+    (the BN stats put back after), then `step` (update, BN stats, EMA)."""
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    over = {"batch": 2, "nbs": 2, "optimizer": "SGD", "imgsz": TRAIN_SMALL}
+    nb, step_index = 1000, 1500                # inside the 3000-step warmup
+    gpu = YOLO("yolov8l.yaml", nc=3, seed=SEED)
+    cpu = YOLO("yolov8l.yaml", nc=3, device="cpu", seed=SEED)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    start = {k: v.cpu().clone() for k, v in cpu.state_dict().items()}
+    batch = train_batch(2, TRAIN_SMALL, SEED)
+    got = {}
+    with matmul_precision("float32"):
+        for key, yolo, dev in (("gpu", gpu, None), ("cpu", cpu, "cpu")):
+            tr = DetectionTrainer(yolo.model, over, nb=nb, device=dev)
+            names = list(tr.params)
+            tr.model.train()
+            total, items = tr.loss(tr.to_device(batch))
+            grads = torch.autograd.grad(
+                total, [tr.params[n] for n in names], allow_unused=True)
+            tr.model.eval()
+            tr.model.load_state_dict(start)
+            _, step_items = tr.step(batch, step_index)
+            got[key] = {"items": items, "step_items": step_items,
+                        "grads": {n: g for n, g in zip(names, grads)
+                                  if g is not None},
+                        "state": tr.model.state_dict(), "ema": tr.ema,
+                        "updates": (tr.opt_state.step, tr.ema_updates)}
+    g, c = got["gpu"], got["cpu"]
+    cpu_of = lambda t: t.detach().cpu()
+    rel = lambda a, b: float((cpu_of(a) - b).abs().max() / b.abs().max())
+    items_rel = max(rel(torch.stack(list(g["items"])), torch.stack(list(c["items"]))),
+                    rel(g["step_items"], c["step_items"]))
+    grad_rel = {n: float(torch.linalg.vector_norm(cpu_of(g["grads"][n]) - w)
+                         / torch.linalg.vector_norm(w))
+                for n, w in c["grads"].items() if w.abs().max() > 0}
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    grad_max_rel = max(rel(g["grads"][n], c["grads"][n]) for n in grad_rel)
+    stats_err, move_err = 0.0, {}
+    for k, w in c["state"].items():
+        if "running_" in k:
+            stats_err = max(stats_err, float((cpu_of(g["state"][k]) - w).abs().max()),
+                            float((cpu_of(g["ema"][k]) - c["ema"][k]).abs().max()))
+            continue
+        moved = float((w - start[k]).abs().max())
+        err = max(float((cpu_of(g["state"][k]) - w).abs().max()),
+                  float((cpu_of(g["ema"][k]) - c["ema"][k]).abs().max()))
+        move_err[k] = (err - 1e-6) / moved if moved else (0.0 if err <= 1e-6 else float("inf"))
+    worst_move = max(move_err, key=move_err.get)
+    rec = {"imgsz": TRAIN_SMALL, "batch": 2,
+           "items_gpu": [float(x) for x in g["items"]],
+           "items_cpu": [float(x) for x in c["items"]],
+           "items_max_rel_err": items_rel,
+           "grad_norm_rel_err": grad_rel[worst_grad], "grad_worst_leaf": worst_grad,
+           "grad_norm_rel_err_median": sorted(grad_rel.values())[len(grad_rel) // 2],
+           "grad_max_entry_rel_err": grad_max_rel,
+           "move_max_rel_err": move_err[worst_move], "move_worst": worst_move,
+           "bn_stats_and_ema_max_abs_err": stats_err,
+           "updates_gpu": g["updates"], "updates_cpu": c["updates"],
+           "tol": TRAIN_TOL}
+    rec["ok"] = (items_rel <= TRAIN_TOL["items_rel"]
+                 and rec["grad_norm_rel_err"] <= TRAIN_TOL["grad_rel"]
+                 and rec["move_max_rel_err"] <= TRAIN_TOL["move_rel"]
+                 and stats_err <= TRAIN_TOL["stats_abs"]
+                 and g["updates"] == c["updates"] == (1, 1))
+    return rec
+
+
+def train_full(torch):
+    """yolov8l, nc=3, b16, imgsz 640, f32, default precision (TF32 on):
+    one warm-up window, then two timed accumulation windows of 4."""
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.tools._ab import CLOCKS_QUERY, nvidia_smi, time_ms
+    yolo = YOLO("yolov8l.yaml", nc=3, seed=SEED)
+    tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64}, nb=1000)
+    batches = [train_batch(BATCH, IMGSZ, SEED + i) for i in range(3)]
+    with matmul_precision("default"):
+        for i in range(tr.accumulate):                       # warm-up window
+            tr.step(batches[i % 3], i)
+        torch.cuda.synchronize()
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        u0, e0 = tr.opt_state.step, tr.ema_updates
+        windows_ms, items = [], []
+        for w in range(2):
+            t0 = time.perf_counter()
+            for j in range(tr.accumulate):
+                i = tr.accumulate * (w + 1) + j
+                items.append(tr.step(batches[i % 3], i)[1])
+            torch.cuda.synchronize()
+            windows_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        smi = nvidia_smi(CLOCKS_QUERY)
+        dev_batch = tr.to_device(batches[0])
+        params = list(tr.params.values())
+        tr.model.train()
+        fwd_loss = time_ms(lambda: tr.loss(dev_batch), iters=3, warmup=1)
+        fwd_bwd = time_ms(lambda: torch.autograd.grad(tr.loss(dev_batch)[0],
+                                                      params), iters=3, warmup=1)
+        tr.model.eval()
+    items = torch.stack(items).cpu()
+    micro = len(items)
+    rec = {"model": "yolov8l.yaml", "nc": 3, "batch": BATCH, "imgsz": IMGSZ,
+           "precision": "f32, TF32 convs (default)", "optimizer": tr.opt_name,
+           "accumulate": tr.accumulate, "micro_steps": micro,
+           "window_ms": windows_ms,
+           "micro_step_ms": sum(windows_ms) / micro,
+           "images_per_s": BATCH * micro / (sum(windows_ms) / 1e3),
+           "forward_loss_ms": fwd_loss, "forward_backward_ms": fwd_bwd,
+           "loss_items": items.tolist(),
+           "finite": bool(torch.isfinite(items).all()),
+           "applied": tr.opt_state.step - u0, "ema_updates": tr.ema_updates - e0,
+           "peak_memory_gib": peak / 2 ** 30, "launches": launches,
+           "nvidia_smi": smi}
+    check_launches("train", launches, {"fused_enhance": micro})
+    if not (rec["finite"] and rec["applied"] == 2 and rec["ema_updates"] == 2):
+        raise AssertionError(f"train: {rec}")
+    return rec
+
+
+def phase_train(torch):
+    small = train_parity(torch)
+    full = train_full(torch)
+    emit({"phase": "train", "parity": small, "full": full})
+    if not small["ok"]:
+        raise AssertionError(f"train step: card and CPU disagree: {small}")
+    return full
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -579,6 +919,7 @@ def main():
     timing = phase_kernel(torch, ptxas)
     usm_timing = phase_kernel_usm(torch, ptxas)
     int8_timing = phase_kernel_int8(torch, ptxas)
+    nms_timing = phase_kernel_nms(torch, ptxas)
 
     from dedark_yolo_tpu_torch import YOLO
     frames = synthetic_frames(BATCH)
@@ -587,6 +928,7 @@ def main():
     pred = phase_predict(torch, yolo, frames)
     phase_cpu(torch, yolo, frames[0])
     probe_launches = phase_probe(torch)
+    train = phase_train(torch)
 
     print(smi)
     f32, bf16 = timing["float32"], timing["bfloat16"]
@@ -600,7 +942,7 @@ def main():
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": None,
         "shape": [BATCH, IMGSZ, IMGSZ, 3], "dtype": "float32",
-        "bf16": bf16}, {
+        "bf16": bf16, "train_launches": train["launches"]["fused_enhance"]}, {
         "name": "usm", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/usm.cu",
         "replaces": "dedark_yolo_tpu/ops/pallas/enhance_kernel.py:277",
@@ -618,7 +960,16 @@ def main():
            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
         "shape": list(INT8_SHAPES[0]), "dtype": "int8",
-        **{k: int8_timing[k] for k in ("act", "tops", "peak_pct")}}]})
+        **{k: int8_timing[k] for k in ("act", "tops", "peak_pct")}}, {
+        "name": "nms", "route": "cuda",
+        "source": "dedark_yolo_tpu_torch/csrc/nms.cu",
+        "replaces": "dedark_yolo_tpu/ops/nms.py:28",
+        "launches": sum(pred[key]["launches"]["nms"]
+                        for key, _, _ in PREDICT_RUNS),
+        **{k: nms_timing[k] for k in
+           ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "library": "none: no torchvision on the card",
+        "shape": nms_timing["shape"], "max_det": nms_timing["max_det"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

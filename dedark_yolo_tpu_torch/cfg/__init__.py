@@ -1,7 +1,7 @@
-"""Predict configuration and model-architecture lookup.
+"""Predict and train-step configuration and model-architecture lookup.
 
-The predict keys of the JAX package's `cfg/default.yaml`, with the same
-defaults, plus `device`. `model_yaml_load` resolves a scaled name such as
+The predict keys and the keys the train step reads of the JAX package's
+`cfg/default.yaml`, with the same defaults, plus `device`. `model_yaml_load` resolves a scaled name such as
 `yolov8l.yaml` to the unified architecture at scale `l`, as the JAX package
 does; the built-in architectures live in `cfg/models.py`, and `yaml` is
 imported only when a caller names a file on disk.
@@ -28,24 +28,53 @@ DEFAULT_CFG = {
     "contrast_mode": "channel",  # 'channel' | 'reference' contrast luminance
     "matmul_precision": "default",  # default | tensorfloat32 | float32
     "device": None,              # None = 'cuda'
+    # train step (engine/trainer.py)
+    "epochs": 100,               # sets the lr schedule's length
+    "optimizer": "auto",         # SGD | Adam | AdamW | auto
+    "lr0": 0.01,                 # initial lr
+    "lrf": 0.01,                 # final lr, a fraction of lr0
+    "momentum": 0.937,           # SGD momentum / Adam beta1
+    "weight_decay": 0.0005,
+    "warmup_epochs": 3.0,
+    "warmup_momentum": 0.8,
+    "warmup_bias_lr": 0.1,
+    "cos_lr": False,
+    "nbs": 64,                   # nominal batch: gradients summed up to it
+    "box": 7.5,                  # loss gains
+    "cls": 0.5,
+    "dfl": 1.5,
+    "lrl": 2.0,                  # recovery-loss weight
+    "lowlight_FLAG": True,       # train on img ** dark_param
+    "dark_param": 15.0,
+    "dedark_FLAG": True,         # dark-channel priors for the DeDark filter
+    "prior_mode": "default",     # default (A=0.8, IcA=0.5) | computed
+    "amp": False,                # bf16 training: not ported yet
 }
 
 _FLOAT_KEYS = {"conf", "iou"}
-_INT_KEYS = {"imgsz", "max_det", "max_nms", "batch"}
-_BOOL_KEYS = {"half", "agnostic_nms"}
+_NUMBER_KEYS = {"lr0", "lrf", "momentum", "weight_decay", "warmup_epochs",
+                "warmup_momentum", "warmup_bias_lr", "box", "cls", "dfl",
+                "lrl", "dark_param"}
+_INT_KEYS = {"imgsz", "max_det", "max_nms", "batch", "epochs", "nbs"}
+_BOOL_KEYS = {"half", "agnostic_nms", "cos_lr", "lowlight_FLAG", "dedark_FLAG",
+              "amp"}
 _PRECISIONS = ("default", "tensorfloat32", "float32")
 
 
 def get_cfg(overrides: dict | None = None) -> SimpleNamespace:
-    """Merge `overrides` into the predict defaults, type-checked."""
+    """Merge `overrides` into the defaults, type-checked."""
     cfg = dict(DEFAULT_CFG)
     for k, v in (overrides or {}).items():
         if k not in cfg:
-            raise SyntaxError(f"'{k}' is not a valid predict config key")
+            raise SyntaxError(f"'{k}' is not a valid config key")
         if v is not None:
             if k in _FLOAT_KEYS:
                 if not isinstance(v, (int, float)) or not 0.0 <= v <= 1.0:
                     raise ValueError(f"'{k}={v}' must be a number in [0, 1]")
+                v = float(v)
+            elif k in _NUMBER_KEYS:
+                if not isinstance(v, (int, float)) or isinstance(v, bool):
+                    raise TypeError(f"'{k}={v}' must be a number")
                 v = float(v)
             elif k in _INT_KEYS:
                 if not isinstance(v, int) or isinstance(v, bool):
@@ -54,6 +83,8 @@ def get_cfg(overrides: dict | None = None) -> SimpleNamespace:
                 raise TypeError(f"'{k}={v}' must be a bool")
             elif k == "contrast_mode" and v not in ("channel", "reference"):
                 raise ValueError(f"contrast_mode '{v}' is not channel|reference")
+            elif k == "prior_mode" and v not in ("default", "computed"):
+                raise ValueError(f"prior_mode '{v}' is not default|computed")
             elif k == "matmul_precision" and v not in _PRECISIONS:
                 raise ValueError(f"matmul_precision '{v}' is not one of "
                                  f"{_PRECISIONS}")

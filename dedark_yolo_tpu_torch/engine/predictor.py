@@ -2,10 +2,13 @@
 
 Host letterbox, then one device step per batch: u8 -> float, the graph
 (layer 0 runs the fused enhance kernel on CUDA), DFL decode, fixed-shape NMS
-with multi_label=False. Boxes go back to original-image pixels with the
-reference's letterbox inverse. Batches are dispatched depth-2: batch i+1 is
-letterboxed and submitted before batch i's results are read back and
-demuxed, and results stream in source order.
+with multi_label=False (the `nms` kernel on CUDA). Boxes go back to
+original-image pixels with the reference's letterbox inverse. Batches are
+dispatched depth-2: on CUDA, `step` uploads from a pinned buffer without
+waiting and returns device tensors while the batch runs, so batch i+1 is
+letterboxed and submitted while batch i computes; batch i's results are
+read back (the one wait of a batch) and demuxed after that, in source
+order.
 
 Not ported: TTA, ensembles, exported artifacts (AutoBackend),
 save_enhanced/visualize, video and streams.
@@ -85,20 +88,47 @@ class DetectionPredictor:
         self.speed = {"preprocess": 0.0, "inference": 0.0, "postprocess": 0.0}
         self._totals = dict(self.speed)
         self.seen = 0
+        # CUDA uploads: two pinned host buffers in turns, each with the event
+        # of its last copy, so a buffer is refilled only after its copy ended
+        self._pinned = [None, None]
+        self._copied = [None, None]
+        self._turn = 0
+
+    def upload(self, img_u8):
+        """(B, S, S, 3) uint8 host array -> the same on the device. On CUDA
+        the copy leaves from a pinned buffer and the host does not wait on
+        it (only, before refilling a buffer, on that buffer's copy two
+        uploads back)."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(img_u8).to(self.device)
+        k = self._turn
+        self._turn ^= 1
+        buf = self._pinned[k]
+        if buf is None or tuple(buf.shape) != img_u8.shape:
+            buf = self._pinned[k] = torch.empty(img_u8.shape, dtype=torch.uint8,
+                                                pin_memory=True)
+        elif self._copied[k] is not None:
+            self._copied[k].synchronize()
+        buf.numpy()[...] = img_u8
+        dev = buf.to(self.device, non_blocking=True)
+        self._copied[k] = torch.cuda.Event()
+        self._copied[k].record()
+        return dev
 
     @torch.inference_mode()
     def step(self, img_u8):
-        """(B, S, S, 3) uint8 RGB on the host -> dets (B, max_det, 6), counts."""
+        """(B, S, S, 3) uint8 RGB on the host -> dets (B, max_det, 6), counts
+        on the device; on CUDA it returns without waiting for them."""
         a = self.args
         dtype = torch.bfloat16 if a.half else torch.float32
-        img = torch.from_numpy(img_u8).to(self.device).to(dtype) / 255.0
+        img = self.upload(img_u8).to(dtype) / 255.0
         with matmul_precision(a.matmul_precision):
             boxes, scores = self.model.decode(self.model(img))
             return non_max_suppression(
                 boxes.float(), scores.float(), conf_thres=float(a.conf),
-                iou_thres=float(a.iou), max_det=int(a.max_det),
-                max_nms=int(a.max_nms), multi_label=False,
-                agnostic=bool(a.agnostic_nms))
+                iou_thres=float(a.iou), max_det=a.max_det,
+                max_nms=a.max_nms, multi_label=False,
+                agnostic=a.agnostic_nms)
 
     def __call__(self, source):
         return list(self.stream_inference(source))

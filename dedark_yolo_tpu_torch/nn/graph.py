@@ -207,7 +207,8 @@ def _build_module(spec: LayerSpec, cins: List[int], head: dict) -> nn.Module:
 
 
 class DetectionModel(nn.Module):
-    """Graph of the task model. forward(x NHWC in [0,1]) -> raw head maps.
+    """Graph of the task model. forward(x NHWC in [0,1], priors) -> raw head
+    maps.
 
     `model.{i}` is row i, so state_dict keys are the reference's.
     """
@@ -233,9 +234,13 @@ class DetectionModel(nn.Module):
             prev = s.c2
         self.model = nn.ModuleList(mods)
 
-    def forward(self, x):
+    def forward(self, x, dedark_A=None, IcA=None):
+        """x (B, H, W, 3) in [0, 1]; dedark_A (B, 3) and IcA (B, H, W, 1) are
+        layer 0's priors (None: its defaults), as JAX `apply_train` and
+        `apply_eval` take them (graph.py:599-611). In train mode the BN
+        running stats move; the raw maps are returned in both modes."""
         if self.specs[0].name == "lowlight_recovery":
-            x = self.model[0](x)
+            x = self.model[0](x, dedark_A, IcA)
         # NHWC -> NCHW as a view (channels_last memory); a bf16 image is
         # promoted to the params' dtype here, as flax promotes it at the
         # first conv against f32 params

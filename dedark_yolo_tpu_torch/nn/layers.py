@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3  # ultralytics initialize_weights (JAX layers.py:23-25)
+BN_MOMENTUM = 0.03  # torch convention: running += 0.03 * (batch - running)
 
 
 def autopad(k: int) -> int:
@@ -34,10 +35,19 @@ def upsample_nearest(x, scale: int = 2):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm holding only weight, bias, running_mean and
-    running_var: stock BatchNorm2d adds a `num_batches_tracked` key the JAX
-    export lacks and updates the running variance with the unbiased batch
-    variance, where flax uses the biased one."""
+    """BatchNorm holding only weight, bias, running_mean and running_var, as
+    flax's BatchNorm does (JAX layers.py:200): stock BatchNorm2d adds a
+    `num_batches_tracked` key the JAX export lacks, and updates the running
+    variance with the unbiased batch variance where flax uses the biased
+    one (ROADMAP C1).
+
+    In training it normalises with the batch mean and biased variance and
+    then moves the running stats toward them by BN_MOMENTUM, in flax's form
+    (0.97 * running + 0.03 * batch). One `F.batch_norm` call computes the
+    batch stats: given zeroed buffers and momentum 1 it returns them in
+    those buffers, the variance unbiased, which the update scales back by
+    (n - 1) / n.
+    """
 
     def __init__(self, c: int):
         super().__init__()
@@ -47,11 +57,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported yet; call .eval()")
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, BN_EPS)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, BN_EPS)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         BN_EPS)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            keep = 1.0 - BN_MOMENTUM
+            self.running_mean.mul_(keep).add_(mean, alpha=BN_MOMENTUM)
+            self.running_var.mul_(keep).add_(var * ((n - 1) / n),
+                                             alpha=BN_MOMENTUM)
+        return y
 
 
 class Conv(nn.Module):
@@ -156,8 +175,10 @@ class AsffTribeLevel(nn.Module):
 
     The 8-channel compress convs of upsampled branches run before the
     upsample, and their small output is upsampled (the JAX default,
-    `commute_weights`, layers.py:1162). A 1x1 conv + eval BN + pointwise act
-    commutes exactly with integer nearest upsample.
+    `commute_weights`, layers.py:1162), in training too, as in JAX. A 1x1
+    conv + eval BN + pointwise act commutes exactly with integer nearest
+    upsample; in training the batch mean and biased variance of the small
+    map are those of its upsampled copy, so the commute holds there too.
     """
 
     def __init__(self, level: int, dims: Sequence[int]):

@@ -23,16 +23,23 @@ def _anchors_np(feat_shapes, strides, grid_cell_offset):
     return np.concatenate(points), np.concatenate(stride_list)
 
 
+@lru_cache(maxsize=16)
+def _anchors_on(feat_shapes, strides, grid_cell_offset, device):
+    pts, st = _anchors_np(feat_shapes, strides, grid_cell_offset)
+    return torch.from_numpy(pts).to(device), torch.from_numpy(st).to(device)
+
+
 def make_anchors(feat_shapes, strides, grid_cell_offset=0.5, device="cpu"):
     """Grid anchor centres for feature shapes [(h, w), ...].
 
     Returns anchor_points (sum(h*w), 2) as (x, y) in grid units and
     stride_tensor (sum(h*w), 1); row-major per level, levels in input order.
+    Kept per device: a host-to-device copy waits on the stream, so it
+    happens once per shape, not once per batch. Callers must not write to
+    them.
     """
-    pts, st = _anchors_np(tuple(tuple(s) for s in feat_shapes),
-                          tuple(strides), grid_cell_offset)
-    return (torch.from_numpy(pts).to(device),
-            torch.from_numpy(st).to(device))
+    return _anchors_on(tuple(tuple(s) for s in feat_shapes), tuple(strides),
+                       grid_cell_offset, torch.device(device))
 
 
 def dist2bbox(distance, anchor_points, xywh=True, dim=-1):
@@ -51,3 +58,11 @@ def dfl_decode(pred_dist, reg_max=16):
     x = pred_dist.reshape(*pred_dist.shape[:-1], 4, reg_max).float()
     proj = torch.arange(reg_max, dtype=torch.float32, device=x.device)
     return torch.softmax(x, dim=-1) @ proj
+
+
+def bbox2dist(anchor_points, bbox, reg_max):
+    """xyxy boxes -> ltrb distances, clamped to [0, reg_max - 0.01].
+    Reference tal.py:274-277 (JAX ops/anchors.py:47-51)."""
+    x1y1, x2y2 = bbox.chunk(2, -1)
+    dist = torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1)
+    return dist.clamp(0, reg_max - 0.01)

@@ -1,6 +1,9 @@
-"""Box geometry (JAX ops/boxes.py:18-69). Reference ultralytics/utils/ops.py."""
+"""Box geometry (JAX ops/boxes.py:18-129). Reference ultralytics/utils/ops.py
+and metrics.py."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -28,3 +31,29 @@ def scale_boxes(img1_shape, boxes, img0_shape):
     boxes = boxes - torch.tensor([pad[0], pad[1], pad[0], pad[1]],
                                  dtype=boxes.dtype, device=boxes.device)
     return clip_boxes(boxes / gain, img0_shape)
+
+
+def bbox_iou(box1, box2, CIoU=False, eps=1e-7):
+    """Elementwise IoU, or CIoU, of broadcastable xyxy boxes (last dim 4)
+    -> (..., 1). The xyxy branch of JAX ops/boxes.py:90-129 (reference
+    metrics.py:75-128): eps on h1 and h2, and the CIoU alpha detached."""
+    b1_x1, b1_y1, b1_x2, b1_y2 = box1.split(1, -1)
+    b2_x1, b2_y1, b2_x2, b2_y2 = box2.split(1, -1)
+    w1, h1 = b1_x2 - b1_x1, b1_y2 - b1_y1 + eps
+    w2, h2 = b2_x2 - b2_x1, b2_y2 - b2_y1 + eps
+    inter = ((torch.minimum(b1_x2, b2_x2) - torch.maximum(b1_x1, b2_x1))
+             .clamp(min=0)
+             * (torch.minimum(b1_y2, b2_y2) - torch.maximum(b1_y1, b2_y1))
+             .clamp(min=0))
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if not CIoU:
+        return iou
+    cw = torch.maximum(b1_x2, b2_x2) - torch.minimum(b1_x1, b2_x1)
+    ch = torch.maximum(b1_y2, b2_y2) - torch.minimum(b1_y1, b2_y1)
+    c2 = cw ** 2 + ch ** 2 + eps
+    rho2 = ((b2_x1 + b2_x2 - b1_x1 - b1_x2) ** 2
+            + (b2_y1 + b2_y2 - b1_y1 - b1_y2) ** 2) / 4
+    v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+    alpha = (v / (v - iou + (1 + eps))).detach()
+    return iou - (rho2 / c2 + v * alpha)

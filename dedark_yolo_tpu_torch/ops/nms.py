@@ -1,27 +1,43 @@
-"""Batched fixed-shape NMS in plain torch (JAX ops/nms.py:28-135).
+"""Batched fixed-shape NMS (JAX ops/nms.py:28-135).
 
 The contract of the JAX function: a top-k gate over the (anchor, class)
 pairs (multi-label) or the per-anchor best class, capped at `max_nms`; the
 `max_wh` class offset; greedy suppression that stops once no candidate is
 left; (B, max_det, 6) [x1, y1, x2, y2, conf, cls] plus (B,) counts, and the
-kept anchor indices with `return_idx`. The greedy loop runs over the whole
-batch at once, so the host waits on the device once per iteration, not once
-per image per iteration.
+kept anchor indices with `return_idx`.
+
+The greedy loop is `greedy_nms`: on CUDA tensors one launch of
+`csrc/nms.cu` (one block per image runs the whole loop), on CPU tensors its
+plain version `_greedy`, which asks the host once per step whether any image
+still has a candidate. Nothing on the CUDA path waits on the device, so
+predict's step returns while the batch still runs.
 
 Ties: `jax.lax.top_k` puts the lower index first, and `torch.topk` promises
 no order, so the gate is a stable descending sort, sliced. `torch.argmax`
-returns the first maximum, as `jnp.argmax` does.
+returns the first maximum, as `jnp.argmax` does, and so does the kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
+from functools import lru_cache
+
 import torch
 
+from . import _build
 from .boxes import xywh2xyxy
+
+NAME = "nms"
+_build.LAUNCHES.setdefault(NAME, 0)
+# csrc/nms.cu's block: THREADS threads own PER candidates each; the boxes of
+# an image and the double-buffered warp winners sit in shared memory
+THREADS, PER = 256, 8
+MAX_K = THREADS * PER
 
 
 def _greedy(boxes, scores, iou_thres: float, max_det: int):
-    """boxes (B, K, 4) xyxy, class-offset; scores (B, K), 0 = no candidate.
+    """Plain version of `greedy_nms`, the whole batch in lockstep.
+    boxes (B, K, 4) xyxy, class-offset; scores (B, K), 0 = no candidate.
     Returns keep_idx (B, max_det) int64 (-1 invalid) and keep_scores."""
     b = boxes.shape[0]
     x1, y1, x2, y2 = boxes.unbind(-1)
@@ -57,10 +73,107 @@ def _greedy(boxes, scores, iou_thres: float, max_det: int):
     return keep_idx, keep_scores
 
 
+def smem_bytes():
+    """Shared memory of a block (the .cu's `Smem`): MAX_K float4 boxes and
+    two sets of THREADS // 32 warp winners, an f32 score and an int32 index
+    each."""
+    return MAX_K * 16 + 2 * 2 * (THREADS // 32) * 4
+
+
+# nms_launch(boxes, scores, keep_idx, keep_scores, B, K, max_det, iou_thres,
+#            stream)
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+            + [ctypes.c_float, ctypes.c_void_p])
+
+
+@lru_cache(maxsize=1)
+def _launch_fn():
+    fn = _build.load(NAME).nms_launch
+    fn.argtypes = ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def greedy_nms(boxes, scores, iou_thres: float, max_det: int):
+    """Greedy suppression of every image of a batch.
+
+    boxes (B, K, 4) f32 xyxy, class-offset; scores (B, K) f32, 0 = no
+    candidate. Returns keep_idx (B, max_det) int64 (-1 invalid) and
+    keep_scores (B, max_det) f32. CUDA tensors run the `nms` kernel (K at
+    most MAX_K), CPU tensors `_greedy`.
+    """
+    if boxes.device.type == "cpu":
+        return _greedy(boxes, scores, iou_thres, max_det)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"{NAME} runs on cuda or cpu, not {boxes.device}")
+    if boxes.dim() != 3 or boxes.shape[2] != 4 \
+            or tuple(scores.shape) != tuple(boxes.shape[:2]):
+        raise ValueError(f"{NAME} needs boxes (B, K, 4) and scores (B, K), "
+                         f"got {tuple(boxes.shape)} and {tuple(scores.shape)}")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise ValueError(f"{NAME} needs f32 boxes and scores, got "
+                         f"{boxes.dtype} and {scores.dtype}")
+    if scores.device != boxes.device:
+        raise ValueError(f"{NAME} inputs must share one device")
+    if not (boxes.is_contiguous() and scores.is_contiguous()):
+        raise ValueError(f"{NAME} needs contiguous boxes and scores")
+    if boxes.data_ptr() % 16:
+        raise ValueError(f"{NAME} reads boxes 16 bytes at a time: they must "
+                         "start on a 16-byte boundary")
+    b, k, _ = boxes.shape
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{NAME} takes 1 to {MAX_K} candidates an image, "
+                         f"got {k}")
+    if max_det < 1:
+        raise ValueError(f"{NAME} needs max_det >= 1, got {max_det}")
+    keep_idx = torch.empty((b, max_det), dtype=torch.long, device=boxes.device)
+    keep_scores = torch.empty((b, max_det), dtype=torch.float32,
+                              device=boxes.device)
+    if b == 0:
+        return keep_idx, keep_scores
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    with torch.cuda.device(boxes.device):
+        rc = _launch_fn()(boxes.data_ptr(), scores.data_ptr(),
+                          keep_idx.data_ptr(), keep_scores.data_ptr(), b, k,
+                          max_det, float(iou_thres), stream)
+    if rc != 0:
+        raise RuntimeError(f"{NAME} launch failed with CUDA error {rc}")
+    _build.LAUNCHES[NAME] += 1
+    return keep_idx, keep_scores
+
+
 def _top_k(x, k: int):
     """Largest k along dim 1, lower index first among equal values."""
     vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
     return vals[:, :k], idx[:, :k]
+
+
+def nms_candidates(boxes_xywh, class_scores, conf_thres=0.25, max_nms=2048,
+                   multi_label=True, agnostic=False, max_wh=7680.0):
+    """The top-k gate: (xyxy (B, K, 4), class (B, K) f32, anchor index
+    (B, K), class-offset xyxy (B, K, 4) contiguous, score (B, K) contiguous,
+    0 below conf_thres), K = min(max_nms, candidates)."""
+    b, n, nc = class_scores.shape
+    zero = class_scores.new_zeros(())
+    if multi_label and nc > 1:
+        flat = class_scores.reshape(b, n * nc)
+        flat = torch.where(flat > conf_thres, flat, zero)
+        cand_scores, flat_idx = _top_k(flat, min(max_nms, n * nc))
+        anchor_idx = flat_idx // nc
+        cls_idx = (flat_idx % nc).to(torch.float32)
+    else:
+        conf = class_scores.amax(dim=-1)
+        cls_full = class_scores.argmax(dim=-1).to(torch.float32)
+        conf = torch.where(conf > conf_thres, conf, zero)
+        cand_scores, anchor_idx = _top_k(conf, min(max_nms, n))
+        cls_idx = torch.gather(cls_full, 1, anchor_idx)
+
+    xyxy = xywh2xyxy(torch.gather(boxes_xywh, 1,
+                                  anchor_idx[..., None].expand(-1, -1, 4)))
+    offset = 0.0 if agnostic else max_wh
+    shifted = xyxy + (cls_idx * offset)[..., None]
+    return xyxy, cls_idx, anchor_idx, shifted.contiguous(), \
+        cand_scores.contiguous()
 
 
 def non_max_suppression(boxes_xywh, class_scores, conf_thres=0.25,
@@ -75,28 +188,11 @@ def non_max_suppression(boxes_xywh, class_scores, conf_thres=0.25,
     counts (B,), and with return_idx the kept anchor indices (B, max_det),
     -1 where invalid.
     """
-    b, n, nc = class_scores.shape
-    scores = class_scores
-    zero = scores.new_zeros(())
-    if multi_label and nc > 1:
-        flat = scores.reshape(b, n * nc)
-        flat = torch.where(flat > conf_thres, flat, zero)
-        cand_scores, flat_idx = _top_k(flat, min(max_nms, n * nc))
-        anchor_idx = flat_idx // nc
-        cls_idx = (flat_idx % nc).to(torch.float32)
-    else:
-        conf = scores.amax(dim=-1)
-        cls_full = scores.argmax(dim=-1).to(torch.float32)
-        conf = torch.where(conf > conf_thres, conf, zero)
-        cand_scores, anchor_idx = _top_k(conf, min(max_nms, n))
-        cls_idx = torch.gather(cls_full, 1, anchor_idx)
-
-    xyxy = xywh2xyxy(torch.gather(boxes_xywh, 1,
-                                  anchor_idx[..., None].expand(-1, -1, 4)))
-    offset = 0.0 if agnostic else max_wh
-    shifted = xyxy + (cls_idx * offset)[..., None]
-
-    keep_idx, keep_scores = _greedy(shifted, cand_scores, iou_thres, max_det)
+    xyxy, cls_idx, anchor_idx, shifted, cand_scores = nms_candidates(
+        boxes_xywh, class_scores, conf_thres, max_nms, multi_label, agnostic,
+        max_wh)
+    keep_idx, keep_scores = greedy_nms(shifted, cand_scores, iou_thres,
+                                       max_det)
 
     valid = keep_idx >= 0
     gather = keep_idx.clamp(min=0)

@@ -5,7 +5,7 @@
 :237-278) for the modules the port has. It takes the flax
 {"params", "batch_stats"} trees as nested dicts of arrays and returns the
 reference-named, NCHW/OIHW state_dict that `DetectionModel.load_state_dict`
-takes.
+takes; `opt_state_from_jax` maps an optimizer state the same way.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..engine.optim import OptState
 from ..nn.heads import Detect
 from ..nn.layers import BatchNorm
 
@@ -115,8 +116,21 @@ def state_dict_from_jax(variables, model) -> dict:
                     sd[f"{tkey}.bias"] = arr
             elif leaf in ("mean", "var"):
                 sd[f"{tkey}.running_{leaf}"] = arr
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in sd.items()}
+
+
+def opt_state_from_jax(opt_state, model):
+    """The JAX tree-path optimizer state (engine/optim.py `OptState`: step,
+    micro, and the acc / buf / buf2 trees shaped like `params`) -> the
+    port's `engine.optim.OptState`, keyed by the port's parameter names.
+    The trees map as `state_dict_from_jax` maps the params: every step of
+    that map (transposes, the fc1 row permutation) is linear."""
+    tree = lambda t: state_dict_from_jax({"params": t, "batch_stats": {}},
+                                         model)
+    return OptState(step=int(opt_state.step), micro=int(opt_state.micro),
+                    acc=tree(opt_state.acc), buf=tree(opt_state.buf),
+                    buf2=tree(opt_state.buf2))
 
 
 @torch.no_grad()
