@@ -33,6 +33,16 @@ line:
            default precision: a warm-up window and two timed accumulation
            windows (8 micro-steps, 2 applied updates), fused_enhance
            launched once per micro-step and nms never
+  val      YOLO(...).val on seeded synthetic datasets written as .npy
+           sidecars (cache='disk', data as a dict), BN calibrated on each
+           set's own images: 8 images of 3 shapes at imgsz 128 on the card
+           against the CPU image by image (counts, classes, TP matrices,
+           boxes, scores) and by metrics (plain, save_hybrid, with_loss;
+           TF32 off; fused_enhance and nms once a batch), then
+           contrast_mode 'reference' (usm and nms once a batch); then 64
+           images of 4 shapes, longest side 640, at the val defaults (b16,
+           conf 0.001): a warm-up call and a timed one, fused_enhance and
+           nms once a batch, no plain version reached with a CUDA tensor
 
 then the card line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -443,10 +453,11 @@ def synthetic_frames(n):
     return list((img ** DARK_PARAM * 255).astype(np.uint8))
 
 
-def calibrate_bn(torch, model, frames):
+def calibrate_bn(torch, model, frames, imgsz=IMGSZ):
     """Set every BN's running stats to its input's statistics over the
-    frames, in one pass, so a random-weight model keeps O(1) activations
-    and spread-out scores instead of a constant output."""
+    frames, letterboxed to imgsz, in one pass, so a random-weight model
+    keeps O(1) activations and spread-out scores instead of a constant
+    output."""
     import numpy as np
     from dedark_yolo_tpu_torch.data.augment import letterbox
     from dedark_yolo_tpu_torch.nn.layers import BatchNorm
@@ -457,7 +468,7 @@ def calibrate_bn(torch, model, frames):
         mod.running_var.copy_(x.var((0, 2, 3), unbiased=False))
 
     dev = next(model.parameters()).device
-    lb = np.stack([letterbox(f, IMGSZ)[0][..., ::-1] for f in frames])
+    lb = np.stack([letterbox(f, imgsz)[0][..., ::-1] for f in frames])
     x = torch.from_numpy(np.ascontiguousarray(lb)).to(dev).float() / 255
     hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
              if isinstance(m, BatchNorm)]
@@ -902,6 +913,373 @@ def phase_train(torch):
     return full
 
 
+# val phase. Small: the card against the CPU at imgsz 128 (8 images of 3
+# shapes, batch 4); full: 64 images of the 4 shapes, longest side 640, at
+# the val defaults (batch 16, imgsz 640, conf 0.001, iou 0.7, max_det 300).
+VAL_SMALL = {"n": 8, "imgsz": 128, "batch": 4,
+             "shapes": [(96, 128), (128, 128), (128, 80)]}
+VAL_FULL = {"n": 64, "imgsz": 640, "batch": 16,
+            "shapes": [(480, 640), (640, 512), (640, 640), (360, 640)]}
+VAL_NAMES = {0: "c0", 1: "c1", 2: "c2"}
+VAL_BOXES = (1, 8)          # labels an image
+# The card's val against the CPU's (TF32 off) on the same weights and data,
+# image by image as tests/test_torch_val.py holds the port to JAX: equal
+# detection counts, and every detection paired with one of the same class
+# and TP row, box (native pixels) within BOX_TOL_PX and score within
+# SCORE_TOL (the cpu phase's bars at 640). Pairs, not ranks: two
+# detections whose scores lie closer than the card's score error may be
+# listed in the other order (on an H100, 8 detections of the 8 images in
+# each of the three runs; boxes within 0.035 px, scores within 6.9e-5).
+# With equal TP matrices and classes, AP depends on the scores only through
+# their order and P and R through a linear interpolation on the conf grid:
+# the metrics came out bit-equal on the card (H100 80GB HBM3, 700 W), held
+# to VAL_METRIC_RTOL of each metric's own value, the CPU tests' 1e-6 bar.
+# The with_loss items read 3.2e-5 relative on that card (the loss sums
+# every anchor's term; cuDNN's convolutions sum in another order than the
+# CPU's), held to three times that.
+VAL_METRIC_RTOL = 1e-6
+VAL_LOSS_RTOL = 1e-4
+
+
+def val_dataset(root, n, shapes, seed):
+    """A seeded YOLO-layout val split under `root`: low-light images (dark
+    32-px colour blocks with noise, 1-8 filled boxes of class colours, then
+    (u8/255)**DARK_PARAM) of the given (h, w) shapes in turns, each written
+    as its .npy sidecar beside an empty placeholder .jpg (the card has no
+    image decoder: the validator reads them with cache='disk'), and their
+    label files. No two boxes of an image overlap at IoU above 0.5, so NMS
+    keeps every label of save_hybrid. Returns the dataset dict."""
+    import numpy as np
+    import torch
+    from dedark_yolo_tpu_torch.ops.boxes import box_iou_matrix
+    rng = np.random.default_rng(seed)
+    colours = np.array([(255, 64, 64), (64, 255, 64), (64, 64, 255)], np.float32)
+    img_dir, lbl_dir = root / "images" / "val", root / "labels" / "val"
+    img_dir.mkdir(parents=True)
+    lbl_dir.mkdir(parents=True)
+    for k in range(n):
+        h, w = shapes[k % len(shapes)]
+        base = rng.uniform(0, 0.5, (-(-h // 32), -(-w // 32), 3))
+        img = np.kron(base, np.ones((32, 32, 1)))[:h, :w] * 255
+        boxes, rows = [], []
+        for _ in range(int(rng.integers(VAL_BOXES[0], VAL_BOXES[1] + 1))):
+            for _ in range(50):
+                bw = int(rng.integers(max(8, w // 10), w // 2))
+                bh = int(rng.integers(max(8, h // 10), h // 2))
+                x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+                box = (x1, y1, x1 + bw, y1 + bh)
+                if not boxes or float(box_iou_matrix(
+                        torch.tensor([box], dtype=torch.float32),
+                        torch.tensor(boxes, dtype=torch.float32)).max()) <= 0.5:
+                    break
+            else:
+                continue
+            c = int(rng.integers(0, len(VAL_NAMES)))
+            boxes.append(box)
+            img[y1:y1 + bh, x1:x1 + bw] = colours[c]
+            rows.append(f"{c} {(x1 + bw / 2) / w:.6f} {(y1 + bh / 2) / h:.6f} "
+                        f"{bw / w:.6f} {bh / h:.6f}")
+        img = np.clip(img / 255 + rng.normal(0, 0.03, img.shape), 0, 1)
+        np.save(img_dir / f"{k}.npy", (img ** DARK_PARAM * 255).astype(np.uint8))
+        (img_dir / f"{k}.jpg").write_bytes(b"")
+        (lbl_dir / f"{k}.txt").write_text("\n".join(rows) + "\n")
+    return {"path": str(root), "val": "images/val", "names": dict(VAL_NAMES)}
+
+
+def val_images(data, n):
+    """The first n images of a val_dataset, BGR uint8."""
+    import numpy as np
+    return [np.load(Path(data["path"]) / "images" / "val" / f"{k}.npy")
+            for k in range(n)]
+
+
+class record_detections:
+    """Within the block, each image the validator matched, in processing
+    order: (native xyxy boxes, classes, TP matrix) from its wrapped
+    `match_predictions`, and all images' scores in the same order from its
+    wrapped `DetMetrics.process`."""
+
+    def __enter__(self):
+        import numpy as np
+        from dedark_yolo_tpu_torch.engine import validator as V
+        self.module, self.match = V, V.match_predictions
+        self.process = V.DetMetrics.process
+        self.images, self.scores = [], np.zeros(0, np.float32)
+
+        def recorded(pred_boxes, pred_cls, gt_boxes, gt_cls):
+            tp = self.match(pred_boxes, pred_cls, gt_boxes, gt_cls)
+            self.images.append((np.array(pred_boxes), np.array(pred_cls), tp))
+            return tp
+
+        def processed(metrics, tp, conf, pred_cls, target_cls):
+            self.scores = np.array(conf)
+            return self.process(metrics, tp, conf, pred_cls, target_cls)
+        V.match_predictions = recorded
+        V.DetMetrics.process = processed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.match_predictions = self.match
+        self.module.DetMetrics.process = self.process
+
+    @property
+    def counts(self):
+        return [len(c) for _, c, _ in self.images]
+
+    def detections(self):
+        """Per image: (boxes, classes, TP matrix, scores)."""
+        import numpy as np
+        ends = np.cumsum(self.counts)
+        if ends.size and ends[-1] != len(self.scores):
+            raise AssertionError("val: scores and matched detections differ")
+        return [(*im, s) for im, s in
+                zip(self.images, np.split(self.scores, ends[:-1]))]
+
+
+def pair_detections(g, c):
+    """Pairs each of the CPU's detections of an image (in its score order)
+    with a card detection of the same class and TP row, its box within
+    BOX_TOL_PX and its score within SCORE_TOL; (card index for each, box
+    errors, score errors), or None where one finds no partner. The card may
+    list two detections whose scores lie within its score error of each
+    other in the other order; NMS keeps no two boxes of a class that close,
+    so the partner is unique."""
+    import numpy as np
+    (gb, gc, gtp, gs), (cb, cc, ctp, cs) = g, c
+    free, order, box_err, score_err = list(range(len(gc))), [], [], []
+    for i in range(len(cc)):
+        for j in free:
+            db, ds = float(np.abs(gb[j] - cb[i]).max()), abs(float(gs[j] - cs[i]))
+            if (gc[j] == cc[i] and db <= BOX_TOL_PX and ds <= SCORE_TOL
+                    and np.array_equal(gtp[j], ctp[i])):
+                free.remove(j)
+                order.append(j)
+                box_err.append(db)
+                score_err.append(ds)
+                break
+        else:
+            return None
+    return order, box_err, score_err
+
+
+def compare_images(gpu, cpu):
+    """The card's records (record_detections) against the CPU's, image by
+    image: equal counts, and every detection paired (pair_detections) with
+    one of the same class and TP row, box within BOX_TOL_PX and score within
+    SCORE_TOL. `reordered` counts the pairs listed at another rank."""
+    same = [len(g[1]) == len(c[1]) for g, c in zip(gpu.images, cpu.images)]
+    rec = {"images": [len(gpu.images), len(cpu.images)],
+           "images_equal_counts": sum(same) / max(len(same), 1),
+           "dets_per_image": [min(gpu.counts, default=0),
+                              max(gpu.counts, default=0)],
+           "cpu_tp50": int(sum(tp[:, 0].sum() for _, _, tp in cpu.images))}
+    rec["ok"] = rec["images"][0] == rec["images"][1] and all(same)
+    if not rec["ok"]:
+        return rec
+    pairs = [pair_detections(g, c)
+             for g, c in zip(gpu.detections(), cpu.detections())]
+    rec["images_paired"] = sum(p is not None for p in pairs)
+    rec["ok"] = rec["images_paired"] == len(pairs)
+    if rec["ok"]:
+        rec["reordered"] = sum(j != i for order, _, _ in pairs
+                               for i, j in enumerate(order))
+        rec["box_max_abs_err_px"] = max((e for _, b, _ in pairs for e in b),
+                                        default=0.0)
+        rec["score_max_abs_err"] = max((e for _, _, s in pairs for e in s),
+                                       default=0.0)
+    return rec
+
+
+class record_steps:
+    """Within the block, each val batch's host ms inside the device step
+    (`predictor.detect_step` as the validator calls it: forward, decode,
+    NMS) and, from CUDA events around it, the batch's device ms (read with
+    `device_ms()` after a synchronize)."""
+
+    def __enter__(self):
+        import torch
+        from dedark_yolo_tpu_torch.engine import validator as V
+        self.module, self.step, self.host, self.events = V, V.detect_step, [], []
+
+        def timed(*args, **kwargs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            t0 = time.perf_counter()
+            out = self.step(*args, **kwargs)
+            self.host.append((time.perf_counter() - t0) * 1e3)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+        V.detect_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.detect_step = self.step
+
+    def device_ms(self):
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def label_counts(data):
+    """Labels of each class in the dataset dict's val split."""
+    from pathlib import Path
+    counts = dict.fromkeys(data["names"], 0)
+    for f in (Path(data["path"]) / "labels" / "val").glob("*.txt"):
+        for line in f.read_text().split("\n"):
+            if line.strip():
+                counts[int(line.split()[0])] += 1
+    return counts
+
+
+METRICS = ("metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
+           "metrics/mAP50-95(B)")
+
+
+def set_contrast_mode(model, mode):
+    """Layer 0's contrast luminance ('channel' or 'reference')."""
+    from dedark_yolo_tpu_torch.nn.enhance import LowlightRecovery
+    for m in model.modules():
+        if isinstance(m, LowlightRecovery):
+            m.contrast_mode = mode
+
+
+def val_parity(torch, yolo, data):
+    """The card's val against the CPU's on the small dataset, TF32 off, in
+    contrast_mode 'channel': plain, save_hybrid and with_loss, image by
+    image (compare_images) and by the results dict; the card's runs launch
+    fused_enhance and nms once a batch, no plain version reached with a
+    CUDA tensor. Then the card alone in contrast_mode 'reference' (usm, not
+    fused_enhance, launched a batch)."""
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.cfg import get_cfg
+    from dedark_yolo_tpu_torch.engine.validator import DetectionValidator
+    from dedark_yolo_tpu_torch.ops import _build
+    cpu = YOLO("yolov8l.yaml", nc=3, device="cpu", seed=SEED)
+    cpu.load_state_dict({k: v.cpu() for k, v in yolo.state_dict().items()})
+    for model in (yolo.model, cpu.model):
+        set_contrast_mode(model, "channel")
+    kw = {"data": data, "imgsz": VAL_SMALL["imgsz"],
+          "batch": VAL_SMALL["batch"], "cache": "disk",
+          "matmul_precision": "float32", "verbose": False}
+    batches = -(-VAL_SMALL["n"] // VAL_SMALL["batch"])
+    out = {"labels": label_counts(data), "metric_rtol": VAL_METRIC_RTOL,
+           "loss_rtol": VAL_LOSS_RTOL, "box_tol_px": BOX_TOL_PX,
+           "score_tol": SCORE_TOL}
+    ok = True
+    for name, extra, with_loss in (("plain", {}, False),
+                                   ("save_hybrid", {"save_hybrid": True}, False),
+                                   ("with_loss", {}, True)):
+        res, recs = {}, {}
+        for dev, model in (("cuda", yolo), ("cpu", cpu)):
+            v = DetectionValidator(args=get_cfg({**kw, **extra, "device": dev}))
+            zero_launches()
+            with no_plain_on_cuda(), record_detections() as recs[dev]:
+                res[dev] = {k: float(x) for k, x in
+                            v(model=model.model, with_loss=with_loss).items()}
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(_build.LAUNCHES)
+                check_launches(f"val {name}", launches,
+                               {"fused_enhance": batches, "nms": batches})
+        g, c = res["cuda"], res["cpu"]
+        rec = {"cuda": g, "cpu": c, "launches": launches,
+               **compare_images(recs["cuda"], recs["cpu"]),
+               "metric_max_rel_err": max(abs(g[k] - c[k]) / abs(c[k])
+                                         if c[k] else abs(g[k])
+                                         for k in METRICS)}
+        rec["ok"] = (rec["ok"] and rec["images"][1] == VAL_SMALL["n"]
+                     and rec["metric_max_rel_err"] <= VAL_METRIC_RTOL)
+        if with_loss:
+            rec["loss_max_rel_err"] = max(abs(g[k] - c[k]) / abs(c[k])
+                                          for k in c if k.startswith("val/"))
+            rec["ok"] = rec["ok"] and rec["loss_max_rel_err"] <= VAL_LOSS_RTOL
+        if extra.get("save_hybrid"):
+            # every label comes back as a detection of score 1
+            rec["ok"] = (rec["ok"]
+                         and rec["cpu_tp50"] == sum(out["labels"].values()))
+            rec["ok"] = rec["ok"] and all(
+                r[k] >= 0.99 and r[k] == c[k] for r in (g, c)
+                for k in ("metrics/mAP50(B)", "metrics/mAP50-95(B)"))
+        out[name] = rec
+        ok = ok and rec["ok"]
+    zero_launches()
+    with no_plain_on_cuda():
+        ref = yolo.val(**kw, contrast_mode="reference")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    out["reference"] = {"results": {k: float(x) for k, x in ref.items()},
+                        "launches": launches}
+    check_launches("val reference", launches, {"usm": batches, "nms": batches})
+    out["ok"] = ok
+    return out
+
+
+def val_full(torch, yolo, data):
+    """Flagship val at the defaults (conf 0.001, iou 0.7, max_det 300,
+    max_nms 2048, batch 16, imgsz 640, f32, default precision) over the 64
+    full-size images: a warm-up call, then the timed call, whose launches
+    must be one fused_enhance and one nms a batch, with no plain version
+    reached by a CUDA tensor; with its speed, the rest of its time, and
+    each batch's host and device ms of the device step."""
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.tools._ab import CLOCKS_QUERY, nvidia_smi
+    kw = {"data": data, "imgsz": VAL_FULL["imgsz"],
+          "batch": VAL_FULL["batch"], "cache": "disk", "verbose": False}
+    yolo.val(**kw)                                   # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    with no_plain_on_cuda(), record_detections() as rec, \
+            record_steps() as steps:
+        t0 = time.perf_counter()
+        res = yolo.val(**kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    batches = -(-VAL_FULL["n"] // VAL_FULL["batch"])
+    check_launches("val", launches, {"fused_enhance": batches, "nms": batches})
+    speed = dict(yolo.validator.speed)
+    out = {"images": len(rec.counts), "seconds": secs,
+           "images_per_s": len(rec.counts) / secs,
+           "speed_ms_per_image": speed,
+           # the call's time outside speed's stages: the dataset's scan,
+           # label cache and sidecar headers, the metrics at the end
+           "other_ms": secs * 1e3 - sum(speed.values()) * len(rec.counts),
+           "step_host_ms": steps.host, "step_device_ms": steps.device_ms(),
+           "results": {k: float(x) for k, x in res.items()},
+           "dets_per_image": [min(rec.counts), max(rec.counts)],
+           "launches": launches, "nvidia_smi": nvidia_smi(CLOCKS_QUERY)}
+    if not (len(rec.counts) == VAL_FULL["n"]
+            and all(0.0 <= out["results"][k] <= 1.0 for k in METRICS)):
+        raise AssertionError(f"val: {out}")
+    return out
+
+
+def phase_val(torch, yolo):
+    """val_parity on the small dataset and val_full on the full one, each
+    after calibrate_bn on its own images (the box colours of these images
+    lie outside the predict frames' statistics: BN set from those frames
+    saturates some scores to 1.0, which would tie save_hybrid's labels)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        small = val_dataset(tmp / "small", VAL_SMALL["n"], VAL_SMALL["shapes"],
+                            SEED)
+        full = val_dataset(tmp / "full", VAL_FULL["n"], VAL_FULL["shapes"],
+                           SEED + 1)
+        calibrate_bn(torch, yolo.model, val_images(small, VAL_SMALL["n"]),
+                     VAL_SMALL["imgsz"])
+        parity = val_parity(torch, yolo, small)
+        calibrate_bn(torch, yolo.model, val_images(full, BATCH),
+                     VAL_FULL["imgsz"])
+        out = val_full(torch, yolo, full)
+    out["reference_launches"] = parity["reference"]["launches"]
+    emit({"phase": "val", "model": "yolov8l.yaml", "nc": 3, "parity": parity,
+          "full": {**VAL_FULL, **out}})
+    if not parity["ok"]:
+        raise AssertionError(f"val: card and CPU disagree: {parity}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -929,6 +1307,7 @@ def main():
     phase_cpu(torch, yolo, frames[0])
     probe_launches = phase_probe(torch)
     train = phase_train(torch)
+    val = phase_val(torch, yolo)
 
     print(smi)
     f32, bf16 = timing["float32"], timing["bfloat16"]
@@ -942,7 +1321,8 @@ def main():
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": None,
         "shape": [BATCH, IMGSZ, IMGSZ, 3], "dtype": "float32",
-        "bf16": bf16, "train_launches": train["launches"]["fused_enhance"]}, {
+        "bf16": bf16, "train_launches": train["launches"]["fused_enhance"],
+        "val_launches": val["launches"]["fused_enhance"]}, {
         "name": "usm", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/usm.cu",
         "replaces": "dedark_yolo_tpu/ops/pallas/enhance_kernel.py:277",
@@ -951,7 +1331,8 @@ def main():
            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "shape": [BATCH, IMGSZ, IMGSZ, 3], "dtype": "float32",
-        "bf16": usm_timing["bfloat16"]}, {
+        "bf16": usm_timing["bfloat16"], "val_launches": val["launches"]["usm"],
+        "val_reference_launches": val["reference_launches"]["usm"]}, {
         "name": "int8_conv", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "dedark_yolo_tpu/ops/pallas/int8_conv.py:133",
@@ -960,7 +1341,8 @@ def main():
            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
         "shape": list(INT8_SHAPES[0]), "dtype": "int8",
-        **{k: int8_timing[k] for k in ("act", "tops", "peak_pct")}}, {
+        **{k: int8_timing[k] for k in ("act", "tops", "peak_pct")},
+        "val_launches": val["launches"]["int8_conv"]}, {
         "name": "nms", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/nms.cu",
         "replaces": "dedark_yolo_tpu/ops/nms.py:28",
@@ -969,7 +1351,8 @@ def main():
         **{k: nms_timing[k] for k in
            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "library": "none: no torchvision on the card",
-        "shape": nms_timing["shape"], "max_det": nms_timing["max_det"]}]})
+        "shape": nms_timing["shape"], "max_det": nms_timing["max_det"],
+        "val_launches": val["launches"]["nms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,7 @@
-"""Predict and train-step configuration and model-architecture lookup.
+"""Predict, val and train-step configuration and model-architecture lookup.
 
-The predict keys and the keys the train step reads of the JAX package's
-`cfg/default.yaml`, with the same defaults, plus `device`. `model_yaml_load` resolves a scaled name such as
+The predict keys and the keys the validator and the train step read of the
+JAX package's `cfg/default.yaml`, with the same defaults, plus `device`. `model_yaml_load` resolves a scaled name such as
 `yolov8l.yaml` to the unified architecture at scale `l`, as the JAX package
 does; the built-in architectures live in `cfg/models.py`, and `yaml` is
 imported only when a caller names a file on disk.
@@ -18,7 +18,7 @@ from .models import MODELS
 
 DEFAULT_CFG = {
     "imgsz": 640,                # square letterbox size, a multiple of 32
-    "conf": None,                # None = 0.25 for predict
+    "conf": None,                # None = 0.25 for predict, 0.001 for val
     "iou": 0.7,                  # NMS IoU threshold
     "max_det": 300,              # detections kept per image
     "max_nms": 2048,             # candidates entering NMS after the top-k gate
@@ -28,6 +28,21 @@ DEFAULT_CFG = {
     "contrast_mode": "channel",  # 'channel' | 'reference' contrast luminance
     "matmul_precision": "default",  # default | tensorfloat32 | float32
     "device": None,              # None = 'cuda'
+    # val (engine/validator.py)
+    "data": None,                # dataset yaml path, or the dataset dict
+    "split": "val",              # dataset split to validate
+    "rect": False,               # aspect-ratio buckets instead of squares
+    "save_json": False,          # COCO-style predictions.json
+    "save_txt": False,           # one normalised-xywh label file an image
+    "save_conf": False,          # ... with the confidence column
+    "save_hybrid": False,        # labels join the candidates before NMS
+    "plots": True,               # the confusion matrix (no files drawn yet)
+    "verbose": True,             # the per-class log
+    "single_cls": False,         # every class as class 0
+    "max_boxes": 0,              # label rows a batch image; 0 = densest image
+    "workers": 8,                # loader threads
+    "cache": False,              # False | True/'ram' | 'disk' (.npy sidecars)
+    "exist_ok": False,           # reuse runs/detect/val instead of val2, ...
     # train step (engine/trainer.py)
     "epochs": 100,               # sets the lr schedule's length
     "optimizer": "auto",         # SGD | Adam | AdamW | auto
@@ -55,9 +70,11 @@ _FLOAT_KEYS = {"conf", "iou"}
 _NUMBER_KEYS = {"lr0", "lrf", "momentum", "weight_decay", "warmup_epochs",
                 "warmup_momentum", "warmup_bias_lr", "box", "cls", "dfl",
                 "lrl", "dark_param"}
-_INT_KEYS = {"imgsz", "max_det", "max_nms", "batch", "epochs", "nbs"}
+_INT_KEYS = {"imgsz", "max_det", "max_nms", "batch", "epochs", "nbs",
+             "max_boxes", "workers"}
 _BOOL_KEYS = {"half", "agnostic_nms", "cos_lr", "lowlight_FLAG", "dedark_FLAG",
-              "amp"}
+              "amp", "rect", "save_json", "save_txt", "save_conf",
+              "save_hybrid", "plots", "verbose", "single_cls", "exist_ok"}
 _PRECISIONS = ("default", "tensorfloat32", "float32")
 
 
@@ -85,6 +102,10 @@ def get_cfg(overrides: dict | None = None) -> SimpleNamespace:
                 raise ValueError(f"contrast_mode '{v}' is not channel|reference")
             elif k == "prior_mode" and v not in ("default", "computed"):
                 raise ValueError(f"prior_mode '{v}' is not default|computed")
+            elif k == "cache" and v not in (False, True, "ram", "disk"):
+                raise ValueError(f"cache '{v}' is not False|True|ram|disk")
+            elif k == "data" and not isinstance(v, (str, Path, dict)):
+                raise TypeError(f"'data={v}' must be a path or a dict")
             elif k == "matmul_precision" and v not in _PRECISIONS:
                 raise ValueError(f"matmul_precision '{v}' is not one of "
                                  f"{_PRECISIONS}")

@@ -1,7 +1,11 @@
-"""YOLO facade (JAX engine/model.py): build a model, load weights, predict.
+"""YOLO facade (JAX engine/model.py): build a model or load a checkpoint,
+then predict or validate.
 
-YOLO("yolov8l.yaml", nc=3) builds the architecture with seeded random
-weights on `device` (None means cuda, and raises without a CUDA device).
+    YOLO("yolov8l.yaml", nc=3)   # the architecture, seeded random weights
+    YOLO("best.npz")             # a JAX package checkpoint (its EMA weights)
+
+The model lives on `device` (None means cuda, and raises without a CUDA
+device); `predict` and `val` run on their own `device` key, cuda by default.
 """
 
 from __future__ import annotations
@@ -11,19 +15,63 @@ import torch
 from ..cfg import get_cfg, model_yaml_load
 from ..nn.enhance import LowlightRecovery
 from ..nn.graph import DetectionModel
-from ..utils.weights import init_weights
+from ..utils.checkpoint import has_section, load_checkpoint, section_tree
+from ..utils.weights import init_weights, state_dict_from_jax
 from .predictor import DetectionPredictor, resolve_device
+from .validator import DetectionValidator
+
+# train_args a checkpoint carries into predict and val (JAX model.py:90-92)
+CARRIED_ARGS = ("imgsz", "data", "single_cls", "contrast_mode")
 
 
 class YOLO:
     def __init__(self, model="yolov8l.yaml", nc=None, device=None, seed=0):
+        """model: an architecture (a built-in name such as 'yolov8l.yaml' or
+        a yaml file) with `seed`ed weights, or a JAX `.npz` checkpoint."""
         self.device = resolve_device(device)
+        self.overrides = {}
+        self.predictor = self.validator = self.metrics = None
+        model = str(model)
+        if model.endswith(".npz"):
+            self._load(model)
+            return
+        if model.endswith((".bin", ".tflite")):
+            raise NotImplementedError(
+                f"exported artifacts (AutoBackend) are not ported: '{model}'")
         self.model_yaml = model_yaml_load(model)
+        self._build(nc)
+        init_weights(self.model, seed)
+
+    def _build(self, nc=None):
         with torch.device("meta"):
             net = DetectionModel(self.model_yaml, nc=nc)
         self.model = net.to_empty(device=self.device).eval()
-        init_weights(self.model, seed)
-        self.predictor = None
+
+    def _load(self, path):
+        """The checkpoint's architecture with its EMA weights (`ema`, with
+        `ema_bs` or else `batch_stats`), or its raw `params` when it has no
+        EMA; its train_args' imgsz, data, single_cls and contrast_mode
+        become the defaults of predict and val, its names the model's (JAX
+        model.py:62-94)."""
+        meta, flat = load_checkpoint(path)
+        train_args = meta.get("train_args") or {}
+        self.model_yaml = meta["model_yaml"]
+        self._build()
+        section = "ema" if has_section(flat, "ema") else "params"
+        bs = ("ema_bs" if section == "ema" and has_section(flat, "ema_bs")
+              else "batch_stats")
+        variables = {"params": section_tree(flat, section),
+                     "batch_stats": section_tree(flat, bs)}
+        self.model.load_state_dict(state_dict_from_jax(variables, self.model),
+                                   strict=True)
+        self.overrides = {k: train_args[k] for k in CARRIED_ARGS
+                          if k in train_args}
+        names = train_args.get("names")
+        if isinstance(names, (list, tuple)):
+            names = dict(enumerate(names))
+        if names:
+            # json turned the integer keys into strings
+            self.model.names = {int(k): v for k, v in names.items()}
 
     def state_dict(self):
         return self.model.state_dict()
@@ -31,19 +79,35 @@ class YOLO:
     def load_state_dict(self, state_dict, strict=True):
         return self.model.load_state_dict(state_dict, strict=strict)
 
+    def _args(self, kwargs):
+        """Config of a predict or val call: the checkpoint's carried
+        train_args under the call's kwargs. contrast_mode changes layer 0's
+        filter math, not the params (JAX model.py _sync_model_opts rebuilds
+        the graph for it)."""
+        args = get_cfg({**self.overrides, **kwargs})
+        for m in self.model.modules():
+            if isinstance(m, LowlightRecovery):
+                m.contrast_mode = args.contrast_mode
+        return args
+
     def predict(self, source, **kwargs):
         """Detections for every image of `source` (array, file, or list).
 
         kwargs are predict config keys (cfg.DEFAULT_CFG); device None means
         cuda. The model moves to the predict device.
         """
-        args = get_cfg(kwargs)
-        # contrast_mode changes the filter math, not the params (JAX
-        # engine/model.py _sync_model_opts rebuilds the graph for it)
-        for m in self.model.modules():
-            if isinstance(m, LowlightRecovery):
-                m.contrast_mode = args.contrast_mode
+        args = self._args(kwargs)
         self.predictor = DetectionPredictor(args=args, model=self.model,
                                             names=self.model.names)
         self.device = self.predictor.device
         return self.predictor(source)
+
+    def val(self, **kwargs):
+        """mAP of the model on `data` (a dataset yaml path or dict) at
+        `split`; returns the results dict (JAX model.py:176-221, the detect
+        branch). kwargs are config keys; conf None means 0.001, device None
+        cuda. The model moves to the val device."""
+        self.validator = DetectionValidator(args=self._args(kwargs))
+        self.device = self.validator.device
+        self.metrics = self.validator(model=self.model)
+        return self.metrics

@@ -8,7 +8,8 @@ dispatched depth-2: on CUDA, `step` uploads from a pinned buffer without
 waiting and returns device tensors while the batch runs, so batch i+1 is
 letterboxed and submitted while batch i computes; batch i's results are
 read back (the one wait of a batch) and demuxed after that, in source
-order.
+order. The validator runs the same device work (`PinnedUpload`,
+`detect_step`) with multi_label=True.
 
 Not ported: TTA, ensembles, exported artifacts (AutoBackend),
 save_enhanced/visualize, video and streams.
@@ -76,6 +77,59 @@ def matmul_precision(name):
          torch.backends.cuda.matmul.allow_tf32) = prev
 
 
+class PinnedUpload:
+    """Host numpy arrays -> the same on the device. On CUDA each array
+    leaves from one of two pinned host buffers of its name, used in turns,
+    and the host does not wait on the copy (only, before refilling a pair
+    of buffers, on that pair's copies two uploads back)."""
+
+    def __init__(self, device):
+        self.device = device
+        self._pinned = [{}, {}]
+        self._copied = [None, None]
+        self._turn = 0
+
+    def __call__(self, arrays: dict) -> dict:
+        if self.device.type != "cuda":
+            return {k: torch.from_numpy(a).to(self.device)
+                    for k, a in arrays.items()}
+        k = self._turn
+        self._turn ^= 1
+        if self._copied[k] is not None:
+            self._copied[k].synchronize()
+        out = {}
+        for name, a in arrays.items():
+            buf = self._pinned[k].get(name)
+            dtype = torch.from_numpy(a).dtype
+            if buf is None or tuple(buf.shape) != a.shape or buf.dtype != dtype:
+                buf = self._pinned[k][name] = torch.empty(
+                    a.shape, dtype=dtype, pin_memory=True)
+            buf.numpy()[...] = a
+            out[name] = buf.to(self.device, non_blocking=True)
+        self._copied[k] = torch.cuda.Event()
+        self._copied[k].record()
+        return out
+
+
+def detect_step(model, img, a, multi_label, extra=None):
+    """The device work of one predict or val batch: img (B, H, W, 3) float
+    on the device -> (raw head maps, dets (B, max_det, 6), counts (B,)),
+    none waited for. `extra` = (boxes_xywh (B, M, 4), scores (B, M, nc))
+    candidates joined to the decoded ones before NMS (val's save_hybrid)."""
+    with matmul_precision(a.matmul_precision):
+        raw = model(img)
+        boxes, scores = model.decode(raw)
+        boxes, scores = boxes.float(), scores.float()
+        if extra is not None:
+            boxes = torch.cat([boxes, extra[0]], 1)
+            scores = torch.cat([scores, extra[1]], 1)
+        dets, counts = non_max_suppression(
+            boxes, scores, conf_thres=float(a.conf), iou_thres=float(a.iou),
+            max_det=a.max_det, max_nms=a.max_nms, multi_label=multi_label,
+            agnostic=a.agnostic_nms)
+    return raw, dets, counts
+
+
 class DetectionPredictor:
     def __init__(self, args=None, model=None, names=None):
         self.args = args if args is not None else get_cfg()
@@ -88,47 +142,15 @@ class DetectionPredictor:
         self.speed = {"preprocess": 0.0, "inference": 0.0, "postprocess": 0.0}
         self._totals = dict(self.speed)
         self.seen = 0
-        # CUDA uploads: two pinned host buffers in turns, each with the event
-        # of its last copy, so a buffer is refilled only after its copy ended
-        self._pinned = [None, None]
-        self._copied = [None, None]
-        self._turn = 0
-
-    def upload(self, img_u8):
-        """(B, S, S, 3) uint8 host array -> the same on the device. On CUDA
-        the copy leaves from a pinned buffer and the host does not wait on
-        it (only, before refilling a buffer, on that buffer's copy two
-        uploads back)."""
-        if self.device.type != "cuda":
-            return torch.from_numpy(img_u8).to(self.device)
-        k = self._turn
-        self._turn ^= 1
-        buf = self._pinned[k]
-        if buf is None or tuple(buf.shape) != img_u8.shape:
-            buf = self._pinned[k] = torch.empty(img_u8.shape, dtype=torch.uint8,
-                                                pin_memory=True)
-        elif self._copied[k] is not None:
-            self._copied[k].synchronize()
-        buf.numpy()[...] = img_u8
-        dev = buf.to(self.device, non_blocking=True)
-        self._copied[k] = torch.cuda.Event()
-        self._copied[k].record()
-        return dev
+        self.upload = PinnedUpload(self.device)
 
     @torch.inference_mode()
     def step(self, img_u8):
         """(B, S, S, 3) uint8 RGB on the host -> dets (B, max_det, 6), counts
         on the device; on CUDA it returns without waiting for them."""
-        a = self.args
-        dtype = torch.bfloat16 if a.half else torch.float32
-        img = self.upload(img_u8).to(dtype) / 255.0
-        with matmul_precision(a.matmul_precision):
-            boxes, scores = self.model.decode(self.model(img))
-            return non_max_suppression(
-                boxes.float(), scores.float(), conf_thres=float(a.conf),
-                iou_thres=float(a.iou), max_det=a.max_det,
-                max_nms=a.max_nms, multi_label=False,
-                agnostic=a.agnostic_nms)
+        dtype = torch.bfloat16 if self.args.half else torch.float32
+        img = self.upload({"img": img_u8})["img"].to(dtype) / 255.0
+        return detect_step(self.model, img, self.args, multi_label=False)[1:]
 
     def __call__(self, source):
         return list(self.stream_inference(source))

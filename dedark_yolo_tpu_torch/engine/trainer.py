@@ -1,12 +1,12 @@
 """DetectionTrainer: one train step of the detect task (JAX engine/trainer.py).
 
-What the JAX trainer's step needs and nothing of its epoch loop, data,
-validation or checkpoints (ROADMAP A10): `build_optimizer` (:268-312, the
-'auto' choice, the lr schedule and the warmup ramps of lr, bias lr and
-momentum, accumulation to `nbs`, decay scaled by batch * accumulate / nbs),
-the loss of `make_loss_fn` (:976-1030) and the tree-path `train_step`
-(:356-372): forward, backward, `opt_update`, then the EMA on the calls that
-applied an update.
+What the JAX trainer's step needs and nothing of its epoch loop, data or
+checkpoints (ROADMAP A10): `build_optimizer` (:268-312, the 'auto' choice,
+the lr schedule and the warmup ramps of lr, bias lr and momentum,
+accumulation to `nbs`, decay scaled by batch * accumulate / nbs), the loss
+of `make_loss_fn` (:976-1030) and the tree-path `train_step` (:356-372):
+forward, backward, `opt_update`, then the EMA on the calls that applied an
+update. `get_validator` gives the validator an epoch's val would run.
 
 The loss: u8 / 255, then `img ** dark_param` (lowlight_FLAG), then the
 dark-channel priors of the degraded image when prior_mode is 'computed'
@@ -36,6 +36,7 @@ from ..ops.degrade import lowlight_degrade
 from ..utils.ema import ema_init, ema_update
 from .optim import init_opt_state, label_params, opt_update
 from .predictor import resolve_device
+from .validator import DetectionValidator
 
 BATCH_KEYS = ("img", "cls", "bboxes", "mask_gt")
 
@@ -102,6 +103,13 @@ class DetectionTrainer:
             return float(np.interp(step, [0, self.nw],
                                    [self.args.warmup_momentum, self.momentum]))
         return float(self.momentum)
+
+    def get_validator(self, save_dir=None, data=None):
+        """The validator an epoch's val runs (JAX trainer.py:1032-1036): this
+        trainer's config with conf 0.001, on the trainer's device."""
+        args = get_cfg({**vars(self.args), "conf": 0.001,
+                        "device": str(self.device)})
+        return DetectionValidator(args=args, save_dir=save_dir, data=data)
 
     def to_device(self, batch):
         """The batch's four arrays on the trainer's device; from the host

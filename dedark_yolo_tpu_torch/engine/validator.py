@@ -1,0 +1,299 @@
+"""DetectionValidator: f32 validation with device-side NMS and host-side mAP
+(JAX engine/validator.py).
+
+Counterpart of the reference BaseValidator/DetectionValidator
+(ultralytics/engine/validator.py:93-207, models/yolo/detect/val.py):
+  - the image is always f32, whatever `half` says (validator.py:102-111);
+  - NMS with multi_label=True and conf from args (None means 0.001);
+  - per image, the TP matrix at 10 IoU thresholds in NATIVE image space:
+    predictions letterbox-inverted with `scale_boxes`, ground truth from
+    the original normalised labels times the original shape
+    (detect/val.py:72-116, 221-258);
+  - DetMetrics, the ConfusionMatrix (with `plots`), per-image speed:
+    `inference` the dispatch and the readback wait, `postprocess` the host
+    matching, and `preprocess` the time the loop waited for the loader
+    (the JAX validator leaves it at 0).
+
+A batch's device work is the predictor's (`predictor.detect_step`: forward,
+decode, NMS; on CUDA the enhance kernel in layer 0 and the `nms` kernel),
+uploaded from pinned buffers, and is dispatched depth-2
+(`utils.pipeline.pipelined`): batch i+1 is loaded and submitted before
+batch i is read back and matched on the host. With `save_hybrid` the
+labels, scaled into the letterbox frame with score 1, join the candidates
+before NMS (autolabelling, detect/val.py:38-39; scaled, not normalised as
+upstream, so they merge). `with_loss` adds the v8 loss of the eval outputs.
+
+The dataset is read with `cache=args.cache` (the JAX validator reads
+without a cache): with 'disk', `.npy` sidecars stand in for the images, so
+a machine without an image decoder can validate.
+
+Not ported: exported artifacts (AutoBackend), the RT-DETR branch and the
+multi-device mesh; each raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..cfg import get_cfg
+from ..data.augment import ValTransforms
+from ..data.dataset import YOLODataset, check_det_dataset
+from ..data.loader import DataLoader
+from ..losses.detection import detection_loss
+from ..nn.graph import DetectionModel
+from ..ops.boxes import scale_boxes, xywh2xyxy, xyxy2xywh
+from ..utils import LOGGER, increment_dir
+from ..utils.checks import check_imgsz
+from ..utils.metrics import ConfusionMatrix, DetMetrics, match_predictions
+from ..utils.pipeline import pipelined
+from .predictor import PinnedUpload, detect_step, resolve_device
+
+LABEL_KEYS = ("cls", "bboxes", "mask_gt")
+
+
+def resolve_val_max_boxes(args, ds):
+    """max_boxes=0 -> the densest val image's label count, rounded up to a
+    multiple of 8, in [8, 1024]. Val applies no compositing augmentation,
+    so no image holds more."""
+    if int(args.max_boxes) > 0:
+        return
+    dens = max((len(lb) for lb in ds.labels), default=1)
+    args.max_boxes = int(min(max(-(-max(dens, 1) // 8) * 8, 8), 1024))
+    LOGGER.info(f"auto max_boxes (val): {args.max_boxes}")
+
+
+def rect_shape(h, w, imgsz):
+    """The rect-val bucket (h, w) of an image of shape (h, w): the long side
+    imgsz, the short side rounded up to a multiple of 32."""
+    ar = h / max(w, 1)
+    if ar >= 1:
+        return imgsz, max(math.ceil(imgsz / ar / 32) * 32, 32)
+    return max(math.ceil(imgsz * ar / 32) * 32, 32), imgsz
+
+
+def hybrid_candidates(dev, nc):
+    """save_hybrid: the labels of a device batch as NMS candidates in the
+    letterbox frame: xywh pixels (B, M, 4) and one-hot scores (B, M, nc),
+    zero on padding rows."""
+    h, w = dev["img"].shape[1:3]
+    bx, by, bw, bh = dev["bboxes"].unbind(-1)
+    boxes = torch.stack([bx * w, by * h, bw * w, bh * h], -1)
+    classes = torch.arange(nc, device=boxes.device)
+    one_hot = (dev["cls"].long()[..., None] == classes).float()
+    return boxes, one_hot * dev["mask_gt"][..., None]
+
+
+class DetectionValidator:
+    def __init__(self, args=None, save_dir=None, data=None):
+        self.args = args if args is not None else get_cfg()
+        if self.args.conf is None:
+            self.args.conf = 0.001  # val default (reference cfg: 0.001 for val)
+        self.save_dir = (Path(save_dir) if save_dir else
+                         increment_dir(Path("runs/detect/val"),
+                                       self.args.exist_ok))
+        self.data = data
+        self.device = resolve_device(self.args.device)
+        self.upload = PinnedUpload(self.device)
+        self.speed = {"preprocess": 0.0, "inference": 0.0, "loss": 0.0,
+                      "postprocess": 0.0}
+
+    def loaders(self, ds):
+        """One loader over the dataset in order, or with `rect` one per
+        aspect bucket, in sorted bucket order."""
+        a = self.args
+        kw = dict(max_boxes=a.max_boxes, workers=a.workers, drop_last=False)
+        if not a.rect:
+            return [DataLoader(ds, ValTransforms(imgsz=a.imgsz), a.batch, **kw)]
+        buckets = {}
+        for i, (h, w) in enumerate(ds.image_shapes()):
+            buckets.setdefault(rect_shape(h, w, a.imgsz), []).append(i)
+        return [DataLoader(ds, ValTransforms(imgsz=shape), a.batch,
+                           indices=idxs, **kw)
+                for shape, idxs in sorted(buckets.items())]
+
+    def __call__(self, model=None, mesh=None, with_loss=False):
+        """Validate `model` (the port's DetectionModel; it moves to the
+        validator's device) on `data[split]`; returns the results dict."""
+        a = self.args
+        if not isinstance(model, DetectionModel):
+            raise NotImplementedError(
+                "validating an exported artifact (AutoBackend) is not ported; "
+                "pass the port's DetectionModel")
+        if model.head["name"] != "Detect":
+            raise NotImplementedError(
+                f"validating a {model.head['name']} head is not ported")
+        if mesh is not None:
+            raise NotImplementedError("multi-device val (a mesh) is not ported")
+        a.imgsz = check_imgsz(a.imgsz, stride=32)
+        data = self.data or check_det_dataset(a.data)
+        names = data["names"]
+        nc = data["nc"]
+        ds = YOLODataset(data[a.split], imgsz=a.imgsz, nc=nc,
+                         single_cls=a.single_cls, cache=a.cache)
+        resolve_val_max_boxes(a, ds)
+        loaders = self.loaders(ds)
+        model.to(self.device).eval()
+        hyp = {"box": a.box, "cls": a.cls, "dfl": a.dfl, "lrl": a.lrl}
+        keys = ("img",) + (LABEL_KEYS if a.save_hybrid or with_loss else ())
+
+        metrics = DetMetrics(save_dir=self.save_dir, plot=a.plots, names=names)
+        cm = ConfusionMatrix(nc=nc)
+        stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        loss_accum = np.zeros(3)
+        n_batches = n_images = 0
+        t_pre = t_inf = t_post = 0.0
+        jdict = []           # COCO-style detections (detect/val.py:221-258)
+        txt_written = set()  # stems written this pass: the first write truncates
+        orig_shapes = ds.image_shapes()
+
+        def gen_batches():
+            nonlocal t_pre
+            for dl in loaders:
+                order = dl._indices()  # the batches chunk this order
+                cursor = 0
+                batches = iter(dl)
+                while True:
+                    t0 = time.perf_counter()
+                    batch = next(batches, None)
+                    t_pre += time.perf_counter() - t0
+                    if batch is None:
+                        break
+                    bsz = batch["img"].shape[0]
+                    yield batch, order[cursor:cursor + bsz]
+                    cursor += bsz
+
+        @torch.inference_mode()
+        def dispatch(item):
+            nonlocal t_inf
+            batch, ds_idxs = item
+            t0 = time.perf_counter()
+            dev = self.upload({k: batch[k] for k in keys})
+            dev["img"] = dev["img"].float() / 255.0      # f32 forced
+            extra = hybrid_candidates(dev, model.nc) if a.save_hybrid else None
+            raw, dets, counts = detect_step(model, dev["img"], a,
+                                            multi_label=True, extra=extra)
+            out = {"dets": dets, "counts": counts}
+            if with_loss:
+                _, items = detection_loss(
+                    raw, {k: dev[k] for k in LABEL_KEYS}, nc=model.nc,
+                    strides=model.strides, hyp=hyp)
+                out["loss_items"] = torch.stack(list(items))
+            t_inf += time.perf_counter() - t0
+            return out, batch, ds_idxs
+
+        def process(out, batch, ds_idxs):
+            nonlocal loss_accum, n_batches, n_images, t_inf, t_post
+            bsz = batch["img"].shape[0]
+            t0 = time.perf_counter()
+            dets = out["dets"].cpu().numpy()   # waits for the batch
+            counts = out["counts"].cpu().numpy()
+            t_inf += time.perf_counter() - t0
+            if with_loss:
+                loss_accum += out["loss_items"].cpu().numpy()
+            n_batches += 1
+
+            t1 = time.perf_counter()
+            bh, bw = batch["img"].shape[1], batch["img"].shape[2]
+            for i in range(bsz):
+                n_images += 1
+                idx = ds_idxs[i]
+                h0, w0 = int(orig_shapes[idx][0]), int(orig_shapes[idx][1])
+                k = int(counts[i])
+                det = dets[i, :k].copy()   # (k, 6) xyxy conf cls (letterbox)
+                if k:
+                    det[:, :4] = scale_boxes(
+                        (bh, bw), torch.from_numpy(det[:, :4]), (h0, w0)).numpy()
+                lb = ds.labels[idx]
+                gt_cls = lb[:, 0].copy().astype(np.float32)
+                if a.single_cls:
+                    gt_cls[:] = 0
+                if len(lb):
+                    gt_xywh = lb[:, 1:5] * np.asarray([w0, h0, w0, h0],
+                                                      np.float32)
+                    gt_xyxy = xywh2xyxy(torch.from_numpy(gt_xywh)).numpy()
+                else:
+                    gt_xyxy = np.zeros((0, 4), np.float32)
+                tp = match_predictions(det[:, :4], det[:, 5], gt_xyxy, gt_cls)
+                stats["tp"].append(tp)
+                stats["conf"].append(det[:, 4])
+                stats["pred_cls"].append(det[:, 5])
+                stats["target_cls"].append(gt_cls)
+                if a.plots:
+                    cm.process_batch(det, gt_xyxy, gt_cls)
+                stem = Path(ds.im_files[idx]).stem
+                if a.save_txt and len(det):
+                    # normalised-xywh label lines (detect/val.py:212-219
+                    # save_one_txt, which writes no file for an image with
+                    # no detections)
+                    txt_dir = self.save_dir / "labels"
+                    txt_dir.mkdir(parents=True, exist_ok=True)
+                    gn = np.asarray([w0, h0, w0, h0], np.float32)
+                    mode = "a" if stem in txt_written else "w"
+                    txt_written.add(stem)
+                    xywh = xyxy2xywh(torch.from_numpy(det[:, :4])).numpy() / gn
+                    with open(txt_dir / f"{stem}.txt", mode) as f:
+                        for d, (cx, cy, bw_, bh_) in zip(det, xywh):
+                            vals = [int(d[5]), cx, cy, bw_, bh_]
+                            if a.save_conf:
+                                vals.append(d[4])
+                            f.write(" ".join(f"{v:g}" for v in vals) + "\n")
+                if a.save_json:
+                    # native-space xywh, filename-derived id (detect/val.py:
+                    # 221-236 pred_to_json)
+                    image_id = int(stem) if stem.isnumeric() else stem
+                    for d in det:
+                        jdict.append({
+                            "image_id": image_id,
+                            "category_id": int(d[5]),
+                            "bbox": [round(float(d[0]), 3),
+                                     round(float(d[1]), 3),
+                                     round(float(d[2] - d[0]), 3),
+                                     round(float(d[3] - d[1]), 3)],
+                            "score": round(float(d[4]), 5)})
+            t_post += time.perf_counter() - t1
+
+        pipelined(gen_batches(), dispatch, lambda rec: process(*rec))
+
+        if n_images == 0:
+            return {}
+        tp = np.concatenate(stats["tp"]) if stats["tp"] else np.zeros((0, 10), bool)
+        conf = np.concatenate(stats["conf"])
+        pred_cls = np.concatenate(stats["pred_cls"])
+        target_cls = np.concatenate(stats["target_cls"])
+        if tp.shape[0] and target_cls.shape[0]:
+            metrics.process(tp, conf, pred_cls, target_cls)
+        self.speed = {"preprocess": t_pre / n_images * 1000,
+                      "inference": t_inf / n_images * 1000,
+                      "loss": 0.0,
+                      "postprocess": t_post / n_images * 1000}
+        metrics.speed = self.speed
+
+        results = metrics.results_dict
+        if with_loss and n_batches:
+            items = loss_accum / n_batches
+            results.update({"val/box_loss": items[0], "val/cls_loss": items[1],
+                            "val/dfl_loss": items[2]})
+        if a.save_json and jdict:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+            jpath = self.save_dir / "predictions.json"
+            jpath.write_text(json.dumps(jdict))
+            LOGGER.info(f"saved {len(jdict)} detections to {jpath}")
+
+        mr = metrics.mean_results()
+        LOGGER.info(f"val: {n_images} images  P {mr[0]:.3f}  R {mr[1]:.3f}  "
+                    f"mAP50 {mr[2]:.3f}  mAP50-95 {mr[3]:.3f}  "
+                    f"({self.speed['inference']:.1f}ms/img inference)")
+        if a.verbose and len(metrics.ap_class_index):
+            for i, c in enumerate(metrics.ap_class_index):
+                p, r, ap50, ap = metrics.class_result(i)
+                LOGGER.info(f"  {names.get(int(c), c):>16}  P {p:.3f}  R {r:.3f}  "
+                            f"mAP50 {ap50:.3f}  mAP50-95 {ap:.3f}")
+        self.confusion_matrix = cm
+        self.metrics = metrics
+        return results

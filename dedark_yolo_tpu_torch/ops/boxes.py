@@ -1,4 +1,4 @@
-"""Box geometry (JAX ops/boxes.py:18-129). Reference ultralytics/utils/ops.py
+"""Box geometry (JAX ops/boxes.py:18-143). Reference ultralytics/utils/ops.py
 and metrics.py."""
 
 from __future__ import annotations
@@ -12,6 +12,25 @@ def xywh2xyxy(x):
     """(cx, cy, w, h) -> (x1, y1, x2, y2). Reference ops.py:386-403."""
     cx, cy, w, h = x.unbind(-1)
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
+def xyxy2xywh(x):
+    """(x1, y1, x2, y2) -> (cx, cy, w, h). Reference ops.py:366-383."""
+    x1, y1, x2, y2 = x.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+
+
+def box_iou_matrix(box1, box2, eps=1e-7):
+    """Pairwise IoU of xyxy boxes: (N, 4) x (M, 4) -> (N, M), in the JAX
+    package's operation order (ops/boxes.py:132-143; reference
+    metrics.py:52-72 box_iou)."""
+    lt = torch.maximum(box1[:, None, :2], box2[None, :, :2])
+    rb = torch.minimum(box1[:, None, 2:], box2[None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    area1 = (box1[:, 2] - box1[:, 0]) * (box1[:, 3] - box1[:, 1])
+    area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
+    return inter / (area1[:, None] + area2[None, :] - inter + eps)
 
 
 def clip_boxes(boxes, shape):

@@ -1,0 +1,25 @@
+"""Logging and run directories (JAX utils/__init__.py)."""
+
+import logging
+import sys
+from pathlib import Path
+
+LOGGER = logging.getLogger("dedark_yolo_tpu_torch")
+if not LOGGER.handlers:
+    _h = logging.StreamHandler(sys.stdout)
+    _h.setFormatter(logging.Formatter("%(message)s"))
+    LOGGER.addHandler(_h)
+    LOGGER.setLevel(logging.INFO)
+
+
+def increment_dir(path, exist_ok=False):
+    """runs/detect/val -> runs/detect/val2, 3, ... when the dir already
+    exists (reference utils/files.py increment_path), so successive runs
+    never mix their files."""
+    path = Path(path)
+    if path.exists() and not exist_ok:
+        for i in range(2, 9999):
+            cand = path.with_name(f"{path.name}{i}")
+            if not cand.exists():
+                return cand
+    return path

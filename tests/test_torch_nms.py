@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 from dedark_yolo_tpu.ops.nms import _nms_single  # noqa: E402
 from dedark_yolo_tpu.ops.nms import non_max_suppression as jax_nms  # noqa: E402
 from dedark_yolo_tpu_torch.engine import predictor as P  # noqa: E402
+from dedark_yolo_tpu_torch.engine import validator as V  # noqa: E402
 from dedark_yolo_tpu_torch.ops import nms as N  # noqa: E402
 from dedark_yolo_tpu_torch.ops.nms import non_max_suppression  # noqa: E402
 from dedark_yolo_tpu_torch.tools.nms_scenes import SCENES, draw, scene  # noqa: E402
@@ -125,7 +126,8 @@ def test_nms_reaches_greedy_through_the_wrapper(monkeypatch):
     """non_max_suppression goes through greedy_nms (which on the CPU runs
     `_greedy`, its plain version), and nothing that runs on the card path
     asks the host: no .item(), bool(), int(), .cpu(), .tolist(), .numpy()
-    or synchronize in the gate, the wrapper, the NMS, or predict's step."""
+    or synchronize in the gate, the wrapper, the NMS, predict's step, the
+    device step it shares with val, or val's hybrid candidates."""
     seen = []
     real = N._greedy
     monkeypatch.setattr(N, "_greedy",
@@ -137,11 +139,11 @@ def test_nms_reaches_greedy_through_the_wrapper(monkeypatch):
     assert seen == [(2, 150, 4)] and counts.min() > 0
     syncs = {"item", "bool", "int", "cpu", "tolist", "numpy", "synchronize"}
     for fn in (N.non_max_suppression, N.nms_candidates, N.greedy_nms,
-               P.DetectionPredictor.step):
+               P.DetectionPredictor.step, P.detect_step, V.hybrid_candidates):
         assert not (_calls_in(fn) & syncs), (fn.__name__, _calls_in(fn) & syncs)
     # upload waits only on a pinned buffer's copy from two uploads back
-    assert _calls_in(P.DetectionPredictor.upload) & syncs == {"synchronize",
-                                                              "numpy"}
+    assert _calls_in(P.PinnedUpload.__call__) & syncs == {"synchronize",
+                                                          "numpy"}
 
 
 def test_nms_constants_mirror_the_kernel_source():
