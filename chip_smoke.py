@@ -13,7 +13,7 @@ line:
            plain PyTorch version on the card, at its main path's shapes and
            at odd ones, with CUDA-event timings, each beside nvidia-smi's SM
            clock, power draw and power limit; nms must equal `_greedy` bit
-           for bit
+           for bit, its mask and scan passes also timed apart
   predict  YOLO("yolov8l.yaml", nc=3) predict on 16-frame batches at
            imgsz 640: f32 and bf16 (contrast_mode 'channel', the
            fused_enhance kernel), then f32 with contrast_mode 'reference'
@@ -385,21 +385,33 @@ def int_mm_yardstick(torch, I, x, w, scale):
 
 def phase_kernel_nms(torch, ptxas=None):
     """nms against `_greedy` on every scene of tools/nms_scenes.py, equal
-    bit for bit in keep_idx and keep_scores; the wrapper refuses a K the
-    block cannot hold; the plan's shared memory and largest K held to the
-    library's. Every scene is timed (kernel and `_greedy`, beside the
-    bound of its own data); the predict scene (16 x 2048 candidates,
-    max_det 300) gives the kernel's entry in the kernels line."""
+    bit for bit in keep_idx and keep_scores; the wrapper refuses a K above
+    MAX_K; the wrapper's CHUNK, MAX_K and mask size held to the library's.
+    Every scene is timed (the kernel through the wrapper, a call alone and
+    among calls back to back, its mask and scan passes apart as raw
+    launches, and `_greedy`, beside the bound of its own data and the walk's
+    depth); the predict scene gives the kernel's entry in the kernels
+    line."""
+    import ctypes
     from dedark_yolo_tpu_torch.ops import _build
     from dedark_yolo_tpu_torch.ops import nms as N
     from dedark_yolo_tpu_torch.tools._ab import (CLOCKS_QUERY, nvidia_smi,
-                                                 time_ms)
-    from dedark_yolo_tpu_torch.tools.nms_scenes import SCENES, scene
+                                                 queued_ms, time_ms)
+    from dedark_yolo_tpu_torch.tools.nms_ab import pass_ms
+    from dedark_yolo_tpu_torch.tools.nms_scenes import (SCENES, scene,
+                                                        walk_depth)
     dev = torch.device("cuda")
     lib = _build.load(N.NAME)
-    plan = {"smem_bytes": N.smem_bytes(), "max_k": N.MAX_K,
-            "smem_matches_library": N.smem_bytes() == lib.nms_smem_bytes(),
-            "max_k_matches_library": N.MAX_K == lib.nms_max_k()}
+    lib.nms_mask_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.nms_mask_bytes.restype = ctypes.c_longlong
+    sizes = [(16, 2048), (3, 1998), (1, 1), (2, 65)]
+    plan = {"chunk": N.CHUNK, "max_k": N.MAX_K,
+            "mask_bytes": N.mask_bytes(16, 2048),
+            "chunk_matches_library": N.CHUNK == lib.nms_chunk(),
+            "max_k_matches_library": N.MAX_K == lib.nms_max_k(),
+            "mask_bytes_match_library": all(
+                N.mask_bytes(b, k) == lib.nms_mask_bytes(b, k)
+                for b, k in sizes)}
     checks, timing = [], {}
     for name in SCENES:
         boxes, scores, kw = scene(name, dev)
@@ -408,13 +420,18 @@ def phase_kernel_nms(torch, ptxas=None):
         torch.cuda.synchronize()
         b, k = boxes.shape[:2]
         kept = (want_i >= 0).sum(1)
+        depth = walk_depth(want_i, scores, kw["max_det"])
         ms_bound, by = nms_bound(b, k, kw["max_det"], want_i)
         rec = {"scene": name, "b": b, "k": k, **kw,
                "kept": [int(kept.min()), int(kept.max())],
+               "walk_depth": [int(depth.min()), int(depth.max())],
                "idx_equal": bool(torch.equal(got_i, want_i)),
                "scores_equal": bool(torch.equal(got_s, want_s)),
                "dtypes": [str(got_i.dtype)[6:], str(got_s.dtype)[6:]],
                "ms": time_ms(lambda: N.greedy_nms(boxes, scores, **kw)),
+               "queued_ms": queued_ms(
+                   lambda: N.greedy_nms(boxes, scores, **kw)),
+               **pass_ms(lib, boxes, scores, kw),
                "nvidia_smi": nvidia_smi(CLOCKS_QUERY),
                "plain_ms": time_ms(lambda: N._greedy(boxes, scores, **kw),
                                    iters=3, warmup=1),
@@ -423,7 +440,9 @@ def phase_kernel_nms(torch, ptxas=None):
         checks.append(rec)
         if name == "predict":
             timing = {key: rec[key] for key in
-                      ("ms", "nvidia_smi", "plain_ms", "bound_ms", "bound_by")}
+                      ("ms", "queued_ms", "mask_ms", "scan_ms", "walk_depth",
+                       "nvidia_smi",
+                       "plain_ms", "bound_ms", "bound_by")}
             timing.update(max_abs_err=float((got_s - want_s).abs().max()),
                           idx_mismatches=int((got_i != want_i).sum()),
                           shape=[b, k], max_det=kw["max_det"])
@@ -437,7 +456,7 @@ def phase_kernel_nms(torch, ptxas=None):
           "refuses_k_above_max": refuses, "timing": timing,
           "ptxas": (ptxas or {}).get(N.NAME, [])})
     if not (all(c["ok"] for c in checks) and refuses
-            and plan["smem_matches_library"] and plan["max_k_matches_library"]):
+            and all(v for key, v in plan.items() if key.endswith("library"))):
         raise AssertionError("nms disagrees with _greedy or its plan")
     return timing
 
@@ -1093,31 +1112,43 @@ def compare_images(gpu, cpu):
 class record_steps:
     """Within the block, each val batch's host ms inside the device step
     (`predictor.detect_step` as the validator calls it: forward, decode,
-    NMS) and, from CUDA events around it, the batch's device ms (read with
-    `device_ms()` after a synchronize)."""
+    NMS) and, from CUDA events around them, the batch's device ms and its
+    NMS stage's (gate, kernel, gathers) device ms (read with `device_ms()`
+    and `nms_ms()` after a synchronize)."""
 
     def __enter__(self):
         import torch
+        from dedark_yolo_tpu_torch.engine import predictor as P
         from dedark_yolo_tpu_torch.engine import validator as V
         self.module, self.step, self.host, self.events = V, V.detect_step, [], []
+        self.nms, self.nms_events = P.non_max_suppression, []
 
-        def timed(*args, **kwargs):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            t0 = time.perf_counter()
-            out = self.step(*args, **kwargs)
-            self.host.append((time.perf_counter() - t0) * 1e3)
-            ev[1].record()
-            self.events.append(ev)
-            return out
-        V.detect_step = timed
+        def timed(fn, events, host=None):
+            def call(*args, **kwargs):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                if host is not None:
+                    host.append((time.perf_counter() - t0) * 1e3)
+                ev[1].record()
+                events.append(ev)
+                return out
+            return call
+        V.detect_step = timed(self.step, self.events, self.host)
+        P.non_max_suppression = timed(self.nms, self.nms_events)
         return self
 
     def __exit__(self, *exc):
+        from dedark_yolo_tpu_torch.engine import predictor as P
         self.module.detect_step = self.step
+        P.non_max_suppression = self.nms
 
     def device_ms(self):
         return [a.elapsed_time(b) for a, b in self.events]
+
+    def nms_ms(self):
+        return [a.elapsed_time(b) for a, b in self.nms_events]
 
 
 def label_counts(data):
@@ -1220,7 +1251,8 @@ def val_full(torch, yolo, data):
     full-size images: a warm-up call, then the timed call, whose launches
     must be one fused_enhance and one nms a batch, with no plain version
     reached by a CUDA tensor; with its speed, the rest of its time, and
-    each batch's host and device ms of the device step."""
+    each batch's host and device ms of the device step and the device ms
+    of its NMS stage."""
     from dedark_yolo_tpu_torch.ops import _build
     from dedark_yolo_tpu_torch.tools._ab import CLOCKS_QUERY, nvidia_smi
     kw = {"data": data, "imgsz": VAL_FULL["imgsz"],
@@ -1245,6 +1277,7 @@ def val_full(torch, yolo, data):
            # label cache and sidecar headers, the metrics at the end
            "other_ms": secs * 1e3 - sum(speed.values()) * len(rec.counts),
            "step_host_ms": steps.host, "step_device_ms": steps.device_ms(),
+           "nms_stage_ms": steps.nms_ms(),
            "results": {k: float(x) for k, x in res.items()},
            "dets_per_image": [min(rec.counts), max(rec.counts)],
            "launches": launches, "nvidia_smi": nvidia_smi(CLOCKS_QUERY)}
@@ -1348,10 +1381,14 @@ def main():
         "replaces": "dedark_yolo_tpu/ops/nms.py:28",
         "launches": sum(pred[key]["launches"]["nms"]
                         for key, _, _ in PREDICT_RUNS),
+        # ms: device time of a call among calls back to back; ms_alone: one
+        # call between CUDA events, the wrapper's host time included
+        "ms": nms_timing["queued_ms"], "ms_alone": nms_timing["ms"],
         **{k: nms_timing[k] for k in
-           ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+           ("max_abs_err", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "library": "none: no torchvision on the card",
-        "shape": nms_timing["shape"], "max_det": nms_timing["max_det"],
+        **{k: nms_timing[k] for k in
+           ("mask_ms", "scan_ms", "walk_depth", "shape", "max_det")},
         "val_launches": val["launches"]["nms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

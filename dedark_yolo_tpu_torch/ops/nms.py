@@ -6,11 +6,13 @@ pairs (multi-label) or the per-anchor best class, capped at `max_nms`; the
 left; (B, max_det, 6) [x1, y1, x2, y2, conf, cls] plus (B,) counts, and the
 kept anchor indices with `return_idx`.
 
-The greedy loop is `greedy_nms`: on CUDA tensors one launch of
-`csrc/nms.cu` (one block per image runs the whole loop), on CPU tensors its
-plain version `_greedy`, which asks the host once per step whether any image
-still has a candidate. Nothing on the CUDA path waits on the device, so
-predict's step returns while the batch still runs.
+The greedy loop is `greedy_nms`: on CUDA tensors the `nms` kernel of
+`csrc/nms.cu` (an IoU bitmask over all SMs, then one warp an image walks
+it in score order; one call is two launches, counted once in
+`LAUNCHES["nms"]`), on CPU tensors its plain version `_greedy`, which asks
+the host once per step whether any image still has a candidate. Nothing on
+the CUDA path waits on the device, so predict's step returns while the
+batch still runs.
 
 Ties: `jax.lax.top_k` puts the lower index first, and `torch.topk` promises
 no order, so the gate is a stable descending sort, sliced. `torch.argmax`
@@ -29,10 +31,10 @@ from .boxes import xywh2xyxy
 
 NAME = "nms"
 _build.LAUNCHES.setdefault(NAME, 0)
-# csrc/nms.cu's block: THREADS threads own PER candidates each; the boxes of
-# an image and the double-buffered warp winners sit in shared memory
-THREADS, PER = 256, 8
-MAX_K = THREADS * PER
+# csrc/nms.cu: a mask word covers CHUNK candidates; an image has at most
+# MAX_K (the scan keeps its kept list in shared memory)
+CHUNK = 64
+MAX_K = 2048
 
 
 def _greedy(boxes, scores, iou_thres: float, max_det: int):
@@ -73,17 +75,20 @@ def _greedy(boxes, scores, iou_thres: float, max_det: int):
     return keep_idx, keep_scores
 
 
-def smem_bytes():
-    """Shared memory of a block (the .cu's `Smem`): MAX_K float4 boxes and
-    two sets of THREADS // 32 warp winners, an f32 score and an int32 index
-    each."""
-    return MAX_K * 16 + 2 * 2 * (THREADS // 32) * 4
+def mask_words(k: int) -> int:
+    """u64 words of one mask row: ceil(K / CHUNK)."""
+    return -(-k // CHUNK)
+
+
+def mask_bytes(b: int, k: int) -> int:
+    """Bytes of the (B, K, mask_words(K)) u64 scratch mask."""
+    return 8 * b * k * mask_words(k)
 
 
 # nms_launch(boxes, scores, keep_idx, keep_scores, B, K, max_det, iou_thres,
-#            stream)
+#            stream, mask)
 ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 
 
 @lru_cache(maxsize=1)
@@ -98,9 +103,12 @@ def greedy_nms(boxes, scores, iou_thres: float, max_det: int):
     """Greedy suppression of every image of a batch.
 
     boxes (B, K, 4) f32 xyxy, class-offset; scores (B, K) f32, 0 = no
-    candidate. Returns keep_idx (B, max_det) int64 (-1 invalid) and
-    keep_scores (B, max_det) f32. CUDA tensors run the `nms` kernel (K at
-    most MAX_K), CPU tensors `_greedy`.
+    candidate, non-increasing along K in every image with the zeros after
+    every positive score (what `nms_candidates` gives; the kernel walks the
+    candidates in that order and nothing checks it, which would need a host
+    sync). Returns keep_idx (B, max_det) int64 (-1 invalid) and keep_scores
+    (B, max_det) f32. CUDA tensors run the `nms` kernel (K at most MAX_K),
+    CPU tensors `_greedy`.
     """
     if boxes.device.type == "cpu":
         return _greedy(boxes, scores, iou_thres, max_det)
@@ -131,11 +139,13 @@ def greedy_nms(boxes, scores, iou_thres: float, max_det: int):
                               device=boxes.device)
     if b == 0:
         return keep_idx, keep_scores
+    mask = torch.empty((b, k, mask_words(k)), dtype=torch.int64,
+                       device=boxes.device)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     with torch.cuda.device(boxes.device):
         rc = _launch_fn()(boxes.data_ptr(), scores.data_ptr(),
                           keep_idx.data_ptr(), keep_scores.data_ptr(), b, k,
-                          max_det, float(iou_thres), stream)
+                          max_det, float(iou_thres), stream, mask.data_ptr())
     if rc != 0:
         raise RuntimeError(f"{NAME} launch failed with CUDA error {rc}")
     _build.LAUNCHES[NAME] += 1

@@ -1,7 +1,8 @@
-"""What the A/B timing tools (`int8_ab`, `enhance_ab`) share: build another
-source of a kernel with the port's nvcc flags, time a call with CUDA events,
-run variants in turns, and read the card's state from nvidia-smi (which
-`chip_smoke.py` reads through here too).
+"""What the A/B timing tools (`int8_ab`, `enhance_ab`, `nms_ab`) share:
+build another source of a kernel with the port's nvcc flags, time a call
+with CUDA events (alone, or back to back behind queued work), run variants
+in turns, and read the card's state from nvidia-smi (which `chip_smoke.py`
+reads through here too).
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ import ctypes
 import hashlib
 import statistics
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -55,14 +57,39 @@ def time_ms(call, iters=20, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def in_turns(calls, iters, rounds):
+def queued_ms(call, iters=20, ahead_ms=20.0):
+    """Device ms of one call among `iters` run back to back: the calls are
+    queued behind `ahead_ms` of torch.cuda._sleep, so the host's time
+    between launches is hidden, and CUDA events around the run are divided
+    by `iters`. Raises if the host took longer than `ahead_ms` to queue
+    them (the device would have waited on it)."""
+    call()
+    torch.cuda.synchronize()
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(ahead_ms * 1e3 * clock_mhz))
+    s.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    e.record()
+    torch.cuda.synchronize()
+    if host_ms >= ahead_ms:
+        raise RuntimeError(f"queued_ms: queueing took {host_ms:.2f} ms, "
+                           f"more than the {ahead_ms} ms ahead")
+    return s.elapsed_time(e) / iters
+
+
+def in_turns(calls, iters, rounds, timer=time_ms):
     """{name: [ms of each turn]}: every call in order, then in reverse,
-    `rounds` times."""
+    `rounds` times, each turn timed by `timer(call, iters)`."""
     names = list(calls)
     turns = {name: [] for name in names}
     for _ in range(rounds):
         for name in names + names[::-1]:
-            turns[name].append(time_ms(calls[name], iters))
+            turns[name].append(timer(calls[name], iters))
     return turns
 
 
