@@ -43,6 +43,16 @@ line:
            images of 4 shapes, longest side 640, at the val defaults (b16,
            conf 0.001): a warm-up call and a timed one, fused_enhance and
            nms once a batch, no plain version reached with a CUDA tensor
+  train_loop  YOLO(...).train() on seeded low-light .npy sidecars (data a
+           dict, cache='disk', longest side = imgsz): the flagship at 128,
+           b2, two epochs on the card against the CPU from one seeded .npz
+           (TF32 off, default augmentation; loss rows and val metrics per
+           epoch); then at b16/640 two epochs with mosaic and
+           close_mosaic=1 and resume=True for a third (images/s, the
+           loader's wait against each step's device span, val and
+           checkpoint seconds, peak memory, the files written), each run
+           launching fused_enhance once a micro-step and a val batch and
+           nms once a val batch; then YOLO("best.npz") predicts one batch
 
 then the card line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -588,25 +598,40 @@ PREDICT_RUNS = [("f32", {"half": False}, "fused_enhance"),
 class no_plain_on_cuda:
     """Within the block, the plain versions of the kernels that predict
     runs (`_greedy`, the enhance chain, the blur) raise when a CUDA tensor
-    reaches them: on the card the forward goes through the kernels."""
+    reaches them: on the card the forward goes through the kernels. The
+    one exception is the backward of `FusedEnhance` and `Usm`, which
+    recomputes through the plain chain by design (as the JAX package's
+    custom VJP does through XLA; ops/enhance_kernel.py)."""
 
     def __enter__(self):
         import torch
         from dedark_yolo_tpu_torch.nn import enhance as E
+        from dedark_yolo_tpu_torch.ops import enhance_kernel as K
         from dedark_yolo_tpu_torch.ops import nms as N
+        self.in_backward = 0   # the autograd engine runs it on its own thread
 
         def guard(mod, name):
             fn = getattr(mod, name)
 
             def checked(*args, **kwargs):
-                if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                if not self.in_backward and any(
+                        isinstance(a, torch.Tensor) and a.is_cuda for a in args):
                     raise AssertionError(f"{name} reached with a CUDA tensor")
                 return fn(*args, **kwargs)
             setattr(mod, name, checked)
             return mod, name, fn
 
+        recompute = K._recompute_backward
+
+        def backward(*args, **kwargs):
+            self.in_backward += 1
+            try:
+                return recompute(*args, **kwargs)
+            finally:
+                self.in_backward -= 1
+        K._recompute_backward = backward
         self.saved = [guard(N, "_greedy"), guard(E, "apply_filter_chain"),
-                      guard(E, "usm_filter")]
+                      guard(E, "usm_filter"), (K, "_recompute_backward", recompute)]
         return self
 
     def __exit__(self, *exc):
@@ -960,7 +985,7 @@ VAL_METRIC_RTOL = 1e-6
 VAL_LOSS_RTOL = 1e-4
 
 
-def val_dataset(root, n, shapes, seed):
+def val_dataset(root, n, shapes, seed, split="val"):
     """A seeded YOLO-layout val split under `root`: low-light images (dark
     32-px colour blocks with noise, 1-8 filled boxes of class colours, then
     (u8/255)**DARK_PARAM) of the given (h, w) shapes in turns, each written
@@ -973,7 +998,7 @@ def val_dataset(root, n, shapes, seed):
     from dedark_yolo_tpu_torch.ops.boxes import box_iou_matrix
     rng = np.random.default_rng(seed)
     colours = np.array([(255, 64, 64), (64, 255, 64), (64, 64, 255)], np.float32)
-    img_dir, lbl_dir = root / "images" / "val", root / "labels" / "val"
+    img_dir, lbl_dir = root / "images" / split, root / "labels" / split
     img_dir.mkdir(parents=True)
     lbl_dir.mkdir(parents=True)
     for k in range(n):
@@ -1002,7 +1027,7 @@ def val_dataset(root, n, shapes, seed):
         np.save(img_dir / f"{k}.npy", (img ** DARK_PARAM * 255).astype(np.uint8))
         (img_dir / f"{k}.jpg").write_bytes(b"")
         (lbl_dir / f"{k}.txt").write_text("\n".join(rows) + "\n")
-    return {"path": str(root), "val": "images/val", "names": dict(VAL_NAMES)}
+    return {"path": str(root), split: f"images/{split}", "names": dict(VAL_NAMES)}
 
 
 def val_images(data, n):
@@ -1313,6 +1338,363 @@ def phase_val(torch, yolo):
     return out
 
 
+# train_loop phase: YOLO(...).train() through the port's loop. Small: the
+# flagship at LOOP_SMALL's size on the card and on the CPU from one seeded
+# .npz, TF32 off, the default augmentation (made on the host from the same
+# seeds, so both see the same batches), two epochs. Full: the flagship at
+# b16/640 for two epochs with mosaic (close_mosaic=1), then resume=True for
+# a third, then YOLO("best.npz") predicts one batch. Datasets: low-light
+# .npy sidecars, longest side exactly imgsz (the card has no OpenCV: no
+# image is resized).
+LOOP_SMALL = {"n_train": 4, "n_val": 8, "imgsz": 128, "batch": 2,
+              "shapes": [(96, 128), (128, 128), (128, 80)]}
+LOOP_FULL = {"n_train": 64, "n_val": 16, "imgsz": 640, "batch": BATCH,
+             "shapes": VAL_FULL["shapes"]}
+# Card against CPU over two epochs of the small loop (4 micro-steps, 2 SGD
+# updates), TF32 off, from one seeded .npz whose BN stats are set from the
+# val images (calibrate_bn, as the val phase does; the val split is the val
+# phase's small one, on which such a model finds a few labels, so that the
+# metrics read more than 0). Up to the first update both sides see the
+# same weights and batches. The first update itself is precise only to a
+# few percent: 80% of its norm is the biases of layer 0's parameter CNN
+# and of the first BN layers, whose gradients are sums over every pixel
+# that mostly cancel, so the sum order moves them (the CPU at 8, 3 and 1
+# threads against 4, from these seeds: 0.42%, 2.2% and 14% of the move's
+# norm; PERF.md section 6). After it the task-aligned assigner turns that
+# difference into another choice of positives: tools/assign_probe.py
+# records the choices, counts the anchors assigned otherwise and the least
+# margin of each call. The same loop on the CPU at one thread against the
+# CPU at its default threads runs beside the card as the second witness.
+# Bars:
+# - the micro-steps before the first update: loss items within TRAIN_TOL's
+#   one-step bar (same weights, same batches);
+# - the state after the first update, against the CPU's: the norm of the
+#   difference of the two moves within LOOP_MOVE_RTOL of the move's norm
+#   (twice the one-thread CPU's reading: it sees a missing, doubled or
+#   early update, not a small one; train_parity holds the step's math) and
+#   BN stats within TRAIN_TOL's;
+# - val after epoch 0 (the EMA after that update): each metric within
+#   LOOP_METRIC_ATOL (the one-thread CPU read 1.2e-3; one label more or
+#   less found in a class of 9 moves the mean recall by 1/27);
+# - every micro-step after the first update: loss items within
+#   LOOP_ITEMS_RTOL, a bar on size only (the one-thread CPU read 5.5e-2
+#   with 62 anchors assigned otherwise). The second epoch's metrics follow
+#   the weights apart and are reported, not held.
+LOOP_MOVE_RTOL, LOOP_METRIC_ATOL, LOOP_ITEMS_RTOL = 0.3, 5e-3, 0.2
+
+
+def loop_data(root, cfg, seed, val_seed):
+    """A train and a val split of seeded low-light .npy sidecars."""
+    train = val_dataset(root, cfg["n_train"], cfg["shapes"], seed, "train")
+    val = val_dataset(root, cfg["n_val"], cfg["shapes"], val_seed, "val")
+    return {**train, **val}
+
+
+def seeded_npz(path, frames, imgsz):
+    """The flagship's seeded weights, BN set from `frames` at imgsz, as a
+    checkpoint (params, batch_stats, model_yaml): the warm start of every
+    side of a comparison."""
+    import torch
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    from dedark_yolo_tpu_torch.utils.weights import state_dict_to_jax
+    y = YOLO("yolov8l.yaml", nc=3, device="cpu", seed=SEED)
+    calibrate_bn(torch, y.model, frames, imgsz)
+    trees = state_dict_to_jax(y.state_dict(), y.model)
+    save_checkpoint(path, params=trees["params"],
+                    batch_stats=trees["batch_stats"], model_yaml=y.model.yaml)
+    return str(path)
+
+
+class count_val_calls:
+    """Within the block, how often the trainer validated."""
+
+    def __enter__(self):
+        from dedark_yolo_tpu_torch.engine import trainer as T
+        self.cls, self.fn, self.calls = T.DetectionTrainer, T.DetectionTrainer._validate, 0
+
+        def counted(tr, state=None):
+            self.calls += 1
+            return self.fn(tr, state)
+        self.cls._validate = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._validate = self.fn
+
+
+class train_steps:
+    """Within the block, every DetectionTrainer.step call: its host ms, its
+    loss items, and on CUDA the device span of its work (CUDA events
+    before and after the call, read after the run). With `snapshot`, the
+    model's state and EMA on the CPU before the first step ("start") and
+    after the step that made the first update ("first_update")."""
+
+    def __init__(self, torch, snapshot=False):
+        self.torch, self.snapshot = torch, snapshot
+
+    def __enter__(self):
+        from dedark_yolo_tpu_torch.engine import trainer as T
+        self.cls, self.fn = T.DetectionTrainer, T.DetectionTrainer.step
+        self.host, self.items, self.events = [], [], []
+        self.states = {}
+        torch = self.torch
+
+        def keep(tr, name):
+            if self.snapshot and name not in self.states:
+                cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
+                self.states[name] = (cpu(tr.model.state_dict()), cpu(tr.ema))
+
+        def timed(tr, batch, step_index):
+            keep(tr, "start")
+            cuda = tr.device.type == "cuda"
+            if cuda:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            t0 = time.perf_counter()
+            out = self.fn(tr, batch, step_index)
+            self.host.append((time.perf_counter() - t0) * 1e3)
+            if cuda:
+                ev[1].record()
+                self.events.append(ev)
+            self.items.append(out[1].detach())
+            if tr.opt_state.step == 1:
+                keep(tr, "first_update")
+            return out
+        self.cls.step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.fn
+
+    def device_ms(self):
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+    def item_list(self):
+        return [[float(x) for x in it.cpu()] for it in self.items]
+
+
+def loop_rows(run):
+    import csv
+    with open(Path(run) / "results.csv") as f:
+        return [{k: float(v) for k, v in r.items()} for r in csv.DictReader(f)]
+
+
+def loop_run(torch, npz, kw, dev, name, threads=None):
+    """One YOLO(npz).train(**kw) on `dev` (the CPU at `threads` when
+    given): its rows, trainer, val calls, per-step loss items, state
+    snapshots, assigner record and launches (on the card)."""
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.tools import assign_probe
+    prev = torch.get_num_threads()
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        y = YOLO(npz, device=dev)
+        zero_launches()
+        with no_plain_on_cuda(), count_val_calls() as vc, \
+                train_steps(torch, snapshot=True) as st, \
+                assign_probe.record() as calls:
+            y.train(**kw, device=dev, name=name)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        torch.set_num_threads(prev)
+    return {"rows": loop_rows(y.trainer.save_dir), "trainer": y.trainer,
+            "val_calls": vc.calls, "items": st.item_list(),
+            "states": st.states, "assign": calls,
+            "launches": dict(_build.LAUNCHES) if dev == "cuda" else None}
+
+
+def state_errors(a, b, start):
+    """The state (model state_dict, EMA) of run a against run b's: the
+    norm of the difference of the two moves from `start` over all params
+    (and over the EMA) as a share of the norm of b's move, and the BN
+    stats' largest absolute error."""
+    out = {"bn_stats_abs_err": 0.0}
+    for name, mine, theirs, begin in zip(("params", "ema"), a, b, start):
+        diff = moved = 0.0
+        for k, w in theirs.items():
+            if not w.is_floating_point():
+                continue
+            if "running_" in k:
+                out["bn_stats_abs_err"] = max(out["bn_stats_abs_err"],
+                                              float((mine[k] - w).abs().max()))
+                continue
+            diff += float(((mine[k] - w) ** 2).sum())
+            moved += float(((w - begin[k]) ** 2).sum())
+        out[f"{name}_move_norm_rel_err"] = (diff / moved) ** 0.5 if moved else 0.0
+    return out
+
+
+def loop_compare(a, b):
+    """Readings of run a against run b: per micro-step the loss items'
+    relative error, the anchors assigned otherwise and b's least margins;
+    per epoch the loss rows' and val metrics' errors; the state after the
+    first update."""
+    from dedark_yolo_tpu_torch.tools import assign_probe
+    ra, rb = a["rows"], b["rows"]
+    loss_keys = [k for k in rb[0] if k.endswith("_loss")]
+    metric_keys = [k for k in rb[0] if k.startswith("metrics/")]
+    return {"step_items_rel_err": [max(abs(x - y) / abs(y) for x, y in zip(xs, ys))
+                                   for xs, ys in zip(a["items"], b["items"])],
+            "step_assign_flips": assign_probe.flips(a["assign"], b["assign"]),
+            "step_topk_margin": [c["topk"] for c in b["assign"]],
+            "step_claim_margin": [c["claim"] for c in b["assign"]],
+            "epoch_items_rel_err": [max(abs(x[k] - y[k]) / abs(y[k])
+                                        for k in loss_keys)
+                                    for x, y in zip(ra, rb)],
+            "epoch_metric_abs_err": [max(abs(x[k] - y[k]) for k in metric_keys)
+                                     for x, y in zip(ra, rb)],
+            "metrics": [{k: y[k] for k in metric_keys} for y in rb],
+            "first_update": state_errors(a["states"]["first_update"],
+                                         b["states"]["first_update"],
+                                         b["states"]["start"])}
+
+
+def loop_small(torch, tmp):
+    """Two epochs of the flagship at LOOP_SMALL on the card, on the CPU,
+    and on the CPU at one thread, from one seeded .npz (BN set from the val
+    images), TF32 off, the default augmentation: the card against the CPU
+    held to the bars above, the one-thread CPU against the CPU reported
+    beside them; the card run's launches fused_enhance = micro-steps + val
+    batches and nms = val batches."""
+    cfg = LOOP_SMALL
+    data = loop_data(tmp / "small", cfg, SEED + 2, SEED)
+    npz = seeded_npz(tmp / "small_seed.npz",
+                     val_images(data, cfg["n_val"]), cfg["imgsz"])
+    kw = {"data": data, "imgsz": cfg["imgsz"], "batch": cfg["batch"],
+          "epochs": 2, "nbs": 4, "optimizer": "SGD", "cache": "disk",
+          "workers": 4, "matmul_precision": "float32", "verbose": False,
+          "project": str(tmp / "runs")}
+    g = loop_run(torch, npz, kw, "cuda", "small_cuda")
+    c = loop_run(torch, npz, kw, "cpu", "small_cpu")
+    c1 = loop_run(torch, npz, kw, "cpu", "small_cpu1", threads=1)
+    gt, ct = g["trainer"], c["trainer"]
+    micro = sum(e["batches"] for e in gt.epoch_stats)
+    val_batches = g["val_calls"] * -(-cfg["n_val"] // cfg["batch"])
+    check_launches("train_loop small", g["launches"],
+                   {"fused_enhance": micro + val_batches, "nms": val_batches})
+    card = loop_compare(g, c)
+    n = gt.accumulate
+    err = card["step_items_rel_err"]
+    first, after = max(err[:n]), max(err[n:])
+    fu = card["first_update"]
+    out = {"imgsz": cfg["imgsz"], "batch": cfg["batch"], "epochs": 2,
+           "n_train": cfg["n_train"], "n_val": cfg["n_val"],
+           "micro_steps": micro, "updates": gt.ema_updates,
+           "val_calls": g["val_calls"], "launches": g["launches"],
+           "threads": torch.get_num_threads(),
+           "rows_cuda": g["rows"], "rows_cpu": c["rows"],
+           "step_items_cuda": g["items"], "step_items_cpu": c["items"],
+           "card_vs_cpu": card, "cpu1_vs_cpu": loop_compare(c1, c),
+           "first_window_max_rel_err": first, "after_max_rel_err": after,
+           "tol": {"first_window_items_rel": TRAIN_TOL["items_rel"],
+                   "move_norm_rel": LOOP_MOVE_RTOL,
+                   "stats_abs": TRAIN_TOL["stats_abs"],
+                   "epoch0_metric_abs": LOOP_METRIC_ATOL,
+                   "after_items_rel": LOOP_ITEMS_RTOL},
+           "transferred": gt.transferred}
+    out["ok"] = (len(g["rows"]) == len(c["rows"]) == 2
+                 and len(err) == micro == gt.ema_updates * n
+                 and first <= TRAIN_TOL["items_rel"]
+                 and fu["params_move_norm_rel_err"] <= LOOP_MOVE_RTOL
+                 and fu["ema_move_norm_rel_err"] <= LOOP_MOVE_RTOL
+                 and fu["bn_stats_abs_err"] <= TRAIN_TOL["stats_abs"]
+                 and card["epoch_metric_abs_err"][0] <= LOOP_METRIC_ATOL
+                 and after <= LOOP_ITEMS_RTOL
+                 and gt.ema_updates == ct.ema_updates == 2
+                 and gt.transferred == ct.transferred
+                 and gt.transferred[0] == gt.transferred[1])
+    return out
+
+
+def loop_full(torch, tmp):
+    """yolov8l nc 3 at b16/640 (f32, TF32 on): two epochs with mosaic and
+    close_mosaic=1, then resume=True for a third, each run's launches
+    counted (fused_enhance = micro-steps + val batches, nms = val
+    batches); then YOLO("best.npz") predicts one batch."""
+    import numpy as np
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.tools._ab import CLOCKS_QUERY, nvidia_smi
+    cfg = LOOP_FULL
+    data = loop_data(tmp / "full", cfg, SEED + 4, SEED + 5)
+    kw = {"data": data, "imgsz": cfg["imgsz"], "batch": cfg["batch"],
+          "cache": "disk", "close_mosaic": 1, "verbose": False,
+          "project": str(tmp / "runs"), "name": "full", "workers": 8}
+    val_batches = -(-cfg["n_val"] // cfg["batch"])
+    out = {"model": "yolov8l.yaml", "nc": 3, **{k: cfg[k] for k in
+           ("n_train", "n_val", "imgsz", "batch")}, "runs": []}
+    y = YOLO("yolov8l.yaml", nc=3, seed=SEED)
+    for epochs, resume in ((2, False), (3, True)):
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with no_plain_on_cuda(), count_val_calls() as vc, \
+                train_steps(torch) as st:
+            t0 = time.perf_counter()
+            y.train(**kw, epochs=epochs, resume=resume)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        tr = y.trainer
+        stats = tr.epoch_stats
+        micro = sum(e["batches"] for e in stats)
+        check_launches(f"train_loop epochs={epochs}", launches,
+                       {"fused_enhance": micro + vc.calls * val_batches,
+                        "nms": vc.calls * val_batches})
+        rows = loop_rows(tr.save_dir)
+        wdir = tr.wdir
+        run = {"epochs": epochs, "resume": resume,
+               "start_epoch": stats[0]["epoch"], "seconds": secs,
+               "epoch_stats": stats,
+               "images_per_s": [e["batches"] * cfg["batch"] / e["train_s"]
+                                for e in stats],
+               "loader_wait_ms_per_batch": [1e3 * e["loader_wait_s"] / e["batches"]
+                                            for e in stats],
+               "step_host_ms": st.host, "step_device_ms": st.device_ms(),
+               "accumulate": tr.accumulate, "optimizer": tr.opt_name,
+               "updates": tr.ema_updates, "val_calls": vc.calls,
+               "rows": rows, "launches": launches,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "files": sorted(p.name for p in wdir.iterdir()),
+               "last_npz_mib": (wdir / "last.npz").stat().st_size / 2 ** 20,
+               "nvidia_smi": nvidia_smi(CLOCKS_QUERY)}
+        losses = [r[k] for r in rows for k in r if k.endswith("_loss")]
+        if not (all(np.isfinite(losses)) and len(rows) == epochs
+                and run["start_epoch"] == (2 if resume else 0)
+                and {"last.npz", "best.npz"} <= set(run["files"])
+                and (tr.save_dir / "args.yaml").is_file()):
+            raise AssertionError(f"train_loop: {run}")
+        out["runs"].append(run)
+    best = YOLO(str(wdir / "best.npz"))
+    frames = synthetic_frames(BATCH)
+    zero_launches()
+    with no_plain_on_cuda():
+        res = best.predict(frames, imgsz=cfg["imgsz"], batch=BATCH, conf=CONF)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check_launches("train_loop best.npz predict", launches,
+                   {"fused_enhance": 1, "nms": 1})
+    out["best_predict"] = {"images": len(res), "launches": launches,
+                           "boxes": int(sum(len(r.boxes) for r in res))}
+    return out
+
+
+def phase_train_loop(torch):
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        small = loop_small(torch, tmp)
+        full = loop_full(torch, tmp)
+    emit({"phase": "train_loop", "small": small, "full": full})
+    if not small["ok"]:
+        raise AssertionError(f"train_loop: card and CPU disagree: {small}")
+    return full
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1341,6 +1723,7 @@ def main():
     probe_launches = phase_probe(torch)
     train = phase_train(torch)
     val = phase_val(torch, yolo)
+    loop = phase_train_loop(torch)
 
     print(smi)
     f32, bf16 = timing["float32"], timing["bfloat16"]
@@ -1355,7 +1738,9 @@ def main():
         "bound_by": f32["bound_by"], "library_ms": None,
         "shape": [BATCH, IMGSZ, IMGSZ, 3], "dtype": "float32",
         "bf16": bf16, "train_launches": train["launches"]["fused_enhance"],
-        "val_launches": val["launches"]["fused_enhance"]}, {
+        "val_launches": val["launches"]["fused_enhance"],
+        "train_loop_launches": sum(r["launches"]["fused_enhance"]
+                                   for r in loop["runs"])}, {
         "name": "usm", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/usm.cu",
         "replaces": "dedark_yolo_tpu/ops/pallas/enhance_kernel.py:277",
@@ -1389,7 +1774,8 @@ def main():
         "library_ms": None, "library": "none: no torchvision on the card",
         **{k: nms_timing[k] for k in
            ("mask_ms", "scan_ms", "walk_depth", "shape", "max_det")},
-        "val_launches": val["launches"]["nms"]}]})
+        "val_launches": val["launches"]["nms"],
+        "train_loop_launches": sum(r["launches"]["nms"] for r in loop["runs"])}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

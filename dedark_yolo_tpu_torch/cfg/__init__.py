@@ -1,15 +1,19 @@
-"""Predict, val and train-step configuration and model-architecture lookup.
+"""Predict, val and train configuration and model-architecture lookup.
 
-The predict keys and the keys the validator and the train step read of the
-JAX package's `cfg/default.yaml`, with the same defaults, plus `device`. `model_yaml_load` resolves a scaled name such as
+The predict keys and the keys the validator, the train step and the train
+loop read of the JAX package's `cfg/default.yaml`, with the same defaults,
+plus `device`. `model_yaml_load` resolves a scaled name such as
 `yolov8l.yaml` to the unified architecture at scale `l`, as the JAX package
 does; the built-in architectures live in `cfg/models.py`, and `yaml` is
-imported only when a caller names a file on disk.
+imported only when a caller names a file on disk. `yaml_save` writes JSON
+(valid YAML, which the JAX package's `yaml_load` reads), so writing needs
+no PyYAML.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import re
 from pathlib import Path
 from types import SimpleNamespace
@@ -64,17 +68,54 @@ DEFAULT_CFG = {
     "dedark_FLAG": True,         # dark-channel priors for the DeDark filter
     "prior_mode": "default",     # default (A=0.8, IcA=0.5) | computed
     "amp": False,                # bf16 training: not ported yet
+    # train loop (engine/trainer.py DetectionTrainer.train)
+    "save": True,                # checkpoints (last, best, epochN)
+    "save_period": -1,           # epoch{N}.npz every N epochs (< 1: never)
+    "ckpt_period": 1,            # refresh last.npz every N epochs
+    "val": True,                 # validate the EMA weights during training
+    "val_period": 1,             # every N epochs (always the final one)
+    "patience": 50,              # EarlyStopping: epochs without improvement
+    "close_mosaic": 0,           # mosaic off for the last N epochs
+    "resume": False,             # continue from save_dir/weights/last.npz
+    "pretrained": True,          # True/False, or an .npz to warm-start from
+    "project": None,             # run dir parent (None: runs/detect)
+    "name": None,                # run dir name (None: train)
+    "seed": 0,                   # shuffle and augmentation seed
+    "fraction": 1.0,             # share of the train images used
+    # train augmentation (data/augment.py TrainTransforms)
+    "hsv_h": 0.015,
+    "hsv_s": 0.7,
+    "hsv_v": 0.4,
+    "degrees": 0.0,
+    "translate": 0.1,
+    "scale": 0.5,
+    "shear": 0.0,
+    "perspective": 0.0,
+    "flipud": 0.0,
+    "fliplr": 0.5,
+    "mosaic": 1.0,
+    "mixup": 0.0,
+    "copy_paste": 0.0,           # a no-op without segments, as in JAX
+    "photometric": True,         # Blur/MedianBlur/ToGray/CLAHE, each p=0.01
 }
 
-_FLOAT_KEYS = {"conf", "iou"}
+AUGMENT_KEYS = ("mosaic", "mixup", "copy_paste", "hsv_h", "hsv_s", "hsv_v",
+                "degrees", "translate", "scale", "shear", "perspective",
+                "flipud", "fliplr", "photometric")
+
+_FLOAT_KEYS = {"conf", "iou", "hsv_h", "hsv_s", "hsv_v", "translate",
+               "scale", "perspective", "flipud", "fliplr", "mosaic", "mixup",
+               "copy_paste", "fraction"}
 _NUMBER_KEYS = {"lr0", "lrf", "momentum", "weight_decay", "warmup_epochs",
                 "warmup_momentum", "warmup_bias_lr", "box", "cls", "dfl",
-                "lrl", "dark_param"}
+                "lrl", "dark_param", "degrees", "shear"}
 _INT_KEYS = {"imgsz", "max_det", "max_nms", "batch", "epochs", "nbs",
-             "max_boxes", "workers"}
+             "max_boxes", "workers", "save_period", "ckpt_period",
+             "val_period", "patience", "close_mosaic", "seed"}
 _BOOL_KEYS = {"half", "agnostic_nms", "cos_lr", "lowlight_FLAG", "dedark_FLAG",
               "amp", "rect", "save_json", "save_txt", "save_conf",
-              "save_hybrid", "plots", "verbose", "single_cls", "exist_ok"}
+              "save_hybrid", "plots", "verbose", "single_cls", "exist_ok",
+              "save", "val", "resume", "photometric"}
 _PRECISIONS = ("default", "tensorfloat32", "float32")
 
 
@@ -106,6 +147,10 @@ def get_cfg(overrides: dict | None = None) -> SimpleNamespace:
                 raise ValueError(f"cache '{v}' is not False|True|ram|disk")
             elif k == "data" and not isinstance(v, (str, Path, dict)):
                 raise TypeError(f"'data={v}' must be a path or a dict")
+            elif k == "pretrained" and not isinstance(v, (bool, str, Path)):
+                raise TypeError(f"'pretrained={v}' must be a bool or a path")
+            elif k in ("project", "name") and not isinstance(v, (str, Path)):
+                raise TypeError(f"'{k}={v}' must be a path")
             elif k == "matmul_precision" and v not in _PRECISIONS:
                 raise ValueError(f"matmul_precision '{v}' is not one of "
                                  f"{_PRECISIONS}")
@@ -113,6 +158,16 @@ def get_cfg(overrides: dict | None = None) -> SimpleNamespace:
     if cfg["imgsz"] % 32:
         raise ValueError(f"imgsz={cfg['imgsz']} must be a multiple of 32")
     return SimpleNamespace(**cfg)
+
+
+def yaml_save(path, data: dict) -> None:
+    """Write `data` to `path` as JSON, which is valid YAML: the JAX
+    package's `yaml_load` reads it back (JAX cfg/__init__.py:59-70)."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    clean = {k: (str(v) if isinstance(v, Path) else v) for k, v in data.items()}
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(clean, f, indent=1, default=str)
+        f.write("\n")
 
 
 def model_yaml_load(path) -> dict:

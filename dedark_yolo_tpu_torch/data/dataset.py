@@ -13,8 +13,10 @@ from its `.npy` sidecar (the array `cv2.imread` gave, written on the first
 read), and `image_shapes()` takes an image's (h, w) from its sidecar's
 header where there is one: the same shape the JAX package reads from the
 image's own header, with no decoder. A deployment without OpenCV can so
-validate on sidecars alone. Not ported: dataset cards resolved by name from
-the JAX package's `cfg/datasets/`.
+validate and train on sidecars alone. `fraction` keeps the first share of
+the sorted images; `random_index` draws the partners of mosaic and mixup.
+Not ported: dataset cards resolved by name from the JAX package's
+`cfg/datasets/`.
 """
 
 from __future__ import annotations
@@ -134,11 +136,13 @@ class YOLODataset:
     sidecars)."""
 
     def __init__(self, img_path, imgsz=640, nc=80, cache=False,
-                 single_cls=False):
+                 single_cls=False, fraction=1.0):
         self.imgsz = imgsz
         self.nc = nc
         self.single_cls = single_cls
         self.im_files = _scan_images(img_path)
+        if fraction < 1.0:   # the first share of the sorted files
+            self.im_files = self.im_files[:max(1, int(len(self.im_files) * fraction))]
         self.label_files = [img2label_path(f) for f in self.im_files]
         self.labels = self._load_cache()
         self._ram = {} if cache in (True, "ram") else None
@@ -184,6 +188,11 @@ class YOLODataset:
     # -- sample access -------------------------------------------------------
     def __len__(self):
         return len(self.im_files)
+
+    def random_index(self, rng):
+        """An image index drawn from the per-item rng (mosaic and mixup
+        partners)."""
+        return rng.randrange(len(self.im_files))
 
     def _sidecar(self, index):
         return Path(self.im_files[index]).with_suffix(".npy")

@@ -2,15 +2,16 @@
 :52-189, the thread path).
 
 Each item is made by `transforms(dataset, index, rng)` in a thread pool,
-with the JAX package's per-item seed at its seed 0 (`position * 7919 +
-index`) and its unshuffled index order, so the two loaders give the same
-batches. The collate stacks uint8 (B, H, W, 3) images and pads the labels
-to `max_boxes` with a validity mask.
+with the JAX package's per-item seed (`seed * 100003 + epoch + position *
+7919 + index`, position within the batch) and its index order (with
+`shuffle`, `random.Random(seed + epoch)` shuffles the indices; `set_epoch`
+reshuffles), so the two loaders give the same batches. The collate stacks
+uint8 (B, H, W, 3) images and pads the labels to `max_boxes` with a
+validity mask.
 
-What validation needs: one process (the JAX loader's per-host sharding,
-`process_index`/`process_count`, stays at 0 of 1), in order. Not ported:
-shuffling from a seed and its per-epoch reshuffle (`set_epoch`), which
-come with the trainer's loop, the forked-process workers
+One process: the JAX loader's per-host sharding (`process_index` /
+`process_count`) stays at 0 of 1. The validator reads in order (no
+shuffle, seed 0, epoch 0). Not ported: the forked-process workers
 (`use_processes`) and task collates (`collate_fn`).
 """
 
@@ -48,7 +49,8 @@ class DataLoader:
     """Iterable over fixed-shape batches with threaded decode/transform."""
 
     def __init__(self, dataset, transforms, batch_size, max_boxes=128,
-                 workers=8, drop_last=True, indices=None):
+                 workers=8, drop_last=True, indices=None, shuffle=False,
+                 seed=0):
         self.dataset = dataset
         self.indices = list(indices) if indices is not None else None
         self.transforms = transforms
@@ -56,10 +58,21 @@ class DataLoader:
         self.max_boxes = max_boxes
         self.workers = max(1, workers)
         self.drop_last = drop_last
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        """The epoch whose order and item seeds the next pass uses
+        (reference sampler.set_epoch)."""
+        self.epoch = epoch
 
     def _indices(self):
-        return list(self.indices) if self.indices is not None \
+        idx = list(self.indices) if self.indices is not None \
             else list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random(self.seed + self.epoch).shuffle(idx)
+        return idx
 
     def __len__(self):
         n = len(self._indices())
@@ -68,9 +81,10 @@ class DataLoader:
     def __iter__(self):
         idx = self._indices()
         nb = len(self)
+        base_seed = self.seed * 100003 + self.epoch
 
         def make_item(i, pos):
-            rng = random.Random(pos * 7919 + i)
+            rng = random.Random(base_seed + pos * 7919 + i)
             return self.transforms(self.dataset, i, rng)
 
         out_q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)

@@ -1,23 +1,28 @@
 """YOLO facade (JAX engine/model.py): build a model or load a checkpoint,
-then predict or validate.
+then train, predict or validate.
 
     YOLO("yolov8l.yaml", nc=3)   # the architecture, seeded random weights
-    YOLO("best.npz")             # a JAX package checkpoint (its EMA weights)
+    YOLO("best.npz")             # a checkpoint of either package (its EMA weights)
 
 The model lives on `device` (None means cuda, and raises without a CUDA
-device); `predict` and `val` run on their own `device` key, cuda by default.
+device); `train`, `predict` and `val` run on their own `device` key, cuda
+by default.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
 
 from ..cfg import get_cfg, model_yaml_load
+from ..data.dataset import check_det_dataset
 from ..nn.enhance import LowlightRecovery
 from ..nn.graph import DetectionModel
 from ..utils.checkpoint import has_section, load_checkpoint, section_tree
 from ..utils.weights import init_weights, state_dict_from_jax
 from .predictor import DetectionPredictor, resolve_device
+from .trainer import DetectionTrainer
 from .validator import DetectionValidator
 
 # train_args a checkpoint carries into predict and val (JAX model.py:90-92)
@@ -30,7 +35,9 @@ class YOLO:
         a yaml file) with `seed`ed weights, or a JAX `.npz` checkpoint."""
         self.device = resolve_device(device)
         self.overrides = {}
-        self.predictor = self.validator = self.metrics = None
+        self.predictor = self.validator = self.trainer = self.metrics = None
+        self._user_callbacks = {}
+        self.ckpt_path = None      # the .npz this facade was loaded from
         model = str(model)
         if model.endswith(".npz"):
             self._load(model)
@@ -54,6 +61,7 @@ class YOLO:
         become the defaults of predict and val, its names the model's (JAX
         model.py:62-94)."""
         meta, flat = load_checkpoint(path)
+        self.ckpt_path = path
         train_args = meta.get("train_args") or {}
         self.model_yaml = meta["model_yaml"]
         self._build()
@@ -101,6 +109,48 @@ class YOLO:
                                             names=self.model.names)
         self.device = self.predictor.device
         return self.predictor(source)
+
+    def add_callback(self, event, fn):
+        """Run fn(trainer) at `event` (utils.callbacks.HOOKS) of the next
+        `train` calls."""
+        self._user_callbacks.setdefault(event, []).append(fn)
+
+    def train(self, **kwargs):
+        """Train on `data` (a dataset yaml path or dict); returns the final
+        validation's results (JAX model.py:130-160, the detect branch).
+
+        kwargs are config keys; device None means cuda. The run trains a
+        fresh module of this architecture with data's nc, warm-started by
+        name and shape (never on `resume`): from the weights this facade
+        holds when it was loaded from an .npz (they win over `pretrained`,
+        as in JAX), else from a `pretrained` .npz when one is named, else
+        from the facade's seeded weights. Afterwards the facade holds
+        best.npz (its EMA weights) when the run wrote one."""
+        args = self._args(kwargs)
+        data = check_det_dataset(args.data) if args.data else None
+        if data is None:
+            raise ValueError("training needs `data` (a dataset yaml or dict)")
+        with torch.device("meta"):
+            net = DetectionModel(self.model_yaml, nc=data["nc"])
+        net = net.to_empty(device="cpu")
+        init_weights(net, args.seed)
+        for m in net.modules():
+            if isinstance(m, LowlightRecovery):
+                m.contrast_mode = args.contrast_mode
+        trainer = DetectionTrainer(net, {**self.overrides, **kwargs})
+        named = isinstance(args.pretrained, (str, Path)) and args.pretrained
+        if not args.resume and (self.ckpt_path is not None or not named):
+            trainer.init_state = self.model.state_dict()
+        for event, fns in self._user_callbacks.items():
+            trainer.callbacks[event].extend(fns)
+        self.trainer = trainer
+        metrics = trainer.train()
+        best = trainer.wdir / "best.npz"
+        if best.is_file():
+            self.device = trainer.device
+            self._load(str(best))
+        self.metrics = metrics
+        return metrics
 
     def val(self, **kwargs):
         """mAP of the model on `data` (a dataset yaml path or dict) at

@@ -1,12 +1,12 @@
-"""DetectionTrainer: one train step of the detect task (JAX engine/trainer.py).
+"""DetectionTrainer: the detect task's train step and epoch loop (JAX
+engine/trainer.py).
 
-What the JAX trainer's step needs and nothing of its epoch loop, data or
-checkpoints (ROADMAP A10): `build_optimizer` (:268-312, the 'auto' choice,
-the lr schedule and the warmup ramps of lr, bias lr and momentum,
-accumulation to `nbs`, decay scaled by batch * accumulate / nbs), the loss
-of `make_loss_fn` (:976-1030) and the tree-path `train_step` (:356-372):
+The step (`step`): `build_optimizer` (:268-312, the 'auto' choice, the lr
+schedule and the warmup ramps of lr, bias lr and momentum, accumulation to
+`nbs`, decay scaled by batch * accumulate / nbs), the loss of
+`make_loss_fn` (:976-1030) and the tree-path `train_step` (:356-372):
 forward, backward, `opt_update`, then the EMA on the calls that applied an
-update. `get_validator` gives the validator an epoch's val would run.
+update.
 
 The loss: u8 / 255, then `img ** dark_param` (lowlight_FLAG), then the
 dark-channel priors of the degraded image when prior_mode is 'computed'
@@ -15,37 +15,91 @@ every call), then the v8 loss with the recovery MSE of the degraded image
 against the clean one (which has no gradient in the parameters). f32 only:
 `amp=True` raises.
 
+The loop (`train`, :375-733): a warm start from `init_state` or a
+`pretrained` .npz (by name and shape), the shuffled, augmented loader of
+`data["train"]`, `step` on every batch (under `matmul_precision`, as val
+runs: 'default' lets cuDNN and CUDA matmuls use TF32), close_mosaic,
+validation of the
+EMA weights every `val_period` epochs (on a second module, so the training
+weights are never touched), results.csv, EarlyStopping, the callbacks,
+last.npz / best.npz / epoch{N}.npz in the JAX package's container written
+by one background thread (latest wins per file), resume from last.npz, and
+a SIGTERM/SIGINT handler that checkpoints and stops after the epoch. The
+inherited orderings of the JAX loop are kept (ROADMAP C6): on_fit_epoch_end
+fires before the stop decision and the checkpoint; on_model_save fires on
+every epoch with `save`, written or not; with val=False every epoch counts
+as improved and refreshes best.npz. Not ported: the device mesh and
+multi-process training, autobatch (batch < 0 raises), the profiler trace
+and the plots.
+
     trainer = DetectionTrainer(model, {"batch": 16}, nb=100)  # model: nn.graph.DetectionModel
     total, items = trainer.step(batch, step_index)
+    metrics = DetectionTrainer(model, {"data": data, "epochs": 3}).train()
 
-`batch` is the JAX loader's dict: 'img' (B, S, S, 3) uint8, 'cls' (B, M),
+`batch` is the loader's dict: 'img' (B, S, S, 3) uint8, 'cls' (B, M),
 'bboxes' (B, M, 4) normalised xywh, 'mask_gt' (B, M); numpy or torch.
 """
 
 from __future__ import annotations
 
+import copy
+import csv
 import math
+import signal
+import time
+from concurrent.futures import CancelledError, ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..cfg import get_cfg
+from ..cfg import AUGMENT_KEYS, get_cfg, yaml_save
+from ..data.augment import TrainTransforms
+from ..data.dataset import YOLODataset, check_det_dataset
+from ..data.loader import DataLoader
 from ..losses.detection import detection_loss
 from ..ops.dark_channel import dark_channel_priors
 from ..ops.degrade import lowlight_degrade
+from ..utils import LOGGER, increment_dir
+from ..utils.callbacks import add_integration_callbacks, get_default_callbacks
+from ..utils.checkpoint import (has_section, load_checkpoint, save_checkpoint,
+                                section_tree, transfer_tree)
+from ..utils.checks import check_imgsz
 from ..utils.ema import ema_init, ema_update
-from .optim import init_opt_state, label_params, opt_update
-from .predictor import resolve_device
+from ..utils.weights import (opt_state_from_jax, opt_state_to_jax,
+                             state_dict_from_jax, state_dict_to_jax)
+from .optim import OptState, init_opt_state, label_params, opt_update
+from .predictor import matmul_precision, resolve_device
 from .validator import DetectionValidator
 
 BATCH_KEYS = ("img", "cls", "bboxes", "mask_gt")
 
 
+class EarlyStopping:
+    """Fitness-plateau stopper (reference torch_utils.py:478-518)."""
+
+    def __init__(self, patience=50):
+        self.best_fitness = 0.0
+        self.best_epoch = 0
+        self.patience = patience or float("inf")
+
+    def __call__(self, epoch, fitness):
+        if fitness >= self.best_fitness:
+            self.best_epoch = epoch
+            self.best_fitness = fitness
+        return (epoch - self.best_epoch) >= self.patience
+
+
 class DetectionTrainer:
+    loss_names = ("box", "cls", "dfl")
+    metric_keys = ("metrics/precision(B)", "metrics/recall(B)",
+                   "metrics/mAP50(B)", "metrics/mAP50-95(B)")
+
     def __init__(self, model, overrides=None, nb=1, device=None):
         """model: the port's DetectionModel; overrides: config keys
-        (cfg.DEFAULT_CFG); nb: batches an epoch, which sets the schedule;
-        device None means cuda and raises without it."""
+        (cfg.DEFAULT_CFG); nb: batches an epoch, which sets the schedule
+        (`train` sets it from its loader); device None means the `device`
+        key, and None there cuda, which raises without a CUDA device."""
         self.args = get_cfg(overrides)
         if self.args.amp:
             raise NotImplementedError(
@@ -54,11 +108,40 @@ class DetectionTrainer:
                                      else self.args.device)
         self.model = model.to(self.device)
         self.build_optimizer(nb)
+        self.init_train_state()
+        self.callbacks = get_default_callbacks()
+        add_integration_callbacks(self)
+        self.save_dir = self._get_save_dir()
+        self.wdir = self.save_dir / "weights"
+        self.csv = self.save_dir / "results.csv"
+        self.best_fitness = 0.0
+        self.epoch = 0
+        self.metrics = {}
+        self.data = None
+        self.init_state = None     # a state_dict to warm-start from
+        self.transferred = None    # (n, total) after a warm start
+        self.epoch_stats = []      # per epoch: seconds of train, val, ckpt
+        self._validator = self._val_model = None
+        self._interrupted = False
+        self._ckpt_pool, self._ckpt_futures = None, {}
+
+    def init_train_state(self):
+        """Optimizer state and EMA from the model's current weights."""
         self.params = dict(self.model.named_parameters())
         self.labels = label_params(self.params)
         self.opt_state = init_opt_state(self.params)
         self.ema = ema_init(self.model.state_dict())
         self.ema_updates = 0
+
+    def run_callbacks(self, event):
+        for cb in self.callbacks.get(event, []):
+            cb(self)
+
+    def _get_save_dir(self):
+        a = self.args
+        project = Path(a.project or "runs/detect")
+        return increment_dir(project / (a.name or "train"),
+                             a.exist_ok or a.resume)
 
     def build_optimizer(self, nb):
         """The optimizer's name, lr0 and momentum, the per-step lr and
@@ -103,6 +186,10 @@ class DetectionTrainer:
             return float(np.interp(step, [0, self.nw],
                                    [self.args.warmup_momentum, self.momentum]))
         return float(self.momentum)
+
+    def close_augment(self):
+        """close_mosaic: the last epochs letterbox instead of mosaicking."""
+        self.train_tf.mosaic_enabled = False
 
     def get_validator(self, save_dir=None, data=None):
         """The validator an epoch's val runs (JAX trainer.py:1032-1036): this
@@ -167,3 +254,334 @@ class DetectionTrainer:
             self.ema_updates = ema_update(self.ema, self.model.state_dict(),
                                           self.ema_updates)
         return total.detach(), torch.stack(list(items))
+
+    # ------------------------------------------------------------------ loop
+    def build_train_dataset(self):
+        if getattr(self, "train_ds", None) is None:
+            a = self.args
+            self.train_ds = YOLODataset(self.data["train"], imgsz=a.imgsz,
+                                        nc=self.data["nc"], cache=a.cache,
+                                        fraction=a.fraction,
+                                        single_cls=a.single_cls)
+        return self.train_ds
+
+    def build_train_loader(self):
+        a = self.args
+        hyp = {k: getattr(a, k) for k in AUGMENT_KEYS}
+        self.train_tf = TrainTransforms(hyp, imgsz=a.imgsz)
+        return DataLoader(self.build_train_dataset(), self.train_tf, a.batch,
+                          max_boxes=a.max_boxes, workers=a.workers,
+                          shuffle=True, seed=a.seed, drop_last=True)
+
+    def _resolve_max_boxes(self):
+        """max_boxes=0 -> the densest composite the augmentation can make:
+        the top-k label counts summed, k = 4 with mosaic (x2 with mixup, x2
+        again with copy_paste), rounded up to a multiple of 8 in [8, 1024]
+        (JAX trainer.py:218-246)."""
+        a = self.args
+        if int(a.max_boxes) > 0:
+            return
+        counts = sorted((len(lb) for lb in self.build_train_dataset().labels),
+                        reverse=True)
+        k = 4 if a.mosaic > 0 else 1
+        if a.mixup > 0:
+            k *= 2
+        top = sum(counts[:k]) if counts else 1
+        if a.copy_paste > 0:
+            top *= 2
+        a.max_boxes = int(np.clip(math.ceil(max(top, 1) / 8) * 8, 8, 1024))
+        LOGGER.info(f"auto max_boxes: {a.max_boxes} "
+                    f"(top-{k} label sum {top}, {len(counts)} images)")
+
+    def _warm_start(self):
+        """Weights by name and shape from `init_state` (the facade's
+        state_dict) or, without one, a `pretrained` .npz (its EMA with
+        ema_bs, else params with batch_stats); skipped on resume (JAX
+        trainer.py:111-153)."""
+        a = self.args
+        if a.resume:
+            return
+        src = self.init_state
+        if src is None and isinstance(a.pretrained, (str, Path)) and a.pretrained:
+            _, flat = load_checkpoint(a.pretrained)
+            sec = "ema" if has_section(flat, "ema") else "params"
+            bs = ("ema_bs" if sec == "ema" and has_section(flat, "ema_bs")
+                  else "batch_stats")
+            src = state_dict_from_jax({"params": section_tree(flat, sec),
+                                       "batch_stats": section_tree(flat, bs)},
+                                      self.model)
+        if src is None:
+            return
+        merged, n, total = transfer_tree(src, self.model.state_dict())
+        self.model.load_state_dict(merged)
+        self.transferred = (n, total)
+        LOGGER.info(f"transferred {n}/{total} items from pretrained weights")
+
+    def _resume(self):
+        """Weights, EMA, optimizer state, update count and best fitness
+        from last.npz; returns the epoch to start from (JAX
+        trainer.py:909-941)."""
+        ckpt = self.wdir / "last.npz"
+        if not ckpt.is_file():
+            LOGGER.info("no checkpoint to resume from; starting fresh")
+            return 0
+        meta, flat = load_checkpoint(ckpt)
+        to_dev = lambda sd: {k: v.to(self.device) for k, v in sd.items()}
+        self.model.load_state_dict(state_dict_from_jax(
+            {"params": section_tree(flat, "params"),
+             "batch_stats": section_tree(flat, "batch_stats")}, self.model))
+        self.ema = to_dev(state_dict_from_jax(
+            {"params": section_tree(flat, "ema"),
+             "batch_stats": section_tree(
+                 flat, "ema_bs" if has_section(flat, "ema_bs")
+                 else "batch_stats")}, self.model))
+        if has_section(flat, "opt"):
+            st = opt_state_from_jax(section_tree(flat, "opt"), self.model)
+            self.opt_state = OptState(step=st.step, micro=st.micro,
+                                      acc=to_dev(st.acc), buf=to_dev(st.buf),
+                                      buf2=to_dev(st.buf2))
+        self.ema_updates = int(meta["updates"])
+        self.best_fitness = float(meta["best_fitness"])
+        start = int(meta["epoch"]) + 1
+        LOGGER.info(f"resumed from {ckpt} at epoch {start}")
+        return start
+
+    def _ema_model(self):
+        """A second module holding the EMA weights, for val."""
+        if self._val_model is None:
+            self._val_model = copy.deepcopy(self.model)
+        self._val_model.load_state_dict(self.ema)
+        return self._val_model.eval()
+
+    def _validate(self, state=None):
+        if self._validator is None:
+            self._validator = self.get_validator(save_dir=self.save_dir,
+                                                 data=self.data)
+        model = self._ema_model()
+        if state is not None:
+            model.load_state_dict(state)
+        return self._validator(model=model)
+
+    def _on_signal(self, signum, frame):
+        if self._interrupted:
+            # a second signal aborts at once
+            for s, h in self._prev_handlers.items():
+                signal.signal(s, h)
+            raise KeyboardInterrupt
+        self._interrupted = True
+        LOGGER.info(f"signal {signum}: will checkpoint and stop after this "
+                    "epoch (resume with resume=True); repeat to abort")
+
+    def train(self):
+        """The epoch loop on `data`; returns the last validation's results
+        (those of best.npz when it is not the last epoch's)."""
+        a = self.args
+        if a.batch < 0:
+            raise NotImplementedError(
+                "autobatch (batch < 0) is not ported; pass a batch size")
+        if not a.data:
+            raise ValueError("training needs `data` (a dataset yaml or dict)")
+        self.data = check_det_dataset(a.data)
+        a.imgsz = check_imgsz(a.imgsz, stride=32)
+        self.run_callbacks("on_pretrain_routine_start")
+        self.wdir.mkdir(parents=True, exist_ok=True)
+        yaml_save(self.save_dir / "args.yaml", dict(vars(a)))
+
+        self._warm_start()
+        self._resolve_max_boxes()
+        train_dl = self.build_train_loader()
+        nb = len(train_dl)
+        if nb == 0:
+            raise ValueError("empty train loader (batch larger than the dataset?)")
+        self.build_optimizer(nb)
+        self.init_train_state()
+        start_epoch = self._resume() if a.resume else 0
+        stopper = EarlyStopping(a.patience)
+        stopper.best_fitness = self.best_fitness
+        n_params = sum(p.numel() for p in self.params.values())
+        LOGGER.info(f"{self.opt_name} optimizer, lr0={self.lr0}, "
+                    f"accumulate={self.accumulate}, params={n_params:,}")
+        self.run_callbacks("on_train_start")
+
+        t_train = time.time()
+        self._interrupted = False
+        self._prev_handlers = {}
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                self._prev_handlers[sig] = signal.signal(sig, self._on_signal)
+        except ValueError:
+            self._prev_handlers = {}   # not the main thread: unguarded
+        step = start_epoch * nb       # resume continues the schedule
+        epoch = start_epoch
+        try:
+            for epoch in range(start_epoch, a.epochs):
+                self.epoch = epoch
+                self.run_callbacks("on_train_epoch_start")
+                train_dl.set_epoch(epoch)
+                if a.close_mosaic and epoch >= a.epochs - a.close_mosaic:
+                    self.close_augment()
+                t0 = time.time()
+                wait = 0.0
+                items_log = []
+                batches = iter(train_dl)
+                while True:
+                    tw = time.perf_counter()
+                    batch = next(batches, None)
+                    wait += time.perf_counter() - tw
+                    if batch is None:
+                        break
+                    self.run_callbacks("on_train_batch_start")
+                    with matmul_precision(a.matmul_precision):
+                        items_log.append(self.step(batch, step)[1])
+                    step += 1
+                    self.run_callbacks("on_train_batch_end")
+                mloss = torch.stack(items_log).mean(0).cpu().numpy()
+                epoch_time = time.time() - t0
+                self.run_callbacks("on_train_epoch_end")
+                lr_now = self.lr_at(step)
+
+                fitness, metrics = 0.0, {}
+                val_this_epoch = ((epoch + 1) % max(1, a.val_period) == 0
+                                  or epoch == a.epochs - 1)
+                t_val = time.time()
+                if a.val and val_this_epoch:
+                    metrics = self._validate()
+                    fitness = float(metrics.get("fitness", 0.0))
+                t_val = time.time() - t_val
+                self.metrics = metrics
+                self._save_csv(epoch, mloss, metrics, lr_now)
+
+                # best and EarlyStopping advance on epochs with a real
+                # fitness: every epoch without val, else validated ones
+                track = (not a.val) or val_this_epoch
+                improved = track and fitness >= self.best_fitness
+                if improved:
+                    self.best_fitness = fitness
+                self.run_callbacks("on_fit_epoch_end")
+                stop = False
+                if track and stopper(epoch, fitness):
+                    LOGGER.info(f"EarlyStopping at epoch {epoch + 1} "
+                                f"(no improvement for {a.patience} epochs)")
+                    stop = True
+                if self._interrupted:
+                    LOGGER.info("interrupted: checkpointing and stopping "
+                                f"after epoch {epoch + 1}")
+                    stop = True
+                t_ckpt = time.time()
+                if a.save:
+                    write_last = ((epoch + 1) % max(1, a.ckpt_period) == 0
+                                  or stop or epoch == a.epochs - 1)
+                    self._save_ckpt(epoch, improved, write_last)
+                    self.run_callbacks("on_model_save")
+                t_ckpt = time.time() - t_ckpt
+                self.epoch_stats.append({
+                    "epoch": epoch, "batches": len(items_log),
+                    "train_s": epoch_time, "loader_wait_s": wait,
+                    "val_s": t_val, "ckpt_s": t_ckpt})
+                loss_str = " ".join(f"{n} {v:.4f}"
+                                    for n, v in zip(self.loss_names, mloss))
+                LOGGER.info(
+                    f"epoch {epoch + 1}/{a.epochs} {loss_str} lr {lr_now:.5f} "
+                    f"fitness {fitness:.4f} (train {epoch_time:.1f}s val "
+                    f"{t_val:.1f}s ckpt {t_ckpt:.1f}s)")
+                if stop:
+                    break
+        finally:
+            # flush the writer before the handlers go back: a signal during
+            # the flush must not tear last.npz
+            self._ckpt_drain()
+            for sig, h in self._prev_handlers.items():
+                signal.signal(sig, h)
+        LOGGER.info(f"training done in {(time.time() - t_train) / 3600:.3f}h; "
+                    f"results in {self.save_dir}")
+        best = self.wdir / "best.npz"
+        if a.val and best.is_file() and self._validator is not None:
+            meta, flat = load_checkpoint(best)
+            if meta["epoch"] != epoch:   # else this epoch's val ran already
+                LOGGER.info(f"validating best.npz (epoch {meta['epoch'] + 1})")
+                self.metrics = self._validate(state_dict_from_jax(
+                    {"params": section_tree(flat, "ema"),
+                     "batch_stats": section_tree(flat, "ema_bs")}, self.model))
+        self.run_callbacks("on_train_end")
+        return self.metrics
+
+    # --------------------------------------------------------------- persist
+    def _save_csv(self, epoch, mloss, metrics, lr):
+        keys = (["epoch"] + [f"train/{n}_loss" for n in self.loss_names]
+                + list(self.metric_keys) + ["lr"])
+        vals = ([epoch] + list(mloss.tolist())
+                + [metrics.get(k, 0.0) for k in self.metric_keys] + [lr])
+        write_header = not self.csv.exists()
+        with open(self.csv, "a", newline="") as f:
+            w = csv.writer(f)
+            if write_header:
+                w.writerow(keys)
+            w.writerow(vals)
+
+    def _save_ckpt(self, epoch, improved, write_last=True):
+        """Queue last.npz (with the optimizer state), best.npz and
+        epoch{N}.npz as due. The state is copied on the device here; the
+        copy to the host, the map to flax trees and the compressed write
+        run on the writer thread."""
+        a = self.args
+        epoch_due = a.save_period > 0 and (epoch + 1) % a.save_period == 0
+        if not (write_last or improved or epoch_due):
+            return
+        snap = lambda sd: {k: v.detach().clone() for k, v in sd.items()}
+        common = {"model": snap(self.model.state_dict()),
+                  "ema": snap(self.ema), "epoch": epoch,
+                  "best_fitness": self.best_fitness,
+                  "updates": self.ema_updates,
+                  "train_args": dict(vars(a)), "model_yaml": self.model.yaml}
+        opt = None
+        if write_last:
+            st = self.opt_state
+            opt = OptState(step=st.step, micro=st.micro, acc=snap(st.acc),
+                           buf=snap(st.buf), buf2=snap(st.buf2))
+            self._ckpt_async(self.wdir / "last.npz", common, opt)
+        if improved:
+            self._ckpt_async(self.wdir / "best.npz", common)
+        if epoch_due:
+            self._ckpt_async(self.wdir / f"epoch{epoch}.npz", common)
+
+    def _write_ckpt(self, path, common, opt=None):
+        model = self.model
+        cpu = lambda sd: {k: v.cpu() for k, v in sd.items()}
+        state = state_dict_to_jax(cpu(common["model"]), model)
+        ema = state_dict_to_jax(cpu(common["ema"]), model)
+        if opt is not None:
+            opt = opt_state_to_jax(OptState(
+                step=opt.step, micro=opt.micro, acc=cpu(opt.acc),
+                buf=cpu(opt.buf), buf2=cpu(opt.buf2)), model)
+        return save_checkpoint(
+            path, params=state["params"], batch_stats=state["batch_stats"],
+            ema_params=ema["params"], ema_batch_stats=ema["batch_stats"],
+            opt_state=opt, epoch=common["epoch"],
+            best_fitness=common["best_fitness"], updates=common["updates"],
+            train_args=common["train_args"], model_yaml=common["model_yaml"])
+
+    def _ckpt_async(self, path, common, opt=None):
+        """Queue one write on the background writer. At most one queued
+        write a path: a newer one cancels a stale one not yet started
+        (latest wins); a write that failed raises on the next call."""
+        if self._ckpt_pool is None:
+            self._ckpt_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ckpt-writer")
+        key = str(path)
+        prev = self._ckpt_futures.get(key)
+        if prev is not None and not prev.cancel() and prev.done():
+            prev.result()
+        self._ckpt_futures[key] = self._ckpt_pool.submit(
+            self._write_ckpt, path, common, opt)
+
+    def _ckpt_drain(self):
+        """Wait for every queued write; re-raise a writer's error."""
+        for f in self._ckpt_futures.values():
+            try:
+                f.result()
+            except CancelledError:
+                pass   # superseded by a newer write of the same path
+        self._ckpt_futures = {}
+        if self._ckpt_pool is not None:
+            self._ckpt_pool.shutdown()
+            self._ckpt_pool = None

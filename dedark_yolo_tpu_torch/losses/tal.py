@@ -60,6 +60,27 @@ def _select_topk(metrics, topk, valid_mask):
     return mask * valid_mask[..., None].to(metrics.dtype)
 
 
+def align_metrics(pd_scores, pd_bboxes, anc_points, labels, gt_bboxes,
+                  mask_gt_f, alpha=0.5, beta=6.0):
+    """(B, M, N) anchors inside each valid GT, their clipped CIoU with it,
+    and the align metric s^alpha * CIoU^beta (0 outside)."""
+    mask_in_gts = select_candidates_in_gts(anc_points, gt_bboxes)
+    bbox_scores = torch.gather(
+        pd_scores.transpose(1, 2), 1,
+        labels[..., None].expand(-1, -1, pd_scores.shape[1]))
+    pre_mask = mask_in_gts * mask_gt_f[..., None]
+    bbox_scores = bbox_scores * pre_mask
+    overlaps = bbox_iou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :],
+                        CIoU=True).squeeze(-1)
+    overlaps = overlaps.clamp(min=0.0) * pre_mask
+    if alpha == 0.5 and beta == 6.0:
+        o2 = overlaps * overlaps
+        align_metric = torch.sqrt(bbox_scores) * (o2 * o2 * o2)
+    else:
+        align_metric = bbox_scores.pow(alpha) * overlaps.pow(beta)
+    return mask_in_gts, overlaps, align_metric
+
+
 @torch.no_grad()
 def task_aligned_assign(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes,
                         mask_gt, num_classes, topk=10, alpha=0.5, beta=6.0,
@@ -74,24 +95,10 @@ def task_aligned_assign(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes,
     dtype = pd_scores.dtype
     m = gt_bboxes.shape[1]
     mask_gt_f = mask_gt.to(dtype)
-
-    mask_in_gts = select_candidates_in_gts(anc_points, gt_bboxes)   # (B,M,N)
-
     labels = gt_labels.long().clamp(0, pd_scores.shape[-1] - 1)      # (B,M)
-    bbox_scores = torch.gather(
-        pd_scores.transpose(1, 2), 1,
-        labels[..., None].expand(-1, -1, pd_scores.shape[1]))       # (B,M,N)
-    pre_mask = mask_in_gts * mask_gt_f[..., None]
-    bbox_scores = bbox_scores * pre_mask
-
-    overlaps = bbox_iou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :],
-                        CIoU=True).squeeze(-1)
-    overlaps = overlaps.clamp(min=0.0) * pre_mask                   # (B,M,N)
-    if alpha == 0.5 and beta == 6.0:
-        o2 = overlaps * overlaps
-        align_metric = torch.sqrt(bbox_scores) * (o2 * o2 * o2)
-    else:
-        align_metric = bbox_scores.pow(alpha) * overlaps.pow(beta)
+    mask_in_gts, overlaps, align_metric = align_metrics(
+        pd_scores, pd_bboxes, anc_points, labels, gt_bboxes, mask_gt_f,
+        alpha, beta)
 
     mask_topk = _select_topk(align_metric, topk, mask_gt_f > 0)
     mask_pos = mask_topk * mask_in_gts * mask_gt_f[..., None]       # (B,M,N)
