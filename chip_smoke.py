@@ -53,6 +53,15 @@ line:
            checkpoint seconds, peak memory, the files written), each run
            launching fused_enhance once a micro-step and a val batch and
            nms once a val batch; then YOLO("best.npz") predicts one batch
+  c10      the tiny architecture at imgsz 96: YOLO(...).val() and then
+           .train() for two micro-steps in this process (ROADMAP C10: a
+           cache filled under val's inference mode once broke the step)
+  train_amp  amp=True (bf16) at b16/640: the loss items against f32 at the
+           same weights and batch, then timed windows beside train's f32
+           numbers; fused_enhance once a micro-step on a bf16 image, the
+           masters, EMA and BN stats f32
+  cli      python -m dedark_yolo_tpu_torch val and train in subprocesses,
+           val's printed metrics against YOLO(npz).val() here
 
 then the card line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1695,6 +1704,233 @@ def phase_train_loop(torch):
     return full
 
 
+# c10 phase: the tiny test architecture (tests/tiny_model.yaml, written
+# here as JSON: the card has no PyYAML) at an image side no earlier phase
+# used, so that val builds the shape-keyed caches first, under its
+# inference mode; then train at the same side (ROADMAP C10).
+TINY_ARCH = {
+    "nc": 3, "scales": {"n": [0.33, 0.25, 1024]},
+    "backbone": [[-1, 1, "lowlight_recovery", [3]], [-1, 1, "Conv", [32, 3, 2]],
+                 [-1, 1, "Conv", [64, 3, 2]], [-1, 1, "Conv", [64, 3, 2]],
+                 [-1, 1, "C2f", [64, True]], [-1, 1, "Conv", [128, 3, 2]],
+                 [-1, 1, "Conv", [128, 3, 2]], [-1, 1, "SPPF", [128, 5]]],
+    "head": [[-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+             [[-1, 5], 1, "Concat", [1]], [-1, 1, "C2f", [64]],
+             [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+             [[-1, 4], 1, "Concat", [1]], [-1, 1, "C2f", [64]],
+             [[13, 10, 7], 1, "Detect", ["nc"]]]}
+C10 = {"n_train": 4, "n_val": 4, "imgsz": 96, "batch": 2,
+       "shapes": [(96, 96), (72, 96)]}
+
+
+def phase_c10(torch):
+    """YOLO(tiny).val() and then .train() for two micro-steps at the same
+    imgsz in this process on the card: the step must not raise, and the
+    anchors val cached must not be inference tensors; fused_enhance once a
+    val batch and a micro-step, nms once a val batch."""
+    import tempfile
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.ops.anchors import make_anchors
+    cfg = C10
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = loop_data(tmp / "data", cfg, SEED + 30, SEED + 31)
+        arch = tmp / "tiny.json"
+        arch.write_text(json.dumps(TINY_ARCH))
+        y = YOLO(str(arch), seed=SEED)
+        kw = {"data": data, "imgsz": cfg["imgsz"], "batch": cfg["batch"],
+              "cache": "disk", "workers": 2, "verbose": False}
+        zero_launches()
+        with no_plain_on_cuda():
+            metrics = y.val(**kw)
+            feats = [(cfg["imgsz"] // s,) * 2 for s in y.model.strides]
+            cached = make_anchors(feats, y.model.strides, 0.5, "cuda")
+            with train_steps(torch) as st:
+                y.train(**kw, epochs=1, nbs=cfg["batch"], mosaic=0.0,
+                        val=False, save=False, project=str(tmp / "runs"))
+            torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    val_batches = -(-cfg["n_val"] // cfg["batch"])
+    micro = len(st.items)
+    items = st.item_list()
+    rec = {"imgsz": cfg["imgsz"], "val_batches": val_batches,
+           "micro_steps": micro, "step_items": items,
+           "val_fitness": float(metrics["fitness"]),
+           "anchors_inference": [t.is_inference() for t in cached],
+           "launches": launches}
+    emit({"phase": "c10", **rec})
+    check_launches("c10", launches, {"fused_enhance": val_batches + micro,
+                                     "nms": val_batches})
+    import math
+    if not (micro == 2 and not any(rec["anchors_inference"])
+            and all(math.isfinite(x) for it in items for x in it)):
+        raise AssertionError(f"c10: {rec}")
+    return rec
+
+
+# train_amp phase: bf16 training (amp=True) of the flagship at b16/640. At
+# the same weights and batch the bf16 loss items are held to the f32 ones
+# within AMP_ITEMS_RTOL of each item: tests/test_torch_amp.py's yardstick
+# is the JAX package's own bf16-vs-f32 gap, which on the CPU test's tiny
+# model reads 0.19 of items near 4.5, 162 and 2.8 (4.3% of the box item).
+AMP_ITEMS_RTOL = 0.05
+
+
+def phase_train_amp(torch, f32):
+    """yolov8l nc 3, b16/640: the loss items of amp=True against f32 (TF32
+    off) at the same weights and batch; then amp=True training as
+    train_full (default precision): a warm-up window and two timed
+    windows, fused_enhance once a micro-step, each on a bf16 image; the
+    masters, the EMA and the BN stats f32 after. `f32` is train_full's
+    record of this call, printed beside."""
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.ops import enhance_kernel as K
+    from dedark_yolo_tpu_torch.tools._ab import CLOCKS_QUERY, nvidia_smi
+    yolo = YOLO("yolov8l.yaml", nc=3, seed=SEED)
+    start = {k: v.clone() for k, v in yolo.state_dict().items()}
+    batches = [train_batch(BATCH, IMGSZ, SEED + i) for i in range(3)]
+    items = {}
+    with matmul_precision("float32"):
+        for amp in (False, True):
+            tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64,
+                                               "amp": amp}, nb=1000)
+            tr.model.train()
+            with torch.no_grad():
+                items[amp] = torch.stack(list(tr.loss(tr.to_device(
+                    batches[0]))[1])).float().cpu()
+            tr.model.eval()
+            yolo.model.load_state_dict(start)
+    rel = ((items[True] - items[False]).abs() / items[False].abs()).tolist()
+
+    dtypes = []
+    fused = K.fused_enhance
+
+    def recorded(img, *args):
+        dtypes.append(str(img.dtype))
+        return fused(img, *args)
+    tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64, "amp": True},
+                          nb=1000)
+    K.fused_enhance = recorded
+    try:
+        with matmul_precision("default"), no_plain_on_cuda():
+            for i in range(tr.accumulate):                   # warm-up window
+                tr.step(batches[i % 3], i)
+            torch.cuda.synchronize()
+            zero_launches()
+            dtypes.clear()
+            torch.cuda.reset_peak_memory_stats()
+            windows_ms, step_items = [], []
+            for w in range(2):
+                t0 = time.perf_counter()
+                for j in range(tr.accumulate):
+                    i = tr.accumulate * (w + 1) + j
+                    step_items.append(tr.step(batches[i % 3], i)[1])
+                torch.cuda.synchronize()
+                windows_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(_build.LAUNCHES)
+    finally:
+        K.fused_enhance = fused
+    peak = torch.cuda.max_memory_allocated()
+    step_items = torch.stack(step_items).cpu()
+    micro = len(step_items)
+    f32_dtypes = {str(v.dtype) for d in (tr.model.state_dict(), tr.ema,
+                                         tr.opt_state.buf, tr.opt_state.buf2,
+                                         tr.opt_state.acc) for v in d.values()
+                  if v.is_floating_point()}
+    rec = {"model": "yolov8l.yaml", "nc": 3, "batch": BATCH, "imgsz": IMGSZ,
+           "items_f32": items[False].tolist(), "items_bf16": items[True].tolist(),
+           "items_rel_err": rel, "tol_rel": AMP_ITEMS_RTOL,
+           "optimizer": tr.opt_name, "accumulate": tr.accumulate,
+           "micro_steps": micro, "window_ms": windows_ms,
+           "micro_step_ms": sum(windows_ms) / micro,
+           "images_per_s": BATCH * micro / (sum(windows_ms) / 1e3),
+           "peak_memory_gib": peak / 2 ** 30,
+           "f32": {k: f32[k] for k in ("micro_step_ms", "images_per_s",
+                                       "peak_memory_gib")},
+           "loss_items": step_items.tolist(),
+           "finite": bool(torch.isfinite(step_items).all()),
+           "enhance_image_dtypes": sorted(set(dtypes)),
+           "enhance_calls": len(dtypes), "state_dtypes": sorted(f32_dtypes),
+           "launches": launches, "nvidia_smi": nvidia_smi(CLOCKS_QUERY)}
+    emit({"phase": "train_amp", **rec})
+    check_launches("train_amp", launches, {"fused_enhance": micro})
+    if not (rec["finite"] and max(rel) <= AMP_ITEMS_RTOL
+            and dtypes == ["torch.bfloat16"] * micro
+            and f32_dtypes == {"torch.float32"}):
+        raise AssertionError(f"train_amp: {rec}")
+    return rec
+
+
+def phase_cli(torch):
+    """`python -m dedark_yolo_tpu_torch val model=<npz> data=<json>` in a
+    subprocess (the flagship at 128, BN set from the val images), its
+    printed metrics against YOLO(npz).val() here under the subprocess's
+    TF32 defaults (cuDNN on, matmuls off); then `train ... epochs=1` on 4
+    train images. Both must exit 0."""
+    import os
+    import subprocess
+    import tempfile
+    from dedark_yolo_tpu_torch import YOLO
+    cfg = {**LOOP_SMALL, "n_train": 4}
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([str(ROOT),
+                                          os.environ.get("PYTHONPATH", "")])}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = loop_data(tmp / "cli", cfg, SEED + 40, SEED)
+        data_json = tmp / "cli" / "data.json"
+        data_json.write_text(json.dumps(data))
+        npz = seeded_npz(tmp / "cli_seed.npz", val_images(data, cfg["n_val"]),
+                         cfg["imgsz"])
+        common = [f"model={npz}", f"data={data_json}", f"imgsz={cfg['imgsz']}",
+                  "cache=disk", "workers=2", "verbose=False"]
+        cmds = {"val": ["val", *common, "batch=4"],
+                "train": ["train", *common, "epochs=1", f"batch={cfg['batch']}",
+                          f"project={tmp / 'runs'}", "name=cli"]}
+        for key, args in cmds.items():
+            t0 = time.perf_counter()
+            p = subprocess.run([sys.executable, "-m", "dedark_yolo_tpu_torch",
+                                *args], capture_output=True, text=True,
+                               cwd=str(ROOT), env=env, timeout=600)
+            lines = [ln for ln in p.stdout.splitlines()
+                     if ln.startswith("results ")]
+            out[key] = {"rc": p.returncode,
+                        "seconds": time.perf_counter() - t0,
+                        "results": json.loads(lines[-1][8:]) if lines else None}
+            if p.returncode or not lines:
+                raise AssertionError(f"cli {key}: rc {p.returncode}\n"
+                                     f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with no_plain_on_cuda():
+                want = YOLO(npz).val(data=str(data_json), imgsz=cfg["imgsz"],
+                                     batch=4, cache="disk", workers=2,
+                                     verbose=False)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+        best = (tmp / "runs" / "cli" / "weights" / "best.npz").is_file()
+    got = out["val"]["results"]
+    err = {k: abs(got[k] - float(v)) / max(abs(float(v)), 1e-12)
+           for k, v in want.items()}
+    rec = {**out, "facade_val": {k: float(v) for k, v in want.items()},
+           "val_rel_err": err, "tol_rel": VAL_METRIC_RTOL,
+           "train_best_npz": best}
+    emit({"phase": "cli", **rec})
+    if not (set(got) == set(want) and max(err.values()) <= VAL_METRIC_RTOL
+            and want["metrics/mAP50(B)"] > 0 and best):
+        raise AssertionError(f"cli: {rec}")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1724,6 +1960,9 @@ def main():
     train = phase_train(torch)
     val = phase_val(torch, yolo)
     loop = phase_train_loop(torch)
+    c10 = phase_c10(torch)
+    amp = phase_train_amp(torch, train)
+    phase_cli(torch)
 
     print(smi)
     f32, bf16 = timing["float32"], timing["bfloat16"]
@@ -1740,7 +1979,9 @@ def main():
         "bf16": bf16, "train_launches": train["launches"]["fused_enhance"],
         "val_launches": val["launches"]["fused_enhance"],
         "train_loop_launches": sum(r["launches"]["fused_enhance"]
-                                   for r in loop["runs"])}, {
+                                   for r in loop["runs"]),
+        "c10_launches": c10["launches"]["fused_enhance"],
+        "train_amp_launches": amp["launches"]["fused_enhance"]}, {
         "name": "usm", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/usm.cu",
         "replaces": "dedark_yolo_tpu/ops/pallas/enhance_kernel.py:277",
@@ -1775,7 +2016,8 @@ def main():
         **{k: nms_timing[k] for k in
            ("mask_ms", "scan_ms", "walk_depth", "shape", "max_det")},
         "val_launches": val["launches"]["nms"],
-        "train_loop_launches": sum(r["launches"]["nms"] for r in loop["runs"])}]})
+        "train_loop_launches": sum(r["launches"]["nms"] for r in loop["runs"]),
+        "c10_launches": c10["launches"]["nms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

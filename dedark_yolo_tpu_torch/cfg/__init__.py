@@ -2,17 +2,21 @@
 
 The predict keys and the keys the validator, the train step and the train
 loop read of the JAX package's `cfg/default.yaml`, with the same defaults,
-plus `device`. `model_yaml_load` resolves a scaled name such as
-`yolov8l.yaml` to the unified architecture at scale `l`, as the JAX package
-does; the built-in architectures live in `cfg/models.py`, and `yaml` is
-imported only when a caller names a file on disk. `yaml_save` writes JSON
-(valid YAML, which the JAX package's `yaml_load` reads), so writing needs
-no PyYAML.
+plus `device`. A key of the JAX package's defaults that the port does not
+carry (`UNPORTED_KEYS`) is refused as not ported; any other unknown key as
+unknown, with `difflib` suggestions (JAX cfg/__init__.py:80-90).
+`model_yaml_load` resolves a scaled name such as `yolov8l.yaml` to the
+unified architecture at scale `l`, as the JAX package does; the built-in
+architectures live in `cfg/models.py`. `yaml_load` reads a `.json` file
+with `json` and imports `yaml` only for another file on disk; `yaml_save`
+writes JSON (valid YAML, which the JAX package's `yaml_load` reads), so a
+host without PyYAML reads and writes JSON configs and datasets.
 """
 
 from __future__ import annotations
 
 import copy
+import difflib
 import json
 import re
 from pathlib import Path
@@ -67,7 +71,7 @@ DEFAULT_CFG = {
     "dark_param": 15.0,
     "dedark_FLAG": True,         # dark-channel priors for the DeDark filter
     "prior_mode": "default",     # default (A=0.8, IcA=0.5) | computed
-    "amp": False,                # bf16 training: not ported yet
+    "amp": False,                # bf16 training (no loss scaling)
     # train loop (engine/trainer.py DetectionTrainer.train)
     "save": True,                # checkpoints (last, best, epochN)
     "save_period": -1,           # epoch{N}.npz every N epochs (< 1: never)
@@ -118,46 +122,111 @@ _BOOL_KEYS = {"half", "agnostic_nms", "cos_lr", "lowlight_FLAG", "dedark_FLAG",
               "save", "val", "resume", "photometric"}
 _PRECISIONS = ("default", "tensorfloat32", "float32")
 
+# Keys of the JAX package's cfg/default.yaml that the port does not carry:
+# the export, tracking, plotting, mesh and other-task keys (ROADMAP A6b,
+# A10b, A12), and the CLI's own model/source/mode/task/cfg, which the CLI
+# takes before the config is checked.
+UNPORTED_KEYS = frozenset((
+    "augment", "boxes", "cfg", "classes", "deterministic", "dnn", "dropout",
+    "dynamic", "format", "fpn_fuse", "fuse", "int8", "keras", "kobj",
+    "label_smoothing", "line_width", "loader_mp", "mask_ratio", "mesh_axes",
+    "mesh_shape", "mode", "model", "nms", "opset", "optimize",
+    "overlap_mask", "pose", "profile", "remat", "retina_masks", "save_crop",
+    "save_enhanced", "show", "show_conf", "show_labels", "simplify",
+    "source", "stem_s2d", "task", "tracker", "vid_stride", "visualize",
+    "workspace"))
+
+
+def check_cfg_alignment(base_keys, custom: dict) -> None:
+    """Raise SyntaxError for each key of `custom` not in `base_keys`: a key
+    of the JAX package's defaults as not ported, any other as unknown with
+    the near-misses `difflib` finds among every key the JAX package knows
+    (JAX cfg/__init__.py:80-90, the same suggestions)."""
+    known = set(base_keys) | UNPORTED_KEYS
+    msg = []
+    for k in custom:
+        if k in base_keys:
+            continue
+        if k in UNPORTED_KEYS:
+            msg.append(f"'{k}' is a config key of the JAX package that is "
+                       "not ported to dedark_yolo_tpu_torch (ROADMAP A6b, "
+                       "A10b, A12)")
+            continue
+        matches = difflib.get_close_matches(k, known)
+        hint = f" Did you mean {matches}?" if matches else ""
+        msg.append(f"'{k}' is not a valid config key.{hint}")
+    if msg:
+        raise SyntaxError("\n".join(msg))
+
+
+def _coerce(k, v):
+    """Type-check and coerce one config entry (JAX cfg/__init__.py:92-118,
+    with the port's checks of its own string keys)."""
+    if v is None:
+        return v
+    if k in _FLOAT_KEYS:
+        if not isinstance(v, (int, float)) or isinstance(v, bool):
+            raise TypeError(f"'{k}={v}' must be a number")
+        v = float(v)
+        if not 0.0 <= v <= 1.0:
+            raise ValueError(f"'{k}={v}' must be in [0, 1]")
+    elif k in _NUMBER_KEYS:
+        if not isinstance(v, (int, float)) or isinstance(v, bool):
+            raise TypeError(f"'{k}={v}' must be a number")
+        v = float(v)
+    elif k in _INT_KEYS:
+        if isinstance(v, float) and v.is_integer():
+            v = int(v)
+        if not isinstance(v, int) or isinstance(v, bool):
+            raise TypeError(f"'{k}={v}' must be an int")
+    elif k in _BOOL_KEYS and not isinstance(v, bool):
+        raise TypeError(f"'{k}={v}' must be a bool")
+    elif k == "contrast_mode" and v not in ("channel", "reference"):
+        raise ValueError(f"contrast_mode '{v}' is not channel|reference")
+    elif k == "prior_mode" and v not in ("default", "computed"):
+        raise ValueError(f"prior_mode '{v}' is not default|computed")
+    elif k == "cache" and v not in (False, True, "ram", "disk"):
+        raise ValueError(f"cache '{v}' is not False|True|ram|disk")
+    elif k == "data" and not isinstance(v, (str, Path, dict)):
+        raise TypeError(f"'data={v}' must be a path or a dict")
+    elif k == "pretrained" and not isinstance(v, (bool, str, Path)):
+        raise TypeError(f"'pretrained={v}' must be a bool or a path")
+    elif k in ("project", "name") and not isinstance(v, (str, Path)):
+        raise TypeError(f"'{k}={v}' must be a path")
+    elif k == "matmul_precision" and v not in _PRECISIONS:
+        raise ValueError(f"matmul_precision '{v}' is not one of "
+                         f"{_PRECISIONS}")
+    return v
+
 
 def get_cfg(overrides: dict | None = None) -> SimpleNamespace:
-    """Merge `overrides` into the defaults, type-checked."""
+    """Merge `overrides` into the defaults, type-checked. A `cfg` key names
+    a config file (.json, or yaml) whose keys apply first, under the other
+    overrides (JAX cfg/__init__.py:128-136)."""
     cfg = dict(DEFAULT_CFG)
-    for k, v in (overrides or {}).items():
-        if k not in cfg:
-            raise SyntaxError(f"'{k}' is not a valid config key")
-        if v is not None:
-            if k in _FLOAT_KEYS:
-                if not isinstance(v, (int, float)) or not 0.0 <= v <= 1.0:
-                    raise ValueError(f"'{k}={v}' must be a number in [0, 1]")
-                v = float(v)
-            elif k in _NUMBER_KEYS:
-                if not isinstance(v, (int, float)) or isinstance(v, bool):
-                    raise TypeError(f"'{k}={v}' must be a number")
-                v = float(v)
-            elif k in _INT_KEYS:
-                if not isinstance(v, int) or isinstance(v, bool):
-                    raise TypeError(f"'{k}={v}' must be an int")
-            elif k in _BOOL_KEYS and not isinstance(v, bool):
-                raise TypeError(f"'{k}={v}' must be a bool")
-            elif k == "contrast_mode" and v not in ("channel", "reference"):
-                raise ValueError(f"contrast_mode '{v}' is not channel|reference")
-            elif k == "prior_mode" and v not in ("default", "computed"):
-                raise ValueError(f"prior_mode '{v}' is not default|computed")
-            elif k == "cache" and v not in (False, True, "ram", "disk"):
-                raise ValueError(f"cache '{v}' is not False|True|ram|disk")
-            elif k == "data" and not isinstance(v, (str, Path, dict)):
-                raise TypeError(f"'data={v}' must be a path or a dict")
-            elif k == "pretrained" and not isinstance(v, (bool, str, Path)):
-                raise TypeError(f"'pretrained={v}' must be a bool or a path")
-            elif k in ("project", "name") and not isinstance(v, (str, Path)):
-                raise TypeError(f"'{k}={v}' must be a path")
-            elif k == "matmul_precision" and v not in _PRECISIONS:
-                raise ValueError(f"matmul_precision '{v}' is not one of "
-                                 f"{_PRECISIONS}")
-        cfg[k] = v
+    overrides = dict(overrides or {})
+    sub = overrides.pop("cfg", None)
+    if sub:
+        overrides = {**yaml_load(sub), **overrides}
+    check_cfg_alignment(DEFAULT_CFG.keys(), overrides)
+    for k, v in overrides.items():
+        if isinstance(v, str) and v.lower() == "none":
+            v = None
+        cfg[k] = _coerce(k, v)
     if cfg["imgsz"] % 32:
         raise ValueError(f"imgsz={cfg['imgsz']} must be a multiple of 32")
     return SimpleNamespace(**cfg)
+
+
+def yaml_load(path) -> dict:
+    """A config or dataset file as a dict: `.json` through json (no PyYAML
+    needed), any other file through yaml.safe_load."""
+    path = Path(path)
+    with open(path, errors="ignore", encoding="utf-8") as f:
+        if path.suffix.lower() == ".json":
+            return json.load(f) or {}
+        import yaml
+        return yaml.safe_load(f) or {}
 
 
 def yaml_save(path, data: dict) -> None:
@@ -183,9 +252,7 @@ def model_yaml_load(path) -> dict:
     d = None
     for candidate in (unified, path):
         if candidate.is_file():
-            import yaml
-            with open(candidate, encoding="utf-8") as f:
-                d = yaml.safe_load(f) or {}
+            d = yaml_load(candidate)
             break
     else:
         for name in (unified.name, path.name):

@@ -26,6 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..cfg import yaml_load
 from .augment import Sample
 
 IMG_FORMATS = {".bmp", ".jpeg", ".jpg", ".png", ".tif", ".tiff", ".webp"}
@@ -65,10 +66,8 @@ def check_det_dataset(data):
     if isinstance(data, dict):
         d = dict(data)
     else:
-        import yaml
         p = Path(data)
-        with open(p, errors="ignore") as f:
-            d = yaml.safe_load(f)
+        d = yaml_load(p)
         d.setdefault("path", str(p.parent))
     root = Path(d.get("path", "."))
     for k in ("train", "val", "test"):

@@ -6,7 +6,10 @@ then train, predict or validate.
 
 The model lives on `device` (None means cuda, and raises without a CUDA
 device); `train`, `predict` and `val` run on their own `device` key, cuda
-by default.
+by default. The rest of the JAX facade (model.py:272-514): `__call__`,
+`names`, `transforms`, `to`, `load`, `reset_weights`, `fuse`,
+`add_callback` / `clear_callback`, `tune` and `info`. Not ported: `track`,
+`export` and `benchmark` (ROADMAP A6b, A12).
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ from ..cfg import get_cfg, model_yaml_load
 from ..data.dataset import check_det_dataset
 from ..nn.enhance import LowlightRecovery
 from ..nn.graph import DetectionModel
-from ..utils.checkpoint import has_section, load_checkpoint, section_tree
+from ..utils import LOGGER
+from ..utils.checkpoint import (has_section, load_checkpoint, section_tree,
+                                transfer_tree)
 from ..utils.weights import init_weights, state_dict_from_jax
 from .predictor import DetectionPredictor, resolve_device
 from .trainer import DetectionTrainer
@@ -161,3 +166,78 @@ class YOLO:
         self.device = self.validator.device
         self.metrics = self.validator(model=self.model)
         return self.metrics
+
+    def __call__(self, source, **kwargs):
+        """predict with conf 0.4 unless given (JAX model.py:272-274)."""
+        kwargs.setdefault("conf", 0.4)
+        return self.predict(source, **kwargs)
+
+    @property
+    def names(self):
+        return self.model.names
+
+    @property
+    def transforms(self):
+        """None: the predictor letterboxes, no checkpoint carries a
+        transform (JAX model.py:394-397)."""
+        return None
+
+    def to(self, device):
+        """Move the model to `device`; predict, val and train then default
+        to it."""
+        self.device = resolve_device(device)
+        self.model.to(self.device)
+        self.overrides["device"] = str(self.device)
+        return self
+
+    def load(self, weights):
+        """Weights of a checkpoint moved into this architecture by name and
+        shape (JAX model.py:274-288, the reference's intersect_dicts): head
+        entries of another nc keep their current values."""
+        other = YOLO(str(weights), device="cpu")
+        merged, n, total = transfer_tree(other.state_dict(),
+                                         self.model.state_dict())
+        self.model.load_state_dict(merged)
+        LOGGER.info(f"transferred {n}/{total} items from {weights}")
+        return self
+
+    def reset_weights(self):
+        """A fresh seeded init of the same graph, unlike the construction's
+        and unlike every earlier reset's (JAX model.py:290-306 folds a
+        per-call counter into its key)."""
+        self._reset_count = getattr(self, "_reset_count", 0) + 1
+        init_weights(self.model, 0x5EED + self._reset_count)
+        return self
+
+    def fuse(self):
+        """A logged no-op: eval BN stays a separate op and no ported graph
+        has RepConv blocks (`RepC3` is ROADMAP A12), as JAX model.py:217-235
+        does for graphs without them."""
+        if any(s.name == "RepC3" for s in self.model.specs):
+            raise NotImplementedError("RepConv fusion is not ported (A12)")
+        LOGGER.info("fuse(): no RepConv blocks; nothing to fuse")
+        return self
+
+    def clear_callback(self, event):
+        self._user_callbacks[event] = []
+
+    def tune(self, data=None, **kwargs):
+        """Evolve search over `train` on this architecture (JAX
+        model.py:336-349, `utils.tuner.run_tune`); returns (best_cfg,
+        results sorted by fitness)."""
+        from ..utils.tuner import run_tune
+        overrides = {**self.overrides, **kwargs}
+        model = overrides.pop("model", None) or self.ckpt_path \
+            or self.model_yaml["yaml_file"]
+        data = data or overrides.pop("data", None)
+        overrides.pop("data", None)
+        if not data:
+            raise ValueError("tune() needs data=<dataset file or dict>")
+        return run_tune(model, data, **overrides)
+
+    def info(self):
+        """(layers, parameters), the JAX facade's `num_params` count (BN
+        running stats are not parameters)."""
+        n = sum(p.numel() for p in self.model.parameters())
+        LOGGER.info(f"model: {len(self.model.specs)} layers, {n:,} parameters")
+        return len(self.model.specs), n

@@ -41,8 +41,9 @@ def resolve_device(device) -> torch.device:
 
 
 def load_source(source):
-    """Yield (path, BGR uint8 image) from an array, an image file, or a
-    list of those."""
+    """Yield (path, BGR uint8 image) from an array, an image file, a `.npy`
+    file of the BGR array (a host without OpenCV reads these), a directory
+    of those (sorted by name), or a list of any of them."""
     if isinstance(source, np.ndarray):
         yield "array", source
         return
@@ -51,7 +52,16 @@ def load_source(source):
             yield from load_source(s)
         return
     p = Path(source)
-    if p.is_file():
+    if p.is_dir():
+        from ..data.dataset import IMG_FORMATS
+        files = sorted(f for f in p.iterdir()
+                       if f.suffix.lower() in IMG_FORMATS | {".npy"})
+        if not files:
+            raise FileNotFoundError(f"no images in {p}")
+        yield from load_source(files)
+    elif p.suffix.lower() == ".npy" and p.is_file():
+        yield str(p), np.load(p)
+    elif p.is_file():
         import cv2
         img = cv2.imread(str(p))
         if img is None:

@@ -12,8 +12,14 @@ The loss: u8 / 255, then `img ** dark_param` (lowlight_FLAG), then the
 dark-channel priors of the degraded image when prior_mode is 'computed'
 (and dedark_FLAG), then the graph in train mode (its BN running stats move
 every call), then the v8 loss with the recovery MSE of the degraded image
-against the clean one (which has no gradient in the parameters). f32 only:
-`amp=True` raises.
+against the clean one (which has no gradient in the parameters). With
+`amp=True` the forward runs in bf16 as the JAX package runs it
+(trainer.py:986-1021; no autocast, no loss scaling): every f32 parameter is
+cast to bf16 for the forward (`torch.func.functional_call` on the casts, so
+the f32 masters get f32 gradients through them), the BN running stats stay
+f32, the image is u8 / 255 in bf16 and is degraded and its priors taken in
+bf16, and the raw maps go to the loss in f32, beside the recovery MSE of
+the two bf16 images taken in f32. The optimizer and the EMA stay f32.
 
 The loop (`train`, :375-733): a warm start from `init_state` or a
 `pretrained` .npz (by name and shape), the shuffled, augmented loader of
@@ -101,9 +107,6 @@ class DetectionTrainer:
         (`train` sets it from its loader); device None means the `device`
         key, and None there cuda, which raises without a CUDA device."""
         self.args = get_cfg(overrides)
-        if self.args.amp:
-            raise NotImplementedError(
-                "amp=True (bf16 training) is not ported yet; train in f32")
         self.device = resolve_device(device if device is not None
                                      else self.args.device)
         self.model = model.to(self.device)
@@ -212,7 +215,8 @@ class DetectionTrainer:
     def loss(self, batch):
         """(total, LossItems) of one device batch, the graph in train mode."""
         a = self.args
-        clean = batch["img"].float() / 255.0
+        amp = bool(a.amp)
+        clean = batch["img"].to(torch.bfloat16 if amp else torch.float32) / 255.0
         dedark_A = IcA = None
         if a.lowlight_FLAG:
             img = lowlight_degrade(clean, a.dark_param)
@@ -220,10 +224,17 @@ class DetectionTrainer:
                 dedark_A, IcA = dark_channel_priors(img)
         else:
             img = clean
-        raw = self.model(img, dedark_A, IcA)
+        if amp:
+            bf16 = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+                    for n, p in self.params.items()}
+            raw = torch.func.functional_call(self.model, bf16,
+                                             (img, dedark_A, IcA))
+            raw = [r.float() for r in raw]
+        else:
+            raw = self.model(img, dedark_A, IcA)
         lbatch = {"cls": batch["cls"], "bboxes": batch["bboxes"],
                   "mask_gt": batch["mask_gt"],
-                  "recovery_loss": ((img - clean) ** 2).mean()}
+                  "recovery_loss": ((img.float() - clean.float()) ** 2).mean()}
         hyp = {"box": a.box, "cls": a.cls, "dfl": a.dfl, "lrl": a.lrl}
         return detection_loss(raw, lbatch, nc=self.model.nc,
                               strides=self.model.strides, hyp=hyp)

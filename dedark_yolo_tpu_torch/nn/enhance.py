@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import BiasConv2d, LeakyReLU, Linear, leaky_relu
+
 NUM_FILTER_PARAMS = 15
 DEDARK_SLOT = 0
 WB_SLOTS = slice(1, 4)
@@ -123,7 +125,12 @@ def _usm_blur_matrix(n: int):
 
 @lru_cache(maxsize=32)
 def _blur_matrix(n: int, device: torch.device, dtype: torch.dtype):
-    return torch.from_numpy(_usm_blur_matrix(n)).to(device=device, dtype=dtype)
+    # built outside inference mode even when a predict or val asks first:
+    # an inference tensor in the cache could not be saved for a later
+    # backward (ROADMAP C10)
+    with torch.inference_mode(False):
+        return torch.from_numpy(_usm_blur_matrix(n)).to(device=device,
+                                                        dtype=dtype)
 
 
 def usm_filter(img, usm_param):
@@ -143,22 +150,53 @@ def apply_filter_chain(img, features, dedark_A, IcA, contrast_mode="channel"):
     return usm_filter(x, params["usm"])
 
 
+@lru_cache(maxsize=32)
+def _bilinear_matrix_np(out_size: int, in_size: int):
+    """(out, in) weights of the torch-convention bilinear resize along one
+    axis (JAX enhance.py:215-233)."""
+    i = np.arange(out_size)
+    src = (i + 0.5) * (in_size / out_size) - 0.5
+    lo = np.floor(src).astype(np.int64)
+    frac = (src - lo).astype(np.float32)
+    w = np.zeros((out_size, in_size), np.float32)
+    w[i, np.clip(lo, 0, in_size - 1)] += 1.0 - frac
+    w[i, np.clip(lo + 1, 0, in_size - 1)] += frac
+    return w
+
+
+@lru_cache(maxsize=32)
+def _bilinear_matrix(out_size: int, in_size: int, device: torch.device,
+                     dtype: torch.dtype):
+    with torch.inference_mode(False):     # see _blur_matrix
+        return torch.from_numpy(_bilinear_matrix_np(out_size, in_size)).to(
+            device=device, dtype=dtype)
+
+
 def torch_bilinear_resize(x, out_h: int, out_w: int):
-    """NHWC resize by F.interpolate(bilinear, align_corners=False), no
-    antialias: the reference's downsample to 256 (llie.py:43), which the JAX
-    package emulates with matrices (enhance.py:236-264)."""
-    if tuple(x.shape[1:3]) == (out_h, out_w):
+    """NHWC resize as F.interpolate(bilinear, align_corners=False) computes
+    it, no antialias: the reference's downsample to 256 (llie.py:43). An f32
+    image goes through F.interpolate; a bf16 one through the JAX package's
+    two resize matrices cast to bf16 (enhance.py:255-263), so that it rounds
+    where JAX rounds."""
+    b, h, w, _ = x.shape
+    if (h, w) == (out_h, out_w):
         return x
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w),
-                      mode="bilinear", align_corners=False, antialias=False)
-    return y.permute(0, 2, 3, 1)
+    if x.dtype == torch.float32:
+        y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w),
+                          mode="bilinear", align_corners=False,
+                          antialias=False)
+        return y.permute(0, 2, 3, 1)
+    wy = _bilinear_matrix(out_h, h, x.device, x.dtype)
+    wx = _bilinear_matrix(out_w, w, x.device, x.dtype)
+    x = torch.einsum("oh,bhwc->bowc", wy, x)
+    return torch.einsum("ow,bhwc->bhoc", wx, x)
 
 
 class _ConvBlock(nn.Module):
     def __init__(self, c1, c2):
         super().__init__()
-        self.conv_block = nn.Sequential(nn.Conv2d(c1, c2, 3, 2, 1),
-                                        nn.LeakyReLU(0.1))
+        self.conv_block = nn.Sequential(BiasConv2d(c1, c2, 3, 2, 1),
+                                        LeakyReLU())
 
     def forward(self, x):
         return self.conv_block(x)
@@ -174,12 +212,12 @@ class ExtractParameters2(nn.Module):
         widths = (3, 16, 32, 32, 32, 32)
         self.conv_layers = nn.Sequential(*(_ConvBlock(a, b) for a, b
                                            in zip(widths, widths[1:])))
-        self.fc1 = nn.Linear(2048, 64)
-        self.fc2 = nn.Linear(64, out_dim)
+        self.fc1 = Linear(2048, 64)
+        self.fc2 = Linear(64, out_dim)
 
     def forward(self, x):
         x = self.conv_layers(x).reshape(x.shape[0], -1)
-        return self.fc2(F.leaky_relu(self.fc1(x), 0.1))
+        return self.fc2(leaky_relu(self.fc1(x)))
 
 
 class LowlightRecovery(nn.Module):
@@ -188,7 +226,8 @@ class LowlightRecovery(nn.Module):
     Priors default to the reference's A=0.8 and a materialised
     full-resolution IcA=0.5. The 256x256 resize runs in the image's dtype;
     the regressor runs in its parameters' dtype, as flax promotes a bf16
-    image against f32 params. The 'channel' chain (the kernel's) returns the
+    image against f32 params (half predict); with bf16 params (amp
+    training) it runs in bf16. The 'channel' chain (the kernel's) returns the
     image's dtype, as the JAX kernel does; 'reference' promotes like the JAX
     plain chain.
     """

@@ -19,6 +19,7 @@ import math
 from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple
 
+import torch
 from torch import nn
 
 from . import layers as L
@@ -241,10 +242,12 @@ class DetectionModel(nn.Module):
         running stats move; the raw maps are returned in both modes."""
         if self.specs[0].name == "lowlight_recovery":
             x = self.model[0](x, dedark_A, IcA)
-        # NHWC -> NCHW as a view (channels_last memory); a bf16 image is
-        # promoted to the params' dtype here, as flax promotes it at the
-        # first conv against f32 params
-        y = x.permute(0, 3, 1, 2).to(next(self.parameters()).dtype)
+        # NHWC -> NCHW as a view (channels_last memory); the image is
+        # promoted against the params' dtype here, as flax's promote_dtype
+        # does at the first conv: a bf16 image meets f32 params as f32
+        # (half predict), bf16 params as bf16 (amp training)
+        y = x.permute(0, 3, 1, 2)
+        y = y.to(torch.promote_types(y.dtype, next(self.parameters()).dtype))
         saved = {}
         for spec, mod in zip(self.specs, self.model):
             if spec.name != "lowlight_recovery":

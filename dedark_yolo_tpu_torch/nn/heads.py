@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..ops.anchors import dfl_decode, dist2bbox, make_anchors
-from .layers import Conv
+from .layers import BiasConv2d, Conv
 
 
 class Detect(nn.Module):
@@ -32,10 +32,10 @@ class Detect(nn.Module):
         c3 = max(ch[0], min(nc, 100))
         self.cv2 = nn.ModuleList(
             nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3),
-                          nn.Conv2d(c2, 4 * reg_max, 1)) for x in ch)
+                          BiasConv2d(c2, 4 * reg_max, 1)) for x in ch)
         self.cv3 = nn.ModuleList(
             nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3),
-                          nn.Conv2d(c3, nc, 1)) for x in ch)
+                          BiasConv2d(c3, nc, 1)) for x in ch)
 
     def bias_init(self):
         """Box bias 1.0, cls bias log(5 / nc / (640/stride)^2) (head.py:95-102)."""

@@ -19,6 +19,77 @@ BN_EPS = 1e-3  # ultralytics initialize_weights (JAX layers.py:23-25)
 BN_MOMENTUM = 0.03  # torch convention: running += 0.03 * (batch - running)
 
 
+# A bf16 map (amp training) is computed as the JAX package computes it. XLA
+# on the host rounds every elementwise op of a bf16 graph to bf16 (its
+# logistic is 1 / (1 + exp(-x)) in rounded steps), casts a weakly typed
+# constant such as leaky_relu's 0.1 to bf16 before it multiplies, adds a
+# conv's or dense layer's bias to the rounded product, and sums a bf16
+# softmax in f32. PyTorch's fused ops (F.silu, F.leaky_relu, a biased conv,
+# torch.softmax) round once, so a bf16 map takes the unfused forms below;
+# an f32 map the fused ops.
+LEAKY_SLOPE_BF16 = 0.10009765625     # 0.1 rounded to bf16, exact in f32
+
+
+class _SiluBF16(torch.autograd.Function):
+    """jax.nn.silu on a bf16 map, forward and backward: x * logistic(x),
+    logistic as XLA expands it and differentiated by its JAX rule
+    (g * (s * (1 - s))), every op rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1.0 - s))
+
+
+def silu(x):
+    if x.dtype != torch.bfloat16:
+        return F.silu(x)
+    return _SiluBF16.apply(x)
+
+
+def leaky_relu(x):
+    """LeakyReLU(0.1)."""
+    if x.dtype != torch.bfloat16:
+        return F.leaky_relu(x, 0.1)
+    return torch.where(x >= 0, x, x * LEAKY_SLOPE_BF16)
+
+
+def softmax(x, dim):
+    if x.dtype != torch.bfloat16:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim, keepdim=True).detach())
+    return e / e.sum(dim, keepdim=True, dtype=torch.float32).to(x.dtype)
+
+
+class LeakyReLU(nn.Module):
+    def forward(self, x):
+        return leaky_relu(x)
+
+
+class BiasConv2d(nn.Conv2d):
+    """nn.Conv2d with a bias, which a bf16 map adds to the rounded conv."""
+
+    def forward(self, x):
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        return self._conv_forward(x, self.weight, None) + self.bias[:, None, None]
+
+
+class Linear(nn.Linear):
+    """nn.Linear, which adds its bias to the rounded product of a bf16 row."""
+
+    def forward(self, x):
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        return F.linear(x, self.weight) + self.bias
+
+
 def autopad(k: int) -> int:
     """'same'-style pad for odd kernels (reference conv.py:15-21)."""
     return k // 2
@@ -47,6 +118,12 @@ class BatchNorm(nn.Module):
     batch stats: given zeroed buffers and momentum 1 it returns them in
     those buffers, the variance unbiased, which the update scales back by
     (n - 1) / n.
+
+    A bf16 input with bf16 scale and bias and f32 running stats (bf16
+    training, `amp=True`) is normalised as flax 0.12 does it: one
+    `F.batch_norm` on the bf16 input with the scale and bias cast to f32
+    reduces the batch mean and variance in f32, updates the f32 running
+    stats, computes the affine in f32 and rounds once back to bf16.
     """
 
     def __init__(self, c: int):
@@ -57,13 +134,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x):
+        w, b = self.weight, self.bias
+        if w.dtype != self.running_mean.dtype:     # bf16 params (amp)
+            w, b = w.to(self.running_mean.dtype), b.to(self.running_mean.dtype)
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, BN_EPS)
+            return F.batch_norm(x, self.running_mean, self.running_var, w, b,
+                                False, 0.0, BN_EPS)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
-                         BN_EPS)
+        y = F.batch_norm(x, mean, var, w, b, True, 1.0, BN_EPS)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             keep = 1.0 - BN_MOMENTUM
@@ -82,12 +161,12 @@ class Conv(nn.Module):
         self.bn = BatchNorm(c2)
 
     def forward(self, x):
-        return F.silu(self.bn(self.conv(x)))
+        return silu(self.bn(self.conv(x)))
 
 
 def Conv2d(c1: int, c2: int, k: int = 1, s: int = 1):
     """Bare conv with bias (JAX layers.py:206)."""
-    return nn.Conv2d(c1, c2, k, s, autopad(k))
+    return BiasConv2d(c1, c2, k, s, autopad(k))
 
 
 class AddConv(nn.Module):
@@ -99,7 +178,7 @@ class AddConv(nn.Module):
         self.batch_norm = BatchNorm(c2)
 
     def forward(self, x):
-        return F.leaky_relu(self.batch_norm(self.conv(x)), 0.1)
+        return leaky_relu(self.batch_norm(self.conv(x)))
 
 
 class Bottleneck(nn.Module):
@@ -225,6 +304,6 @@ class AsffTribeLevel(nn.Module):
                  self.weight_level_2), (r0, r1, r2)):
             w = cmp(pre)
             ws.append(upsample_nearest(w, scale) if scale > 1 else w)
-        w = torch.softmax(self.weight_levels(torch.cat(ws, 1)), dim=1)
+        w = softmax(self.weight_levels(torch.cat(ws, 1)), dim=1)
         fused = (r0[0] * w[:, 0:1] + r1[0] * w[:, 1:2] + r2[0] * w[:, 2:3])
         return self.expand(fused)

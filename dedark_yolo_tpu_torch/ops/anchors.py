@@ -26,7 +26,11 @@ def _anchors_np(feat_shapes, strides, grid_cell_offset):
 @lru_cache(maxsize=16)
 def _anchors_on(feat_shapes, strides, grid_cell_offset, device):
     pts, st = _anchors_np(feat_shapes, strides, grid_cell_offset)
-    return torch.from_numpy(pts).to(device), torch.from_numpy(st).to(device)
+    # not inference tensors, whoever asks first: the loss saves them for
+    # backward (ROADMAP C10)
+    with torch.inference_mode(False):
+        return (torch.from_numpy(pts).to(device),
+                torch.from_numpy(st).to(device))
 
 
 def make_anchors(feat_shapes, strides, grid_cell_offset=0.5, device="cpu"):

@@ -29,7 +29,9 @@ def atmospheric_light(img, dark, top_fraction=0.001):
                         stable=True)
     top = torch.gather(img.reshape(b, h * w, 3), 1,
                        idx[:, :numpx, None].expand(-1, -1, 3))
-    return top.mean(dim=1)
+    # accumulated in f32 and rounded once to the image's dtype, as jnp.mean
+    # does for bf16
+    return top.float().mean(dim=1).to(img.dtype)
 
 
 def dark_channel_priors(img, top_fraction=0.001, eps=1e-6):

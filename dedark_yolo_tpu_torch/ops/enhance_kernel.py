@@ -100,9 +100,11 @@ def param_vec(features, dedark_A):
 def gaussian_taps(device: torch.device):
     """The 25 taps as f32, normalised in float64 like `gaussian_kernel_25`:
     the values `csrc/usm_tile.cuh` compiles in (its `G`; a CPU test holds
-    the two equal bit for bit)."""
-    return torch.tensor(E.gaussian_kernel_25(), dtype=torch.float32,
-                        device=device)
+    the two equal bit for bit). Built outside inference mode, as
+    `nn.enhance._blur_matrix` is (ROADMAP C10)."""
+    with torch.inference_mode(False):
+        return torch.tensor(E.gaussian_kernel_25(), dtype=torch.float32,
+                            device=device)
 
 
 def fused_enhance_reference(img, features, dedark_A, IcA):

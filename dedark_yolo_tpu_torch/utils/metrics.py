@@ -175,6 +175,16 @@ class ConfusionMatrix:
             if not (n and (m1 == i).any()):
                 self.matrix[d, self.nc] += 1        # background FP
 
+    def detection_rates(self):
+        """Per-class detection rate and miss rate, the true positives of
+        each class over its labels (JAX metrics.py:190-195, reference
+        perform.py:390-467)."""
+        tp = np.diag(self.matrix)[:self.nc]
+        total_gt = self.matrix[:, :self.nc].sum(0)
+        rate = np.divide(tp, total_gt, out=np.zeros(self.nc),
+                         where=total_gt > 0)
+        return rate, 1.0 - rate
+
 
 class Metric:
     """Per-class detection metric container (reference metrics.py:557-708)."""

@@ -277,8 +277,13 @@ def test_early_stopping_matches_jax():
 
 
 def test_autobatch_and_amp_raise(setup, tmp_path):
+    """Autobatch (batch < 0) raises; amp=True, which raised until bf16
+    training was ported, now trains and records amp in its checkpoint
+    (tests/test_torch_amp.py holds it to the JAX package)."""
     _, data, npz = setup
     with pytest.raises(NotImplementedError):
         torch_train(data, npz, tmp_path, "ab", epochs=1, batch=-1)
-    with pytest.raises(NotImplementedError):
-        torch_train(data, npz, tmp_path, "amp", epochs=1, amp=True)
+    run, m = torch_train(data, npz, tmp_path, "amp", epochs=1, amp=True)
+    assert m.trainer.args.amp
+    meta, _ = load_checkpoint(run / "weights" / "last.npz")
+    assert meta["train_args"]["amp"] is True
