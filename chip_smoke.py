@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with one CUDA device. Phases,
 each printed as one JSON line; any failure exits non-zero without the final
 line:
 
-  env      card name and power limit (nvidia-smi), torch/CUDA versions, TF32
+  env      card name and power limit (nvidia-smi), torch/CUDA versions, TF32;
+           g++, the native letterbox library's build, libjpeg (header and
+           library: the native decode's build), whether tensorboard imports
   build    nvcc of every csrc/*.cu, one process per source, all at once
   kernel   every kernel (fused_enhance, usm, int8_conv, nms) against its
            plain PyTorch version on the card, at its main path's shapes and
@@ -25,6 +27,10 @@ line:
            work ends), any synchronising call inside it an error
   cpu      the same weights and first frame through predict(device="cpu"),
            and layer 0 in 'reference' mode on the card against the CPU
+  predict_resize  predict f32 b16/640 on 16 frames of 1080x1920, 768x1024,
+           721x1280 and 1000x1500 (the native letterbox resizes them), cv2
+           blocked: images/s, speed, the letterbox's ms a batch, beside the
+           480x640 run; one 721x1280 frame on the card against the CPU
   probe    tools.int8_probe at its default shape (24 layers, b32, 80x80,
            C=Co=256): bf16 cuDNN chain vs the int8_conv kernel's chain
   train    DetectionTrainer: at imgsz 128, b2, one micro-step on the card
@@ -43,6 +49,10 @@ line:
            images of 4 shapes, longest side 640, at the val defaults (b16,
            conf 0.001): a warm-up call and a timed one, fused_enhance and
            nms once a batch, no plain version reached with a CUDA tensor
+  val_resize  val of .npy sidecars of 720x1280, 1080x1920 and 300x500
+           (resized max-side by data/imgops.py) at 128 and 640, cv2
+           blocked: the card against the CPU as in val, and the images
+           the dataset loaded equal in both runs
   train_loop  YOLO(...).train() on seeded low-light .npy sidecars (data a
            dict, cache='disk', longest side = imgsz): the flagship at 128,
            b2, two epochs on the card against the CPU from one seeded .npz
@@ -53,6 +63,13 @@ line:
            checkpoint seconds, peak memory, the files written), each run
            launching fused_enhance once a micro-step and a val batch and
            nms once a val batch; then YOLO("best.npz") predicts one batch
+  loop_mp  loop_full's settings at b16/640 on sidecars that need a resize:
+           one epoch with 8 loader threads, one with 8 forked processes
+           (loader_mp), twice in turns, cv2 blocked; the processes' epochs
+           with profile=True: the trace of micro-step 2 and the device's
+           idle share in it
+  autobatch  batch=-1 at 640 for one epoch: the two trial peaks, the batch
+           fitted, each real micro-step's peak under 0.67 of the card
   c10      the tiny architecture at imgsz 96: YOLO(...).val() and then
            .train() for two micro-steps in this process (ROADMAP C10: a
            cache filled under val's inference mode once broke the step)
@@ -167,6 +184,35 @@ def nms_bound(b, k, max_det, keep_idx):
                  F32_FLOP_PER_S)
 
 
+def host_env():
+    """The host side the port needs beyond torch: g++ and the native
+    letterbox library it builds (predict needs it), whether libjpeg's
+    header and library exist (the native decode needs both; where they
+    are missing its build raises, and nothing on the main path decodes),
+    and whether the TensorBoard writer can import."""
+    import ctypes.util
+    import subprocess
+    from dedark_yolo_tpu_torch import native
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True)
+    rec = {"gxx": gxx.stdout.splitlines()[0] if gxx.returncode == 0 else None,
+           "libjpeg": ctypes.util.find_library("jpeg")}
+    t0 = time.perf_counter()
+    native.load("letterbox")
+    rec["native_letterbox_build_s"] = time.perf_counter() - t0
+    try:
+        native.load("decode")
+        rec["jpeglib_h"], rec["native_decode"] = True, "built"
+    except RuntimeError as e:
+        rec["jpeglib_h"] = "jpeglib.h" not in str(e)
+        rec["native_decode"] = str(e).splitlines()[0]
+    try:
+        import tensorboard
+        rec["tensorboard"] = tensorboard.__version__
+    except Exception as e:      # the writer is then skipped, as in JAX
+        rec["tensorboard"] = f"not importable: {type(e).__name__}: {e}"
+    return rec
+
+
 def phase_env(torch):
     from dedark_yolo_tpu_torch.tools._ab import nvidia_smi
     smi = nvidia_smi()
@@ -175,7 +221,8 @@ def phase_env(torch):
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
-          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          **host_env()})
     return smi
 
 
@@ -1931,6 +1978,438 @@ def phase_cli(torch):
     return rec
 
 
+# predict_resize, val_resize, loop_mp, autobatch: frames and sidecars that
+# need a resize, letterboxed by the native library (predict) or resized by
+# data/imgops.py (the datasets), with cv2 blocked (`no_cv2`); the loader's
+# process workers with the profiler's trace of one step; batch=-1.
+RESIZE_SHAPES = [(1080, 1920), (768, 1024), (721, 1280), (1000, 1500)]
+VAL_RESIZE = {"n": 6, "batch": 4, "shapes": [(720, 1280), (1080, 1920),
+                                             (300, 500)]}
+# the card-vs-CPU pairing of predict_resize runs at a conf between two of
+# the card's scores that lie far apart (pair_conf), so that neither side's
+# list is cut at max_det or at a score the other side rounds across
+PAIR_RANKS, MAX_DET = (20, 100), 300
+# val_resize holds the card's mAP50 and mAP50-95 to the CPU's within
+# VAL_METRIC_RTOL (they read the scores only through their order) and P
+# and R within VAL_RESIZE_PR_RTOL: these read each score through a linear
+# interpolation on the conf grid, so the card's score error (5.0e-5 at 640,
+# H100 80GB HBM3, 700 W) moves them by its product with the local slope,
+# which with 0-3 detections an image read 1.3e-5 of P.
+VAL_RESIZE_PR_RTOL = 1e-3
+LOOP_MP = {"n_train": 64, "n_val": 16, "imgsz": 640, "batch": BATCH,
+           "shapes": [(720, 1280), (1080, 1920), (768, 1024), (1000, 1500)]}
+
+
+class no_cv2:
+    """Within the block, `import cv2` fails (the card's host has none; a
+    path that reached for it would fail there too)."""
+
+    def __enter__(self):
+        self.saved = sys.modules.get("cv2", False)
+        sys.modules["cv2"] = None
+        return self
+
+    def __exit__(self, *exc):
+        if self.saved is False:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = self.saved
+
+
+def lowlight_frames(shapes, n, seed):
+    """n seeded low-light BGR frames of the (h, w) shapes in turns (blocks
+    of 32 px, as synthetic_frames)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        h, w = shapes[k % len(shapes)]
+        base = rng.integers(0, 256, (-(-h // 32), -(-w // 32), 3)) / 255
+        img = np.kron(base, np.ones((32, 32, 1)))[:h, :w]
+        img = np.clip(img + rng.normal(0, 0.03, img.shape), 0, 1)
+        out.append((img ** DARK_PARAM * 255).astype(np.uint8))
+    return out
+
+
+def letterbox_ms(frames, reps=5):
+    """Median host ms of one native letterbox_batch call over `frames`."""
+    import numpy as np
+    from dedark_yolo_tpu_torch import native
+    ms = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        native.letterbox_batch(frames, IMGSZ, fill=114, swap_rb=True)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms[1:]))
+
+
+def pair_conf(res):
+    """The conf midway across the widest gap between two consecutive
+    scores of a card result (at a low conf) among ranks PAIR_RANKS."""
+    import numpy as np
+    s = np.sort(np.asarray(res.boxes.conf))[::-1]
+    lo, hi = PAIR_RANKS
+    if len(s) <= lo:
+        raise AssertionError(f"predict_resize: {len(s)} detections to pair")
+    gaps = s[lo - 1:min(hi, len(s)) - 1] - s[lo:min(hi, len(s))]
+    k = lo - 1 + int(np.argmax(gaps))
+    return float((s[k] + s[k + 1]) / 2)
+
+
+def pair_results(g, c):
+    """Each CPU detection of one image paired with a card detection of the
+    same class, box within BOX_TOL_PX and score within SCORE_TOL; (box
+    errors, score errors) or None."""
+    import numpy as np
+    gb, gs, gc = g.boxes.xyxy, g.boxes.conf, g.boxes.cls
+    free, box_err, score_err = list(range(len(gc))), [], []
+    for i in range(len(c.boxes.cls)):
+        for j in free:
+            db = float(np.abs(gb[j] - c.boxes.xyxy[i]).max())
+            ds = abs(float(gs[j] - c.boxes.conf[i]))
+            if gc[j] == c.boxes.cls[i] and db <= BOX_TOL_PX and ds <= SCORE_TOL:
+                free.remove(j)
+                box_err.append(db)
+                score_err.append(ds)
+                break
+        else:
+            return None
+    return box_err, score_err
+
+
+def phase_predict_resize(torch, yolo, pred, frames640):
+    """Flagship predict at b16/640 f32 on 16 frames of four sizes that
+    need a resize (the native letterbox), with cv2 blocked, BN set from
+    these frames: 4 timed batches, fused_enhance and nms once a batch,
+    beside the predict phase's 480x640 f32 run of this call; then one
+    721x1280 frame on the card (TF32 off) against the port on the CPU."""
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.ops import _build
+    frames = lowlight_frames(RESIZE_SHAPES, BATCH, SEED + 50)
+    reps = 4
+    kw = dict(imgsz=IMGSZ, batch=BATCH, conf=CONF, half=False)
+    with no_cv2():
+        # BN from these frames, as the predict phase's from its own (set
+        # from the 480x640 frames, most scores of these saturate)
+        calibrate_bn(torch, yolo.model, frames)
+        yolo.predict(frames, **kw)                   # warm-up batch
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_plain_on_cuda():
+            res = yolo.predict(frames * reps, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        speed = dict(yolo.predictor.speed)
+        lb = {"resize": letterbox_ms(frames), "480x640": letterbox_ms(frames640)}
+        one = frames[2]                              # 721x1280
+        pair_kw = dict(imgsz=IMGSZ, batch=1, matmul_precision="float32")
+        conf = pair_conf(yolo.predict([one], conf=0.001, **pair_kw)[0])
+        pair_kw["conf"] = conf
+        gpu = yolo.predict([one], **pair_kw)[0]
+        cpu_model = YOLO("yolov8l.yaml", nc=3, device="cpu", seed=SEED)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   yolo.state_dict().items()})
+        cpu = cpu_model.predict([one], device="cpu", **pair_kw)[0]
+    check_launches("predict_resize", launches,
+                   {"fused_enhance": reps, "nms": reps})
+    counts = [len(r) for r in res]
+    pairs = pair_results(gpu, cpu) if len(gpu) == len(cpu) else None
+    rec = {"phase": "predict_resize", "frames": [list(s) for s in RESIZE_SHAPES],
+           "batch": BATCH, "imgsz": IMGSZ, "images": len(res),
+           "seconds": secs, "images_per_s": len(res) / secs,
+           "speed_ms_per_image": speed,
+           "native_letterbox_ms_per_batch": lb,
+           "beside_480x640": {"images_per_s": pred["f32"]["images_per_s"],
+                              "speed_ms_per_image": pred["f32"]["stage_ms"]},
+           "launches": launches, "dets_per_image": [min(counts), max(counts)],
+           "orig_shapes_ok": all(r.orig_shape == f.shape[:2]
+                                 for r, f in zip(res, frames * reps)),
+           "cpu_pair": {"frame": list(one.shape[:2]), "conf": conf,
+                        "gpu_count": len(gpu),
+                        "cpu_count": len(cpu), "paired": pairs is not None,
+                        "box_max_abs_err_px": max(pairs[0], default=0.0)
+                        if pairs else None,
+                        "score_max_abs_err": max(pairs[1], default=0.0)
+                        if pairs else None,
+                        "box_tol_px": BOX_TOL_PX, "score_tol": SCORE_TOL}}
+    emit(rec)
+    if not (max(counts) > 0 and rec["orig_shapes_ok"]
+            and 0 < len(cpu) < MAX_DET and pairs is not None):
+        raise AssertionError(f"predict_resize: {rec}")
+    return rec
+
+
+class record_loads:
+    """Within the block, a digest of every image the datasets load (after
+    the max-side resize), in call order."""
+
+    def __enter__(self):
+        import hashlib
+        from dedark_yolo_tpu_torch.data import dataset as D
+        self.cls, self.fn, self.digests = D.YOLODataset, D.YOLODataset.__call__, []
+
+        def call(ds, index, imgsz=None):
+            s = self.fn(ds, index, imgsz)
+            self.digests.append((index, s.img.shape,
+                                 hashlib.sha256(s.img.tobytes()).hexdigest()))
+            return s
+        self.cls.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.fn
+
+
+def val_pair_conf(scores, keep=150):
+    """A val conf for the card-vs-CPU pairing from the card's per-image
+    scores at the default conf: at most `keep` detections an image above
+    it (no list cut at max_det), midway across the widest gap between two
+    consecutive scores of all images pooled above that floor (no score
+    within the card's error of it)."""
+    import numpy as np
+    floor = max((float(np.sort(x)[::-1][keep - 1]) for x in scores
+                 if len(x) >= keep), default=0.001)
+    pool = np.sort(np.concatenate([x[x >= floor] for x in scores]))[::-1]
+    if len(pool) < 2:
+        return floor
+    k = int(np.argmax(pool[:-1] - pool[1:]))
+    return float((pool[k] + pool[k + 1]) / 2)
+
+
+def phase_val_resize(torch, yolo):
+    """Val of sidecars of 720x1280, 1080x1920 and 300x500 (each resized
+    max-side by data/imgops.py, the 720x1280 one at 2x down to 640) at 128
+    and 640, cv2 blocked, BN set from the images: the card at the val
+    defaults (conf 0.001), then the card (TF32 off) against the CPU image
+    by image and by metrics as val_parity does (P and R to
+    VAL_RESIZE_PR_RTOL), at a conf that leaves
+    each image's list short of max_det (val_pair_conf: a random-weight
+    flagship at 640 fills max_det on every image, and where the list is
+    cut the two sides may keep other detections); the images the dataset
+    loaded equal in all runs."""
+    import tempfile
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.cfg import get_cfg
+    from dedark_yolo_tpu_torch.engine.validator import DetectionValidator
+    from dedark_yolo_tpu_torch.ops import _build
+    cfg = VAL_RESIZE
+    batches = -(-cfg["n"] // cfg["batch"])
+    out = {"shapes": [list(s) for s in cfg["shapes"]], "n": cfg["n"],
+           "batch": cfg["batch"]}
+    ok, total = True, {}
+    with tempfile.TemporaryDirectory() as tmp, no_cv2():
+        data = val_dataset(Path(tmp) / "rs", cfg["n"], cfg["shapes"], SEED + 60)
+        cpu = YOLO("yolov8l.yaml", nc=3, device="cpu", seed=SEED)
+        for imgsz in (128, 640):
+            calibrate_bn(torch, yolo.model, val_images(data, cfg["n"]), imgsz)
+            cpu.load_state_dict({k: v.cpu() for k, v in yolo.state_dict().items()})
+            kw = {"data": data, "imgsz": imgsz, "batch": cfg["batch"],
+                  "cache": "disk", "matmul_precision": "float32",
+                  "verbose": False}
+            res, recs, loads, secs = {}, {}, {}, {}
+            for run, dev, model in (("default", "cuda", yolo),
+                                    ("cuda", "cuda", yolo), ("cpu", "cpu", cpu)):
+                if run == "cuda":
+                    kw["conf"] = val_pair_conf(
+                        [d[3] for d in recs["default"].detections()])
+                v = DetectionValidator(args=get_cfg({**kw, "device": dev}))
+                zero_launches()
+                t0 = time.perf_counter()
+                with no_plain_on_cuda(), record_detections() as recs[run], \
+                        record_loads() as loads[run]:
+                    res[run] = {k: float(x) for k, x in v(model=model.model).items()}
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    launches = dict(_build.LAUNCHES)
+                    check_launches(f"val_resize {imgsz} {run}", launches,
+                                   {"fused_enhance": batches, "nms": batches})
+                    for k, n in launches.items():
+                        total[k] = total.get(k, 0) + n
+                secs[run] = time.perf_counter() - t0
+            g, c = res["cuda"], res["cpu"]
+            rec = {"default_conf": {"results": res["default"],
+                                    "dets_per_image": [
+                                        min(recs["default"].counts),
+                                        max(recs["default"].counts)]},
+                   "pair_conf": kw["conf"], "cuda": g, "cpu": c,
+                   "seconds": secs, "launches": launches,
+                   **compare_images(recs["cuda"], recs["cpu"]),
+                   "metric_max_rel_err": max(abs(g[k] - c[k]) / abs(c[k])
+                                             if c[k] else abs(g[k])
+                                             for k in METRICS),
+                   "loaded": sorted(loads["cuda"].digests),
+                   "loads_equal": all(sorted(x.digests) == sorted(
+                       loads["cpu"].digests) for x in loads.values())}
+            rec["loaded_sides"] = sorted({max(s[:2]) for _, s, _ in rec["loaded"]})
+            rec["ok"] = (rec["ok"] and rec["images"][1] == cfg["n"]
+                         and rec["metric_max_rel_err"] <= VAL_RESIZE_PR_RTOL
+                         and all(abs(g[k] - c[k]) <= VAL_METRIC_RTOL * abs(c[k])
+                                 for k in METRICS[2:])
+                         and rec["loads_equal"]
+                         and rec["loaded_sides"] == [imgsz])
+            out[str(imgsz)] = rec
+            ok = ok and rec["ok"]
+    out["launches"] = total
+    emit({"phase": "val_resize", **out})
+    if not ok:
+        raise AssertionError(f"val_resize: card and CPU disagree: {out}")
+    return out
+
+
+def idle_share(trace_path):
+    """From a torch.profiler Chrome trace of one step: the step's window
+    (first to last event of any kind), the union of the device's kernel,
+    memcpy and memset intervals in it, and the idle share 1 - union /
+    window."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("ph") == "X" and "ts" in e]
+    dev = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                 if e.get("ph") == "X" and e.get("cat") in
+                 ("kernel", "gpu_memcpy", "gpu_memset"))
+    start, end = min(s for s, _ in spans), max(t for _, t in spans)
+    busy, cur = 0.0, None
+    for s, t in dev:
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [s, t]
+        else:
+            cur[1] = max(cur[1], t)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    return {"window_ms": (end - start) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_kernels": len(dev),
+            "idle_share": (1.0 - busy / (end - start)
+                           if dev and end > start else None)}
+
+
+def loop_mp_run(torch, data, tmp, name, processes):
+    """One epoch of yolov8l at b16/640 from the seeded weights, the loader's
+    8 workers threads or forked processes (then the profiler traces
+    micro-step 2), cv2 blocked; its loader wait, step host ms and device
+    spans, images/s, val, launches and trace."""
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.ops import _build
+    cfg = LOOP_MP
+    y = YOLO("yolov8l.yaml", nc=3, seed=SEED)
+    zero_launches()
+    with no_cv2(), no_plain_on_cuda(), count_val_calls() as vc, \
+            train_steps(torch) as st:
+        t0 = time.perf_counter()
+        y.train(data=data, imgsz=cfg["imgsz"], batch=cfg["batch"], epochs=1,
+                cache="disk", workers=8, loader_mp=processes,
+                profile=processes, verbose=False, project=str(tmp / "runs"),
+                name=name)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    tr = y.trainer
+    (e,) = tr.epoch_stats
+    launches = dict(_build.LAUNCHES)
+    val_batches = -(-cfg["n_val"] // cfg["batch"])
+    check_launches(f"loop_mp {name}", launches,
+                   {"fused_enhance": e["batches"] + vc.calls * val_batches,
+                    "nms": vc.calls * val_batches})
+    run = {"workers": "processes" if processes else "threads",
+           "seconds": secs, "batches": e["batches"],
+           "images_per_s": e["batches"] * cfg["batch"] / e["train_s"],
+           "loader_wait_ms_per_batch": 1e3 * e["loader_wait_s"] / e["batches"],
+           "step_host_ms": st.host, "step_device_ms": st.device_ms(),
+           "val_s": e["val_s"], "val": {k: float(v) for k, v in tr.metrics.items()},
+           "launches": launches, "pool_closed": tr.train_dl._mp_pool is None}
+    if processes:
+        run["trace"] = str(tr.profile_trace)
+        run["traced_step"] = idle_share(tr.profile_trace)
+    return run
+
+
+def phase_loop_mp(torch):
+    """loop_full's settings at b16/640 on sidecars that need a resize:
+    one epoch with 8 loader threads, then one with 8 processes, twice in
+    turns, the processes' epochs with profile=True; then the autobatch
+    phase on the same data. Where the profiler records no device work (its
+    CUPTI tracing untried on the card's machine), the idle share is
+    reported as None, not failed."""
+    import tempfile
+    cfg = LOOP_MP
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = loop_data(tmp / "mp", cfg, SEED + 70, SEED + 71)
+        for k, processes in enumerate((False, True, False, True)):
+            runs.append(loop_mp_run(torch, data, tmp, f"mp{k}", processes))
+        launches = {key: sum(r["launches"].get(key, 0) for r in runs)
+                    for key in runs[0]["launches"]}
+        emit({"phase": "loop_mp", **{k: cfg[k] for k in
+              ("n_train", "n_val", "imgsz", "batch")},
+              "shapes": [list(s) for s in cfg["shapes"]], "runs": runs,
+              "launches": launches})
+        for r in runs:
+            if not (r["pool_closed"]
+                    and r["batches"] == cfg["n_train"] // cfg["batch"]
+                    and all(0.0 <= r["val"][k] <= 1.0 for k in METRICS)
+                    and (r["workers"] == "threads"
+                         or Path(r["trace"]).is_file())):
+                raise AssertionError(f"loop_mp: {r}")
+        ab = phase_autobatch(torch, data, tmp)
+    return {"launches": launches, "autobatch": ab}
+
+
+def phase_autobatch(torch, data, tmp):
+    """batch=-1 at 640 through YOLO(...).train() for one epoch: the two
+    trial peaks, the batch fitted, and the peak of the first real
+    micro-step at that batch, which must stay under 0.67 of the card's
+    memory (mem_get_info's total)."""
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.engine import trainer as T
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.utils.autobatch import FRACTION
+    cfg = LOOP_MP
+    peaks, step = [], T.DetectionTrainer.step
+
+    def measured(tr, batch, i):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(tr, batch, i)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        return out
+    y = YOLO("yolov8l.yaml", nc=3, seed=SEED)
+    zero_launches()
+    T.DetectionTrainer.step = measured
+    try:
+        with no_cv2(), no_plain_on_cuda(), count_val_calls() as vc:
+            y.train(data=data, imgsz=cfg["imgsz"], batch=-1, epochs=1,
+                    cache="disk", workers=8, verbose=False,
+                    project=str(tmp / "runs"), name="autobatch")
+            torch.cuda.synchronize()
+    finally:
+        T.DetectionTrainer.step = step
+    tr = y.trainer
+    info = tr.autobatch_info
+    total = torch.cuda.mem_get_info()[1]
+    launches = dict(_build.LAUNCHES)
+    val_batches = -(-cfg["n_val"] // tr.args.batch)
+    check_launches("autobatch", launches,
+                   {"fused_enhance": 2 + len(peaks) + vc.calls * val_batches,
+                    "nms": vc.calls * val_batches})
+    rec = {"phase": "autobatch", "imgsz": cfg["imgsz"],
+           "trial_batches": [8, 16], "trial_peaks_gib": [p / 2 ** 30 for p in
+                                                         info["peaks"]],
+           "fixed_gib": info["fixed"] / 2 ** 30,
+           "per_image_mib": info["per_image"] / 2 ** 20,
+           "batch": tr.args.batch, "micro_steps": len(peaks),
+           "step_peak_gib": [p / 2 ** 30 for p in peaks],
+           "total_gib": total / 2 ** 30, "fraction": FRACTION,
+           "launches": launches}
+    emit(rec)
+    if not (peaks and max(peaks) < FRACTION * total and tr.args.batch % 8 == 0):
+        raise AssertionError(f"autobatch: {rec}")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1956,10 +2435,13 @@ def main():
     calibrate_bn(torch, yolo.model, frames)
     pred = phase_predict(torch, yolo, frames)
     phase_cpu(torch, yolo, frames[0])
+    pred_rs = phase_predict_resize(torch, yolo, pred, frames)
     probe_launches = phase_probe(torch)
     train = phase_train(torch)
     val = phase_val(torch, yolo)
+    val_rs = phase_val_resize(torch, yolo)
     loop = phase_train_loop(torch)
+    loop_mp = phase_loop_mp(torch)
     c10 = phase_c10(torch)
     amp = phase_train_amp(torch, train)
     phase_cli(torch)
@@ -1981,7 +2463,12 @@ def main():
         "train_loop_launches": sum(r["launches"]["fused_enhance"]
                                    for r in loop["runs"]),
         "c10_launches": c10["launches"]["fused_enhance"],
-        "train_amp_launches": amp["launches"]["fused_enhance"]}, {
+        "train_amp_launches": amp["launches"]["fused_enhance"],
+        "predict_resize_launches": pred_rs["launches"]["fused_enhance"],
+        "val_resize_launches": val_rs["launches"]["fused_enhance"],
+        "loop_mp_launches": loop_mp["launches"]["fused_enhance"],
+        "autobatch_launches":
+            loop_mp["autobatch"]["launches"]["fused_enhance"]}, {
         "name": "usm", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/usm.cu",
         "replaces": "dedark_yolo_tpu/ops/pallas/enhance_kernel.py:277",
@@ -2017,7 +2504,11 @@ def main():
            ("mask_ms", "scan_ms", "walk_depth", "shape", "max_det")},
         "val_launches": val["launches"]["nms"],
         "train_loop_launches": sum(r["launches"]["nms"] for r in loop["runs"]),
-        "c10_launches": c10["launches"]["nms"]}]})
+        "c10_launches": c10["launches"]["nms"],
+        "predict_resize_launches": pred_rs["launches"]["nms"],
+        "val_resize_launches": val_rs["launches"]["nms"],
+        "loop_mp_launches": loop_mp["launches"]["nms"],
+        "autobatch_launches": loop_mp["autobatch"]["launches"]["nms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -31,7 +31,7 @@ DEFAULT_CFG = {
     "max_det": 300,              # detections kept per image
     "max_nms": 2048,             # candidates entering NMS after the top-k gate
     "half": False,               # bf16 image into layer 0 (params stay f32)
-    "batch": 16,                 # images per device batch
+    "batch": 16,                 # images per device batch (train: < 0 = autobatch)
     "agnostic_nms": False,       # class-agnostic suppression
     "contrast_mode": "channel",  # 'channel' | 'reference' contrast luminance
     "matmul_precision": "default",  # default | tensorfloat32 | float32
@@ -44,11 +44,11 @@ DEFAULT_CFG = {
     "save_txt": False,           # one normalised-xywh label file an image
     "save_conf": False,          # ... with the confidence column
     "save_hybrid": False,        # labels join the candidates before NMS
-    "plots": True,               # the confusion matrix (no files drawn yet)
+    "plots": True,               # the confusion matrix, TensorBoard (no images)
     "verbose": True,             # the per-class log
     "single_cls": False,         # every class as class 0
     "max_boxes": 0,              # label rows a batch image; 0 = densest image
-    "workers": 8,                # loader threads
+    "workers": 8,                # loader threads (processes with loader_mp)
     "cache": False,              # False | True/'ram' | 'disk' (.npy sidecars)
     "exist_ok": False,           # reuse runs/detect/val instead of val2, ...
     # train step (engine/trainer.py)
@@ -81,6 +81,8 @@ DEFAULT_CFG = {
     "patience": 50,              # EarlyStopping: epochs without improvement
     "close_mosaic": 0,           # mosaic off for the last N epochs
     "resume": False,             # continue from save_dir/weights/last.npz
+    "loader_mp": False,          # train loader workers as forked processes
+    "profile": False,            # trace micro-step 2 with torch.profiler
     "pretrained": True,          # True/False, or an .npz to warm-start from
     "project": None,             # run dir parent (None: runs/detect)
     "name": None,                # run dir name (None: train)
@@ -119,7 +121,7 @@ _INT_KEYS = {"imgsz", "max_det", "max_nms", "batch", "epochs", "nbs",
 _BOOL_KEYS = {"half", "agnostic_nms", "cos_lr", "lowlight_FLAG", "dedark_FLAG",
               "amp", "rect", "save_json", "save_txt", "save_conf",
               "save_hybrid", "plots", "verbose", "single_cls", "exist_ok",
-              "save", "val", "resume", "photometric"}
+              "save", "val", "resume", "photometric", "loader_mp", "profile"}
 _PRECISIONS = ("default", "tensorfloat32", "float32")
 
 # Keys of the JAX package's cfg/default.yaml that the port does not carry:
@@ -129,9 +131,9 @@ _PRECISIONS = ("default", "tensorfloat32", "float32")
 UNPORTED_KEYS = frozenset((
     "augment", "boxes", "cfg", "classes", "deterministic", "dnn", "dropout",
     "dynamic", "format", "fpn_fuse", "fuse", "int8", "keras", "kobj",
-    "label_smoothing", "line_width", "loader_mp", "mask_ratio", "mesh_axes",
+    "label_smoothing", "line_width", "mask_ratio", "mesh_axes",
     "mesh_shape", "mode", "model", "nms", "opset", "optimize",
-    "overlap_mask", "pose", "profile", "remat", "retina_masks", "save_crop",
+    "overlap_mask", "pose", "remat", "retina_masks", "save_crop",
     "save_enhanced", "show", "show_conf", "show_labels", "simplify",
     "source", "stem_s2d", "task", "tracker", "vid_stride", "visualize",
     "workspace"))

@@ -9,9 +9,9 @@ the JAX package's order and count, so a seed gives both packages the same
 geometry. The pixel operations are `data.imgops`, which computes what the
 JAX package's cv2 calls compute without OpenCV.
 
-cv2 is imported only when an image needs resizing (the letterbox, or the
-dataset's max-side load); an image that already fits is padded with
-numpy, which gives the same bytes as cv2.copyMakeBorder(BORDER_CONSTANT).
+The letterbox resizes with `imgops.resize_linear` (cv2.resize INTER_LINEAR)
+and pads with numpy, which gives the same bytes as
+cv2.copyMakeBorder(BORDER_CONSTANT); nothing here imports cv2.
 """
 
 from __future__ import annotations
@@ -51,8 +51,7 @@ def letterbox(img, new_shape=640, color=PAD_VALUE, scaleup=True, center=True,
         dw /= 2
         dh /= 2
     if shape[::-1] != new_unpad:
-        import cv2
-        img = cv2.resize(img, new_unpad, interpolation=cv2.INTER_LINEAR)
+        img = imgops.resize_linear(img, new_unpad)
     top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
     left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
     pad = ((top, bottom), (left, right)) + ((0, 0),) * (img.ndim - 2)

@@ -8,7 +8,8 @@ container as the JAX package, and loads an image resized so its longer side
 is `imgsz` (reference base.py:142-169).
 
 `yaml` is imported only to read a dataset file (a dict needs none), `cv2`
-only to decode an image or resize one. With `cache='disk'` an image is read
+only to decode an image (the max-side resize is `imgops.resize_linear`,
+cv2's INTER_LINEAR without OpenCV). With `cache='disk'` an image is read
 from its `.npy` sidecar (the array `cv2.imread` gave, written on the first
 read), and `image_shapes()` takes an image's (h, w) from its sidecar's
 header where there is one: the same shape the JAX package reads from the
@@ -27,6 +28,7 @@ from pathlib import Path
 import numpy as np
 
 from ..cfg import yaml_load
+from . import imgops
 from .augment import Sample
 
 IMG_FORMATS = {".bmp", ".jpeg", ".jpg", ".png", ".tif", ".tiff", ".webp"}
@@ -240,9 +242,8 @@ class YOLODataset:
         h0, w0 = img.shape[:2]
         r = imgsz / max(h0, w0)
         if r != 1:
-            import cv2
-            img = cv2.resize(img, (min(int(w0 * r), imgsz), min(int(h0 * r), imgsz)),
-                             interpolation=cv2.INTER_LINEAR)
+            img = imgops.resize_linear(
+                img, (min(int(w0 * r), imgsz), min(int(h0 * r), imgsz)))
         lb = self.labels[index]
         cls = lb[:, 0].copy()
         if self.single_cls:

@@ -1,4 +1,4 @@
-"""The image operations of the train transforms, without OpenCV.
+"""The image operations of the transforms and the resizes, without OpenCV.
 
 Each function computes what the OpenCV call named in its docstring computes
 on uint8 BGR images (JAX data/augment.py calls them through cv2): the same
@@ -24,6 +24,55 @@ BORDER_VALUE = 114
 # arithmetic rounds differently (see `_warp_coords`).
 WARP_VECTOR = 16
 HSV_VECTOR = 32   # the same for HSV2BGR, whose tail rounds instead
+
+
+# -------------------------------------------------------------------- resize
+def _resize_taps(dst, src):
+    """Per destination index along one axis: the first source index (not
+    yet clamped) and the two 11-bit weights, as OpenCV's linear resize
+    computes them: the coordinate (d + 0.5) * scale - 0.5 in float32, its
+    floor, and cvRound((1 - f) * 2048), cvRound(f * 2048) in float32."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = (f - s).astype(np.float32)
+    s = s.astype(np.int64)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int32)
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int32)
+    return s, w0, w1
+
+
+def resize_linear(img, dsize):
+    """cv2.resize(img, dsize=(w, h), interpolation=cv2.INTER_LINEAR) of a
+    uint8 HW or HWC image. Horizontal pass first: two taps with 11-bit
+    weights summed exactly in int32, a source column left of the image
+    clamped with weights (2048, 0) and one at or past the last column read
+    alone at 2048. Then the vertical pass over rows clamped to the image,
+    in OpenCV's vector arithmetic, which OpenCV 5.0 applies to the whole
+    row: ((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16), then (+ 2) >> 2
+    and saturation. At exactly 2x down in both axes OpenCV takes INTER_AREA
+    instead, whose (sum + 2) >> 2 of each 2x2 block this formula equals."""
+    w, h = int(dsize[0]), int(dsize[1])
+    sh, sw = img.shape[:2]
+    src = img.reshape(sh, sw, -1)
+    sx, a0, a1 = _resize_taps(w, sw)
+    left = sx < 0
+    a0[left], a1[left], sx[left] = 2048, 0, 0
+    right = sx >= sw - 1
+    a0[right], a1[right], sx[right] = 2048, 0, sw - 1
+    sx1 = np.minimum(sx + 1, sw - 1)
+    sy, b0, b1 = _resize_taps(h, sh)
+    y0, y1 = np.clip(sy, 0, sh - 1), np.clip(sy + 1, 0, sh - 1)
+    rows = np.unique(np.concatenate([y0, y1]))
+    r = src[rows].astype(np.int32)
+    hpass = r[:, sx] * a0[None, :, None] + r[:, sx1] * a1[None, :, None]
+    hpass >>= 4
+    at = np.searchsorted(rows, y0), np.searchsorted(rows, y1)
+    out = ((hpass[at[0]] * b0[:, None, None]) >> 16) \
+        + ((hpass[at[1]] * b1[:, None, None]) >> 16)
+    out = np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
+    # cv2 returns a one-channel image as (h, w)
+    return out.reshape((h, w) + (img.shape[2:] if src.shape[2] > 1 else ()))
 
 
 # --------------------------------------------------------------------- warps

@@ -9,22 +9,62 @@ reshuffles), so the two loaders give the same batches. The collate stacks
 uint8 (B, H, W, 3) images and pads the labels to `max_boxes` with a
 validity mask.
 
+With `use_processes` the items are made in a pool of forked processes
+instead (JAX data/loader.py:22-49, 95-105, 157-166): the pool's
+initializer holds (dataset, transforms, seed * 100003), each task carries
+(index, position, epoch), and the per-item seed is the thread path's, so
+switching modes never changes a batch. The pool forks once and serves
+every epoch; `close()` terminates it. A parent that has initialised CUDA
+may fork: the children run only numpy (`data/imgops.py`), never a torch
+op, whose thread pool can hang after a fork, and they reset the signal
+handlers they inherit (see `_mp_init`).
+
 One process: the JAX loader's per-host sharding (`process_index` /
 `process_count`) stays at 0 of 1. The validator reads in order (no
-shuffle, seed 0, epoch 0). Not ported: the forked-process workers
-(`use_processes`) and task collates (`collate_fn`).
+shuffle, seed 0, epoch 0). Not ported: task collates (`collate_fn`).
 """
 
 from __future__ import annotations
 
 import queue
 import random
+import signal
+import sys
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 PREFETCH = 2    # batches made ahead of the consumer
+# seconds the process workers may take for one batch; past that a worker
+# is taken as stuck (a fork that inherited a held lock) and the pass raises
+# multiprocessing.TimeoutError instead of waiting for ever
+MP_BATCH_TIMEOUT = 600.0
+
+# the forked workers' state, set by the pool's initializer
+_MP_STATE: dict = {}
+
+
+def _mp_init(dataset, transforms, base_seed):
+    # a worker inherits the parent's signal handlers: the trainer's SIGTERM
+    # handler only flags a stop, and a worker running it would outlive the
+    # pool's terminate() (whose join then waits for ever); SIGINT is the
+    # parent's to handle
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    # OpenCV's thread pool does not survive a fork: one thread in each worker
+    # (the items decode files with cv2 only where it is installed)
+    cv2 = sys.modules.get("cv2")
+    if cv2 is not None:
+        cv2.setNumThreads(0)
+    _MP_STATE.update(dataset=dataset, transforms=transforms,
+                     base_seed=base_seed)
+
+
+def _mp_make(task):
+    i, pos, epoch = task
+    rng = random.Random(_MP_STATE["base_seed"] + epoch + pos * 7919 + i)
+    return _MP_STATE["transforms"](_MP_STATE["dataset"], i, rng)
 
 
 def collate(items, max_boxes=128):
@@ -50,7 +90,7 @@ class DataLoader:
 
     def __init__(self, dataset, transforms, batch_size, max_boxes=128,
                  workers=8, drop_last=True, indices=None, shuffle=False,
-                 seed=0):
+                 seed=0, use_processes=False):
         self.dataset = dataset
         self.indices = list(indices) if indices is not None else None
         self.transforms = transforms
@@ -61,6 +101,24 @@ class DataLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
+        self.use_processes = bool(use_processes)
+        self._mp_pool = None
+
+    def _pool(self):
+        """The fork-start process pool, made at first use and kept."""
+        if self._mp_pool is None:
+            import multiprocessing as mp
+            self._mp_pool = mp.get_context("fork").Pool(
+                self.workers, initializer=_mp_init,
+                initargs=(self.dataset, self.transforms, self.seed * 100003))
+        return self._mp_pool
+
+    def close(self):
+        """Terminate the process pool, if any (the next pass forks anew)."""
+        if self._mp_pool is not None:
+            self._mp_pool.terminate()
+            self._mp_pool.join()
+            self._mp_pool = None
 
     def set_epoch(self, epoch):
         """The epoch whose order and item seeds the next pass uses
@@ -100,16 +158,27 @@ class DataLoader:
                     continue
             return False
 
+        def batches(make):
+            for bi in range(nb):
+                chunk = idx[bi * self.batch_size:(bi + 1) * self.batch_size]
+                if not put(collate(make(chunk), self.max_boxes)):
+                    return
+            put(None)
+
+        # the pool forks here, on the consumer's thread, not the producer's
+        pool = self._pool() if self.use_processes else None
+
         def producer():
             try:
+                if pool is not None:
+                    epoch = self.epoch
+                    batches(lambda chunk: pool.map_async(_mp_make, [
+                        (i, pos, epoch) for pos, i in enumerate(chunk)
+                    ]).get(MP_BATCH_TIMEOUT))
+                    return
                 with ThreadPoolExecutor(max_workers=self.workers) as ex:
-                    for bi in range(nb):
-                        chunk = idx[bi * self.batch_size:(bi + 1) * self.batch_size]
-                        items = list(ex.map(lambda t: make_item(t[1], t[0]),
-                                            enumerate(chunk)))
-                        if not put(collate(items, self.max_boxes)):
-                            return
-                put(None)
+                    batches(lambda chunk: list(ex.map(
+                        lambda t: make_item(t[1], t[0]), enumerate(chunk))))
             except Exception as e:         # handed to the consumer, raised there
                 put(e)
 

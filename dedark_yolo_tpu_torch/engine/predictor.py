@@ -1,15 +1,21 @@
 """DetectionPredictor: batched inference (JAX engine/predictor.py:113-378).
 
-Host letterbox, then one device step per batch: u8 -> float, the graph
-(layer 0 runs the fused enhance kernel on CUDA), DFL decode, fixed-shape NMS
-with multi_label=False (the `nms` kernel on CUDA). Boxes go back to
-original-image pixels with the reference's letterbox inverse. Batches are
-dispatched depth-2: on CUDA, `step` uploads from a pinned buffer without
-waiting and returns device tensors while the batch runs, so batch i+1 is
-letterboxed and submitted while batch i computes; batch i's results are
-read back (the one wait of a batch) and demuxed after that, in source
-order. The validator runs the same device work (`PinnedUpload`,
-`detect_step`) with multi_label=True.
+The raw BGR frames of a batch are letterboxed to RGB in one call of the
+native host library (`native.letterbox_batch`, C++ threads, the GIL
+released; a partial batch repeats its first frame), as the JAX predictor
+does when its library builds (JAX engine/predictor.py:282-297, 358-361).
+Then one device step per batch: u8 -> float, the graph (layer 0 runs the
+fused enhance kernel on CUDA), DFL decode, fixed-shape NMS with
+multi_label=False (the `nms` kernel on CUDA). Boxes go back to
+original-image pixels with the reference's letterbox inverse
+(`scale_boxes`, whose Python rounding can sit one row off the native
+letterbox's lround on frames such as 721x1280: the JAX package's
+behaviour, kept). Batches are dispatched depth-2: on CUDA, `step` uploads
+from a pinned buffer without waiting and returns device tensors while the
+batch runs, so batch i+1 is letterboxed and submitted while batch i
+computes; batch i's results are read back (the one wait of a batch) and
+demuxed after that, in source order. The validator runs the same device
+work (`PinnedUpload`, `detect_step`) with multi_label=True.
 
 Not ported: TTA, ensembles, exported artifacts (AutoBackend),
 save_enhanced/visualize, video and streams.
@@ -25,7 +31,8 @@ import numpy as np
 import torch
 
 from ..cfg import get_cfg
-from ..data.augment import letterbox
+from .. import native
+from ..data.augment import PAD_VALUE
 from ..ops.boxes import scale_boxes
 from ..ops.nms import non_max_suppression
 from .results import Results
@@ -170,20 +177,22 @@ class DetectionPredictor:
         imgsz = int(a.imgsz)
         batch_size = max(1, int(a.batch))
         self.model.to(self.device).eval()
-        buf_paths, buf_imgs, buf_orig = [], [], []
+        buf_paths, buf_orig = [], []
 
-        def dispatch(t_pre):
-            nonlocal buf_paths, buf_imgs, buf_orig
-            if not buf_imgs:
+        def dispatch():
+            nonlocal buf_paths, buf_orig
+            if not buf_orig:
                 return None
-            n = len(buf_imgs)
+            n = len(buf_orig)
             t0 = time.perf_counter()
-            while len(buf_imgs) < batch_size:
-                buf_imgs.append(np.zeros_like(buf_imgs[0]))
-            out = self.step(np.stack(buf_imgs))
-            t_disp = time.perf_counter() - t0
-            rec = (out, n, t_pre, t_disp, buf_paths, buf_orig)
-            buf_paths, buf_imgs, buf_orig = [], [], []
+            srcs = buf_orig + [buf_orig[0]] * (batch_size - n)
+            arr = native.letterbox_batch(srcs, imgsz, fill=PAD_VALUE,
+                                         swap_rb=True)
+            t1 = time.perf_counter()
+            out = self.step(arr)
+            t_disp = time.perf_counter() - t1
+            rec = (out, n, t1 - t0, t_disp, buf_paths, buf_orig)
+            buf_paths, buf_orig = [], []
             return rec
 
         def demux(rec):
@@ -214,21 +223,15 @@ class DetectionPredictor:
             yield from results
 
         pending = None
-        t_pre = 0.0
         for path, img in load_source(source):
-            t0 = time.perf_counter()
-            lb, _, _ = letterbox(img, imgsz)
-            buf_imgs.append(np.ascontiguousarray(lb[..., ::-1]))  # RGB
             buf_paths.append(path)
             buf_orig.append(img)
-            t_pre += time.perf_counter() - t0
-            if len(buf_imgs) == batch_size:
-                newly = dispatch(t_pre)
-                t_pre = 0.0
+            if len(buf_orig) == batch_size:
+                newly = dispatch()
                 if pending is not None:
                     yield from demux(pending)
                 pending = newly
-        newly = dispatch(t_pre)
+        newly = dispatch()
         if pending is not None:
             yield from demux(pending)
         if newly is not None:

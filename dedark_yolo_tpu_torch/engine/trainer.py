@@ -34,9 +34,18 @@ a SIGTERM/SIGINT handler that checkpoints and stops after the epoch. The
 inherited orderings of the JAX loop are kept (ROADMAP C6): on_fit_epoch_end
 fires before the stop decision and the checkpoint; on_model_save fires on
 every epoch with `save`, written or not; with val=False every epoch counts
-as improved and refreshes best.npz. Not ported: the device mesh and
-multi-process training, autobatch (batch < 0 raises), the profiler trace
-and the plots.
+as improved and refreshes best.npz.
+
+The loop's options of JAX A10b: `loader_mp` makes the items in forked
+processes (`data/loader.py`; the pool is closed at the end of `train`, on
+its way out after a signal or an error, and re-forked after close_mosaic
+so the workers see the change, which the JAX package's pool misses);
+`profile` runs the first epoch's micro-step 2 under `torch.profiler` (CPU
+and CUDA activities, synchronised before it stops) and writes a Chrome
+trace under `save_dir/profile/` (JAX trainer.py:575-592); `batch < 0`
+fits the batch to the card with `utils/autobatch.py` (two trial steps'
+peak memory; on the CPU it raises). Not ported: the device mesh and
+multi-process training, and the plots.
 
     trainer = DetectionTrainer(model, {"batch": 16}, nb=100)  # model: nn.graph.DetectionModel
     total, items = trainer.step(batch, step_index)
@@ -67,6 +76,7 @@ from ..losses.detection import detection_loss
 from ..ops.dark_channel import dark_channel_priors
 from ..ops.degrade import lowlight_degrade
 from ..utils import LOGGER, increment_dir
+from ..utils.autobatch import autobatch
 from ..utils.callbacks import add_integration_callbacks, get_default_callbacks
 from ..utils.checkpoint import (has_section, load_checkpoint, save_checkpoint,
                                 section_tree, transfer_tree)
@@ -124,6 +134,7 @@ class DetectionTrainer:
         self.init_state = None     # a state_dict to warm-start from
         self.transferred = None    # (n, total) after a warm start
         self.epoch_stats = []      # per epoch: seconds of train, val, ckpt
+        self.train_dl = self.profile_trace = self.autobatch_info = None
         self._validator = self._val_model = None
         self._interrupted = False
         self._ckpt_pool, self._ckpt_futures = None, {}
@@ -191,8 +202,11 @@ class DetectionTrainer:
         return float(self.momentum)
 
     def close_augment(self):
-        """close_mosaic: the last epochs letterbox instead of mosaicking."""
+        """close_mosaic: the last epochs letterbox instead of mosaicking
+        (forked workers are closed, so the next epoch forks them anew)."""
         self.train_tf.mosaic_enabled = False
+        if getattr(self, "train_dl", None) is not None:
+            self.train_dl.close()
 
     def get_validator(self, save_dir=None, data=None):
         """The validator an epoch's val runs (JAX trainer.py:1032-1036): this
@@ -282,7 +296,57 @@ class DetectionTrainer:
         self.train_tf = TrainTransforms(hyp, imgsz=a.imgsz)
         return DataLoader(self.build_train_dataset(), self.train_tf, a.batch,
                           max_boxes=a.max_boxes, workers=a.workers,
-                          shuffle=True, seed=a.seed, drop_last=True)
+                          shuffle=True, seed=a.seed, drop_last=True,
+                          use_processes=bool(a.loader_mp))
+
+    def dummy_batch(self, b):
+        """A zero batch of b images at the run's shapes (autobatch)."""
+        a = self.args
+        return {"img": np.zeros((b, a.imgsz, a.imgsz, 3), np.uint8),
+                "bboxes": np.zeros((b, a.max_boxes, 4), np.float32),
+                "cls": np.zeros((b, a.max_boxes), np.float32),
+                "mask_gt": np.zeros((b, a.max_boxes), np.float32)}
+
+    def _autobatch(self):
+        """The batch for batch < 0 (JAX trainer.py:735-747): each trial is
+        the loss and its gradients on a zero batch, as JAX measures
+        `jax.grad` of the loss; the BN running stats are put back after."""
+        def measure(b):
+            stats = {k: v.clone() for k, v in self.model.named_buffers()}
+            batch = self.to_device(self.dummy_batch(b))
+            self.model.train()
+            try:
+                total, _ = self.loss(batch)
+                torch.autograd.grad(total, list(self.params.values()),
+                                    allow_unused=True)
+            finally:
+                self.model.eval()
+                with torch.no_grad():
+                    for k, v in self.model.named_buffers():
+                        v.copy_(stats[k])
+
+        b, self.autobatch_info = autobatch(measure, self.device)
+        return b
+
+    def _profile_start(self):
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _profile_stop(self, prof, step):
+        """Wait for the traced step's device work (JAX's
+        block_until_ready), then write the Chrome trace."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = self.save_dir / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        self.profile_trace = out / f"step{step}.pt.trace.json"
+        prof.export_chrome_trace(str(self.profile_trace))
 
     def _resolve_max_boxes(self):
         """max_boxes=0 -> the densest composite the augmentation can make:
@@ -387,9 +451,6 @@ class DetectionTrainer:
         """The epoch loop on `data`; returns the last validation's results
         (those of best.npz when it is not the last epoch's)."""
         a = self.args
-        if a.batch < 0:
-            raise NotImplementedError(
-                "autobatch (batch < 0) is not ported; pass a batch size")
         if not a.data:
             raise ValueError("training needs `data` (a dataset yaml or dict)")
         self.data = check_det_dataset(a.data)
@@ -400,7 +461,9 @@ class DetectionTrainer:
 
         self._warm_start()
         self._resolve_max_boxes()
-        train_dl = self.build_train_loader()
+        if a.batch < 0:
+            a.batch = self._autobatch()
+        train_dl = self.train_dl = self.build_train_loader()
         nb = len(train_dl)
         if nb == 0:
             raise ValueError("empty train loader (batch larger than the dataset?)")
@@ -442,8 +505,13 @@ class DetectionTrainer:
                     if batch is None:
                         break
                     self.run_callbacks("on_train_batch_start")
+                    prof = (self._profile_start() if a.profile
+                            and epoch == start_epoch and len(items_log) == 2
+                            else None)
                     with matmul_precision(a.matmul_precision):
                         items_log.append(self.step(batch, step)[1])
+                    if prof is not None:
+                        self._profile_stop(prof, step)
                     step += 1
                     self.run_callbacks("on_train_batch_end")
                 mloss = torch.stack(items_log).mean(0).cpu().numpy()
@@ -500,6 +568,7 @@ class DetectionTrainer:
         finally:
             # flush the writer before the handlers go back: a signal during
             # the flush must not tear last.npz
+            train_dl.close()
             self._ckpt_drain()
             for sig, h in self._prev_handlers.items():
                 signal.signal(sig, h)

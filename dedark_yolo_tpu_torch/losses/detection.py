@@ -30,9 +30,13 @@ class LossItems(NamedTuple):
 
 
 def _bce_logits(logits, targets):
-    """Elementwise binary cross-entropy with logits, the JAX package's form."""
-    return (logits.clamp(min=0) - logits * targets
-            + torch.log1p(torch.exp(-logits.abs())))
+    """Elementwise binary cross-entropy with logits, the JAX package's form,
+    with jnp's derivatives at a logit of exactly 0 (a bf16 head map has
+    them): `maximum` splits the tie (1/2), `abs` takes the positive side
+    (clamp and torch's abs would give 1 and 0)."""
+    pos = torch.where(logits >= 0, logits, -logits)
+    return (torch.maximum(logits, logits.new_zeros(())) - logits * targets
+            + torch.log1p(torch.exp(-pos)))
 
 
 def _df_loss(pred_dist_logits, target, reg_max):

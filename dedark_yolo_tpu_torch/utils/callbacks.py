@@ -4,9 +4,12 @@ the JSONL metrics stream.
 
 Each hook is a list of functions called with the trainer. The JSONL stream
 appends one line an epoch ({"epoch", "ts", and every metric}) to
-`save_dir/metrics.jsonl`. Not ported: the TensorBoard writer and the cloud
-trackers (wandb, mlflow, clearml, comet, dvc, neptune) that the JAX package
-registers when their clients import.
+`save_dir/metrics.jsonl`. The TensorBoard writer (JAX :61-80): with
+`plots`, a `SummaryWriter(save_dir / "tb")` from train start to train end,
+one scalar per metric per epoch; where `torch.utils.tensorboard` does not
+import (it needs the `tensorboard` package) there is none, as in the JAX
+package. Not ported: the cloud trackers (wandb, mlflow, clearml, comet,
+dvc, neptune) that the JAX package registers when their clients import.
 """
 
 from __future__ import annotations
@@ -51,7 +54,42 @@ def jsonl_fit_epoch_end(trainer):
         pass
 
 
+class TensorBoardWriter:
+    """The trainer's TensorBoard callbacks; the import is tried at train
+    start, and only with `plots`."""
+
+    def __init__(self):
+        self.writer = None
+
+    def on_train_start(self, trainer):
+        if not getattr(trainer.args, "plots", False):
+            return
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except Exception:       # no tensorboard package: no writer
+            return
+        self.writer = SummaryWriter(log_dir=str(trainer.save_dir / "tb"))
+
+    def on_fit_epoch_end(self, trainer):
+        if self.writer is None:
+            return
+        for k, v in (trainer.metrics or {}).items():
+            try:
+                self.writer.add_scalar(k, float(v), trainer.epoch)
+            except (TypeError, ValueError):
+                pass
+
+    def on_train_end(self, trainer):
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
+
+
 def add_integration_callbacks(trainer):
-    """Attach the JSONL metrics stream to the trainer's callbacks."""
+    """Attach the JSONL metrics stream and the TensorBoard writer to the
+    trainer's callbacks."""
     trainer.callbacks["on_fit_epoch_end"].append(jsonl_fit_epoch_end)
+    tb = TensorBoardWriter()
+    for event in ("on_train_start", "on_fit_epoch_end", "on_train_end"):
+        trainer.callbacks[event].append(getattr(tb, event))
     return trainer.callbacks
