@@ -31,6 +31,15 @@ line:
            721x1280 and 1000x1500 (the native letterbox resizes them), cv2
            blocked: images/s, speed, the letterbox's ms a batch, beside the
            480x640 run; one 721x1280 frame on the card against the CPU
+  predict_extras  predict f32 b16/640 on the predict phase's frames:
+           plain, TTA (augment=True: fused_enhance 3 and nms 1 a batch) and
+           a two-member ensemble YOLO([a.npz, b.npz]) (2 and 1), images/s
+           of each in turns; TTA in reference mode for a batch (usm 3, nms
+           1); TTA and the ensemble on one frame against the CPU, paired;
+           save_enhanced and visualize on one frame (one forward): the
+           enhanced image within the kernel's TOL of the CPU's, the
+           captures layer by layer; OpenCV, Pillow and matplotlib: which
+           import, and each one's saving call writes or raises naming it
   probe    tools.int8_probe at its default shape (24 layers, b32, 80x80,
            C=Co=256): bf16 cuDNN chain vs the int8_conv kernel's chain
   train    DetectionTrainer: at imgsz 128, b2, one micro-step on the card
@@ -108,11 +117,14 @@ BATCH, IMGSZ = 16, 640
 # kernel phase: (batch, H, W); random priors at each, the defaults at the
 # first; then the edge cases of the blur stage's plan: ragged strips and
 # segments, two strips by two segments, the smallest side, W and H below a
-# strip and a segment
+# strip and a segment; then TTA's two smaller passes at 640 (531 and 428
+# padded to 544 and 448: neither a multiple of the 72-column strip)
 KERNEL_SHAPES = [(16, 640, 640), (3, 481, 643), (1, 64, 96), (1, 13, 13),
-                 (2, 37, 45)]
-# usm: the reference-mode predict shape, a ragged one, the smallest side
-USM_SHAPES = [(16, 640, 640), (3, 481, 643), (1, 13, 13)]
+                 (2, 37, 45), (16, 544, 544), (16, 448, 448)]
+# usm: the reference-mode predict shape, a ragged one, the smallest side,
+# TTA's two smaller passes
+USM_SHAPES = [(16, 640, 640), (3, 481, 643), (1, 13, 13), (16, 544, 544),
+              (16, 448, 448)]
 # int8_conv: (B, H, W, C, Co) unpadded; the probe's layer first, then the
 # JAX package's test shapes (M and Co tails, odd H and W), then shapes whose
 # K block is 32 (C = 32 and 96; the others take 128 or 64) with Co tails
@@ -2410,6 +2422,216 @@ def phase_autobatch(torch, data, tmp):
     return rec
 
 
+# predict_extras: captured activations, the card against the CPU (TF32
+# off): layer 0 within the enhance kernel's TOL; every later layer within
+# CAP_RTOL of that layer's largest magnitude (cuDNN's sum order, grown
+# through the random-weight network as the decoded boxes' is; 1.7e-4 on
+# an H100 at 700 W)
+CAP_RTOL = 2e-3
+HOST_PACKAGES = ("cv2", "PIL", "matplotlib")
+
+
+def npz_of(torch, yolo, path):
+    """The facade's weights as a checkpoint (params, batch_stats,
+    model_yaml), as `YOLO([...])` loads its members."""
+    from dedark_yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    from dedark_yolo_tpu_torch.utils.weights import state_dict_to_jax
+    trees = state_dict_to_jax({k: v.cpu() for k, v in
+                               yolo.state_dict().items()}, yolo.model)
+    save_checkpoint(path, params=trees["params"],
+                    batch_stats=trees["batch_stats"],
+                    model_yaml=yolo.model.yaml)
+    return str(path)
+
+
+def timed_predict(torch, model, frames, reps, expected, name, **kw):
+    """A warm-up batch, then `reps` batches timed, under no_plain_on_cuda,
+    each kernel launched as `expected` says a batch: (results, record)."""
+    from dedark_yolo_tpu_torch.ops import _build
+    model.predict(frames, **kw)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_plain_on_cuda():
+        res = model.predict(frames * reps, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check_launches(name, launches, {k: n * reps for k, n in expected.items()})
+    counts = [len(r) for r in res]
+    if max(counts) == 0:
+        raise AssertionError(f"{name}: no detections at conf={CONF}")
+    return res, {"images": len(res), "seconds": secs,
+                 "images_per_s": len(res) / secs, "launches": launches,
+                 "launches_per_batch": {k: v / reps for k, v in
+                                        launches.items()},
+                 "stage_ms": dict(model.predictor.speed),
+                 "dets_per_image": [min(counts), max(counts)]}
+
+
+def card_vs_cpu(gpu_model, cpu_model, frame, **kw):
+    """One frame on the card (TF32 off) and on the CPU at a conf in a wide
+    gap of the card's scores: the two Results and their pairing record."""
+    pair_kw = dict(imgsz=IMGSZ, batch=1, matmul_precision="float32", **kw)
+    conf = pair_conf(gpu_model.predict([frame], conf=0.001, **pair_kw)[0])
+    gpu = gpu_model.predict([frame], conf=conf, **pair_kw)[0]
+    cpu = cpu_model.predict([frame], conf=conf, device="cpu", **pair_kw)[0]
+    pairs = pair_results(gpu, cpu) if len(gpu) == len(cpu) else None
+    return gpu, cpu, {
+        "conf": conf, "gpu_count": len(gpu), "cpu_count": len(cpu),
+        "paired": pairs is not None and 0 < len(cpu) < MAX_DET,
+        "box_max_abs_err_px": max(pairs[0], default=0.0) if pairs else None,
+        "score_max_abs_err": max(pairs[1], default=0.0) if pairs else None,
+        "box_tol_px": BOX_TOL_PX, "score_tol": SCORE_TOL}
+
+
+def compare_captures(torch, gpu, cpu):
+    """visualize's captures, card against CPU, layer by layer."""
+    from dedark_yolo_tpu_torch.tools.enhance_ab import compare
+    import numpy as np
+    rec = {"layers": sorted(gpu) == sorted(cpu) and len(gpu) > 0,
+           "layer0": compare(torch.from_numpy(gpu[0]),
+                             torch.from_numpy(cpu[0]), torch.float32)}
+    worst = 0.0
+    for k in cpu:
+        if k == 0 or gpu[k].shape != cpu[k].shape:
+            rec["layers"] = rec["layers"] and k == 0
+            continue
+        worst = max(worst, float(np.abs(gpu[k] - cpu[k]).max()
+                                 / max(float(np.abs(cpu[k]).max()), 1e-12)))
+    rec.update(max_rel_err_after_layer0=worst, rel_tol=CAP_RTOL,
+               ok=rec["layers"] and rec["layer0"]["ok"] and worst <= CAP_RTOL)
+    return rec
+
+
+def saving_calls(yolo, frame, tmp):
+    """OpenCV, Pillow and matplotlib on this host, and their calls: where a
+    package imports, its saving call writes its files; where it does not,
+    that call raises an ImportError naming it. OpenCV's call saves the
+    annotated image, the enhanced one and the crops; matplotlib's the
+    feature grids (written before the annotated image, which needs OpenCV
+    too); Pillow's only call is a PIL source, which needs Pillow to exist."""
+    import importlib
+    import numpy as np
+    have = {}
+    for module in HOST_PACKAGES:
+        try:
+            importlib.import_module(module)
+            have[module] = True
+        except ImportError:
+            have[module] = False
+    kw = dict(imgsz=IMGSZ, batch=1, conf=CONF, project=str(tmp), save=True)
+    out = {"present": have}
+    try:
+        yolo.predict([frame], save_enhanced=True, save_crop=True, name="cv2",
+                     **kw)
+        err = ""
+    except ImportError as e:
+        err = str(e)
+    files = sorted(str(p.relative_to(tmp / "cv2")) for p in
+                   (tmp / "cv2").rglob("*.jpg"))
+    out["cv2"] = {"import_error": err, "files": files[:20]}
+    ok = ({"image.jpg", "image_enhanced.jpg"} <= set(files)
+          and any(f.startswith("crops/") for f in files)) \
+        if have["cv2"] else "OpenCV" in err
+    try:
+        yolo.predict([frame], visualize=True, name="mpl", **kw)
+        err = ""
+    except ImportError as e:
+        err = str(e)
+    grids = len(list((tmp / "mpl").rglob("stage*_features.png")))
+    out["matplotlib"] = {"import_error": err, "grids": grids}
+    ok = ok and (grids == len(yolo.model.specs) - 1 if have["matplotlib"]
+                 else "matplotlib" in err)
+    if have["PIL"]:
+        from PIL import Image
+        pil = Image.fromarray(np.ascontiguousarray(frame[..., ::-1]))
+        a = yolo.predict(pil, imgsz=IMGSZ, conf=CONF)[0].boxes.data
+        b = yolo.predict(frame, imgsz=IMGSZ, conf=CONF)[0].boxes.data
+        out["PIL"] = {"pil_source_equals_array": bool(np.array_equal(a, b))}
+        ok = ok and out["PIL"]["pil_source_equals_array"]
+    return out, ok
+
+
+def phase_predict_extras(torch, yolo, frames, pred):
+    """Predict's paths beyond plain inference at b16/640, f32, on the
+    predict phase's frames (BN set from them again): plain predict timed
+    beside TTA (fused_enhance 3 and nms 1 a batch) and a two-member
+    ensemble of seeded checkpoints through YOLO([a.npz, b.npz]) (2 and 1);
+    TTA in reference mode for one batch (usm 3, nms 1); each of TTA and the
+    ensemble on one frame against the CPU, paired; one frame with
+    save_enhanced and visualize (fused_enhance 1, nms 1): the enhanced
+    image against the CPU's within the kernel's TOL, the captures layer by
+    layer; then OpenCV, Pillow and matplotlib: present or not, and each
+    saving call either writes or raises naming the package."""
+    import tempfile
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.tools.enhance_ab import compare
+    reps = 4
+    kw = dict(imgsz=IMGSZ, batch=BATCH, conf=CONF, half=False)
+    calibrate_bn(torch, yolo.model, frames)
+    rec = {"phase": "predict_extras", "batch": BATCH, "imgsz": IMGSZ,
+           "conf": CONF, "matmul_precision": "default"}
+    _, rec["plain"] = timed_predict(torch, yolo, frames, reps,
+                                    {"fused_enhance": 1, "nms": 1},
+                                    "predict_extras plain", **kw)
+    _, rec["tta"] = timed_predict(torch, yolo, frames, reps,
+                                  {"fused_enhance": 3, "nms": 1},
+                                  "predict_extras tta", augment=True, **kw)
+    _, rec["tta_reference"] = timed_predict(
+        torch, yolo, frames[:BATCH], 1, {"usm": 3, "nms": 1},
+        "predict_extras tta reference", augment=True,
+        contrast_mode="reference", **kw)
+    cpu_model = YOLO("yolov8l.yaml", nc=3, device="cpu", seed=SEED)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               yolo.state_dict().items()})
+    one = frames[0]
+    _, _, rec["tta"]["cpu_pair"] = card_vs_cpu(yolo, cpu_model, one,
+                                               augment=True)
+    gpu, cpu, rec["memory_outputs"] = card_vs_cpu(
+        yolo, cpu_model, one, save_enhanced=True, visualize=True)
+    rec["memory_outputs"]["enhanced"] = compare(
+        torch.from_numpy(gpu.enhanced_img), torch.from_numpy(cpu.enhanced_img),
+        torch.float32)
+    rec["memory_outputs"]["enhanced_shape"] = list(gpu.enhanced_img.shape)
+    rec["memory_outputs"]["captures"] = compare_captures(
+        torch, gpu.features, cpu.features)
+    zero_launches()
+    yolo.predict([one], imgsz=IMGSZ, batch=1, conf=CONF, save_enhanced=True,
+                 visualize=True)
+    check_launches("predict_extras save_enhanced+visualize",
+                   dict(_build.LAUNCHES), {"fused_enhance": 1, "nms": 1})
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        second = YOLO("yolov8l.yaml", nc=3, seed=SEED + 1)
+        calibrate_bn(torch, second.model, frames)
+        paths = [npz_of(torch, yolo, tmp / "a.npz"),
+                 npz_of(torch, second, tmp / "b.npz")]
+        del second
+        ens = YOLO(paths)
+        _, rec["ensemble"] = timed_predict(torch, ens, frames, reps,
+                                           {"fused_enhance": 2, "nms": 1},
+                                           "predict_extras ensemble", **kw)
+        _, _, rec["ensemble"]["cpu_pair"] = card_vs_cpu(
+            ens, YOLO(paths, device="cpu"), one)
+        del ens
+        rec["host_packages"], packages_ok = saving_calls(yolo, one,
+                                                         tmp / "saves")
+    rec["beside_predict_f32"] = {"images_per_s": pred["f32"]["images_per_s"]}
+    rec["launches"] = {k: sum(rec[r]["launches"].get(k, 0) for r in
+                              ("plain", "tta", "tta_reference", "ensemble"))
+                       for k in ("fused_enhance", "usm", "nms")}
+    emit(rec)
+    mem = rec["memory_outputs"]
+    if not (rec["tta"]["cpu_pair"]["paired"]
+            and rec["ensemble"]["cpu_pair"]["paired"] and mem["paired"]
+            and mem["enhanced"]["ok"] and mem["captures"]["ok"]
+            and mem["enhanced_shape"] == [IMGSZ, IMGSZ, 3] and packages_ok):
+        raise AssertionError(f"predict_extras: {rec}")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2436,6 +2658,7 @@ def main():
     pred = phase_predict(torch, yolo, frames)
     phase_cpu(torch, yolo, frames[0])
     pred_rs = phase_predict_resize(torch, yolo, pred, frames)
+    extras = phase_predict_extras(torch, yolo, frames, pred)
     probe_launches = phase_probe(torch)
     train = phase_train(torch)
     val = phase_val(torch, yolo)
@@ -2465,6 +2688,7 @@ def main():
         "c10_launches": c10["launches"]["fused_enhance"],
         "train_amp_launches": amp["launches"]["fused_enhance"],
         "predict_resize_launches": pred_rs["launches"]["fused_enhance"],
+        "predict_extras_launches": extras["launches"]["fused_enhance"],
         "val_resize_launches": val_rs["launches"]["fused_enhance"],
         "loop_mp_launches": loop_mp["launches"]["fused_enhance"],
         "autobatch_launches":
@@ -2478,7 +2702,8 @@ def main():
         "library_ms": None,
         "shape": [BATCH, IMGSZ, IMGSZ, 3], "dtype": "float32",
         "bf16": usm_timing["bfloat16"], "val_launches": val["launches"]["usm"],
-        "val_reference_launches": val["reference_launches"]["usm"]}, {
+        "val_reference_launches": val["reference_launches"]["usm"],
+        "predict_extras_launches": extras["launches"]["usm"]}, {
         "name": "int8_conv", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "dedark_yolo_tpu/ops/pallas/int8_conv.py:133",
@@ -2506,6 +2731,7 @@ def main():
         "train_loop_launches": sum(r["launches"]["nms"] for r in loop["runs"]),
         "c10_launches": c10["launches"]["nms"],
         "predict_resize_launches": pred_rs["launches"]["nms"],
+        "predict_extras_launches": extras["launches"]["nms"],
         "val_resize_launches": val_rs["launches"]["nms"],
         "loop_mp_launches": loop_mp["launches"]["nms"],
         "autobatch_launches": loop_mp["autobatch"]["launches"]["nms"]}]})

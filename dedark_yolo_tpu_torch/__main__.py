@@ -5,10 +5,11 @@
 `train`, `val` and `predict` run through the `YOLO` facade on `device`
 (cuda unless `device=cpu`); each prints its outcome as the last line of
 standard output, `results {json}`: the results dict of train and val, the
-image and detection counts of predict. `predict` saves nothing (result
-saving is ROADMAP A6b), where the JAX CLI defaults `save=True`. The modes
-track, export, benchmark and serve and the tasks segment, pose and classify
-are not ported and exit with 1, naming their ROADMAP item; a bare token
+image and detection counts of predict. `predict` saves the annotated
+images unless `save=False`, as the JAX CLI does (JAX `__main__.py:191`;
+drawing needs OpenCV). The modes track, export, benchmark and serve and
+the tasks segment, pose and classify are not ported and exit with 1,
+naming their ROADMAP item; a bare token
 that is neither a task, a mode nor k=v exits with 2 and a suggestion.
 Special commands: help, version, cfg (the defaults as JSON), checks,
 settings and copy-cfg (the defaults as a JSON file that `cfg=` reads back).
@@ -29,7 +30,7 @@ from .utils import LOGGER
 MODES = ("train", "val", "predict", "track", "export", "benchmark", "serve")
 TASKS = ("detect", "segment", "pose", "classify")
 SPECIAL = ("help", "version", "cfg", "checks", "settings", "copy-cfg")
-UNPORTED = {"track": "A6b", "export": "A12", "benchmark": "A12",
+UNPORTED = {"track": "A12", "export": "A12", "benchmark": "A12",
             "serve": "A12", "segment": "A12", "pose": "A12",
             "classify": "A12"}
 CLI_KEYS = ("model", "source", "cfg")
@@ -181,7 +182,7 @@ def entrypoint(argv=None) -> int:
         if source is None:
             LOGGER.error("predict requires source=...")
             return 1
-        results = model.predict(source, **overrides)
+        results = model.predict(source, **{"save": True, **overrides})
         LOGGER.info(f"processed {len(results)} images")
         _results({"images": len(results),
                   "detections": int(sum(len(r) for r in results))})

@@ -1,8 +1,9 @@
 """Predict, val and train configuration and model-architecture lookup.
 
-The predict keys and the keys the validator, the train step and the train
-loop read of the JAX package's `cfg/default.yaml`, with the same defaults,
-plus `device`. A key of the JAX package's defaults that the port does not
+The predict keys (TTA, save_enhanced, visualize, the plot and saving keys,
+vid_stride among them) and the keys the validator, the train step and the
+train loop read of the JAX package's `cfg/default.yaml`, with the same
+defaults, plus `device`. A key of the JAX package's defaults that the port does not
 carry (`UNPORTED_KEYS`) is refused as not ported; any other unknown key as
 unknown, with `difflib` suggestions (JAX cfg/__init__.py:80-90).
 `model_yaml_load` resolves a scaled name such as `yolov8l.yaml` to the
@@ -36,6 +37,16 @@ DEFAULT_CFG = {
     "contrast_mode": "channel",  # 'channel' | 'reference' contrast luminance
     "matmul_precision": "default",  # default | tensorfloat32 | float32
     "device": None,              # None = 'cuda'
+    "augment": False,            # TTA: scales 1, 0.83, 0.67, the middle flipped
+    "save_enhanced": False,      # keep layer 0's output (Results.enhanced_img)
+    "visualize": False,          # keep every layer's activations (Results.features)
+    "save_crop": False,          # one crop a detection under crops/<class>/
+    "show": False,               # an OpenCV window a result
+    "show_labels": True,         # plot: class labels
+    "show_conf": True,           # plot: confidences
+    "boxes": True,               # plot: boxes (False: the bare image)
+    "line_width": None,          # plot: box width (None: from the image size)
+    "vid_stride": 1,             # every n-th video frame
     # val (engine/validator.py)
     "data": None,                # dataset yaml path, or the dataset dict
     "split": "val",              # dataset split to validate
@@ -117,25 +128,26 @@ _NUMBER_KEYS = {"lr0", "lrf", "momentum", "weight_decay", "warmup_epochs",
                 "lrl", "dark_param", "degrees", "shear"}
 _INT_KEYS = {"imgsz", "max_det", "max_nms", "batch", "epochs", "nbs",
              "max_boxes", "workers", "save_period", "ckpt_period",
-             "val_period", "patience", "close_mosaic", "seed"}
+             "val_period", "patience", "close_mosaic", "seed", "vid_stride",
+             "line_width"}
 _BOOL_KEYS = {"half", "agnostic_nms", "cos_lr", "lowlight_FLAG", "dedark_FLAG",
               "amp", "rect", "save_json", "save_txt", "save_conf",
               "save_hybrid", "plots", "verbose", "single_cls", "exist_ok",
-              "save", "val", "resume", "photometric", "loader_mp", "profile"}
+              "save", "val", "resume", "photometric", "loader_mp", "profile",
+              "augment", "save_enhanced", "visualize", "save_crop", "show",
+              "show_labels", "show_conf", "boxes"}
 _PRECISIONS = ("default", "tensorfloat32", "float32")
 
 # Keys of the JAX package's cfg/default.yaml that the port does not carry:
-# the export, tracking, plotting, mesh and other-task keys (ROADMAP A6b,
-# A10b, A12), and the CLI's own model/source/mode/task/cfg, which the CLI
-# takes before the config is checked.
+# the export, tracking, mesh and other-task keys (ROADMAP A10b, A12), and
+# the CLI's own model/source/mode/task/cfg, which the CLI takes before the
+# config is checked.
 UNPORTED_KEYS = frozenset((
-    "augment", "boxes", "cfg", "classes", "deterministic", "dnn", "dropout",
-    "dynamic", "format", "fpn_fuse", "fuse", "int8", "keras", "kobj",
-    "label_smoothing", "line_width", "mask_ratio", "mesh_axes",
-    "mesh_shape", "mode", "model", "nms", "opset", "optimize",
-    "overlap_mask", "pose", "remat", "retina_masks", "save_crop",
-    "save_enhanced", "show", "show_conf", "show_labels", "simplify",
-    "source", "stem_s2d", "task", "tracker", "vid_stride", "visualize",
+    "cfg", "classes", "deterministic", "dnn", "dropout", "dynamic",
+    "format", "fpn_fuse", "fuse", "int8", "keras", "kobj",
+    "label_smoothing", "mask_ratio", "mesh_axes", "mesh_shape", "mode",
+    "model", "nms", "opset", "optimize", "overlap_mask", "pose", "remat",
+    "retina_masks", "simplify", "source", "stem_s2d", "task", "tracker",
     "workspace"))
 
 
@@ -151,7 +163,7 @@ def check_cfg_alignment(base_keys, custom: dict) -> None:
             continue
         if k in UNPORTED_KEYS:
             msg.append(f"'{k}' is a config key of the JAX package that is "
-                       "not ported to dedark_yolo_tpu_torch (ROADMAP A6b, "
+                       "not ported to dedark_yolo_tpu_torch (ROADMAP "
                        "A10b, A12)")
             continue
         matches = difflib.get_close_matches(k, known)

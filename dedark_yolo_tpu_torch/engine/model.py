@@ -3,13 +3,14 @@ then train, predict or validate.
 
     YOLO("yolov8l.yaml", nc=3)   # the architecture, seeded random weights
     YOLO("best.npz")             # a checkpoint of either package (its EMA weights)
+    YOLO(["a.npz", "b.npz"])     # an ensemble of checkpoints of one architecture
 
 The model lives on `device` (None means cuda, and raises without a CUDA
 device); `train`, `predict` and `val` run on their own `device` key, cuda
 by default. The rest of the JAX facade (model.py:272-514): `__call__`,
 `names`, `transforms`, `to`, `load`, `reset_weights`, `fuse`,
 `add_callback` / `clear_callback`, `tune` and `info`. Not ported: `track`,
-`export` and `benchmark` (ROADMAP A6b, A12).
+`export` and `benchmark` (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from ..cfg import get_cfg, model_yaml_load
 from ..data.dataset import check_det_dataset
 from ..nn.enhance import LowlightRecovery
 from ..nn.graph import DetectionModel
-from ..utils import LOGGER
+from ..utils import LOGGER, increment_dir
 from ..utils.checkpoint import (has_section, load_checkpoint, section_tree,
                                 transfer_tree)
 from ..utils.weights import init_weights, state_dict_from_jax
@@ -37,12 +38,17 @@ CARRIED_ARGS = ("imgsz", "data", "single_cls", "contrast_mode")
 class YOLO:
     def __init__(self, model="yolov8l.yaml", nc=None, device=None, seed=0):
         """model: an architecture (a built-in name such as 'yolov8l.yaml' or
-        a yaml file) with `seed`ed weights, or a JAX `.npz` checkpoint."""
+        a yaml file) with `seed`ed weights, a JAX `.npz` checkpoint, or a
+        list of checkpoints of one architecture (an ensemble)."""
         self.device = resolve_device(device)
         self.overrides = {}
         self.predictor = self.validator = self.trainer = self.metrics = None
         self._user_callbacks = {}
         self.ckpt_path = None      # the .npz this facade was loaded from
+        self.members = []          # an ensemble's other members' state dicts
+        if isinstance(model, (list, tuple)):
+            self._load_ensemble([str(m) for m in model])
+            return
         model = str(model)
         if model.endswith(".npz"):
             self._load(model)
@@ -86,6 +92,24 @@ class YOLO:
             # json turned the integer keys into strings
             self.model.names = {int(k): v for k, v in names.items()}
 
+    def _load_ensemble(self, paths):
+        """The first checkpoint as the model, the others' weights (kept on
+        the CPU, moved to the predict device once a predictor) as the
+        members whose candidates join before NMS (JAX model.py:31-36,
+        96-108). Every member must have the first one's architecture: one
+        module runs them all."""
+        self._load(paths[0])
+        for p in paths[1:]:
+            other = YOLO(p, device="cpu")
+            if other.model_yaml != self.model_yaml:
+                raise ValueError(
+                    f"ensemble member {p} has another architecture than "
+                    f"{paths[0]}; the members share one module")
+            self.members.append(other.state_dict())
+        if self.members:
+            LOGGER.info(f"ensembled {len(paths)} checkpoints (candidates "
+                        "joined before NMS)")
+
     def state_dict(self):
         return self.model.state_dict()
 
@@ -103,17 +127,31 @@ class YOLO:
                 m.contrast_mode = args.contrast_mode
         return args
 
-    def predict(self, source, **kwargs):
-        """Detections for every image of `source` (array, file, or list).
+    def predict(self, source, stream=False, **kwargs):
+        """Detections for every image of `source` (see
+        `predictor.load_source`): a list of Results, or with stream=True a
+        generator of them.
 
         kwargs are predict config keys (cfg.DEFAULT_CFG); device None means
-        cuda. The model moves to the predict device.
+        cuda, and the model moves to the predict device. `save` is off
+        unless given (the JAX facade inherits save=True from its defaults;
+        the CLI passes it): saving draws and encodes through OpenCV, which
+        the card's host lacks. With `project`, files go to
+        project/name (name default 'predict', incremented unless exist_ok),
+        else to runs/detect/predict*.
         """
-        args = self._args(kwargs)
+        args = self._args({"save": False, **kwargs})
+        save_dir = None
+        if args.project:
+            save_dir = increment_dir(Path(args.project) / (args.name or
+                                                             "predict"),
+                                     args.exist_ok)
         self.predictor = DetectionPredictor(args=args, model=self.model,
-                                            names=self.model.names)
+                                            names=self.model.names,
+                                            save_dir=save_dir,
+                                            members=self.members)
         self.device = self.predictor.device
-        return self.predictor(source)
+        return self.predictor(source, stream=stream)
 
     def add_callback(self, event, fn):
         """Run fn(trainer) at `event` (utils.callbacks.HOOKS) of the next

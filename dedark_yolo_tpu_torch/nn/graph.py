@@ -9,7 +9,9 @@ which are exact rewrites of the same params in the JAX package.
 
 Layout: the image enters NHWC in [0, 1]; layer 0 (lowlight_recovery) works
 on NHWC, the backbone on NCHW (a permuted view, so channels_last memory);
-the head returns per-level (B, H, W, 4*reg_max + nc) maps.
+the head returns per-level (B, H, W, 4*reg_max + nc) maps. `forward` can
+also return layers' activations (`capture`, NHWC as JAX's), and `tta_eval`
+is JAX's test-time augmentation (graph.py:621-665).
 """
 
 from __future__ import annotations
@@ -20,10 +22,11 @@ from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from . import layers as L
-from .enhance import LowlightRecovery
+from .enhance import LowlightRecovery, torch_bilinear_resize
 from .heads import Detect, decode_detections
 
 
@@ -235,13 +238,21 @@ class DetectionModel(nn.Module):
             prev = s.c2
         self.model = nn.ModuleList(mods)
 
-    def forward(self, x, dedark_A=None, IcA=None):
+    def forward(self, x, dedark_A=None, IcA=None, capture=()):
         """x (B, H, W, 3) in [0, 1]; dedark_A (B, 3) and IcA (B, H, W, 1) are
         layer 0's priors (None: its defaults), as JAX `apply_train` and
         `apply_eval` take them (graph.py:599-611). In train mode the BN
-        running stats move; the raw maps are returned in both modes."""
+        running stats move; the raw maps are returned in both modes.
+
+        `capture` (layer indices) also returns {i: the first image's output
+        of layer i, its first 32 channels, NHWC} as (raw, caps), JAX
+        `apply(..., capture=)` (graph.py:485-551): sliced on the device, so
+        a readback stays small. The head's list of maps is not captured."""
+        caps = {}
         if self.specs[0].name == "lowlight_recovery":
             x = self.model[0](x, dedark_A, IcA)
+            if 0 in capture:
+                caps[0] = x[:1, ..., :32]
         # NHWC -> NCHW as a view (channels_last memory); the image is
         # promoted against the params' dtype here, as flax's promote_dtype
         # does at the first conv: a bf16 image meets f32 params as f32
@@ -256,10 +267,47 @@ class DetectionModel(nn.Module):
                 else:
                     inp = [y if fi == -1 else saved[fi] for fi in spec.f]
                 y = mod(inp)
+                if spec.i in capture and torch.is_tensor(y):
+                    caps[spec.i] = y[:1, :32].permute(0, 2, 3, 1)
             if spec.i in self.save:
                 saved[spec.i] = y
-        return y
+        return (y, caps) if capture else y
 
     def decode(self, raw):
         """Raw maps -> (boxes_xywh (B, N, 4), scores (B, N, nc))."""
         return decode_detections(raw, self.nc, self.strides, self.reg_max)
+
+    def tta_eval(self, x, forward=None):
+        """Test-time-augmented inference (JAX graph.py:621-665; reference
+        tasks.py:303-343): x (B, H, W, 3) in [0, 1] -> (boxes_xywh, scores)
+        of three passes at scales 1, 0.83 and 0.67, the middle one flipped
+        left-right. A scaled pass resizes bilinearly (`torch_bilinear_resize`)
+        and pads bottom and right with 0.447 to a stride multiple; its boxes
+        are descaled and un-flipped into x's frame. The unscaled pass drops
+        its coarsest level's anchors, the smallest pass its finest level's;
+        the rest concatenate for one NMS. `forward` (default: this module)
+        maps an image to raw maps, e.g. one ensemble member's weights."""
+        forward = forward or self
+        h, w = int(x.shape[1]), int(x.shape[2])
+        gs = int(max(self.strides))
+        nl = len(self.strides)
+        g = sum(4 ** i for i in range(nl))
+        outs = []
+        for si, flip_lr in ((1.0, False), (0.83, True), (0.67, False)):
+            xi = torch.flip(x, [2]) if flip_lr else x
+            if si != 1.0:
+                sh, sw = int(h * si), int(w * si)
+                xi = torch_bilinear_resize(xi, sh, sw)
+                ph = math.ceil(h * si / gs) * gs
+                pw = math.ceil(w * si / gs) * gs
+                xi = F.pad(xi, (0, 0, 0, pw - sw, 0, ph - sh), value=0.447)
+            boxes, scores = self.decode(forward(xi))
+            boxes = boxes / si
+            if flip_lr:   # xywh: only the centre x mirrors
+                boxes = torch.cat([w - boxes[..., :1], boxes[..., 1:]], -1)
+            outs.append((boxes, scores))
+        (b0, s0), (b1, s1), (b2, s2) = outs
+        i0 = b0.shape[1] // g
+        i2 = (b2.shape[1] // g) * 4 ** (nl - 1)
+        return (torch.cat([b0[:, :-i0], b1, b2[:, i2:]], 1),
+                torch.cat([s0[:, :-i0], s1, s2[:, i2:]], 1))

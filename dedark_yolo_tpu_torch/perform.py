@@ -7,13 +7,18 @@ perform.py:19-621), on the port.
                                   the confusion matrix (perform.py:390-467)
     flops_params                  parameters and GFLOPs (perform.py:357-387)
 
+    test_img / test_folders       predict with annotated images, txt
+                                  labels and a stats JSON (perform.py:55-288)
+    test_video                    an annotated video, frame by frame
+                                  (perform.py:72-106)
+
 `flops_params` counts parameters exactly as the JAX facade's `info` does;
 its FLOPs come from `torch.utils.flop_counter.FlopCounterMode` over one
 eval forward (convolutions and matmuls, two FLOPs a multiply-add), which
 counts otherwise than XLA's cost analysis of the compiled graph in the root
-script. `test_img`, `test_folders`, `test_video` and `onnx` need result
-saving, drawing, video or export, which are not ported (ROADMAP A6b, A12):
-they raise NotImplementedError.
+script. `test_img`, `test_folders` and `test_video` draw and encode through
+OpenCV. `onnx` needs the exporter, which is not ported (ROADMAP A12): it
+raises NotImplementedError.
 
     python -m dedark_yolo_tpu_torch.perform FUNC k=v ...   (values as JSON)
 """
@@ -22,13 +27,17 @@ from __future__ import annotations
 
 import json
 import sys
+import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from .data.dataset import check_det_dataset
 from .engine.model import YOLO
 from .engine.validator import DetectionValidator
 from .utils import LOGGER
+from .utils.patches import require
 
 
 def train(model_yaml="yolov8l.yaml", data="data.yaml", epochs=100, imgsz=640,
@@ -96,19 +105,91 @@ def _unported(what, item):
                               f"(ROADMAP {item}); use the root perform.py")
 
 
-def test_img(*args, **kw):
-    """Needs annotated result saving (ROADMAP A6b)."""
-    _unported("test_img (annotated result saving)", "A6b")
+def test_img(weights, img_path, imgsz=640, conf=0.4,
+             save_dir="runs/detect/test_img", device=None):
+    """One image's (or a source's) predict with the annotated output saved
+    under save_dir/predict* (reference perform.py:55-77)."""
+    model = YOLO(weights, device=device)
+    results = model.predict(img_path, imgsz=imgsz, conf=conf, save=True,
+                            project=save_dir, device=device)
+    for r in results:
+        LOGGER.info(f"{r.path}: {len(r)} detections")
+    return results
 
 
-def test_folders(*args, **kw):
-    """Needs annotated result saving and txt labels (ROADMAP A6b)."""
-    _unported("test_folders (annotated result saving)", "A6b")
+def test_video(weights, video, imgsz=640, conf=0.4, output=None, fps=None,
+               line_width=3, show=False, device=None):
+    """An annotated copy of a video, frame by frame (reference
+    perform.py:72-106: VideoCapture -> model(frame) -> plot(line_width=3)
+    -> VideoWriter, XVID), with the frame's FPS drawn at the top left;
+    `show` gates the window. The frames are written as `plot` returns them
+    (RGB), as the root script does. Returns the output path."""
+    cv2 = require("cv2", "test_video")
+    model = YOLO(weights, device=device)
+    path = Path(video)
+    cap = cv2.VideoCapture(str(path))
+    if not cap.isOpened():
+        LOGGER.error(f"Error: Could not open video {path}.")
+        return None
+    size = (int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+            int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
+    out_path = Path(output) if output else Path(f"{path.stem}_output.mp4")
+    out = cv2.VideoWriter(str(out_path), cv2.VideoWriter_fourcc(*"XVID"),
+                          fps or cap.get(cv2.CAP_PROP_FPS) or 40, size)
+    n, t_total = 0, 0.0
+    try:
+        while cap.isOpened():
+            ret, frame = cap.read()
+            if not ret:
+                break
+            t0 = time.time()
+            res = model(frame, imgsz=imgsz, conf=conf, verbose=False,
+                        device=device)
+            dt = time.time() - t0
+            n, t_total = n + 1, t_total + dt
+            ann = np.ascontiguousarray(res[0].plot(line_width=line_width))
+            cv2.putText(ann, f"{1.0 / dt:.1f} FPS", (10, 30),
+                        cv2.FONT_HERSHEY_SIMPLEX, 1.0, (0, 255, 0), 2)
+            out.write(ann)
+            if show:
+                cv2.imshow("yolo", ann)
+                if cv2.waitKey(1) & 0xFF == ord("q"):
+                    break
+    finally:
+        if show:
+            cv2.destroyAllWindows()
+        cap.release()
+        out.release()
+    LOGGER.info(f"{n} frames -> {out_path} ({n / t_total:.1f} FPS avg)"
+                if n else "no frames read")
+    return out_path
 
 
-def test_video(*args, **kw):
-    """Needs video sources and drawing (ROADMAP A6b)."""
-    _unported("test_video (video sources and drawing)", "A6b")
+def test_folders(weights, folder, imgsz=640, conf=0.4, batch=8,
+                 save_dir="runs/detect/test_folders", device=None):
+    """Predict over a directory: annotated images, txt labels and
+    save_dir/detection_stats.json with the FPS and the detections per class
+    (reference perform.py:107-288). Returns the stats."""
+    model = YOLO(weights, device=device)
+    t0 = time.time()
+    results = model.predict(folder, imgsz=imgsz, conf=conf, batch=batch,
+                            save=True, save_txt=True, project=save_dir,
+                            device=device)
+    dt = time.time() - t0
+    n = len(results)
+    per_class = {}
+    for r in results:
+        for c in r.boxes.cls.astype(int):
+            name = r.names.get(int(c), str(int(c)))
+            per_class[name] = per_class.get(name, 0) + 1
+    stats = {"images": n, "seconds": round(dt, 3),
+             "fps": round(n / dt, 2) if dt else None,
+             "detections_per_class": per_class}
+    out = Path(save_dir) / "detection_stats.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(stats, indent=2))
+    LOGGER.info(f"stats -> {out}: {stats}")
+    return stats
 
 
 def onnx(*args, **kw):

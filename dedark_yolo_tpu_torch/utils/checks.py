@@ -16,3 +16,26 @@ def check_imgsz(imgsz, stride=32):
         LOGGER.info(f"imgsz {imgsz} is not a multiple of stride {stride}; "
                     f"updated to {out}")
     return out
+
+
+def check_imshow(warn=False):
+    """True when this host can open OpenCV display windows (JAX
+    utils/checks.py:35; reference checks.py:352-364). Probed in a
+    subprocess: a GUI-less OpenCV stack can abort the process on imshow,
+    which no try/except catches."""
+    import subprocess
+    import sys
+    try:
+        r = subprocess.run(
+            [sys.executable, "-c",
+             "import cv2, numpy as np;"
+             "cv2.imshow('t', np.zeros((1, 1, 3), np.uint8));"
+             "cv2.waitKey(1); cv2.destroyAllWindows(); cv2.waitKey(1)"],
+            capture_output=True, timeout=20)
+        ok = r.returncode == 0
+    except Exception:
+        ok = False
+    if not ok and warn:
+        LOGGER.warning("environment does not support cv2.imshow() — "
+                       "show=True disabled")
+    return ok

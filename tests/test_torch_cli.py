@@ -134,7 +134,7 @@ def test_cli_train_and_predict(setup, capsys):
     img_dir = Path(json.loads(Path(data).read_text())["path"]) / "images" / "val"
     rc = cli.entrypoint(["predict", f"model={best}", f"source={img_dir}",
                          "imgsz=64", "conf=0.001", "max_det=20", "max_nms=256",
-                         "device=cpu"])
+                         "device=cpu", f"project={root / 'predict'}"])
     assert rc == 0
     out = last_results(capsys.readouterr().out)
     want = YOLO(str(best), device="cpu").predict(
@@ -145,7 +145,7 @@ def test_cli_train_and_predict(setup, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["track", "source=x"], "A6b"), (["export"], "A12"),
+    (["track", "source=x"], "A12"), (["export"], "A12"),
     (["benchmark"], "A12"), (["serve"], "A12"), (["segment", "val"], "A12"),
     (["pose", "train"], "A12"), (["classify", "predict"], "A12"),
     (["val", "task=segment"], "A12")])

@@ -221,7 +221,5 @@ def test_perform_flops_params_and_unported(setup):
     _, _, npz, _ = setup
     n, flops = perform.flops_params(npz, imgsz=64, device="cpu")
     assert n == JaxYOLO(npz).info()[1] and flops > 1e6
-    for fn, item in ((perform.test_img, "A6b"), (perform.test_folders, "A6b"),
-                     (perform.test_video, "A6b"), (perform.onnx, "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn("best.npz", "x")
+    with pytest.raises(NotImplementedError, match="A12"):
+        perform.onnx("best.npz", "x")

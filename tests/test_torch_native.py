@@ -36,6 +36,7 @@ from dedark_yolo_tpu_torch.engine.predictor import DetectionPredictor  # noqa: E
 from dedark_yolo_tpu_torch.nn.graph import DetectionModel  # noqa: E402
 from dedark_yolo_tpu_torch.utils.weights import state_dict_from_jax  # noqa: E402
 
+from pairing import assert_results_paired  # noqa: E402
 from test_torch_val import TINY, tiny_variables  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -202,13 +203,7 @@ def test_predict_matches_jax_on_resized_frames(tiny, tmp_path, batch):
     want, got = jp(imgs), tp(imgs)
     assert len(got) == len(want) == len(imgs)
     assert all(len(r) > 0 for r in got)
-    for g, w in zip(got, want):
-        assert g.orig_shape == w.orig_shape and len(g) == len(w)
-        np.testing.assert_array_equal(g.boxes.cls, w.boxes.cls)
-        np.testing.assert_allclose(g.boxes.xyxy, w.boxes.xyxy, rtol=0,
-                                   atol=BOX_TOL)
-        np.testing.assert_allclose(g.boxes.conf, w.boxes.conf, rtol=0,
-                                   atol=SCORE_TOL)
+    assert_results_paired(want, got, BOX_TOL, SCORE_TOL)
     assert tp.speed["preprocess"] > 0
 
 
