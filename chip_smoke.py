@@ -40,6 +40,18 @@ line:
            enhanced image within the kernel's TOL of the CPU's, the
            captures layer by layer; OpenCV, Pillow and matplotlib: which
            import, and each one's saving call writes or raises naming it
+  zoo      the other detect architectures at full width (nc=3, seeded
+           weights, BN set from the predict frames): predict f32 b16/640
+           with yolov8n/s/m/x and, at scale l, each of the fork's variants
+           (-dedark, -faster, -faster-twohead, -rbf, -rbf-asff,
+           -mfru-rbf-asff, -asff-threehead, -p2, -p6): a warm-up and 2
+           timed batches, fused_enhance once a batch where the model has
+           layer 0 and nms once a batch, one frame on the card against the
+           CPU, paired; yolov8n also in reference mode (usm once a batch);
+           train steps at b16/640 (a warm-up and 3 timed micro-steps) and
+           a 128 step on the card against the CPU for yolov8n,
+           yolov8l-mfru-rbf-asff, yolov8l-faster-twohead and yolov8l-p6;
+           yolov8n-faster-twohead's val on the small set, card against CPU
   probe    tools.int8_probe at its default shape (24 layers, b32, 80x80,
            C=Co=256): bf16 cuDNN chain vs the int8_conv kernel's chain
   train    DetectionTrainer: at imgsz 128, b2, one micro-step on the card
@@ -889,17 +901,18 @@ def train_batch(n, imgsz, seed):
             "mask_gt": (rng.uniform(size=(n, m)) > 0.25).astype(np.float32)}
 
 
-def train_parity(torch):
-    """One micro-step of the flagship at TRAIN_SMALL, b2, on the card and on
-    the CPU from the same weights and batch: first the loss and gradients
-    (the BN stats put back after), then `step` (update, BN stats, EMA)."""
+def train_parity(torch, name="yolov8l.yaml"):
+    """One micro-step of the model `name` (the flagship) at TRAIN_SMALL, b2,
+    on the card and on the CPU from the same weights and batch: first the
+    loss and gradients (the BN stats put back after), then `step` (update,
+    BN stats, EMA)."""
     from dedark_yolo_tpu_torch import YOLO
     from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
     from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
     over = {"batch": 2, "nbs": 2, "optimizer": "SGD", "imgsz": TRAIN_SMALL}
     nb, step_index = 1000, 1500                # inside the 3000-step warmup
-    gpu = YOLO("yolov8l.yaml", nc=3, seed=SEED)
-    cpu = YOLO("yolov8l.yaml", nc=3, device="cpu", seed=SEED)
+    gpu = YOLO(name, nc=3, seed=SEED)
+    cpu = YOLO(name, nc=3, device="cpu", seed=SEED)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     start = {k: v.cpu().clone() for k, v in cpu.state_dict().items()}
     batch = train_batch(2, TRAIN_SMALL, SEED)
@@ -941,7 +954,7 @@ def train_parity(torch):
                   float((cpu_of(g["ema"][k]) - c["ema"][k]).abs().max()))
         move_err[k] = (err - 1e-6) / moved if moved else (0.0 if err <= 1e-6 else float("inf"))
     worst_move = max(move_err, key=move_err.get)
-    rec = {"imgsz": TRAIN_SMALL, "batch": 2,
+    rec = {"model": name, "imgsz": TRAIN_SMALL, "batch": 2,
            "items_gpu": [float(x) for x in g["items"]],
            "items_cpu": [float(x) for x in c["items"]],
            "items_max_rel_err": items_rel,
@@ -2632,6 +2645,174 @@ def phase_predict_extras(torch, yolo, frames, pred):
     return rec
 
 
+# zoo phase: the detect architectures beyond the flagship, at full width
+# (nc=3, seeded weights, BN set from the frames). Predict f32 b16/640 on the
+# predict phase's frames: the flagship at its other scales, then each
+# variant of the fork at scale l; a warm-up batch and 2 timed ones each,
+# fused_enhance once a batch where the model has layer 0, nms once a batch
+# in every model; one frame on the card against the CPU (card_vs_cpu).
+# Train: DetectionTrainer.step at b16/640 f32 on four models that cover the
+# zoo's modules (align convs; SCConv, CRU, RFB, MFRU; PConv, AsffDoubLevel,
+# AsffDetect; C2 on four levels), a warm-up micro-step then 3 timed, and
+# each one's train_parity at 128 against the CPU. Val: the AsffDetect
+# model on the val phase's small set, card against CPU.
+ZOO_PREDICT = (["yolov8n.yaml", "yolov8s.yaml", "yolov8m.yaml",
+                "yolov8x.yaml"]
+               + [f"yolov8l-{v}.yaml" for v in
+                  ("dedark", "faster", "faster-twohead", "rbf", "rbf-asff",
+                   "mfru-rbf-asff", "asff-threehead", "p2", "p6")])
+ZOO_TRAIN = ("yolov8n.yaml", "yolov8l-mfru-rbf-asff.yaml",
+             "yolov8l-faster-twohead.yaml", "yolov8l-p6.yaml")
+ZOO_VAL = "yolov8n-faster-twohead.yaml"
+ZOO_TRAIN_STEPS = 3
+
+
+def zoo_train(torch, yolo):
+    """A warm-up micro-step and ZOO_TRAIN_STEPS timed ones of `yolo`'s
+    model at b16/640, f32, default precision (the fourth call of the
+    window of 4 applies the update): ms a micro-step, peak memory, loss
+    items, fused_enhance once a micro-step where layer 0 exists."""
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    from dedark_yolo_tpu_torch.ops import _build
+    tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64}, nb=1000)
+    batches = [train_batch(BATCH, IMGSZ, SEED + i) for i in range(2)]
+    has_l0 = yolo.model.specs[0].name == "lowlight_recovery"
+    with matmul_precision("default"), no_plain_on_cuda():
+        tr.step(batches[0], 0)
+        torch.cuda.synchronize()
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        items = [tr.step(batches[(i + 1) % 2], i + 1)[1]
+                 for i in range(ZOO_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / ZOO_TRAIN_STEPS
+    launches = dict(_build.LAUNCHES)
+    check_launches(f"zoo train {yolo.model.yaml['yaml_file']}", launches,
+                   {"fused_enhance": ZOO_TRAIN_STEPS} if has_l0 else {})
+    items = torch.stack(items).cpu()
+    rec = {"batch": BATCH, "imgsz": IMGSZ, "micro_steps": ZOO_TRAIN_STEPS,
+           "micro_step_ms": ms, "images_per_s": BATCH / ms * 1e3,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "loss_items": items.tolist(),
+           "finite": bool(torch.isfinite(items).all()),
+           "applied": tr.opt_state.step, "launches": launches}
+    if not (rec["finite"] and rec["applied"] == 1):
+        raise AssertionError(f"zoo train: {rec}")
+    return rec
+
+
+def zoo_val(torch, tmp):
+    """YOLO(ZOO_VAL).val on the val phase's small dataset (BN set from its
+    images), on the card and on the CPU, TF32 off, with the loss: image by
+    image (compare_images), metrics within VAL_METRIC_RTOL and loss items
+    within VAL_LOSS_RTOL; the card's run launches nms once a batch and no
+    other kernel."""
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.cfg import get_cfg
+    from dedark_yolo_tpu_torch.engine.validator import DetectionValidator
+    from dedark_yolo_tpu_torch.ops import _build
+    data = val_dataset(tmp / "zoo_val", VAL_SMALL["n"], VAL_SMALL["shapes"],
+                       SEED)
+    gpu = YOLO(ZOO_VAL, nc=3, seed=SEED)
+    calibrate_bn(torch, gpu.model, val_images(data, VAL_SMALL["n"]),
+                 VAL_SMALL["imgsz"])
+    cpu = YOLO(ZOO_VAL, nc=3, device="cpu", seed=SEED)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    kw = {"data": data, "imgsz": VAL_SMALL["imgsz"],
+          "batch": VAL_SMALL["batch"], "cache": "disk",
+          "matmul_precision": "float32", "verbose": False}
+    batches = -(-VAL_SMALL["n"] // VAL_SMALL["batch"])
+    res, recs = {}, {}
+    for dev, model in (("cuda", gpu), ("cpu", cpu)):
+        v = DetectionValidator(args=get_cfg({**kw, "device": dev}))
+        zero_launches()
+        with no_plain_on_cuda(), record_detections() as recs[dev]:
+            res[dev] = {k: float(x) for k, x in
+                        v(model=model.model, with_loss=True).items()}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            check_launches("zoo val", launches, {"nms": batches})
+    g, c = res["cuda"], res["cpu"]
+    rec = {"model": ZOO_VAL, "cuda": g, "cpu": c, "launches": launches,
+           **compare_images(recs["cuda"], recs["cpu"]),
+           "metric_max_rel_err": max(abs(g[k] - c[k]) / abs(c[k])
+                                     if c[k] else abs(g[k]) for k in METRICS),
+           "loss_max_rel_err": max(abs(g[k] - c[k]) / abs(c[k])
+                                   for k in c if k.startswith("val/")),
+           "metric_rtol": VAL_METRIC_RTOL, "loss_rtol": VAL_LOSS_RTOL}
+    rec["ok"] = (rec["ok"] and rec["images"][1] == VAL_SMALL["n"]
+                 and rec["metric_max_rel_err"] <= VAL_METRIC_RTOL
+                 and rec["loss_max_rel_err"] <= VAL_LOSS_RTOL)
+    return rec
+
+
+def phase_zoo(torch, frames):
+    """Every model of ZOO_PREDICT at full width: predict (timed_predict,
+    card_vs_cpu), yolov8n also in contrast_mode 'reference' (usm once a
+    batch); the ZOO_TRAIN models' train steps and train_parity; then
+    zoo_val. One line a model, one for the val, one summary line; any
+    failed check raises after the lines are printed."""
+    import tempfile
+    from dedark_yolo_tpu_torch import YOLO
+    t0 = time.perf_counter()
+    kw = dict(imgsz=IMGSZ, batch=BATCH, conf=CONF, half=False)
+    summary = {"phase": "zoo", "batch": BATCH, "imgsz": IMGSZ,
+               "images_per_s": {}, "micro_step_ms": {}, "peak_memory_gib": {},
+               "launches": {"fused_enhance": 0, "usm": 0, "nms": 0}}
+    failed = []
+    for name in ZOO_PREDICT:
+        yolo = YOLO(name, nc=3, seed=SEED)
+        calibrate_bn(torch, yolo.model, frames)
+        has_l0 = yolo.model.specs[0].name == "lowlight_recovery"
+        expected = {"nms": 1, **({"fused_enhance": 1} if has_l0 else {})}
+        rec = {"phase": "zoo", "model": name, "nc": 3,
+               "params": sum(p.numel() for p in yolo.model.parameters()),
+               "strides": list(yolo.model.strides), "layer0": has_l0}
+        _, rec["predict"] = timed_predict(torch, yolo, frames, 2, expected,
+                                          f"zoo {name}", **kw)
+        runs = [rec["predict"]]
+        if name == "yolov8n.yaml":
+            _, rec["predict_reference"] = timed_predict(
+                torch, yolo, frames, 1, {"usm": 1, "nms": 1},
+                f"zoo {name} reference", contrast_mode="reference", **kw)
+            runs.append(rec["predict_reference"])
+        cpu = YOLO(name, nc=3, device="cpu", seed=SEED)
+        cpu.load_state_dict({k: v.cpu() for k, v in yolo.state_dict().items()})
+        _, _, rec["cpu_pair"] = card_vs_cpu(yolo, cpu, frames[0])
+        del cpu
+        if not rec["cpu_pair"]["paired"]:
+            failed.append(f"{name} predict card vs CPU")
+        if name in ZOO_TRAIN:
+            rec["train"] = zoo_train(torch, yolo)
+            runs.append(rec["train"])
+            rec["train_parity"] = train_parity(torch, name)
+            if not rec["train_parity"]["ok"]:
+                failed.append(f"{name} train_parity")
+            summary["micro_step_ms"][name] = rec["train"]["micro_step_ms"]
+            summary["peak_memory_gib"][name] = rec["train"]["peak_memory_gib"]
+        for r in runs:
+            for k in summary["launches"]:
+                summary["launches"][k] += r["launches"].get(k, 0)
+        summary["images_per_s"][name] = rec["predict"]["images_per_s"]
+        emit(rec)
+        del yolo
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        val = zoo_val(torch, Path(tmp))
+    summary["launches"]["nms"] += val["launches"]["nms"]
+    emit({"phase": "zoo", "val": val})
+    if not val["ok"]:
+        failed.append("val card vs CPU")
+    summary.update(seconds=time.perf_counter() - t0, failed=failed)
+    emit(summary)
+    if failed:
+        raise AssertionError(f"zoo: {failed}")
+    return summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2659,6 +2840,7 @@ def main():
     phase_cpu(torch, yolo, frames[0])
     pred_rs = phase_predict_resize(torch, yolo, pred, frames)
     extras = phase_predict_extras(torch, yolo, frames, pred)
+    zoo = phase_zoo(torch, frames)
     probe_launches = phase_probe(torch)
     train = phase_train(torch)
     val = phase_val(torch, yolo)
@@ -2689,6 +2871,7 @@ def main():
         "train_amp_launches": amp["launches"]["fused_enhance"],
         "predict_resize_launches": pred_rs["launches"]["fused_enhance"],
         "predict_extras_launches": extras["launches"]["fused_enhance"],
+        "zoo_launches": zoo["launches"]["fused_enhance"],
         "val_resize_launches": val_rs["launches"]["fused_enhance"],
         "loop_mp_launches": loop_mp["launches"]["fused_enhance"],
         "autobatch_launches":
@@ -2703,7 +2886,8 @@ def main():
         "shape": [BATCH, IMGSZ, IMGSZ, 3], "dtype": "float32",
         "bf16": usm_timing["bfloat16"], "val_launches": val["launches"]["usm"],
         "val_reference_launches": val["reference_launches"]["usm"],
-        "predict_extras_launches": extras["launches"]["usm"]}, {
+        "predict_extras_launches": extras["launches"]["usm"],
+        "zoo_launches": zoo["launches"]["usm"]}, {
         "name": "int8_conv", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "dedark_yolo_tpu/ops/pallas/int8_conv.py:133",
@@ -2732,6 +2916,7 @@ def main():
         "c10_launches": c10["launches"]["nms"],
         "predict_resize_launches": pred_rs["launches"]["nms"],
         "predict_extras_launches": extras["launches"]["nms"],
+        "zoo_launches": zoo["launches"]["nms"],
         "val_resize_launches": val_rs["launches"]["nms"],
         "loop_mp_launches": loop_mp["launches"]["nms"],
         "autobatch_launches": loop_mp["autobatch"]["launches"]["nms"]}]})

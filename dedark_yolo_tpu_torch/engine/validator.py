@@ -125,9 +125,6 @@ class DetectionValidator:
             raise NotImplementedError(
                 "validating an exported artifact (AutoBackend) is not ported; "
                 "pass the port's DetectionModel")
-        if model.head["name"] != "Detect":
-            raise NotImplementedError(
-                f"validating a {model.head['name']} head is not ported")
         if mesh is not None:
             raise NotImplementedError("multi-device val (a mesh) is not ported")
         a.imgsz = check_imgsz(a.imgsz, stride=32)

@@ -27,7 +27,7 @@ from torch import nn
 
 from . import layers as L
 from .enhance import LowlightRecovery, torch_bilinear_resize
-from .heads import Detect, decode_detections
+from .heads import AsffDetect, Detect, decode_detections
 
 
 def make_divisible(x, divisor=8):
@@ -58,7 +58,13 @@ _REPEAT_BLOCKS = {
     "FasterC2f_N", "FasterC2f", "SCC2f", "SC_PW_C2f", "SC_Conv3_C2f",
     "Conv3_SC_C2f", "SC_PW_PW_C2f",
 }
+C2F_FAMILY = {
+    "C2f": "standard", "FasterC2f": "pconv", "FasterC2f_N": "pconv_n",
+    "SCC2f": "scconv", "SC_PW_C2f": "sc_pw", "SC_Conv3_C2f": "sc_conv3",
+    "Conv3_SC_C2f": "conv3_sc", "SC_PW_PW_C2f": "sc_pw_pw",
+}
 _HEADS = {"Detect", "AsffDetect", "Segment", "Pose", "RTDETRDecoder"}
+PORTED_HEADS = {"Detect": Detect, "AsffDetect": AsffDetect}
 _STRIDE2 = {"Focus", "HGStem"}
 
 
@@ -183,16 +189,30 @@ def parse_model(d: dict, ch: int = 3):
     return tuple(specs), sorted(set(save)), head
 
 
+def layer_inputs(specs) -> List[List[int]]:
+    """Each row's input channel counts, in its `f` order."""
+    outs, prev, cins = [], 3, []
+    for s in specs:
+        cins.append([prev if f == -1 else outs[f] for f in s.f])
+        outs.append(s.c2)
+        prev = s.c2
+    return cins
+
+
 def _build_module(spec: LayerSpec, cins: List[int], head: dict) -> nn.Module:
-    """The torch module of one row; `cins` are its inputs' channel counts."""
+    """The torch module of one row; `cins` are its inputs' channel counts
+    (JAX graph.py:281-381 for the rows the detect architectures use)."""
     name, a, c1 = spec.name, list(spec.args), cins[0]
     if spec.n > 1 and name not in _REPEAT_BLOCKS:
         raise NotImplementedError(f"{name} repeated {spec.n} times is not ported")
     if name == "Conv":
         return L.Conv(c1, a[0], a[1] if len(a) > 1 else 1,
                       a[2] if len(a) > 2 else 1)
-    if name == "C2f":
-        return L.C2f(c1, a[0], a[1], shortcut=a[2] if len(a) > 2 else False)
+    if name in C2F_FAMILY:
+        return L.C2f(c1, a[0], a[1], shortcut=a[2] if len(a) > 2 else False,
+                     bottleneck_kind=C2F_FAMILY[name])
+    if name == "C2":
+        return L.C2(c1, a[0], a[1], shortcut=a[2] if len(a) > 2 else True)
     if name == "SPPF":
         return L.SPPF(c1, a[0], a[1] if len(a) > 1 else 5)
     if name == "lowlight_recovery":
@@ -201,8 +221,18 @@ def _build_module(spec: LayerSpec, cins: List[int], head: dict) -> nn.Module:
         return LowlightRecovery()
     if name == "AsffTribeLevel":
         return L.AsffTribeLevel(a[0], cins)
-    if name == "Detect":
-        return Detect(head["nc"], cins, head["strides"])
+    if name == "AsffDoubLevel":
+        return L.AsffDoubLevel(a[0], cins)
+    if name == "MFRU":
+        return L.MFRU(cins)
+    if name == "RFBblock":
+        return L.RFBblock(c1)
+    if name == "PConv":
+        return L.PConv(c1, a[1] if len(a) > 1 else 4)
+    if name == "SCConv":
+        return L.SCConv(a[0])
+    if name in PORTED_HEADS:
+        return PORTED_HEADS[name](head["nc"], cins, head["strides"])
     if name == "nn.Upsample":
         return L.Upsample(int(a[1]) if len(a) > 1 and a[1] else 2)
     if name == "Concat":
@@ -224,19 +254,15 @@ class DetectionModel(nn.Module):
             self.yaml["nc"] = nc
         self.nc = self.yaml["nc"]
         self.specs, self.save, self.head = parse_model(self.yaml, ch=3)
-        if self.head["name"] != "Detect":
+        if self.head["name"] not in PORTED_HEADS:
             raise NotImplementedError(
                 f"{self.head['name']} head is not ported to torch yet")
         self.strides = self.head["strides"]
         self.reg_max = 16
         self.names = {i: str(i) for i in range(self.nc)}
-        outs, prev, mods = [], 3, []
-        for s in self.specs:
-            cins = [prev if f == -1 else outs[f] for f in s.f]
-            mods.append(_build_module(s, cins, self.head))
-            outs.append(s.c2)
-            prev = s.c2
-        self.model = nn.ModuleList(mods)
+        self.model = nn.ModuleList(
+            _build_module(s, cins, self.head)
+            for s, cins in zip(self.specs, layer_inputs(self.specs)))
 
     def forward(self, x, dedark_A=None, IcA=None, capture=()):
         """x (B, H, W, 3) in [0, 1]; dedark_A (B, 3) and IcA (B, H, W, 1) are

@@ -1,4 +1,5 @@
-"""YOLOv8 Detect head and the eval decode (JAX nn/heads.py:28-62, 294-315).
+"""YOLOv8 Detect and AsffDetect heads and the eval decode (JAX
+nn/heads.py:28-85, 294-315).
 
 The head returns raw per-level maps in the JAX layout, (B, H, W, 4*reg_max +
 nc); `decode_detections` turns them into xywh pixel boxes and sigmoid class
@@ -46,6 +47,20 @@ class Detect(nn.Module):
     def forward(self, xs):
         return [torch.cat([b(x), c(x)], 1).permute(0, 2, 3, 1)
                 for x, b, c in zip(xs, self.cv2, self.cv3)]
+
+
+class AsffDetect(Detect):
+    """Detect with one biased 1x1 a branch and level (reference
+    head.py:105-174, JAX heads.py:65-85), `cv2.{i}.0` and `cv3.{i}.0`; the
+    same raw-map layout, biases and decode as Detect."""
+
+    def __init__(self, nc: int, ch: Sequence[int], strides: Sequence[int],
+                 reg_max: int = 16):
+        nn.Module.__init__(self)
+        self.nc, self.reg_max, self.strides = nc, reg_max, tuple(strides)
+        self.cv2 = nn.ModuleList(
+            nn.Sequential(BiasConv2d(x, 4 * reg_max, 1)) for x in ch)
+        self.cv3 = nn.ModuleList(nn.Sequential(BiasConv2d(x, nc, 1)) for x in ch)
 
 
 def flatten_raw(raw_maps):

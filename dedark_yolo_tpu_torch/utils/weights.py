@@ -11,6 +11,47 @@ takes; `opt_state_from_jax` maps an optimizer state the same way.
 package's `convert_state_dict`, torch_import.py:169): flax names, NHWC/HWIO
 kernels, fc1's rows in the NHWC flatten order, so that a checkpoint the
 port writes restores in the JAX package.
+
+Names. Flax names a module's unnamed children `<Class>_<k>`, k counting the
+children of that class in the order they are CONSTRUCTED, not called: in
+RFBblock's `Conv2d(i, 3)(Conv2d(i, 1)(x))` the outer 3x3 is built first and
+is Conv2d_1, the inner 1x1 Conv2d_2. The port's Conv and flax's nn.Conv
+share the prefix `Conv`. Where `torch_import.py` names a module (Conv, C2f,
+SPPF, Detect, AsffDetect, AsffTribeLevel at equal widths, AsffDoubLevel,
+layer 0) the port takes its names; for the rest, the table (flax child ->
+port child; a conv's or BN's flax child holds its params on the port
+module itself):
+
+  PConv            Conv_0 -> conv
+  Pconv bottleneck PConv_0 -> pconv, Conv_0 -> cv1, Conv2d_0 -> cv2
+    (PconvBottleneck, PconvBottleneckN)
+  SC bottleneck    SCConv_0 -> sc, Conv_0 -> cv1 (SCConvBottleneck,
+                   SCConv3Bottleneck, Conv3SCBottleneck); SCPWBottleneck:
+                   Conv2d_0 -> cv1; SCPWPWBottleneck: Conv_0 -> cv1,
+                   Conv2d_0 -> cv2
+  SCConv           sru_weight, sru_bias (params of SCConv itself),
+                   CRU_0 -> cru
+  CRU              Conv_0..4 -> squeeze1, squeeze2, GWC, PWC1, PWC2
+  C2f family       Conv_0 -> cv1, Conv_1 -> cv2, <Bottleneck class>_k -> m.k
+  C2               Conv_0 -> cv1, Conv_1 -> cv2, Bottleneck_k -> m.k
+  RFBblock         Conv2d_0 -> b0, Conv2d_1 -> b1.1, Conv2d_2 -> b1.0,
+                   Conv2d_3..5 -> b2.0..2, Conv2d_6..8 -> b3.0..2
+  AsffTribeLevel   AddConv_k in the order [align_level_1 (level 0) or
+                   align_level_0 (level 1), where that branch's width
+                   differs from the level's: scales n, s, m],
+                   stride_level_2, weight_level_0..2, expand; level 2:
+                   compress_level_0, compress_level_1, weight_level_0..2,
+                   expand; Conv2d_0 -> weight_levels
+  MFRU             SCConv_0 -> sc_deep, SCConv_1 -> sc_out, Conv2d_0 -> pw,
+                   AddConv_0 -> align_level_1 (where P4's width differs
+                   from P5's), Conv2d_1..3 -> weight_level_0..2, Conv2d_4
+                   -> weight_levels
+  Conv2d           Conv_0 -> the bare conv itself; AddConv: Conv_0 -> conv,
+                   BatchNorm_0 -> batch_norm
+
+A module applied twice (MFRU's sc_deep, pw and sc_out) is one flax child and
+one port child, so it has one set of keys. AsffTribeLevel's order depends on
+its input widths, which the maps take from the model (`layer_inputs`).
 """
 
 from __future__ import annotations
@@ -24,8 +65,9 @@ import torch
 from torch import nn
 
 from ..engine.optim import OptState
+from ..nn.graph import C2F_FAMILY, layer_inputs
 from ..nn.heads import Detect
-from ..nn.layers import BatchNorm
+from ..nn.layers import BatchNorm, GroupBatchnorm2d, SCConv
 
 
 def _fc1_permutation(c=32, h=8, w=8):
@@ -38,96 +80,168 @@ def _fc1_permutation(c=32, h=8, w=8):
     return idx
 
 
-def _torch_base(flax_path: str, spec_name: str, spec_args=()) -> str:
-    """Map a flax sub-path inside `mods_{i}` to the torch submodule name."""
-    parts = flax_path.split("/") if flax_path else []
+# flax child name -> (port child name, the child's kind); kind None: a flax
+# nn.Conv or nn.BatchNorm whose params sit on that port module; "" as the
+# port name: the module itself (Conv2d's inner conv). `<Class>_*` matches
+# every index k of that class and maps to the name with {k}.
+_PAIR = {"Conv_0": ("conv", None), "BatchNorm_0": ("bn", None)}
+_CV = {"Conv_0": ("cv1", "Conv"), "Conv_1": ("cv2", "Conv")}
+_SC = {"SCConv_0": ("sc", "SCConv"), "Conv_0": ("cv1", "Conv")}
+_C2F_BLOCK = {"standard": "Bottleneck", "pconv": "PconvBottleneck",
+              "pconv_n": "PconvBottleneckN", "scconv": "SCConvBottleneck",
+              "sc_pw": "SCPWBottleneck", "sc_conv3": "SCConv3Bottleneck",
+              "conv3_sc": "Conv3SCBottleneck", "sc_pw_pw": "SCPWPWBottleneck"}
+_TABLES = {
+    "Conv": _PAIR,
+    "AddConv": {"Conv_0": ("conv", None), "BatchNorm_0": ("batch_norm", None)},
+    "Conv2d": {"Conv_0": ("", None)},
+    "SPPF": _CV,
+    "Bottleneck": _CV,
+    "C2": {**_CV, "Bottleneck_*": ("m.{k}", "Bottleneck")},
+    **{name: {**_CV, f"{_C2F_BLOCK[kind]}_*": ("m.{k}", _C2F_BLOCK[kind])}
+       for name, kind in C2F_FAMILY.items()},
+    "PConv": {"Conv_0": ("conv", None)},
+    "GroupBatchnorm2d": {},
+    "PconvBottleneck": {"PConv_0": ("pconv", "PConv"), "Conv_0": ("cv1", "Conv"),
+                        "Conv2d_0": ("cv2", "Conv2d")},
+    "SCConvBottleneck": _SC,
+    "SCConv3Bottleneck": _SC,
+    "Conv3SCBottleneck": _SC,
+    "SCPWBottleneck": {"SCConv_0": ("sc", "SCConv"),
+                       "Conv2d_0": ("cv1", "Conv2d")},
+    "SCPWPWBottleneck": {**_SC, "Conv2d_0": ("cv2", "Conv2d")},
+    "SCConv": {"CRU_0": ("cru", "CRU")},
+    "CRU": {f"Conv_{k}": (n, None) for k, n in
+            enumerate(("squeeze1", "squeeze2", "GWC", "PWC1", "PWC2"))},
+    "RFBblock": {f"Conv2d_{k}": (n, "Conv2d") for k, n in enumerate(
+        ("b0", "b1.1", "b1.0", "b2.0", "b2.1", "b2.2", "b3.0", "b3.1",
+         "b3.2"))},
+    "MFRU": {"SCConv_0": ("sc_deep", "SCConv"), "SCConv_1": ("sc_out", "SCConv"),
+             "Conv2d_0": ("pw", "Conv2d"), "AddConv_0": ("align_level_1", "AddConv"),
+             **{f"Conv2d_{k}": (n, "Conv2d") for k, n in enumerate(
+                 ("weight_level_0", "weight_level_1", "weight_level_2",
+                  "weight_levels"), 1)}},
+}
+_TABLES["PconvBottleneckN"] = _TABLES["PconvBottleneck"]
 
-    def conv_pair(sub):
-        return {"Conv_0": f"{sub}.conv", "BatchNorm_0": f"{sub}.bn"}
 
-    if spec_name == "Conv":
-        return {"Conv_0": "conv", "BatchNorm_0": "bn"}[parts[0]]
-    if spec_name == "SPPF":
-        sub = {"Conv_0": "cv1", "Conv_1": "cv2"}[parts[0]]
-        return conv_pair(sub)[parts[1]]
-    if spec_name == "C2f":
-        top = parts[0]
-        if top.startswith("Bottleneck_"):
-            k = int(top.split("_")[1])
-            inner = {"Conv_0": "cv1", "Conv_1": "cv2"}[parts[1]]
-            return conv_pair(f"m.{k}.{inner}")[parts[2]]
-        sub = {"Conv_0": "cv1", "Conv_1": "cv2"}[top]
-        return conv_pair(sub)[parts[1]]
-    if spec_name == "AsffTribeLevel":
+def _asff_order(spec_name, level, dims):
+    """The port names of an ASFF module's AddConv_0, AddConv_1, ... (the
+    JAX construction order; torch_import.py:96-121 at equal widths)."""
+    if spec_name == "AsffDoubLevel":
+        return (["stride_level_1", "weight_level_0", "weight_level_1", "expand"]
+                if level == 0 else
+                ["compress_level_0", "weight_level_0", "weight_level_1", "expand"])
+    if level == 2:
+        return ["compress_level_0", "compress_level_1", "weight_level_0",
+                "weight_level_1", "weight_level_2", "expand"]
+    align = ([f"align_level_{1 - level}"]
+             if dims and dims[1 - level] != dims[level] else [])
+    return align + ["stride_level_2", "weight_level_0", "weight_level_1",
+                    "weight_level_2", "expand"]
+
+
+def _table(kind, spec_args=(), dims=()):
+    if kind in ("AsffTribeLevel", "AsffDoubLevel"):
         level = int(spec_args[0]) if spec_args else 0
-        top = parts[0]
-        if top.startswith("Conv2d_"):
-            return "weight_levels"
-        order = (["stride_level_2", "weight_level_0", "weight_level_1",
-                  "weight_level_2", "expand"] if level in (0, 1) else
-                 ["compress_level_0", "compress_level_1", "weight_level_0",
-                  "weight_level_1", "weight_level_2", "expand"])
-        sub = order[int(top.split("_")[1])]
-        return {"Conv_0": f"{sub}.conv",
-                "BatchNorm_0": f"{sub}.batch_norm"}[parts[1]]
-    if spec_name == "Detect":
-        m = re.match(r"(cv[23])_(\d+)_(\d+)$", parts[0])
-        if m:
-            branch, i, j = m.group(1), int(m.group(2)), int(m.group(3))
+        order = _asff_order(kind, level, dims)
+        return {"Conv2d_0": ("weight_levels", "Conv2d"),
+                **{f"AddConv_{k}": (n, "AddConv") for k, n in enumerate(order)}}
+    return _TABLES.get(kind)
+
+
+def _child(table, name):
+    table = table or {}
+    if name in table:
+        return table[name]
+    prefix, _, k = name.rpartition("_")
+    sub, kind = table.get(prefix + "_*", (None, None))
+    if sub is None or not k.isdigit():
+        raise KeyError(name)
+    return sub.format(k=k), kind
+
+
+def _torch_base(flax_path: str, spec_name: str, spec_args=(), dims=()) -> str:
+    """Map a flax sub-path inside `mods_{i}` to the torch submodule name;
+    `dims` are the row's input widths (AsffTribeLevel's align convs)."""
+    parts = flax_path.split("/") if flax_path else []
+    if spec_name in ("Detect", "AsffDetect") and parts:
+        m = re.match(r"(cv[23])_(\d+)(_(\d+))?$", parts[0])
+        if m and spec_name == "AsffDetect" and not m.group(3):
+            return f"{m.group(1)}.{m.group(2)}.0"
+        if m and spec_name == "Detect" and m.group(3):
+            branch, i, j = m.group(1), int(m.group(2)), int(m.group(4))
             if j < 2:
-                return conv_pair(f"{branch}.{i}.{j}")[parts[1]]
+                return f"{branch}.{i}.{j}.{_PAIR[parts[1]][0]}"
             return f"{branch}.{i}.{j}"
-    if spec_name == "lowlight_recovery":
+    elif spec_name == "lowlight_recovery" and parts:
         top = parts[1] if parts[0] == "ExtractParameters2_0" else parts[0]
         if top.startswith("Conv_"):
             return f"extractor.conv_layers.{int(top.split('_')[1])}.conv_block.0"
         if top in ("Dense_0", "Dense_1"):
             return {"Dense_0": "extractor.fc1", "Dense_1": "extractor.fc2"}[top]
+    else:
+        table, out = _table(spec_name, spec_args, dims), []
+        try:
+            for p in parts:
+                sub, kind = _child(table, p)
+                out += [sub] if sub else []
+                table = _table(kind) if kind else {}
+            if table is not None:
+                return ".".join(out)
+        except KeyError:
+            pass
     raise NotImplementedError(
         f"no torch mapping for '{flax_path}' in module '{spec_name}'")
 
 
-_PAIR = {"conv": "Conv_0", "bn": "BatchNorm_0"}
-_CV = {"cv1": "Conv_0", "cv2": "Conv_1"}
-
-
-def _flax_base(sub: str, spec_name: str, spec_args=()) -> list:
+def _flax_base(sub: str, spec_name: str, spec_args=(), dims=()) -> list:
     """The inverse of `_torch_base`: the port's submodule name inside
     `model.{i}` -> the flax path parts inside `mods_{i}`."""
-    parts = sub.split(".")
+    parts = sub.split(".") if sub else []
     out = None
-    if spec_name == "Conv":
-        out = [_PAIR[parts[0]]]
-    elif spec_name == "SPPF":
-        out = [_CV[parts[0]], _PAIR[parts[1]]]
-    elif spec_name == "C2f":
-        if parts[0] == "m":
-            out = [f"Bottleneck_{parts[1]}", _CV[parts[2]], _PAIR[parts[3]]]
-        else:
-            out = [_CV[parts[0]], _PAIR[parts[1]]]
-    elif spec_name == "AsffTribeLevel":
-        if parts[0] == "weight_levels":
-            out = ["Conv2d_0", "Conv_0"]
-        else:
-            level = int(spec_args[0]) if spec_args else 0
-            order = (["stride_level_2", "weight_level_0", "weight_level_1",
-                      "weight_level_2", "expand"] if level in (0, 1) else
-                     ["compress_level_0", "compress_level_1", "weight_level_0",
-                      "weight_level_1", "weight_level_2", "expand"])
-            out = [f"AddConv_{order.index(parts[0])}",
-                   {"conv": "Conv_0", "batch_norm": "BatchNorm_0"}[parts[1]]]
-    elif spec_name == "Detect":
-        out = ["_".join(parts[:3])] + ([_PAIR[parts[3]]] if len(parts) > 3 else [])
+    if spec_name == "Detect":
+        out = ["_".join(parts[:3])] + ([{"conv": "Conv_0", "bn": "BatchNorm_0"}[
+            parts[3]]] if len(parts) > 3 else [])
+    elif spec_name == "AsffDetect":
+        out = ["_".join(parts[:2])]
     elif spec_name == "lowlight_recovery":
         if parts[1] == "conv_layers":
             out = ["ExtractParameters2_0", f"Conv_{parts[2]}"]
         else:
             out = ["ExtractParameters2_0",
                    {"fc1": "Dense_0", "fc2": "Dense_1"}[parts[1]]]
-    if out is None or _torch_base("/".join(out), spec_name, spec_args) != sub:
+    else:
+        out = _flax_walk(parts, _table(spec_name, spec_args, dims))
+    if out is None or _torch_base("/".join(out), spec_name, spec_args,
+                                  dims) != sub:
         raise NotImplementedError(
             f"no flax mapping for '{sub}' in module '{spec_name}'")
     return out
+
+
+def _flax_walk(parts, table):
+    """Flax path of the port name `parts` under a module of `table`: at
+    each level the entry whose port name is the longest prefix of the rest
+    (an entry `<Class>_*` takes the index from the name); a module whose
+    table maps its inner conv to "" takes that child at the end."""
+    out = []
+    while table is not None:
+        best = None
+        for fname, (tname, kind) in table.items():
+            tp = tname.split(".") if tname else []
+            if len(tp) > len(parts) or (best and len(tp) <= len(best[2])):
+                continue
+            k = [p for t, p in zip(tp, parts) if t == "{k}"]
+            if all(t == p or (t == "{k}" and p.isdigit())
+                   for t, p in zip(tp, parts)) and (tp or not parts):
+                best = (fname.replace("*", k[0]) if k else fname, kind, tp)
+        if best is None:
+            return out if not parts else None
+        out.append(best[0])
+        parts = parts[len(best[2]):]
+        table = _table(best[1]) if best[1] else None
+    return out if not parts else None
 
 
 def state_dict_to_jax(state_dict, model) -> dict:
@@ -135,19 +249,21 @@ def state_dict_to_jax(state_dict, model) -> dict:
     optimizer buffer) -> {"params", "batch_stats"} flax trees of float32
     numpy arrays, as the JAX package holds them."""
     specs_by_idx = {s.i: s for s in model.specs}
+    dims = layer_inputs(model.specs)
     perm = _fc1_permutation()
     out = {"params": {}, "batch_stats": {}}
     for key, t in state_dict.items():
         arr = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
         arr = arr.astype(np.float32)
         _, i, rest = key.split(".", 2)
-        sub, leaf = rest.rsplit(".", 1)
+        sub, _, leaf = rest.rpartition(".")
         spec = specs_by_idx[int(i)]
-        path = [f"mods_{i}"] + _flax_base(sub, spec.name, spec.args)
+        path = [f"mods_{i}"] + _flax_base(sub, spec.name, spec.args,
+                                          dims[int(i)])
         if leaf in ("running_mean", "running_var"):
             section, name = "batch_stats", leaf[len("running_"):]
-        elif leaf == "bias":
-            section, name = "params", "bias"
+        elif leaf in ("bias", "sru_weight", "sru_bias"):
+            section, name = "params", leaf
         elif arr.ndim == 4:
             section, name = "params", "kernel"
             arr = np.transpose(arr, (2, 3, 1, 0))
@@ -178,16 +294,20 @@ def state_dict_from_jax(variables, model) -> dict:
     """{"params", "batch_stats"} flax trees -> the port's state_dict (CPU f32
     tensors). `model` is the port's DetectionModel of the same architecture."""
     specs_by_idx = {s.i: s for s in model.specs}
+    dims = layer_inputs(model.specs)
     inv_perm = np.argsort(_fc1_permutation())
     sd = {}
     for section in ("params", "batch_stats"):
         for keys, arr in _leaves(variables[section]):
             spec = specs_by_idx[int(keys[0].split("_")[1])]
             leaf = keys[-1]
-            tkey = f"model.{spec.i}." + _torch_base("/".join(keys[1:-1]),
-                                                     spec.name, spec.args)
+            base = _torch_base("/".join(keys[1:-1]), spec.name, spec.args,
+                               dims[spec.i])
+            tkey = f"model.{spec.i}" + (f".{base}" if base else "")
             if section == "params":
-                if leaf == "kernel" and arr.ndim == 4:
+                if leaf in ("sru_weight", "sru_bias"):
+                    sd[f"{tkey}.{leaf}"] = arr
+                elif leaf == "kernel" and arr.ndim == 4:
                     sd[f"{tkey}.weight"] = np.transpose(arr, (3, 2, 0, 1))
                 elif leaf == "kernel":
                     if tkey.endswith("extractor.fc1"):
@@ -238,7 +358,9 @@ def opt_state_to_jax(opt_state, model) -> dict:
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> None:
     """Seeded random init: conv/linear weights ~ N(0, 1/fan_in), biases 0,
-    BN at identity, the Detect biases of reference head.py:95-102.
+    BN, GroupBatchnorm2d and SCConv's SRU scale at identity (ones, as JAX
+    has them), the Detect and AsffDetect biases of reference
+    head.py:95-102.
     Draws on the CPU from one torch.Generator, so a seed gives the same
     weights on every device."""
     gen = torch.Generator().manual_seed(seed)
@@ -254,6 +376,12 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
             mod.bias.zero_()
             mod.running_mean.zero_()
             mod.running_var.fill_(1.0)
+        elif isinstance(mod, GroupBatchnorm2d):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, SCConv):
+            mod.sru_weight.fill_(1.0)
+            mod.sru_bias.zero_()
     for mod in model.modules():
         if isinstance(mod, Detect):
             mod.bias_init()

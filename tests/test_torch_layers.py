@@ -128,8 +128,17 @@ def test_asff_tribe_level_matches_jax(level):
 
 
 def test_asff_rejects_widths_without_reference_names():
-    with pytest.raises(NotImplementedError):
-        TL.AsffTribeLevel(0, (64, 32, 16))
+    """The widths the port once refused, (64, 32, 16), now build as JAX
+    builds them: level 0 aligns the pooled P4 (32 -> 64) with an AddConv
+    that the weight maps name `align_level_1`, ahead of the stride conv in
+    the flax order; at equal widths no align conv exists."""
+    m = TL.AsffTribeLevel(0, (64, 32, 16))
+    assert tuple(m.align_level_1.conv.weight.shape) == (64, 32, 1, 1)
+    assert _torch_base("AddConv_0/Conv_0", "AsffTribeLevel", (0,),
+                       (64, 32, 16)) == "align_level_1.conv"
+    assert _torch_base("AddConv_1/Conv_0", "AsffTribeLevel", (0,),
+                       (64, 32, 16)) == "stride_level_2.conv"
+    assert not hasattr(TL.AsffTribeLevel(0, (64, 64, 16)), "align_level_1")
 
 
 def test_detect_and_decode_match_jax():
