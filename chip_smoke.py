@@ -40,6 +40,29 @@ line:
            enhanced image within the kernel's TOL of the CPU's, the
            captures layer by layer; OpenCV, Pillow and matplotlib: which
            import, and each one's saving call writes or raises naming it
+  serve    InferenceServer(max_batch=16) on the flagship's checkpoint (the
+           predict weights as an .npz), TF32, the predict frames plus four
+           721x1280: the warmup, two windows of closed-loop clients (3 s
+           and 50 batches at least) at each of 1, 4 and 16 threads
+           (images/s, p50/p95 latency, occupancy, batches, the windows'
+           spread), every response bit-equal to or paired with
+           YOLO.predict(batch=16) of its frame at one of the 16 places of
+           a batch, /healthz and /stats over HTTP and POST /predict with a
+           PNG where OpenCV imports; fused_enhance and nms once a batch,
+           the warmup included, no plain version reached, every future
+           resolved
+  track    YOLO.track(persist=True) over 24 seeded low-light 720x1280 .npy
+           frames of moving rectangles (the class logits lifted by one
+           constant, see TRACK_RANK): ByteTrack, BoT-SORT with gmc none and,
+           where OpenCV imports, sparseOptFlow, two passes each: frames/s,
+           the trackers' host ms a frame against the predictor's, the
+           passes' spread, fused_enhance and nms once a batch; the
+           untracked detections of the same frames through a fresh host
+           tracker give the same ids and boxes
+  benchmark  YOLO.benchmark(imgsz=640) twice: fp32 and bf16 rows at
+           b1/8/32 (5 warm-up and 30 timed calls a row), the two runs'
+           spread, no "error" row, fused_enhance and nms once a call
+           (warm-ups included)
   zoo      the other detect architectures at full width (nc=3, seeded
            weights, BN set from the predict frames): predict f32 b16/640
            with yolov8n/s/m/x and, at scale l, each of the fork's variants
@@ -56,7 +79,8 @@ line:
            C=Co=256): bf16 cuDNN chain vs the int8_conv kernel's chain
   train    DetectionTrainer: at imgsz 128, b2, one micro-step on the card
            against the CPU (loss items, gradients, updated parameters, BN
-           stats, EMA; TF32 off); then yolov8l at b16, imgsz 640, f32,
+           stats, EMA, the assigner's choices counted; TF32 off;
+           tools/c14_split.py's train_parity); then yolov8l at b16, imgsz 640, f32,
            default precision: a warm-up window and two timed accumulation
            windows (8 micro-steps, 2 applied updates), fused_enhance
            launched once per micro-step and nms never
@@ -861,121 +885,10 @@ def phase_probe(torch):
     return launches
 
 
-# train phase: the parity size and the label rows an image
-TRAIN_SMALL, TRAIN_BOXES = 128, 8
-# small-size card vs CPU, TF32 off, one SGD micro-step that applies the
-# update (nbs = batch). cuDNN's convolutions sum in other orders than the
-# CPU's, and the f32 train forward of these random weights is itself
-# ill-conditioned: the port's and the JAX package's CPU forwards each sit
-# ~2e-4 of the largest map value from a float64 forward
-# (tests/test_torch_train_flagship.py), and the gradients of layer 0's
-# parameter CNN differ by 5e-3 of their largest entry between the two
-# packages on the CPU (tests/test_torch_train_slice.py). A leaf's gradient
-# is held by its norm: the bias of a BN whose output feeds another
-# train-mode BN gets a gradient that nearly cancels (a constant shift is
-# taken out by the next layer's batch mean, but for the activation between),
-# so its largest entry is a poor yardstick (4.9e-2 of it on an H100, where
-# the median leaf read 3.4e-3). So: loss items 5e-3 relative;
-# each gradient within 5e-2 of its norm; each parameter's and EMA entry's
-# move 5e-2 of the largest move of its tensor (plus 1e-6); BN running stats
-# 1e-3 absolute.
-TRAIN_TOL = {"items_rel": 5e-3, "grad_rel": 5e-2, "move_rel": 5e-2,
-             "stats_abs": 1e-3}
-
-
-def train_batch(n, imgsz, seed):
-    """The JAX loader's batch dict: seeded clean u8 frames (32-px colour
-    blocks with noise; the trainer darkens them) and TRAIN_BOXES label rows
-    an image, a quarter of them padding."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    base = rng.integers(0, 256, (n, imgsz // 32, imgsz // 32, 3)) / 255
-    img = np.kron(base, np.ones((1, 32, 32, 1)))
-    img = np.clip(img + rng.normal(0, 0.03, img.shape), 0, 1)
-    m = TRAIN_BOXES
-    xy = rng.uniform(0.2, 0.8, (n, m, 2))
-    wh = rng.uniform(0.05, 0.4, (n, m, 2))
-    return {"img": (img * 255).astype(np.uint8),
-            "cls": rng.integers(0, 3, (n, m)).astype(np.float32),
-            "bboxes": np.concatenate([xy, wh], -1).astype(np.float32),
-            "mask_gt": (rng.uniform(size=(n, m)) > 0.25).astype(np.float32)}
-
-
-def train_parity(torch, name="yolov8l.yaml"):
-    """One micro-step of the model `name` (the flagship) at TRAIN_SMALL, b2,
-    on the card and on the CPU from the same weights and batch: first the
-    loss and gradients (the BN stats put back after), then `step` (update,
-    BN stats, EMA)."""
-    from dedark_yolo_tpu_torch import YOLO
-    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
-    from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
-    over = {"batch": 2, "nbs": 2, "optimizer": "SGD", "imgsz": TRAIN_SMALL}
-    nb, step_index = 1000, 1500                # inside the 3000-step warmup
-    gpu = YOLO(name, nc=3, seed=SEED)
-    cpu = YOLO(name, nc=3, device="cpu", seed=SEED)
-    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
-    start = {k: v.cpu().clone() for k, v in cpu.state_dict().items()}
-    batch = train_batch(2, TRAIN_SMALL, SEED)
-    got = {}
-    with matmul_precision("float32"):
-        for key, yolo, dev in (("gpu", gpu, None), ("cpu", cpu, "cpu")):
-            tr = DetectionTrainer(yolo.model, over, nb=nb, device=dev)
-            names = list(tr.params)
-            tr.model.train()
-            total, items = tr.loss(tr.to_device(batch))
-            grads = torch.autograd.grad(
-                total, [tr.params[n] for n in names], allow_unused=True)
-            tr.model.eval()
-            tr.model.load_state_dict(start)
-            _, step_items = tr.step(batch, step_index)
-            got[key] = {"items": items, "step_items": step_items,
-                        "grads": {n: g for n, g in zip(names, grads)
-                                  if g is not None},
-                        "state": tr.model.state_dict(), "ema": tr.ema,
-                        "updates": (tr.opt_state.step, tr.ema_updates)}
-    g, c = got["gpu"], got["cpu"]
-    cpu_of = lambda t: t.detach().cpu()
-    rel = lambda a, b: float((cpu_of(a) - b).abs().max() / b.abs().max())
-    items_rel = max(rel(torch.stack(list(g["items"])), torch.stack(list(c["items"]))),
-                    rel(g["step_items"], c["step_items"]))
-    grad_rel = {n: float(torch.linalg.vector_norm(cpu_of(g["grads"][n]) - w)
-                         / torch.linalg.vector_norm(w))
-                for n, w in c["grads"].items() if w.abs().max() > 0}
-    worst_grad = max(grad_rel, key=grad_rel.get)
-    grad_max_rel = max(rel(g["grads"][n], c["grads"][n]) for n in grad_rel)
-    stats_err, move_err = 0.0, {}
-    for k, w in c["state"].items():
-        if "running_" in k:
-            stats_err = max(stats_err, float((cpu_of(g["state"][k]) - w).abs().max()),
-                            float((cpu_of(g["ema"][k]) - c["ema"][k]).abs().max()))
-            continue
-        moved = float((w - start[k]).abs().max())
-        err = max(float((cpu_of(g["state"][k]) - w).abs().max()),
-                  float((cpu_of(g["ema"][k]) - c["ema"][k]).abs().max()))
-        move_err[k] = (err - 1e-6) / moved if moved else (0.0 if err <= 1e-6 else float("inf"))
-    worst_move = max(move_err, key=move_err.get)
-    rec = {"model": name, "imgsz": TRAIN_SMALL, "batch": 2,
-           "items_gpu": [float(x) for x in g["items"]],
-           "items_cpu": [float(x) for x in c["items"]],
-           "items_max_rel_err": items_rel,
-           "grad_norm_rel_err": grad_rel[worst_grad], "grad_worst_leaf": worst_grad,
-           "grad_norm_rel_err_median": sorted(grad_rel.values())[len(grad_rel) // 2],
-           "grad_max_entry_rel_err": grad_max_rel,
-           "move_max_rel_err": move_err[worst_move], "move_worst": worst_move,
-           "bn_stats_and_ema_max_abs_err": stats_err,
-           "updates_gpu": g["updates"], "updates_cpu": c["updates"],
-           "tol": TRAIN_TOL}
-    rec["ok"] = (items_rel <= TRAIN_TOL["items_rel"]
-                 and rec["grad_norm_rel_err"] <= TRAIN_TOL["grad_rel"]
-                 and rec["move_max_rel_err"] <= TRAIN_TOL["move_rel"]
-                 and stats_err <= TRAIN_TOL["stats_abs"]
-                 and g["updates"] == c["updates"] == (1, 1))
-    return rec
-
-
 def train_full(torch):
     """yolov8l, nc=3, b16, imgsz 640, f32, default precision (TF32 on):
     one warm-up window, then two timed accumulation windows of 4."""
+    from dedark_yolo_tpu_torch.tools.c14_split import train_batch
     from dedark_yolo_tpu_torch import YOLO
     from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
     from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
@@ -1030,7 +943,8 @@ def train_full(torch):
 
 
 def phase_train(torch):
-    small = train_parity(torch)
+    from dedark_yolo_tpu_torch.tools.c14_split import train_parity
+    small = train_parity()
     full = train_full(torch)
     emit({"phase": "train", "parity": small, "full": full})
     if not small["ok"]:
@@ -1642,6 +1556,7 @@ def loop_small(torch, tmp):
     held to the bars above, the one-thread CPU against the CPU reported
     beside them; the card run's launches fused_enhance = micro-steps + val
     batches and nms = val batches."""
+    from dedark_yolo_tpu_torch.tools.c14_split import TRAIN_TOL
     cfg = LOOP_SMALL
     data = loop_data(tmp / "small", cfg, SEED + 2, SEED)
     npz = seeded_npz(tmp / "small_seed.npz",
@@ -1856,6 +1771,7 @@ def phase_train_amp(torch, f32):
     windows, fused_enhance once a micro-step, each on a bf16 image; the
     masters, the EMA and the BN stats f32 after. `f32` is train_full's
     record of this call, printed beside."""
+    from dedark_yolo_tpu_torch.tools.c14_split import train_batch
     from dedark_yolo_tpu_torch import YOLO
     from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
     from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
@@ -2672,6 +2588,7 @@ def zoo_train(torch, yolo):
     model at b16/640, f32, default precision (the fourth call of the
     window of 4 applies the update): ms a micro-step, peak memory, loss
     items, fused_enhance once a micro-step where layer 0 exists."""
+    from dedark_yolo_tpu_torch.tools.c14_split import train_batch
     from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
     from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
     from dedark_yolo_tpu_torch.ops import _build
@@ -2755,6 +2672,7 @@ def phase_zoo(torch, frames):
     batch); the ZOO_TRAIN models' train steps and train_parity; then
     zoo_val. One line a model, one for the val, one summary line; any
     failed check raises after the lines are printed."""
+    from dedark_yolo_tpu_torch.tools.c14_split import train_parity
     import tempfile
     from dedark_yolo_tpu_torch import YOLO
     t0 = time.perf_counter()
@@ -2788,7 +2706,7 @@ def phase_zoo(torch, frames):
         if name in ZOO_TRAIN:
             rec["train"] = zoo_train(torch, yolo)
             runs.append(rec["train"])
-            rec["train_parity"] = train_parity(torch, name)
+            rec["train_parity"] = train_parity(name)
             if not rec["train_parity"]["ok"]:
                 failed.append(f"{name} train_parity")
             summary["micro_step_ms"][name] = rec["train"]["micro_step_ms"]
@@ -2811,6 +2729,434 @@ def phase_zoo(torch, frames):
     if failed:
         raise AssertionError(f"zoo: {failed}")
     return summary
+
+
+# serve phase: the dynamic-batching InferenceServer on the flagship's
+# checkpoint (the predict phase's weights, BN set from its frames), b16,
+# imgsz 640, at the default precision (TF32 convolutions): the predict
+# frames plus four 721x1280 frames. At each of SERVE_CLIENTS threads,
+# SERVE_WINDOWS windows of closed-loop clients, each running until
+# SERVE_WINDOW_S have passed and the server has read back
+# SERVE_MIN_BATCHES batches; each figure is reported per window with the
+# windows' spread. Under TF32, cuDNN need not give a frame the same bits
+# at every place in a 16-frame batch (at places 14 and 15 of the predict
+# frames' batch: up to 0.45 on a raw map and 4e-2 on a score of this
+# random-weight flagship against place 0, on an NVIDIA H100 80GB HBM3 at
+# 700 W), and the server places a frame wherever its batch has room. So a
+# frame's reference is YOLO.predict(batch=16) of 16 copies of it, its
+# detections at each place, and every response of every window is held to
+# one of them: bit-equal (counted), else paired under the predict phase's
+# bars. The conf is set midway across the widest gap between the predict
+# run's pooled scores (ranked within the middle half, at conf CONF).
+SERVE_CLIENTS = (1, 4, 16)
+SERVE_WINDOWS, SERVE_WINDOW_S, SERVE_MIN_BATCHES = 2, 3.0, 50
+SERVE_WAIT_MS = 5.0
+
+
+def serve_conf(results):
+    """A conf midway across the widest gap between two consecutive scores
+    of the pooled detections of `results`, among the middle half of
+    their ranks."""
+    import numpy as np
+    pool = np.sort(np.concatenate([r.boxes.conf for r in results]))[::-1]
+    lo, hi = len(pool) // 4, 3 * len(pool) // 4
+    k = lo + int(np.argmax(pool[lo:hi] - pool[lo + 1:hi + 1]))
+    return float((pool[k] + pool[k + 1]) / 2)
+
+
+def response_result(resp, frame, names):
+    """A server response as a Results of its frame (for pair_results)."""
+    from dedark_yolo_tpu_torch.engine.results import Results
+    return Results(orig_img=frame[..., ::-1], path="serve", names=names,
+                   boxes=resp["boxes"])
+
+
+def serve_load(srv, frames, threads):
+    """One window of closed-loop load: `threads` clients, each submitting
+    the next frame (in turns over `frames`) when its last response arrives,
+    until SERVE_WINDOW_S have passed and the server has read back
+    SERVE_MIN_BATCHES batches. p50/p95 of the window's server-side
+    latencies by stats()'s index rule. Returns (record, [(frame index,
+    response)])."""
+    import itertools
+    import threading
+    out, errors, lock = [], [], threading.Lock()
+    turn, done = itertools.count(), threading.Event()
+
+    def client():
+        while not done.is_set():
+            with lock:
+                i = next(turn) % len(frames)
+            try:
+                r = srv.predict(frames[i], timeout=120)
+            except Exception as e:      # any failed future fails the phase
+                with lock:
+                    errors.append(repr(e))
+                done.set()
+                return
+            with lock:
+                out.append((i, r))
+            if (time.perf_counter() - t0 >= SERVE_WINDOW_S
+                    and srv.stats()["batches"] >= SERVE_MIN_BATCHES):
+                done.set()
+    srv.reset_stats()
+    pool = [threading.Thread(target=client) for _ in range(threads)]
+    t0 = time.perf_counter()
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    secs = time.perf_counter() - t0
+    st = srv.stats()
+    lats = sorted(r["latency_ms"] for _, r in out)
+    n = len(lats)
+    return {"threads": threads, "requests": n, "seconds": secs,
+            "images_per_s": n / secs,
+            "latency_ms_p50": lats[n // 2] if n else 0.0,
+            "latency_ms_p95": lats[min(n - 1, int(n * 0.95))] if n else 0.0,
+            "mean_batch_occupancy": st["mean_batch_occupancy"],
+            "batches": st["batches"], "errors": errors}, out
+
+
+def spread(runs, keys):
+    """(max - min) / mean over `runs` of each of `keys`."""
+    out = {}
+    for k in keys:
+        v = [r[k] for r in runs]
+        out[f"{k}_spread"] = (max(v) - min(v)) / (sum(v) / len(v))
+    return out
+
+
+def http_leg(srv, frame):
+    """/healthz and /stats over HTTP; POST /predict with a PNG where this
+    host imports OpenCV (the response equal to srv.predict of the frame),
+    else the reason it was not run."""
+    import http.client
+    import numpy as np
+    httpd, port = srv.serve(port=0)
+    rec = {}
+
+    def request(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request(method, path, body=body)
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+        finally:
+            conn.close()
+    try:
+        rec["healthz"] = request("GET", "/healthz")
+        code, st = request("GET", "/stats")
+        rec["stats"] = [code, {k: st[k] for k in ("requests", "max_batch")}]
+        try:
+            import cv2
+        except ImportError as e:
+            rec["post_predict"] = {"run": False, "why": "this host has no "
+                                   f"OpenCV to encode the PNG ({e}); a host "
+                                   "package, not the device, is missing"}
+        else:
+            ok, png = cv2.imencode(".png", frame)
+            code, payload = request("POST", "/predict", png.tobytes())
+            want = srv.predict(frame)["boxes"]
+            got = np.asarray(payload.get("boxes", []), np.float32).reshape(-1, 6)
+            rec["post_predict"] = {"run": True, "status": code,
+                                   "detections": len(got),
+                                   "equal": bool(np.array_equal(got, want))}
+    finally:
+        httpd.shutdown()
+    post = rec["post_predict"]
+    rec["ok"] = (rec["healthz"] == (200, {"status": "ok"})
+                 and rec["stats"][0] == 200
+                 and (not post["run"] or (post["status"] == 200
+                                          and post["equal"])))
+    return rec
+
+
+def pair_responses(responses, load, refs):
+    """Each (frame index, response) held to refs[frame], its frame's
+    Results at every place of a batch: bit-equal to one of them, else
+    paired with one (pair_results). {paired, bit_equal_responses, unpaired
+    [frame, detections], the largest box and score differences of the
+    paired ones, the frames whose detections differ between places}."""
+    import numpy as np
+    worst, unpaired, equal = [0.0, 0.0], [], 0
+    for i, resp in responses:
+        if any(np.array_equal(resp["boxes"], r.boxes.data) for r in refs[i]):
+            equal += 1
+            continue
+        g = response_result(resp, load[i], refs[i][0].names)
+        pairs = next((p for r in refs[i] if len(r) == len(g)
+                      for p in [pair_results(g, r)] if p is not None), None)
+        if pairs is None:
+            unpaired.append([i, len(g)])
+            continue
+        worst = [max(worst[0], max(pairs[0], default=0.0)),
+                 max(worst[1], max(pairs[1], default=0.0))]
+    return {"responses": len(responses), "paired": not unpaired,
+            "bit_equal_responses": equal, "unpaired": unpaired[:8],
+            "box_max_abs_err_px": worst[0], "score_max_abs_err": worst[1],
+            "box_tol_px": BOX_TOL_PX, "score_tol": SCORE_TOL,
+            "frames_differing_by_place": [
+                i for i, rs in enumerate(refs)
+                if not all(np.array_equal(r.boxes.data, rs[0].boxes.data)
+                           for r in rs)]}
+
+
+def phase_serve(torch, yolo, frames):
+    """InferenceServer(max_batch=16) on the flagship's checkpoint, device
+    cuda, TF32, under no_plain_on_cuda: the warmup, then SERVE_WINDOWS
+    windows of closed-loop clients at each of 1, 4 and 16 threads
+    (images/s, p50/p95 latency, occupancy, batches, the windows' spread)
+    and the HTTP front-end; every response paired with its frame's
+    reference at some place of a batch; after close(), fused_enhance and
+    nms launched once a batch, the warmup included."""
+    import tempfile
+    from dedark_yolo_tpu_torch.engine.server import InferenceServer
+    from dedark_yolo_tpu_torch.ops import _build
+    calibrate_bn(torch, yolo.model, frames)
+    load = frames + lowlight_frames([(721, 1280)], 4, SEED + 70)
+    kw = dict(imgsz=IMGSZ, batch=BATCH)
+    conf = serve_conf(yolo.predict(load, conf=CONF, **kw))
+    refs = [yolo.predict([f] * BATCH, conf=conf, **kw) for f in load]
+    rec = {"phase": "serve", "max_batch": BATCH, "imgsz": IMGSZ,
+           "conf": conf, "max_wait_ms": SERVE_WAIT_MS,
+           "window_s": SERVE_WINDOW_S, "min_batches": SERVE_MIN_BATCHES,
+           "frames": {"480x640": len(frames), "721x1280": 4}}
+    keys = ("images_per_s", "latency_ms_p50", "latency_ms_p95")
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = npz_of(torch, yolo, Path(tmp) / "flagship.npz")
+        zero_launches()
+        with no_plain_on_cuda():
+            srv = InferenceServer(npz, imgsz=IMGSZ, max_batch=BATCH,
+                                  max_wait_ms=SERVE_WAIT_MS, conf=conf)
+            try:
+                runs, responses = [], []
+                for threads in SERVE_CLIENTS:
+                    windows = []
+                    for _ in range(SERVE_WINDOWS):
+                        r, out = serve_load(srv, load, threads)
+                        windows.append(r)
+                        responses += out
+                    runs.append({"threads": threads, "windows": windows,
+                                 **spread(windows, keys)})
+                rec["http"] = http_leg(srv, load[0])
+                # the HTTP leg's batches (no reset_stats since the last window)
+                extra = srv.stats()["batches"] - windows[-1]["batches"]
+            finally:
+                srv.close()
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    every = [w for r in runs for w in r["windows"]]
+    batches = sum(w["batches"] for w in every) + extra + 1
+    check_launches("serve", launches, {"fused_enhance": batches,
+                                       "nms": batches})
+    rec.update(runs=runs, launches=launches, batches_with_warmup=batches,
+               pair=pair_responses(responses, load, refs))
+    emit(rec)
+    if not (rec["pair"]["paired"] and rec["http"]["ok"]
+            and all(not w["errors"] and w["batches"] >= SERVE_MIN_BATCHES
+                    for w in every)
+            and sum(len(r) for rs in refs for r in rs) > 0):
+        raise AssertionError(f"serve: {rec}")
+    return rec
+
+
+# track phase: YOLO.track with persist=True over a seeded sequence of
+# TRACK_FRAMES low-light 720x1280 frames of moving rectangles, written as
+# .npy files (one sequence across files), b16/640, conf CONF; ByteTrack,
+# BoT-SORT with gmc_method none and, where OpenCV imports, sparseOptFlow,
+# each at its default thresholds. The random weights' class scores sit far
+# below those thresholds (a track is confirmed only where IoU x score
+# reaches 0.3), so the phase adds one constant to the class logits (the
+# Detect head's class-branch biases): the one that lifts the median over
+# the frames of each frame's TRACK_RANK-th score (conf 0.001) to
+# TRACK_TOP_SCORE; restored after. Each tracker runs TRACK_PASSES passes
+# of the sequence, each with a new tracker: a pass is 24 frames (two
+# batches, under a second), so its frames/s is a short window, reported
+# per pass with the passes' spread.
+TRACK_FRAMES, TRACK_HW, TRACK_PASSES = 24, (720, 1280), 2
+TRACK_RANK, TRACK_TOP_SCORE = 5, 0.8
+
+
+def track_frames(n=TRACK_FRAMES, hw=TRACK_HW, seed=SEED + 80):
+    """Seeded low-light BGR frames: dark noise and six bright rectangles
+    moving at constant velocity, darkened as (u8/255)**DARK_PARAM."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    objs = [(rng.integers(0, h - 200), rng.integers(0, w - 300),
+             rng.integers(60, 200), rng.integers(60, 300),
+             rng.integers(-12, 13), rng.integers(-8, 9),
+             rng.uniform(0.6, 1.0, 3)) for _ in range(6)]
+    out = []
+    for f in range(n):
+        img = rng.uniform(0, 0.3, (h, w, 3))
+        for y, x, bh, bw, vx, vy, c in objs:
+            y0 = int(np.clip(y + vy * f, 0, h - 1))
+            x0 = int(np.clip(x + vx * f, 0, w - 1))
+            img[y0:y0 + bh, x0:x0 + bw] = c
+        out.append((img ** DARK_PARAM * 255).astype(np.uint8))
+    return out
+
+
+class time_tracker_updates:
+    """Within the block, the host ms of every tracker update (BYTETracker
+    and BOTSORT share `update`)."""
+
+    def __enter__(self):
+        from dedark_yolo_tpu_torch.trackers.byte_tracker import BYTETracker
+        self.cls, self.fn, self.ms = BYTETracker, BYTETracker.update, []
+
+        def update(tr, dets, img=None):
+            t0 = time.perf_counter()
+            try:
+                return self.fn(tr, dets, img)
+            finally:
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.cls.update = update
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.update = self.fn
+
+
+def track_pass(torch, yolo, seq, tracker, untracked, kw):
+    """One YOLO.track(persist=True) pass over `seq` with a new `tracker`,
+    under no_plain_on_cuda: frames/s, the trackers' host ms a frame, the
+    predictor's ms an image, the launches, and whether a fresh host tracker
+    fed the `untracked` detections of the same frames gives the same ids
+    and boxes (`ok` also wants every frame and at least one identity)."""
+    import numpy as np
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.trackers import make_tracker
+    yolo._tracker = None
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_plain_on_cuda(), time_tracker_updates() as tm:
+        res = yolo.track(str(seq), persist=True, tracker=tracker, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    fresh = make_tracker(tracker)
+    same = all(np.array_equal(
+        fresh.update(u.boxes.data, img=u.orig_img[..., ::-1])[:, :7],
+        r.boxes.data) for r, u in zip(res, untracked))
+    ids = {int(i) for r in res for i in r.boxes.id}
+    speed = dict(yolo.predictor.speed)
+    return {"frames_per_s": len(res) / secs, "seconds": secs,
+            "tracked_boxes": int(sum(len(r) for r in res)),
+            "identities": len(ids),
+            "tracker_host_ms_per_frame": sum(tm.ms) / len(tm.ms),
+            "predictor_ms_per_image": sum(speed.values()),
+            "predictor_speed": speed, "launches": launches,
+            "fresh_tracker_equal": same,
+            "ok": same and len(res) == TRACK_FRAMES and len(ids) > 0}
+
+
+def phase_track(torch, yolo):
+    """TRACK_PASSES passes of track_pass over the .npy sequence with each
+    tracker (frames/s, the trackers' host ms a frame against the
+    predictor's ms an image, the passes' spread), fused_enhance and nms
+    once a batch."""
+    import math
+    import tempfile
+    import numpy as np
+    import scipy.optimize  # noqa: F401  (imported before the timed updates)
+    from dedark_yolo_tpu_torch.trackers import load_tracker_cfg
+    frames = track_frames()
+    kw = dict(imgsz=IMGSZ, batch=BATCH, conf=CONF)
+    batches = -(-TRACK_FRAMES // BATCH)
+    try:
+        import cv2  # noqa: F401
+        gmcs = ["none", "sparseOptFlow"]
+    except ImportError:
+        gmcs = ["none"]
+    rec = {"phase": "track", "frames": TRACK_FRAMES, "hw": list(TRACK_HW),
+           "batch": BATCH, "imgsz": IMGSZ, "conf": CONF, "runs": {},
+           "launches": {"fused_enhance": 0, "nms": 0}}
+    ok = True
+    head = yolo.model.model[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = Path(tmp) / "seq"
+        seq.mkdir()
+        for i, f in enumerate(frames):
+            np.save(seq / f"f{i:03d}.npy", f)
+        q = float(np.median([np.sort(r.boxes.conf)[::-1][TRACK_RANK - 1]
+                             for r in yolo.predict(str(seq), **{
+                                 **kw, "conf": 0.001})]))
+        logit = lambda p: math.log(p / (1 - p))
+        shift = logit(TRACK_TOP_SCORE) - logit(q)
+        rec["class_logit_shift"] = shift
+        with torch.no_grad():
+            for branch in head.cv3:
+                branch[-1].bias += shift
+        try:
+            untracked = yolo.predict(str(seq), **kw)
+            cases = [("bytetrack", None)] + [("botsort", g) for g in gmcs]
+            for name, gmc in cases:
+                key = name if gmc is None else f"{name}_{gmc}"
+                tracker = f"{name}.yaml"
+                if gmc is not None:
+                    cfg = {**vars(load_tracker_cfg(tracker)), "gmc_method": gmc}
+                    tracker = str(Path(tmp) / f"{key}.json")
+                    Path(tracker).write_text(json.dumps(cfg))
+                passes = []
+                for _ in range(TRACK_PASSES):
+                    p = track_pass(torch, yolo, seq, tracker, untracked, kw)
+                    check_launches(f"track {key}", p["launches"],
+                                   {"fused_enhance": batches, "nms": batches})
+                    for k in rec["launches"]:
+                        rec["launches"][k] += p["launches"][k]
+                    ok = ok and p.pop("ok")
+                    passes.append(p)
+                rec["runs"][key] = {"passes": passes, **spread(
+                    passes, ("frames_per_s", "tracker_host_ms_per_frame"))}
+        finally:
+            with torch.no_grad():
+                for branch in head.cv3:
+                    branch[-1].bias -= shift
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"track: {rec}")
+    return rec
+
+
+# benchmark phase: YOLO.benchmark(imgsz=640) of the flagship, fp32 and
+# bf16 at batches 1, 8 and 32, BENCH_WARMUP warm-up calls and BENCH_ITERS
+# timed a row; the whole table BENCH_RUNS times, each row reported per run
+# with the runs' spread.
+BENCH_BATCHES, BENCH_WARMUP, BENCH_ITERS, BENCH_RUNS = (1, 8, 32), 5, 30, 2
+
+
+def phase_benchmark(torch, yolo):
+    """The precision x batch table BENCH_RUNS times: no "error" row, each
+    row's images/s per run and the runs' spread, fused_enhance and nms
+    once a call (warm-ups included) under no_plain_on_cuda."""
+    from dedark_yolo_tpu_torch.ops import _build
+    zero_launches()
+    tables = []
+    with no_plain_on_cuda():
+        for _ in range(BENCH_RUNS):
+            tables.append(yolo.benchmark(
+                imgsz=IMGSZ, batch_sizes=BENCH_BATCHES, warmup=BENCH_WARMUP,
+                iters=BENCH_ITERS))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    calls = BENCH_RUNS * 2 * len(BENCH_BATCHES) * (BENCH_WARMUP + BENCH_ITERS)
+    bad = [r for t in tables for r in t if "error" in r]
+    rows = [{"precision": rs[0]["precision"], "batch": rs[0]["batch"],
+             "img_per_sec": [r.get("img_per_sec") for r in rs],
+             **({} if bad else spread(rs, ("img_per_sec",)))}
+            for rs in zip(*tables)]
+    rec = {"phase": "benchmark", "imgsz": IMGSZ, "warmup": BENCH_WARMUP,
+           "iters": BENCH_ITERS, "rows": rows, "launches": launches}
+    emit(rec)
+    check_launches("benchmark", launches, {"fused_enhance": calls,
+                                           "nms": calls})
+    if bad or any(len(t) != 2 * len(BENCH_BATCHES) for t in tables):
+        raise AssertionError(f"benchmark: {tables}")
+    return rec
 
 
 def main():
@@ -2840,6 +3186,9 @@ def main():
     phase_cpu(torch, yolo, frames[0])
     pred_rs = phase_predict_resize(torch, yolo, pred, frames)
     extras = phase_predict_extras(torch, yolo, frames, pred)
+    serve = phase_serve(torch, yolo, frames)
+    track = phase_track(torch, yolo)
+    bench = phase_benchmark(torch, yolo)
     zoo = phase_zoo(torch, frames)
     probe_launches = phase_probe(torch)
     train = phase_train(torch)
@@ -2872,6 +3221,9 @@ def main():
         "predict_resize_launches": pred_rs["launches"]["fused_enhance"],
         "predict_extras_launches": extras["launches"]["fused_enhance"],
         "zoo_launches": zoo["launches"]["fused_enhance"],
+        "serve_launches": serve["launches"]["fused_enhance"],
+        "track_launches": track["launches"]["fused_enhance"],
+        "benchmark_launches": bench["launches"]["fused_enhance"],
         "val_resize_launches": val_rs["launches"]["fused_enhance"],
         "loop_mp_launches": loop_mp["launches"]["fused_enhance"],
         "autobatch_launches":
@@ -2917,6 +3269,9 @@ def main():
         "predict_resize_launches": pred_rs["launches"]["nms"],
         "predict_extras_launches": extras["launches"]["nms"],
         "zoo_launches": zoo["launches"]["nms"],
+        "serve_launches": serve["launches"]["nms"],
+        "track_launches": track["launches"]["nms"],
+        "benchmark_launches": bench["launches"]["nms"],
         "val_resize_launches": val_rs["launches"]["nms"],
         "loop_mp_launches": loop_mp["launches"]["nms"],
         "autobatch_launches": loop_mp["autobatch"]["launches"]["nms"]}]})

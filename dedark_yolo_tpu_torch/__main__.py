@@ -2,15 +2,18 @@
 `__main__.py`; reference `yolo TASK MODE k=v`, ultralytics/cfg/__init__.py:
 286-423).
 
-`train`, `val` and `predict` run through the `YOLO` facade on `device`
-(cuda unless `device=cpu`); each prints its outcome as the last line of
-standard output, `results {json}`: the results dict of train and val, the
-image and detection counts of predict. `predict` saves the annotated
-images unless `save=False`, as the JAX CLI does (JAX `__main__.py:191`;
-drawing needs OpenCV). The modes track, export, benchmark and serve and
-the tasks segment, pose and classify are not ported and exit with 1,
-naming their ROADMAP item; a bare token
-that is neither a task, a mode nor k=v exits with 2 and a suggestion.
+`train`, `val`, `predict`, `track` and `benchmark` run through the `YOLO`
+facade on `device` (cuda unless `device=cpu`); each prints its outcome as
+the last line of standard output, `results {json}`: the results dict of
+train and val, the image and detection counts of predict, the frame and
+identity counts of track, the rows of benchmark. `predict` and `track`
+save their annotated images unless `save=False`, as the JAX CLI does (JAX
+`__main__.py:191-201`; drawing needs OpenCV). `serve` starts the
+dynamic-batching HTTP server (`engine/server.py`; `port` key, `batch` the
+batch size) and serves until interrupted. The mode export, benchmark's
+formats, exported artifacts and the tasks segment, pose and classify are
+not ported and exit with 1, naming their ROADMAP item; a bare token that
+is neither a task, a mode nor k=v exits with 2 and a suggestion.
 Special commands: help, version, cfg (the defaults as JSON), checks,
 settings and copy-cfg (the defaults as a JSON file that `cfg=` reads back).
 """
@@ -30,21 +33,27 @@ from .utils import LOGGER
 MODES = ("train", "val", "predict", "track", "export", "benchmark", "serve")
 TASKS = ("detect", "segment", "pose", "classify")
 SPECIAL = ("help", "version", "cfg", "checks", "settings", "copy-cfg")
-UNPORTED = {"track": "A12", "export": "A12", "benchmark": "A12",
-            "serve": "A12", "segment": "A12", "pose": "A12",
+UNPORTED = {"export": "A12", "segment": "A12", "pose": "A12",
             "classify": "A12"}
 CLI_KEYS = ("model", "source", "cfg")
+# keys of one mode that are arguments of its call, not config keys (JAX
+# __main__.py:143-147)
+MODE_KEYS = {"serve": ("port",), "track": ("persist",),
+             "benchmark": ("formats", "export_dir", "batch_sizes", "iters")}
 
 HELP = f"""dedark_yolo_tpu_torch CLI (PyTorch/CUDA)
 
     python -m dedark_yolo_tpu_torch [TASK] MODE k=v ...
 
-modes: {', '.join(MODES)} (ported: train, val, predict)
+modes: {', '.join(MODES)} (ported: all but export)
 tasks: {', '.join(TASKS)} (ported: detect)
 examples:
     python -m dedark_yolo_tpu_torch train model=yolov8l.yaml data=data.json epochs=5 imgsz=640 batch=16
     python -m dedark_yolo_tpu_torch val model=runs/detect/train/weights/best.npz data=data.json
     python -m dedark_yolo_tpu_torch predict model=best.npz source=images/ conf=0.4
+    python -m dedark_yolo_tpu_torch track model=best.npz source=video.mp4 tracker=bytetrack.yaml
+    python -m dedark_yolo_tpu_torch benchmark model=best.npz batch_sizes=[1,8,32]
+    python -m dedark_yolo_tpu_torch serve model=best.npz port=8080 batch=8
     python -m dedark_yolo_tpu_torch val model=best.npz data=data.json device=cpu
 special:
     python -m dedark_yolo_tpu_torch cfg        # the default config as JSON
@@ -168,24 +177,66 @@ def entrypoint(argv=None) -> int:
     if mode not in MODES or task not in TASKS:
         LOGGER.error(f"unknown mode '{mode}' or task '{task}' (see 'help')")
         return 2
-    check_cfg_alignment(set(DEFAULT_CFG) | set(CLI_KEYS), overrides)
+    check_cfg_alignment(set(DEFAULT_CFG) | set(CLI_KEYS)
+                        | set(MODE_KEYS.get(mode, ())), overrides)
+    try:
+        return _run(mode, overrides)
+    except NotImplementedError as e:
+        LOGGER.error(str(e))
+        return 1
 
+
+def _run(mode, overrides) -> int:
+    model_spec = overrides.pop("model", None) or "yolov8l.yaml"
+    if mode == "serve":
+        return _serve(model_spec, overrides)
     from .engine.model import YOLO
-    model = YOLO(overrides.pop("model", None) or "yolov8l.yaml",
-                 device=overrides.get("device"))
+    model = YOLO(model_spec, device=overrides.get("device"))
     if mode == "train":
         _results(model.train(**overrides))
     elif mode == "val":
         _results(model.val(**overrides))
+    elif mode == "benchmark":
+        _results(model.benchmark(**overrides))
     else:
         source = overrides.pop("source", None)
         if source is None:
-            LOGGER.error("predict requires source=...")
+            LOGGER.error(f"{mode} requires source=...")
             return 1
-        results = model.predict(source, **{"save": True, **overrides})
+        call = model.track if mode == "track" else model.predict
+        results = call(source, **{"save": True, **overrides})
+        if mode == "track":
+            ids = {int(i) for r in results
+                   for i in (r.boxes.id if r.boxes.is_track else [])}
+            LOGGER.info(f"tracked {len(results)} frames, {len(ids)} identities")
+            _results({"frames": len(results), "identities": len(ids)})
+            return 0
         LOGGER.info(f"processed {len(results)} images")
         _results({"images": len(results),
                   "detections": int(sum(len(r) for r in results))})
+    return 0
+
+
+def _serve(model_spec, overrides) -> int:
+    """The HTTP server on `port` (default 8080) until interrupted (JAX
+    __main__.py:150-170); `batch` is its batch size (default 8)."""
+    import time
+    from .engine.server import InferenceServer
+    srv = InferenceServer(
+        model_spec, imgsz=int(overrides.get("imgsz", 640)),
+        max_batch=int(overrides.get("batch", 8)),
+        conf=float(overrides.get("conf", 0.25)),
+        iou=float(overrides.get("iou", 0.7)),
+        max_det=int(overrides.get("max_det", 300)),
+        half=bool(overrides.get("half", False)),
+        device=overrides.get("device"))
+    httpd, _ = srv.serve(port=int(overrides.get("port", 8080)))
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        httpd.shutdown()
+        srv.close()
     return 0
 
 

@@ -47,6 +47,7 @@ DEFAULT_CFG = {
     "boxes": True,               # plot: boxes (False: the bare image)
     "line_width": None,          # plot: box width (None: from the image size)
     "vid_stride": 1,             # every n-th video frame
+    "tracker": "botsort.yaml",   # track: botsort.yaml | bytetrack.yaml | a tracker file
     # val (engine/validator.py)
     "data": None,                # dataset yaml path, or the dataset dict
     "split": "val",              # dataset split to validate
@@ -139,7 +140,7 @@ _BOOL_KEYS = {"half", "agnostic_nms", "cos_lr", "lowlight_FLAG", "dedark_FLAG",
 _PRECISIONS = ("default", "tensorfloat32", "float32")
 
 # Keys of the JAX package's cfg/default.yaml that the port does not carry:
-# the export, tracking, mesh and other-task keys (ROADMAP A10b, A12), and
+# the export, mesh and other-task keys (ROADMAP A10b, A12), and
 # the CLI's own model/source/mode/task/cfg, which the CLI takes before the
 # config is checked.
 UNPORTED_KEYS = frozenset((
@@ -147,8 +148,7 @@ UNPORTED_KEYS = frozenset((
     "format", "fpn_fuse", "fuse", "int8", "keras", "kobj",
     "label_smoothing", "mask_ratio", "mesh_axes", "mesh_shape", "mode",
     "model", "nms", "opset", "optimize", "overlap_mask", "pose", "remat",
-    "retina_masks", "simplify", "source", "stem_s2d", "task", "tracker",
-    "workspace"))
+    "retina_masks", "simplify", "source", "stem_s2d", "task", "workspace"))
 
 
 def check_cfg_alignment(base_keys, custom: dict) -> None:
@@ -205,7 +205,7 @@ def _coerce(k, v):
         raise TypeError(f"'data={v}' must be a path or a dict")
     elif k == "pretrained" and not isinstance(v, (bool, str, Path)):
         raise TypeError(f"'pretrained={v}' must be a bool or a path")
-    elif k in ("project", "name") and not isinstance(v, (str, Path)):
+    elif k in ("project", "name", "tracker") and not isinstance(v, (str, Path)):
         raise TypeError(f"'{k}={v}' must be a path")
     elif k == "matmul_precision" and v not in _PRECISIONS:
         raise ValueError(f"matmul_precision '{v}' is not one of "

@@ -6,11 +6,13 @@ then train, predict or validate.
     YOLO(["a.npz", "b.npz"])     # an ensemble of checkpoints of one architecture
 
 The model lives on `device` (None means cuda, and raises without a CUDA
-device); `train`, `predict` and `val` run on their own `device` key, cuda
-by default. The rest of the JAX facade (model.py:272-514): `__call__`,
+device); `train`, `predict`, `val` and `track` run on their own `device`
+key, cuda by default. The rest of the JAX facade (model.py:272-514):
+`track` (the predictor's stream through a host tracker, `trackers/`),
+`benchmark` (precision x batch, `engine/benchmarks.py`), `__call__`,
 `names`, `transforms`, `to`, `load`, `reset_weights`, `fuse`,
-`add_callback` / `clear_callback`, `tune` and `info`. Not ported: `track`,
-`export` and `benchmark` (ROADMAP A12).
+`add_callback` / `clear_callback`, `tune` and `info`. Not ported: `export`
+and `benchmark(formats=...)` (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -19,13 +21,14 @@ from pathlib import Path
 
 import torch
 
-from ..cfg import get_cfg, model_yaml_load
+from ..cfg import DEFAULT_CFG, get_cfg, model_yaml_load
 from ..data.dataset import check_det_dataset
 from ..nn.enhance import LowlightRecovery
 from ..nn.graph import DetectionModel
 from ..utils import LOGGER, increment_dir
 from ..utils.checkpoint import (has_section, load_checkpoint, section_tree,
                                 transfer_tree)
+from ..utils.patches import require
 from ..utils.weights import init_weights, state_dict_from_jax
 from .predictor import DetectionPredictor, resolve_device
 from .trainer import DetectionTrainer
@@ -55,7 +58,8 @@ class YOLO:
             return
         if model.endswith((".bin", ".tflite")):
             raise NotImplementedError(
-                f"exported artifacts (AutoBackend) are not ported: '{model}'")
+                f"exported artifacts (AutoBackend) are not ported: '{model}' "
+                "(ROADMAP A12)")
         self.model_yaml = model_yaml_load(model)
         self._build(nc)
         init_weights(self.model, seed)
@@ -152,6 +156,86 @@ class YOLO:
                                             members=self.members)
         self.device = self.predictor.device
         return self.predictor(source, stream=stream)
+
+    def track(self, source, stream=False, persist=False, **kwargs):
+        """Multi-object tracking over a video or image-sequence source (JAX
+        model.py:276-340): detection runs batched on the device through
+        the predictor's stream, association on the host a frame at a time
+        (`trackers/`); each Results' boxes carry the track id in a 7th
+        column. conf defaults to 0.1 (ByteTrack needs the low-score
+        candidates). persist=True keeps the tracker of the previous call
+        (ids continue) and across a source's files (a directory of frames
+        or `.npy` arrays is one sequence); else a fresh tracker of the
+        `tracker` config (botsort.yaml by default) starts. Saving runs
+        after the ids are stamped: `save` writes annotated frames (a
+        video's as one <stem>_track.mp4, through OpenCV), save_txt label
+        files with the id, save_crop crops."""
+        from ..trackers import make_tracker, track_results
+        kwargs.setdefault("conf", 0.1)
+        if not (persist and getattr(self, "_tracker", None) is not None):
+            self._tracker = make_tracker(kwargs.pop("tracker", None)
+                                         or DEFAULT_CFG["tracker"])
+        kwargs.pop("tracker", None)
+        save = bool(kwargs.pop("save", False))
+        save_txt = bool(kwargs.pop("save_txt", False))
+        save_crop = bool(kwargs.pop("save_crop", False))
+        save_conf = bool(kwargs.get("save_conf", False))
+        inner = track_results(
+            self.predict(source, stream=True, save=False, save_txt=False,
+                         save_crop=False, **kwargs),
+            self._tracker, persist_between_sources=persist)
+
+        def gen():
+            writers = {}
+            try:
+                for k, res in enumerate(inner):
+                    if save or save_txt or save_crop:
+                        sd = Path(self.predictor.save_dir)
+                        p = Path(res.path)
+                        stem = f"{p.stem or 'frame'}_{k:05d}"
+                        meta = getattr(res, "source_meta", None)
+                        if save and meta is not None:
+                            # a video's frames: one annotated mp4 a source
+                            cv2 = require("cv2", "saving a tracked video")
+                            w = writers.get(res.path)
+                            if w is None:
+                                sd.mkdir(parents=True, exist_ok=True)
+                                h, wd = res.orig_shape
+                                w = writers[res.path] = cv2.VideoWriter(
+                                    str(sd / f"{p.stem}_track.mp4"),
+                                    cv2.VideoWriter_fourcc(*"mp4v"),
+                                    max(float(meta[1]), 1.0), (wd, h))
+                            w.write(res.plot()[..., ::-1])
+                        elif save:
+                            res.save(sd / f"{stem}.jpg")
+                        if save_txt:
+                            res.save_txt(sd / "labels" / f"{stem}.txt",
+                                         save_conf=save_conf)
+                        if save_crop:
+                            res.save_crop(sd / "crops",
+                                          file_name=p.stem or "frame")
+                    yield res
+            finally:
+                for w in writers.values():
+                    w.release()
+
+        g = gen()
+        return g if stream else list(g)
+
+    def benchmark(self, **kwargs):
+        """fp32 and bf16 rows of images/s at each batch size on the card
+        (`engine/benchmarks.py`; JAX model.py:361-374), with `data` an mAP
+        row. formats= (every export format) is not ported (ROADMAP A12)."""
+        from .benchmarks import benchmark
+        overrides = {**self.overrides, **kwargs}
+        overrides.pop("model", None)
+        overrides.pop("export_dir", None)       # formats= only
+        if overrides.pop("formats", None):
+            raise NotImplementedError(
+                "benchmark(formats=...) exports every format and needs the "
+                "exporter, which is not ported to dedark_yolo_tpu_torch "
+                "(ROADMAP A12)")
+        return benchmark(self, **overrides)
 
     def add_callback(self, event, fn):
         """Run fn(trainer) at `event` (utils.callbacks.HOOKS) of the next

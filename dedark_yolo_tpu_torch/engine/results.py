@@ -6,8 +6,8 @@ in original-image pixels, with the reference's API (`plot`, `save`,
 `save_txt`, `save_crop`, `tojson`, `verbose`, indexing). Drawing and
 encoding go through OpenCV (`utils.plotting`), imported at call time;
 `tojson`, `save_txt`, `verbose` and the arrays need no package beyond
-numpy. Masks, keypoints, probs and `update_tracks` belong to the other
-tasks and the trackers (ROADMAP A12).
+numpy. `update_tracks` takes a tracker's output (`track`). Masks,
+keypoints and probs belong to the other tasks (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -142,6 +142,15 @@ class Results:
         """Replace the boxes in place (reference results.py:114-122)."""
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
+
+    def update_tracks(self, tracks):
+        """Replace the boxes with a tracker's output (m, 8) [x1, y1, x2, y2,
+        id, conf, cls, det_idx] (JAX results.py:218-229; det_idx re-indexes
+        the other tasks' masks and keypoints, which the port does not
+        carry)."""
+        tracks = np.asarray(tracks, np.float32).reshape(-1, 8)
+        self.boxes = Boxes(tracks[:, :7], self.orig_shape)
+        return self
 
     def verbose(self):
         """'4 persons, 1 bus, ' style log string (reference results.py:

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ..ops.anchors import dfl_decode, dist2bbox, make_anchors
-from .layers import BiasConv2d, Conv
+from .layers import BiasConv2d, Conv, sigmoid
 
 
 class Detect(nn.Module):
@@ -79,4 +79,4 @@ def decode_detections(raw_maps, nc: int, strides: Sequence[int],
     box, cls = x[..., :4 * reg_max], x[..., 4 * reg_max:]
     dist = dfl_decode(box, reg_max)
     dbox = dist2bbox(dist, anchors[None], xywh=True) * stride_t[None]
-    return dbox, torch.sigmoid(cls)
+    return dbox, sigmoid(cls)

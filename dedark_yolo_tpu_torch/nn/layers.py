@@ -57,6 +57,14 @@ def silu(x):
     return _SiluBF16.apply(x)
 
 
+def sigmoid(x):
+    """jax.nn.sigmoid: on a bf16 map XLA's logistic, 1 / (1 + exp(-x)) in
+    rounded steps (the bf16 decode of the benchmark's bf16 rows)."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def leaky_relu(x):
     """LeakyReLU(0.1)."""
     if x.dtype != torch.bfloat16:

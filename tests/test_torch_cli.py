@@ -145,8 +145,10 @@ def test_cli_train_and_predict(setup, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["track", "source=x"], "A12"), (["export"], "A12"),
-    (["benchmark"], "A12"), (["serve"], "A12"), (["segment", "val"], "A12"),
+    (["export", "format=torchscript"], "A12"), (["export"], "A12"),
+    (["benchmark", "formats=True", "device=cpu", f"model={TINY}"],
+     "A12"), (["serve", "model=best.bin", "device=cpu"], "A12"),
+    (["segment", "val"], "A12"),
     (["pose", "train"], "A12"), (["classify", "predict"], "A12"),
     (["val", "task=segment"], "A12")])
 def test_unported_modes_and_tasks_exit_nonzero(argv, item, caplog):
