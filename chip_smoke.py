@@ -88,8 +88,9 @@ line:
            sidecars (cache='disk', data as a dict), BN calibrated on each
            set's own images: 8 images of 3 shapes at imgsz 128 on the card
            against the CPU image by image (counts, classes, TP matrices,
-           boxes, scores) and by metrics (plain, save_hybrid, with_loss;
-           TF32 off; fused_enhance and nms once a batch), then
+           boxes, scores), by metrics and by the plots' confusion matrix
+           (plain, save_hybrid, with_loss; TF32 off; fused_enhance and nms
+           once a batch), then
            contrast_mode 'reference' (usm and nms once a batch); then 64
            images of 4 shapes, longest side 640, at the val defaults (b16,
            conf 0.001): a warm-up call and a timed one, fused_enhance and
@@ -98,6 +99,17 @@ line:
            (resized max-side by data/imgops.py) at 128 and 640, cv2
            blocked: the card against the CPU as in val, and the images
            the dataset loaded equal in both runs
+  darkset  the fork's data path: 48 clean frames (16 each at 480x640,
+           720x1280, 1080x1920) through the low-light maker's core on the
+           card at 7.5 and 5 (b16; the 256-level lookup against the CPU's,
+           5 bit-equal to the CPU; images/s a resolution with each call's
+           CUDA-event span), the 7.5 frames written as the dark split that
+           the packaged tielu.yaml names, autosplit, calc_dataset_info and
+           DatasetStats counted against the labels, then the flagship's val
+           of it (b16/640, f32) with plots=False and plots=True: launches
+           fused_enhance 3 and nms 3 each, equal results, the confusion
+           matrix equal to one rebuilt from the detections, the plot files
+           (none where matplotlib does not import); cv2 blocked
   train_loop  YOLO(...).train() on seeded low-light .npy sidecars (data a
            dict, cache='disk', longest side = imgsz): the flagship at 128,
            b2, two epochs on the card against the CPU from one seeded .npz
@@ -980,48 +992,64 @@ VAL_METRIC_RTOL = 1e-6
 VAL_LOSS_RTOL = 1e-4
 
 
-def val_dataset(root, n, shapes, seed, split="val"):
-    """A seeded YOLO-layout val split under `root`: low-light images (dark
-    32-px colour blocks with noise, 1-8 filled boxes of class colours, then
-    (u8/255)**DARK_PARAM) of the given (h, w) shapes in turns, each written
-    as its .npy sidecar beside an empty placeholder .jpg (the card has no
-    image decoder: the validator reads them with cache='disk'), and their
-    label files. No two boxes of an image overlap at IoU above 0.5, so NMS
-    keeps every label of save_hybrid. Returns the dataset dict."""
+def scene(rng, h, w):
+    """One seeded scene of (h, w): dark 32-px colour blocks with noise and
+    1-8 filled boxes of class colours, no two of them overlapping at IoU
+    above 0.5; (the image in [0, 1], its YOLO label rows, 6 decimals)."""
     import numpy as np
     import torch
     from dedark_yolo_tpu_torch.ops.boxes import box_iou_matrix
-    rng = np.random.default_rng(seed)
     colours = np.array([(255, 64, 64), (64, 255, 64), (64, 64, 255)], np.float32)
+    base = rng.uniform(0, 0.5, (-(-h // 32), -(-w // 32), 3))
+    img = np.kron(base, np.ones((32, 32, 1)))[:h, :w] * 255
+    boxes, rows = [], []
+    for _ in range(int(rng.integers(VAL_BOXES[0], VAL_BOXES[1] + 1))):
+        for _ in range(50):
+            bw = int(rng.integers(max(8, w // 10), w // 2))
+            bh = int(rng.integers(max(8, h // 10), h // 2))
+            x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            box = (x1, y1, x1 + bw, y1 + bh)
+            if not boxes or float(box_iou_matrix(
+                    torch.tensor([box], dtype=torch.float32),
+                    torch.tensor(boxes, dtype=torch.float32)).max()) <= 0.5:
+                break
+        else:
+            continue
+        c = int(rng.integers(0, len(VAL_NAMES)))
+        boxes.append(box)
+        img[y1:y1 + bh, x1:x1 + bw] = colours[c]
+        rows.append(f"{c} {(x1 + bw / 2) / w:.6f} {(y1 + bh / 2) / h:.6f} "
+                    f"{bw / w:.6f} {bh / h:.6f}")
+    return np.clip(img / 255 + rng.normal(0, 0.03, img.shape), 0, 1), rows
+
+
+def write_sidecar(img_dir, lbl_dir, stem, img, rows):
+    """One image of the .npy-sidecar layout: the BGR array as `stem.npy`
+    beside an empty placeholder `stem.jpg` (the card has no image decoder:
+    the datasets read the sidecar with cache='disk'), and its label file
+    unless `rows` is None."""
+    import numpy as np
+    np.save(img_dir / f"{stem}.npy", img)
+    (img_dir / f"{stem}.jpg").write_bytes(b"")
+    if rows is not None:
+        (lbl_dir / f"{stem}.txt").write_text("\n".join(rows) + "\n")
+
+
+def val_dataset(root, n, shapes, seed, split="val"):
+    """A seeded YOLO-layout val split under `root`: low-light images (a
+    `scene` each, then (u8/255)**DARK_PARAM) of the given (h, w) shapes in
+    turns, written as .npy sidecars with their label files. No two boxes
+    of an image overlap at IoU above 0.5, so NMS keeps every label of
+    save_hybrid. Returns the dataset dict."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
     img_dir, lbl_dir = root / "images" / split, root / "labels" / split
     img_dir.mkdir(parents=True)
     lbl_dir.mkdir(parents=True)
     for k in range(n):
-        h, w = shapes[k % len(shapes)]
-        base = rng.uniform(0, 0.5, (-(-h // 32), -(-w // 32), 3))
-        img = np.kron(base, np.ones((32, 32, 1)))[:h, :w] * 255
-        boxes, rows = [], []
-        for _ in range(int(rng.integers(VAL_BOXES[0], VAL_BOXES[1] + 1))):
-            for _ in range(50):
-                bw = int(rng.integers(max(8, w // 10), w // 2))
-                bh = int(rng.integers(max(8, h // 10), h // 2))
-                x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
-                box = (x1, y1, x1 + bw, y1 + bh)
-                if not boxes or float(box_iou_matrix(
-                        torch.tensor([box], dtype=torch.float32),
-                        torch.tensor(boxes, dtype=torch.float32)).max()) <= 0.5:
-                    break
-            else:
-                continue
-            c = int(rng.integers(0, len(VAL_NAMES)))
-            boxes.append(box)
-            img[y1:y1 + bh, x1:x1 + bw] = colours[c]
-            rows.append(f"{c} {(x1 + bw / 2) / w:.6f} {(y1 + bh / 2) / h:.6f} "
-                        f"{bw / w:.6f} {bh / h:.6f}")
-        img = np.clip(img / 255 + rng.normal(0, 0.03, img.shape), 0, 1)
-        np.save(img_dir / f"{k}.npy", (img ** DARK_PARAM * 255).astype(np.uint8))
-        (img_dir / f"{k}.jpg").write_bytes(b"")
-        (lbl_dir / f"{k}.txt").write_text("\n".join(rows) + "\n")
+        img, rows = scene(rng, *shapes[k % len(shapes)])
+        write_sidecar(img_dir, lbl_dir, k,
+                      (img ** DARK_PARAM * 255).astype(np.uint8), rows)
     return {"path": str(root), split: f"images/{split}", "names": dict(VAL_NAMES)}
 
 
@@ -1035,7 +1063,8 @@ def val_images(data, n):
 class record_detections:
     """Within the block, each image the validator matched, in processing
     order: (native xyxy boxes, classes, TP matrix) from its wrapped
-    `match_predictions`, and all images' scores in the same order from its
+    `match_predictions`, with the image's labels (native xyxy boxes,
+    classes) in `gts`, and all images' scores in the same order from its
     wrapped `DetMetrics.process`."""
 
     def __enter__(self):
@@ -1043,11 +1072,13 @@ class record_detections:
         from dedark_yolo_tpu_torch.engine import validator as V
         self.module, self.match = V, V.match_predictions
         self.process = V.DetMetrics.process
-        self.images, self.scores = [], np.zeros(0, np.float32)
+        self.images, self.gts = [], []
+        self.scores = np.zeros(0, np.float32)
 
         def recorded(pred_boxes, pred_cls, gt_boxes, gt_cls):
             tp = self.match(pred_boxes, pred_cls, gt_boxes, gt_cls)
             self.images.append((np.array(pred_boxes), np.array(pred_cls), tp))
+            self.gts.append((np.array(gt_boxes), np.array(gt_cls)))
             return tp
 
         def processed(metrics, tp, conf, pred_cls, target_cls):
@@ -1129,6 +1160,60 @@ def compare_images(gpu, cpu):
     return rec
 
 
+def confusion_of(dets, gts, nc):
+    """The validator's ConfusionMatrix (conf 0.25, IoU 0.45) rebuilt on the
+    host from per-image detections (boxes, classes, TP, scores) and
+    labels, as the validator feeds it: one (k, 6) f32 [xyxy, conf, cls]
+    array an image."""
+    import numpy as np
+    from dedark_yolo_tpu_torch.utils.metrics import ConfusionMatrix
+    cm = ConfusionMatrix(nc=nc)
+    for (boxes, cls, _, scores), (gb, gc) in zip(dets, gts):
+        det = np.concatenate([np.reshape(boxes, (-1, 4)), np.reshape(scores, (-1, 1)),
+                              np.reshape(cls, (-1, 1))], 1).astype(np.float32)
+        cm.process_batch(det, gb, gc)
+    return cm.matrix
+
+
+def compare_confusion(gpu, cpu, cm_gpu, cm_cpu, nc):
+    """The card's confusion matrix against the CPU's through the pairing of
+    compare_images: equal; or, where a pair lies on the two sides of the
+    matrix's conf (0.25) or of its IoU (0.45) with a label of its image,
+    equal to the matrix of the CPU's detections each replaced by its card
+    partner. Each side's matrix must also equal the one rebuilt from its
+    own recorded detections."""
+    import numpy as np
+    import torch
+    from dedark_yolo_tpu_torch.ops.boxes import box_iou_matrix
+    from dedark_yolo_tpu_torch.utils.metrics import ConfusionMatrix
+    probe = ConfusionMatrix(nc=nc)
+    g_dets, c_dets = gpu.detections(), cpu.detections()
+    rec = {"cm_equal": bool(np.array_equal(cm_gpu, cm_cpu)),
+           "cm_max_cell_diff": float(np.abs(cm_gpu - cm_cpu).max()),
+           "cm_labels": float(cm_cpu[:, :nc].sum()),
+           "cm_own": [bool(np.array_equal(cm_gpu, confusion_of(g_dets, gpu.gts, nc))),
+                      bool(np.array_equal(cm_cpu, confusion_of(c_dets, cpu.gts, nc)))]}
+    straddles, swapped = 0, []
+    for g, c, (gb, _) in zip(g_dets, c_dets, cpu.gts):
+        order, _, _ = pair_detections(g, c)
+        partner = tuple(np.asarray(x)[order] for x in g)
+        swapped.append(partner)
+        conf_side = (partner[3] > probe.conf) != (np.asarray(c[3]) > probe.conf)
+        straddles += int(conf_side.sum())
+        if len(gb) and len(order):
+            iou = [box_iou_matrix(torch.from_numpy(np.asarray(gb, np.float32)),
+                                  torch.from_numpy(np.asarray(b, np.float32))
+                                  ).numpy() > probe.iou_thres
+                   for b in (partner[0], c[0])]
+            straddles += int((iou[0] != iou[1]).any(0).sum())
+    rec["cm_straddles"] = straddles
+    rec["cm_paired_equal"] = bool(np.array_equal(
+        cm_gpu, confusion_of(swapped, cpu.gts, nc)))
+    rec["cm_ok"] = all(rec["cm_own"]) and (
+        rec["cm_equal"] or (straddles > 0 and rec["cm_paired_equal"]))
+    return rec
+
+
 class record_steps:
     """Within the block, each val batch's host ms inside the device step
     (`predictor.detect_step` as the validator calls it: forward, decode,
@@ -1197,7 +1282,8 @@ def set_contrast_mode(model, mode):
 def val_parity(torch, yolo, data):
     """The card's val against the CPU's on the small dataset, TF32 off, in
     contrast_mode 'channel': plain, save_hybrid and with_loss, image by
-    image (compare_images) and by the results dict; the card's runs launch
+    image (compare_images), by the results dict and by the confusion
+    matrix that plots=True fills (compare_confusion); the card's runs launch
     fused_enhance and nms once a batch, no plain version reached with a
     CUDA tensor. Then the card alone in contrast_mode 'reference' (usm, not
     fused_enhance, launched a batch)."""
@@ -1220,13 +1306,14 @@ def val_parity(torch, yolo, data):
     for name, extra, with_loss in (("plain", {}, False),
                                    ("save_hybrid", {"save_hybrid": True}, False),
                                    ("with_loss", {}, True)):
-        res, recs = {}, {}
+        res, recs, cms = {}, {}, {}
         for dev, model in (("cuda", yolo), ("cpu", cpu)):
             v = DetectionValidator(args=get_cfg({**kw, **extra, "device": dev}))
             zero_launches()
             with no_plain_on_cuda(), record_detections() as recs[dev]:
                 res[dev] = {k: float(x) for k, x in
                             v(model=model.model, with_loss=with_loss).items()}
+            cms[dev] = v.confusion_matrix.matrix
             if dev == "cuda":
                 torch.cuda.synchronize()
                 launches = dict(_build.LAUNCHES)
@@ -1240,6 +1327,10 @@ def val_parity(torch, yolo, data):
                                          for k in METRICS)}
         rec["ok"] = (rec["ok"] and rec["images"][1] == VAL_SMALL["n"]
                      and rec["metric_max_rel_err"] <= VAL_METRIC_RTOL)
+        if rec["ok"]:   # the plots' confusion matrix, through the pairing
+            rec.update(compare_confusion(recs["cuda"], recs["cpu"], cms["cuda"],
+                                         cms["cpu"], len(VAL_NAMES)))
+            rec["ok"] = rec["cm_ok"]
         if with_loss:
             rec["loss_max_rel_err"] = max(abs(g[k] - c[k]) / abs(c[k])
                                           for k in c if k.startswith("val/"))
@@ -2196,6 +2287,265 @@ def phase_val_resize(torch, yolo):
     emit({"phase": "val_resize", **out})
     if not ok:
         raise AssertionError(f"val_resize: card and CPU disagree: {out}")
+    return out
+
+
+# darkset phase: the fork's data path (its offline tools, ROADMAP A13).
+# Clean frames of three resolution groups go through the low-light maker's
+# core on the card, at JAX's default exponent 7.5 and at 5; the 7.5 frames
+# become the dark val split that the packaged card `tielu.yaml` names
+# (`images/test_dark`), beside the clean frames as `images/train`, in a
+# directory laid out so that the card's relative `path` finds them; then
+# autosplit, calc_dataset_info and DatasetStats count it, and the flagship
+# validates on it with plots=True and with plots=False. A label file is
+# left out for every LABELLESS-th frame, so that autosplit's annotated_only
+# and the unlabelled counts read something.
+DARKSET = {"shapes": [(480, 640), (720, 1280), (1080, 1920)], "per_shape": 16,
+           "batch": BATCH, "imgsz": IMGSZ, "params": (7.5, 5.0),
+           "split_param": 7.5, "labelless": 8, "reps": 3}
+DARKSET_NAMES = {0: "person", 1: "debrisflow", 2: "rockfall"}   # tielu.yaml's
+VAL_PLOTS = ["F1_curve.png", "PR_curve.png", "P_curve.png", "R_curve.png",
+             "confusion_matrix.png"]
+
+
+def darkset_frames():
+    """The phase's clean uint8 frames, `per_shape` of each shape in turn of
+    groups, and their label rows (None for a frame left without a label
+    file)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 90)
+    frames, rows = [], []
+    for h, w in DARKSET["shapes"]:
+        for _ in range(DARKSET["per_shape"]):
+            img, r = scene(rng, h, w)
+            frames.append((img * 255).astype(np.uint8))
+            rows.append(None if len(rows) % DARKSET["labelless"]
+                        == DARKSET["labelless"] - 1 else r)
+    return frames, rows
+
+
+def maker_core(torch, frames):
+    """lowlight_batches on the card at each exponent: the 256-level lookup
+    against the CPU's (equal at every level; a level that differs may
+    differ by one only, and is listed), every frame equal to the card's
+    lookup of its input, the integer exponent's frames bit-equal to the
+    CPU's; and each resolution group's images/s over `reps` calls
+    (upload, degrade, quantise, readback) with the CUDA-event span of each
+    call, and one batch's stages apart. Returns (the record, the card's
+    frames at `split_param`)."""
+    import numpy as np
+    from dedark_yolo_tpu_torch.engine.predictor import resolve_device
+    from dedark_yolo_tpu_torch.utils.lowlight_process import (degrade_u8,
+                                                              lowlight_batches)
+    levels = np.repeat(np.arange(256, dtype=np.uint8).reshape(16, 16, 1), 3, 2)
+    n, b = DARKSET["per_shape"], DARKSET["batch"]
+    out, dark = {"batch": b}, None
+    for p in DARKSET["params"]:
+        lut = {dev: lowlight_batches([levels], p, device=dev)[0].reshape(-1, 3)
+               for dev in ("cuda", "cpu")}
+        diff = lut["cuda"].astype(int) - lut["cpu"].astype(int)
+        rec = {"levels_differ": sorted({int(i) for i in np.nonzero(diff)[0]}),
+               "max_level_diff": int(np.abs(diff).max()),
+               "lut_channels_equal": bool((lut["cuda"] == lut["cuda"][:, :1]).all())}
+        card = lowlight_batches(frames, p, b)
+        rec["frames_match_lut"] = all(np.array_equal(o, lut["cuda"][f, 0])
+                                      for o, f in zip(card, frames))
+        if float(p).is_integer():
+            cpu = lowlight_batches(frames, p, b, device="cpu")
+            rec["frames_bit_equal_cpu"] = all(np.array_equal(x, y)
+                                              for x, y in zip(card, cpu))
+            rec["ok"] = (rec["frames_bit_equal_cpu"] and not rec["levels_differ"])
+        else:
+            rec["ok"] = rec["max_level_diff"] <= 1
+        rec["ok"] = rec["ok"] and rec["frames_match_lut"] and rec["lut_channels_equal"]
+        rates = {}
+        for g, (h, w) in enumerate(DARKSET["shapes"]):
+            group = frames[g * n:(g + 1) * n]
+            lowlight_batches(group, p, b)                    # warm-up
+            host, span = [], []
+            for _ in range(DARKSET["reps"]):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                t0 = time.perf_counter()
+                ev[0].record()
+                lowlight_batches(group, p, b)
+                ev[1].record()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+                span.append(ev[0].elapsed_time(ev[1]))
+            # one batch by stages: the host's stack, then CUDA events
+            # around the upload, degrade_u8 and the readback
+            t0 = time.perf_counter()
+            x = np.stack(group[:b])
+            stack_ms = (time.perf_counter() - t0) * 1e3
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            x = torch.from_numpy(x).to(resolve_device(None))
+            ev[1].record()
+            y = degrade_u8(x, p)
+            ev[2].record()
+            y.cpu()
+            ev[3].record()
+            torch.cuda.synchronize()
+            rates[f"{h}x{w}"] = {
+                "images_per_s": n / (sum(host) / len(host) / 1e3),
+                "call_ms": host, "device_span_ms": span,
+                "stages_ms": {"stack": stack_ms,
+                              **{k: ev[i].elapsed_time(ev[i + 1]) for i, k in
+                                 enumerate(("upload", "degrade", "readback"))}}}
+        rec["rates"] = rates
+        out[str(p)] = rec
+        if p == DARKSET["split_param"]:
+            dark = card
+    return out, dark
+
+
+def label_stats(rows):
+    """Independent counts of the phase's labels, parsed as the dataset
+    reads them (f32): images with a label file; per class its instances,
+    images and small/medium/large objects (relative area below 0.005,
+    above 0.10)."""
+    import numpy as np
+    classes = {c: {"images": 0, "instances": 0, "small": 0, "medium": 0,
+                   "large": 0} for c in range(len(DARKSET_NAMES))}
+    for r in rows:
+        lb = np.array([[float(x) for x in line.split()] for line in r or []],
+                      np.float32).reshape(-1, 5)
+        for c in {int(x) for x in lb[:, 0]}:
+            classes[c]["images"] += 1
+        for row in lb:
+            k = classes[int(row[0])]
+            k["instances"] += 1
+            area = float(row[3] * row[4])
+            k["small" if area < 0.005 else "large" if area > 0.10 else "medium"] += 1
+    return {"labelled": sum(r is not None for r in rows), "classes": classes,
+            "unlabelled": sum(not r for r in rows)}
+
+
+
+def dataset_tools(rows):
+    """autosplit (annotated_only and not), calc_dataset_info and
+    DatasetStats on the dark split through the packaged card, each count
+    against label_stats of the rows."""
+    from dedark_yolo_tpu_torch.data.dataset import check_det_dataset
+    from dedark_yolo_tpu_torch.data.split import autosplit
+    from dedark_yolo_tpu_torch.data.stats import DatasetStats
+    from dedark_yolo_tpu_torch.utils.dataset_info import calc_dataset_info
+    want = label_stats(rows)
+    d = check_det_dataset("tielu.yaml")
+    rec = {"data": {k: d[k] for k in ("path", "train", "val", "nc")}}
+    dark_dir = Path(d["val"])
+    for only in (False, True):
+        files = autosplit(dark_dir, (0.8, 0.2, 0.0), annotated_only=only, seed=SEED)
+        listed = [len(f.read_text().splitlines()) if f.is_file() else 0
+                  for f in files]
+        rec[f"autosplit_annotated_only_{only}"] = listed
+        rec["ok_autosplit_" + str(only)] = sum(listed) == (
+            want["labelled"] if only else len(rows))
+    info = calc_dataset_info("tielu.yaml", split="val")
+    got = {c: info["classes"][DARKSET_NAMES[c]] for c in DARKSET_NAMES}
+    rec["info"] = {"total_images": info["total_images"], "classes": got}
+    rec["ok_info"] = (info["total_images"] == len(rows)
+                      and got == want["classes"]
+                      and (Path(d["path"]) / "dataset_status.json").is_file())
+    st = DatasetStats("tielu.yaml").get_json()
+    counts = {s: {"instances": st[s]["instance_stats"]["total"],
+                  "images": st[s]["image_stats"]["total"],
+                  "unlabelled": st[s]["image_stats"]["unlabelled"]}
+              for s in ("train", "val")}
+    instances = sum(c["instances"] for c in want["classes"].values())
+    rec["stats"] = counts
+    rec["ok_stats"] = all(c == {"instances": instances, "images": len(rows),
+                                "unlabelled": want["unlabelled"]}
+                          for c in counts.values()) and st["test"] is None
+    rec["expected"] = want
+    rec["ok"] = all(v for k, v in rec.items() if k.startswith("ok_"))
+    return rec
+
+
+def darkset_val(torch, yolo):
+    """The flagship's val of the dark split (data='tielu.yaml', b16/640,
+    f32, cache='disk') with plots=False, then plots=True: each run's
+    launches (fused_enhance and nms once a batch), images/s and files; the
+    two results dicts equal, and the plots=True run's confusion matrix
+    equal to the one rebuilt from the plots=False run's detections."""
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.utils.plotting import matplotlib_available
+    n = len(DARKSET["shapes"]) * DARKSET["per_shape"]
+    batches = -(-n // DARKSET["batch"])
+    kw = {"data": "tielu.yaml", "imgsz": DARKSET["imgsz"],
+          "batch": DARKSET["batch"], "cache": "disk", "verbose": False}
+    runs, recs = {}, {}
+    for plots in (False, True):
+        zero_launches()
+        with no_plain_on_cuda(), record_detections() as recs[plots]:
+            t0 = time.perf_counter()
+            res = yolo.val(plots=plots, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        check_launches(f"darkset val plots={plots}", launches,
+                       {"fused_enhance": batches, "nms": batches})
+        save_dir = yolo.validator.save_dir
+        runs[plots] = {"results": {k: float(x) for k, x in res.items()},
+                       "images": len(recs[plots].counts), "seconds": secs,
+                       "images_per_s": len(recs[plots].counts) / secs,
+                       "launches": launches,
+                       "files": sorted(p.name for p in save_dir.iterdir())
+                       if save_dir.is_dir() else [],
+                       "cm": yolo.validator.confusion_matrix.matrix}
+    mpl = matplotlib_available()
+    cm = runs[True].pop("cm")
+    runs[False].pop("cm")
+    out = {"images": n, "batches": batches, "matplotlib": mpl,
+           "plots_false": runs[False], "plots_true": runs[True],
+           "results_equal": runs[True]["results"] == runs[False]["results"],
+           "cm_equal_rebuilt": bool((cm == confusion_of(
+               recs[False].detections(), recs[False].gts, len(DARKSET_NAMES))).all()),
+           "cm_labels": float(cm[:, :len(DARKSET_NAMES)].sum()),
+           "launches": {k: runs[False]["launches"][k] + runs[True]["launches"][k]
+                        for k in runs[True]["launches"]}}
+    out["ok"] = (out["results_equal"] and out["cm_equal_rebuilt"]
+                 and runs[False]["files"] == []
+                 and runs[True]["files"] == (VAL_PLOTS if mpl else [])
+                 and all(r["images"] == n for r in runs.values()))
+    return out
+
+
+def phase_darkset(torch, yolo):
+    """The fork's data path on the card (see DARKSET): clean frames, the
+    maker's core, the dark split on disk, the tools' counts, the flagship's
+    val of the split through the packaged card with and without plots.
+    Runs with OpenCV blocked, in a temporary directory that is also the
+    working directory of the val (its runs/ land there)."""
+    import os
+    import tempfile
+    frames, rows = darkset_frames()
+    maker, dark = maker_core(torch, frames)
+    out = {"shapes": [list(s) for s in DARKSET["shapes"]],
+           "per_shape": DARKSET["per_shape"], "maker": maker}
+    with tempfile.TemporaryDirectory() as tmp, no_cv2():
+        root = Path(tmp) / "datasets" / "tielu-yolo"
+        for split, imgs in (("train", frames), ("test_dark", dark)):
+            img_dir, lbl_dir = root / "images" / split, root / "labels" / split
+            img_dir.mkdir(parents=True)
+            lbl_dir.mkdir(parents=True)
+            for k, (img, r) in enumerate(zip(imgs, rows)):
+                write_sidecar(img_dir, lbl_dir, k, img, r)
+        work = Path(tmp) / "work"
+        work.mkdir()
+        os.chdir(work)          # tielu.yaml's path is ../datasets/tielu-yolo
+        try:
+            out["tools"] = dataset_tools(rows)
+            calibrate_bn(torch, yolo.model, dark[::3], DARKSET["imgsz"])
+            out["val"] = darkset_val(torch, yolo)
+        finally:
+            os.chdir(ROOT)
+    out["launches"] = out["val"]["launches"]
+    out["ok"] = (all(out["maker"][str(p)]["ok"] for p in DARKSET["params"])
+                 and out["tools"]["ok"] and out["val"]["ok"])
+    emit({"phase": "darkset", **out})
+    if not out["ok"]:
+        raise AssertionError(f"darkset: {out}")
     return out
 
 
@@ -3194,6 +3544,7 @@ def main():
     train = phase_train(torch)
     val = phase_val(torch, yolo)
     val_rs = phase_val_resize(torch, yolo)
+    dark = phase_darkset(torch, yolo)
     loop = phase_train_loop(torch)
     loop_mp = phase_loop_mp(torch)
     c10 = phase_c10(torch)
@@ -3225,6 +3576,7 @@ def main():
         "track_launches": track["launches"]["fused_enhance"],
         "benchmark_launches": bench["launches"]["fused_enhance"],
         "val_resize_launches": val_rs["launches"]["fused_enhance"],
+        "darkset_launches": dark["launches"]["fused_enhance"],
         "loop_mp_launches": loop_mp["launches"]["fused_enhance"],
         "autobatch_launches":
             loop_mp["autobatch"]["launches"]["fused_enhance"]}, {
@@ -3273,6 +3625,7 @@ def main():
         "track_launches": track["launches"]["nms"],
         "benchmark_launches": bench["launches"]["nms"],
         "val_resize_launches": val_rs["launches"]["nms"],
+        "darkset_launches": dark["launches"]["nms"],
         "loop_mp_launches": loop_mp["launches"]["nms"],
         "autobatch_launches": loop_mp["autobatch"]["launches"]["nms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -56,7 +56,7 @@ DEFAULT_CFG = {
     "save_txt": False,           # one normalised-xywh label file an image
     "save_conf": False,          # ... with the confidence column
     "save_hybrid": False,        # labels join the candidates before NMS
-    "plots": True,               # the confusion matrix, TensorBoard (no images)
+    "plots": True,               # val/train plots (matplotlib, OpenCV), TensorBoard
     "verbose": True,             # the per-class log
     "single_cls": False,         # every class as class 0
     "max_boxes": 0,              # label rows a batch image; 0 = densest image

@@ -16,18 +16,20 @@ header where there is one: the same shape the JAX package reads from the
 image's own header, with no decoder. A deployment without OpenCV can so
 validate and train on sidecars alone. `fraction` keeps the first share of
 the sorted images; `random_index` draws the partners of mosaic and mixup.
-Not ported: dataset cards resolved by name from the JAX package's
-`cfg/datasets/`.
+A dataset name that is not a file, such as 'tielu.yaml', resolves to the
+packaged card of that name (`cfg/datasets.py`).
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 from pathlib import Path
 
 import numpy as np
 
 from ..cfg import yaml_load
+from ..cfg.datasets import DATASETS
 from . import imgops
 from .augment import Sample
 
@@ -60,13 +62,16 @@ def img2label_path(img_path: str) -> str:
 
 
 def check_det_dataset(data):
-    """A dataset dict, or the path of a dataset yaml, -> dict(path, train,
-    val, names, nc) with absolute split paths and integer-keyed names.
+    """A dataset dict, the path of a dataset yaml, or the name of a
+    packaged card (JAX data/dataset.py:59-64) -> dict(path, train, val,
+    names, nc) with the split paths under `path` and integer-keyed names.
 
     Reference: ultralytics/data/utils.py:193-267 (without auto-download).
     """
     if isinstance(data, dict):
         d = dict(data)
+    elif not Path(data).is_file() and Path(data).name in DATASETS:
+        d = copy.deepcopy(DATASETS[Path(data).name])
     else:
         p = Path(data)
         d = yaml_load(p)

@@ -44,8 +44,13 @@ so the workers see the change, which the JAX package's pool misses);
 and CUDA activities, synchronised before it stops) and writes a Chrome
 trace under `save_dir/profile/` (JAX trainer.py:575-592); `batch < 0`
 fits the batch to the card with `utils/autobatch.py` (two trial steps'
-peak memory; on the CPU it raises). Not ported: the device mesh and
-multi-process training, and the plots.
+peak memory; on the CPU it raises). With `plots` (JAX trainer.py:463-476,
+566-574, 726-731): `labels.jpg` and `labels_correlogram.jpg` at train
+start, `train_batch{0,1,2}.jpg` of the first epoch's first three batches,
+`results.png` of results.csv at the end, and val's curves and confusion
+matrix; where matplotlib is missing one log line says so and only the
+OpenCV mosaics are drawn, and a plot that fails is logged and never ends
+the run. Not ported: the device mesh and multi-process training.
 
     trainer = DetectionTrainer(model, {"batch": 16}, nb=100)  # model: nn.graph.DetectionModel
     total, items = trainer.step(batch, step_index)
@@ -82,6 +87,8 @@ from ..utils.checkpoint import (has_section, load_checkpoint, save_checkpoint,
                                 section_tree, transfer_tree)
 from ..utils.checks import check_imgsz
 from ..utils.ema import ema_init, ema_update
+from ..utils.plotting import (matplotlib_available, plot_images, plot_labels,
+                              plot_results)
 from ..utils.weights import (opt_state_from_jax, opt_state_to_jax,
                              state_dict_from_jax, state_dict_to_jax)
 from .optim import OptState, init_opt_state, label_params, opt_update
@@ -432,6 +439,7 @@ class DetectionTrainer:
         if self._validator is None:
             self._validator = self.get_validator(save_dir=self.save_dir,
                                                  data=self.data)
+            self._validator.note_no_matplotlib = False   # train said it
         model = self._ema_model()
         if state is not None:
             model.load_state_dict(state)
@@ -467,6 +475,15 @@ class DetectionTrainer:
         nb = len(train_dl)
         if nb == 0:
             raise ValueError("empty train loader (batch larger than the dataset?)")
+        if a.plots:
+            if not matplotlib_available():
+                LOGGER.info("plots: matplotlib is not installed; train draws "
+                            "only the batch mosaics (OpenCV)")
+            lbs = [lb for lb in self.train_ds.labels if len(lb)]
+            if lbs:
+                cat = np.concatenate(lbs, 0)
+                self._plot(plot_labels, cat[:, 1:5], cat[:, 0],
+                           names=self.data.get("names"), save_dir=self.save_dir)
         self.build_optimizer(nb)
         self.init_train_state()
         start_epoch = self._resume() if a.resume else 0
@@ -505,6 +522,10 @@ class DetectionTrainer:
                     if batch is None:
                         break
                     self.run_callbacks("on_train_batch_start")
+                    if a.plots and epoch == start_epoch and len(items_log) < 3:
+                        self._plot(plot_images, batch, self.save_dir
+                                   / f"train_batch{len(items_log)}.jpg",
+                                   names=self.data.get("names"))
                     prof = (self._profile_start() if a.profile
                             and epoch == start_epoch and len(items_log) == 2
                             else None)
@@ -582,8 +603,19 @@ class DetectionTrainer:
                 self.metrics = self._validate(state_dict_from_jax(
                     {"params": section_tree(flat, "ema"),
                      "batch_stats": section_tree(flat, "ema_bs")}, self.model))
+        if a.plots:
+            self._plot(plot_results, self.csv)
         self.run_callbacks("on_train_end")
         return self.metrics
+
+    @staticmethod
+    def _plot(fn, *args, **kwargs):
+        """fn(*args, **kwargs); a failure is logged, never raised: a plot
+        never ends a run."""
+        try:
+            fn(*args, **kwargs)
+        except Exception as e:
+            LOGGER.info(f"{fn.__name__} failed: {e!r}")
 
     # --------------------------------------------------------------- persist
     def _save_csv(self, epoch, mloss, metrics, lr):

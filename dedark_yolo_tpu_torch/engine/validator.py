@@ -12,7 +12,11 @@ Counterpart of the reference BaseValidator/DetectionValidator
   - DetMetrics, the ConfusionMatrix (with `plots`), per-image speed:
     `inference` the dispatch and the readback wait, `postprocess` the host
     matching, and `preprocess` the time the loop waited for the loader
-    (the JAX validator leaves it at 0).
+    (the JAX validator leaves it at 0);
+  - with `plots`, the PR/F1/P/R curves and `confusion_matrix.png` under
+    `save_dir` (JAX validator.py:386-391). Where matplotlib is missing the
+    first call says so in one log line and draws nothing; a confusion
+    matrix plot that fails is logged and does not fail the val.
 
 A batch's device work is the predictor's (`predictor.detect_step`: forward,
 decode, NMS; on CUDA the enhance kernel in layer 0 and the `nms` kernel),
@@ -52,6 +56,7 @@ from ..utils import LOGGER, increment_dir
 from ..utils.checks import check_imgsz
 from ..utils.metrics import ConfusionMatrix, DetMetrics, match_predictions
 from ..utils.pipeline import pipelined
+from ..utils.plotting import matplotlib_available, plot_confusion_matrix
 from .predictor import PinnedUpload, detect_step, resolve_device
 
 LABEL_KEYS = ("cls", "bboxes", "mask_gt")
@@ -102,6 +107,7 @@ class DetectionValidator:
         self.upload = PinnedUpload(self.device)
         self.speed = {"preprocess": 0.0, "inference": 0.0, "loss": 0.0,
                       "postprocess": 0.0}
+        self.note_no_matplotlib = True   # until the first call with plots
 
     def loaders(self, ds):
         """One loader over the dataset in order, or with `rect` one per
@@ -139,6 +145,11 @@ class DetectionValidator:
         hyp = {"box": a.box, "cls": a.cls, "dfl": a.dfl, "lrl": a.lrl}
         keys = ("img",) + (LABEL_KEYS if a.save_hybrid or with_loss else ())
 
+        if a.plots and self.note_no_matplotlib:
+            self.note_no_matplotlib = False
+            if not matplotlib_available():
+                LOGGER.info("plots: matplotlib is not installed; val draws "
+                            "no curve and no confusion matrix")
         metrics = DetMetrics(save_dir=self.save_dir, plot=a.plots, names=names)
         cm = ConfusionMatrix(nc=nc)
         stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
@@ -291,6 +302,12 @@ class DetectionValidator:
                 p, r, ap50, ap = metrics.class_result(i)
                 LOGGER.info(f"  {names.get(int(c), c):>16}  P {p:.3f}  R {r:.3f}  "
                             f"mAP50 {ap50:.3f}  mAP50-95 {ap:.3f}")
+        if a.plots:
+            try:
+                plot_confusion_matrix(cm.matrix, names,
+                                      self.save_dir / "confusion_matrix.png")
+            except Exception as e:  # a plot never fails the val
+                LOGGER.info(f"plot_confusion_matrix failed: {e!r}")
         self.confusion_matrix = cm
         self.metrics = metrics
         return results

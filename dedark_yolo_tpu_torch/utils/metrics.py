@@ -7,9 +7,9 @@ Host numpy, as in the JAX package; the pairwise IoU is the port's own
 fork's quirks stay: `Metric.map75` is the per-class AP@0.75 vector, not its
 mean, and `mf1` and `f1s` are there (reference metrics.py:635-696).
 
-`plot=True` draws nothing here: the PR/F1/P/R curve files belong to a port
-of `utils/plotting.py` that does not exist yet. The numbers are the same as
-with `plot=False`.
+`ap_per_class(plot=True)` draws the PR, F1, P and R curves under the JAX
+package's file names (`utils/plotting.py`, nothing where matplotlib is
+missing); the numbers are the same as with `plot=False`.
 """
 
 from __future__ import annotations
@@ -54,9 +54,9 @@ def ap_per_class(tp, conf, pred_cls, target_cls, plot=False, save_dir=Path("."),
     """Per-class AP at each IoU threshold (reference metrics.py:451-554).
 
     tp: (N, T) bool TP matrix, conf: (N,), pred_cls: (N,), target_cls: (M,).
-    Returns (tp_count, fp_count, p, r, f1, ap, unique_classes). `plot`,
-    `save_dir`, `names` and `prefix` name the curve files, which this port
-    does not draw yet.
+    Returns (tp_count, fp_count, p, r, f1, ap, unique_classes). With
+    `plot`, the curves go to `save_dir/{prefix}{PR,F1,P,R}_curve.png`,
+    labelled by the `names` of the classes that have labels.
     """
     i = np.argsort(-conf)
     tp, conf, pred_cls = tp[i], conf[i], pred_cls[i]
@@ -64,7 +64,7 @@ def ap_per_class(tp, conf, pred_cls, target_cls, plot=False, save_dir=Path("."),
     unique_classes, nt = np.unique(target_cls, return_counts=True)
     nc = unique_classes.shape[0]
 
-    px = np.linspace(0, 1, 1000)
+    px, py = np.linspace(0, 1, 1000), []
     ap = np.zeros((nc, tp.shape[1]))
     p, r = np.zeros((nc, 1000)), np.zeros((nc, 1000))
     for ci, c in enumerate(unique_classes):
@@ -80,9 +80,22 @@ def ap_per_class(tp, conf, pred_cls, target_cls, plot=False, save_dir=Path("."),
         precision = tpc / (tpc + fpc)
         p[ci] = np.interp(-px, -conf[m], precision[:, 0], left=1)
         for j in range(tp.shape[1]):
-            ap[ci, j] = compute_ap(recall[:, j], precision[:, j])[0]
+            ap[ci, j], mpre, mrec = compute_ap(recall[:, j], precision[:, j])
+            if plot and j == 0:
+                py.append(np.interp(px, mrec, mpre))
 
     f1 = 2 * p * r / (p + r + eps)
+    if plot:
+        from .plotting import plot_mc_curve, plot_pr_curve
+        names_d = {i: v for i, (k, v) in enumerate(
+            (k, v) for k, v in dict(names).items() if k in unique_classes)}
+        plot_pr_curve(px, py, ap, save_dir / f"{prefix}PR_curve.png", names_d)
+        plot_mc_curve(px, f1, save_dir / f"{prefix}F1_curve.png", names_d,
+                      ylabel="F1")
+        plot_mc_curve(px, p, save_dir / f"{prefix}P_curve.png", names_d,
+                      ylabel="Precision")
+        plot_mc_curve(px, r, save_dir / f"{prefix}R_curve.png", names_d,
+                      ylabel="Recall")
     i = smooth(f1.mean(0), 0.1).argmax()
     p, r, f1 = p[:, i], r[:, i], f1[:, i]
     tp_count = (r * nt).round()

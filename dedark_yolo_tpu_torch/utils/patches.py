@@ -16,7 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
-PACKAGES = {"cv2": "OpenCV (cv2)", "PIL": "Pillow (PIL)",
+PACKAGES = {"cv2": "OpenCV (cv2)", "PIL": "Pillow (PIL)", "yaml": "PyYAML",
             "matplotlib": "matplotlib", "mss": "mss"}
 
 

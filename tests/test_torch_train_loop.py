@@ -47,7 +47,7 @@ OFF = {"mosaic": 0.0, "mixup": 0.0, "hsv_h": 0.0, "hsv_s": 0.0, "hsv_v": 0.0,
        "degrees": 0.0, "translate": 0.0, "scale": 0.0, "shear": 0.0,
        "perspective": 0.0, "flipud": 0.0, "fliplr": 0.0, "photometric": False}
 COMMON = {"imgsz": 64, "batch": 2, "nbs": 4, "optimizer": "SGD", "workers": 2,
-          "seed": 0, "max_boxes": 8, **OFF}
+          "seed": 0, "max_boxes": 8, "plots": False, **OFF}
 LOSS_RTOL = 3e-5
 SECTIONS = ("params", "batch_stats", "ema", "ema_bs")
 
@@ -69,7 +69,7 @@ def jax_train(data, npz, project, name, monkeypatch, **kw):
     monkeypatch.setenv("DEDARK_FUSED_OPT", "0")
     m = JaxYOLO(npz)
     m.train(data=data, project=str(project), name=name, mesh_shape=[1],
-            plots=False, **{**COMMON, **kw})
+            **{**COMMON, **kw})
     return Path(project) / name
 
 

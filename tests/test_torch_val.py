@@ -233,6 +233,15 @@ def test_validator_matches_jax(tmp_path, monkeypatch, dataset, weights,
     if overrides.get("plots"):
         np.testing.assert_array_equal(tv.confusion_matrix.matrix,
                                       jv.confusion_matrix.matrix)
+        # JAX's five plot files; the confusion matrix drawn alike
+        for d in ("jax", "torch"):
+            assert sorted(p.name for p in (tmp_path / d).glob("*.png")) == [
+                "F1_curve.png", "PR_curve.png", "P_curve.png", "R_curve.png",
+                "confusion_matrix.png"]
+        import cv2
+        np.testing.assert_array_equal(
+            *(cv2.imread(str(tmp_path / d / "confusion_matrix.png"))
+              for d in ("jax", "torch")))
     if overrides.get("save_hybrid"):
         # every label came back as a detection of score 1
         assert float(got["metrics/recall(B)"]) == 1.0
