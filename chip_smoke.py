@@ -63,6 +63,21 @@ line:
            b1/8/32 (5 warm-up and 30 timed calls a row), the two runs'
            spread, no "error" row, fused_enhance and nms once a call
            (warm-ups included)
+  export   the predict phase's flagship exported on the card (pt2, b16/640:
+           f32, half, contrast_mode 'reference'; seconds and MB, no launch
+           during an export) and reloaded through AutoBackend: each
+           artifact on the 16 frames against the live model (TF32 off;
+           f32 and reference against eval_outputs at 1e-3 px / 1e-5, half
+           against AutoBackend(npz, half=True) at one bf16 ulp), the
+           detections after nms paired, fused_enhance (usm in reference
+           mode) once a call; YOLO(pt2).predict against the live predict
+           (images/s of both over 4 timed batches, paired); YOLO(pt2).val
+           at 128, b3 on val_parity's 8 images against the live val, paired,
+           metrics within 1e-6; InferenceServer(pt2) answering 8 requests
+           of one client, each paired with predict of its frame;
+           benchmark(formats=("live", "pt2")) without an error row; the
+           tiny architecture exported on the CPU run on the card against
+           the CPU; `python -m dedark_yolo_tpu_torch export` of its npz
   zoo      the other detect architectures at full width (nc=3, seeded
            weights, BN set from the predict frames): predict f32 b16/640
            with yolov8n/s/m/x and, at scale l, each of the fork's variants
@@ -632,7 +647,7 @@ def layer0_parts(torch, m, x):
     ('channel'), or the plain parameter regression, the point filters and
     the usm kernel ('reference')."""
     from dedark_yolo_tpu_torch.nn import enhance as E
-    from dedark_yolo_tpu_torch.ops.enhance_kernel import FusedEnhance, Usm
+    from dedark_yolo_tpu_torch.ops import enhance_kernel as K
     b, h, w, _ = x.shape
     priors = lambda: (
         torch.full((b, 3), E.DEFAULT_A, dtype=x.dtype, device=x.device),
@@ -645,14 +660,14 @@ def layer0_parts(torch, m, x):
     feats = cnn()
     parts = {"priors": priors, "resize": resize, "params_cnn": cnn}
     if m.contrast_mode == "channel":
-        parts["kernel"] = lambda: FusedEnhance.apply(x, feats, A, ica)
+        parts["kernel"] = lambda: K.fused_enhance(x, feats, A, ica)
         return parts
     params = E.regress_filter_params(feats)
     point = lambda: E.apply_point_filters(x, params, A, ica, m.contrast_mode)
     y = point()
     parts.update(regress=lambda: E.regress_filter_params(feats),
                  point_filters=point,
-                 kernel=lambda: Usm.apply(y, params["usm"]))
+                 kernel=lambda: K.usm(y, params["usm"]))
     return parts
 
 
@@ -715,7 +730,7 @@ class no_plain_on_cuda:
     """Within the block, the plain versions of the kernels that predict
     runs (`_greedy`, the enhance chain, the blur) raise when a CUDA tensor
     reaches them: on the card the forward goes through the kernels. The
-    one exception is the backward of `FusedEnhance` and `Usm`, which
+    one exception is the backward of the `fused_enhance` and `usm` ops, which
     recomputes through the plain chain by design (as the JAX package's
     custom VJP does through XLA; ops/enhance_kernel.py)."""
 
@@ -1106,10 +1121,10 @@ class record_detections:
                 zip(self.images, np.split(self.scores, ends[:-1]))]
 
 
-def pair_detections(g, c):
+def pair_detections(g, c, box_tol=BOX_TOL_PX, score_tol=SCORE_TOL):
     """Pairs each of the CPU's detections of an image (in its score order)
     with a card detection of the same class and TP row, its box within
-    BOX_TOL_PX and its score within SCORE_TOL; (card index for each, box
+    box_tol and its score within score_tol; (card index for each, box
     errors, score errors), or None where one finds no partner. The card may
     list two detections whose scores lie within its score error of each
     other in the other order; NMS keeps no two boxes of a class that close,
@@ -1120,7 +1135,7 @@ def pair_detections(g, c):
     for i in range(len(cc)):
         for j in free:
             db, ds = float(np.abs(gb[j] - cb[i]).max()), abs(float(gs[j] - cs[i]))
-            if (gc[j] == cc[i] and db <= BOX_TOL_PX and ds <= SCORE_TOL
+            if (gc[j] == cc[i] and db <= box_tol and ds <= score_tol
                     and np.array_equal(gtp[j], ctp[i])):
                 free.remove(j)
                 order.append(j)
@@ -1132,11 +1147,11 @@ def pair_detections(g, c):
     return order, box_err, score_err
 
 
-def compare_images(gpu, cpu):
+def compare_images(gpu, cpu, box_tol=BOX_TOL_PX, score_tol=SCORE_TOL):
     """The card's records (record_detections) against the CPU's, image by
     image: equal counts, and every detection paired (pair_detections) with
-    one of the same class and TP row, box within BOX_TOL_PX and score within
-    SCORE_TOL. `reordered` counts the pairs listed at another rank."""
+    one of the same class and TP row, box within box_tol and score within
+    score_tol. `reordered` counts the pairs listed at another rank."""
     same = [len(g[1]) == len(c[1]) for g, c in zip(gpu.images, cpu.images)]
     rec = {"images": [len(gpu.images), len(cpu.images)],
            "images_equal_counts": sum(same) / max(len(same), 1),
@@ -1146,7 +1161,7 @@ def compare_images(gpu, cpu):
     rec["ok"] = rec["images"][0] == rec["images"][1] and all(same)
     if not rec["ok"]:
         return rec
-    pairs = [pair_detections(g, c)
+    pairs = [pair_detections(g, c, box_tol, score_tol)
              for g, c in zip(gpu.detections(), cpu.detections())]
     rec["images_paired"] = sum(p is not None for p in pairs)
     rec["ok"] = rec["images_paired"] == len(pairs)
@@ -2088,18 +2103,21 @@ def pair_conf(res):
     return float((s[k] + s[k + 1]) / 2)
 
 
-def pair_results(g, c):
+def pair_results(g, c, box_tol=BOX_TOL_PX, score_tol=SCORE_TOL):
     """Each CPU detection of one image paired with a card detection of the
-    same class, box within BOX_TOL_PX and score within SCORE_TOL; (box
-    errors, score errors) or None."""
+    same class, box within box_tol and score within score_tol; (box
+    errors, score errors) or None. g and c are Results or (k, 6) arrays
+    (x1, y1, x2, y2, conf, cls)."""
     import numpy as np
-    gb, gs, gc = g.boxes.xyxy, g.boxes.conf, g.boxes.cls
+    g, c = (np.asarray(r.boxes.data if hasattr(r, "boxes") else r)
+            for r in (g, c))
+    gb, gs, gc = g[:, :4], g[:, 4], g[:, 5]
     free, box_err, score_err = list(range(len(gc))), [], []
-    for i in range(len(c.boxes.cls)):
+    for i in range(len(c)):
         for j in free:
-            db = float(np.abs(gb[j] - c.boxes.xyxy[i]).max())
-            ds = abs(float(gs[j] - c.boxes.conf[i]))
-            if gc[j] == c.boxes.cls[i] and db <= BOX_TOL_PX and ds <= SCORE_TOL:
+            db = float(np.abs(gb[j] - c[i, :4]).max())
+            ds = abs(float(gs[j] - c[i, 4]))
+            if gc[j] == c[i, 5] and db <= box_tol and ds <= score_tol:
                 free.remove(j)
                 box_err.append(db)
                 score_err.append(ds)
@@ -3509,6 +3527,311 @@ def phase_benchmark(torch, yolo):
     return rec
 
 
+# export phase: the flagship of the predict phase (its BN set from the
+# predict frames) exported on the card as a torch.export program and run
+# through AutoBackend, YOLO("model.pt2"), InferenceServer and
+# benchmark(formats=). Artifact against the live model, TF32 off: the
+# program runs the live graph's aten ops and the same enhance kernel on the
+# same batch, so the two agree to the last bits; held at 1e-3 px and 1e-5.
+# The half artifact (bf16 parameters and image) against AutoBackend(npz,
+# half=True), the same function through functional_call on bf16 casts: one
+# bf16 ulp of the outputs' range (4 px at 512-1024, 2**-8 at scores up to
+# 1), the least difference a bf16 map can show, as the benchmark phase's
+# bf16 rows run the same route. The tiny model exported on the CPU and run
+# on the card: the cpu phase's bars.
+EXPORT_BOX_TOL_PX, EXPORT_SCORE_TOL = 1e-3, 1e-5
+EXPORT_HALF_BOX_TOL_PX, EXPORT_HALF_SCORE_TOL = 4.0, 2.0 ** -8
+EXPORT_VAL_BATCH = 3        # VAL_SMALL's 8 images: batches 3, 3 and 2 + 1 pad
+EXPORT_REQUESTS = 8         # serve: one client, one request at a time
+EXPORT_REPS = 4             # predict: timed batches
+EXPORT_TINY = {"imgsz": 64, "batch": 2}
+
+
+def letterboxed(frames, imgsz=IMGSZ):
+    """The frames letterboxed to imgsz, RGB uint8 (B, S, S, 3)."""
+    import numpy as np
+    from dedark_yolo_tpu_torch.data.augment import letterbox
+    return np.stack([np.ascontiguousarray(letterbox(f, imgsz)[0][..., ::-1])
+                     for f in frames])
+
+
+class tally:
+    """Launch counts summed over the export phase's checked runs: `take`
+    adds the counts since the last `zero_launches` to the total."""
+
+    def __init__(self):
+        self.total = {}
+
+    def take(self):
+        from dedark_yolo_tpu_torch.ops import _build
+        for k, v in _build.LAUNCHES.items():
+            self.total[k] = self.total.get(k, 0) + v
+        return dict(_build.LAUNCHES)
+
+
+def artifact_call(torch, backend, u8, expected, name, counts):
+    """One AutoBackend call under no_plain_on_cuda, TF32 off, with its
+    launches held to `expected`: the outputs on the host."""
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    zero_launches()
+    with no_plain_on_cuda(), matmul_precision("float32"):
+        out = [t.cpu() for t in backend(u8)]
+    check_launches(name, counts.take(), expected)
+    return out
+
+
+def archive_mb(path):
+    """MB of a .pt2 archive's members by kind (model/data/weights,
+    .../constants, the serialized program, ...)."""
+    import zipfile
+    out = {}
+    with zipfile.ZipFile(path) as z:
+        for i in z.infolist():
+            parts = i.filename.split("/")
+            key = "/".join(parts[1:3] if parts[1:2] == ["data"] else parts[1:2])
+            out[key] = out.get(key, 0.0) + i.file_size / 1e6
+    return out
+
+
+def output_errors(got, want):
+    return {"box_max_abs_err_px": float((got[0] - want[0]).abs().max()),
+            "score_max_abs_err": float((got[1] - want[1]).abs().max())}
+
+
+def nms_rows(torch, outs):
+    """predict's NMS (conf CONF, iou 0.7, max_det 300) of (boxes, scores):
+    per image the (k, 6) rows."""
+    from dedark_yolo_tpu_torch.ops.nms import non_max_suppression
+    dets, counts = non_max_suppression(
+        outs[0].cuda(), outs[1].cuda(), conf_thres=CONF, iou_thres=0.7,
+        max_det=300, max_nms=2048, multi_label=False)
+    dets, counts = dets.cpu().numpy(), counts.cpu().numpy()
+    return [dets[i, :int(k)] for i, k in enumerate(counts)]
+
+
+def paired_rows(gs, cs, box_tol, score_tol):
+    """Each image's rows paired (pair_results): {paired, images, dets, the
+    largest box and score differences}."""
+    pairs = [pair_results(g, c, box_tol, score_tol) if len(g) == len(c)
+             else None for g, c in zip(gs, cs)]
+    return {"paired": len(gs) == len(cs) and None not in pairs,
+            "images": len(gs), "dets": sum(len(c) for c in cs),
+            "box_max_abs_err_px": max((e for p in pairs if p for e in p[0]),
+                                      default=0.0),
+            "score_max_abs_err": max((e for p in pairs if p for e in p[1]),
+                                     default=0.0)}
+
+
+def export_forward(torch, yolo, u8, tmp, counts):
+    """Export f32, half and reference mode (seconds, MB, no launch); each
+    artifact once on the batch against the live model (f32 and reference:
+    eval_outputs; half: AutoBackend(npz, half=True)), its detections
+    paired after nms."""
+    from dedark_yolo_tpu_torch.engine.autobackend import AutoBackend
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    out = {}
+    x = torch.from_numpy(u8).cuda()
+
+    def live(mode):
+        set_contrast_mode(yolo.model, mode)
+        try:
+            with torch.inference_mode(), matmul_precision("float32"):
+                return [t.cpu() for t in
+                        yolo.model.eval_outputs(x.float() / 255.0)]
+        finally:
+            set_contrast_mode(yolo.model, "channel")
+
+    for key, kw in (("f32", {}), ("half", {"half": True}),
+                    ("reference", {"contrast_mode": "reference"})):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = yolo.export(format="pt2", imgsz=IMGSZ, batch=BATCH,
+                           project=str(tmp / key), **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        set_contrast_mode(yolo.model, "channel")
+        check_launches(f"export {key}", counts.take(), {})
+        t0 = time.perf_counter()
+        backend = AutoBackend(path)
+        rec = {"export_s": secs, "load_s": time.perf_counter() - t0,
+               "mb": Path(path).stat().st_size / 1e6, "path": path,
+               "archive_mb": archive_mb(path)}
+        kernel = {"usm": 1} if key == "reference" else {"fused_enhance": 1}
+        got = artifact_call(torch, backend, u8, kernel,
+                            f"export {key} artifact", counts)
+        if key == "half":
+            npz = npz_of(torch, yolo, tmp / "flagship.npz")
+            want = artifact_call(torch, AutoBackend(npz, half=True), u8,
+                                 kernel, "export half live", counts)
+            bars = (EXPORT_HALF_BOX_TOL_PX, EXPORT_HALF_SCORE_TOL)
+        else:
+            want = live(key if key == "reference" else "channel")
+            bars = (EXPORT_BOX_TOL_PX, EXPORT_SCORE_TOL)
+        rec.update(output_errors(got, want), box_tol_px=bars[0],
+                   score_tol=bars[1], dtypes=[str(t.dtype) for t in got])
+        rec["nms"] = paired_rows(nms_rows(torch, got), nms_rows(torch, want),
+                                 *bars)
+        rec["ok"] = (rec["box_max_abs_err_px"] <= bars[0]
+                     and rec["score_max_abs_err"] <= bars[1]
+                     and rec["nms"]["paired"] and rec["nms"]["dets"] > 0)
+        out[key] = rec
+    return out
+
+
+def export_predict_val(torch, yolo, art, frames, tmp, counts):
+    """YOLO(pt2) (`art`) predict against the live predict on the frames
+    (TF32 off; a warm-up and EXPORT_REPS timed batches each, the first
+    batch paired); then YOLO(pt2 at 128, b3).val on val_parity's small set
+    against the live val at b3, image by image, metrics within
+    VAL_METRIC_RTOL."""
+    from dedark_yolo_tpu_torch import YOLO
+    kw = dict(imgsz=IMGSZ, batch=BATCH, conf=CONF, matmul_precision="float32")
+    per_batch = {"fused_enhance": 1, "nms": 1}
+    res_a, rec_a = timed_predict(torch, art, frames, EXPORT_REPS, per_batch,
+                                 "export predict artifact", **kw)
+    counts.take()
+    res_l, rec_l = timed_predict(torch, yolo, frames, EXPORT_REPS, per_batch,
+                                 "export predict live", **kw)
+    counts.take()
+    pairs = paired_rows([r.boxes.data for r in res_a[:BATCH]],
+                        [r.boxes.data for r in res_l[:BATCH]],
+                        EXPORT_BOX_TOL_PX, EXPORT_SCORE_TOL)
+    out = {"predict": {"artifact": rec_a, "live": rec_l, **pairs}}
+
+    data = val_dataset(tmp / "val", VAL_SMALL["n"], VAL_SMALL["shapes"], SEED)
+    vkw = {"data": data, "imgsz": VAL_SMALL["imgsz"],
+           "batch": EXPORT_VAL_BATCH, "cache": "disk",
+           "matmul_precision": "float32", "verbose": False, "plots": False}
+    pt2_val = yolo.export(format="pt2", imgsz=VAL_SMALL["imgsz"],
+                          batch=EXPORT_VAL_BATCH, project=str(tmp / "val_pt2"))
+    batches = -(-VAL_SMALL["n"] // EXPORT_VAL_BATCH)
+    res, recs = {}, {}
+    for key, model in (("artifact", YOLO(pt2_val)), ("live", yolo)):
+        zero_launches()
+        with no_plain_on_cuda(), record_detections() as recs[key]:
+            res[key] = {k: float(v) for k, v in model.val(**vkw).items()}
+        check_launches(f"export val {key}", counts.take(),
+                       {"fused_enhance": batches, "nms": batches})
+    g, c = res["artifact"], res["live"]
+    rec = {"artifact": g, "live": c, "batches": batches,
+           **compare_images(recs["artifact"], recs["live"], EXPORT_BOX_TOL_PX,
+                            EXPORT_SCORE_TOL),
+           "metric_max_rel_err": max(abs(g[k] - c[k]) / abs(c[k]) if c[k]
+                                     else abs(g[k]) for k in METRICS)}
+    rec["ok"] = (rec["ok"] and rec["images"][1] == VAL_SMALL["n"]
+                 and rec["metric_max_rel_err"] <= VAL_METRIC_RTOL)
+    out["val"] = rec
+    out["ok"] = pairs["paired"] and pairs["dets"] > 0 and rec["ok"]
+    return out
+
+
+def export_serve_bench(torch, yolo, art, frames, tmp, counts):
+    """InferenceServer(pt2) answering EXPORT_REQUESTS requests of one
+    client one at a time, each paired with YOLO(pt2).predict of its frame
+    (TF32 as the server runs it); then benchmark(formats=("live", "pt2"))."""
+    from dedark_yolo_tpu_torch.engine.server import InferenceServer
+    want = [art.predict([f], imgsz=IMGSZ, conf=CONF)[0].boxes.data
+            for f in frames[:EXPORT_REQUESTS]]
+    zero_launches()
+    with no_plain_on_cuda():
+        srv = InferenceServer(art._backend_spec, conf=CONF)
+        try:
+            shape = (srv.imgsz, srv.max_batch)
+            got = [srv.predict(f, timeout=120)["boxes"]
+                   for f in frames[:EXPORT_REQUESTS]]
+        finally:
+            srv.close()
+    torch.cuda.synchronize()
+    calls = EXPORT_REQUESTS + 1                 # the warmup's batch too
+    check_launches("export serve", counts.take(),
+                   {"fused_enhance": calls, "nms": calls})
+    serve = {"imgsz_batch": list(shape), **paired_rows(
+        got, want, EXPORT_BOX_TOL_PX, EXPORT_SCORE_TOL),
+        "bit_equal": sum(g.shape == w.shape and bool((g == w).all())
+                         for g, w in zip(got, want))}
+
+    warmup, iters = 1, 3
+    zero_launches()
+    with no_plain_on_cuda():
+        rows = yolo.benchmark(formats=("live", "pt2"), imgsz=IMGSZ,
+                              batch=BATCH, warmup=warmup, iters=iters,
+                              export_dir=str(tmp / "bench"))
+    torch.cuda.synchronize()
+    check_launches("export benchmark", counts.take(),
+                   {"fused_enhance": 2 * (warmup + iters)})
+    ok = (serve["paired"] and serve["dets"] > 0 and shape == (IMGSZ, BATCH)
+          and [r.get("format") for r in rows] == ["live", "pt2"]
+          and not any("error" in r for r in rows))
+    return {"serve": serve, "benchmark": rows, "ok": ok}
+
+
+def export_tiny(torch, tmp, counts):
+    """The tiny architecture exported on the CPU, run on the card through
+    AutoBackend (fused_enhance launched) against the CPU at the cpu phase's
+    bars; then `python -m dedark_yolo_tpu_torch export` of its npz."""
+    import subprocess
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.engine.autobackend import AutoBackend
+    arch = tmp / "tiny.json"
+    arch.write_text(json.dumps(TINY_ARCH))
+    y = YOLO(str(arch), device="cpu", seed=SEED)
+    cfg = EXPORT_TINY
+    pt2 = y.export(format="pt2", device="cpu", project=str(tmp / "tiny"),
+                   **cfg)
+    u8 = letterboxed(synthetic_frames(cfg["batch"]), cfg["imgsz"])
+    got = artifact_call(torch, AutoBackend(pt2), u8, {"fused_enhance": 1},
+                        "export cross-device", counts)
+    want = [t.cpu() for t in AutoBackend(pt2, device="cpu")(u8)]
+    rec = {**output_errors(got, want), "box_tol_px": BOX_TOL_PX,
+           "score_tol": SCORE_TOL, **cfg}
+    npz = npz_of(torch, y, tmp / "tiny.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dedark_yolo_tpu_torch", "export",
+         f"model={npz}", "format=pt2", f"imgsz={cfg['imgsz']}",
+         f"batch={cfg['batch']}", f"project={tmp / 'cli'}"],
+        capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+    cli = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+           "written": (tmp / "cli" / "model.pt2").is_file()}
+    if proc.returncode:
+        cli["stderr"] = proc.stderr[-2000:]
+    rec["cli"] = cli
+    rec["ok"] = (rec["box_max_abs_err_px"] <= BOX_TOL_PX
+                 and rec["score_max_abs_err"] <= SCORE_TOL
+                 and cli["rc"] == 0 and cli["written"])
+    return rec
+
+
+def phase_export(torch, yolo, frames, smi):
+    """The deployment path on the card (see EXPORT_*): export, the
+    artifact against the live model (f32, half, reference mode), predict,
+    val, serve and benchmark(formats=) of the artifact, the cross-device
+    run and the CLI's export. Each artifact call launches its kernel once,
+    the exports none, nms once a predict or val batch."""
+    import tempfile
+    from dedark_yolo_tpu_torch import YOLO
+    counts = tally()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        fwd = export_forward(torch, yolo, letterboxed(frames), tmp, counts)
+        art = YOLO(fwd["f32"]["path"])
+        pv = export_predict_val(torch, yolo, art, frames, tmp, counts)
+        sb = export_serve_bench(torch, yolo, art, frames, tmp, counts)
+        tiny = export_tiny(torch, tmp, counts)
+    rec = {"phase": "export", "card": smi, "model": "yolov8l.yaml",
+           "imgsz": IMGSZ, "batch": BATCH, "forward": fwd,
+           "predict": pv["predict"], "val": pv["val"], "serve": sb["serve"],
+           "benchmark": sb["benchmark"], "tiny": tiny,
+           "launches": counts.total,
+           "ok": (all(r["ok"] for r in fwd.values()) and pv["ok"]
+                  and sb["ok"] and tiny["ok"])}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("export: a check failed (see the record)")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3539,6 +3862,7 @@ def main():
     serve = phase_serve(torch, yolo, frames)
     track = phase_track(torch, yolo)
     bench = phase_benchmark(torch, yolo)
+    export = phase_export(torch, yolo, frames, smi)
     zoo = phase_zoo(torch, frames)
     probe_launches = phase_probe(torch)
     train = phase_train(torch)
@@ -3575,6 +3899,7 @@ def main():
         "serve_launches": serve["launches"]["fused_enhance"],
         "track_launches": track["launches"]["fused_enhance"],
         "benchmark_launches": bench["launches"]["fused_enhance"],
+        "export_launches": export["launches"]["fused_enhance"],
         "val_resize_launches": val_rs["launches"]["fused_enhance"],
         "darkset_launches": dark["launches"]["fused_enhance"],
         "loop_mp_launches": loop_mp["launches"]["fused_enhance"],
@@ -3591,7 +3916,8 @@ def main():
         "bf16": usm_timing["bfloat16"], "val_launches": val["launches"]["usm"],
         "val_reference_launches": val["reference_launches"]["usm"],
         "predict_extras_launches": extras["launches"]["usm"],
-        "zoo_launches": zoo["launches"]["usm"]}, {
+        "zoo_launches": zoo["launches"]["usm"],
+        "export_launches": export["launches"]["usm"]}, {
         "name": "int8_conv", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "dedark_yolo_tpu/ops/pallas/int8_conv.py:133",
@@ -3624,6 +3950,7 @@ def main():
         "serve_launches": serve["launches"]["nms"],
         "track_launches": track["launches"]["nms"],
         "benchmark_launches": bench["launches"]["nms"],
+        "export_launches": export["launches"]["nms"],
         "val_resize_launches": val_rs["launches"]["nms"],
         "darkset_launches": dark["launches"]["nms"],
         "loop_mp_launches": loop_mp["launches"]["nms"],

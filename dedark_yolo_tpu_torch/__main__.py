@@ -2,17 +2,18 @@
 `__main__.py`; reference `yolo TASK MODE k=v`, ultralytics/cfg/__init__.py:
 286-423).
 
-`train`, `val`, `predict`, `track` and `benchmark` run through the `YOLO`
-facade on `device` (cuda unless `device=cpu`); each prints its outcome as
-the last line of standard output, `results {json}`: the results dict of
-train and val, the image and detection counts of predict, the frame and
-identity counts of track, the rows of benchmark. `predict` and `track`
+`train`, `val`, `predict`, `track`, `export` and `benchmark` run through
+the `YOLO` facade on `device` (cuda unless `device=cpu`); each prints its
+outcome as the last line of standard output, `results {json}`: the
+results dict of train and val, the image and detection counts of predict,
+the frame and identity counts of track, the artifact's path of export,
+the rows of benchmark. `predict` and `track`
 save their annotated images unless `save=False`, as the JAX CLI does (JAX
 `__main__.py:191-201`; drawing needs OpenCV). `serve` starts the
 dynamic-batching HTTP server (`engine/server.py`; `port` key, `batch` the
-batch size) and serves until interrupted. The mode export, benchmark's
-formats, exported artifacts and the tasks segment, pose and classify are
-not ported and exit with 1, naming their ROADMAP item; a bare token that
+batch size) and serves until interrupted. `model=` takes an exported
+`.pt2` for predict, val and serve. The tasks segment, pose and classify
+are not ported and exit with 1, naming their ROADMAP item; a bare token that
 is neither a task, a mode nor k=v exits with 2 and a suggestion.
 Special commands: help, version, cfg (the defaults as JSON), checks,
 settings and copy-cfg (the defaults as a JSON file that `cfg=` reads back).
@@ -33,8 +34,7 @@ from .utils import LOGGER
 MODES = ("train", "val", "predict", "track", "export", "benchmark", "serve")
 TASKS = ("detect", "segment", "pose", "classify")
 SPECIAL = ("help", "version", "cfg", "checks", "settings", "copy-cfg")
-UNPORTED = {"export": "A12", "segment": "A12", "pose": "A12",
-            "classify": "A12"}
+UNPORTED = {"segment": "A12e", "pose": "A12f", "classify": "A12d"}
 CLI_KEYS = ("model", "source", "cfg")
 # keys of one mode that are arguments of its call, not config keys (JAX
 # __main__.py:143-147)
@@ -45,13 +45,15 @@ HELP = f"""dedark_yolo_tpu_torch CLI (PyTorch/CUDA)
 
     python -m dedark_yolo_tpu_torch [TASK] MODE k=v ...
 
-modes: {', '.join(MODES)} (ported: all but export)
+modes: {', '.join(MODES)}
 tasks: {', '.join(TASKS)} (ported: detect)
 examples:
     python -m dedark_yolo_tpu_torch train model=yolov8l.yaml data=data.json epochs=5 imgsz=640 batch=16
     python -m dedark_yolo_tpu_torch val model=runs/detect/train/weights/best.npz data=data.json
     python -m dedark_yolo_tpu_torch predict model=best.npz source=images/ conf=0.4
     python -m dedark_yolo_tpu_torch track model=best.npz source=video.mp4 tracker=bytetrack.yaml
+    python -m dedark_yolo_tpu_torch export model=best.npz format=pt2 imgsz=640 batch=16
+    python -m dedark_yolo_tpu_torch predict model=runs/export/model.pt2 source=images/
     python -m dedark_yolo_tpu_torch benchmark model=best.npz batch_sizes=[1,8,32]
     python -m dedark_yolo_tpu_torch serve model=best.npz port=8080 batch=8
     python -m dedark_yolo_tpu_torch val model=best.npz data=data.json device=cpu
@@ -198,6 +200,8 @@ def _run(mode, overrides) -> int:
         _results(model.val(**overrides))
     elif mode == "benchmark":
         _results(model.benchmark(**overrides))
+    elif mode == "export":
+        _results({"path": model.export(**overrides)})
     else:
         source = overrides.pop("source", None)
         if source is None:

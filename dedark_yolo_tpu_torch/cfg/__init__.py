@@ -48,6 +48,9 @@ DEFAULT_CFG = {
     "line_width": None,          # plot: box width (None: from the image size)
     "vid_stride": 1,             # every n-th video frame
     "tracker": "botsort.yaml",   # track: botsort.yaml | bytetrack.yaml | a tracker file
+    # export (engine/exporter.py)
+    "format": "pt2",             # pt2 (torch.export) | npz (weights) | onnx
+    "fuse": False,               # RepConv to deploy form (no ported graph has one)
     # val (engine/validator.py)
     "data": None,                # dataset yaml path, or the dataset dict
     "split": "val",              # dataset split to validate
@@ -136,7 +139,7 @@ _BOOL_KEYS = {"half", "agnostic_nms", "cos_lr", "lowlight_FLAG", "dedark_FLAG",
               "save_hybrid", "plots", "verbose", "single_cls", "exist_ok",
               "save", "val", "resume", "photometric", "loader_mp", "profile",
               "augment", "save_enhanced", "visualize", "save_crop", "show",
-              "show_labels", "show_conf", "boxes"}
+              "show_labels", "show_conf", "boxes", "fuse"}
 _PRECISIONS = ("default", "tensorfloat32", "float32")
 
 # Keys of the JAX package's cfg/default.yaml that the port does not carry:
@@ -145,7 +148,7 @@ _PRECISIONS = ("default", "tensorfloat32", "float32")
 # config is checked.
 UNPORTED_KEYS = frozenset((
     "cfg", "classes", "deterministic", "dnn", "dropout", "dynamic",
-    "format", "fpn_fuse", "fuse", "int8", "keras", "kobj",
+    "fpn_fuse", "int8", "keras", "kobj",
     "label_smoothing", "mask_ratio", "mesh_axes", "mesh_shape", "mode",
     "model", "nms", "opset", "optimize", "overlap_mask", "pose", "remat",
     "retina_masks", "simplify", "source", "stem_s2d", "task", "workspace"))

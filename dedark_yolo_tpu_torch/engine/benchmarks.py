@@ -12,8 +12,12 @@ the casts, as the amp trainer runs its forward (the predictor's `half`
 instead keeps f32 parameters). A row that raises becomes an "error" row,
 as in JAX. With `data`, a last row holds `val`'s mAP50-95.
 
-`YOLO.benchmark(formats=...)` (JAX's `benchmark_formats`, every export
-format) needs the exporter, which is not ported (ROADMAP A12).
+`benchmark_formats` (`YOLO.benchmark(formats=...)`, JAX
+benchmarks.py:90-160) exports the model to each format and runs each
+through AutoBackend: its size, images/s of `iters` forwards (each read
+back), and with `data` val's mAP50-95. 'live' is the model itself; a
+format whose toolchain is absent (the JAX package's tflite and
+saved_model) gives an "error" row.
 """
 
 from __future__ import annotations
@@ -43,10 +47,7 @@ def bench_step(model, params, img_u8, dtype):
     """One benchmark call: (B, S, S, 3) uint8 on the device -> NMS (dets,
     counts), not waited for. params None runs the module's own weights;
     else the graph runs on `params` through functional_call."""
-    img = img_u8.to(dtype) / 255.0
-    raw = (model(img) if params is None
-           else torch.func.functional_call(model, params, (img,)))
-    boxes, scores = model.decode(raw)
+    boxes, scores = model.eval_outputs(img_u8.to(dtype) / 255.0, params)
     return non_max_suppression(boxes.float(), scores.float(),
                                conf_thres=NMS_CONF, iou_thres=NMS_IOU,
                                max_det=300, max_nms=2048, multi_label=False)
@@ -101,3 +102,66 @@ def benchmark(yolo, imgsz=640, data=None, batch_sizes=(1, 8, 32), warmup=2,
         rows.append({"mAP50-95": metrics.get("metrics/mAP50-95(B)")})
     return rows
 
+
+def benchmark_formats(yolo, imgsz=640, data=None, batch=8, warmup=1, iters=3,
+                      formats=("live", "pt2", "tflite", "saved_model"),
+                      export_dir=None, **kwargs):
+    """Rows {"format", "size_mb", "img_per_sec"} (+ "mAP50-95" with
+    `data`), or {"format", "error"} where a format fails, one a format in
+    order, on the facade's device (kwargs' `device` first). Each artifact
+    is written under export_dir/<format> (default: a new temporary
+    directory)."""
+    import tempfile
+    from pathlib import Path
+    from .autobackend import AutoBackend
+    from .model import YOLO
+
+    if yolo._backend_spec:
+        raise ValueError(
+            "benchmark(formats=True) needs a live model (yaml/npz spec) to "
+            "export from; this YOLO wraps an already-exported artifact")
+    if "device" in kwargs:
+        yolo.to(kwargs["device"])
+    device = str(yolo.device)
+    export_dir = Path(export_dir or tempfile.mkdtemp(prefix="dedark_bench_"))
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 255, (batch, imgsz, imgsz, 3), dtype=np.uint8)
+            for _ in range(min(iters, 4))]
+    precision = kwargs.get("matmul_precision", "default")
+    rows = []
+    for fmt in formats:
+        try:
+            path = size_mb = None
+            if fmt == "live":
+                backend = AutoBackend(yolo, device=device)
+            else:
+                path = yolo.export(format=fmt, imgsz=imgsz, batch=batch,
+                                   device=device,
+                                   project=str(export_dir / fmt))
+                p = Path(path)
+                size = (sum(f.stat().st_size for f in p.rglob("*")
+                            if f.is_file()) if p.is_dir()
+                        else p.stat().st_size)
+                size_mb = round(size / 1e6, 2)
+                backend = AutoBackend(path, device=device)
+            with matmul_precision(precision):
+                for i in range(warmup):
+                    backend(imgs[i % len(imgs)])[0].cpu()
+                t0 = time.perf_counter()
+                for i in range(iters):
+                    backend(imgs[i % len(imgs)])[0].cpu()
+                dt = time.perf_counter() - t0
+            ips = batch * iters / dt
+            row = {"format": fmt, "size_mb": size_mb,
+                   "img_per_sec": round(ips, 2)}
+            if data is not None:
+                m = yolo if fmt == "live" else YOLO(path, device=device)
+                metrics = m.val(data=data, imgsz=imgsz, batch=batch,
+                                **{"device": device, **kwargs})
+                row["mAP50-95"] = metrics.get("metrics/mAP50-95(B)")
+            rows.append(row)
+            LOGGER.info(f"benchmark_formats {fmt}: {row}")
+        except Exception as e:
+            rows.append({"format": fmt, "error": str(e)[:120]})
+            LOGGER.warning(f"benchmark_formats {fmt} failed: {e}")
+    return rows

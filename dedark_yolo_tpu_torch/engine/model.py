@@ -4,6 +4,7 @@ then train, predict or validate.
     YOLO("yolov8l.yaml", nc=3)   # the architecture, seeded random weights
     YOLO("best.npz")             # a checkpoint of either package (its EMA weights)
     YOLO(["a.npz", "b.npz"])     # an ensemble of checkpoints of one architecture
+    YOLO("model.pt2")            # an exported artifact: predict and val only
 
 The model lives on `device` (None means cuda, and raises without a CUDA
 device); `train`, `predict`, `val` and `track` run on their own `device`
@@ -11,8 +12,11 @@ key, cuda by default. The rest of the JAX facade (model.py:272-514):
 `track` (the predictor's stream through a host tracker, `trackers/`),
 `benchmark` (precision x batch, `engine/benchmarks.py`), `__call__`,
 `names`, `transforms`, `to`, `load`, `reset_weights`, `fuse`,
-`add_callback` / `clear_callback`, `tune` and `info`. Not ported: `export`
-and `benchmark(formats=...)` (ROADMAP A12).
+`add_callback` / `clear_callback`, `tune` and `info`, `export`
+(`engine/exporter.py`) and `benchmark(formats=...)`. An exported `.pt2`
+runs predict and val through AutoBackend (JAX model.py:40-50, 160-190):
+the artifact's imgsz and batch win and val runs square; train and export
+need live weights and raise.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..utils.checkpoint import (has_section, load_checkpoint, section_tree,
                                 transfer_tree)
 from ..utils.patches import require
 from ..utils.weights import init_weights, state_dict_from_jax
+from .autobackend import refuse_jax_artifact
 from .predictor import DetectionPredictor, resolve_device
 from .trainer import DetectionTrainer
 from .validator import DetectionValidator
@@ -49,6 +54,7 @@ class YOLO:
         self._user_callbacks = {}
         self.ckpt_path = None      # the .npz this facade was loaded from
         self.members = []          # an ensemble's other members' state dicts
+        self._backend_spec = self._backend = None   # an artifact, its AutoBackend
         if isinstance(model, (list, tuple)):
             self._load_ensemble([str(m) for m in model])
             return
@@ -56,10 +62,10 @@ class YOLO:
         if model.endswith(".npz"):
             self._load(model)
             return
-        if model.endswith((".bin", ".tflite")):
-            raise NotImplementedError(
-                f"exported artifacts (AutoBackend) are not ported: '{model}' "
-                "(ROADMAP A12)")
+        if model.endswith(".pt2"):
+            self._backend_spec, self.model = model, None
+            return
+        refuse_jax_artifact(model)
         self.model_yaml = model_yaml_load(model)
         self._build(nc)
         init_weights(self.model, seed)
@@ -126,10 +132,28 @@ class YOLO:
         filter math, not the params (JAX model.py _sync_model_opts rebuilds
         the graph for it)."""
         args = get_cfg({**self.overrides, **kwargs})
-        for m in self.model.modules():
+        for m in self.model.modules() if self.model is not None else ():
             if isinstance(m, LowlightRecovery):
                 m.contrast_mode = args.contrast_mode
         return args
+
+    def _make_backend(self, args):
+        """The artifact's AutoBackend on the args' device (kept while the
+        device stays); its fixed imgsz and batch become the args', and val
+        runs square (JAX model.py:160-172)."""
+        from .autobackend import AutoBackend
+        device = resolve_device(args.device)
+        if self._backend is None or self._backend.device != device:
+            self._backend = AutoBackend(self._backend_spec, device=device)
+        self.device = device
+        args.imgsz, args.batch = self._backend.imgsz, self._backend.batch
+        args.rect = False
+        return self._backend
+
+    def _live(self, what):
+        if self._backend_spec is not None:
+            raise ValueError(f"{what} needs live weights; this YOLO wraps the "
+                             f"exported artifact {self._backend_spec}")
 
     def predict(self, source, stream=False, **kwargs):
         """Detections for every image of `source` (see
@@ -145,13 +169,15 @@ class YOLO:
         else to runs/detect/predict*.
         """
         args = self._args({"save": False, **kwargs})
+        model = (self._make_backend(args) if self._backend_spec
+                 else self.model)
         save_dir = None
         if args.project:
             save_dir = increment_dir(Path(args.project) / (args.name or
                                                              "predict"),
                                      args.exist_ok)
-        self.predictor = DetectionPredictor(args=args, model=self.model,
-                                            names=self.model.names,
+        self.predictor = DetectionPredictor(args=args, model=model,
+                                            names=model.names,
                                             save_dir=save_dir,
                                             members=self.members)
         self.device = self.predictor.device
@@ -225,17 +251,32 @@ class YOLO:
     def benchmark(self, **kwargs):
         """fp32 and bf16 rows of images/s at each batch size on the card
         (`engine/benchmarks.py`; JAX model.py:361-374), with `data` an mAP
-        row. formats= (every export format) is not ported (ROADMAP A12)."""
-        from .benchmarks import benchmark
+        row. With formats= (True for the default set, or a list), every
+        export format's row instead (`benchmarks.benchmark_formats`, JAX
+        model.py:361-374)."""
+        from .benchmarks import benchmark, benchmark_formats
         overrides = {**self.overrides, **kwargs}
         overrides.pop("model", None)
+        formats = overrides.pop("formats", None)
+        if formats:
+            if isinstance(formats, (list, tuple)):
+                overrides["formats"] = tuple(formats)
+            return benchmark_formats(self, **overrides)
         overrides.pop("export_dir", None)       # formats= only
-        if overrides.pop("formats", None):
-            raise NotImplementedError(
-                "benchmark(formats=...) exports every format and needs the "
-                "exporter, which is not ported to dedark_yolo_tpu_torch "
-                "(ROADMAP A12)")
+        self._live("benchmark")
         return benchmark(self, **overrides)
+
+    def export(self, **kwargs):
+        """Write the model in `format` (default pt2; `engine/exporter.py`)
+        at `imgsz` and `batch` on `device` (None means cuda); returns the
+        artifact's path. The carried `data` is dropped unless passed (JAX
+        model.py:349-359)."""
+        from .exporter import Exporter
+        self._live("export")
+        args = self._args(kwargs)
+        args.data = kwargs.get("data")
+        self.device = resolve_device(args.device)
+        return Exporter(args)(self.model)
 
     def add_callback(self, event, fn):
         """Run fn(trainer) at `event` (utils.callbacks.HOOKS) of the next
@@ -253,6 +294,7 @@ class YOLO:
         as in JAX), else from a `pretrained` .npz when one is named, else
         from the facade's seeded weights. Afterwards the facade holds
         best.npz (its EMA weights) when the run wrote one."""
+        self._live("train")
         args = self._args(kwargs)
         data = check_det_dataset(args.data) if args.data else None
         if data is None:
@@ -284,9 +326,11 @@ class YOLO:
         `split`; returns the results dict (JAX model.py:176-221, the detect
         branch). kwargs are config keys; conf None means 0.001, device None
         cuda. The model moves to the val device."""
-        self.validator = DetectionValidator(args=self._args(kwargs))
+        args = self._args(kwargs)
+        model = self._make_backend(args) if self._backend_spec else self.model
+        self.validator = DetectionValidator(args=args)
         self.device = self.validator.device
-        self.metrics = self.validator(model=self.model)
+        self.metrics = self.validator(model=model)
         return self.metrics
 
     def __call__(self, source, **kwargs):
@@ -296,6 +340,8 @@ class YOLO:
 
     @property
     def names(self):
+        if self._backend_spec:
+            return self._make_backend(get_cfg({"device": str(self.device)})).names
         return self.model.names
 
     @property

@@ -27,7 +27,12 @@ and the activations are also returned in memory (`Results.enhanced_img`,
 `Results.features`), so they need no OpenCV or matplotlib unless saved;
 the JAX predictor writes their files whenever the flags are on.
 
-Not ported: exported artifacts (AutoBackend) and the other tasks (A12).
+An exported artifact (`engine/autobackend.py`, model=AutoBackend) runs
+layer 0, the graph and the decode itself at its fixed batch; only NMS runs
+here (`backend_step`, JAX predictor.py:141-160): the short last batch is
+padded to the artifact's batch and its padding's outputs dropped before
+NMS; augment, save_enhanced and visualize are ignored with a warning. Not
+ported: the other tasks (ROADMAP A12d-A12f).
 """
 
 from __future__ import annotations
@@ -197,6 +202,25 @@ def joined_nms(boxes, scores, a, multi_label):
         max_nms=a.max_nms, multi_label=multi_label, agnostic=a.agnostic_nms)
 
 
+def backend_step(backend, img_u8, a, multi_label, extra=None):
+    """The device work of one batch of an exported artifact: img_u8 (n, S,
+    S, 3) uint8 on the device, n <= the artifact's batch (zero images pad
+    it) -> (dets, counts) of the n images, not waited for. The artifact
+    runs the enhance chain, the forward and the decode; `extra` joins
+    candidates before NMS, as in `detect_step`."""
+    n = img_u8.shape[0]
+    if n < backend.batch:
+        img_u8 = torch.cat([img_u8, img_u8.new_zeros(
+            (backend.batch - n, *img_u8.shape[1:]))])
+    with matmul_precision(a.matmul_precision):
+        boxes, scores = backend(img_u8)
+        boxes, scores = [boxes[:n]], [scores[:n]]
+        if extra is not None:
+            boxes.append(extra[0])
+            scores.append(extra[1])
+        return joined_nms(boxes, scores, a, multi_label)
+
+
 def detect_step(model, img, a, multi_label, extra=None):
     """The device work of one val batch: img (B, H, W, 3) float on the
     device -> (raw head maps, dets (B, max_det, 6), counts (B,)), none
@@ -220,7 +244,8 @@ class DetectionPredictor:
     architecture as `model`, whose own weights are the first member. Each
     member forwards the batch (through `torch.func.functional_call` on the
     one module, its tensors moved to the device once) and their candidates
-    join before one NMS (reference Ensemble, tasks.py:534-546).
+    join before one NMS (reference Ensemble, tasks.py:534-546). `model`
+    may be an AutoBackend instead (`backend_step`).
     """
 
     def __init__(self, args=None, model=None, names=None, save_dir=None,
@@ -241,6 +266,15 @@ class DetectionPredictor:
         self.seen = 0
         self.upload = PinnedUpload(self.device)
         a = self.args
+        from .autobackend import AutoBackend
+        self.backend = isinstance(model, AutoBackend)
+        if self.backend:
+            for key in ("augment", "save_enhanced", "visualize"):
+                if getattr(a, key):
+                    LOGGER.warning(f"{key}=True is ignored for exported "
+                                   "artifacts (single-scale inference, "
+                                   "outputs only)")
+                    setattr(a, key, False)
         self.tta = bool(a.augment)
         if self.tta and (a.save_enhanced or a.visualize):
             LOGGER.warning("augment=True skips save_enhanced/visualize "
@@ -275,8 +309,11 @@ class DetectionPredictor:
         returns without waiting for them. With augment each member runs
         `tta_eval`; every member's candidates join before one NMS."""
         a = self.args
-        dtype = torch.bfloat16 if a.half else torch.float32
-        img = self.upload({"img": img_u8})["img"].to(dtype) / 255.0
+        img = self.upload({"img": img_u8})["img"]
+        if self.backend:
+            dets, counts = backend_step(self.model, img, a, multi_label=False)
+            return {"dets": dets, "counts": counts}
+        img = img.to(torch.bfloat16 if a.half else torch.float32) / 255.0
         out, boxes, scores = {}, [], []
         with matmul_precision(a.matmul_precision):
             for i, forward in enumerate(self._forwards()):
@@ -317,7 +354,8 @@ class DetectionPredictor:
             a.show = check_imshow(warn=True)
         imgsz = int(a.imgsz)
         batch_size = max(1, int(a.batch))
-        self.model.to(self.device).eval()
+        if not self.backend:
+            self.model.to(self.device).eval()
         buf_paths, buf_orig, buf_meta = [], [], []
         self._writers = {}
 

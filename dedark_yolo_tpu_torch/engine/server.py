@@ -25,9 +25,11 @@ Two front-ends share the batcher:
         GET  /stats     requests, batches, occupancy, latency p50/p95
 
 Batching policy: the worker blocks for the first request, then waits at
-most ``max_wait_ms`` for followers. Not ported (ROADMAP A12): exported
-artifacts, a mesh, and the segment/pose/classify tasks (their masks and
-keypoints).
+most ``max_wait_ms`` for followers. An exported `.pt2` artifact is served
+through AutoBackend (JAX server.py:110-125): its sidecar's batch, imgsz
+and names win over the arguments, and only NMS runs behind its program.
+Not ported: a mesh (ROADMAP A12) and the segment/pose/classify tasks
+(their masks and keypoints, A12d-A12f).
 """
 
 from __future__ import annotations
@@ -37,7 +39,6 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from pathlib import Path
 from queue import Empty, Queue
 
 import numpy as np
@@ -49,6 +50,7 @@ from ..data.augment import PAD_VALUE
 from ..ops.boxes import scale_boxes
 from ..utils import LOGGER
 from ..utils.patches import require
+from .autobackend import refuse_jax_artifact
 from .predictor import DetectionPredictor, resolve_device
 
 
@@ -60,8 +62,9 @@ def _unported(what):
 class InferenceServer:
     """Coalesce concurrent detection requests into fixed-shape device batches.
 
-    model_spec: a .npz checkpoint or an architecture (anything YOLO() takes
-    by name). max_batch: the one batch shape, also the coalescing cap.
+    model_spec: a .npz checkpoint, an architecture (anything YOLO() takes
+    by name) or an exported `.pt2` artifact (whose own batch and imgsz
+    win). max_batch: the one batch shape, also the coalescing cap.
     max_wait_ms: how long the worker holds the first request for followers.
     device: None means cuda (and raises without a CUDA device); "cpu" runs
     the plain versions of the kernels.
@@ -73,9 +76,7 @@ class InferenceServer:
         if mesh is not None:
             raise _unported("serving over a mesh")
         spec = str(model_spec)
-        if spec.endswith((".bin", ".tflite")) or \
-                (Path(spec) / "saved_model.pb").is_file():
-            raise _unported(f"serving an exported artifact ('{spec}')")
+        refuse_jax_artifact(spec)
         self.device = resolve_device(device)
         self.imgsz = int(imgsz)
         self.max_batch = int(max_batch)
@@ -109,12 +110,24 @@ class InferenceServer:
     def _setup(self):
         from .model import YOLO
         spec, over, warmup = self._setup_args
-        y = YOLO(spec, device=self.device)
-        self.names = {int(k): v for k, v in (y.names or {}).items()}
-        self._pred = DetectionPredictor(args=get_cfg(over), model=y.model,
+        if spec.endswith(".pt2"):
+            from .autobackend import AutoBackend
+            model = AutoBackend(spec, device=self.device)
+            if model.task != "detect":
+                raise NotImplementedError(
+                    f"serving a {model.task} artifact is not ported "
+                    "(ROADMAP A12d-A12f)")
+            self.imgsz, self.max_batch = model.imgsz, model.batch
+            over.update(imgsz=self.imgsz, batch=self.max_batch)
+            names, members = model.names, []
+        else:
+            y = YOLO(spec, device=self.device)
+            model, names, members = y.model, y.names, y.members
+            model.to(self.device).eval()
+        self.names = {int(k): v for k, v in (names or {}).items()}
+        self._pred = DetectionPredictor(args=get_cfg(over), model=model,
                                         names=self.names, save_dir=".",
-                                        members=y.members)
-        y.model.to(self.device).eval()
+                                        members=members)
         if warmup:
             z = np.zeros((self.max_batch, self.imgsz, self.imgsz, 3), np.uint8)
             self._pred.step(z)["counts"].cpu()    # a real readback

@@ -633,8 +633,9 @@ class DetectionTrainer:
     def _save_ckpt(self, epoch, improved, write_last=True):
         """Queue last.npz (with the optimizer state), best.npz and
         epoch{N}.npz as due. The state is copied on the device here; the
-        copy to the host, the map to flax trees and the compressed write
-        run on the writer thread."""
+        copy to the host, the map to flax trees and the write (np.savez,
+        uncompressed by design; JAX compresses, both read both) run on the
+        writer thread."""
         a = self.args
         epoch_due = a.save_period > 0 and (epoch + 1) % a.save_period == 0
         if not (write_last or improved or epoch_due):

@@ -31,8 +31,11 @@ The dataset is read with `cache=args.cache` (the JAX validator reads
 without a cache): with 'disk', `.npy` sidecars stand in for the images, so
 a machine without an image decoder can validate.
 
-Not ported: exported artifacts (AutoBackend), the RT-DETR branch and the
-multi-device mesh; each raises NotImplementedError.
+An exported artifact (model=AutoBackend, JAX validator.py:71-80) runs its
+own enhance chain, forward and decode at its fixed batch (the last batch
+padded to it, `predictor.backend_step`); NMS, with save_hybrid's
+candidates, runs here as for the live model. Not ported: the RT-DETR
+branch and the multi-device mesh; each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ from ..utils.checks import check_imgsz
 from ..utils.metrics import ConfusionMatrix, DetMetrics, match_predictions
 from ..utils.pipeline import pipelined
 from ..utils.plotting import matplotlib_available, plot_confusion_matrix
-from .predictor import PinnedUpload, detect_step, resolve_device
+from .autobackend import AutoBackend
+from .predictor import PinnedUpload, backend_step, detect_step, resolve_device
 
 LABEL_KEYS = ("cls", "bboxes", "mask_gt")
 
@@ -124,13 +128,17 @@ class DetectionValidator:
                 for shape, idxs in sorted(buckets.items())]
 
     def __call__(self, model=None, mesh=None, with_loss=False):
-        """Validate `model` (the port's DetectionModel; it moves to the
-        validator's device) on `data[split]`; returns the results dict."""
+        """Validate `model` (the port's DetectionModel, which moves to the
+        validator's device, or an AutoBackend on it) on `data[split]`;
+        returns the results dict."""
         a = self.args
-        if not isinstance(model, DetectionModel):
-            raise NotImplementedError(
-                "validating an exported artifact (AutoBackend) is not ported; "
-                "pass the port's DetectionModel")
+        backend = isinstance(model, AutoBackend)
+        if not (backend or isinstance(model, DetectionModel)):
+            raise TypeError("validate a DetectionModel or an AutoBackend, "
+                            f"not {type(model).__name__}")
+        if backend and (with_loss or a.rect):
+            raise ValueError("an exported artifact gives no raw maps for "
+                             "the loss and has one square shape (rect)")
         if mesh is not None:
             raise NotImplementedError("multi-device val (a mesh) is not ported")
         a.imgsz = check_imgsz(a.imgsz, stride=32)
@@ -141,7 +149,8 @@ class DetectionValidator:
                          single_cls=a.single_cls, cache=a.cache)
         resolve_val_max_boxes(a, ds)
         loaders = self.loaders(ds)
-        model.to(self.device).eval()
+        if not backend:
+            model.to(self.device).eval()
         hyp = {"box": a.box, "cls": a.cls, "dfl": a.dfl, "lrl": a.lrl}
         keys = ("img",) + (LABEL_KEYS if a.save_hybrid or with_loss else ())
 
@@ -182,10 +191,14 @@ class DetectionValidator:
             batch, ds_idxs = item
             t0 = time.perf_counter()
             dev = self.upload({k: batch[k] for k in keys})
-            dev["img"] = dev["img"].float() / 255.0      # f32 forced
             extra = hybrid_candidates(dev, model.nc) if a.save_hybrid else None
-            raw, dets, counts = detect_step(model, dev["img"], a,
+            if backend:
+                dets, counts = backend_step(model, dev["img"], a,
                                             multi_label=True, extra=extra)
+            else:
+                raw, dets, counts = detect_step(
+                    model, dev["img"].float() / 255.0,       # f32 forced
+                    a, multi_label=True, extra=extra)
             out = {"dets": dets, "counts": counts}
             if with_loss:
                 _, items = detection_loss(

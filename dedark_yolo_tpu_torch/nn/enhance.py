@@ -7,7 +7,8 @@ Gamma -> Contrast -> USM at full resolution. Images stay NHWC here, the JAX
 layout, so the tests compare like with like.
 
 `LowlightRecovery` runs the chain through the hand-written kernels of
-`ops/enhance_kernel.py`: with contrast_mode='channel' the whole chain in one
+`ops/enhance_kernel.py`, registered as torch ops (an exported program keeps
+them as such): with contrast_mode='channel' the whole chain in one
 kernel; with 'reference', whose column luminance that kernel does not
 compute, the point filters below as stock torch ops and then the blur and
 sharpen kernel (the JAX dispatcher's two-stage form, ops/pallas/
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import device_cache
 from .layers import BiasConv2d, LeakyReLU, Linear, leaky_relu
 
 NUM_FILTER_PARAMS = 15
@@ -123,11 +125,11 @@ def _usm_blur_matrix(n: int):
     return B.astype(np.float32)
 
 
-@lru_cache(maxsize=32)
+@device_cache(maxsize=32)
 def _blur_matrix(n: int, device: torch.device, dtype: torch.dtype):
     # built outside inference mode even when a predict or val asks first:
     # an inference tensor in the cache could not be saved for a later
-    # backward (ROADMAP C10)
+    # backward (ROADMAP C10); not kept while a model is traced
     with torch.inference_mode(False):
         return torch.from_numpy(_usm_blur_matrix(n)).to(device=device,
                                                         dtype=dtype)
@@ -164,7 +166,7 @@ def _bilinear_matrix_np(out_size: int, in_size: int):
     return w
 
 
-@lru_cache(maxsize=32)
+@device_cache(maxsize=32)
 def _bilinear_matrix(out_size: int, in_size: int, device: torch.device,
                      dtype: torch.dtype):
     with torch.inference_mode(False):     # see _blur_matrix
@@ -247,9 +249,9 @@ class LowlightRecovery(nn.Module):
                              device=x.device)
         small = torch_bilinear_resize(x, 256, 256).permute(0, 3, 1, 2)
         features = self.extractor(small.to(self.extractor.fc1.weight.dtype))
-        from ..ops.enhance_kernel import FusedEnhance, Usm
+        from ..ops import enhance_kernel as K
         if self.contrast_mode == "channel":
-            return FusedEnhance.apply(x, features, dedark_A, IcA)
+            return K.fused_enhance(x, features, dedark_A, IcA)
         params = regress_filter_params(features)
         y = apply_point_filters(x, params, dedark_A, IcA, self.contrast_mode)
-        return Usm.apply(y, params["usm"])
+        return K.usm(y, params["usm"])

@@ -256,7 +256,8 @@ class DetectionModel(nn.Module):
         self.specs, self.save, self.head = parse_model(self.yaml, ch=3)
         if self.head["name"] not in PORTED_HEADS:
             raise NotImplementedError(
-                f"{self.head['name']} head is not ported to torch yet")
+                f"{self.head['name']} head is not ported to torch yet "
+                "(ROADMAP A12d-A12f)")
         self.strides = self.head["strides"]
         self.reg_max = 16
         self.names = {i: str(i) for i in range(self.nc)}
@@ -302,6 +303,18 @@ class DetectionModel(nn.Module):
     def decode(self, raw):
         """Raw maps -> (boxes_xywh (B, N, 4), scores (B, N, nc))."""
         return decode_detections(raw, self.nc, self.strides, self.reg_max)
+
+    def eval_outputs(self, x, params=None):
+        """The task's decoded output tuple, the one definition that the
+        exporter and AutoBackend's live branch share (JAX nn/graph.py:
+        671-700): detect -> (boxes_xywh (B, N, 4), scores (B, N, nc)) =
+        decode(forward(x)). `params` (a state dict, e.g. the bf16 casts of
+        `engine.benchmarks.bf16_params`) runs in place of the module's own
+        weights through `torch.func.functional_call`. Only detect heads
+        are built (the constructor refuses the others)."""
+        raw = (self(x) if params is None
+               else torch.func.functional_call(self, params, (x,)))
+        return self.decode(raw)
 
     def tta_eval(self, x, forward=None):
         """Test-time-augmented inference (JAX graph.py:621-665; reference

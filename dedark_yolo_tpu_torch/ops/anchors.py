@@ -10,6 +10,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils import device_cache
+
 
 @lru_cache(maxsize=16)
 def _anchors_np(feat_shapes, strides, grid_cell_offset):
@@ -23,7 +25,7 @@ def _anchors_np(feat_shapes, strides, grid_cell_offset):
     return np.concatenate(points), np.concatenate(stride_list)
 
 
-@lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _anchors_on(feat_shapes, strides, grid_cell_offset, device):
     pts, st = _anchors_np(feat_shapes, strides, grid_cell_offset)
     # not inference tensors, whoever asks first: the loss saves them for
@@ -39,8 +41,8 @@ def make_anchors(feat_shapes, strides, grid_cell_offset=0.5, device="cpu"):
     Returns anchor_points (sum(h*w), 2) as (x, y) in grid units and
     stride_tensor (sum(h*w), 1); row-major per level, levels in input order.
     Kept per device: a host-to-device copy waits on the stream, so it
-    happens once per shape, not once per batch. Callers must not write to
-    them.
+    happens once per shape, not once per batch (but not while a model is
+    traced, `utils.device_cache`). Callers must not write to them.
     """
     return _anchors_on(tuple(tuple(s) for s in feat_shapes), tuple(strides),
                        grid_cell_offset, torch.device(device))

@@ -4,9 +4,14 @@
 Port of `dedark_yolo_tpu/ops/pallas/enhance_kernel.py`: `fused_enhance_pallas`
 (the whole chain in one pass) with its differentiable wrapper
 `fused_enhance_diff`, and `usm_pallas` (blur and sharpen only, after a point
-chain run outside the kernel). Each wrapper runs its kernel on a CUDA tensor
-and raises if it cannot; on a CPU tensor it runs its `*_reference`, the plain
-version the kernel is held against. `fused_enhance`'s kernel regresses the
+chain run outside the kernel). Both are torch ops
+(`torch.library.custom_op`, namespace `OPS`), so that `torch.export` keeps
+each as one node of an exported program and a loaded artifact calls them.
+Each op's CUDA implementation launches its kernel and raises if it cannot;
+its CPU implementation is its `*_reference`, the plain version the kernel
+is held against; its backward recomputes through that plain version. An
+importer of an exported program imports this module first, so that the
+ops are registered. `fused_enhance`'s kernel regresses the
 per-image filter parameters from the features itself (the JAX package makes
 them outside its kernel, `param_vec` here), so that its wrapper launches one
 kernel and nothing else.
@@ -29,8 +34,10 @@ from functools import lru_cache
 import torch
 
 from ..nn import enhance as E
+from ..utils import device_cache
 from . import _build
 
+OPS = "dedark_yolo_tpu_torch"   # the namespace of the ops: torch.ops.<OPS>.*
 NAME = "fused_enhance"
 USM_NAME = "usm"
 _build.LAUNCHES.setdefault(NAME, 0)
@@ -96,12 +103,12 @@ def param_vec(features, dedark_A):
                      dim=-1).contiguous()
 
 
-@lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def gaussian_taps(device: torch.device):
     """The 25 taps as f32, normalised in float64 like `gaussian_kernel_25`:
     the values `csrc/usm_tile.cuh` compiles in (its `G`; a CPU test holds
-    the two equal bit for bit). Built outside inference mode, as
-    `nn.enhance._blur_matrix` is (ROADMAP C10)."""
+    the two equal bit for bit). Built outside inference mode and kept out
+    of tracing, as `nn.enhance._blur_matrix` is (ROADMAP C10)."""
     with torch.inference_mode(False):
         return torch.tensor(E.gaussian_kernel_25(), dtype=torch.float32,
                             device=device)
@@ -144,15 +151,11 @@ def _launch_fn():
     return fn
 
 
-def fused_enhance(img, features, dedark_A, IcA):
-    """DeDark -> WB -> Gamma -> Contrast -> USM in one pass.
-
-    img (B, H, W, 3) f32 or bf16 in [0, 1], contiguous NHWC; features (B, 15);
-    dedark_A (B, 3); IcA (B, H, W, 1), staged in the image's dtype. Returns
-    the enhanced image in the image's dtype; the math runs in f32.
-    """
-    if img.device.type == "cpu":
-        return fused_enhance_reference(img, features, dedark_A, IcA)
+def _launch_fused_enhance(img: torch.Tensor, features: torch.Tensor,
+                          dedark_A: torch.Tensor,
+                          IcA: torch.Tensor) -> torch.Tensor:
+    """The CUDA implementation of `fused_enhance`: one launch of the
+    kernel on the current stream, counted in `_build.LAUNCHES`."""
     _check_image(NAME, img)
     b, h, w, _ = img.shape
     if tuple(IcA.shape) != (b, h, w, 1) or tuple(features.shape) != (b, 15) \
@@ -193,22 +196,32 @@ def _recompute_backward(plain, ctx, grad):
     return tuple(next(grads) if n else None for n in need)
 
 
-class FusedEnhance(torch.autograd.Function):
-    """Kernel forward; the backward recomputes through the plain chain.
+def _save_inputs(ctx, inputs, output):
+    """Only the raw inputs are saved, so no full-resolution intermediate
+    lives between forward and backward (the JAX custom VJP,
+    enhance_kernel.py:323-348)."""
+    ctx.save_for_backward(*inputs)
 
-    Saves only the raw (img, features, dedark_A, IcA), so no full-resolution
-    intermediate lives between forward and backward (the JAX custom VJP,
-    enhance_kernel.py:323-348).
-    """
 
-    @staticmethod
-    def forward(ctx, img, features, dedark_A, IcA):
-        ctx.save_for_backward(img, features, dedark_A, IcA)
-        return fused_enhance(img, features, dedark_A, IcA)
+def _fused_enhance_backward(ctx, grad):
+    return _recompute_backward(E.apply_filter_chain, ctx, grad)
 
-    @staticmethod
-    def backward(ctx, grad):
-        return _recompute_backward(E.apply_filter_chain, ctx, grad)
+
+# DeDark -> WB -> Gamma -> Contrast -> USM in one pass, as a torch op:
+# fused_enhance(img, features, dedark_A, IcA). img (B, H, W, 3) f32 or bf16
+# in [0, 1], contiguous NHWC; features (B, 15); dedark_A (B, 3); IcA
+# (B, H, W, 1), staged in the image's dtype. Returns the enhanced image in
+# the image's dtype; the math runs in f32. A CUDA tensor launches the
+# kernel (or raises), a CPU one runs `fused_enhance_reference`; under
+# torch.export the op stays one node of the graph (its fake version gives
+# the shape). The backward recomputes through the plain chain.
+fused_enhance = torch.library.custom_op(
+    f"{OPS}::{NAME}", _launch_fused_enhance, mutates_args=(),
+    device_types="cuda")
+fused_enhance.register_kernel("cpu", fused_enhance_reference)
+fused_enhance.register_fake(lambda img, *rest: torch.empty_like(img))
+fused_enhance.register_autograd(_fused_enhance_backward,
+                                setup_context=_save_inputs)
 
 
 def usm_reference(y, usm_param):
@@ -224,14 +237,9 @@ def _usm_launch_fn():
     return fn
 
 
-def usm(y, usm_param):
-    """Unsharp mask: reflect-padded 25-tap sigma-5 blur, (y - blur) * s + y.
-
-    y (B, H, W, 3) f32 or bf16, contiguous NHWC, the point-filtered image;
-    usm_param (B, 1). Returns y's dtype; the math runs in f32.
-    """
-    if y.device.type == "cpu":
-        return usm_reference(y, usm_param)
+def _launch_usm(y: torch.Tensor, usm_param: torch.Tensor) -> torch.Tensor:
+    """The CUDA implementation of `usm`: one launch of the kernel on the
+    current stream, counted in `_build.LAUNCHES`."""
     _check_image(USM_NAME, y)
     b, h, w, _ = y.shape
     if tuple(usm_param.shape) != (b, 1):
@@ -254,16 +262,18 @@ def usm(y, usm_param):
     return out
 
 
-class Usm(torch.autograd.Function):
-    """Kernel forward; the backward recomputes through the plain version. The
-    JAX package has no backward kernel here (its XLA chain is
-    differentiated), so neither does the port."""
+def _usm_backward(ctx, grad):
+    return _recompute_backward(usm_reference, ctx, grad)
 
-    @staticmethod
-    def forward(ctx, y, usm_param):
-        ctx.save_for_backward(y, usm_param)
-        return usm(y, usm_param)
 
-    @staticmethod
-    def backward(ctx, grad):
-        return _recompute_backward(usm_reference, ctx, grad)
+# Unsharp mask as a torch op: usm(y, usm_param), a reflect-padded 25-tap
+# sigma-5 blur, (y - blur) * s + y. y (B, H, W, 3) f32 or bf16, contiguous
+# NHWC, the point-filtered image; usm_param (B, 1). Returns y's dtype; the
+# math runs in f32. CUDA launches the kernel, the CPU runs `usm_reference`;
+# the backward recomputes through the plain version (the JAX package has
+# no backward kernel here: its XLA chain is differentiated).
+usm = torch.library.custom_op(f"{OPS}::{USM_NAME}", _launch_usm,
+                              mutates_args=(), device_types="cuda")
+usm.register_kernel("cpu", usm_reference)
+usm.register_fake(lambda y, usm_param: torch.empty_like(y))
+usm.register_autograd(_usm_backward, setup_context=_save_inputs)

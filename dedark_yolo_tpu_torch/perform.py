@@ -11,14 +11,14 @@ perform.py:19-621), on the port.
                                   labels and a stats JSON (perform.py:55-288)
     test_video                    an annotated video, frame by frame
                                   (perform.py:72-106)
+    onnx                          an export (perform.py:41-53)
 
 `flops_params` counts parameters exactly as the JAX facade's `info` does;
 its FLOPs come from `torch.utils.flop_counter.FlopCounterMode` over one
 eval forward (convolutions and matmuls, two FLOPs a multiply-add), which
 counts otherwise than XLA's cost analysis of the compiled graph in the root
 script. `test_img`, `test_folders` and `test_video` draw and encode through
-OpenCV. `onnx` needs the exporter, which is not ported (ROADMAP A12): it
-raises NotImplementedError.
+OpenCV. `onnx` exports (default format pt2, `engine/exporter.py`).
 
     python -m dedark_yolo_tpu_torch.perform FUNC k=v ...   (values as JSON)
 """
@@ -98,11 +98,6 @@ def flops_params(model_yaml="yolov8l.yaml", imgsz=640, device=None):
     LOGGER.info(f"layers {n_layers}  params {n_params:,}  "
                 f"GFLOPs {flops / 1e9:.1f}")
     return n_params, flops
-
-
-def _unported(what, item):
-    raise NotImplementedError(f"{what} is not ported to dedark_yolo_tpu_torch "
-                              f"(ROADMAP {item}); use the root perform.py")
 
 
 def test_img(weights, img_path, imgsz=640, conf=0.4,
@@ -192,9 +187,12 @@ def test_folders(weights, folder, imgsz=640, conf=0.4, batch=8,
     return stats
 
 
-def onnx(*args, **kw):
-    """Needs the exporter (ROADMAP A12)."""
-    _unported("onnx (export)", "A12")
+def onnx(weights, imgsz=640, fmt="pt2", device=None):
+    """Export (reference perform.py:41-53 exports ONNX; the root perform.py
+    exports StableHLO, the port its torch.export artifact); returns the
+    path. fmt='onnx' raises through the exporter's guard."""
+    return YOLO(weights, device=device).export(format=fmt, imgsz=imgsz,
+                                               device=device)
 
 
 FUNCTIONS = ("train", "train_lowght", "predict", "test_img", "test_video",

@@ -78,7 +78,7 @@ def train_batch(n, imgsz, seed):
 
 @contextlib.contextmanager
 def plain_layer0_forward():
-    """Within the block, `FusedEnhance`'s forward runs the plain chain
+    """Within the block, the `fused_enhance` op's forward gives way to the plain chain
     (`fused_enhance_reference`) on a CUDA tensor instead of the kernel:
     variant c of the split, and nowhere else."""
     from ..ops import enhance_kernel as K

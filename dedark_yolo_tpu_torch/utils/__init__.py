@@ -23,3 +23,24 @@ def increment_dir(path, exist_ok=False):
             if not cand.exists():
                 return cand
     return path
+
+
+def device_cache(maxsize):
+    """functools.lru_cache for functions that build a device tensor from
+    hashable arguments, bypassed while torch.export or torch.compile traces
+    a model: a tensor made then is a FakeTensor, and one kept in the cache
+    would come back to every later eager call."""
+    import functools
+
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args):
+            import torch
+            if torch.compiler.is_compiling():
+                return fn(*args)
+            return cached(*args)
+        call.cache_clear, call.cache_info = cached.cache_clear, cached.cache_info
+        return call
+    return wrap

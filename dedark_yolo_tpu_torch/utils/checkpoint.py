@@ -67,7 +67,10 @@ def save_checkpoint(path, *, params=None, batch_stats=None, ema_params=None,
                     best_fitness=0.0, updates=0, train_args=None,
                     model_yaml=None):
     """Write the sections given (nested dicts of arrays) and the meta json,
-    as the JAX package's `save_checkpoint` does (uncompressed)."""
+    the keys and arrays the JAX package's `save_checkpoint` writes;
+    uncompressed (np.savez) where JAX compresses, by design (compressing
+    made a short train() on an H100 several times slower); both packages
+    read both."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     trees = {"params": params, "batch_stats": batch_stats, "ema": ema_params,

@@ -10,7 +10,7 @@ and `ema_update`, as its tree-path `train_step` does; the port side is
 
 The JAX model runs layer 0 as `enhance_impl='pallas'` (interpret mode on
 the CPU): the fused kernel forward and its custom VJP, which is what the
-port's `FusedEnhance` runs on every device. The port's kernel does the
+port's `fused_enhance` op runs on every device. The port's kernel does the
 chain's arithmetic in f32 on the bf16 image (the JAX kernel regresses the
 filter parameters and blurs with bf16 operands), so the two bf16 runs are
 not bit-equal. The yardstick, for every quantity: the port's bf16 may be no
@@ -51,7 +51,7 @@ from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer  # noqa: E402
 from dedark_yolo_tpu_torch.nn.graph import DetectionModel  # noqa: E402
 from dedark_yolo_tpu_torch.ops.dark_channel import dark_channel_priors  # noqa: E402
 from dedark_yolo_tpu_torch.ops.degrade import lowlight_degrade  # noqa: E402
-from dedark_yolo_tpu_torch.ops.enhance_kernel import FusedEnhance  # noqa: E402
+from dedark_yolo_tpu_torch.ops.enhance_kernel import fused_enhance  # noqa: E402
 from dedark_yolo_tpu_torch.utils.weights import state_dict_from_jax  # noqa: E402
 
 from dedark_yolo_tpu.nn import layers as JL  # noqa: E402
@@ -305,7 +305,7 @@ def test_amp_degrade_and_priors_bit_equal_jax():
 
 
 def test_fused_enhance_bf16_backward_matches_jax_vjp():
-    """FusedEnhance's backward recomputes the plain chain at the inputs'
+    """The fused_enhance op's backward recomputes the plain chain at the inputs'
     dtype, as JAX's `_diff_bwd` does (enhance_kernel.py:342-345): at bf16,
     against `fused_enhance_diff(interpret=True)`'s VJP at bf16; the gap to
     the f32 VJP of the same bf16 values is the yardstick.
@@ -334,7 +334,7 @@ def test_fused_enhance_bf16_backward_matches_jax_vjp():
 
     xs = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
           for a in as16[:4]]
-    out = FusedEnhance.apply(*xs)
+    out = fused_enhance(*xs)
     assert out.dtype == torch.bfloat16
     out.backward(torch.from_numpy(as16[4]).to(torch.bfloat16))
     mine = [x.grad.double().numpy() for x in xs]

@@ -50,6 +50,17 @@ from test_torch_layers import randomize, to_plain  # noqa: E402
 HYP = {"box": 7.5, "cls": 0.5, "dfl": 1.5, "lrl": 2.0}   # the defaults
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for the port's side while the module runs: the
+    suite runs six workers on a few cores, and torch's default (one thread
+    a core) spins them against each other. Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _recording(fn, store, pick):
     """`fn`, with pick(args, result) handed to `store` on the host at run
     time (a jax.debug.callback, so it records inside jit and grad)."""

@@ -9,11 +9,11 @@ tests/tiny_model.yaml from one JAX checkpoint.
   and scores are no farther from JAX's bf16 ones than JAX's bf16 are from
   JAX's f32 (tests/test_torch_amp.py's yardstick), by norm. As there, the
   JAX model runs layer 0 as `enhance_impl='pallas'` (interpret mode), the
-  kernel the port's `FusedEnhance` counterparts: f32 arithmetic on the
+  kernel the port's `fused_enhance` op counterparts: f32 arithmetic on the
   bf16 image, where JAX's default XLA chain rounds every op to bf16.
 - The rows: JAX's keys, fp32 then bf16 at each batch size, a val row with
-  `data`; a row that raises becomes an "error" row; formats= raises
-  naming A12; the CLI prints the rows.
+  `data`; a row that raises becomes an "error" row, as does a format of
+  formats= whose toolchain is absent; the CLI prints the rows.
 """
 
 import json
@@ -159,8 +159,9 @@ def test_data_row_error_row_and_formats(tiny, tmp_path, monkeypatch):
     assert "error" not in rows[0]
     assert rows[1] == {"precision": "bf16", "batch": 1,
                        "error": "no bf16 here"}
-    with pytest.raises(NotImplementedError, match="A12"):
-        m.benchmark(formats=True)
+    rows = m.benchmark(formats=("tflite",), device="cpu")
+    assert len(rows) == 1 and set(rows[0]) == {"format", "error"}
+    assert "JAX package" in rows[0]["error"]
 
 
 def test_cli_benchmark(tiny, capsys):
@@ -174,4 +175,9 @@ def test_cli_benchmark(tiny, capsys):
     assert [(r["precision"], r["batch"]) for r in rows] == [("fp32", 1),
                                                            ("bf16", 1)]
     assert cli.entrypoint(["benchmark", f"model={npz}", "device=cpu",
-                           "formats=True"]) == 1
+                           "formats=[tflite]"]) == 0
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("results ")][-1]
+    rows = json.loads(line[len("results "):])
+    assert [(r["format"], set(r)) for r in rows] == [
+        ("tflite", {"format", "error"})]

@@ -1,7 +1,7 @@
 """tools/c14_split.py on the CPU: `train_parity` (the smoke's card-vs-CPU
 train measurement) of the tiny model with both sides on the CPU reads
 zero errors and holds TRAIN_TOL, with the kernel's and with the plain
-layer-0 forward; `plain_layer0_forward` swaps FusedEnhance's forward for
+layer-0 forward; `plain_layer0_forward` swaps the fused_enhance op's forward for
 the plain chain only inside its block; the split covers the four
 variants of ROADMAP C14 at the seeds asked."""
 

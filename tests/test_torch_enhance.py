@@ -145,13 +145,13 @@ def test_lowlight_recovery_matches_jax(mode):
 
 
 def test_fused_enhance_gradient_matches_jax_grad():
-    """FusedEnhance's backward (recompute through the plain chain) against
+    """The fused_enhance op's backward (recompute through the plain chain) against
     jax.grad of apply_filter_chain, for every input, loss sum(out^2)."""
     xs = _inputs(h=40, w=56, seed=9)
     want = jax.grad(lambda *a: jnp.sum(JE.apply_filter_chain(*a) ** 2),
                     argnums=(0, 1, 2, 3))(*map(jnp.asarray, xs))
     ts = [t.requires_grad_(True) for t in _t(*xs)]
-    (TK.FusedEnhance.apply(*ts) ** 2).sum().backward()
+    (TK.fused_enhance(*ts) ** 2).sum().backward()
     for t, w in zip(ts, want):
         w = np.asarray(w)
         scale = np.abs(w).max()
@@ -162,5 +162,5 @@ def test_fused_enhance_gradient_matches_jax_grad():
 def test_fused_enhance_gradient_only_where_needed():
     img, feats, A, ica = _t(*_inputs(h=20, w=24, seed=11))
     feats.requires_grad_(True)
-    TK.FusedEnhance.apply(img, feats, A, ica).sum().backward()
+    TK.fused_enhance(img, feats, A, ica).sum().backward()
     assert feats.grad is not None and img.grad is None

@@ -221,5 +221,5 @@ def test_perform_flops_params_and_unported(setup):
     _, _, npz, _ = setup
     n, flops = perform.flops_params(npz, imgsz=64, device="cpu")
     assert n == JaxYOLO(npz).info()[1] and flops > 1e6
-    with pytest.raises(NotImplementedError, match="A12"):
-        perform.onnx("best.npz", "x")
+    with pytest.raises(RuntimeError, match="'onnx' package"):
+        perform.onnx(npz, imgsz=64, fmt="onnx", device="cpu")

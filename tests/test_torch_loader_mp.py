@@ -46,6 +46,17 @@ IMGSZ = 64
 HYP = {k: DEFAULT_CFG[k] for k in AUGMENT_KEYS}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for the port's side while the module runs: the
+    suite runs six workers on a few cores, and torch's default (one thread
+    a core) spins them against each other. Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def short_worker_timeout(monkeypatch):
     """A stuck worker fails its test within a minute, not the whole run."""

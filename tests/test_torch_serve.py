@@ -12,7 +12,7 @@ JAX checkpoint of seeded weights.
   close() failing what is queued, submit after close, no card without
   device='cpu', the HTTP front-end (/healthz, /stats, POST /predict with a
   PNG, 404s, an undecodable body), the CLI's `serve` in a subprocess, and
-  the A12 raises (a mesh, exported artifacts).
+  the raises (a mesh, A12; the JAX package's exported artifacts).
 
 JAX's server is built once for the module (its first batch compiles).
 """
@@ -188,10 +188,10 @@ def test_no_card_raises_and_a12_paths(npz, tmp_path):
     with pytest.raises(NotImplementedError, match="A12"):
         InferenceServer(npz, mesh=object(), device="cpu", **KW)
     for spec in ("model.bin", "model.tflite"):
-        with pytest.raises(NotImplementedError, match="A12"):
+        with pytest.raises(NotImplementedError, match="JAX package"):
             InferenceServer(spec, device="cpu", **KW)
     (tmp_path / "saved_model.pb").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="JAX package"):
         InferenceServer(str(tmp_path), device="cpu", **KW)
     with pytest.raises(FileNotFoundError):
         InferenceServer(str(tmp_path / "missing.npz"), device="cpu", **KW)

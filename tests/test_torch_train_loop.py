@@ -52,6 +52,17 @@ LOSS_RTOL = 3e-5
 SECTIONS = ("params", "batch_stats", "ema", "ema_bs")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for the port's side while the module runs: the
+    suite runs six workers on a few cores, and torch's default (one thread
+    a core) spins them against each other. Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     root = tmp_path_factory.mktemp("loop")

@@ -1,5 +1,5 @@
 """Torch port of the blur-and-sharpen kernel (`ops/enhance_kernel.py` `usm`,
-`Usm`) and of layer 0's reference-contrast path, against the JAX package on
+its autograd) and of layer 0's reference-contrast path, against the JAX package on
 the CPU: the JAX side runs `usm_pallas` in interpret mode, as its own tests
 run it, or its plain `usm_filter`.
 
@@ -61,13 +61,13 @@ def test_usm_bf16_staging_rounds_once():
 
 
 def test_usm_gradient_matches_jax_grad():
-    """Usm's backward (recompute through the plain version) against jax.grad
+    """usm's backward (recompute through the plain version) against jax.grad
     of usm_filter, for y and the strength, loss sum(out^2)."""
     y, s = _inputs(2, 24, 29, seed=7)
     want = jax.grad(lambda a, b: jnp.sum(JE.usm_filter(a, b) ** 2),
                     argnums=(0, 1))(jnp.asarray(y), jnp.asarray(s))
     ts = [torch.from_numpy(x).requires_grad_(True) for x in (y, s)]
-    (TK.Usm.apply(*ts) ** 2).sum().backward()
+    (TK.usm(*ts) ** 2).sum().backward()
     for t, w in zip(ts, want):
         w = np.asarray(w)
         np.testing.assert_allclose(t.grad.numpy(), w, rtol=1e-4,

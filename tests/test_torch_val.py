@@ -253,7 +253,7 @@ def test_get_validator_and_unported_branches():
     v = tr.get_validator(save_dir="unused")
     assert v.args.conf == 0.001 and v.device.type == "cpu"
     assert v.args.batch == 2 and v.save_dir == Path("unused")
-    with pytest.raises(NotImplementedError, match="AutoBackend"):
+    with pytest.raises(TypeError, match="AutoBackend"):
         v(model=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         v(model=tm, mesh=object())
