@@ -88,8 +88,25 @@ line:
            CPU, paired; yolov8n also in reference mode (usm once a batch);
            train steps at b16/640 (a warm-up and 3 timed micro-steps) and
            a 128 step on the card against the CPU for yolov8n,
-           yolov8l-mfru-rbf-asff, yolov8l-faster-twohead and yolov8l-p6;
+           yolov8l-mfru-rbf-asff, yolov8l-faster-twohead and yolov8l-p6,
+           each also with amp=True (bf16): its loss items against f32 at
+           the same weights (train_amp's bar) and a warm-up and 3 timed
+           micro-steps beside the f32 numbers, yolov8n's fused_enhance once
+           a micro-step on a bf16 image, the state f32 after;
            yolov8n-faster-twohead's val on the small set, card against CPU
+  classify yolov8l-cls at full width (nc 10 from the data) on a seeded
+           class-folder tree of .npy sidecars (16 train and 4 val images a
+           class, mixed sizes, cv2 blocked): YOLO(...).train at 224, b32,
+           two epochs (images/s an epoch, top-1/top-5, best.npz); a 128, b4
+           micro-step on the card against the CPU (TF32 off, the train
+           phase's bars); YOLO(best.npz).val and predict of 16 frames on
+           the card against the CPU (top-1/top-5 equal, probabilities
+           within CLS_PROBS_TOL; predict's images/s); a pt2 export at
+           b16/224 through AutoBackend against the live eval_outputs at
+           1e-5, YOLO(pt2).predict/val against live; `python -m
+           dedark_yolo_tpu_torch classify val` in a subprocess against
+           YOLO(npz).val(); no kernel launched and no plain version reached
+           with a CUDA tensor
   probe    tools.int8_probe at its default shape (24 layers, b32, 80x80,
            C=Co=256): bf16 cuDNN chain vs the int8_conv kernel's chain
   train    DetectionTrainer: at imgsz 128, b2, one micro-step on the card
@@ -2988,6 +3005,79 @@ def zoo_train(torch, yolo):
     return rec
 
 
+def zoo_train_amp(torch, yolo):
+    """amp=True (bf16) on `yolo`'s model at b16/640: the loss items against
+    f32 at the same weights and batch (TF32 off, each within
+    AMP_ITEMS_RTOL, train_amp's bar), then a warm-up micro-step and
+    ZOO_TRAIN_STEPS timed ones at the default precision as zoo_train:
+    ms a micro-step, peak memory, fused_enhance once a micro-step on a
+    bf16 image where layer 0 exists; the masters, the EMA and the BN stats
+    f32 after."""
+    from dedark_yolo_tpu_torch.tools.c14_split import train_batch
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.ops import enhance_kernel as K
+    start = {k: v.clone() for k, v in yolo.state_dict().items()}
+    batches = [train_batch(BATCH, IMGSZ, SEED + i) for i in range(2)]
+    has_l0 = yolo.model.specs[0].name == "lowlight_recovery"
+    items = {}
+    with matmul_precision("float32"), no_plain_on_cuda():
+        for amp in (False, True):
+            tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64,
+                                               "amp": amp}, nb=1000)
+            tr.model.train()
+            with torch.no_grad():
+                items[amp] = torch.stack(list(tr.loss(tr.to_device(
+                    batches[0]))[1])).float().cpu()
+            tr.model.eval()
+            yolo.model.load_state_dict(start)
+    rel = ((items[True] - items[False]).abs() / items[False].abs()).tolist()
+    dtypes = []
+    fused = K.fused_enhance
+
+    def recorded(img, *args):
+        dtypes.append(str(img.dtype))
+        return fused(img, *args)
+    tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64, "amp": True},
+                          nb=1000)
+    K.fused_enhance = recorded
+    try:
+        with matmul_precision("default"), no_plain_on_cuda():
+            tr.step(batches[0], 0)
+            torch.cuda.synchronize()
+            zero_launches()
+            dtypes.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step_items = [tr.step(batches[(i + 1) % 2], i + 1)[1]
+                          for i in range(ZOO_TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / ZOO_TRAIN_STEPS
+            launches = dict(_build.LAUNCHES)
+    finally:
+        K.fused_enhance = fused
+    check_launches(f"zoo train_amp {yolo.model.yaml['yaml_file']}", launches,
+                   {"fused_enhance": ZOO_TRAIN_STEPS} if has_l0 else {})
+    step_items = torch.stack(step_items).cpu()
+    state_dtypes = {str(v.dtype) for d in (tr.model.state_dict(), tr.ema)
+                    for v in d.values() if v.is_floating_point()}
+    rec = {"batch": BATCH, "imgsz": IMGSZ, "micro_steps": ZOO_TRAIN_STEPS,
+           "micro_step_ms": ms, "images_per_s": BATCH / ms * 1e3,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "items_f32": items[False].tolist(),
+           "items_bf16": items[True].tolist(), "items_rel_err": rel,
+           "tol_rel": AMP_ITEMS_RTOL, "loss_items": step_items.tolist(),
+           "finite": bool(torch.isfinite(step_items).all()),
+           "enhance_image_dtypes": sorted(set(dtypes)),
+           "state_dtypes": sorted(state_dtypes), "launches": launches}
+    rec["ok"] = (rec["finite"] and max(rel) <= AMP_ITEMS_RTOL
+                 and dtypes == ["torch.bfloat16"] * (ZOO_TRAIN_STEPS
+                                                     if has_l0 else 0)
+                 and state_dtypes == {"torch.float32"})
+    return rec
+
+
 def zoo_val(torch, tmp):
     """YOLO(ZOO_VAL).val on the val phase's small dataset (BN set from its
     images), on the card and on the CPU, TF32 off, with the loss: image by
@@ -3047,7 +3137,9 @@ def phase_zoo(torch, frames):
     kw = dict(imgsz=IMGSZ, batch=BATCH, conf=CONF, half=False)
     summary = {"phase": "zoo", "batch": BATCH, "imgsz": IMGSZ,
                "images_per_s": {}, "micro_step_ms": {}, "peak_memory_gib": {},
-               "launches": {"fused_enhance": 0, "usm": 0, "nms": 0}}
+               "amp_micro_step_ms": {}, "amp_peak_memory_gib": {},
+               "launches": {"fused_enhance": 0, "usm": 0, "nms": 0},
+               "amp_launches": {"fused_enhance": 0, "usm": 0, "nms": 0}}
     failed = []
     for name in ZOO_PREDICT:
         yolo = YOLO(name, nc=3, seed=SEED)
@@ -3074,11 +3166,19 @@ def phase_zoo(torch, frames):
         if name in ZOO_TRAIN:
             rec["train"] = zoo_train(torch, yolo)
             runs.append(rec["train"])
+            rec["train_amp"] = amp = zoo_train_amp(torch, yolo)
+            runs.append(amp)
+            if not amp["ok"]:
+                failed.append(f"{name} train_amp")
             rec["train_parity"] = train_parity(name)
             if not rec["train_parity"]["ok"]:
                 failed.append(f"{name} train_parity")
             summary["micro_step_ms"][name] = rec["train"]["micro_step_ms"]
             summary["peak_memory_gib"][name] = rec["train"]["peak_memory_gib"]
+            summary["amp_micro_step_ms"][name] = amp["micro_step_ms"]
+            summary["amp_peak_memory_gib"][name] = amp["peak_memory_gib"]
+            for k in summary["amp_launches"]:
+                summary["amp_launches"][k] += amp["launches"].get(k, 0)
         for r in runs:
             for k in summary["launches"]:
                 summary["launches"][k] += r["launches"].get(k, 0)
@@ -3832,6 +3932,252 @@ def phase_export(torch, yolo, frames, smi):
     return rec
 
 
+# classify phase: yolov8l-cls at full width, nc from the data, on a seeded
+# class-folder tree of .npy sidecars beside empty .jpg placeholders (the
+# classes' mean colours apart, noise within; mixed sizes, cv2 blocked).
+# The card's probabilities against the CPU's (TF32 off) within
+# CLS_PROBS_TOL: f32 logits whose convolutions sum in another order than
+# the CPU's, through a softmax over 10 classes; top-1 and top-5 equal. An
+# exported .pt2 against the live model at CLS_EXPORT_TOL (the program
+# against eager on one card).
+CLS = {"model": "yolov8l-cls.yaml", "classes": 10, "train": 16, "val": 4,
+       "imgsz": 224, "batch": 32, "epochs": 2, "predict": 16,
+       "parity_imgsz": 128, "parity_batch": 4}
+CLS_PROBS_TOL, CLS_EXPORT_TOL = 1e-4, 1e-5
+CLS_METRICS = ("metrics/accuracy_top1", "metrics/accuracy_top5")
+
+
+def cls_dataset(root, seed):
+    """root/{train,val}/class{c}/{k}.npy (+ k.jpg placeholders): a class's
+    images its own mean colour plus noise, each of its own size."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    means = rng.integers(40, 216, (CLS["classes"], 3))
+    for split in ("train", "val"):
+        for c in range(CLS["classes"]):
+            d = root / split / f"class{c}"
+            d.mkdir(parents=True)
+            for k in range(CLS[split]):
+                h, w = (int(v) for v in rng.integers(160, 400, 2))
+                img = means[c] + rng.normal(0, 30, (h, w, 3))
+                write_sidecar(d, None, str(k),
+                              np.clip(img, 0, 255).astype(np.uint8), None)
+    return root
+
+
+def probs_compare(gpu, cpu):
+    """Two lists of classify Results: the largest probability error and
+    whether every image's top-1 and top-5 agree."""
+    import numpy as np
+    err = max(float(np.abs(g.probs.data - c.probs.data).max())
+              for g, c in zip(gpu, cpu))
+    same = len(gpu) == len(cpu) and all(
+        g.probs.top1 == c.probs.top1 and g.probs.top5 == c.probs.top5
+        for g, c in zip(gpu, cpu))
+    return err, same
+
+
+def classify_parity(torch):
+    """One SGD micro-step of yolov8l-cls at 128, b4 (nbs = batch: the
+    update applies) on the card and on the CPU from one seeded state and
+    batch, TF32 off: loss, gradients, update, BN stats and EMA held to the
+    train phase's TRAIN_TOL (tools/c14_split.step_errors)."""
+    import numpy as np
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.engine.classify import ClassificationTrainer
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.tools.c14_split import step_errors
+    n, sz = CLS["parity_batch"], CLS["parity_imgsz"]
+    over = {"batch": n, "nbs": n, "optimizer": "SGD", "imgsz": sz}
+    gpu = YOLO(CLS["model"], nc=CLS["classes"], seed=SEED)
+    cpu = YOLO(CLS["model"], nc=CLS["classes"], device="cpu", seed=SEED)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    start = {k: v.cpu().clone() for k, v in cpu.state_dict().items()}
+    rng = np.random.default_rng(SEED + 91)
+    batch = {"img": rng.integers(0, 256, (n, sz, sz, 3), np.uint8),
+             "cls": rng.integers(0, CLS["classes"], n).astype(np.int32)}
+    got = {}
+    with matmul_precision("float32"), no_plain_on_cuda():
+        for key, yolo, dev in (("gpu", gpu, None), ("cpu", cpu, "cpu")):
+            tr = ClassificationTrainer(yolo.model, over, nb=1000, device=dev)
+            names = list(tr.params)
+            tr.model.train()
+            total, items = tr.loss(tr.to_device(batch))
+            grads = torch.autograd.grad(
+                total, [tr.params[k] for k in names], allow_unused=True)
+            tr.model.eval()
+            tr.model.load_state_dict(start)
+            _, step_items = tr.step(batch, 1500)
+            got[key] = {"items": items, "step_items": step_items,
+                        "grads": {k: g for k, g in zip(names, grads)
+                                  if g is not None},
+                        "state": tr.model.state_dict(), "ema": tr.ema,
+                        "updates": (tr.opt_state.step, tr.ema_updates)}
+    return {"model": CLS["model"], "imgsz": sz, "batch": n,
+            **step_errors(got["gpu"], got["cpu"], start)}
+
+
+def cls_cli_val(torch, best, root):
+    """`python -m dedark_yolo_tpu_torch classify val model=<best>` in a
+    subprocess, its printed metrics against YOLO(best).val() here under the
+    subprocess's TF32 defaults (cuDNN on, matmuls off)."""
+    import os
+    import subprocess
+    from dedark_yolo_tpu_torch import YOLO
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([str(ROOT),
+                                          os.environ.get("PYTHONPATH", "")])}
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "dedark_yolo_tpu_torch",
+                        "classify", "val", f"model={best}", f"data={root}",
+                        "cache=disk", "batch=16"], capture_output=True,
+                       text=True, cwd=str(ROOT), env=env, timeout=600)
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("results ")]
+    if p.returncode or not lines:
+        raise AssertionError(f"classify cli: rc {p.returncode}\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    got = json.loads(lines[-1][8:])
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = YOLO(str(best)).val(data=str(root), cache="disk", batch=16)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    return {"rc": p.returncode, "seconds": time.perf_counter() - t0,
+            "results": got, "facade_val": want, "equal": got == want}
+
+
+def phase_classify(torch):
+    """The classify task end to end at full width (see CLS): train, the
+    micro-step's parity, val and predict card against CPU, the pt2
+    artifact, the CLI; zero kernel launches on every card run."""
+    import tempfile
+    import numpy as np
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.data import imgops
+    from dedark_yolo_tpu_torch.engine.autobackend import AutoBackend
+    from dedark_yolo_tpu_torch.ops import _build
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in ("fused_enhance", "usm", "int8_conv", "nms")}
+    failed = []
+
+    def card(name, fn):
+        """fn() on the card with the launches counted (none expected)."""
+        zero_launches()
+        with no_plain_on_cuda():
+            out = fn()
+        torch.cuda.synchronize()
+        got = dict(_build.LAUNCHES)
+        check_launches(f"classify {name}", got, {})
+        for k in launches:
+            launches[k] += got.get(k, 0)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp, no_cv2():
+        tmp = Path(tmp)
+        root = cls_dataset(tmp / "cls", SEED + 90)
+        data = str(root)
+        # train at full width, nc from the data
+        yolo = YOLO(CLS["model"], seed=SEED)
+        t0 = time.perf_counter()
+        res = card("train", lambda: yolo.train(
+            data=data, imgsz=CLS["imgsz"], batch=CLS["batch"],
+            epochs=CLS["epochs"], cache="disk", workers=8,
+            project=str(tmp / "runs"), name="cls", plots=False,
+            verbose=False))
+        train_s = time.perf_counter() - t0
+        tr = yolo.trainer
+        best = tmp / "runs" / "cls" / "weights" / "best.npz"
+        train = {"seconds": train_s, "metrics": res,
+                 "images_per_s": [e["batches"] * CLS["batch"] / e["train_s"]
+                                  for e in tr.epoch_stats],
+                 "epoch_train_s": [e["train_s"] for e in tr.epoch_stats],
+                 "params": sum(p.numel() for p in tr.model.parameters()),
+                 "nc": tr.model.nc, "best_npz": best.is_file()}
+        if not (best.is_file() and tr.model.nc == CLS["classes"]
+                and len(tr.epoch_stats) == CLS["epochs"]):
+            failed.append("train")
+        emit({"phase": "classify", "train": train})
+        parity = classify_parity(torch)
+        emit({"phase": "classify", "parity": parity})
+        if not parity["ok"]:
+            failed.append("parity")
+
+        # val and predict of best.npz, card against CPU (TF32 off)
+        gpu, cpu = YOLO(str(best)), YOLO(str(best), device="cpu")
+        vkw = {"data": data, "cache": "disk", "batch": 16}
+        val_g = card("val", lambda: gpu.val(**vkw))
+        val_c = cpu.val(device="cpu", **vkw)
+        frames = [np.load(f) for f in
+                  sorted((root / "val").rglob("*.npy"))[:CLS["predict"]]]
+        pkw = {"batch": CLS["predict"], "imgsz": CLS["imgsz"]}
+        pred_g = card("predict", lambda: gpu.predict(list(frames), **pkw))
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            card("predict", lambda: gpu.predict(list(frames), **pkw))
+            times.append(time.perf_counter() - t0)
+        pred_c = cpu.predict(list(frames), device="cpu", **pkw)
+        perr, psame = probs_compare(pred_g, pred_c)
+        vp = {"val_cuda": val_g, "val_cpu": val_c,
+              "val_equal": all(val_g[k] == val_c[k] for k in CLS_METRICS),
+              "predict_images_per_s": [len(frames) / t for t in times],
+              "predict_max_abs_err": perr, "predict_top_equal": psame,
+              "tol": CLS_PROBS_TOL}
+        emit({"phase": "classify", "val_predict": vp})
+        if not (vp["val_equal"] and psame and perr <= CLS_PROBS_TOL):
+            failed.append("val/predict card vs CPU")
+
+        # the pt2 artifact at b16/224 against the live model
+        t0 = time.perf_counter()
+        path = card("export", lambda: gpu.export(
+            format="pt2", imgsz=CLS["imgsz"], batch=CLS["predict"],
+            project=str(tmp / "export")))
+        export_s = time.perf_counter() - t0
+        be = AutoBackend(path)
+        u8 = np.stack([imgops.resize_linear(f, (CLS["imgsz"], CLS["imgsz"]))
+                       [..., ::-1] for f in frames])
+        (art,) = card("artifact", lambda: be.forward(u8))
+        with torch.no_grad():
+            (live,) = gpu.model.eval_outputs(
+                torch.from_numpy(np.ascontiguousarray(u8)).cuda().float()
+                / 255.0)
+        aerr = float((art - live).abs().max())
+        art_yolo = YOLO(path)
+        pred_a = card("artifact predict",
+                      lambda: art_yolo.predict(list(frames)))
+        perr_a, psame_a = probs_compare(pred_a, pred_g)
+        val_a = card("artifact val", lambda: art_yolo.val(data=data,
+                                                          cache="disk"))
+        ex = {"seconds": export_s, "mb": Path(path).stat().st_size / 1e6,
+              "task": be.task, "probs_max_abs_err": aerr,
+              "predict_max_abs_err": perr_a, "predict_top_equal": psame_a,
+              "val": val_a,
+              "val_equal": all(val_a[k] == val_g[k] for k in CLS_METRICS),
+              "tol": CLS_EXPORT_TOL}
+        emit({"phase": "classify", "export": ex})
+        if not (be.task == "classify" and aerr <= CLS_EXPORT_TOL
+                and perr_a <= CLS_EXPORT_TOL and psame_a and ex["val_equal"]):
+            failed.append("export")
+        cli = cls_cli_val(torch, best, root)
+        emit({"phase": "classify", "cli": cli})
+        if not cli["equal"]:
+            failed.append("cli")
+    summary = {"phase": "classify", "model": CLS["model"],
+               "train_images_per_s": train["images_per_s"],
+               "val_top1_top5": [val_g[k] for k in CLS_METRICS],
+               "predict_images_per_s": vp["predict_images_per_s"],
+               "launches": launches, "seconds": time.perf_counter() - t_phase,
+               "failed": failed}
+    emit(summary)
+    if failed:
+        raise AssertionError(f"classify: {failed}")
+    return summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3864,6 +4210,7 @@ def main():
     bench = phase_benchmark(torch, yolo)
     export = phase_export(torch, yolo, frames, smi)
     zoo = phase_zoo(torch, frames)
+    cls = phase_classify(torch)
     probe_launches = phase_probe(torch)
     train = phase_train(torch)
     val = phase_val(torch, yolo)
@@ -3896,6 +4243,8 @@ def main():
         "predict_resize_launches": pred_rs["launches"]["fused_enhance"],
         "predict_extras_launches": extras["launches"]["fused_enhance"],
         "zoo_launches": zoo["launches"]["fused_enhance"],
+        "zoo_amp_launches": zoo["amp_launches"]["fused_enhance"],
+        "classify_launches": cls["launches"]["fused_enhance"],
         "serve_launches": serve["launches"]["fused_enhance"],
         "track_launches": track["launches"]["fused_enhance"],
         "benchmark_launches": bench["launches"]["fused_enhance"],
@@ -3917,6 +4266,7 @@ def main():
         "val_reference_launches": val["reference_launches"]["usm"],
         "predict_extras_launches": extras["launches"]["usm"],
         "zoo_launches": zoo["launches"]["usm"],
+        "classify_launches": cls["launches"]["usm"],
         "export_launches": export["launches"]["usm"]}, {
         "name": "int8_conv", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/int8_conv.cu",
@@ -3927,7 +4277,8 @@ def main():
             "library_ms")},
         "shape": list(INT8_SHAPES[0]), "dtype": "int8",
         **{k: int8_timing[k] for k in ("act", "tops", "peak_pct")},
-        "val_launches": val["launches"]["int8_conv"]}, {
+        "val_launches": val["launches"]["int8_conv"],
+        "classify_launches": cls["launches"]["int8_conv"]}, {
         "name": "nms", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/nms.cu",
         "replaces": "dedark_yolo_tpu/ops/nms.py:28",
@@ -3947,6 +4298,7 @@ def main():
         "predict_resize_launches": pred_rs["launches"]["nms"],
         "predict_extras_launches": extras["launches"]["nms"],
         "zoo_launches": zoo["launches"]["nms"],
+        "classify_launches": cls["launches"]["nms"],
         "serve_launches": serve["launches"]["nms"],
         "track_launches": track["launches"]["nms"],
         "benchmark_launches": bench["launches"]["nms"],

@@ -9,11 +9,16 @@ results dict of train and val, the image and detection counts of predict,
 the frame and identity counts of track, the artifact's path of export,
 the rows of benchmark. `predict` and `track`
 save their annotated images unless `save=False`, as the JAX CLI does (JAX
-`__main__.py:191-201`; drawing needs OpenCV). `serve` starts the
+`__main__.py:191-201`; drawing needs OpenCV). The task token picks the
+task's default architecture where no `model=` is given (JAX `TASK_MODELS`);
+a model of another task keeps its own, with a warning (JAX
+`__main__.py:176-181`). `classify` trains, validates and predicts a classify
+model (`engine/classify.py`; data is the folder tree's root; predict
+prints the top-1 class of each image). `serve` starts the
 dynamic-batching HTTP server (`engine/server.py`; `port` key, `batch` the
 batch size) and serves until interrupted. `model=` takes an exported
-`.pt2` for predict, val and serve. The tasks segment, pose and classify
-are not ported and exit with 1, naming their ROADMAP item; a bare token that
+`.pt2` for predict, val and serve. The tasks segment and pose are not
+ported and exit with 1, naming their ROADMAP item; a bare token that
 is neither a task, a mode nor k=v exits with 2 and a suggestion.
 Special commands: help, version, cfg (the defaults as JSON), checks,
 settings and copy-cfg (the defaults as a JSON file that `cfg=` reads back).
@@ -34,7 +39,9 @@ from .utils import LOGGER
 MODES = ("train", "val", "predict", "track", "export", "benchmark", "serve")
 TASKS = ("detect", "segment", "pose", "classify")
 SPECIAL = ("help", "version", "cfg", "checks", "settings", "copy-cfg")
-UNPORTED = {"segment": "A12e", "pose": "A12f", "classify": "A12d"}
+UNPORTED = {"segment": "A12e", "pose": "A12f"}
+# task token -> its default architecture (JAX __main__.py:18-20)
+TASK_MODELS = {"detect": "yolov8l.yaml", "classify": "yolov8-cls.yaml"}
 CLI_KEYS = ("model", "source", "cfg")
 # keys of one mode that are arguments of its call, not config keys (JAX
 # __main__.py:143-147)
@@ -46,7 +53,7 @@ HELP = f"""dedark_yolo_tpu_torch CLI (PyTorch/CUDA)
     python -m dedark_yolo_tpu_torch [TASK] MODE k=v ...
 
 modes: {', '.join(MODES)}
-tasks: {', '.join(TASKS)} (ported: detect)
+tasks: {', '.join(TASKS)} (ported: detect, classify)
 examples:
     python -m dedark_yolo_tpu_torch train model=yolov8l.yaml data=data.json epochs=5 imgsz=640 batch=16
     python -m dedark_yolo_tpu_torch val model=runs/detect/train/weights/best.npz data=data.json
@@ -57,6 +64,8 @@ examples:
     python -m dedark_yolo_tpu_torch benchmark model=best.npz batch_sizes=[1,8,32]
     python -m dedark_yolo_tpu_torch serve model=best.npz port=8080 batch=8
     python -m dedark_yolo_tpu_torch val model=best.npz data=data.json device=cpu
+    python -m dedark_yolo_tpu_torch classify train model=yolov8n-cls.yaml data=imagenette/ imgsz=224
+    python -m dedark_yolo_tpu_torch classify val model=runs/classify/train/weights/best.npz
 special:
     python -m dedark_yolo_tpu_torch cfg        # the default config as JSON
     python -m dedark_yolo_tpu_torch checks     # torch, CUDA, the device, nvcc, numpy
@@ -169,31 +178,36 @@ def entrypoint(argv=None) -> int:
             return 2
     if mode is None:
         mode = overrides.pop("mode", "predict")
-    task = task or overrides.pop("task", None) or "detect"
+    task = task or overrides.pop("task", None)
     for what in (mode, task):
         if what in UNPORTED:
             LOGGER.error(f"'{what}' is not ported to dedark_yolo_tpu_torch "
                          f"yet (ROADMAP {UNPORTED[what]}); use "
                          "python -m dedark_yolo_tpu for it")
             return 1
-    if mode not in MODES or task not in TASKS:
+    if mode not in MODES or (task is not None and task not in TASKS):
         LOGGER.error(f"unknown mode '{mode}' or task '{task}' (see 'help')")
         return 2
     check_cfg_alignment(set(DEFAULT_CFG) | set(CLI_KEYS)
                         | set(MODE_KEYS.get(mode, ())), overrides)
+    if task is not None and "model" not in overrides:
+        overrides["model"] = TASK_MODELS[task]
     try:
-        return _run(mode, overrides)
+        return _run(mode, task, overrides)
     except NotImplementedError as e:
         LOGGER.error(str(e))
         return 1
 
 
-def _run(mode, overrides) -> int:
+def _run(mode, task, overrides) -> int:
     model_spec = overrides.pop("model", None) or "yolov8l.yaml"
     if mode == "serve":
         return _serve(model_spec, overrides)
     from .engine.model import YOLO
     model = YOLO(model_spec, device=overrides.get("device"))
+    if task is not None and model.task != task:
+        LOGGER.warning(f"task '{task}' conflicts with {model_spec} "
+                       f"(task={model.task}); using the model's task")
     if mode == "train":
         _results(model.train(**overrides))
     elif mode == "val":
@@ -216,6 +230,10 @@ def _run(mode, overrides) -> int:
             _results({"frames": len(results), "identities": len(ids)})
             return 0
         LOGGER.info(f"processed {len(results)} images")
+        if model.task == "classify":
+            _results({"images": len(results),
+                      "top1": [r.probs.top1 for r in results]})
+            return 0
         _results({"images": len(results),
                   "detections": int(sum(len(r) for r in results))})
     return 0

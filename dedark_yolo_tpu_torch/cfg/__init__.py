@@ -82,6 +82,7 @@ DEFAULT_CFG = {
     "cls": 0.5,
     "dfl": 1.5,
     "lrl": 2.0,                  # recovery-loss weight
+    "label_smoothing": 0.0,      # classify: the one-hot targets smoothed
     "lowlight_FLAG": True,       # train on img ** dark_param
     "dark_param": 15.0,
     "dedark_FLAG": True,         # dark-channel priors for the DeDark filter
@@ -129,7 +130,7 @@ _FLOAT_KEYS = {"conf", "iou", "hsv_h", "hsv_s", "hsv_v", "translate",
                "copy_paste", "fraction"}
 _NUMBER_KEYS = {"lr0", "lrf", "momentum", "weight_decay", "warmup_epochs",
                 "warmup_momentum", "warmup_bias_lr", "box", "cls", "dfl",
-                "lrl", "dark_param", "degrees", "shear"}
+                "lrl", "dark_param", "degrees", "shear", "label_smoothing"}
 _INT_KEYS = {"imgsz", "max_det", "max_nms", "batch", "epochs", "nbs",
              "max_boxes", "workers", "save_period", "ckpt_period",
              "val_period", "patience", "close_mosaic", "seed", "vid_stride",
@@ -149,7 +150,7 @@ _PRECISIONS = ("default", "tensorfloat32", "float32")
 UNPORTED_KEYS = frozenset((
     "cfg", "classes", "deterministic", "dnn", "dropout", "dynamic",
     "fpn_fuse", "int8", "keras", "kobj",
-    "label_smoothing", "mask_ratio", "mesh_axes", "mesh_shape", "mode",
+    "mask_ratio", "mesh_axes", "mesh_shape", "mode",
     "model", "nms", "opset", "optimize", "overlap_mask", "pose", "remat",
     "retina_masks", "simplify", "source", "stem_s2d", "task", "workspace"))
 

@@ -2,7 +2,8 @@
 
 The same `[from, repeats, module, args]` rows as the JAX package's detect
 architectures under `cfg/models/` (the flagship `yolov8.yaml`, stock
-`yolov8ori.yaml` and the fork's variants `yolov8-*.yaml`), kept as dicts so
+`yolov8ori.yaml` and the fork's variants `yolov8-*.yaml`) and its
+classifier `yolov8-cls.yaml` (its own scales), kept as dicts so
 the port needs no YAML parser to build its models; each keeps its yaml's own
 `nc`, which `nc=` overrides. Keyed by the unified file name that
 `model_yaml_load` resolves a scaled name such as `yolov8l.yaml` or
@@ -101,8 +102,21 @@ _RFB = [[15, 1, "RFBblock", [256]],                  # 22
         [21, 1, "RFBblock", [512]]]                  # 24
 _FASTER_BACKBONE = _blocks(_BACKBONE, "FasterC2f_N")
 
+# YOLOv8 image classification: the detect backbone without SPPF, then the
+# Classify head (a 1x1 Conv to 1280, the mean over H and W, the logits);
+# max_channels 1024 at every scale (the JAX yaml's)
+YOLOV8_CLS = {
+    "nc": 1000,
+    "scales": {"n": [0.33, 0.25, 1024], "s": [0.33, 0.50, 1024],
+               "m": [0.67, 0.75, 1024], "l": [1.00, 1.00, 1024],
+               "x": [1.00, 1.25, 1024]},
+    "backbone": _BACKBONE[:9],
+    "head": [[-1, 1, "Classify", ["nc"]]],
+}
+
 MODELS = {
     "yolov8.yaml": YOLOV8,
+    "yolov8-cls.yaml": YOLOV8_CLS,
     "yolov8ori.yaml": YOLOV8ORI,
     # layer 0 + stock YOLOv8 + Detect
     "yolov8-dedark.yaml": _variant(

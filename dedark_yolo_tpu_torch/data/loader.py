@@ -7,7 +7,9 @@ with the JAX package's per-item seed (`seed * 100003 + epoch + position *
 `shuffle`, `random.Random(seed + epoch)` shuffles the indices; `set_epoch`
 reshuffles), so the two loaders give the same batches. The collate stacks
 uint8 (B, H, W, 3) images and pads the labels to `max_boxes` with a
-validity mask.
+validity mask; a task's `collate_fn` takes the batch's list of items
+instead (the classify task's images and class ids), as the JAX loader's
+does (data/loader.py:75-83).
 
 With `use_processes` the items are made in a pool of forked processes
 instead (JAX data/loader.py:22-49, 95-105, 157-166): the pool's
@@ -21,7 +23,7 @@ handlers they inherit (see `_mp_init`).
 
 One process: the JAX loader's per-host sharding (`process_index` /
 `process_count`) stays at 0 of 1. The validator reads in order (no
-shuffle, seed 0, epoch 0). Not ported: task collates (`collate_fn`).
+shuffle, seed 0, epoch 0).
 """
 
 from __future__ import annotations
@@ -90,12 +92,16 @@ class DataLoader:
 
     def __init__(self, dataset, transforms, batch_size, max_boxes=128,
                  workers=8, drop_last=True, indices=None, shuffle=False,
-                 seed=0, use_processes=False):
+                 seed=0, use_processes=False, collate_fn=None):
         self.dataset = dataset
         self.indices = list(indices) if indices is not None else None
         self.transforms = transforms
         self.batch_size = batch_size
         self.max_boxes = max_boxes
+        # a task's collate (run in this process, never in a worker);
+        # the detect collate pads the labels to max_boxes
+        self.collate_fn = collate_fn or (lambda items: collate(items,
+                                                               max_boxes))
         self.workers = max(1, workers)
         self.drop_last = drop_last
         self.shuffle = shuffle
@@ -161,7 +167,7 @@ class DataLoader:
         def batches(make):
             for bi in range(nb):
                 chunk = idx[bi * self.batch_size:(bi + 1) * self.batch_size]
-                if not put(collate(make(chunk), self.max_boxes)):
+                if not put(self.collate_fn(make(chunk))):
                     return
             put(None)
 

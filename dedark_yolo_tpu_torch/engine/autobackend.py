@@ -15,9 +15,11 @@ The JAX package's `.bin`, `.tflite` and saved_model directories need its
 own runtimes and raise here.
 
 `forward(img_u8)` takes a (batch, imgsz, imgsz, 3) uint8 RGB batch (numpy
-or a tensor) and returns the task's tuple, detect (boxes_xywh, scores), f32
-on the backend's device, not waited for. The outputs come in export order
-from every format, so there is no `_demux`. `warmup()` runs one batch.
+or a tensor) and returns the task's tuple, detect (boxes_xywh, scores) or
+classify (probs,), f32 on the backend's device, not waited for. `task`
+comes from the sidecar, or from the live model. The outputs come in
+export order from every format, so there is no `_demux`. `warmup()` runs
+one batch.
 The device is cuda unless the caller passes another; cuda without a card
 raises (`predictor.resolve_device`).
 """
@@ -77,6 +79,7 @@ class AutoBackend:
             model = y.model.to(self.device).eval()
             self.names = dict(y.names)
             self.nc = model.nc
+            self.task = model.task
             self._fn = U8Program(
                 model, torch.bfloat16 if half else torch.float32,
                 bf16_params(model) if half else None)
@@ -108,7 +111,8 @@ class AutoBackend:
     @torch.inference_mode()
     def forward(self, img_u8):
         """(batch, imgsz, imgsz, 3) uint8 RGB -> detect (boxes_xywh (B, N,
-        4), scores (B, N, nc)), f32 on the device."""
+        4), scores (B, N, nc)) or classify (probs (B, nc),), f32 on the
+        device."""
         x = (torch.from_numpy(np.ascontiguousarray(img_u8))
              if isinstance(img_u8, np.ndarray) else img_u8)
         return tuple(self._fn(x.to(self.device)))

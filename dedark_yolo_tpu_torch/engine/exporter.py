@@ -3,8 +3,9 @@ engine/exporter.py).
 
 The program is JAX's `infer_u8`: a (batch, imgsz, imgsz, 3) uint8 RGB batch,
 divided by 255 in the compute dtype, through `DetectionModel.eval_outputs`
-(layer 0's enhance chain, the graph, the DFL decode), each output cast to
-f32. Its shapes are fixed, as JAX's are. NMS stays outside it, as in JAX.
+(detect: layer 0's enhance chain, the graph, the DFL decode; classify: the
+graph and the softmax), each output cast to f32. Its shapes are fixed, as
+JAX's are. NMS stays outside it, as in JAX.
 
 Formats:
   - `pt2` (aliases `export`, `bin`, `serialized`): `torch.export.export` of
@@ -37,7 +38,8 @@ from torch import nn
 from ..utils import LOGGER
 from .predictor import resolve_device
 
-OUTPUTS = ("boxes", "scores")        # the detect task's, in order
+# each task's outputs, in order (JAX exporter.py:102-105)
+OUTPUTS = {"detect": ("boxes", "scores"), "classify": ("probs",)}
 PROGRAM_FORMATS = ("pt2", "export", "bin", "serialized")
 WEIGHT_FORMATS = ("npz", "weights", "savedmodel_npz")
 JAX_TOOLCHAIN = {"stablehlo": "XLA", "saved_model": "TensorFlow",
@@ -75,10 +77,10 @@ def bf16_copy(model):
 def sidecar_meta(model, imgsz, batch, shapes):
     """The deployment sidecar of JAX exporter.py:113-127: the artifact's
     fixed shapes, task, class names and the ordered output specs."""
-    return {"imgsz": imgsz, "batch": batch, "nc": model.nc, "task": "detect",
+    return {"imgsz": imgsz, "batch": batch, "nc": model.nc, "task": model.task,
             "names": {int(k): v for k, v in model.names.items()},
             "outputs": [{"name": n, "shape": list(s)}
-                        for n, s in zip(OUTPUTS, shapes)]}
+                        for n, s in zip(OUTPUTS[model.task], shapes)]}
 
 
 class Exporter:

@@ -16,17 +16,20 @@ key, cuda by default. The rest of the JAX facade (model.py:272-514):
 (`engine/exporter.py`) and `benchmark(formats=...)`. An exported `.pt2`
 runs predict and val through AutoBackend (JAX model.py:40-50, 160-190):
 the artifact's imgsz and batch win and val runs square; train and export
-need live weights and raise.
+need live weights and raise. `train`, `val` and `predict` dispatch on the
+model's task (JAX model.py:132-136, 181-214, 230-262): a classify model
+(`yolov8{n,s,m,l,x}-cls.yaml`, its checkpoint or its `.pt2`) trains,
+validates and predicts through `engine/classify.py`.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 
 import torch
 
 from ..cfg import DEFAULT_CFG, get_cfg, model_yaml_load
-from ..data.dataset import check_det_dataset
 from ..nn.enhance import LowlightRecovery
 from ..nn.graph import DetectionModel
 from ..utils import LOGGER, increment_dir
@@ -35,6 +38,8 @@ from ..utils.checkpoint import (has_section, load_checkpoint, section_tree,
 from ..utils.patches import require
 from ..utils.weights import init_weights, state_dict_from_jax
 from .autobackend import refuse_jax_artifact
+from .classify import (ClassificationPredictor, ClassificationTrainer,
+                       ClassificationValidator)
 from .predictor import DetectionPredictor, resolve_device
 from .trainer import DetectionTrainer
 from .validator import DetectionValidator
@@ -155,6 +160,16 @@ class YOLO:
             raise ValueError(f"{what} needs live weights; this YOLO wraps the "
                              f"exported artifact {self._backend_spec}")
 
+    @property
+    def task(self):
+        """The model's task: the live model's, or an artifact's sidecar's
+        (detect where it has none)."""
+        if self._backend_spec is None:
+            return self.model.task
+        side = Path(str(self._backend_spec) + ".json")
+        return (json.loads(side.read_text()).get("task", "detect")
+                if side.is_file() else "detect")
+
     def predict(self, source, stream=False, **kwargs):
         """Detections for every image of `source` (see
         `predictor.load_source`): a list of Results, or with stream=True a
@@ -166,7 +181,8 @@ class YOLO:
         the CLI passes it): saving draws and encodes through OpenCV, which
         the card's host lacks. With `project`, files go to
         project/name (name default 'predict', incremented unless exist_ok),
-        else to runs/detect/predict*.
+        else to runs/detect/predict*. A classify model gives a Results
+        with `probs` an image (`ClassificationPredictor`; nothing saved).
         """
         args = self._args({"save": False, **kwargs})
         model = (self._make_backend(args) if self._backend_spec
@@ -176,10 +192,14 @@ class YOLO:
             save_dir = increment_dir(Path(args.project) / (args.name or
                                                              "predict"),
                                      args.exist_ok)
-        self.predictor = DetectionPredictor(args=args, model=model,
-                                            names=model.names,
-                                            save_dir=save_dir,
-                                            members=self.members)
+        if model.task == "classify":
+            self.predictor = ClassificationPredictor(
+                args=args, model=model, names=model.names, save_dir=save_dir)
+        else:
+            self.predictor = DetectionPredictor(args=args, model=model,
+                                                names=model.names,
+                                                save_dir=save_dir,
+                                                members=self.members)
         self.device = self.predictor.device
         return self.predictor(source, stream=stream)
 
@@ -284,8 +304,10 @@ class YOLO:
         self._user_callbacks.setdefault(event, []).append(fn)
 
     def train(self, **kwargs):
-        """Train on `data` (a dataset yaml path or dict); returns the final
-        validation's results (JAX model.py:130-160, the detect branch).
+        """Train on `data` (a dataset yaml path or dict; for classify a
+        folder tree's root); returns the final validation's results (JAX
+        model.py:130-160): DetectionTrainer, or ClassificationTrainer for a
+        classify model.
 
         kwargs are config keys; device None means cuda. The run trains a
         fresh module of this architecture with data's nc, warm-started by
@@ -296,17 +318,16 @@ class YOLO:
         best.npz (its EMA weights) when the run wrote one."""
         self._live("train")
         args = self._args(kwargs)
-        data = check_det_dataset(args.data) if args.data else None
+        trainer_cls = (ClassificationTrainer if self.model.task == "classify"
+                       else DetectionTrainer)
+        data = trainer_cls.check_data(args.data) if args.data else None
         if data is None:
             raise ValueError("training needs `data` (a dataset yaml or dict)")
-        with torch.device("meta"):
-            net = DetectionModel(self.model_yaml, nc=data["nc"])
-        net = net.to_empty(device="cpu")
-        init_weights(net, args.seed)
+        net = trainer_cls.get_model(self.model_yaml, data["nc"], args.seed)
         for m in net.modules():
             if isinstance(m, LowlightRecovery):
                 m.contrast_mode = args.contrast_mode
-        trainer = DetectionTrainer(net, {**self.overrides, **kwargs})
+        trainer = trainer_cls(net, {**self.overrides, **kwargs})
         named = isinstance(args.pretrained, (str, Path)) and args.pretrained
         if not args.resume and (self.ckpt_path is not None or not named):
             trainer.init_state = self.model.state_dict()
@@ -323,12 +344,15 @@ class YOLO:
 
     def val(self, **kwargs):
         """mAP of the model on `data` (a dataset yaml path or dict) at
-        `split`; returns the results dict (JAX model.py:176-221, the detect
-        branch). kwargs are config keys; conf None means 0.001, device None
-        cuda. The model moves to the val device."""
+        `split`, or a classify model's top-1 and top-5; returns the results
+        dict (JAX model.py:176-221). kwargs are config keys; conf None
+        means 0.001, device None cuda. The model moves to the val
+        device."""
         args = self._args(kwargs)
         model = self._make_backend(args) if self._backend_spec else self.model
-        self.validator = DetectionValidator(args=args)
+        self.validator = (ClassificationValidator(args=args)
+                          if model.task == "classify"
+                          else DetectionValidator(args=args))
         self.device = self.validator.device
         self.metrics = self.validator(model=model)
         return self.metrics

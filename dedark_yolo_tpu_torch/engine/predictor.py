@@ -47,6 +47,7 @@ import torch
 from ..cfg import get_cfg
 from .. import native
 from ..data.augment import PAD_VALUE
+from ..nn.graph import require_detect
 from ..ops.boxes import scale_boxes
 from ..ops.nms import non_max_suppression
 from ..utils import LOGGER, increment_dir
@@ -254,6 +255,8 @@ class DetectionPredictor:
         if self.args.conf is None:
             self.args.conf = 0.25  # predict default (reference model.py:213)
         self.device = resolve_device(self.args.device)
+        if model is not None:
+            require_detect(model, "DetectionPredictor")
         self.model = model
         self.names = names or (model.names if model is not None else {})
         self.members = list(members or [])

@@ -1,13 +1,15 @@
-"""Results and Boxes containers, numpy-backed (JAX engine/results.py:15-295,
-the detect task).
+"""Results, Boxes and Probs containers, numpy-backed (JAX engine/results.py:
+15-295 and results_extra.py:56-86, the detect and classify tasks).
 
 Built after the device readback: one Results holds one image's detections
 in original-image pixels, with the reference's API (`plot`, `save`,
 `save_txt`, `save_crop`, `tojson`, `verbose`, indexing). Drawing and
 encoding go through OpenCV (`utils.plotting`), imported at call time;
 `tojson`, `save_txt`, `verbose` and the arrays need no package beyond
-numpy. `update_tracks` takes a tracker's output (`track`). Masks,
-keypoints and probs belong to the other tasks (ROADMAP A12).
+numpy. `update_tracks` takes a tracker's output (`track`). A classify
+Results holds `probs` (a Probs of the image's class probabilities) and no
+boxes. Masks and keypoints belong to the segment and pose tasks (ROADMAP
+A12e, A12f).
 """
 
 from __future__ import annotations
@@ -97,17 +99,46 @@ class Boxes(NumpyTensorAPI):
         return self.xywh / np.asarray([w, h, w, h], np.float32)
 
 
+class Probs(NumpyTensorAPI):
+    """(nc,) class probabilities of one image (reference results.py:569,
+    JAX results_extra.py:56-86)."""
+
+    def __init__(self, data, names=None):
+        self.data = np.asarray(data).reshape(-1)
+        self.names = names or {}
+
+    def __getitem__(self, idx):
+        return Probs(self.data[idx], self.names)
+
+    @property
+    def top1(self):
+        return int(np.argmax(self.data))
+
+    @property
+    def top1conf(self):
+        return float(self.data[self.top1])
+
+    @property
+    def top5(self):
+        return np.argsort(-self.data)[:5].tolist()
+
+    @property
+    def top5conf(self):
+        return self.data[self.top5]
+
+
 class Results:
     """One image's result: the RGB original, its path, class names, Boxes,
     the per-image stage times in ms, layer 0's enhanced image (predict's
     `save_enhanced`: (S, S, 3) f32 in [0, 1], letterboxed) and the batch's
     captured activations on its first image (`visualize`: {layer: (1, h, w,
-    <= 32) f32 NHWC}; None on the others)."""
+    <= 32) f32 NHWC}; None on the others), and a classify model's Probs
+    (`probs`, None for detect)."""
 
-    _keys = ("boxes",)
+    _keys = ("boxes", "probs")
 
     def __init__(self, orig_img, path, names, boxes=None, speed=None,
-                 enhanced_img=None, features=None):
+                 enhanced_img=None, features=None, probs=None):
         self.orig_img = orig_img            # RGB uint8
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -117,6 +148,7 @@ class Results:
         self.speed = speed or {}
         self.enhanced_img = enhanced_img
         self.features = features
+        self.probs = Probs(probs, names) if probs is not None else None
 
     def __len__(self):
         return len(self.boxes)
@@ -133,15 +165,19 @@ class Results:
     def __getitem__(self, idx):
         """The detections at idx, as a Results (reference results.py:107-112)."""
         r = self.new()
-        for k in self.keys:
-            setattr(r, k, getattr(self, k)[idx])
+        for k in self.keys:     # probs are the image's, kept whole
+            comp = getattr(self, k)
+            setattr(r, k, comp if k == "probs" else comp[idx])
         r.speed = self.speed
         return r
 
-    def update(self, boxes=None):
-        """Replace the boxes in place (reference results.py:114-122)."""
+    def update(self, boxes=None, probs=None):
+        """Replace the boxes or the probs in place (reference results.py:
+        114-122)."""
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
+        if probs is not None:
+            self.probs = probs
 
     def update_tracks(self, tracks):
         """Replace the boxes with a tracker's output (m, 8) [x1, y1, x2, y2,
@@ -153,8 +189,12 @@ class Results:
         return self
 
     def verbose(self):
-        """'4 persons, 1 bus, ' style log string (reference results.py:
-        258-273)."""
+        """'4 persons, 1 bus, ' style log string, or a classify image's
+        top-5 'name 0.91, ...' (reference results.py:258-273)."""
+        if self.probs is not None:
+            return ", ".join(f"{self.names.get(int(j), j)} "
+                             f"{self.probs.data[j]:.2f}"
+                             for j in self.probs.top5) + ", "
         if len(self) == 0:
             return "(no detections), "
         s = ""

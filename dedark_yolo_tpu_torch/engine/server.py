@@ -28,8 +28,9 @@ Batching policy: the worker blocks for the first request, then waits at
 most ``max_wait_ms`` for followers. An exported `.pt2` artifact is served
 through AutoBackend (JAX server.py:110-125): its sidecar's batch, imgsz
 and names win over the arguments, and only NMS runs behind its program.
-Not ported: a mesh (ROADMAP A12) and the segment/pose/classify tasks
-(their masks and keypoints, A12d-A12f).
+Not ported: a mesh (ROADMAP A12) and the segment/pose tasks (their masks
+and keypoints, A12e-A12f). A classify model is refused as JAX refuses it
+(server.py:120-128): its predictions are YOLO.predict's.
 """
 
 from __future__ import annotations
@@ -107,21 +108,29 @@ class InferenceServer:
             self._stop.set()
             raise TimeoutError("server setup (build/warmup) timed out")
 
+    @staticmethod
+    def _check_task(task):
+        if task == "classify":
+            raise NotImplementedError(
+                "InferenceServer serves detect models; use YOLO.predict for "
+                "classify")
+        if task != "detect":
+            raise NotImplementedError(f"serving a {task} model is not ported "
+                                      "(ROADMAP A12e-A12f)")
+
     def _setup(self):
         from .model import YOLO
         spec, over, warmup = self._setup_args
         if spec.endswith(".pt2"):
             from .autobackend import AutoBackend
             model = AutoBackend(spec, device=self.device)
-            if model.task != "detect":
-                raise NotImplementedError(
-                    f"serving a {model.task} artifact is not ported "
-                    "(ROADMAP A12d-A12f)")
+            self._check_task(model.task)
             self.imgsz, self.max_batch = model.imgsz, model.batch
             over.update(imgsz=self.imgsz, batch=self.max_batch)
             names, members = model.names, []
         else:
             y = YOLO(spec, device=self.device)
+            self._check_task(y.model.task)
             model, names, members = y.model, y.names, y.members
             model.to(self.device).eval()
         self.names = {int(k): v for k, v in (names or {}).items()}

@@ -1,5 +1,16 @@
-"""DetectionTrainer: the detect task's train step and epoch loop (JAX
-engine/trainer.py).
+"""The train step and epoch loop (JAX engine/trainer.py): `BaseTrainer`,
+the task-neutral step and loop, and `DetectionTrainer`, the detect task's
+hooks on it (JAX trainer.py:73-942 and :943-1045). The classify task's
+trainer is `engine/classify.py::ClassificationTrainer`.
+
+A task supplies, as JAX's task trainers do: `task`, `loss_names`,
+`metric_keys` and `batch_keys` (the loader's arrays a step moves to the
+device); `check_data` (the dataset dict), `preflight` (imgsz), `get_model`
+(the architecture at the data's nc, seeded); `build_train_dataset` /
+`build_train_loader`; `loss(batch)` -> (total, items); `get_validator`;
+`dummy_batch` (autobatch); `close_augment` (close_mosaic). The detect hooks
+also resolve `max_boxes=0` (`_resolve_max_boxes`) and draw the label and
+batch plots (`plot_train_start`, `plot_train_batch`).
 
 The step (`step`): `build_optimizer` (:268-312, the 'auto' choice, the lr
 schedule and the warmup ramps of lr, bias lr and momentum, accumulation to
@@ -56,8 +67,9 @@ the run. Not ported: the device mesh and multi-process training.
     total, items = trainer.step(batch, step_index)
     metrics = DetectionTrainer(model, {"data": data, "epochs": 3}).train()
 
-`batch` is the loader's dict: 'img' (B, S, S, 3) uint8, 'cls' (B, M),
-'bboxes' (B, M, 4) normalised xywh, 'mask_gt' (B, M); numpy or torch.
+The detect `batch` is the loader's dict: 'img' (B, S, S, 3) uint8, 'cls'
+(B, M), 'bboxes' (B, M, 4) normalised xywh, 'mask_gt' (B, M); numpy or
+torch.
 """
 
 from __future__ import annotations
@@ -89,13 +101,12 @@ from ..utils.checks import check_imgsz
 from ..utils.ema import ema_init, ema_update
 from ..utils.plotting import (matplotlib_available, plot_images, plot_labels,
                               plot_results)
-from ..utils.weights import (opt_state_from_jax, opt_state_to_jax,
-                             state_dict_from_jax, state_dict_to_jax)
+from ..utils.weights import (init_weights, opt_state_from_jax,
+                             opt_state_to_jax, state_dict_from_jax,
+                             state_dict_to_jax)
 from .optim import OptState, init_opt_state, label_params, opt_update
 from .predictor import matmul_precision, resolve_device
 from .validator import DetectionValidator
-
-BATCH_KEYS = ("img", "cls", "bboxes", "mask_gt")
 
 
 class EarlyStopping:
@@ -113,16 +124,21 @@ class EarlyStopping:
         return (epoch - self.best_epoch) >= self.patience
 
 
-class DetectionTrainer:
-    loss_names = ("box", "cls", "dfl")
-    metric_keys = ("metrics/precision(B)", "metrics/recall(B)",
-                   "metrics/mAP50(B)", "metrics/mAP50-95(B)")
+class BaseTrainer:
+    """The task-neutral step and loop; a task trainer supplies the hooks
+    (see the module docstring)."""
+
+    task = "detect"
+    loss_names: tuple = ()
+    metric_keys: tuple = ()
+    batch_keys: tuple = ()
 
     def __init__(self, model, overrides=None, nb=1, device=None):
-        """model: the port's DetectionModel; overrides: config keys
-        (cfg.DEFAULT_CFG); nb: batches an epoch, which sets the schedule
-        (`train` sets it from its loader); device None means the `device`
-        key, and None there cuda, which raises without a CUDA device."""
+        """model: the port's DetectionModel of this task; overrides:
+        config keys (cfg.DEFAULT_CFG); nb: batches an epoch, which sets the
+        schedule (`train` sets it from its loader); device None means the
+        `device` key, and None there cuda, which raises without a CUDA
+        device."""
         self.args = get_cfg(overrides)
         self.device = resolve_device(device if device is not None
                                      else self.args.device)
@@ -160,7 +176,7 @@ class DetectionTrainer:
 
     def _get_save_dir(self):
         a = self.args
-        project = Path(a.project or "runs/detect")
+        project = Path(a.project or f"runs/{self.task}")
         return increment_dir(project / (a.name or "train"),
                              a.exist_ok or a.resume)
 
@@ -208,64 +224,77 @@ class DetectionTrainer:
                                    [self.args.warmup_momentum, self.momentum]))
         return float(self.momentum)
 
-    def close_augment(self):
-        """close_mosaic: the last epochs letterbox instead of mosaicking
-        (forked workers are closed, so the next epoch forks them anew)."""
-        self.train_tf.mosaic_enabled = False
-        if getattr(self, "train_dl", None) is not None:
-            self.train_dl.close()
+    # ------------------------------------------------------------ task hooks
+    @staticmethod
+    def check_data(data):
+        """The dataset dict of `data` (JAX trainer.py:163-164)."""
+        raise NotImplementedError
+
+    def preflight(self):
+        """Arg fixups before the run (JAX trainer.py:166-169)."""
+
+    @classmethod
+    def get_model(cls, cfg, nc, seed=0):
+        """The architecture dict `cfg` at `nc` classes, built on the CPU
+        with `seed`ed weights (JAX trainer.py:198-207)."""
+        from ..nn.graph import DetectionModel
+        with torch.device("meta"):
+            net = DetectionModel(cfg, nc=nc)
+        if net.task != cls.task:
+            raise ValueError(f"{cls.__name__} trains {cls.task} models; this "
+                             f"architecture is a {net.task} model")
+        net = net.to_empty(device="cpu")
+        init_weights(net, seed)
+        return net
+
+    def build_train_dataset(self):
+        raise NotImplementedError
+
+    def build_train_loader(self):
+        """A loader: len(), set_epoch(e), close(), iteration -> batch."""
+        raise NotImplementedError
+
+    def loss(self, batch):
+        """(total, items) of one device batch, the graph in train mode;
+        items match `loss_names`."""
+        raise NotImplementedError
 
     def get_validator(self, save_dir=None, data=None):
-        """The validator an epoch's val runs (JAX trainer.py:1032-1036): this
-        trainer's config with conf 0.001, on the trainer's device."""
-        args = get_cfg({**vars(self.args), "conf": 0.001,
-                        "device": str(self.device)})
-        return DetectionValidator(args=args, save_dir=save_dir, data=data)
+        raise NotImplementedError
+
+    def dummy_batch(self, b):
+        """A zero batch of b images at the run's shapes (autobatch)."""
+        raise NotImplementedError
+
+    def close_augment(self):
+        """Fired at epochs - close_mosaic (JAX trainer.py:261-262)."""
+
+    def _resolve_max_boxes(self):
+        """The detect task's max_boxes=0 (JAX trainer.py:218-246)."""
+
+    def plot_train_start(self):
+        """Plots of the dataset at train start (plots=True)."""
+
+    def plot_train_batch(self, batch, path):
+        """A plot of one of the first epoch's first three batches."""
 
     def to_device(self, batch):
-        """The batch's four arrays on the trainer's device; from the host
-        through pinned memory, without waiting."""
+        """The batch's `batch_keys` arrays on the trainer's device; from the
+        host through pinned memory, without waiting."""
         out = {}
-        for k in BATCH_KEYS:
+        for k in self.batch_keys:
             t = torch.as_tensor(batch[k])
             if self.device.type == "cuda" and t.device.type == "cpu":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t.to(self.device)
         return out
 
-    def loss(self, batch):
-        """(total, LossItems) of one device batch, the graph in train mode."""
-        a = self.args
-        amp = bool(a.amp)
-        clean = batch["img"].to(torch.bfloat16 if amp else torch.float32) / 255.0
-        dedark_A = IcA = None
-        if a.lowlight_FLAG:
-            img = lowlight_degrade(clean, a.dark_param)
-            if a.dedark_FLAG and a.prior_mode == "computed":
-                dedark_A, IcA = dark_channel_priors(img)
-        else:
-            img = clean
-        if amp:
-            bf16 = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
-                    for n, p in self.params.items()}
-            raw = torch.func.functional_call(self.model, bf16,
-                                             (img, dedark_A, IcA))
-            raw = [r.float() for r in raw]
-        else:
-            raw = self.model(img, dedark_A, IcA)
-        lbatch = {"cls": batch["cls"], "bboxes": batch["bboxes"],
-                  "mask_gt": batch["mask_gt"],
-                  "recovery_loss": ((img.float() - clean.float()) ** 2).mean()}
-        hyp = {"box": a.box, "cls": a.cls, "dfl": a.dfl, "lrl": a.lrl}
-        return detection_loss(raw, lbatch, nc=self.model.nc,
-                              strides=self.model.strides, hyp=hyp)
-
     def step(self, batch, step_index):
         """One micro-step at global batch `step_index`: forward and backward
         in train mode, `opt_update` (an update every `accumulate` calls),
         the EMA of parameters and BN stats after an applied update. Returns
-        the detached total and the (3,) loss items; the model is left in
-        eval mode."""
+        the detached total and the loss items stacked (detect's (3,)); the
+        model is left in eval mode."""
         batch = self.to_device(batch)
         names = list(self.params)
         self.model.train()
@@ -288,32 +317,6 @@ class DetectionTrainer:
         return total.detach(), torch.stack(list(items))
 
     # ------------------------------------------------------------------ loop
-    def build_train_dataset(self):
-        if getattr(self, "train_ds", None) is None:
-            a = self.args
-            self.train_ds = YOLODataset(self.data["train"], imgsz=a.imgsz,
-                                        nc=self.data["nc"], cache=a.cache,
-                                        fraction=a.fraction,
-                                        single_cls=a.single_cls)
-        return self.train_ds
-
-    def build_train_loader(self):
-        a = self.args
-        hyp = {k: getattr(a, k) for k in AUGMENT_KEYS}
-        self.train_tf = TrainTransforms(hyp, imgsz=a.imgsz)
-        return DataLoader(self.build_train_dataset(), self.train_tf, a.batch,
-                          max_boxes=a.max_boxes, workers=a.workers,
-                          shuffle=True, seed=a.seed, drop_last=True,
-                          use_processes=bool(a.loader_mp))
-
-    def dummy_batch(self, b):
-        """A zero batch of b images at the run's shapes (autobatch)."""
-        a = self.args
-        return {"img": np.zeros((b, a.imgsz, a.imgsz, 3), np.uint8),
-                "bboxes": np.zeros((b, a.max_boxes, 4), np.float32),
-                "cls": np.zeros((b, a.max_boxes), np.float32),
-                "mask_gt": np.zeros((b, a.max_boxes), np.float32)}
-
     def _autobatch(self):
         """The batch for batch < 0 (JAX trainer.py:735-747): each trial is
         the loss and its gradients on a zero batch, as JAX measures
@@ -354,26 +357,6 @@ class DetectionTrainer:
         out.mkdir(parents=True, exist_ok=True)
         self.profile_trace = out / f"step{step}.pt.trace.json"
         prof.export_chrome_trace(str(self.profile_trace))
-
-    def _resolve_max_boxes(self):
-        """max_boxes=0 -> the densest composite the augmentation can make:
-        the top-k label counts summed, k = 4 with mosaic (x2 with mixup, x2
-        again with copy_paste), rounded up to a multiple of 8 in [8, 1024]
-        (JAX trainer.py:218-246)."""
-        a = self.args
-        if int(a.max_boxes) > 0:
-            return
-        counts = sorted((len(lb) for lb in self.build_train_dataset().labels),
-                        reverse=True)
-        k = 4 if a.mosaic > 0 else 1
-        if a.mixup > 0:
-            k *= 2
-        top = sum(counts[:k]) if counts else 1
-        if a.copy_paste > 0:
-            top *= 2
-        a.max_boxes = int(np.clip(math.ceil(max(top, 1) / 8) * 8, 8, 1024))
-        LOGGER.info(f"auto max_boxes: {a.max_boxes} "
-                    f"(top-{k} label sum {top}, {len(counts)} images)")
 
     def _warm_start(self):
         """Weights by name and shape from `init_state` (the facade's
@@ -461,8 +444,8 @@ class DetectionTrainer:
         a = self.args
         if not a.data:
             raise ValueError("training needs `data` (a dataset yaml or dict)")
-        self.data = check_det_dataset(a.data)
-        a.imgsz = check_imgsz(a.imgsz, stride=32)
+        self.data = self.check_data(a.data)
+        self.preflight()
         self.run_callbacks("on_pretrain_routine_start")
         self.wdir.mkdir(parents=True, exist_ok=True)
         yaml_save(self.save_dir / "args.yaml", dict(vars(a)))
@@ -476,14 +459,7 @@ class DetectionTrainer:
         if nb == 0:
             raise ValueError("empty train loader (batch larger than the dataset?)")
         if a.plots:
-            if not matplotlib_available():
-                LOGGER.info("plots: matplotlib is not installed; train draws "
-                            "only the batch mosaics (OpenCV)")
-            lbs = [lb for lb in self.train_ds.labels if len(lb)]
-            if lbs:
-                cat = np.concatenate(lbs, 0)
-                self._plot(plot_labels, cat[:, 1:5], cat[:, 0],
-                           names=self.data.get("names"), save_dir=self.save_dir)
+            self.plot_train_start()
         self.build_optimizer(nb)
         self.init_train_state()
         start_epoch = self._resume() if a.resume else 0
@@ -523,9 +499,8 @@ class DetectionTrainer:
                         break
                     self.run_callbacks("on_train_batch_start")
                     if a.plots and epoch == start_epoch and len(items_log) < 3:
-                        self._plot(plot_images, batch, self.save_dir
-                                   / f"train_batch{len(items_log)}.jpg",
-                                   names=self.data.get("names"))
+                        self.plot_train_batch(batch, self.save_dir / (
+                            f"train_batch{len(items_log)}.jpg"))
                     prof = (self._profile_start() if a.profile
                             and epoch == start_epoch and len(items_log) == 2
                             else None)
@@ -698,3 +673,120 @@ class DetectionTrainer:
         if self._ckpt_pool is not None:
             self._ckpt_pool.shutdown()
             self._ckpt_pool = None
+
+
+class DetectionTrainer(BaseTrainer):
+    """The detect task's hooks (JAX trainer.py:943-1045): the YOLO dataset
+    and its augmented loader, the v8 loss of the (degraded) image with the
+    recovery MSE, bf16 under `amp`, mAP validation."""
+
+    task = "detect"
+    loss_names = ("box", "cls", "dfl")
+    metric_keys = ("metrics/precision(B)", "metrics/recall(B)",
+                   "metrics/mAP50(B)", "metrics/mAP50-95(B)")
+    batch_keys = ("img", "cls", "bboxes", "mask_gt")
+    check_data = staticmethod(check_det_dataset)
+
+    def preflight(self):
+        a = self.args
+        a.imgsz = check_imgsz(a.imgsz, stride=32)
+
+    def close_augment(self):
+        """close_mosaic: the last epochs letterbox instead of mosaicking
+        (forked workers are closed, so the next epoch forks them anew)."""
+        self.train_tf.mosaic_enabled = False
+        if getattr(self, "train_dl", None) is not None:
+            self.train_dl.close()
+
+    def get_validator(self, save_dir=None, data=None):
+        """The validator an epoch's val runs (JAX trainer.py:1032-1036): this
+        trainer's config with conf 0.001, on the trainer's device."""
+        args = get_cfg({**vars(self.args), "conf": 0.001,
+                        "device": str(self.device)})
+        return DetectionValidator(args=args, save_dir=save_dir, data=data)
+
+    def loss(self, batch):
+        """(total, LossItems) of one device batch, the graph in train mode."""
+        a = self.args
+        amp = bool(a.amp)
+        clean = batch["img"].to(torch.bfloat16 if amp else torch.float32) / 255.0
+        dedark_A = IcA = None
+        if a.lowlight_FLAG:
+            img = lowlight_degrade(clean, a.dark_param)
+            if a.dedark_FLAG and a.prior_mode == "computed":
+                dedark_A, IcA = dark_channel_priors(img)
+        else:
+            img = clean
+        if amp:
+            bf16 = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+                    for n, p in self.params.items()}
+            raw = torch.func.functional_call(self.model, bf16,
+                                             (img, dedark_A, IcA))
+            raw = [r.float() for r in raw]
+        else:
+            raw = self.model(img, dedark_A, IcA)
+        lbatch = {"cls": batch["cls"], "bboxes": batch["bboxes"],
+                  "mask_gt": batch["mask_gt"],
+                  "recovery_loss": ((img.float() - clean.float()) ** 2).mean()}
+        hyp = {"box": a.box, "cls": a.cls, "dfl": a.dfl, "lrl": a.lrl}
+        return detection_loss(raw, lbatch, nc=self.model.nc,
+                              strides=self.model.strides, hyp=hyp)
+
+    def build_train_dataset(self):
+        if getattr(self, "train_ds", None) is None:
+            a = self.args
+            self.train_ds = YOLODataset(self.data["train"], imgsz=a.imgsz,
+                                        nc=self.data["nc"], cache=a.cache,
+                                        fraction=a.fraction,
+                                        single_cls=a.single_cls)
+        return self.train_ds
+
+    def build_train_loader(self):
+        a = self.args
+        hyp = {k: getattr(a, k) for k in AUGMENT_KEYS}
+        self.train_tf = TrainTransforms(hyp, imgsz=a.imgsz)
+        return DataLoader(self.build_train_dataset(), self.train_tf, a.batch,
+                          max_boxes=a.max_boxes, workers=a.workers,
+                          shuffle=True, seed=a.seed, drop_last=True,
+                          use_processes=bool(a.loader_mp))
+
+    def dummy_batch(self, b):
+        """A zero batch of b images at the run's shapes (autobatch)."""
+        a = self.args
+        return {"img": np.zeros((b, a.imgsz, a.imgsz, 3), np.uint8),
+                "bboxes": np.zeros((b, a.max_boxes, 4), np.float32),
+                "cls": np.zeros((b, a.max_boxes), np.float32),
+                "mask_gt": np.zeros((b, a.max_boxes), np.float32)}
+
+    def _resolve_max_boxes(self):
+        """max_boxes=0 -> the densest composite the augmentation can make:
+        the top-k label counts summed, k = 4 with mosaic (x2 with mixup, x2
+        again with copy_paste), rounded up to a multiple of 8 in [8, 1024]
+        (JAX trainer.py:218-246)."""
+        a = self.args
+        if int(a.max_boxes) > 0:
+            return
+        counts = sorted((len(lb) for lb in self.build_train_dataset().labels),
+                        reverse=True)
+        k = 4 if a.mosaic > 0 else 1
+        if a.mixup > 0:
+            k *= 2
+        top = sum(counts[:k]) if counts else 1
+        if a.copy_paste > 0:
+            top *= 2
+        a.max_boxes = int(np.clip(math.ceil(max(top, 1) / 8) * 8, 8, 1024))
+        LOGGER.info(f"auto max_boxes: {a.max_boxes} "
+                    f"(top-{k} label sum {top}, {len(counts)} images)")
+
+    def plot_train_start(self):
+        if not matplotlib_available():
+            LOGGER.info("plots: matplotlib is not installed; train draws "
+                        "only the batch mosaics (OpenCV)")
+        lbs = [lb for lb in self.train_ds.labels if len(lb)]
+        if lbs:
+            cat = np.concatenate(lbs, 0)
+            self._plot(plot_labels, cat[:, 1:5], cat[:, 0],
+                       names=self.data.get("names"), save_dir=self.save_dir)
+
+    def plot_train_batch(self, batch, path):
+        self._plot(plot_images, batch, path, names=self.data.get("names"))

@@ -53,7 +53,7 @@ from ..data.augment import ValTransforms
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..data.loader import DataLoader
 from ..losses.detection import detection_loss
-from ..nn.graph import DetectionModel
+from ..nn.graph import DetectionModel, require_detect
 from ..ops.boxes import scale_boxes, xywh2xyxy, xyxy2xywh
 from ..utils import LOGGER, increment_dir
 from ..utils.checks import check_imgsz
@@ -136,6 +136,7 @@ class DetectionValidator:
         if not (backend or isinstance(model, DetectionModel)):
             raise TypeError("validate a DetectionModel or an AutoBackend, "
                             f"not {type(model).__name__}")
+        require_detect(model, "DetectionValidator")
         if backend and (with_loss or a.rect):
             raise ValueError("an exported artifact gives no raw maps for "
                              "the loss and has one square shape (rect)")

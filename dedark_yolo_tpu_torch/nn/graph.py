@@ -5,7 +5,9 @@
 (ultralytics/nn/tasks.py:803-921). `DetectionModel` builds one torch module
 per row and walks them with the save-list (graph.py:484-551), in the plain
 form only: no lazy upsample/concat, remat, space-to-depth stem or FPN fuse,
-which are exact rewrites of the same params in the JAX package.
+which are exact rewrites of the same params in the JAX package. The
+built heads are Detect and AsffDetect (task 'detect') and Classify (task
+'classify'); `task` is JAX's (graph.py:575-576).
 
 Layout: the image enters NHWC in [0, 1]; layer 0 (lowlight_recovery) works
 on NHWC, the backbone on NCHW (a permuted view, so channels_last memory);
@@ -64,7 +66,10 @@ C2F_FAMILY = {
     "Conv3_SC_C2f": "conv3_sc", "SC_PW_PW_C2f": "sc_pw_pw",
 }
 _HEADS = {"Detect", "AsffDetect", "Segment", "Pose", "RTDETRDecoder"}
-PORTED_HEADS = {"Detect": Detect, "AsffDetect": AsffDetect}
+PORTED_HEADS = {"Detect": Detect, "AsffDetect": AsffDetect,
+                "Classify": L.Classify}
+# head -> task (JAX graph.py:575-576); heads not listed are detect's
+TASKS = {"Classify": "classify", "Segment": "segment", "Pose": "pose"}
 _STRIDE2 = {"Focus", "HGStem"}
 
 
@@ -231,6 +236,9 @@ def _build_module(spec: LayerSpec, cins: List[int], head: dict) -> nn.Module:
         return L.PConv(c1, a[1] if len(a) > 1 else 4)
     if name == "SCConv":
         return L.SCConv(a[0])
+    if name == "Classify":
+        return L.Classify(c1, a[0], a[1] if len(a) > 1 else 1,
+                          a[2] if len(a) > 2 else 1)
     if name in PORTED_HEADS:
         return PORTED_HEADS[name](head["nc"], cins, head["strides"])
     if name == "nn.Upsample":
@@ -240,9 +248,19 @@ def _build_module(spec: LayerSpec, cins: List[int], head: dict) -> nn.Module:
     raise NotImplementedError(f"module '{name}' is not ported to torch yet")
 
 
+def require_detect(model, what):
+    """Raise for a model (or AutoBackend) of another task than detect:
+    `what` reads boxes and scores."""
+    task = getattr(model, "task", "detect")
+    if task != "detect":
+        raise ValueError(f"{what} needs a detect model; this one is a "
+                         f"{task} model (use its task's predictor and "
+                         "validator, engine/classify.py for classify)")
+
+
 class DetectionModel(nn.Module):
     """Graph of the task model. forward(x NHWC in [0,1], priors) -> raw head
-    maps.
+    maps (detect) or logits (classify, (B, nc)).
 
     `model.{i}` is row i, so state_dict keys are the reference's.
     """
@@ -257,7 +275,8 @@ class DetectionModel(nn.Module):
         if self.head["name"] not in PORTED_HEADS:
             raise NotImplementedError(
                 f"{self.head['name']} head is not ported to torch yet "
-                "(ROADMAP A12d-A12f)")
+                "(ROADMAP A12e-A12f)")
+        self.task = TASKS.get(self.head["name"], "detect")
         self.strides = self.head["strides"]
         self.reg_max = 16
         self.names = {i: str(i) for i in range(self.nc)}
@@ -294,24 +313,29 @@ class DetectionModel(nn.Module):
                 else:
                     inp = [y if fi == -1 else saved[fi] for fi in spec.f]
                 y = mod(inp)
-                if spec.i in capture and torch.is_tensor(y):
+                if spec.i in capture and torch.is_tensor(y) and y.dim() == 4:
                     caps[spec.i] = y[:1, :32].permute(0, 2, 3, 1)
             if spec.i in self.save:
                 saved[spec.i] = y
         return (y, caps) if capture else y
 
     def decode(self, raw):
-        """Raw maps -> (boxes_xywh (B, N, 4), scores (B, N, nc))."""
+        """Raw maps -> (boxes_xywh (B, N, 4), scores (B, N, nc)); a
+        classify model's logits -> (probs (B, nc),), their softmax (JAX
+        graph.py:612-613)."""
+        if self.task == "classify":
+            return (L.softmax(raw, -1),)
         return decode_detections(raw, self.nc, self.strides, self.reg_max)
 
     def eval_outputs(self, x, params=None):
         """The task's decoded output tuple, the one definition that the
-        exporter and AutoBackend's live branch share (JAX nn/graph.py:
-        671-700): detect -> (boxes_xywh (B, N, 4), scores (B, N, nc)) =
-        decode(forward(x)). `params` (a state dict, e.g. the bf16 casts of
-        `engine.benchmarks.bf16_params`) runs in place of the module's own
-        weights through `torch.func.functional_call`. Only detect heads
-        are built (the constructor refuses the others)."""
+        exporter, AutoBackend's live branch and the classify predictor and
+        validator share (JAX nn/graph.py:671-700): detect ->
+        (boxes_xywh (B, N, 4), scores (B, N, nc)), classify -> (probs (B,
+        nc),), each decode(forward(x)). `params` (a state dict, e.g. the
+        bf16 casts of `engine.benchmarks.bf16_params`) runs in place of the
+        module's own weights through `torch.func.functional_call`. Segment
+        and pose heads are not built (the constructor refuses them)."""
         raw = (self(x) if params is None
                else torch.func.functional_call(self, params, (x,)))
         return self.decode(raw)
@@ -326,6 +350,7 @@ class DetectionModel(nn.Module):
         its coarsest level's anchors, the smallest pass its finest level's;
         the rest concatenate for one NMS. `forward` (default: this module)
         maps an image to raw maps, e.g. one ensemble member's weights."""
+        require_detect(self, "test-time augmentation")
         forward = forward or self
         h, w = int(x.shape[1]), int(x.shape[2])
         gs = int(max(self.strides))

@@ -72,6 +72,10 @@ def flatten_raw(raw_maps):
 def decode_detections(raw_maps, nc: int, strides: Sequence[int],
                       reg_max: int = 16):
     """Raw maps -> (boxes_xywh_pixels (B, N, 4), class_scores (B, N, nc))."""
+    if torch.is_tensor(raw_maps):
+        raise ValueError("decode_detections takes a detect head's list of "
+                         "per-level maps; a single tensor is a classify "
+                         "model's logits (DetectionModel.decode)")
     feat_shapes = [(m.shape[1], m.shape[2]) for m in raw_maps]
     anchors, stride_t = make_anchors(feat_shapes, strides, 0.5,
                                      device=raw_maps[0].device)

@@ -13,8 +13,10 @@ them to XLA.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -30,8 +32,25 @@ BN_MOMENTUM = 0.03  # torch convention: running += 0.03 * (batch - running)
 # conv's or dense layer's bias to the rounded product, and sums a bf16
 # softmax in f32. PyTorch's fused ops (F.silu, F.leaky_relu, a biased conv,
 # torch.softmax) round once, so a bf16 map takes the unfused forms below;
-# an f32 map the fused ops.
-LEAKY_SLOPE_BF16 = 0.10009765625     # 0.1 rounded to bf16, exact in f32
+# an f32 map the fused ops. PyTorch multiplies a bf16 map by a Python float
+# at the float's full precision; XLA rounds the weak-typed scalar to bf16
+# first (`weak_const`: leaky_relu's slope, the group norm's constants).
+
+
+@functools.lru_cache(maxsize=None)
+def _to_bf16(value: float) -> float:
+    """`value` rounded to f32, then to bf16 to nearest even, as an exact
+    f32 value (host arithmetic: no tensor, so it also runs under tracing)."""
+    u = int(np.array(value, np.float32).view(np.uint32))
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return float(np.array(u, np.uint32).view(np.float32))
+
+
+def weak_const(value: float, x) -> float:
+    """A Python scalar as XLA takes it against `x`: on a bf16 map rounded
+    to bf16 (a value exact in f32, so the op then rounds only its result),
+    else as it is."""
+    return _to_bf16(value) if x.dtype == torch.bfloat16 else value
 
 
 class _SiluBF16(torch.autograd.Function):
@@ -69,7 +88,7 @@ def leaky_relu(x):
     """LeakyReLU(0.1)."""
     if x.dtype != torch.bfloat16:
         return F.leaky_relu(x, 0.1)
-    return torch.where(x >= 0, x, x * LEAKY_SLOPE_BF16)
+    return torch.where(x >= 0, x, x * weak_const(0.1, x))
 
 
 def softmax(x, dim):
@@ -248,13 +267,18 @@ class PconvBottleneck(nn.Module):
 def _group_norm(x, groups: int, eps: float):
     """Normalise each of `groups` channel groups of an NCHW map over its
     (C/G, H, W) values, by the unbiased std plus eps, as the JAX package's
-    GroupBatchnorm2d and SRU do (layers.py:577-581)."""
+    GroupBatchnorm2d and SRU do (layers.py:577-581). On a bf16 map the
+    unbiasing factor n / (n - 1) and eps are rounded to bf16 first, as XLA
+    rounds the weak-typed scalars of JAX's formula (`weak_const`); the mean
+    and the variance reduce in f32 and round once in both packages."""
     b, c, h, w = x.shape
     xg = x.reshape(b, groups, -1)
     n = xg.shape[2]
     mean = xg.mean(2, keepdim=True)
-    var = xg.var(2, unbiased=False, keepdim=True) * (n / max(n - 1, 1))
-    return ((xg - mean) / (torch.sqrt(var) + eps)).reshape(b, c, h, w)
+    var = (xg.var(2, unbiased=False, keepdim=True)
+           * weak_const(n / max(n - 1, 1), x))
+    return ((xg - mean) / (torch.sqrt(var) + weak_const(eps, x))
+            ).reshape(b, c, h, w)
 
 
 class GroupBatchnorm2d(nn.Module):
@@ -303,7 +327,9 @@ class SCConv(nn.Module):
     with its own group-norm scale and bias (`sru_weight`, `sru_bias`, at
     ones and zeros as in JAX; 4 groups): a value goes to the informative or
     the other map by sigmoid(gn_x * w / sum(w)) >= 0.5, and the maps'
-    halves cross."""
+    halves cross. The gate's sigmoid is `sigmoid`, XLA's rounded logistic on
+    a bf16 map: torch.sigmoid rounds once, and near gn_x = 0 the two land on
+    either side of 0.5, which moves a whole value to the other map."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -311,15 +337,22 @@ class SCConv(nn.Module):
         self.sru_bias = nn.Parameter(torch.zeros(c))
         self.cru = CRU(c)
 
-    def forward(self, x):
+    def gate(self, x):
+        """(gn_x, the informative mask) of the SRU on x."""
         w = self.sru_weight
         gn_x = (_group_norm(x, 4, 1e-10) * w[:, None, None]
                 + self.sru_bias[:, None, None])
-        info = torch.sigmoid(gn_x * (w / w.sum())[:, None, None]) >= 0.5
+        return gn_x, sigmoid(gn_x * (w / w.sum())[:, None, None]) >= 0.5
+
+    def sru(self, x):
+        gn_x, info = self.gate(x)
         zero = torch.zeros((), dtype=gn_x.dtype, device=gn_x.device)
         x11, x12 = torch.where(info, gn_x, zero).chunk(2, 1)
         x21, x22 = torch.where(info, zero, gn_x).chunk(2, 1)
-        return self.cru(torch.cat([x11 + x22, x12 + x21], 1))
+        return torch.cat([x11 + x22, x12 + x21], 1)
+
+    def forward(self, x):
+        return self.cru(self.sru(x))
 
 
 class SCBottleneck(nn.Module):
@@ -590,3 +623,17 @@ class MFRU(nn.Module):
                               [self.weight_level_0(l0), self.weight_level_1(l1),
                                self.weight_level_2(l2)])
         return self.sc_out(l0 * w0 + l1 * w1 + l2 * w2)
+
+
+class Classify(nn.Module):
+    """Classification head (reference head.py:244-260, JAX layers.py:
+    1242-1253): a Conv to 1280 channels (k, s from the row's args), the mean
+    over H and W, then a biased Linear to nc logits."""
+
+    def __init__(self, c1: int, nc: int, k: int = 1, s: int = 1):
+        super().__init__()
+        self.conv = Conv(c1, 1280, k, s)
+        self.linear = Linear(1280, nc)
+
+    def forward(self, x):
+        return self.linear(self.conv(x).mean((2, 3)))

@@ -140,6 +140,21 @@ def _parity(name, imgsz, seed, device, plain_layer0):
                         "updates": (tr.opt_state.step, tr.ema_updates),
                         "assign": calls}
     g, c = got["gpu"], got["cpu"]
+    rec = {"model": name, "imgsz": imgsz, "batch": 2, "seed": seed,
+           "layer0_forward": "plain" if plain_layer0 else "kernel",
+           **step_errors(g, c, start),
+           # anchors the assigner gave another GT or none, loss then step
+           "assign_flips": assign_probe.flips(g["assign"], c["assign"]),
+           "assign_least_margins": [min(x["topk"], x["claim"])
+                                    for x in c["assign"]]}
+    return rec
+
+
+def step_errors(g, c, start):
+    """The card's micro-step `g` against the CPU's `c` from the state
+    `start` (each: the loss items, the step's items, the gradients, the
+    state and EMA after the step, the (updates, EMA updates) counts), held
+    to TRAIN_TOL: `ok` when every error is within it."""
     cpu_of = lambda t: t.detach().cpu()
     rel = lambda a, b: float((cpu_of(a) - b).abs().max() / b.abs().max())
     items_rel = max(rel(torch.stack(list(g["items"])), torch.stack(list(c["items"]))),
@@ -160,9 +175,7 @@ def _parity(name, imgsz, seed, device, plain_layer0):
                   float((cpu_of(g["ema"][k]) - c["ema"][k]).abs().max()))
         move_err[k] = (err - 1e-6) / moved if moved else (0.0 if err <= 1e-6 else float("inf"))
     worst_move = max(move_err, key=move_err.get)
-    rec = {"model": name, "imgsz": imgsz, "batch": 2, "seed": seed,
-           "layer0_forward": "plain" if plain_layer0 else "kernel",
-           "items_gpu": [float(x) for x in g["items"]],
+    rec = {"items_gpu": [float(x) for x in g["items"]],
            "items_cpu": [float(x) for x in c["items"]],
            "items_max_rel_err": items_rel,
            "grad_norm_rel_err": grad_rel[worst_grad], "grad_worst_leaf": worst_grad,
@@ -170,10 +183,6 @@ def _parity(name, imgsz, seed, device, plain_layer0):
            "grad_max_entry_rel_err": grad_max_rel,
            "move_max_rel_err": move_err[worst_move], "move_worst": worst_move,
            "bn_stats_and_ema_max_abs_err": stats_err,
-           # anchors the assigner gave another GT or none, loss then step
-           "assign_flips": assign_probe.flips(g["assign"], c["assign"]),
-           "assign_least_margins": [min(x["topk"], x["claim"])
-                                    for x in c["assign"]],
            "updates_gpu": g["updates"], "updates_cpu": c["updates"],
            "tol": TRAIN_TOL}
     rec["ok"] = (items_rel <= TRAIN_TOL["items_rel"]

@@ -48,6 +48,10 @@ module itself):
                    -> weight_levels
   Conv2d           Conv_0 -> the bare conv itself; AddConv: Conv_0 -> conv,
                    BatchNorm_0 -> batch_norm
+  Classify         Conv_0 -> conv (a Conv: conv.conv, conv.bn), Dense_0 ->
+                   linear (the reference's `model.{i}.linear`; its kernel
+                   only transposed, unlike layer 0's fc1, whose rows are
+                   also permuted: the map keys on the row's module)
 
 A module applied twice (MFRU's sc_deep, pw and sc_out) is one flax child and
 one port child, so it has one set of keys. AsffTribeLevel's order depends on
@@ -101,6 +105,7 @@ _TABLES = {
     **{name: {**_CV, f"{_C2F_BLOCK[kind]}_*": ("m.{k}", _C2F_BLOCK[kind])}
        for name, kind in C2F_FAMILY.items()},
     "PConv": {"Conv_0": ("conv", None)},
+    "Classify": {"Conv_0": ("conv", "Conv"), "Dense_0": ("linear", None)},
     "GroupBatchnorm2d": {},
     "PconvBottleneck": {"PConv_0": ("pconv", "PConv"), "Conv_0": ("cv1", "Conv"),
                         "Conv2d_0": ("cv2", "Conv2d")},

@@ -146,9 +146,9 @@ def test_cli_train_and_predict(setup, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["segment", "export"], "A12e"), (["pose", "export"], "A12f"),
-    (["classify", "benchmark"], "A12d"), (["segment", "serve"], "A12e"),
+    (["pose", "benchmark"], "A12f"), (["segment", "serve"], "A12e"),
     (["segment", "val"], "A12e"),
-    (["pose", "train"], "A12f"), (["classify", "predict"], "A12d"),
+    (["pose", "train"], "A12f"), (["segment", "predict"], "A12e"),
     (["val", "task=segment"], "A12e")])
 def test_unported_modes_and_tasks_exit_nonzero(argv, item, caplog):
     with caplog.at_level("ERROR", logger="dedark_yolo_tpu_torch"):

@@ -1,0 +1,392 @@
+"""Torch port vs the JAX package: the fork's block zoo in bf16 (`amp=True`),
+on the CPU.
+
+First the two places where the port's bf16 rounded otherwise than XLA's,
+bit for bit: the group norm of GroupBatchnorm2d and SCConv's SRU (its
+unbiasing factor n / (n - 1) and eps, weak-typed Python scalars that XLA
+rounds to bf16 before it multiplies and adds), and SCConv's gate (XLA's
+logistic in rounded steps, where torch.sigmoid rounds once: near gn_x = 0
+the two fall on either side of 0.5 and send a whole value to the other
+map). Both go through `nn/layers.py`; these tests fail on the layers
+without the repair.
+
+Then every zoo block in bf16 train mode, and one amp train step of
+`yolov8n-mfru-rbf-asff` and `yolov8n-faster-twohead` (imgsz 64, b2, seed
+0, nc 3, as tests/test_torch_zoo_train.py builds them), by
+tests/test_torch_amp.py's yardstick: the port's bf16 may be no farther
+from JAX's bf16 than JAX's bf16 is from JAX's f32 on the same inputs
+(factor 1.0). Each check prints both gaps; the loss items by their
+largest gap, the gradients, the update and the BN stats' moves by relative
+norm. The whole step holds all four but one (`NOT_HELD`, ROADMAP C11),
+deterministically at two threads. The blocks run with bf16
+parameters and f32 BN buffers, as the amp step runs them; a block's
+convolutions sum in another order than XLA's, so a block's bf16 output is
+not bit-equal, only near.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+
+torch = pytest.importorskip("torch")
+
+from dedark_yolo_tpu.cfg import DEFAULT_CFG_DICT, get_cfg as jax_get_cfg  # noqa: E402
+from dedark_yolo_tpu.cfg import model_yaml_load as jax_yaml_load  # noqa: E402
+from dedark_yolo_tpu.engine.optim import (  # noqa: E402
+    init_opt_state as jax_init_opt, label_params as jax_labels,
+    opt_update as jax_opt_update)
+from dedark_yolo_tpu.engine.trainer import DetectionTrainer as JaxTrainer  # noqa: E402
+from dedark_yolo_tpu.nn import heads as JH  # noqa: E402
+from dedark_yolo_tpu.nn import layers as JL  # noqa: E402
+from dedark_yolo_tpu.nn.graph import DetectionModel as JaxModel  # noqa: E402
+
+from dedark_yolo_tpu_torch.cfg import model_yaml_load  # noqa: E402
+from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer  # noqa: E402
+from dedark_yolo_tpu_torch.nn import heads as TH  # noqa: E402
+from dedark_yolo_tpu_torch.nn import layers as TL  # noqa: E402
+from dedark_yolo_tpu_torch.nn.graph import DetectionModel  # noqa: E402
+from dedark_yolo_tpu_torch.utils.weights import state_dict_from_jax  # noqa: E402
+
+from test_torch_amp import NB, STEP, _batch, _gaps, _relnorm  # noqa: E402
+from test_torch_layers import randomize, to_plain  # noqa: E402
+from test_torch_zoo_blocks import few_threads, module_sd  # noqa: E402,F401
+
+BF16 = jnp.bfloat16
+
+
+def _f32(a):
+    return np.array(jnp.asarray(a).astype(jnp.float32))
+
+
+def _t16(a):
+    """A bf16 JAX array (NHWC) as the port's bf16 NCHW tensor."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.transpose(_f32(a), (0, 3, 1, 2)))).to(torch.bfloat16)
+
+
+def _nhwc(t):
+    return np.transpose(t.float().numpy(), (0, 2, 3, 1))
+
+
+def _near_zero_map(shape, seed):
+    """A bf16 map whose groups are mostly values within 0.02 of 0 with a
+    tenth spread N(0, 1): the group norm puts most of it near gn_x = 0,
+    where the gate decides on the last bits."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.02, 0.02, shape)
+    wide = rng.uniform(size=shape) < 0.1
+    x[wide] = rng.normal(0, 1, int(wide.sum()))
+    return jnp.asarray(x.astype(np.float32)).astype(BF16)
+
+
+# ------------------------------------------------------------ bit level
+@pytest.mark.parametrize("shape,groups", [((2, 6, 6, 32), 4),
+                                          ((2, 5, 6, 32), 16),
+                                          ((2, 7, 8, 16), 4),
+                                          ((1, 9, 11, 64), 16)])
+def test_group_norm_bf16_bit_equal_jax(shape, groups):
+    """GroupBatchnorm2d (JAX layers.py:561-583) at `groups` groups, bf16
+    params and input: the port's output equals JAX's bit for bit."""
+    rng = np.random.default_rng(groups)
+    x = jnp.asarray(rng.normal(0.3, 1.0, shape).astype(np.float32)).astype(BF16)
+    c = shape[-1]
+    w = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    b = rng.normal(0, 0.1, c).astype(np.float32)
+    jmod = JL.GroupBatchnorm2d(group_num=groups)
+    want = jax.jit(jmod.apply)(
+        {"params": {"weight": jnp.asarray(w).astype(BF16),
+                    "bias": jnp.asarray(b).astype(BF16)}}, x)
+    assert want.dtype == BF16
+    tw = torch.from_numpy(_f32(jnp.asarray(w).astype(BF16))).to(torch.bfloat16)
+    tb = torch.from_numpy(_f32(jnp.asarray(b).astype(BF16))).to(torch.bfloat16)
+    xn = TL._group_norm(_t16(x), groups, 1e-10)
+    got = xn * tw[:, None, None] + tb[:, None, None]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_nhwc(got), _f32(want))
+
+
+def _jax_gate(x, w, b, groups=4):
+    """JAX SCConv's SRU gate (layers.py:626-641): gn_x and the mask."""
+    gn_x = JL.GroupBatchnorm2d(group_num=groups).apply(
+        {"params": {"weight": w, "bias": b}}, x)
+    reweights = jax.nn.sigmoid(gn_x * (w / jnp.sum(w)))
+    return gn_x, reweights >= 0.5
+
+
+@pytest.mark.parametrize("c,seed", [(16, 0), (32, 1), (64, 2)])
+def test_scconv_gate_bf16_equals_jax(c, seed):
+    """SCConv's gate on a bf16 map dense in values near gn_x = 0: gn_x and
+    the informative mask equal JAX's bit for bit, and so does the SRU's
+    output, the input of JAX's CRU (recorded by intercepting its call).
+    The map puts hundreds of values where a once-rounded sigmoid flips the
+    gate."""
+    x = _near_zero_map((2, 7, 6, c), seed)
+    rng = np.random.default_rng(seed + 10)
+    w = jnp.asarray(rng.uniform(0.5, 1.5, c).astype(np.float32)).astype(BF16)
+    b = jnp.asarray(rng.normal(0, 0.05, c).astype(np.float32)).astype(BF16)
+    jgn, jmask = jax.jit(_jax_gate)(x, w, b)
+    m = TL.SCConv(c)
+    m.sru_weight.data = torch.from_numpy(_f32(w)).to(torch.bfloat16)
+    m.sru_bias.data = torch.from_numpy(_f32(b)).to(torch.bfloat16)
+    with torch.no_grad():
+        gn_x, info = m.gate(_t16(x))
+        sru = m.sru(_t16(x))
+    np.testing.assert_array_equal(_nhwc(gn_x), _f32(jgn))
+    np.testing.assert_array_equal(np.transpose(info.numpy(), (0, 2, 3, 1)),
+                                  np.asarray(jmask))
+    # the values the once-rounded sigmoid puts on the other side
+    once = torch.sigmoid(gn_x * (m.sru_weight / m.sru_weight.sum())[:, None,
+                                                                    None])
+    flips = int(((once >= 0.5) != info).sum())
+    print(f"c={c}: {flips} of {info.numel()} gates flip under torch.sigmoid")
+    assert flips > 0
+
+    seen = []
+
+    def record(next_fun, args, kwargs, context):
+        if isinstance(context.module, JL.CRU) and context.method_name == \
+                "__call__":
+            seen.append(args[0])
+        return next_fun(*args, **kwargs)
+
+    jmod = JL.SCConv(c)
+    v = jmod.init(jax.random.PRNGKey(0), x)
+    params = jax.tree_util.tree_map(lambda a: a.astype(BF16), v["params"])
+    params = {**params, "sru_weight": w, "sru_bias": b}
+    with JL.nn.intercept_methods(record):
+        jmod.apply({"params": params}, x)
+    np.testing.assert_array_equal(_nhwc(sru), _f32(seen[0]))
+
+
+# ------------------------------------------------------- blocks, bf16
+def _bf16_pair(jmod, tmod, kind, xs, args=(), dims=(), head=False):
+    """One train-mode call of `jmod` (flax) and `tmod` (the port) on the
+    same randomized weights and inputs (an NHWC array or a list): JAX with
+    bf16 params at bf16 inputs, JAX in f32, and the port with bf16 params
+    and f32 BN buffers. As tests/test_torch_amp.py's `_bf16_train_pair`,
+    with the zoo's name map (`module_sd`) and a head's list of NHWC maps.
+    Returns ((output, BN moves) of the port, of JAX bf16, of JAX f32), the
+    output flattened to float64."""
+    many = isinstance(xs, list)
+    jx = [jnp.asarray(x) for x in (xs if many else [xs])]
+    pick = (lambda a: a) if many else (lambda a: a[0])
+    v = to_plain(randomize(jmod.init(jax.random.PRNGKey(0), pick(jx)),
+                           np.random.default_rng(0)))
+    v.setdefault("batch_stats", {})
+    start = module_sd(v, kind, args, dims)
+    flat = lambda outs: np.concatenate([np.asarray(o, np.float64).ravel()
+                                        for o in outs])
+    as_list = lambda o: list(o) if isinstance(o, (list, tuple)) else [o]
+
+    def jrun(dtype):
+        p = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), v["params"])
+        out, upd = jmod.apply({"params": p, "batch_stats": v["batch_stats"]},
+                              pick([x.astype(dtype) for x in jx]), train=True,
+                              mutable=["batch_stats"])
+        sd = module_sd({"params": {}, "batch_stats": upd.get("batch_stats",
+                                                             {})},
+                       kind, args, dims)
+        return (flat([_f32(o) for o in as_list(out)]),
+                {k: sd[k] - start[k] for k in sd})
+
+    tmod.load_state_dict(start, strict=True)
+    for prm in tmod.parameters():
+        prm.data = prm.data.to(torch.bfloat16)
+    tmod.train()
+    with torch.no_grad():
+        out = as_list(tmod(pick([_t16(x.astype(BF16)) for x in jx])))
+    assert all(o.dtype == torch.bfloat16 for o in out)
+    sd = tmod.state_dict()
+    assert all(sd[k].dtype == torch.float32 for k in sd if "running_" in k)
+    got = flat([o.float().numpy() if head else _nhwc(o) for o in out])
+    return ((got, {k: sd[k] - start[k] for k in sd if "running_" in k}),
+            jrun(BF16), jrun(jnp.float32))
+
+
+def _x(shape, seed=1):
+    return np.random.default_rng(seed).normal(0.3, 1.0, shape).astype(
+        np.float32)
+
+
+def _levels(widths, top=4):
+    return [_x((2, top * 2 ** k, top * 2 ** k, c), k + 1)
+            for k, c in enumerate(widths)]
+
+
+SC_KINDS = {"scconv": "SCConvBottleneck", "sc_pw": "SCPWBottleneck",
+            "sc_conv3": "SCConv3Bottleneck", "conv3_sc": "Conv3SCBottleneck",
+            "sc_pw_pw": "SCPWPWBottleneck"}
+
+
+def _block(name):
+    """(flax module, port module, name-map kind, inputs, args, dims, head)
+    of the zoo block `name` at small widths."""
+    if name.startswith("sc_"):
+        kind = name[3:]
+        return (getattr(JL, SC_KINDS[kind])(c2=16),
+                TL.SCBottleneck(16, 16, True, kind), SC_KINDS[kind],
+                _x((2, 8, 6, 16)), (), (), False)
+    if name.startswith("asff_doub_"):
+        level, dims = int(name[-1]), (32, 16)
+        return (JL.AsffDoubLevel(level=level), TL.AsffDoubLevel(level, dims),
+                "AsffDoubLevel", _levels(dims), (level,), dims, False)
+    return {
+        "pconv": lambda: (JL.PConv(), TL.PConv(16), "PConv",
+                          _x((2, 8, 7, 16)), (), (), False),
+        "pconv_bottleneck": lambda: (
+            JL.PconvBottleneck(c2=16), TL.PconvBottleneck(16, 16, True, 0.5),
+            "PconvBottleneck", _x((2, 8, 8, 16)), (), (), False),
+        "pconv_bottleneck_n": lambda: (
+            JL.PconvBottleneckN(c2=16),
+            TL.PconvBottleneck(16, 16, True, 0.5, "pconv_n"),
+            "PconvBottleneckN", _x((2, 8, 8, 16)), (), (), False),
+        "group_batchnorm": lambda: (
+            JL.GroupBatchnorm2d(), TL.GroupBatchnorm2d(32), "GroupBatchnorm2d",
+            _x((2, 5, 6, 32)), (), (), False),
+        "cru": lambda: (JL.CRU(16), TL.CRU(16), "CRU", _x((2, 7, 8, 16)), (),
+                        (), False),
+        "scconv": lambda: (JL.SCConv(32), TL.SCConv(32), "SCConv",
+                           _x((2, 7, 6, 32)), (), (), False),
+        "c2": lambda: (JL.C2(c2=16, n=2, shortcut=True), TL.C2(12, 16, 2, True),
+                       "C2", _x((2, 7, 9, 12)), (), (), False),
+        "rfb": lambda: (JL.RFBblock(), TL.RFBblock(16), "RFBblock",
+                        _x((2, 9, 8, 16)), (), (), False),
+        "mfru": lambda: (JL.MFRU(), TL.MFRU((32, 16, 16)), "MFRU",
+                         _levels((32, 16, 16), top=2), (), (32, 16, 16),
+                         False),
+        "asff_detect": lambda: (
+            JH.AsffDetect(nc=3, strides=(8, 16)), TH.AsffDetect(3, (16, 32),
+                                                                (8, 16)),
+            "AsffDetect", [_x((2, 16, 12, 16), 1), _x((2, 8, 6, 32), 2)], (),
+            (), True),
+    }[name]()
+
+
+BLOCKS = ["pconv", "pconv_bottleneck", "pconv_bottleneck_n", "group_batchnorm",
+          "cru", "scconv", *(f"sc_{k}" for k in SC_KINDS), "c2", "rfb",
+          "asff_doub_0", "asff_doub_1", "mfru", "asff_detect"]
+
+
+@pytest.mark.parametrize("name", BLOCKS)
+def test_zoo_block_bf16_within_jax_bf16_gap(name):
+    """Each zoo block in bf16 train mode: the output and every BN's
+    running-stat move (where it has BNs), by the yardstick."""
+    jmod, tmod, kind, xs, args, dims, head = _block(name)
+    mine, j16, j32 = _bf16_pair(jmod, tmod, kind, xs, args, dims, head)
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    _gaps(f"{name} output", rel(mine[0], j16[0]), rel(j16[0], j32[0]))
+    keys = list(j16[1])
+    assert sorted(keys) == sorted(mine[1])
+    if keys:
+        _gaps(f"{name} BN stats moves", _relnorm(mine[1], j16[1], keys),
+              _relnorm(j16[1], j32[1], keys))
+
+
+# -------------------------------------------------- whole amp train step
+ZOO_MODELS = ["yolov8n-mfru-rbf-asff.yaml", "yolov8n-faster-twohead.yaml"]
+ZOO_OVERRIDES = {"batch": 2, "nbs": 2, "epochs": 10, "imgsz": 64,
+                 "optimizer": "SGD", "lr0": 0.02}
+
+
+def _jax_step(name, v, batch, amp, port):
+    """JAX's trainer loss (`make_loss_fn`) of the zoo model `name` at
+    `amp`, differentiated, then its `opt_update` at the port trainer's lr
+    and momentum: loss items and the new state as port state_dicts."""
+    jm = JaxModel(jax_yaml_load(name), nc=3)
+    t = JaxTrainer.__new__(JaxTrainer)
+    t.args = jax_get_cfg(DEFAULT_CFG_DICT, {**ZOO_OVERRIDES, "amp": amp})
+    t.lowlight_FLAG = bool(t.args.lowlight_FLAG)
+    t.dedark_FLAG = bool(t.args.dedark_FLAG)
+    t.dark_param = float(t.args.dark_param)
+    t.data = {"nc": 3}
+    t.build_optimizer(NB)
+    fn = jax.jit(jax.value_and_grad(t.make_loss_fn(jm), has_aux=True))
+    (_, (items, stats)), grads = fn(
+        v["params"], v["batch_stats"],
+        {k: jnp.asarray(a) for k, a in batch.items()})
+    params, _, applied = jax_opt_update(
+        v["params"], grads, jax_init_opt(v["params"]), jax_labels(v["params"]),
+        kind=t.opt_name, lr_bias=port.lr_at(STEP, "bias"), lr=port.lr_at(STEP),
+        momentum=port.momentum_at(STEP), weight_decay=t.weight_decay,
+        accumulate=t.accumulate)
+    assert bool(applied)
+    tm = port.model
+    return {"items": np.asarray(items, np.float64),
+            "grads": state_dict_from_jax({"params": grads,
+                                          "batch_stats": stats}, tm),
+            "state": state_dict_from_jax({"params": params,
+                                          "batch_stats": stats}, tm)}
+
+
+@pytest.fixture(scope="module", params=ZOO_MODELS)
+def zoo_step(request):
+    """The port's amp step of a zoo model and JAX's at amp and f32, from
+    seed 0's weights and batch."""
+    name = request.param
+    jm = JaxModel(jax_yaml_load(name), nc=3)
+    template = jax.eval_shape(jm.module.init, jax.random.PRNGKey(0),
+                              jax.ShapeDtypeStruct((1, 64, 64, 3),
+                                                   jnp.float32))
+    v = to_plain(randomize(template, np.random.default_rng(0)))
+    batch = _batch(0)
+    tm = DetectionModel(model_yaml_load(name), nc=3)
+    start = state_dict_from_jax(v, tm)
+    tm.load_state_dict(start, strict=True)
+    tt = DetectionTrainer(tm, {**ZOO_OVERRIDES, "amp": True}, nb=NB,
+                          device="cpu")
+    names = list(tt.params)
+    tm.train()
+    total, _ = tt.loss(tt.to_device(batch))
+    g = torch.autograd.grad(total, [tt.params[n] for n in names],
+                            allow_unused=True)
+    tm.eval()
+    grads = {n: torch.zeros_like(tt.params[n]) if x is None else x
+             for n, x in zip(names, g)}
+    tm.load_state_dict(start, strict=True)
+    _, items = tt.step(batch, STEP)
+    port = {"items": items.double().numpy(), "grads": grads,
+            "state": tm.state_dict()}
+    return {"name": name, "start": start, "port": port,
+            "j16": _jax_step(name, v, batch, True, tt),
+            "j32": _jax_step(name, v, batch, False, tt)}
+
+
+# Whole-step quantities not held at factor 1.0, each with its ratio in
+# ROADMAP C11: the twohead's BN stats read 1.066 (0.03023 against 0.02836).
+# JAX's step is jitted, and XLA keeps some fused elementwise chains in f32
+# (its excess precision); the port rounds every op as JAX's op-by-op
+# apply does, which the blocks above hold to (under jit, C2's and
+# AsffDoubLevel's bf16 outputs sit 1.07 and 1.02 times JAX's bf16-f32 gap
+# from the port's). Each block of the twohead is held alone above.
+NOT_HELD = {("yolov8n-faster-twohead.yaml", "BN running stats")}
+
+
+def test_zoo_amp_step_within_jax_bf16_gap(zoo_step):
+    """Loss items, gradients, the update and the BN running stats of one
+    amp step of the zoo model, by the yardstick (but NOT_HELD, printed)."""
+    r = zoo_step
+    p, j16, j32, start = r["port"], r["j16"], r["j32"], r["start"]
+    name = r["name"]
+    assert np.isfinite(p["items"]).all()
+    moved = lambda sd: {k: sd[k] - start[k] for k in start}
+    params = [k for k in start if "running_" not in k]
+    stats = [k for k in start if "running_" in k]
+    keys = [k for k in p["grads"] if float(j32["grads"][k].abs().max()) > 0]
+    assert len(keys) > 0.9 * len(p["grads"])
+    gaps = {
+        "loss items": (np.abs(p["items"] - j16["items"]).max(),
+                       np.abs(j16["items"] - j32["items"]).max()),
+        "gradients": (_relnorm(p["grads"], j16["grads"], keys),
+                      _relnorm(j16["grads"], j32["grads"], keys)),
+        "update": (_relnorm(moved(p["state"]), moved(j16["state"]), params),
+                   _relnorm(moved(j16["state"]), moved(j32["state"]), params)),
+        "BN running stats": (
+            _relnorm(moved(p["state"]), moved(j16["state"]), stats),
+            _relnorm(moved(j16["state"]), moved(j32["state"]), stats))}
+    for what, (mine, ref) in gaps.items():
+        print(f"{name} {what}: port bf16 vs JAX bf16 {mine:.4g}, JAX bf16 vs "
+              f"JAX f32 {ref:.4g}, ratio {mine / ref:.3f}")
+    for what, (mine, ref) in gaps.items():
+        if (name, what) not in NOT_HELD:
+            _gaps(f"{name} {what}", mine, ref)
