@@ -107,6 +107,27 @@ line:
            dedark_yolo_tpu_torch classify val` in a subprocess against
            YOLO(npz).val(); no kernel launched and no plain version reached
            with a CUDA tensor
+  segment  yolov8l-seg at full width (nc 3 from the data) on a seeded
+           polygon dataset of .npy sidecars (64 train and 16 val images of
+           mixed sizes up to 640, 1-6 often overlapping instances each, cv2
+           blocked): YOLO(...).train at 640, b16, two epochs with
+           copy_paste=0.5 (images/s an epoch, the loader's wait against the
+           step, peak memory, the four loss items, best.npz); a 128, b2
+           micro-step on the card against the CPU (TRAIN_TOL, TF32 off);
+           YOLO(best.npz).val and predict of 16 frames on the card against
+           the CPU (val's pairing with box and mask TP rows, the four mAPs
+           within VAL_METRIC_RTOL; predict's pairs above a gap conf, each
+           pair's mask within SEG_MASK_PIXELS plus a box-perimeter band,
+           and the mask logits of 8 frames within SEG_LOGIT_RTOL); predict
+           images/s in f32 and
+           half and one retina_masks batch; a pt2 export at b16/640 through
+           AutoBackend against the live eval_outputs, YOLO(pt2).val and
+           predict against live; `python -m dedark_yolo_tpu_torch segment
+           val` in a subprocess against YOLO(npz).val(); then
+           yolov8-seg.yaml's rows under a layer-0 row at scale l predicting
+           the 16 low-light frames (one frame card vs CPU); nms once a
+           predict or val batch, fused_enhance once a batch of the layer-0
+           graph only
   probe    tools.int8_probe at its default shape (24 layers, b32, 80x80,
            C=Co=256): bf16 cuDNN chain vs the int8_conv kernel's chain
   train    DetectionTrainer: at imgsz 128, b2, one micro-step on the card
@@ -4178,6 +4199,686 @@ def phase_classify(torch):
     return summary
 
 
+# ------------------------------------------------------------------ segment
+# The segment task at full width (yolov8l-seg, nc 3 from the data) on a
+# seeded polygon dataset of .npy sidecars, cv2 blocked. Bars, TF32 off for
+# every card-against-CPU check: the 128 b2 micro-step to the train phase's
+# TRAIN_TOL; val card vs CPU as the val phase holds detect's (counts equal,
+# detections paired within BOX_TOL_PX and SCORE_TOL with equal box TP rows,
+# the four mAPs within VAL_METRIC_RTOL) and each pair's mask TP row equal;
+# predict card vs CPU: per image, the detections above a conf in a wide gap
+# of the card's scores paired at the same bars and each pair's mask at the
+# original size differing in at most SEG_MASK_PIXELS pixels beyond a band
+# one proto pixel wide along its box's perimeter (a box edge within its
+# error of a proto pixel's centre crops or keeps that whole row), and on
+# the first SEG["logit_frames"] frames each pair's mask logits within
+# SEG_LOGIT_RTOL of the largest sum of |coefficient x proto| inside both
+# boxes (a pixel flips only where its logit is within that error of 0);
+# the pt2 artifact's four
+# outputs against the live eval_outputs (boxes EXPORT_BOX_TOL_PX, the rest
+# SEG_EXPORT_TOL), its val equal to live and its predict paired at the
+# export phase's bars; the CLI's `segment val` equal to the facade's.
+SEG = {"model": "yolov8l-seg.yaml", "classes": 3, "train": 64, "val": 16,
+       "imgsz": 640, "batch": 16, "epochs": 2, "copy_paste": 0.5,
+       "sides": (320, 641), "instances": (1, 7), "parity_imgsz": 128,
+       "parity_batch": 2, "predict_reps": 2, "logit_frames": 8}
+SEG_MASK_PIXELS = 256
+SEG_LOGIT_RTOL = 1e-3
+SEG_EXPORT_TOL = 1e-5
+SEG_METRICS = ("metrics/mAP50(B)", "metrics/mAP50-95(B)",
+               "metrics/mAP50(M)", "metrics/mAP50-95(M)")
+
+
+def seg_dataset(root, seed):
+    """root/{images,labels}/{train,val}: SEG's counts of images of mixed
+    sizes (each side in SEG["sides"]), each with 1-6 polygon instances
+    (star-shaped, 5-11 vertices, often overlapping) painted in their class
+    colour, written as .npy sidecars with `cls x1 y1 ...` label rows.
+    Returns the dataset dict."""
+    import numpy as np
+    from dedark_yolo_tpu_torch.data import imgops
+    rng = np.random.default_rng(seed)
+    colors = rng.integers(40, 230, (SEG["classes"], 3))
+    for split in ("train", "val"):
+        img_dir, lbl_dir = root / "images" / split, root / "labels" / split
+        img_dir.mkdir(parents=True)
+        lbl_dir.mkdir(parents=True)
+        for k in range(SEG[split]):
+            h, w = (int(v) for v in rng.integers(*SEG["sides"], 2))
+            img = rng.integers(60, 120, (h, w, 3)).astype(np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(*SEG["instances"]))):
+                c = int(rng.integers(0, SEG["classes"]))
+                cx, cy = rng.uniform(0.15, 0.85, 2) * (w, h)
+                ang = np.sort(rng.uniform(0, 2 * np.pi, int(rng.integers(5, 12))))
+                rad = rng.uniform(0.08, 0.3) * min(h, w) * rng.uniform(
+                    0.55, 1.0, len(ang))
+                pts = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)],
+                               1).clip(0, (w - 1, h - 1))
+                m = imgops.fill_poly(np.zeros((h, w), np.uint8),
+                                     pts.astype(np.int32), 1)
+                img[m > 0] = colors[c]
+                rows.append(f"{c} " + " ".join(
+                    f"{v:.5f}" for v in (pts / (w, h)).reshape(-1)))
+            img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255)
+            write_sidecar(img_dir, lbl_dir, str(k), img.astype(np.uint8), rows)
+    return {"path": str(root), "train": "images/train", "val": "images/val",
+            "names": {i: f"s{i}" for i in range(SEG["classes"])}}
+
+
+class record_seg(record_detections):
+    """record_detections of the segment validator: each image's box
+    branch (native boxes, classes, TP matrix) in `images`, its mask TP
+    matrix in `mask_tps`, the scores from the box branch's
+    DetMetrics.process."""
+
+    def __enter__(self):
+        import numpy as np
+        from dedark_yolo_tpu_torch.engine import segment as S
+        self.module, self.match = S, S.match_predictions
+        self.match_iou, self.process = S.match_from_iou, S.DetMetrics.process
+        self.images, self.gts, self.mask_tps = [], [], []
+        self.scores, self.n_process = np.zeros(0, np.float32), 0
+
+        def recorded(pred_boxes, pred_cls, gt_boxes, gt_cls):
+            tp = self.match(pred_boxes, pred_cls, gt_boxes, gt_cls)
+            self.images.append((np.array(pred_boxes), np.array(pred_cls), tp))
+            self.gts.append((np.array(gt_boxes), np.array(gt_cls)))
+            self.mask_tps.append(np.zeros((len(pred_cls), 10), bool))
+            return tp
+
+        def recorded_iou(iou, *args):
+            tp = self.match_iou(iou, *args)
+            self.mask_tps[-1] = tp
+            return tp
+
+        def processed(metrics, tp, conf, pred_cls, target_cls):
+            if self.n_process == 0:
+                self.scores = np.array(conf)
+            self.n_process += 1
+            return self.process(metrics, tp, conf, pred_cls, target_cls)
+        S.match_predictions, S.match_from_iou = recorded, recorded_iou
+        S.DetMetrics.process = processed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.match_predictions = self.match
+        self.module.match_from_iou = self.match_iou
+        self.module.DetMetrics.process = self.process
+
+
+def seg_mask_pairs(g, c, conf, box_tol, score_tol, imgsz=IMGSZ):
+    """Two segment Results of one image: the detections above `conf`
+    paired as pair_results pairs them. A record: the counts, and where
+    every one pairs the box and score errors, the most pixels in which a
+    pair's masks differ, that count less its allowance (SEG_MASK_PIXELS
+    plus a band one proto pixel wide along the box's perimeter, upsampled:
+    a box edge within its error of a proto pixel's centre crops or keeps
+    that whole row or column) and the pairs; else the first unpaired
+    detection's nearest box and score gaps."""
+    import numpy as np
+    gk, ck = g.boxes.conf > conf, c.boxes.conf > conf
+    gd, cd = g.boxes.data[gk], c.boxes.data[ck]
+    gm, cm = g.masks.data[gk], c.masks.data[ck]
+    rec = {"counts": [len(gd), len(cd)], "paired": False}
+    if len(gd) != len(cd):
+        return rec
+    h0, w0 = c.orig_shape
+    up = 4 / min(imgsz / h0, imgsz / w0)      # a proto pixel, native px
+    free, box_err, score_err, diff, excess = list(range(len(gd))), [], [], [], []
+    for i in range(len(cd)):
+        for j in free:
+            db = float(np.abs(gd[j, :4] - cd[i, :4]).max())
+            ds = abs(float(gd[j, 4] - cd[i, 4]))
+            if gd[j, 5] == cd[i, 5] and db <= box_tol and ds <= score_tol:
+                free.remove(j)
+                box_err.append(db)
+                score_err.append(ds)
+                n = int((gm[j] != cm[i]).sum())
+                bw, bh = cd[i, 2] - cd[i, 0], cd[i, 3] - cd[i, 1]
+                diff.append(n)
+                excess.append(n - SEG_MASK_PIXELS - 2 * (bw + bh + 2) * up)
+                break
+        else:
+            near = min(free, key=lambda j: float(np.abs(gd[j, :4] - cd[i, :4]).max()))
+            rec.update(unpaired_rank=i, nearest_box_px=float(
+                np.abs(gd[near, :4] - cd[i, :4]).max()), nearest_score=abs(
+                float(gd[near, 4] - cd[i, 4])), same_class=bool(
+                gd[near, 5] == cd[i, 5]))
+            return rec
+    rec.update(paired=True, box_max_abs_err_px=max(box_err, default=0.0),
+               score_max_abs_err=max(score_err, default=0.0),
+               mask_max_diff_px=max(diff, default=0),
+               mask_max_excess_px=float(max(excess, default=-SEG_MASK_PIXELS)),
+               pairs=len(cd))
+    return rec
+
+
+def seg_logit_parity(torch, gpu, cpu, frames, conf):
+    """The predictor's mask logits on the card against the CPU's for the
+    letterboxed frames (eval_outputs, NMS with return_idx at `conf`,
+    `engine.segment.mask_logits`, TF32 off): detections paired (box
+    BOX_TOL_PX, score SCORE_TOL), then for each pair inside both boxes in
+    proto space the largest logit error over the largest sum of |coefficient
+    x proto| of the 32 terms a logit adds (the size of the sum's rounding,
+    which cancellation in the logit itself does not shrink; a pixel flips
+    only where its logit is within that error of 0), and whether the
+    pixels inside one box only lie within one proto pixel of a box edge."""
+    import numpy as np
+    from dedark_yolo_tpu_torch.data.augment import letterbox
+    from dedark_yolo_tpu_torch.engine import segment as S
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.ops.nms import non_max_suppression
+    s = SEG["imgsz"]
+    u8 = np.ascontiguousarray(np.stack([letterbox(f, s)[0][..., ::-1]
+                                        for f in frames]))
+    got = {}
+    for key, y, dev in (("gpu", gpu, "cuda"), ("cpu", cpu, "cpu")):
+        with torch.no_grad(), matmul_precision("float32"):
+            b, sc, cf, pr = y.model.eval_outputs(
+                torch.from_numpy(u8).to(dev).float() / 255.0)
+            dets, counts, aidx = non_max_suppression(
+                b.float(), sc.float(), conf_thres=conf, iou_thres=0.7,
+                max_det=MAX_DET, max_nms=2048, multi_label=False,
+                return_idx=True)
+            got[key] = [t.cpu().numpy() for t in
+                        (dets, counts, S.mask_logits(dets, aidx, cf, pr),
+                         S.mask_logits(dets, aidx, cf.abs(), pr.abs()))]
+    (gd, gn, gl, _), (cd, cn, cl, cs) = got["gpu"], got["cpu"]
+    mh = gl.shape[2]
+    k = mh / s
+    grid = np.arange(mh, dtype=np.float32)
+    rec = {"conf": conf, "pairs": 0, "logit_max_rel_err": 0.0,
+           "edge_only": True, "sign_flips": 0, "images_paired": 0}
+    for i in range(len(frames)):
+        if gn[i] != cn[i]:
+            continue
+        n = int(cn[i])
+        free, ok = list(range(n)), True
+        for a in range(n):
+            for j in free:
+                if (gd[i, j, 5] == cd[i, a, 5]
+                        and np.abs(gd[i, j, :4] - cd[i, a, :4]).max() <= BOX_TOL_PX
+                        and abs(gd[i, j, 4] - cd[i, a, 4]) <= SCORE_TOL):
+                    free.remove(j)
+                    break
+            else:
+                ok = False
+                break
+            inbox = []
+            for box in (gd[i, j, :4] * k, cd[i, a, :4] * k):
+                inbox.append(((grid[None, :] >= box[0]) & (grid[None, :] < box[2])
+                              & (grid[:, None] >= box[1]) & (grid[:, None] < box[3])))
+            both = inbox[0] & inbox[1]
+            lg, lc = gl[i, j], cl[i, a]
+            if both.any():
+                rel = float(np.abs(lg - lc)[both].max()
+                            / max(cs[i, a][both].max(), 1e-12))
+                rec["logit_max_rel_err"] = max(rec["logit_max_rel_err"], rel)
+                rec["sign_flips"] += int(((lg > 0) != (lc > 0))[both].sum())
+            box = cd[i, a, :4] * k
+            near = ((np.abs(grid - box[0]) < 1) | (np.abs(grid - box[2]) < 1))[None, :] \
+                | ((np.abs(grid - box[1]) < 1) | (np.abs(grid - box[3]) < 1))[:, None]
+            rec["edge_only"] &= bool(near[inbox[0] != inbox[1]].all())
+            rec["pairs"] += 1
+        rec["images_paired"] += ok
+    rec["ok"] = (rec["images_paired"] == len(frames) and rec["pairs"] > 0
+                 and rec["edge_only"]
+                 and rec["logit_max_rel_err"] <= SEG_LOGIT_RTOL)
+    return rec
+
+
+def seg_pair_conf(scores, lo=20, hi=60):
+    """A conf for the card-vs-CPU pairing from the card's per-image scores
+    at conf 0.001: midway across the widest gap between two consecutive
+    scores of all images pooled, among the gaps that leave lo to hi
+    detections an image on average (no list cut at max_det, and enough
+    detections to pair)."""
+    import numpy as np
+    pool = np.sort(np.concatenate([np.asarray(x) for x in scores]))[::-1]
+    n = len(scores)
+    a, b = min(lo * n, len(pool) - 2), min(hi * n, len(pool) - 1)
+    if b <= a:
+        return 0.001
+    gaps = pool[a:b] - pool[a + 1:b + 1]
+    k = a + int(np.argmax(gaps))
+    return float((pool[k] + pool[k + 1]) / 2)
+
+
+def seg_predict_pairs(gpu, cpu, conf, box_tol, score_tol):
+    """seg_mask_pairs of every image at one conf, folded: images paired,
+    pairs, the largest errors, the first failing image's record."""
+    recs = [seg_mask_pairs(g, c, conf, box_tol, score_tol)
+            for g, c in zip(gpu, cpu)]
+    good = [r for r in recs if r["paired"]]
+    out = {"conf": conf, "images": len(recs), "paired": len(good),
+           "pairs": sum(r["pairs"] for r in good),
+           "box_max_abs_err_px": max((r["box_max_abs_err_px"] for r in good),
+                                     default=0.0),
+           "score_max_abs_err": max((r["score_max_abs_err"] for r in good),
+                                    default=0.0),
+           "mask_max_diff_px": max((r["mask_max_diff_px"] for r in good),
+                                   default=0),
+           "mask_max_excess_px": max((r["mask_max_excess_px"] for r in good),
+                                     default=-SEG_MASK_PIXELS),
+           "mask_tol_px": SEG_MASK_PIXELS}
+    bad = [(k, r) for k, r in enumerate(recs) if not r["paired"]]
+    if bad:
+        out["first_unpaired"] = {"image": bad[0][0], **bad[0][1]}
+    return out
+
+
+def seg_loader_split(data, max_boxes):
+    """The loader's work for one train batch on this host, one thread: the
+    batch's 16 items through SegTrainTransforms (mosaic, copy-paste,
+    affine, photometric, HSV, flip), then `collate_segment`, whose
+    ground-truth raster (`imgops.fill_poly` and `resize_linear` of every
+    instance, numpy) is the part a native port would take."""
+    import random
+    from dedark_yolo_tpu_torch.cfg import get_cfg
+    from dedark_yolo_tpu_torch.data.dataset import check_det_dataset
+    from dedark_yolo_tpu_torch.data.segment import (
+        SegmentDataset, SegTrainTransforms, collate_segment)
+    from dedark_yolo_tpu_torch.engine.segment import SEG_AUGMENT_KEYS
+    s = SEG["imgsz"]
+    ds = SegmentDataset(check_det_dataset(data)["train"], imgsz=s,
+                        nc=SEG["classes"], cache="disk")
+    a = get_cfg({"copy_paste": SEG["copy_paste"]})
+    tf = SegTrainTransforms({k: getattr(a, k) for k in SEG_AUGMENT_KEYS}, s)
+    t0 = time.perf_counter()
+    items = [tf(ds, i, random.Random(SEED + i)) for i in range(SEG["batch"])]
+    t1 = time.perf_counter()
+    collate_segment(items, max_boxes, 4)
+    t2 = time.perf_counter()
+    return {"instances": int(sum(min(len(p), max_boxes)
+                                 for _, _, _, p in items)),
+            "items_ms": (t1 - t0) * 1000, "collate_ms": (t2 - t1) * 1000}
+
+
+def seg_parity(torch, data):
+    """One SGD micro-step of yolov8l-seg at 128, b2 (nbs = batch: the
+    update applies) on the card and on the CPU from one seeded state and a
+    batch of the val split's items, TF32 off: TRAIN_TOL
+    (tools/c14_split.step_errors)."""
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.data.dataset import check_det_dataset
+    from dedark_yolo_tpu_torch.data.segment import (SegmentDataset,
+                                                    collate_segment)
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.engine.segment import SegmentationTrainer
+    from dedark_yolo_tpu_torch.tools.c14_split import step_errors
+    n, sz = SEG["parity_batch"], SEG["parity_imgsz"]
+    over = {"batch": n, "nbs": n, "optimizer": "SGD", "imgsz": sz,
+            "max_boxes": 8}
+    gpu = YOLO(SEG["model"], nc=SEG["classes"], seed=SEED)
+    cpu = YOLO(SEG["model"], nc=SEG["classes"], device="cpu", seed=SEED)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    start = {k: v.cpu().clone() for k, v in cpu.state_dict().items()}
+    ds = SegmentDataset(check_det_dataset(data)["val"], imgsz=sz,
+                        nc=SEG["classes"], cache="disk")
+    batch = collate_segment([ds.load(i) for i in range(n)], max_boxes=8,
+                            mask_ratio=4)
+    got = {}
+    with matmul_precision("float32"), no_plain_on_cuda():
+        for key, yolo, dev in (("gpu", gpu, None), ("cpu", cpu, "cpu")):
+            tr = SegmentationTrainer(yolo.model, over, nb=1000, device=dev)
+            names = list(tr.params)
+            tr.model.train()
+            total, items = tr.loss(tr.to_device(batch))
+            grads = torch.autograd.grad(
+                total, [tr.params[k] for k in names], allow_unused=True)
+            tr.model.eval()
+            tr.model.load_state_dict(start)
+            _, step_items = tr.step(batch, 1500)
+            got[key] = {"items": items, "step_items": step_items,
+                        "grads": {k: g for k, g in zip(names, grads)
+                                  if g is not None},
+                        "state": tr.model.state_dict(), "ema": tr.ema,
+                        "updates": (tr.opt_state.step, tr.ema_updates)}
+    return {"model": SEG["model"], "imgsz": sz, "batch": n,
+            "instances": int(batch["mask_gt"].sum()),
+            **step_errors(got["gpu"], got["cpu"], start)}
+
+
+def seg_cli_val(torch, best, data_json):
+    """`python -m dedark_yolo_tpu_torch segment val model=<best>` in a
+    subprocess, its printed metrics against YOLO(best).val() here under the
+    subprocess's TF32 defaults (cuDNN on, matmuls off)."""
+    import os
+    import subprocess
+    from dedark_yolo_tpu_torch import YOLO
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([str(ROOT),
+                                          os.environ.get("PYTHONPATH", "")])}
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "dedark_yolo_tpu_torch",
+                        "segment", "val", f"model={best}",
+                        f"data={data_json}", "cache=disk", "batch=16",
+                        "plots=False"], capture_output=True, text=True,
+                       cwd=str(ROOT), env=env, timeout=600)
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("results ")]
+    if p.returncode or not lines:
+        raise AssertionError(f"segment cli: rc {p.returncode}\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    got = json.loads(lines[-1][8:])
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = YOLO(str(best)).val(data=str(data_json), cache="disk",
+                                   batch=16, plots=False)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    want = {k: float(v) for k, v in want.items()}
+    return {"rc": p.returncode, "seconds": time.perf_counter() - t0,
+            "results": got, "facade_val": want, "equal": got == want}
+
+
+def seg_layer0_graph(path):
+    """yolov8-seg.yaml's rows under a lowlight_recovery row 0 (every later
+    index shifted by one), written as JSON at `path` (a scaled name, so
+    model_yaml_load takes its scale from it)."""
+    import copy
+    from dedark_yolo_tpu_torch.cfg.models import MODELS
+    d = copy.deepcopy(MODELS["yolov8-seg.yaml"])
+
+    def shift(f):
+        if isinstance(f, list):
+            return [x if x == -1 else x + 1 for x in f]
+        return f if f == -1 else f + 1
+    d["backbone"] = [[-1, 1, "lowlight_recovery", [3]]] + [
+        [shift(f), n, m, a] for f, n, m, a in d["backbone"]]
+    d["head"] = [[shift(f), n, m, a] for f, n, m, a in d["head"]]
+    Path(path).write_text(json.dumps(d))
+    return str(path)
+
+
+def phase_segment(torch):
+    """The segment task end to end at full width (see SEG): train, the
+    micro-step's parity, val and predict card against CPU, predict's
+    images/s (f32, half) and a retina_masks batch, the pt2 artifact, the
+    CLI's val, then a segment graph under layer 0 predicting low-light
+    frames. nms launches once a predict or val batch, fused_enhance once a
+    batch of the layer-0 graph only, no plain version reached with a CUDA
+    tensor."""
+    import math
+    import tempfile
+    import numpy as np
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.data.augment import letterbox
+    from dedark_yolo_tpu_torch.data.dataset import check_det_dataset
+    from dedark_yolo_tpu_torch.engine import segment as S
+    from dedark_yolo_tpu_torch.engine.autobackend import AutoBackend
+    from dedark_yolo_tpu_torch.ops import _build
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in ("fused_enhance", "usm", "int8_conv", "nms")}
+    failed = []
+    val_calls = [0]
+    val_call = S.SegmentationValidator.__call__
+
+    def counted(self, model=None):
+        val_calls[0] += 1
+        return val_call(self, model)
+
+    def card(name, fn, expected=lambda: {}):
+        """fn() on the card with the launches counted and checked against
+        expected() (called after fn: how many val calls a run made)."""
+        zero_launches()
+        val_calls[0] = 0
+        with no_plain_on_cuda():
+            out = fn()
+        torch.cuda.synchronize()
+        got = dict(_build.LAUNCHES)
+        check_launches(f"segment {name}", got, expected())
+        for k in launches:
+            launches[k] += got.get(k, 0)
+        return out
+
+    per_val = lambda n, b: {"nms": -(-n // b)}
+    mark = [t_phase]
+
+    def report(name, rec):
+        """Emit one step's record with the seconds since the last one."""
+        now = time.perf_counter()
+        rec["step_s"], mark[0] = now - mark[0], now
+        emit({"phase": "segment", name: rec})
+
+    S.SegmentationValidator.__call__ = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmp, no_cv2():
+            tmp = Path(tmp)
+            data = seg_dataset(tmp / "seg", SEED + 110)
+            data_json = tmp / "seg.json"
+            data_json.write_text(json.dumps(data))
+            # train at full width, nc from the data
+            yolo = YOLO(SEG["model"], seed=SEED)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = card("train", lambda: yolo.train(
+                data=data, imgsz=SEG["imgsz"], batch=SEG["batch"],
+                epochs=SEG["epochs"], copy_paste=SEG["copy_paste"],
+                cache="disk", workers=8, project=str(tmp / "runs"),
+                name="seg", plots=False, verbose=False),
+                lambda: {"nms": val_calls[0]})
+            train_s = time.perf_counter() - t0
+            tr = yolo.trainer
+            best = tmp / "runs" / "seg" / "weights" / "best.npz"
+            rows = (tr.csv.read_text().splitlines()
+                    if tr.csv.is_file() else [])
+            head = rows[0].split(",") if rows else []
+            items = [[float(v) for k, v in zip(head, r.split(","))
+                      if k.startswith("train/")] for r in rows[1:]]
+            train = {
+                "seconds": train_s, "metrics": {k: float(v)
+                                                for k, v in res.items()},
+                "images_per_s": [e["batches"] * SEG["batch"] / e["train_s"]
+                                 for e in tr.epoch_stats],
+                "loader_wait_s": [e["loader_wait_s"] for e in tr.epoch_stats],
+                "epoch_train_s": [e["train_s"] for e in tr.epoch_stats],
+                "val_s": [e["val_s"] for e in tr.epoch_stats],
+                "loss_items": dict(zip(tr.loss_names,
+                                       zip(*items))) if items else {},
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "max_boxes": tr.args.max_boxes,
+                "params": sum(p.numel() for p in tr.model.parameters()),
+                "nc": tr.model.nc, "best_npz": best.is_file(),
+                "loader_split": seg_loader_split(data, tr.args.max_boxes)}
+            if not (best.is_file() and tr.model.nc == SEG["classes"]
+                    and len(tr.epoch_stats) == SEG["epochs"]
+                    and all(math.isfinite(v) for r in items for v in r)):
+                failed.append("train")
+            report("train", train)
+            parity = seg_parity(torch, data)
+            report("parity", parity)
+            if not parity["ok"]:
+                failed.append("parity")
+
+            # val and predict of best.npz, card against CPU (TF32 off), its
+            # BN statistics set from the val images first (two short epochs
+            # leave the scores near the head's bias init, tied across the
+            # letterbox padding; as the val phase calibrates its model)
+            vroot = Path(check_det_dataset(data)["val"])
+            frames = [np.load(vroot / f"{k}.npy") for k in range(SEG["val"])]
+            gpu, cpu = YOLO(str(best)), YOLO(str(best), device="cpu")
+            calibrate_bn(torch, gpu.model, frames, SEG["imgsz"])
+            cpu.load_state_dict({k: v.cpu() for k, v in
+                                 gpu.state_dict().items()})
+            vkw = {"data": data, "cache": "disk", "batch": SEG["batch"],
+                   "plots": False, "matmul_precision": "float32"}
+            with record_seg() as r0:
+                val_g = card("val", lambda: gpu.val(**vkw),
+                             lambda: per_val(SEG["val"], SEG["batch"]))
+            val_g = {k: float(v) for k, v in val_g.items()}
+            # card vs CPU at a conf that leaves each list short of max_det
+            # (seg_pair_conf)
+            pkw_val = {**vkw, "conf": seg_pair_conf(
+                [d[3] for d in r0.detections()])}
+            with record_seg() as rg:
+                vg = card("val", lambda: gpu.val(**pkw_val),
+                          lambda: per_val(SEG["val"], SEG["batch"]))
+            with record_seg() as rc:
+                vc = cpu.val(device="cpu", **pkw_val)
+            vg = {k: float(v) for k, v in vg.items()}
+            vc = {k: float(v) for k, v in vc.items()}
+            vrec = {"default_conf": val_g, "pair_conf": pkw_val["conf"],
+                    "cuda": vg, "cpu": vc, **compare_images(rg, rc),
+                    "metric_max_abs_err": max(abs(vg[k] - vc[k])
+                                              for k in SEG_METRICS)}
+            if vrec["ok"]:
+                pairs = [pair_detections(g, c) for g, c in
+                         zip(rg.detections(), rc.detections())]
+                vrec["mask_tp_equal"] = all(
+                    np.array_equal(mg[j], mc[i])
+                    for (order, _, _), mg, mc in zip(pairs, rg.mask_tps,
+                                                     rc.mask_tps)
+                    for i, j in enumerate(order))
+                vrec["cpu_mask_tp50"] = int(sum(m[:, 0].sum()
+                                                for m in rc.mask_tps))
+            vrec["ok"] = (vrec["ok"] and vrec.get("mask_tp_equal", False)
+                          and all(abs(vg[k] - vc[k])
+                                  <= VAL_METRIC_RTOL * max(abs(vc[k]), 1e-12)
+                                  or vg[k] == vc[k] for k in SEG_METRICS))
+            report("val", vrec)
+            if not vrec["ok"]:
+                failed.append("val card vs CPU")
+
+            pkw = {"batch": SEG["batch"], "imgsz": SEG["imgsz"],
+                   "conf": 0.001, "matmul_precision": "float32"}
+            batches = {"nms": -(-len(frames) // SEG["batch"])}
+            pred_g = card("predict", lambda: gpu.predict(list(frames), **pkw),
+                          lambda: batches)
+            pred_c = cpu.predict(list(frames), device="cpu", **pkw)
+            conf = seg_pair_conf([r.boxes.conf for r in pred_g])
+            prec = seg_predict_pairs(pred_g, pred_c, conf, BOX_TOL_PX,
+                                     SCORE_TOL)
+            prec["logits"] = seg_logit_parity(torch, gpu, cpu,
+                                              frames[:SEG["logit_frames"]], conf)
+            prec["masks_at_original_size"] = all(
+                r.masks.data.shape[1:] == r.orig_shape for r in pred_g)
+            for key, half in (("f32", False), ("half", True)):
+                times = []
+                for _ in range(SEG["predict_reps"]):
+                    t0 = time.perf_counter()
+                    card(f"predict {key}", lambda: gpu.predict(
+                        list(frames), batch=SEG["batch"], imgsz=SEG["imgsz"],
+                        half=half), lambda: batches)
+                    times.append(time.perf_counter() - t0)
+                prec[f"{key}_images_per_s"] = [len(frames) / t for t in times]
+            # retina_masks at the conf of the 160th best score of the batch
+            # (about 10 masks an image, each upsampled on the host)
+            scores = np.sort(np.concatenate([r.boxes.conf for r in pred_g]))
+            rconf = float(scores[::-1][min(159, len(scores) - 1)])
+            retina = card("predict retina", lambda: gpu.predict(
+                list(frames), batch=SEG["batch"], imgsz=SEG["imgsz"],
+                conf=rconf, retina_masks=True), lambda: batches)
+            prec["retina_masks"] = {
+                "conf": rconf, "masks": int(sum(len(r.masks) for r in retina)),
+                "at_original_size": all(r.masks.data.shape[1:] == r.orig_shape
+                                        for r in retina)}
+            report("predict", prec)
+            if not (prec["paired"] == len(frames) and prec["pairs"] > 0
+                    and prec["mask_max_excess_px"] <= 0 and prec["logits"]["ok"]
+                    and prec["masks_at_original_size"]
+                    and prec["retina_masks"]["at_original_size"]
+                    and prec["retina_masks"]["masks"] > 0):
+                failed.append("predict card vs CPU")
+
+            # the pt2 artifact at b16/640 against the live model
+            t0 = time.perf_counter()
+            path = card("export", lambda: gpu.export(
+                format="pt2", imgsz=SEG["imgsz"], batch=SEG["batch"],
+                project=str(tmp / "export")))
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            be = AutoBackend(path)
+            load_s = time.perf_counter() - t0
+            u8 = np.stack([letterbox(f, SEG["imgsz"])[0][..., ::-1]
+                           for f in frames])
+            art = card("artifact", lambda: be.forward(u8))
+            with torch.no_grad():
+                live = gpu.model.eval_outputs(
+                    torch.from_numpy(np.ascontiguousarray(u8)).cuda().float()
+                    / 255.0)
+            errs = [float((a - b).abs().max()) for a, b in zip(art, live)]
+            art_yolo = YOLO(path)
+            val_a = card("artifact val", lambda: art_yolo.val(**vkw),
+                         lambda: per_val(SEG["val"], SEG["batch"]))
+            val_a = {k: float(v) for k, v in val_a.items()}
+            pred_a = card("artifact predict", lambda: art_yolo.predict(
+                list(frames), conf=0.001, matmul_precision="float32"),
+                lambda: batches)
+            apairs = seg_predict_pairs(pred_a, pred_g, 0.0, EXPORT_BOX_TOL_PX,
+                                       EXPORT_SCORE_TOL)
+            ex = {"seconds": export_s, "load_s": load_s,
+                  "mb": Path(path).stat().st_size / 1e6, "task": be.task,
+                  "outputs": [list(t.shape) for t in art],
+                  "output_max_abs_err": dict(zip(
+                      ("boxes", "scores", "coefs", "protos"), errs)),
+                  "val": val_a, "val_equal": all(
+                      abs(val_a[k] - val_g[k])
+                      <= VAL_METRIC_RTOL * max(abs(val_g[k]), 1e-12)
+                      for k in SEG_METRICS),
+                  "predict": apairs}
+            report("export", ex)
+            if not (be.task == "segment" and len(art) == 4
+                    and errs[0] <= EXPORT_BOX_TOL_PX
+                    and max(errs[1:]) <= SEG_EXPORT_TOL and ex["val_equal"]
+                    and apairs["paired"] == len(frames)
+                    and apairs["mask_max_excess_px"] <= 0):
+                failed.append("export")
+            cli = seg_cli_val(torch, best, data_json)
+            report("cli", cli)
+            if not cli["equal"]:
+                failed.append("cli")
+
+            # a segment graph under layer 0: fused_enhance once a batch
+            l0_path = seg_layer0_graph(tmp / "yolov8l-seg-dedark.json")
+            l0 = YOLO(l0_path, nc=SEG["classes"], seed=SEED)
+            l0_cpu = YOLO(l0_path, nc=SEG["classes"], device="cpu", seed=SEED)
+            dark = synthetic_frames(BATCH)
+            calibrate_bn(torch, l0.model, dark)
+            l0_cpu.load_state_dict({k: v.cpu() for k, v in
+                                    l0.state_dict().items()})
+            both = {"fused_enhance": 1, "nms": 1}
+            card("layer0 warm-up", lambda: l0.predict(
+                list(dark), batch=BATCH), lambda: both)
+            t0 = time.perf_counter()
+            timed = card("layer0 predict", lambda: l0.predict(
+                list(dark), batch=BATCH), lambda: both)
+            l0_ips = len(dark) / (time.perf_counter() - t0)
+            g1 = card("layer0 one frame", lambda: l0.predict(
+                [dark[0]], batch=1, conf=0.001, matmul_precision="float32"),
+                lambda: both)
+            c1 = l0_cpu.predict([dark[0]], batch=1, conf=0.001, device="cpu",
+                                matmul_precision="float32")
+            lrec = {"model": "yolov8l-seg.yaml under lowlight_recovery",
+                    "params": sum(q.numel() for q in l0.model.parameters()),
+                    "images_per_s": l0_ips,
+                    "dets_per_image": [min(len(r) for r in timed),
+                                       max(len(r) for r in timed)],
+                    **seg_predict_pairs(g1, c1, pair_conf(g1[0]), BOX_TOL_PX,
+                                        SCORE_TOL)}
+            report("layer0", lrec)
+            if not (lrec["paired"] == 1 and lrec["pairs"] > 0
+                    and lrec["mask_max_excess_px"] <= 0):
+                failed.append("layer0 card vs CPU")
+    finally:
+        S.SegmentationValidator.__call__ = val_call
+    summary = {"phase": "segment", "model": SEG["model"],
+               "train_images_per_s": train["images_per_s"],
+               "val_cuda": val_g,
+               "predict_images_per_s": {"f32": prec["f32_images_per_s"],
+                                        "half": prec["half_images_per_s"]},
+               "launches": launches, "seconds": time.perf_counter() - t_phase,
+               "failed": failed}
+    emit(summary)
+    if failed:
+        raise AssertionError(f"segment: {failed}")
+    return summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4211,6 +4912,7 @@ def main():
     export = phase_export(torch, yolo, frames, smi)
     zoo = phase_zoo(torch, frames)
     cls = phase_classify(torch)
+    seg = phase_segment(torch)
     probe_launches = phase_probe(torch)
     train = phase_train(torch)
     val = phase_val(torch, yolo)
@@ -4245,6 +4947,7 @@ def main():
         "zoo_launches": zoo["launches"]["fused_enhance"],
         "zoo_amp_launches": zoo["amp_launches"]["fused_enhance"],
         "classify_launches": cls["launches"]["fused_enhance"],
+        "segment_launches": seg["launches"]["fused_enhance"],
         "serve_launches": serve["launches"]["fused_enhance"],
         "track_launches": track["launches"]["fused_enhance"],
         "benchmark_launches": bench["launches"]["fused_enhance"],
@@ -4267,6 +4970,7 @@ def main():
         "predict_extras_launches": extras["launches"]["usm"],
         "zoo_launches": zoo["launches"]["usm"],
         "classify_launches": cls["launches"]["usm"],
+        "segment_launches": seg["launches"]["usm"],
         "export_launches": export["launches"]["usm"]}, {
         "name": "int8_conv", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/int8_conv.cu",
@@ -4278,7 +4982,8 @@ def main():
         "shape": list(INT8_SHAPES[0]), "dtype": "int8",
         **{k: int8_timing[k] for k in ("act", "tops", "peak_pct")},
         "val_launches": val["launches"]["int8_conv"],
-        "classify_launches": cls["launches"]["int8_conv"]}, {
+        "classify_launches": cls["launches"]["int8_conv"],
+        "segment_launches": seg["launches"]["int8_conv"]}, {
         "name": "nms", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/nms.cu",
         "replaces": "dedark_yolo_tpu/ops/nms.py:28",
@@ -4299,6 +5004,7 @@ def main():
         "predict_extras_launches": extras["launches"]["nms"],
         "zoo_launches": zoo["launches"]["nms"],
         "classify_launches": cls["launches"]["nms"],
+        "segment_launches": seg["launches"]["nms"],
         "serve_launches": serve["launches"]["nms"],
         "track_launches": track["launches"]["nms"],
         "benchmark_launches": bench["launches"]["nms"],

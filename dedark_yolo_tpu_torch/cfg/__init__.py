@@ -117,7 +117,11 @@ DEFAULT_CFG = {
     "fliplr": 0.5,
     "mosaic": 1.0,
     "mixup": 0.0,
-    "copy_paste": 0.0,           # a no-op without segments, as in JAX
+    "copy_paste": 0.0,           # segment only: flipped instances pasted
+    # segment (engine/segment.py)
+    "mask_ratio": 4,             # GT and proto masks at imgsz / mask_ratio
+    "overlap_mask": True,        # GT masks overlap-encoded in one raster
+    "retina_masks": False,       # predict: masks upsampled from probabilities
     "photometric": True,         # Blur/MedianBlur/ToGray/CLAHE, each p=0.01
 }
 
@@ -134,13 +138,14 @@ _NUMBER_KEYS = {"lr0", "lrf", "momentum", "weight_decay", "warmup_epochs",
 _INT_KEYS = {"imgsz", "max_det", "max_nms", "batch", "epochs", "nbs",
              "max_boxes", "workers", "save_period", "ckpt_period",
              "val_period", "patience", "close_mosaic", "seed", "vid_stride",
-             "line_width"}
+             "line_width", "mask_ratio"}
 _BOOL_KEYS = {"half", "agnostic_nms", "cos_lr", "lowlight_FLAG", "dedark_FLAG",
               "amp", "rect", "save_json", "save_txt", "save_conf",
               "save_hybrid", "plots", "verbose", "single_cls", "exist_ok",
               "save", "val", "resume", "photometric", "loader_mp", "profile",
               "augment", "save_enhanced", "visualize", "save_crop", "show",
-              "show_labels", "show_conf", "boxes", "fuse"}
+              "show_labels", "show_conf", "boxes", "fuse", "overlap_mask",
+              "retina_masks"}
 _PRECISIONS = ("default", "tensorfloat32", "float32")
 
 # Keys of the JAX package's cfg/default.yaml that the port does not carry:
@@ -149,10 +154,9 @@ _PRECISIONS = ("default", "tensorfloat32", "float32")
 # config is checked.
 UNPORTED_KEYS = frozenset((
     "cfg", "classes", "deterministic", "dnn", "dropout", "dynamic",
-    "fpn_fuse", "int8", "keras", "kobj",
-    "mask_ratio", "mesh_axes", "mesh_shape", "mode",
-    "model", "nms", "opset", "optimize", "overlap_mask", "pose", "remat",
-    "retina_masks", "simplify", "source", "stem_s2d", "task", "workspace"))
+    "fpn_fuse", "int8", "keras", "kobj", "mesh_axes", "mesh_shape", "mode",
+    "model", "nms", "opset", "optimize", "pose", "remat", "simplify",
+    "source", "stem_s2d", "task", "workspace"))
 
 
 def check_cfg_alignment(base_keys, custom: dict) -> None:

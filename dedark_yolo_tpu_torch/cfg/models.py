@@ -2,8 +2,9 @@
 
 The same `[from, repeats, module, args]` rows as the JAX package's detect
 architectures under `cfg/models/` (the flagship `yolov8.yaml`, stock
-`yolov8ori.yaml` and the fork's variants `yolov8-*.yaml`) and its
-classifier `yolov8-cls.yaml` (its own scales), kept as dicts so
+`yolov8ori.yaml` and the fork's variants `yolov8-*.yaml`), its
+classifier `yolov8-cls.yaml` (its own scales) and its instance
+segmentation graph `yolov8-seg.yaml`, kept as dicts so
 the port needs no YAML parser to build its models; each keeps its yaml's own
 `nc`, which `nc=` overrides. Keyed by the unified file name that
 `model_yaml_load` resolves a scaled name such as `yolov8l.yaml` or
@@ -114,9 +115,19 @@ YOLOV8_CLS = {
     "head": [[-1, 1, "Classify", ["nc"]]],
 }
 
+# YOLOv8 instance segmentation: the stock graph with the Segment head
+# (nm 32 mask coefficients a level, npr 256 proto channels scaled by width)
+YOLOV8_SEG = {
+    "nc": 80,
+    "scales": _SCALES,
+    "backbone": _BACKBONE,
+    "head": _FPN + [[[15, 18, 21], 1, "Segment", ["nc", 32, 256]]],
+}
+
 MODELS = {
     "yolov8.yaml": YOLOV8,
     "yolov8-cls.yaml": YOLOV8_CLS,
+    "yolov8-seg.yaml": YOLOV8_SEG,
     "yolov8ori.yaml": YOLOV8ORI,
     # layer 0 + stock YOLOv8 + Detect
     "yolov8-dedark.yaml": _variant(

@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import copy
 import hashlib
+import os
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +52,21 @@ def read_image_shapes(im_files):
             h, w = cv2.imread(str(f)).shape[:2]
         shapes.append((h, w))
     return np.asarray(shapes, np.int32)
+
+
+def save_sidecar(path, img):
+    """Write the `.npy` sidecar `path` whole or not at all: into a name of
+    this thread's, then renamed over it, so a loader thread that reads the
+    image while another writes it never finds a half-written file. An
+    unwritable directory leaves no sidecar."""
+    path = Path(path)
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}-{threading.get_ident()}"
+                         ".tmp.npy")
+    try:
+        np.save(tmp, img)
+        os.replace(tmp, path)
+    except OSError:
+        pass
 
 
 def img2label_path(img_path: str) -> str:
@@ -232,10 +249,7 @@ class YOLODataset:
         if img is None:
             raise FileNotFoundError(f"image not found: {self.im_files[index]}")
         if self._disk:
-            try:
-                np.save(self._sidecar(index), img)
-            except OSError:
-                pass
+            save_sidecar(self._sidecar(index), img)
         if self._ram is not None:
             self._ram[index] = img
         return img

@@ -416,3 +416,270 @@ def clahe(gray, clip_limit, tiles=8):
     bottom = (luts[y2[:, None], x1, v] * xa1 + luts[y2[:, None], x2, v] * xa)
     res = top * ya1[:, None] + bottom * ya[:, None]
     return np.rint(res).clip(0, 255).astype(np.uint8)
+
+
+# ------------------------------------------------------------- mask raster
+XY_SHIFT = 16    # OpenCV's drawing fixed point
+
+
+def _clip_line(w, h, x1, y1, x2, y2):
+    """cv2.clipLine of the segment to the w x h image, OpenCV's arithmetic
+    (each crossing a double quotient truncated toward 0, the second one
+    from the first's moved end): (inside, x1, y1, x2, y2); the ends are
+    moved even where the segment misses the image."""
+    right, bottom = w - 1, h - 1
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return (c1 | c2) == 0, x1, y1, x2, y2
+
+
+def _clip_segments(x1, y1, x2, y2, w, h):
+    """`_clip_line` of every segment (int64 arrays): (inside, x1, y1, x2,
+    y2), the segments wholly in the image passed through as they are."""
+    x1, y1, x2, y2 = (np.array(v, np.int64) for v in (x1, y1, x2, y2))
+    ok = np.ones(len(x1), bool)
+    for i in np.nonzero((np.minimum(x1, x2) < 0) | (np.maximum(x1, x2) >= w)
+                        | (np.minimum(y1, y2) < 0)
+                        | (np.maximum(y1, y2) >= h))[0]:
+        ok[i], x1[i], y1[i], x2[i], y2[i] = _clip_line(
+            w, h, int(x1[i]), int(y1[i]), int(x2[i]), int(y2[i]))
+    return ok, x1, y1, x2, y2
+
+
+def _line_pixels(x1, y1, x2, y2):
+    """The pixels (ys, xs) of cv2.line(..., lineType=LINE_8) of each
+    segment already clipped to the image, walked left to right,
+    Bresenham's 8-connected steps. At step k of D = max(|dx|, |dy|) the
+    minor coordinate has moved ceil((2 d k - D) / (2 D)), d = min(|dx|,
+    |dy|), which is the iterator's error-term walk in closed form."""
+    swap = x2 < x1
+    x0 = np.where(swap, x2, x1)
+    y0 = np.where(swap, y2, y1)
+    dx = np.abs(x2 - x1)
+    dy = np.where(swap, y1 - y2, y2 - y1)
+    sy = np.where(dy < 0, -1, 1)
+    ady = np.abs(dy)
+    vert = ady > dx
+    big = np.where(vert, ady, dx)
+    small = np.where(vert, dx, ady)
+    n = big + 1
+    seg = np.repeat(np.arange(len(n)), n)
+    k = np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)
+    D, d = big[seg], small[seg]
+    minor = np.where(D > 0, -((D - 2 * d * k) // np.maximum(2 * D, 1)), 0)
+    v = vert[seg]
+    xs = x0[seg] + np.where(v, minor, k)
+    ys = y0[seg] + np.where(v, k, minor) * sy[seg]
+    return ys, xs
+
+
+def fill_poly(mask, polygon, value=1):
+    """cv2.fillPoly(mask, [polygon], value) of one int polygon (k, 2) on a
+    2-D mask, in place; returns the mask. OpenCV's LINE_8 fill, shift 0:
+    the outline drawn as 8-connected lines (`_line_pixels`) of the edges
+    clipped to the image, then the edge table: every non-horizontal edge as
+    a 16.16 fixed-point x at each row y0 <= y < y1 of its own ends, with a
+    per-row step truncated toward 0 (an edge that leaves the image takes
+    its x from its clipped ends, and its y too where those differ), and on
+    every row the sorted crossings filled pairwise from ceil(x_left) to
+    floor(x_right), both inclusive. Only the edges that leave the image
+    are clipped one by one, in Python; the rest is numpy."""
+    h, w = mask.shape[:2]
+    p = np.asarray(polygon, np.int64).reshape(-1, 2)
+    if len(p) == 0:
+        return mask
+    ax, ay = np.roll(p[:, 0], 1), np.roll(p[:, 1], 1)   # edge i: p[i-1] -> p[i]
+    bx, by = p[:, 0], p[:, 1]
+    ok, t0x, t0y, t1x, t1y = _clip_segments(ax, ay, bx, by, w, h)
+    ys, xs = _line_pixels(t0x[ok], t0y[ok], t1x[ok], t1y[ok])
+    mask[ys, xs] = value
+    e = ay != by
+    if e.sum() < 2:
+        return mask
+    ax, ay, bx, by = ax[e], ay[e], bx[e], by[e]
+    t0x, t0y, t1x, t1y = t0x[e], t0y[e], t1x[e], t1y[e]
+    clipped_y = t0y != t1y
+    c0x, c1x = t0x << XY_SHIFT, t1x << XY_SHIFT
+    c0y, c1y = np.where(clipped_y, t0y, ay), np.where(clipped_y, t1y, by)
+    num, den = c1x - c0x, c1y - c0y
+    step = np.abs(num) // np.abs(den) * np.where((num < 0) == (den < 0), 1, -1)
+    down = ay < by
+    y0, y1 = np.where(down, ay, by), np.where(down, by, ay)
+    x0 = np.where(down, c0x + (ay - c0y) * step, c1x + (by - c1y) * step)
+    lo, hi = np.maximum(y0, 0), np.minimum(y1, h)
+    cnt = np.maximum(hi - lo, 0)
+    k = np.repeat(np.arange(len(cnt)), cnt)
+    rows = lo[k] + np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    xr = x0[k] + (rows - y0[k]) * step[k]
+    order = np.lexsort((xr, rows))
+    rows, xr = rows[order], xr[order]
+    a = (xr[0::2] + (1 << XY_SHIFT) - 1) >> XY_SHIFT
+    b = xr[1::2] >> XY_SHIFT
+    r = rows[0::2]
+    keep = (a < w) & (b >= 0)
+    r, a, b = r[keep], np.maximum(a[keep], 0), np.minimum(b[keep], w - 1)
+    if not len(r):
+        return mask
+    # the spans as +1 / -1 steps over the rows they touch, summed along x
+    r0, r1 = int(r.min()), int(r.max()) + 1
+    rr = (r - r0) * (w + 1)
+    size = (r1 - r0) * (w + 1)
+    diff = (np.bincount(rr + a, minlength=size)
+            - np.bincount(rr + b + 1, minlength=size)).reshape(r1 - r0, w + 1)
+    mask[r0:r1][np.cumsum(diff[:, :w], 1) > 0] = value
+    return mask
+
+
+def resize_nearest(img, dsize):
+    """cv2.resize(img, dsize=(w, h), interpolation=cv2.INTER_NEAREST):
+    destination pixel x reads source floor(x * (1 / (w / sw))), in double,
+    clamped to the last column; the same for rows."""
+    w, h = int(dsize[0]), int(dsize[1])
+    sh, sw = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / sw))).astype(np.int64),
+                    sw - 1)
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / sh))).astype(np.int64),
+                    sh - 1)
+    return img[ys[:, None], xs[None, :]]
+
+
+def _linear_taps_f32(dst, src):
+    """The taps of OpenCV's float linear resize along one axis: the source
+    coordinate (d + 0.5) * (src / dst) - 0.5 in double, its floor, and the
+    fraction rounded to float32 (a coordinate left of the image reads the
+    first pixel alone, one at or past the last pixel the last alone)."""
+    c = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    s = np.floor(c)
+    f = (c - s).astype(np.float32)
+    s = s.astype(np.int64)
+    edge = s < 0
+    f[edge], s[edge] = 0, 0
+    edge = s >= src - 1
+    f[edge], s[edge] = 0, src - 1
+    return s, np.minimum(s + 1, src - 1), f
+
+
+def _lerp_f32(a, b, f):
+    """fma(b - a, f, a) in float32: the difference rounded, then the fused
+    multiply-add rounded once (the product is exact in float64)."""
+    d = (b - a).astype(np.float64)
+    return (d * f + a.astype(np.float64)).astype(np.float32)
+
+
+def resize_linear_f32(img, dsize):
+    """cv2.resize(img, dsize=(w, h), interpolation=cv2.INTER_LINEAR) of a
+    float32 2-D image of at least 2 x 2 pixels: the horizontal pass, then
+    the vertical pass over its rows, each a fused a + (b - a) * f between
+    the two taps (`_linear_taps_f32`), at every scale (no INTER_AREA
+    shortcut at 2x down, unlike uint8)."""
+    w, h = int(dsize[0]), int(dsize[1])
+    src = np.asarray(img, np.float32)
+    x0, x1, fx = _linear_taps_f32(w, src.shape[1])
+    y0, y1, fy = _linear_taps_f32(h, src.shape[0])
+    hp = _lerp_f32(src[:, x0], src[:, x1], fx)
+    return _lerp_f32(hp[y0], hp[y1], fy[:, None])
+
+
+# ---------------------------------------------------------------- contours
+# OpenCV's chain codes: 0 right, 1 up-right, 2 up, ... (y down)
+_CHAIN = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1), (1, 1))
+
+
+def _trace_outer(m, y, x):
+    """The outer border of the component whose first pixel in raster order
+    is (y, x), as OpenCV's border following (Suzuki-Abe) walks it with
+    CHAIN_APPROX_SIMPLE: the points where the chain code changes, starting
+    at (x, y). `m` is the 0/1 mask padded with one zero pixel on each side,
+    (y, x) in its coordinates."""
+    def nz(px, py, s):
+        dx, dy = _CHAIN[s & 7]
+        return m[py + dy, px + dx] != 0
+
+    s_end = 4
+    s = 4
+    while True:
+        s = (s - 1) & 7
+        if nz(x, y, s) or s == s_end:
+            break
+    if s == s_end:                      # a single pixel
+        return [(x - 1, y - 1)]
+    d = _CHAIN[s]
+    first = (x + d[0], y + d[1])        # i1, where the border closes
+    out = []
+    prev_s = s ^ 4
+    cx, cy = x, y
+    while True:
+        s_end = s
+        while s < 15:
+            s += 1
+            if nz(cx, cy, s):
+                break
+        s &= 7
+        if s != prev_s:
+            out.append((cx - 1, cy - 1))
+            prev_s = s
+        nx, ny = cx + _CHAIN[s][0], cy + _CHAIN[s][1]
+        if (nx, ny) == (x, y) and (cx, cy) == first:
+            break
+        cx, cy = nx, ny
+        s = (s + 4) & 7
+    return out
+
+
+def contour_area(c):
+    """cv2.contourArea(c) of an (n, 2) contour: |shoelace| / 2."""
+    c = np.asarray(c, np.float64).reshape(-1, 2)
+    if len(c) < 3:
+        return 0.0
+    x, y = c[:, 0], c[:, 1]
+    xp, yp = np.roll(x, 1), np.roll(y, 1)
+    return float(abs((xp * y - x * yp).sum()) * 0.5)
+
+
+def find_external_contours(mask):
+    """cv2.findContours(mask, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)[0]
+    of a 2-D mask (nonzero = 1): a list of (n, 2) int32 (x, y) contours, in
+    the reverse raster order of their first pixels, as OpenCV lists them. Foreground is 8-connected,
+    background 4-connected, the frame outside the image background; a
+    component is external unless the background around it is a hole of
+    another component."""
+    from scipy import ndimage
+    m = np.pad(np.asarray(mask) != 0, 1).astype(np.uint8)
+    fg, n = ndimage.label(m, structure=np.ones((3, 3), bool))
+    if n == 0:
+        return []
+    bg, _ = ndimage.label(m == 0)
+    outside = bg[0, 0]
+    # each component's first pixel in raster order
+    flat = fg.ravel()
+    idx = np.nonzero(flat)[0]
+    labels, first = np.unique(flat[idx], return_index=True)
+    starts = sorted((int(idx[f]) for f in first), reverse=True)
+    W = m.shape[1]
+    out = []
+    for s in starts:
+        y, x = divmod(s, W)
+        if bg[y - 1, x] != outside:     # inside another component's hole
+            continue
+        out.append(np.asarray(_trace_outer(m, y, x), np.int32).reshape(-1, 2))
+    return out

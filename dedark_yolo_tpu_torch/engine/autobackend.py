@@ -15,7 +15,8 @@ The JAX package's `.bin`, `.tflite` and saved_model directories need its
 own runtimes and raise here.
 
 `forward(img_u8)` takes a (batch, imgsz, imgsz, 3) uint8 RGB batch (numpy
-or a tensor) and returns the task's tuple, detect (boxes_xywh, scores) or
+or a tensor) and returns the task's tuple, detect (boxes_xywh, scores),
+segment (boxes_xywh, scores, coefs (B, N, nm), protos (B, mh, mw, nm)) or
 classify (probs,), f32 on the backend's device, not waited for. `task`
 comes from the sidecar, or from the live model. The outputs come in
 export order from every format, so there is no `_demux`. `warmup()` runs
@@ -111,8 +112,8 @@ class AutoBackend:
     @torch.inference_mode()
     def forward(self, img_u8):
         """(batch, imgsz, imgsz, 3) uint8 RGB -> detect (boxes_xywh (B, N,
-        4), scores (B, N, nc)) or classify (probs (B, nc),), f32 on the
-        device."""
+        4), scores (B, N, nc)), segment (boxes_xywh, scores, coefs, protos)
+        or classify (probs (B, nc),), f32 on the device."""
         x = (torch.from_numpy(np.ascontiguousarray(img_u8))
              if isinstance(img_u8, np.ndarray) else img_u8)
         return tuple(self._fn(x.to(self.device)))

@@ -46,8 +46,10 @@ def bf16_params(model):
 def bench_step(model, params, img_u8, dtype):
     """One benchmark call: (B, S, S, 3) uint8 on the device -> NMS (dets,
     counts), not waited for. params None runs the module's own weights;
-    else the graph runs on `params` through functional_call."""
-    boxes, scores = model.eval_outputs(img_u8.to(dtype) / 255.0, params)
+    else the graph runs on `params` through functional_call. A segment
+    model's boxes and scores are its outputs' first two (its masks are not
+    assembled)."""
+    boxes, scores = model.eval_outputs(img_u8.to(dtype) / 255.0, params)[:2]
     return non_max_suppression(boxes.float(), scores.float(),
                                conf_thres=NMS_CONF, iou_thres=NMS_IOU,
                                max_det=300, max_nms=2048, multi_label=False)

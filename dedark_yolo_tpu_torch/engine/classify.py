@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from ..cfg import get_cfg
 from ..data import imgops
-from ..data.dataset import IMG_FORMATS
+from ..data.dataset import IMG_FORMATS, save_sidecar
 from ..data.loader import DataLoader
 from ..utils import LOGGER, increment_dir
 from ..utils.patches import imread
@@ -96,10 +96,7 @@ class ClassificationDataset:
         if img is None:
             raise FileNotFoundError(f"image not found: {path}")
         if self._disk:
-            try:
-                np.save(sidecar, img)
-            except OSError:
-                pass
+            save_sidecar(sidecar, img)
         return img
 
     def load(self, i, train=False, rng=None):

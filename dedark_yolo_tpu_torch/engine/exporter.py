@@ -3,8 +3,9 @@ engine/exporter.py).
 
 The program is JAX's `infer_u8`: a (batch, imgsz, imgsz, 3) uint8 RGB batch,
 divided by 255 in the compute dtype, through `DetectionModel.eval_outputs`
-(detect: layer 0's enhance chain, the graph, the DFL decode; classify: the
-graph and the softmax), each output cast to f32. Its shapes are fixed, as
+(detect: layer 0's enhance chain, the graph, the DFL decode; segment: the
+same with the flattened mask coefficients and the NHWC protos; classify:
+the graph and the softmax), each output cast to f32. Its shapes are fixed, as
 JAX's are. NMS stays outside it, as in JAX.
 
 Formats:
@@ -39,7 +40,9 @@ from ..utils import LOGGER
 from .predictor import resolve_device
 
 # each task's outputs, in order (JAX exporter.py:102-105)
-OUTPUTS = {"detect": ("boxes", "scores"), "classify": ("probs",)}
+OUTPUTS = {"detect": ("boxes", "scores"),
+           "segment": ("boxes", "scores", "coefs", "protos"),
+           "classify": ("probs",)}
 PROGRAM_FORMATS = ("pt2", "export", "bin", "serialized")
 WEIGHT_FORMATS = ("npz", "weights", "savedmodel_npz")
 JAX_TOOLCHAIN = {"stablehlo": "XLA", "saved_model": "TensorFlow",

@@ -17,9 +17,12 @@ key, cuda by default. The rest of the JAX facade (model.py:272-514):
 runs predict and val through AutoBackend (JAX model.py:40-50, 160-190):
 the artifact's imgsz and batch win and val runs square; train and export
 need live weights and raise. `train`, `val` and `predict` dispatch on the
-model's task (JAX model.py:132-136, 181-214, 230-262): a classify model
+model's task (JAX model.py:132-139, 181-214, 230-262): a classify model
 (`yolov8{n,s,m,l,x}-cls.yaml`, its checkpoint or its `.pt2`) trains,
-validates and predicts through `engine/classify.py`.
+validates and predicts through `engine/classify.py`, a segment model
+(`yolov8{n,s,m,l,x}-seg.yaml`, its checkpoint or its `.pt2`) through
+`engine/segment.py`; `track` takes detect models only (segment tracking is
+ROADMAP A12e-b).
 """
 
 from __future__ import annotations
@@ -41,8 +44,19 @@ from .autobackend import refuse_jax_artifact
 from .classify import (ClassificationPredictor, ClassificationTrainer,
                        ClassificationValidator)
 from .predictor import DetectionPredictor, resolve_device
+from .segment import (SegmentationPredictor, SegmentationTrainer,
+                      SegmentationValidator)
 from .trainer import DetectionTrainer
 from .validator import DetectionValidator
+
+# a model task's trainer, validator and predictor; a predictor of another
+# task takes no ensemble members
+TASK_CLASSES = {
+    "detect": (DetectionTrainer, DetectionValidator, DetectionPredictor),
+    "segment": (SegmentationTrainer, SegmentationValidator,
+                SegmentationPredictor),
+    "classify": (ClassificationTrainer, ClassificationValidator,
+                 ClassificationPredictor)}
 
 # train_args a checkpoint carries into predict and val (JAX model.py:90-92)
 CARRIED_ARGS = ("imgsz", "data", "single_cls", "contrast_mode")
@@ -192,14 +206,19 @@ class YOLO:
             save_dir = increment_dir(Path(args.project) / (args.name or
                                                              "predict"),
                                      args.exist_ok)
-        if model.task == "classify":
-            self.predictor = ClassificationPredictor(
-                args=args, model=model, names=model.names, save_dir=save_dir)
-        else:
+        predictor_cls = TASK_CLASSES[model.task][2]
+        if predictor_cls is DetectionPredictor:
             self.predictor = DetectionPredictor(args=args, model=model,
                                                 names=model.names,
                                                 save_dir=save_dir,
                                                 members=self.members)
+        else:
+            if self.members:
+                LOGGER.warning(f"a {model.task} model predicts with the "
+                               "first ensemble member only")
+            self.predictor = predictor_cls(args=args, model=model,
+                                           names=model.names,
+                                           save_dir=save_dir)
         self.device = self.predictor.device
         return self.predictor(source, stream=stream)
 
@@ -215,8 +234,13 @@ class YOLO:
         `tracker` config (botsort.yaml by default) starts. Saving runs
         after the ids are stamped: `save` writes annotated frames (a
         video's as one <stem>_track.mp4, through OpenCV), save_txt label
-        files with the id, save_crop crops."""
+        files with the id, save_crop crops. A model of another task than
+        detect raises (segment tracking is ROADMAP A12e-b)."""
         from ..trackers import make_tracker, track_results
+        if self.task != "detect":
+            raise NotImplementedError(
+                f"tracking a {self.task} model is not ported (ROADMAP "
+                "A12e-b)")
         kwargs.setdefault("conf", 0.1)
         if not (persist and getattr(self, "_tracker", None) is not None):
             self._tracker = make_tracker(kwargs.pop("tracker", None)
@@ -306,8 +330,8 @@ class YOLO:
     def train(self, **kwargs):
         """Train on `data` (a dataset yaml path or dict; for classify a
         folder tree's root); returns the final validation's results (JAX
-        model.py:130-160): DetectionTrainer, or ClassificationTrainer for a
-        classify model.
+        model.py:130-160): DetectionTrainer, SegmentationTrainer for a
+        segment model, ClassificationTrainer for a classify model.
 
         kwargs are config keys; device None means cuda. The run trains a
         fresh module of this architecture with data's nc, warm-started by
@@ -318,8 +342,7 @@ class YOLO:
         best.npz (its EMA weights) when the run wrote one."""
         self._live("train")
         args = self._args(kwargs)
-        trainer_cls = (ClassificationTrainer if self.model.task == "classify"
-                       else DetectionTrainer)
+        trainer_cls = TASK_CLASSES[self.model.task][0]
         data = trainer_cls.check_data(args.data) if args.data else None
         if data is None:
             raise ValueError("training needs `data` (a dataset yaml or dict)")
@@ -345,14 +368,13 @@ class YOLO:
     def val(self, **kwargs):
         """mAP of the model on `data` (a dataset yaml path or dict) at
         `split`, or a classify model's top-1 and top-5; returns the results
-        dict (JAX model.py:176-221). kwargs are config keys; conf None
+        dict, a segment model's box and mask mAP (JAX model.py:176-221).
+        kwargs are config keys; conf None
         means 0.001, device None cuda. The model moves to the val
         device."""
         args = self._args(kwargs)
         model = self._make_backend(args) if self._backend_spec else self.model
-        self.validator = (ClassificationValidator(args=args)
-                          if model.task == "classify"
-                          else DetectionValidator(args=args))
+        self.validator = TASK_CLASSES[model.task][1](args=args)
         self.device = self.validator.device
         self.metrics = self.validator(model=model)
         return self.metrics

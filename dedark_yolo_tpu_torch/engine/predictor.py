@@ -31,8 +31,10 @@ An exported artifact (`engine/autobackend.py`, model=AutoBackend) runs
 layer 0, the graph and the decode itself at its fixed batch; only NMS runs
 here (`backend_step`, JAX predictor.py:141-160): the short last batch is
 padded to the artifact's batch and its padding's outputs dropped before
-NMS; augment, save_enhanced and visualize are ignored with a warning. Not
-ported: the other tasks (ROADMAP A12d-A12f).
+NMS; augment, save_enhanced and visualize are ignored with a warning. A
+task's predictor (`engine/segment.py`) replaces `step` and fills its
+Results through the `readback` and `extra_fields` hooks (JAX
+predictor.py:259-261).
 """
 
 from __future__ import annotations
@@ -241,6 +243,9 @@ def detect_step(model, img, a, multi_label, extra=None):
 class DetectionPredictor:
     """Batched predict on `model` (JAX engine/predictor.py:113-417).
 
+    `task` is the model task a predictor takes; a subclass for another task
+    replaces `step`, `readback` and `extra_fields`.
+
     members: the state dicts of an ensemble's other members, the same
     architecture as `model`, whose own weights are the first member. Each
     member forwards the batch (through `torch.func.functional_call` on the
@@ -249,13 +254,15 @@ class DetectionPredictor:
     may be an AutoBackend instead (`backend_step`).
     """
 
+    task = "detect"
+
     def __init__(self, args=None, model=None, names=None, save_dir=None,
                  members=None):
         self.args = args if args is not None else get_cfg()
         if self.args.conf is None:
             self.args.conf = 0.25  # predict default (reference model.py:213)
         self.device = resolve_device(self.args.device)
-        if model is not None:
+        if model is not None and self.task == "detect":
             require_detect(model, "DetectionPredictor")
         self.model = model
         self.names = names or (model.names if model is not None else {})
@@ -347,6 +354,24 @@ class DetectionPredictor:
                                                     multi_label=False)
         return out
 
+    def readback(self, out, n):
+        """The device outputs of a batch of n images on the host (the one
+        wait of a batch): every tensor, save_enhanced's cut to the n
+        images, visualize's features as a dict."""
+        host = {k: v.cpu().numpy() for k, v in out.items()
+                if torch.is_tensor(v)}
+        if "enhanced" in host:
+            host["enhanced"] = host["enhanced"][:n]
+        if "features" in out:
+            host["features"] = {k: v.cpu().numpy()
+                                for k, v in out["features"].items()}
+        return host
+
+    def extra_fields(self, host, i, k, orig_shape, imgsz):
+        """A task's further Results fields of image i with k detections
+        (JAX predictor.py:259-261): none for detect."""
+        return {}
+
     def __call__(self, source, stream=False):
         gen = self.stream_inference(source)
         return gen if stream else list(gen)
@@ -381,13 +406,10 @@ class DetectionPredictor:
         def demux(rec):
             out, n, t_pre, t_disp, paths, origs, metas = rec
             t1 = time.perf_counter()
-            dets = out["dets"].cpu().numpy()
-            counts = out["counts"].cpu().numpy()
-            enhanced = (out["enhanced"][:n].cpu().numpy()
-                        if "enhanced" in out else None)
-            features = ({k: v.cpu().numpy()
-                         for k, v in out["features"].items()}
-                        if "features" in out else None)
+            host = self.readback(out, n)
+            dets, counts = host["dets"], host["counts"]
+            enhanced = host.get("enhanced")
+            features = host.get("features")
             t2 = time.perf_counter()
             speed = {"preprocess": t_pre / n * 1000,
                      "inference": (t_disp + t2 - t1) / n * 1000}
@@ -408,7 +430,8 @@ class DetectionPredictor:
                     orig_img=np.ascontiguousarray(orig[..., ::-1]),
                     path=paths[i], names=self.names, boxes=det, speed=speed,
                     enhanced_img=enhanced[i] if enhanced is not None else None,
-                    features=features if i == 0 else None)
+                    features=features if i == 0 else None,
+                    **self.extra_fields(host, i, k, orig.shape[:2], imgsz))
                 res.source_meta = metas[i]
                 if a.save or a.save_txt or a.save_crop or a.show:
                     self._write(res, metas[i])

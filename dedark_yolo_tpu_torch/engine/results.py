@@ -1,5 +1,6 @@
-"""Results, Boxes and Probs containers, numpy-backed (JAX engine/results.py:
-15-295 and results_extra.py:56-86, the detect and classify tasks).
+"""Results, Boxes, Masks and Probs containers, numpy-backed (JAX
+engine/results.py:15-295 and results_extra.py:12-86, the detect, segment
+and classify tasks).
 
 Built after the device readback: one Results holds one image's detections
 in original-image pixels, with the reference's API (`plot`, `save`,
@@ -8,8 +9,10 @@ encoding go through OpenCV (`utils.plotting`), imported at call time;
 `tojson`, `save_txt`, `verbose` and the arrays need no package beyond
 numpy. `update_tracks` takes a tracker's output (`track`). A classify
 Results holds `probs` (a Probs of the image's class probabilities) and no
-boxes. Masks and keypoints belong to the segment and pose tasks (ROADMAP
-A12e, A12f).
+boxes; a segment Results also `masks` (a Masks of (n, h, w) bool masks at
+the original size, one a detection), whose `xy` contours are
+`imgops.find_external_contours` (cv2.findContours without OpenCV).
+Keypoints belong to the pose task (ROADMAP A12f).
 """
 
 from __future__ import annotations
@@ -99,6 +102,52 @@ class Boxes(NumpyTensorAPI):
         return self.xywh / np.asarray([w, h, w, h], np.float32)
 
 
+class Masks(NumpyTensorAPI):
+    """(n, h, w) binary instance masks of one image (reference
+    results.py:457-518, JAX results_extra.py:12-53)."""
+
+    def __init__(self, data, orig_shape):
+        self.data = np.asarray(data)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def xy(self):
+        """Each mask's largest external contour (by cv2.contourArea, the
+        first of equal ones) as (m, 2) float32 original-image pixels; (0, 2)
+        for an empty mask."""
+        from ..data.imgops import contour_area, find_external_contours
+        h, w = self.orig_shape
+        mh, mw = self.data.shape[1:]
+        out = []
+        for m in self.data:
+            cs = find_external_contours(m)
+            if cs:
+                areas = [contour_area(c) for c in cs]
+                c = cs[int(np.argmax(areas))].astype(np.float32)
+                c[:, 0] *= w / mw
+                c[:, 1] *= h / mh
+                out.append(c)
+            else:
+                out.append(np.zeros((0, 2), np.float32))
+        return out
+
+    @property
+    def xyn(self):
+        """`xy` over the image's (w, h)."""
+        h, w = self.orig_shape
+        return [c / np.asarray([w, h], np.float32) for c in self.xy]
+
+    @property
+    def segments(self):
+        """The deprecated name of `xyn` (reference results.py:486-492)."""
+        LOGGER.warning("'Masks.segments' is deprecated - use 'Masks.xyn' "
+                       "(normalized) or 'Masks.xy' (pixels)")
+        return self.xyn
+
+
 class Probs(NumpyTensorAPI):
     """(nc,) class probabilities of one image (reference results.py:569,
     JAX results_extra.py:56-86)."""
@@ -132,13 +181,14 @@ class Results:
     the per-image stage times in ms, layer 0's enhanced image (predict's
     `save_enhanced`: (S, S, 3) f32 in [0, 1], letterboxed) and the batch's
     captured activations on its first image (`visualize`: {layer: (1, h, w,
-    <= 32) f32 NHWC}; None on the others), and a classify model's Probs
-    (`probs`, None for detect)."""
+    <= 32) f32 NHWC}; None on the others), a segment model's Masks
+    (`masks`) and a classify model's Probs (`probs`), None where the task
+    has none."""
 
-    _keys = ("boxes", "probs")
+    _keys = ("boxes", "masks", "probs")
 
     def __init__(self, orig_img, path, names, boxes=None, speed=None,
-                 enhanced_img=None, features=None, probs=None):
+                 enhanced_img=None, features=None, probs=None, masks=None):
         self.orig_img = orig_img            # RGB uint8
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -149,6 +199,8 @@ class Results:
         self.enhanced_img = enhanced_img
         self.features = features
         self.probs = Probs(probs, names) if probs is not None else None
+        self.masks = (Masks(masks, self.orig_shape) if masks is not None
+                      else None)
 
     def __len__(self):
         return len(self.boxes)
@@ -171,19 +223,21 @@ class Results:
         r.speed = self.speed
         return r
 
-    def update(self, boxes=None, probs=None):
-        """Replace the boxes or the probs in place (reference results.py:
+    def update(self, boxes=None, masks=None, probs=None):
+        """Replace the boxes, masks or probs in place (reference results.py:
         114-122)."""
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
+        if masks is not None:
+            self.masks = Masks(masks, self.orig_shape)
         if probs is not None:
             self.probs = probs
 
     def update_tracks(self, tracks):
         """Replace the boxes with a tracker's output (m, 8) [x1, y1, x2, y2,
         id, conf, cls, det_idx] (JAX results.py:218-229; det_idx re-indexes
-        the other tasks' masks and keypoints, which the port does not
-        carry)."""
+        a segment model's masks there, which waits for segment tracking,
+        ROADMAP A12e-b)."""
         tracks = np.asarray(tracks, np.float32).reshape(-1, 8)
         self.boxes = Boxes(tracks[:, :7], self.orig_shape)
         return self
@@ -218,9 +272,24 @@ class Results:
         if "line_thickness" in kwargs:
             line_width = kwargs.pop("line_thickness")
         from ..utils.plotting import annotate_image
-        return annotate_image(self.orig_img, self.boxes.data, self.names,
-                              line_width, show_boxes=boxes, show_conf=conf,
-                              show_labels=labels)
+        img = annotate_image(self.orig_img, self.boxes.data, self.names,
+                             line_width, show_boxes=boxes, show_conf=conf,
+                             show_labels=labels)
+        if self.masks is not None and len(self.masks):
+            # JAX results.py:186-200: each mask filled in its colour, blended
+            # 0.6 / 0.4 with the annotated image
+            cv2 = require("cv2", "drawing masks")
+            h, w = self.orig_shape
+            overlay = img.copy()
+            for j, m in enumerate(self.masks.data):
+                mm = m.astype(np.uint8)
+                if mm.shape != (h, w):
+                    mm = cv2.resize(mm, (w, h), interpolation=cv2.INTER_NEAREST)
+                overlay[mm > 0] = np.asarray(
+                    [(37 * (j + 1)) % 255, (17 * (j + 7)) % 255,
+                     (29 * (j + 3)) % 255], np.uint8)
+            img = cv2.addWeighted(img, 0.6, overlay, 0.4, 0)
+        return img
 
     def save(self, filename, **plot_kwargs):
         """`plot` written to `filename` through cv2.imwrite."""

@@ -116,7 +116,7 @@ class InferenceServer:
                 "classify")
         if task != "detect":
             raise NotImplementedError(f"serving a {task} model is not ported "
-                                      "(ROADMAP A12e-A12f)")
+                                      "(ROADMAP A12e-b, A12f)")
 
     def _setup(self):
         from .model import YOLO

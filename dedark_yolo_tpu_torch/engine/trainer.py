@@ -8,9 +8,11 @@ A task supplies, as JAX's task trainers do: `task`, `loss_names`,
 device); `check_data` (the dataset dict), `preflight` (imgsz), `get_model`
 (the architecture at the data's nc, seeded); `build_train_dataset` /
 `build_train_loader`; `loss(batch)` -> (total, items); `get_validator`;
-`dummy_batch` (autobatch); `close_augment` (close_mosaic). The detect hooks
-also resolve `max_boxes=0` (`_resolve_max_boxes`) and draw the label and
-batch plots (`plot_train_start`, `plot_train_batch`).
+`dummy_batch` (autobatch); `close_augment` (close_mosaic);
+`plot_train_start`, `plot_train_batch` (the label and batch plots). The
+base resolves `max_boxes=0` from the train dataset's label counts for every
+task but classify (`_resolve_max_boxes`, JAX trainer.py:218-246). The
+segment task's trainer is `engine/segment.py::SegmentationTrainer`.
 
 The step (`step`): `build_optimizer` (:268-312, the 'auto' choice, the lr
 schedule and the warmup ramps of lr, bias lr and momentum, accumulation to
@@ -270,7 +272,26 @@ class BaseTrainer:
         """Fired at epochs - close_mosaic (JAX trainer.py:261-262)."""
 
     def _resolve_max_boxes(self):
-        """The detect task's max_boxes=0 (JAX trainer.py:218-246)."""
+        """max_boxes=0 -> the densest composite the augmentation can make:
+        the top-k label counts summed, k = 4 with mosaic (x2 with mixup, x2
+        again with copy_paste), rounded up to a multiple of 8 in [8, 1024]
+        (JAX trainer.py:218-246). A dataset's `labels` are its images' label
+        rows (detect) or instance lists (segment); classify has none."""
+        a = self.args
+        if int(a.max_boxes) > 0 or self.task == "classify":
+            return
+        counts = sorted((len(lb) for lb in self.build_train_dataset().labels),
+                        reverse=True)
+        k = 4 if a.mosaic > 0 else 1
+        if a.mixup > 0:
+            k *= 2
+        top = sum(counts[:k]) if counts else 1
+        if a.copy_paste > 0:
+            top *= 2
+        a.max_boxes = int(np.clip(math.ceil(max(top, 1) / 8) * 8, 8, 1024))
+        LOGGER.info(f"auto max_boxes: {a.max_boxes} "
+                    f"(top-{k} label sum {top}, {len(counts)} images)")
+
 
     def plot_train_start(self):
         """Plots of the dataset at train start (plots=True)."""
@@ -757,26 +778,6 @@ class DetectionTrainer(BaseTrainer):
                 "bboxes": np.zeros((b, a.max_boxes, 4), np.float32),
                 "cls": np.zeros((b, a.max_boxes), np.float32),
                 "mask_gt": np.zeros((b, a.max_boxes), np.float32)}
-
-    def _resolve_max_boxes(self):
-        """max_boxes=0 -> the densest composite the augmentation can make:
-        the top-k label counts summed, k = 4 with mosaic (x2 with mixup, x2
-        again with copy_paste), rounded up to a multiple of 8 in [8, 1024]
-        (JAX trainer.py:218-246)."""
-        a = self.args
-        if int(a.max_boxes) > 0:
-            return
-        counts = sorted((len(lb) for lb in self.build_train_dataset().labels),
-                        reverse=True)
-        k = 4 if a.mosaic > 0 else 1
-        if a.mixup > 0:
-            k *= 2
-        top = sum(counts[:k]) if counts else 1
-        if a.copy_paste > 0:
-            top *= 2
-        a.max_boxes = int(np.clip(math.ceil(max(top, 1) / 8) * 8, 8, 1024))
-        LOGGER.info(f"auto max_boxes: {a.max_boxes} "
-                    f"(top-{k} label sum {top}, {len(counts)} images)")
 
     def plot_train_start(self):
         if not matplotlib_available():

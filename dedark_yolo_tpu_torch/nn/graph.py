@@ -6,12 +6,14 @@
 per row and walks them with the save-list (graph.py:484-551), in the plain
 form only: no lazy upsample/concat, remat, space-to-depth stem or FPN fuse,
 which are exact rewrites of the same params in the JAX package. The
-built heads are Detect and AsffDetect (task 'detect') and Classify (task
-'classify'); `task` is JAX's (graph.py:575-576).
+built heads are Detect and AsffDetect (task 'detect'), Classify (task
+'classify') and Segment (task 'segment'); `task` is JAX's (graph.py:
+575-576).
 
 Layout: the image enters NHWC in [0, 1]; layer 0 (lowlight_recovery) works
 on NHWC, the backbone on NCHW (a permuted view, so channels_last memory);
-the head returns per-level (B, H, W, 4*reg_max + nc) maps. `forward` can
+the head returns per-level (B, H, W, 4*reg_max + nc) maps (Segment: also
+the (B, H, W, nm) coefficient maps and the NHWC protos). `forward` can
 also return layers' activations (`capture`, NHWC as JAX's), and `tta_eval`
 is JAX's test-time augmentation (graph.py:621-665).
 """
@@ -29,7 +31,7 @@ from torch import nn
 
 from . import layers as L
 from .enhance import LowlightRecovery, torch_bilinear_resize
-from .heads import AsffDetect, Detect, decode_detections
+from .heads import AsffDetect, Detect, Segment, decode_detections
 
 
 def make_divisible(x, divisor=8):
@@ -67,7 +69,7 @@ C2F_FAMILY = {
 }
 _HEADS = {"Detect", "AsffDetect", "Segment", "Pose", "RTDETRDecoder"}
 PORTED_HEADS = {"Detect": Detect, "AsffDetect": AsffDetect,
-                "Classify": L.Classify}
+                "Segment": Segment, "Classify": L.Classify}
 # head -> task (JAX graph.py:575-576); heads not listed are detect's
 TASKS = {"Classify": "classify", "Segment": "segment", "Pose": "pose"}
 _STRIDE2 = {"Focus", "HGStem"}
@@ -239,6 +241,11 @@ def _build_module(spec: LayerSpec, cins: List[int], head: dict) -> nn.Module:
     if name == "Classify":
         return L.Classify(c1, a[0], a[1] if len(a) > 1 else 1,
                           a[2] if len(a) > 2 else 1)
+    if name == "Segment":
+        ha = head.get("args", ())
+        return Segment(head["nc"], cins, head["strides"],
+                       nm=ha[1] if len(ha) > 1 else 32,
+                       npr=ha[2] if len(ha) > 2 else 256)
     if name in PORTED_HEADS:
         return PORTED_HEADS[name](head["nc"], cins, head["strides"])
     if name == "nn.Upsample":
@@ -255,12 +262,14 @@ def require_detect(model, what):
     if task != "detect":
         raise ValueError(f"{what} needs a detect model; this one is a "
                          f"{task} model (use its task's predictor and "
-                         "validator, engine/classify.py for classify)")
+                         "validator: engine/classify.py for classify, "
+                         "engine/segment.py for segment)")
 
 
 class DetectionModel(nn.Module):
     """Graph of the task model. forward(x NHWC in [0,1], priors) -> raw head
-    maps (detect) or logits (classify, (B, nc)).
+    maps (detect), (maps, coefficient maps, protos) (segment) or logits
+    (classify, (B, nc)).
 
     `model.{i}` is row i, so state_dict keys are the reference's.
     """
@@ -275,7 +284,7 @@ class DetectionModel(nn.Module):
         if self.head["name"] not in PORTED_HEADS:
             raise NotImplementedError(
                 f"{self.head['name']} head is not ported to torch yet "
-                "(ROADMAP A12e-A12f)")
+                "(ROADMAP A12f-A12g)")
         self.task = TASKS.get(self.head["name"], "detect")
         self.strides = self.head["strides"]
         self.reg_max = 16
@@ -322,20 +331,32 @@ class DetectionModel(nn.Module):
     def decode(self, raw):
         """Raw maps -> (boxes_xywh (B, N, 4), scores (B, N, nc)); a
         classify model's logits -> (probs (B, nc),), their softmax (JAX
-        graph.py:612-613)."""
+        graph.py:612-613); a segment model's (maps, coefficient maps,
+        protos) -> (boxes_xywh, scores, coef_flat (B, N, nm), protos (B,
+        mh, mw, nm)), the coefficients in the anchors' order (JAX
+        graph.py:681-688)."""
         if self.task == "classify":
             return (L.softmax(raw, -1),)
+        if self.task == "segment":
+            det, coefs, protos = raw
+            nm = protos.shape[-1]
+            coef_flat = torch.cat([c.reshape(c.shape[0], -1, nm)
+                                   for c in coefs], 1)
+            return (*decode_detections(det, self.nc, self.strides,
+                                       self.reg_max), coef_flat, protos)
         return decode_detections(raw, self.nc, self.strides, self.reg_max)
 
     def eval_outputs(self, x, params=None):
         """The task's decoded output tuple, the one definition that the
         exporter, AutoBackend's live branch and the classify predictor and
         validator share (JAX nn/graph.py:671-700): detect ->
-        (boxes_xywh (B, N, 4), scores (B, N, nc)), classify -> (probs (B,
-        nc),), each decode(forward(x)). `params` (a state dict, e.g. the
-        bf16 casts of `engine.benchmarks.bf16_params`) runs in place of the
-        module's own weights through `torch.func.functional_call`. Segment
-        and pose heads are not built (the constructor refuses them)."""
+        (boxes_xywh (B, N, 4), scores (B, N, nc)), segment -> (boxes_xywh,
+        scores, coef_flat (B, N, nm), protos (B, mh, mw, nm)), classify ->
+        (probs (B, nc),), each decode(forward(x)). `params` (a state dict,
+        e.g. the bf16 casts of `engine.benchmarks.bf16_params`) runs in
+        place of the module's own weights through
+        `torch.func.functional_call`. Pose heads are not built (the
+        constructor refuses them)."""
         raw = (self(x) if params is None
                else torch.func.functional_call(self, params, (x,)))
         return self.decode(raw)

@@ -1,9 +1,11 @@
-"""YOLOv8 Detect and AsffDetect heads and the eval decode (JAX
-nn/heads.py:28-85, 294-315).
+"""YOLOv8 Detect, AsffDetect and Segment heads and the eval decode (JAX
+nn/heads.py:28-116, 294-315).
 
 The head returns raw per-level maps in the JAX layout, (B, H, W, 4*reg_max +
 nc); `decode_detections` turns them into xywh pixel boxes and sigmoid class
 scores. DFL is a fixed arange, not a module, so it has no state_dict key.
+Segment also returns per-level (B, H, W, nm) mask coefficients and the
+(B, 2H0, 2W0, nm) prototypes of the first level, NHWC as in JAX.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 from torch import nn
 
 from ..ops.anchors import dfl_decode, dist2bbox, make_anchors
-from .layers import BiasConv2d, Conv, sigmoid
+from .layers import BiasConv2d, Conv, Proto, sigmoid
 
 
 class Detect(nn.Module):
@@ -61,6 +63,30 @@ class AsffDetect(Detect):
         self.cv2 = nn.ModuleList(
             nn.Sequential(BiasConv2d(x, 4 * reg_max, 1)) for x in ch)
         self.cv3 = nn.ModuleList(nn.Sequential(BiasConv2d(x, nc, 1)) for x in ch)
+
+
+class Segment(Detect):
+    """Detect plus a mask-coefficient branch a level and Proto on the first
+    level (reference head.py:177-200, JAX heads.py:90-116): `cv4.{i}` is two
+    Convs to c4 = max(ch0 // 4, nm) and a biased 1x1 to nm coefficients;
+    `proto` makes nm prototypes from npr channels at twice the first
+    level's size. forward -> (detect maps, coefficient maps, protos), each
+    NHWC."""
+
+    def __init__(self, nc: int, ch: Sequence[int], strides: Sequence[int],
+                 nm: int = 32, npr: int = 256, reg_max: int = 16):
+        super().__init__(nc, ch, strides, reg_max)
+        self.nm, self.npr = nm, npr
+        self.proto = Proto(ch[0], npr, nm)
+        c4 = max(ch[0] // 4, nm)
+        self.cv4 = nn.ModuleList(
+            nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3),
+                          BiasConv2d(c4, nm, 1)) for x in ch)
+
+    def forward(self, xs):
+        protos = self.proto(xs[0]).permute(0, 2, 3, 1)
+        coefs = [c(x).permute(0, 2, 3, 1) for x, c in zip(xs, self.cv4)]
+        return super().forward(xs), coefs, protos
 
 
 def flatten_raw(raw_maps):

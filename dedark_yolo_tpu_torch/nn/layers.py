@@ -4,7 +4,8 @@ Ports of the JAX package's `nn/layers.py`: the flagship's blocks (Conv,
 Conv2d, AddConv, Bottleneck, C2f, SPPF, AsffTribeLevel) and the fork's block
 zoo that its other detect architectures use (PConv and its bottlenecks,
 SCConv = SRU + CRU and its bottlenecks, C2f's bottleneck families, C2,
-RFBblock, AsffDoubLevel, MFRU). Module attribute names are the reference
+RFBblock, AsffDoubLevel, MFRU), the classify head and the Segment head's
+Proto. Module attribute names are the reference
 fork's where `utils/torch_import.py` maps them (`model.{i}.cv1.conv.weight`,
 ...), else plain ones, tabled in `utils/weights.py`. The convs, grouped and
 dilated ones too, go to cuDNN through `F.conv2d`, as the JAX package leaves
@@ -110,6 +111,17 @@ class BiasConv2d(nn.Conv2d):
         if x.dtype != torch.bfloat16:
             return super().forward(x)
         return self._conv_forward(x, self.weight, None) + self.bias[:, None, None]
+
+
+class BiasConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d with a bias, which a bf16 map adds to the rounded
+    transposed conv (flax's ConvTranspose adds it after the conv)."""
+
+    def forward(self, x):
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        return F.conv_transpose2d(x, self.weight, None, self.stride,
+                                  self.padding) + self.bias[:, None, None]
 
 
 class Linear(nn.Linear):
@@ -623,6 +635,22 @@ class MFRU(nn.Module):
                               [self.weight_level_0(l0), self.weight_level_1(l1),
                                self.weight_level_2(l2)])
         return self.sc_out(l0 * w0 + l1 * w1 + l2 * w2)
+
+
+class Proto(nn.Module):
+    """Mask prototypes of the Segment head (reference block.py:242-254, JAX
+    layers.py:1075-1085): a 3x3 Conv, a biased 2x2 stride-2 transposed conv
+    that doubles the map, a 3x3 Conv and a 1x1 Conv to c2 prototypes."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.upsample = BiasConvTranspose2d(c_, c_, 2, 2)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, c2, 1)
+
+    def forward(self, x):
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
 
 
 class Classify(nn.Module):

@@ -52,6 +52,18 @@ module itself):
                    linear (the reference's `model.{i}.linear`; its kernel
                    only transposed, unlike layer 0's fc1, whose rows are
                    also permuted: the map keys on the row's module)
+  Segment          detect/<Detect's names> -> the head's own cv2, cv3;
+                   Proto_0 -> proto; cv4_{i}_{j} -> cv4.{i}.{j} (j < 2 a
+                   Conv, j = 2 the biased 1x1) (torch_import.py:123-139)
+  Proto            Conv_0, ConvTranspose_0, Conv_1, Conv_2 -> cv1,
+                   upsample, cv2, cv3
+
+Kernels: a conv's OIHW weight is flax's HWIO kernel transposed. Proto's
+transposed conv is not: torch stores it (I, O, kh, kw) and applies it as
+the gradient of a conv, with the kernel mirrored, where flax's
+ConvTranspose applies its (kh, kw, I, O) kernel unmirrored; so its kernel
+is transposed AND flipped in both spatial axes, both ways
+(torch_import.py:196-203, 258-264).
 
 A module applied twice (MFRU's sc_deep, pw and sc_out) is one flax child and
 one port child, so it has one set of keys. AsffTribeLevel's order depends on
@@ -106,6 +118,8 @@ _TABLES = {
        for name, kind in C2F_FAMILY.items()},
     "PConv": {"Conv_0": ("conv", None)},
     "Classify": {"Conv_0": ("conv", "Conv"), "Dense_0": ("linear", None)},
+    "Proto": {"Conv_0": ("cv1", "Conv"), "ConvTranspose_0": ("upsample", None),
+              "Conv_1": ("cv2", "Conv"), "Conv_2": ("cv3", "Conv")},
     "GroupBatchnorm2d": {},
     "PconvBottleneck": {"PConv_0": ("pconv", "PConv"), "Conv_0": ("cv1", "Conv"),
                         "Conv2d_0": ("cv2", "Conv2d")},
@@ -170,7 +184,17 @@ def _torch_base(flax_path: str, spec_name: str, spec_args=(), dims=()) -> str:
     """Map a flax sub-path inside `mods_{i}` to the torch submodule name;
     `dims` are the row's input widths (AsffTribeLevel's align convs)."""
     parts = flax_path.split("/") if flax_path else []
-    if spec_name in ("Detect", "AsffDetect") and parts:
+    if spec_name == "Segment" and parts:
+        if parts[0] == "detect":
+            return _torch_base("/".join(parts[1:]), "Detect")
+        if parts[0] == "Proto_0":
+            return "proto." + _torch_base("/".join(parts[1:]), "Proto")
+        m = re.match(r"cv4_(\d+)_(\d+)$", parts[0])
+        if m and int(m.group(2)) < 2:
+            return f"cv4.{m.group(1)}.{m.group(2)}.{_PAIR[parts[1]][0]}"
+        if m:
+            return f"cv4.{m.group(1)}.{m.group(2)}"
+    elif spec_name in ("Detect", "AsffDetect") and parts:
         m = re.match(r"(cv[23])_(\d+)(_(\d+))?$", parts[0])
         if m and spec_name == "AsffDetect" and not m.group(3):
             return f"{m.group(1)}.{m.group(2)}.0"
@@ -205,7 +229,16 @@ def _flax_base(sub: str, spec_name: str, spec_args=(), dims=()) -> list:
     `model.{i}` -> the flax path parts inside `mods_{i}`."""
     parts = sub.split(".") if sub else []
     out = None
-    if spec_name == "Detect":
+    if spec_name == "Segment":
+        if parts[0] in ("cv2", "cv3"):
+            out = ["detect"] + _flax_base(sub, "Detect")
+        elif parts[0] == "proto":
+            out = ["Proto_0"] + _flax_walk(parts[1:], _table("Proto"))
+        else:
+            out = ["_".join(parts[:3])] + ([{"conv": "Conv_0",
+                                             "bn": "BatchNorm_0"}[parts[3]]]
+                                           if len(parts) > 3 else [])
+    elif spec_name == "Detect":
         out = ["_".join(parts[:3])] + ([{"conv": "Conv_0", "bn": "BatchNorm_0"}[
             parts[3]]] if len(parts) > 3 else [])
     elif spec_name == "AsffDetect":
@@ -269,6 +302,9 @@ def state_dict_to_jax(state_dict, model) -> dict:
             section, name = "batch_stats", leaf[len("running_"):]
         elif leaf in ("bias", "sru_weight", "sru_bias"):
             section, name = "params", leaf
+        elif arr.ndim == 4 and path[-1].startswith("ConvTranspose"):
+            section, name = "params", "kernel"
+            arr = np.transpose(arr, (2, 3, 0, 1))[::-1, ::-1]
         elif arr.ndim == 4:
             section, name = "params", "kernel"
             arr = np.transpose(arr, (2, 3, 1, 0))
@@ -312,6 +348,9 @@ def state_dict_from_jax(variables, model) -> dict:
             if section == "params":
                 if leaf in ("sru_weight", "sru_bias"):
                     sd[f"{tkey}.{leaf}"] = arr
+                elif leaf == "kernel" and keys[-2].startswith("ConvTranspose"):
+                    sd[f"{tkey}.weight"] = np.transpose(arr[::-1, ::-1],
+                                                        (2, 3, 0, 1))
                 elif leaf == "kernel" and arr.ndim == 4:
                     sd[f"{tkey}.weight"] = np.transpose(arr, (3, 2, 0, 1))
                 elif leaf == "kernel":
@@ -362,17 +401,22 @@ def opt_state_to_jax(opt_state, model) -> dict:
 
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> None:
-    """Seeded random init: conv/linear weights ~ N(0, 1/fan_in), biases 0,
+    """Seeded random init: conv, transposed conv and linear weights ~ N(0,
+    1/fan_in), biases 0,
     BN, GroupBatchnorm2d and SCConv's SRU scale at identity (ones, as JAX
-    has them), the Detect and AsffDetect biases of reference
-    head.py:95-102.
+    has them), the Detect, AsffDetect and Segment biases of reference
+    head.py:95-102 (Segment's coefficient and proto biases 0, as flax
+    initialises them).
     Draws on the CPU from one torch.Generator, so a seed gives the same
     weights on every device."""
     gen = torch.Generator().manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = mod.weight
-            std = 1.0 / math.sqrt(w[0].numel())
+            # fan-in: a transposed conv's weight is (I, O, kh, kw)
+            fan_in = (w.shape[0] * w[0, 0].numel()
+                      if isinstance(mod, nn.ConvTranspose2d) else w[0].numel())
+            std = 1.0 / math.sqrt(fan_in)
             w.copy_(torch.randn(w.shape, generator=gen) * std)
             if mod.bias is not None:
                 mod.bias.zero_()

@@ -145,11 +145,11 @@ def test_cli_train_and_predict(setup, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["segment", "export"], "A12e"), (["pose", "export"], "A12f"),
-    (["pose", "benchmark"], "A12f"), (["segment", "serve"], "A12e"),
-    (["segment", "val"], "A12e"),
-    (["pose", "train"], "A12f"), (["segment", "predict"], "A12e"),
-    (["val", "task=segment"], "A12e")])
+    (["pose", "val"], "A12f"), (["pose", "export"], "A12f"),
+    (["pose", "benchmark"], "A12f"), (["segment", "serve"], "A12e-b"),
+    (["segment", "track"], "A12e-b"),
+    (["pose", "train"], "A12f"), (["pose", "predict"], "A12f"),
+    (["val", "task=pose"], "A12f")])
 def test_unported_modes_and_tasks_exit_nonzero(argv, item, caplog):
     with caplog.at_level("ERROR", logger="dedark_yolo_tpu_torch"):
         assert cli.entrypoint(argv) == 1

@@ -99,7 +99,6 @@ def test_facade_builds_and_counts(arch):
 
 
 @pytest.mark.parametrize("arch,head", [
-    ("yolov8-seg", "Segment"),
     ("yolov8-pose", "Pose"), ("yolov8-pose-p6", "Pose"),
     ("yolov8-rtdetr", "RTDETRDecoder")])
 def test_other_heads_raise(arch, head):
