@@ -123,11 +123,37 @@ line:
            half and one retina_masks batch; a pt2 export at b16/640 through
            AutoBackend against the live eval_outputs, YOLO(pt2).val and
            predict against live; `python -m dedark_yolo_tpu_torch segment
-           val` in a subprocess against YOLO(npz).val(); then
-           yolov8-seg.yaml's rows under a layer-0 row at scale l predicting
-           the 16 low-light frames (one frame card vs CPU); nms once a
-           predict or val batch, fused_enhance once a batch of the layer-0
-           graph only
+           val` in a subprocess against YOLO(npz).val(); InferenceServer
+           of the calibrated weights answering 8 requests of one client,
+           each paired with predict of its frame (masks too), and one
+           ByteTrack pass of YOLO.track over the track phase's sequence,
+           each track's mask its detection's; then yolov8-seg.yaml's rows
+           under a layer-0 row at scale l predicting the 16 low-light
+           frames (one frame card vs CPU); nms once a predict, val or
+           served batch, fused_enhance once a batch of the layer-0 graph
+           only
+  pose     yolov8l-pose at full width (nc 1, 17 keypoints) on a seeded
+           keypoint dataset of .npy sidecars (64 train and 16 val images of
+           mixed sizes up to 640, 1-6 instances each, some keypoints
+           unlabelled or past the frame's edge, cv2 blocked):
+           YOLO(...).train at 640, b16, two epochs (images/s an epoch, the
+           loader's wait, peak memory, the five loss items, best.npz); a
+           128, b2 micro-step on the card against the CPU (TRAIN_TOL, TF32
+           off); YOLO(best.npz).val and predict of 16 frames on the card
+           against the CPU (val's pairing with box and pose TP rows, the
+           four mAPs within VAL_METRIC_RTOL; predict's pairs with keypoints
+           within POSE_KPT_TOL_PX and visibility within SCORE_TOL); predict
+           images/s in f32 and half; a pt2 export at b16/640 through
+           AutoBackend against the live eval_outputs, YOLO(pt2).val and
+           predict against live; `python -m dedark_yolo_tpu_torch pose
+           val` in a subprocess against YOLO(npz).val(); InferenceServer
+           answering 8 requests, each paired with predict of its frame, and
+           one ByteTrack pass, each track's keypoints its detection's;
+           yolov8l-pose-p6 predicting a batch (one frame card vs CPU); then
+           yolov8-pose.yaml's rows under a layer-0 row at scale l
+           predicting the 16 low-light frames (one frame card vs CPU); nms
+           once a predict, val or served batch, fused_enhance once a batch
+           of the layer-0 graph only
   probe    tools.int8_probe at its default shape (24 layers, b32, 80x80,
            C=Co=256): bf16 cuDNN chain vs the int8_conv kernel's chain
   train    DetectionTrainer: at imgsz 128, b2, one micro-step on the card
@@ -3488,6 +3514,39 @@ def track_frames(n=TRACK_FRAMES, hw=TRACK_HW, seed=SEED + 80):
     return out
 
 
+class lifted_scores:
+    """Within the block, one constant added to the class logits of
+    `yolo`'s head (its class branches' biases): the one that lifts the
+    median over the frames of `source` of each frame's TRACK_RANK-th score
+    (predict at `kw`, conf 0.001; a score that rounds to 0 or 1 in f32
+    taken as 1e-6 from it) to TRACK_TOP_SCORE, so that the trackers'
+    default thresholds confirm tracks of a random-weight or briefly
+    trained model; `shift` is the constant. Restored after."""
+
+    def __init__(self, torch, yolo, source, kw):
+        self.torch, self.yolo, self.source, self.kw = torch, yolo, source, kw
+
+    def __enter__(self):
+        import math
+        import numpy as np
+        q = float(np.median([np.sort(r.boxes.conf)[::-1][TRACK_RANK - 1]
+                             for r in self.yolo.predict(self.source, **{
+                                 **self.kw, "conf": 0.001})]))
+        q = min(max(q, 1e-6), 1 - 1e-6)
+        logit = lambda p: math.log(p / (1 - p))
+        self.shift = logit(TRACK_TOP_SCORE) - logit(q)
+        self._add(self.shift)
+        return self
+
+    def __exit__(self, *exc):
+        self._add(-self.shift)
+
+    def _add(self, v):
+        with self.torch.no_grad():
+            for branch in self.yolo.model.model[-1].cv3:
+                branch[-1].bias += v
+
+
 class time_tracker_updates:
     """Within the block, the host ms of every tracker update (BYTETracker
     and BOTSORT share `update`)."""
@@ -3548,7 +3607,6 @@ def phase_track(torch, yolo):
     tracker (frames/s, the trackers' host ms a frame against the
     predictor's ms an image, the passes' spread), fused_enhance and nms
     once a batch."""
-    import math
     import tempfile
     import numpy as np
     import scipy.optimize  # noqa: F401  (imported before the timed updates)
@@ -3565,22 +3623,13 @@ def phase_track(torch, yolo):
            "batch": BATCH, "imgsz": IMGSZ, "conf": CONF, "runs": {},
            "launches": {"fused_enhance": 0, "nms": 0}}
     ok = True
-    head = yolo.model.model[-1]
     with tempfile.TemporaryDirectory() as tmp:
         seq = Path(tmp) / "seq"
         seq.mkdir()
         for i, f in enumerate(frames):
             np.save(seq / f"f{i:03d}.npy", f)
-        q = float(np.median([np.sort(r.boxes.conf)[::-1][TRACK_RANK - 1]
-                             for r in yolo.predict(str(seq), **{
-                                 **kw, "conf": 0.001})]))
-        logit = lambda p: math.log(p / (1 - p))
-        shift = logit(TRACK_TOP_SCORE) - logit(q)
-        rec["class_logit_shift"] = shift
-        with torch.no_grad():
-            for branch in head.cv3:
-                branch[-1].bias += shift
-        try:
+        with lifted_scores(torch, yolo, str(seq), kw) as lift:
+            rec["class_logit_shift"] = lift.shift
             untracked = yolo.predict(str(seq), **kw)
             cases = [("bytetrack", None)] + [("botsort", g) for g in gmcs]
             for name, gmc in cases:
@@ -3601,10 +3650,6 @@ def phase_track(torch, yolo):
                     passes.append(p)
                 rec["runs"][key] = {"passes": passes, **spread(
                     passes, ("frames_per_s", "tracker_host_ms_per_frame"))}
-        finally:
-            with torch.no_grad():
-                for branch in head.cv3:
-                    branch[-1].bias -= shift
     emit(rec)
     if not ok:
         raise AssertionError(f"track: {rec}")
@@ -4267,17 +4312,22 @@ def seg_dataset(root, seed):
 
 
 class record_seg(record_detections):
-    """record_detections of the segment validator: each image's box
-    branch (native boxes, classes, TP matrix) in `images`, its mask TP
-    matrix in `mask_tps`, the scores from the box branch's
+    """record_detections of the segment (or, with task="pose", the pose)
+    validator: each image's box branch (native boxes, classes, TP matrix)
+    in `images`, its mask (pose) TP matrix in `mask_tps` and the IoU (OKS)
+    matrix it came from in `mask_ious`, the scores from the box branch's
     DetMetrics.process."""
 
+    def __init__(self, task="segment"):
+        self.task = task
+
     def __enter__(self):
+        import importlib
         import numpy as np
-        from dedark_yolo_tpu_torch.engine import segment as S
+        S = importlib.import_module(f"dedark_yolo_tpu_torch.engine.{self.task}")
         self.module, self.match = S, S.match_predictions
         self.match_iou, self.process = S.match_from_iou, S.DetMetrics.process
-        self.images, self.gts, self.mask_tps = [], [], []
+        self.images, self.gts, self.mask_tps, self.mask_ious = [], [], [], []
         self.scores, self.n_process = np.zeros(0, np.float32), 0
 
         def recorded(pred_boxes, pred_cls, gt_boxes, gt_cls):
@@ -4285,11 +4335,12 @@ class record_seg(record_detections):
             self.images.append((np.array(pred_boxes), np.array(pred_cls), tp))
             self.gts.append((np.array(gt_boxes), np.array(gt_cls)))
             self.mask_tps.append(np.zeros((len(pred_cls), 10), bool))
+            self.mask_ious.append(np.zeros((0, len(pred_cls))))
             return tp
 
         def recorded_iou(iou, *args):
             tp = self.match_iou(iou, *args)
-            self.mask_tps[-1] = tp
+            self.mask_tps[-1], self.mask_ious[-1] = tp, np.array(iou)
             return tp
 
         def processed(metrics, tp, conf, pred_cls, target_cls):
@@ -4540,8 +4591,8 @@ def seg_parity(torch, data):
             **step_errors(got["gpu"], got["cpu"], start)}
 
 
-def seg_cli_val(torch, best, data_json):
-    """`python -m dedark_yolo_tpu_torch segment val model=<best>` in a
+def task_cli_val(torch, task, best, data_json):
+    """`python -m dedark_yolo_tpu_torch <task> val model=<best>` in a
     subprocess, its printed metrics against YOLO(best).val() here under the
     subprocess's TF32 defaults (cuDNN on, matmuls off)."""
     import os
@@ -4552,13 +4603,13 @@ def seg_cli_val(torch, best, data_json):
                                           os.environ.get("PYTHONPATH", "")])}
     t0 = time.perf_counter()
     p = subprocess.run([sys.executable, "-m", "dedark_yolo_tpu_torch",
-                        "segment", "val", f"model={best}",
+                        task, "val", f"model={best}",
                         f"data={data_json}", "cache=disk", "batch=16",
                         "plots=False"], capture_output=True, text=True,
                        cwd=str(ROOT), env=env, timeout=600)
     lines = [ln for ln in p.stdout.splitlines() if ln.startswith("results ")]
     if p.returncode or not lines:
-        raise AssertionError(f"segment cli: rc {p.returncode}\n"
+        raise AssertionError(f"{task} cli: rc {p.returncode}\n"
                              f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
     got = json.loads(lines[-1][8:])
     prev = (torch.backends.cudnn.allow_tf32,
@@ -4576,13 +4627,14 @@ def seg_cli_val(torch, best, data_json):
             "results": got, "facade_val": want, "equal": got == want}
 
 
-def seg_layer0_graph(path):
-    """yolov8-seg.yaml's rows under a lowlight_recovery row 0 (every later
-    index shifted by one), written as JSON at `path` (a scaled name, so
-    model_yaml_load takes its scale from it)."""
+def layer0_graph(base, path):
+    """The rows of the built-in architecture `base` under a
+    lowlight_recovery row 0 (every later index shifted by one), written as
+    JSON at `path` (a scaled name, so model_yaml_load takes its scale from
+    it)."""
     import copy
     from dedark_yolo_tpu_torch.cfg.models import MODELS
-    d = copy.deepcopy(MODELS["yolov8-seg.yaml"])
+    d = copy.deepcopy(MODELS[base])
 
     def shift(f):
         if isinstance(f, list):
@@ -4828,13 +4880,29 @@ def phase_segment(torch):
                     and apairs["paired"] == len(frames)
                     and apairs["mask_max_excess_px"] <= 0):
                 failed.append("export")
-            cli = seg_cli_val(torch, best, data_json)
+            cli = task_cli_val(torch, "segment", best, data_json)
             report("cli", cli)
             if not cli["equal"]:
                 failed.append("cli")
 
+            # serve and track of the calibrated weights: masks in the
+            # responses, and re-indexed to the tracks
+            npz = npz_of(torch, gpu, tmp / "calibrated.npz")
+            srv = task_serve(torch, npz, frames, seg_predict_pairs, conf)
+            srv["ok"] = srv["ok"] and srv["mask_max_excess_px"] <= 0
+            for k in launches:
+                launches[k] += srv["launches"].get(k, 0)
+            report("serve", srv)
+            trk = task_track(torch, npz, tmp, "masks")
+            for k in launches:
+                launches[k] += trk["launches"].get(k, 0)
+            report("track", trk)
+            failed += [name for name, r in (("serve", srv), ("track", trk))
+                       if not r["ok"]]
+
             # a segment graph under layer 0: fused_enhance once a batch
-            l0_path = seg_layer0_graph(tmp / "yolov8l-seg-dedark.json")
+            l0_path = layer0_graph("yolov8-seg.yaml",
+                                   tmp / "yolov8l-seg-dedark.json")
             l0 = YOLO(l0_path, nc=SEG["classes"], seed=SEED)
             l0_cpu = YOLO(l0_path, nc=SEG["classes"], device="cpu", seed=SEED)
             dark = synthetic_frames(BATCH)
@@ -4871,11 +4939,578 @@ def phase_segment(torch):
                "val_cuda": val_g,
                "predict_images_per_s": {"f32": prec["f32_images_per_s"],
                                         "half": prec["half_images_per_s"]},
+               "serve_launches": srv["launches"],
+               "track_launches": trk["launches"],
                "launches": launches, "seconds": time.perf_counter() - t_phase,
                "failed": failed}
     emit(summary)
     if failed:
         raise AssertionError(f"segment: {failed}")
+    return summary
+
+
+# segment and pose in serve and track: TASK_REQUESTS requests of one client
+# one at a time, each against predict of its frame at the server's batch (the
+# frame and its copies); one ByteTrack pass over the track phase's sequence
+# at TASK_TRACK_MAX_DET detections a frame (each mask is a full frame on the
+# host)
+TASK_REQUESTS = 8
+TASK_TRACK_MAX_DET = 20
+
+
+def task_results(frames, responses):
+    """Server responses as Results of their frames (boxes, and the masks
+    or keypoints a response carries)."""
+    import numpy as np
+    from dedark_yolo_tpu_torch.engine.results import Results
+    return [Results(np.ascontiguousarray(f[..., ::-1]), "", {},
+                    boxes=r["boxes"], masks=r.get("masks"),
+                    keypoints=r.get("keypoints"))
+            for f, r in zip(frames, responses)]
+
+
+def task_serve(torch, spec, frames, pairs, conf):
+    """InferenceServer(spec, max_batch=BATCH, conf=conf) of a segment or
+    pose model answering TASK_REQUESTS requests of one client one at a
+    time, each paired (`pairs`: seg_predict_pairs or pose_predict_pairs at
+    EXPORT_BOX_TOL_PX, EXPORT_SCORE_TOL) with YOLO(spec).predict of its
+    frame at batch BATCH; nms once a batch, the warmup's too."""
+    import numpy as np
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.engine.server import InferenceServer
+    from dedark_yolo_tpu_torch.ops import _build
+    frames = frames[:TASK_REQUESTS]
+    y = YOLO(str(spec))
+    want = [y.predict([f], imgsz=IMGSZ, batch=BATCH, conf=conf)[0]
+            for f in frames]
+    zero_launches()
+    with no_plain_on_cuda():
+        srv = InferenceServer(str(spec), imgsz=IMGSZ, max_batch=BATCH,
+                              conf=conf)
+        try:
+            t0 = time.perf_counter()
+            got = [srv.predict(f, timeout=120) for f in frames]
+            secs = time.perf_counter() - t0
+        finally:
+            srv.close()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check_launches("task serve", launches, {"nms": len(frames) + 1})
+    res = task_results(frames, got)
+    rec = {"requests": len(frames), "requests_per_s": len(frames) / secs,
+           "launches": launches,
+           "bit_equal": sum(bool(np.array_equal(g.boxes.data, w.boxes.data))
+                            for g, w in zip(res, want)),
+           **pairs(res, want, 0.0, EXPORT_BOX_TOL_PX, EXPORT_SCORE_TOL)}
+    rec["conf"] = conf
+    rec["ok"] = rec["paired"] == len(frames) and rec["pairs"] > 0
+    return rec
+
+
+def task_track(torch, spec, tmp, extra):
+    """One YOLO.track(persist=True) pass with ByteTrack over the track
+    phase's .npy sequence, the scores lifted (lifted_scores): each frame's
+    tracks equal to a fresh host tracker's on the untracked detections of
+    the same frames, and each track's `extra` (masks or keypoints) that of
+    the detection it came from (the tracker's det_idx column); nms once a
+    batch."""
+    import numpy as np
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.trackers import make_tracker
+    seq = Path(tmp) / "track_seq"
+    if not seq.is_dir():
+        seq.mkdir()
+        for i, f in enumerate(track_frames()):
+            np.save(seq / f"f{i:03d}.npy", f)
+    yolo = YOLO(str(spec))
+    kw = dict(imgsz=IMGSZ, batch=BATCH, conf=0.1, max_det=TASK_TRACK_MAX_DET)
+    batches = -(-TRACK_FRAMES // BATCH)
+    with lifted_scores(torch, yolo, str(seq), kw) as lift:
+        untracked = yolo.predict(str(seq), **kw)
+        yolo._tracker = None
+        zero_launches()
+        t0 = time.perf_counter()
+        with no_plain_on_cuda():
+            res = yolo.track(str(seq), persist=True, tracker="bytetrack.yaml",
+                             **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check_launches("task track", launches, {"nms": batches})
+    fresh = make_tracker("bytetrack.yaml")
+    same = reindexed = True
+    for r, u in zip(res, untracked):
+        t = fresh.update(u.boxes.data, img=u.orig_img[..., ::-1])
+        idx = t[:, 7].astype(int)
+        same &= bool(np.array_equal(t[:, :7], r.boxes.data))
+        reindexed &= bool(np.array_equal(getattr(r, extra).data,
+                                         getattr(u, extra).data[idx]))
+    ids = {int(i) for r in res for i in r.boxes.id}
+    rec = {"frames": len(res), "frames_per_s": len(res) / secs,
+           "class_logit_shift": lift.shift, "identities": len(ids),
+           "tracked": int(sum(len(r) for r in res)), "launches": launches,
+           "fresh_tracker_equal": same, f"{extra}_reindexed": reindexed}
+    rec["ok"] = (same and reindexed and len(res) == TRACK_FRAMES
+                 and len(ids) > 0)
+    return rec
+
+
+# pose phase: yolov8l-pose (nc 1, 17 keypoints of x, y, visibility) on a
+# seeded keypoint dataset of .npy sidecars. Card against CPU, keypoint x and
+# y within POSE_KPT_TOL_PX and visibility within SCORE_TOL: a keypoint is
+# (2 x offset + anchor - 0.5) x stride of one conv output, where a box side
+# is the DFL expectation (stride x sum of bin x softmax) of sixteen, whose
+# error is the logits' error times the bins' spread (about 4.6 bins for a
+# flat softmax); so a keypoint's error is at most the box's, and the box bar
+# BOX_TOL_PX holds both. The visibility is a sigmoid of a conv output, as a
+# class score is.
+POSE = {"model": "yolov8l-pose.yaml", "p6": "yolov8l-pose-p6.yaml",
+        "classes": 1, "kpts": 17, "train": 64, "val": 16, "imgsz": 640,
+        "batch": 16, "epochs": 2, "sides": (320, 641), "instances": (1, 7),
+        "parity_imgsz": 128, "parity_batch": 2, "predict_reps": 2}
+POSE_KPT_TOL_PX = BOX_TOL_PX
+POSE_METRICS = ("metrics/mAP50(B)", "metrics/mAP50-95(B)",
+                "metrics/mAP50(P)", "metrics/mAP50-95(P)")
+
+
+def pose_dataset(root, seed):
+    """root/{images,labels}/{train,val}: POSE's counts of images of mixed
+    sizes (each side in POSE["sides"]), each with 1-6 instances: a box
+    painted in a random colour and 17 keypoints in and around it, drawn
+    as dots where labelled visible (v 2), labelled occluded (v 1) or not
+    labelled (v 0, about a fifth) otherwise, some past the frame's edge;
+    written as .npy sidecars with `0 cx cy w h x1 y1 v1 ...` rows. Returns
+    the dataset dict."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    nk = POSE["kpts"]
+    for split in ("train", "val"):
+        img_dir, lbl_dir = root / "images" / split, root / "labels" / split
+        img_dir.mkdir(parents=True)
+        lbl_dir.mkdir(parents=True)
+        for k in range(POSE[split]):
+            h, w = (int(v) for v in rng.integers(*POSE["sides"], 2))
+            img = rng.integers(60, 120, (h, w, 3)).astype(np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(*POSE["instances"]))):
+                cx, cy = rng.uniform(0.15, 0.85, 2) * (w, h)
+                bw, bh = rng.uniform(0.1, 0.4, 2) * (w, h)
+                x0, y0 = int(max(cx - bw / 2, 0)), int(max(cy - bh / 2, 0))
+                img[y0:int(cy + bh / 2), x0:int(cx + bw / 2)] = \
+                    rng.integers(40, 230, 3)
+                pts = np.stack([cx + rng.uniform(-0.7, 0.7, nk) * bw,
+                                cy + rng.uniform(-0.7, 0.7, nk) * bh], 1)
+                vis = rng.choice([0, 1, 2], nk, p=[0.2, 0.2, 0.6])
+                for (x, y), v in zip(pts.astype(int), vis):
+                    if v and 0 <= x < w and 0 <= y < h:
+                        img[max(y - 3, 0):y + 4, max(x - 3, 0):x + 4] = \
+                            (250, 250, 40) if v == 2 else (40, 250, 250)
+                rows.append(f"0 {cx / w:.5f} {cy / h:.5f} {bw / w:.5f} "
+                            f"{bh / h:.5f} " + " ".join(
+                                f"{x / w:.5f} {y / h:.5f} {v}"
+                                for (x, y), v in zip(pts, vis)))
+            img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255)
+            write_sidecar(img_dir, lbl_dir, str(k), img.astype(np.uint8), rows)
+    return {"path": str(root), "train": "images/train", "val": "images/val",
+            "names": {0: "person"}}
+
+
+def pose_kpt_pairs(g, c, conf, box_tol, score_tol):
+    """Two pose Results of one image: the detections above `conf` paired
+    as pair_results pairs them. A record: the counts, and where every one
+    pairs the box and score errors, the largest keypoint x, y and
+    visibility errors of the pairs and the pairs; else the first
+    unpaired detection's rank."""
+    import numpy as np
+    gk, ck = g.boxes.conf > conf, c.boxes.conf > conf
+    gd, cd = g.boxes.data[gk], c.boxes.data[ck]
+    gp, cp = g.keypoints.data[gk], c.keypoints.data[ck]
+    rec = {"counts": [len(gd), len(cd)], "paired": False}
+    if len(gd) != len(cd):
+        return rec
+    free, box_err, score_err, xy_err, vis_err = list(range(len(gd))), [], [], [], []
+    for i in range(len(cd)):
+        for j in free:
+            db = float(np.abs(gd[j, :4] - cd[i, :4]).max())
+            ds = abs(float(gd[j, 4] - cd[i, 4]))
+            if gd[j, 5] == cd[i, 5] and db <= box_tol and ds <= score_tol:
+                free.remove(j)
+                box_err.append(db)
+                score_err.append(ds)
+                xy_err.append(float(np.abs(gp[j, :, :2] - cp[i, :, :2]).max()))
+                vis_err.append(float(np.abs(gp[j, :, 2] - cp[i, :, 2]).max()))
+                break
+        else:
+            rec["unpaired_rank"] = i
+            return rec
+    rec.update(paired=True, box_max_abs_err_px=max(box_err, default=0.0),
+               score_max_abs_err=max(score_err, default=0.0),
+               kpt_max_abs_err_px=max(xy_err, default=0.0),
+               vis_max_abs_err=max(vis_err, default=0.0), pairs=len(cd))
+    return rec
+
+
+def pose_predict_pairs(gpu, cpu, conf, box_tol, score_tol,
+                       kpt_tol=POSE_KPT_TOL_PX, vis_tol=SCORE_TOL):
+    """pose_kpt_pairs of every image at one conf, folded: images paired
+    with every keypoint within kpt_tol (x, y) and vis_tol (visibility),
+    pairs, the largest errors, the first failing image's record."""
+    recs = [pose_kpt_pairs(g, c, conf, box_tol, score_tol)
+            for g, c in zip(gpu, cpu)]
+    good = [r for r in recs if r["paired"] and r["kpt_max_abs_err_px"]
+            <= kpt_tol and r["vis_max_abs_err"] <= vis_tol]
+    out = {"conf": conf, "images": len(recs), "paired": len(good),
+           "pairs": sum(r["pairs"] for r in good),
+           "kpt_tol_px": kpt_tol, "vis_tol": vis_tol}
+    for key in ("box_max_abs_err_px", "score_max_abs_err",
+                "kpt_max_abs_err_px", "vis_max_abs_err"):
+        out[key] = max((r[key] for r in recs if r["paired"]), default=0.0)
+    bad = [(k, r) for k, r in enumerate(recs) if r not in good]
+    if bad:
+        out["first_failing"] = {"image": bad[0][0], **bad[0][1]}
+    return out
+
+
+def pose_parity(torch, data):
+    """One SGD micro-step of yolov8l-pose at 128, b2 (nbs = batch: the
+    update applies) on the card and on the CPU from one seeded state and a
+    batch of the val split's items, TF32 off: TRAIN_TOL
+    (tools/c14_split.step_errors)."""
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.data.dataset import check_det_dataset
+    from dedark_yolo_tpu_torch.data.pose import PoseDataset, collate_pose
+    from dedark_yolo_tpu_torch.engine.pose import PoseTrainer
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.tools.c14_split import step_errors
+    n, sz = POSE["parity_batch"], POSE["parity_imgsz"]
+    over = {"batch": n, "nbs": n, "optimizer": "SGD", "imgsz": sz,
+            "max_boxes": 8}
+    gpu = YOLO(POSE["model"], nc=POSE["classes"], seed=SEED)
+    cpu = YOLO(POSE["model"], nc=POSE["classes"], device="cpu", seed=SEED)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    start = {k: v.cpu().clone() for k, v in cpu.state_dict().items()}
+    ds = PoseDataset(check_det_dataset(data)["val"], imgsz=sz,
+                     nc=POSE["classes"], kpt_shape=(POSE["kpts"], 3),
+                     cache="disk")
+    batch = collate_pose([ds.load(i) for i in range(n)], max_boxes=8,
+                         nk=POSE["kpts"])
+    got = {}
+    with matmul_precision("float32"), no_plain_on_cuda():
+        for key, yolo, dev in (("gpu", gpu, None), ("cpu", cpu, "cpu")):
+            tr = PoseTrainer(yolo.model, over, nb=1000, device=dev)
+            names = list(tr.params)
+            tr.model.train()
+            total, items = tr.loss(tr.to_device(batch))
+            grads = torch.autograd.grad(
+                total, [tr.params[k] for k in names], allow_unused=True)
+            tr.model.eval()
+            tr.model.load_state_dict(start)
+            _, step_items = tr.step(batch, 1500)
+            got[key] = {"items": items, "step_items": step_items,
+                        "grads": {k: g for k, g in zip(names, grads)
+                                  if g is not None},
+                        "state": tr.model.state_dict(), "ema": tr.ema,
+                        "updates": (tr.opt_state.step, tr.ema_updates)}
+    return {"model": POSE["model"], "imgsz": sz, "batch": n,
+            "instances": int(batch["mask_gt"].sum()),
+            **step_errors(got["gpu"], got["cpu"], start)}
+
+
+def pose_variant(torch, name, spec, frames, card, expected):
+    """One more pose graph at full width (seeded weights, BN set from the
+    frames): a predict batch of the frames on the card, then one frame on
+    the card against the CPU (TF32 off), paired with its keypoints."""
+    from dedark_yolo_tpu_torch import YOLO
+    gpu = YOLO(str(spec), nc=POSE["classes"], seed=SEED)
+    cpu = YOLO(str(spec), nc=POSE["classes"], device="cpu", seed=SEED)
+    calibrate_bn(torch, gpu.model, frames)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    card(f"{name} warm-up", lambda: gpu.predict(list(frames), batch=BATCH),
+         lambda: expected)
+    t0 = time.perf_counter()
+    timed = card(f"{name} predict", lambda: gpu.predict(list(frames),
+                                                       batch=BATCH),
+                 lambda: expected)
+    ips = len(frames) / (time.perf_counter() - t0)
+    g1 = card(f"{name} one frame", lambda: gpu.predict(
+        [frames[0]], batch=1, conf=0.001, matmul_precision="float32"),
+        lambda: expected)
+    c1 = cpu.predict([frames[0]], batch=1, conf=0.001, device="cpu",
+                     matmul_precision="float32")
+    rec = {"model": name,
+           "params": sum(q.numel() for q in gpu.model.parameters()),
+           "images_per_s": ips,
+           "dets_per_image": [min(len(r) for r in timed),
+                              max(len(r) for r in timed)],
+           "keypoints_shape": list(timed[0].keypoints.data.shape),
+           **pose_predict_pairs(g1, c1, pair_conf(g1[0]), BOX_TOL_PX,
+                                SCORE_TOL)}
+    rec["ok"] = rec["paired"] == 1 and rec["pairs"] > 0
+    return rec
+
+
+def phase_pose(torch):
+    """The pose task end to end at full width (see POSE): train, the
+    micro-step's parity, val and predict card against CPU, predict's
+    images/s (f32, half), the pt2 artifact, the CLI's val, serve and
+    track, the -p6 graph, then the pose graph under layer 0 predicting
+    low-light frames. nms launches once a predict or val batch,
+    fused_enhance once a batch of the layer-0 graph only, no plain version
+    reached with a CUDA tensor."""
+    import math
+    import tempfile
+    import numpy as np
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.data.augment import letterbox
+    from dedark_yolo_tpu_torch.data.dataset import check_det_dataset
+    from dedark_yolo_tpu_torch.engine import pose as P
+    from dedark_yolo_tpu_torch.engine.autobackend import AutoBackend
+    from dedark_yolo_tpu_torch.ops import _build
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in ("fused_enhance", "usm", "int8_conv", "nms")}
+    failed = []
+    val_calls = [0]
+    val_call = P.PoseValidator.__call__
+
+    def counted(self, model=None):
+        val_calls[0] += 1
+        return val_call(self, model)
+
+    def card(name, fn, expected=lambda: {}):
+        """fn() on the card with the launches counted and checked against
+        expected() (called after fn: how many val calls a run made)."""
+        zero_launches()
+        val_calls[0] = 0
+        with no_plain_on_cuda():
+            out = fn()
+        torch.cuda.synchronize()
+        got = dict(_build.LAUNCHES)
+        check_launches(f"pose {name}", got, expected())
+        for k in launches:
+            launches[k] += got.get(k, 0)
+        return out
+
+    def add(got):
+        for k in launches:
+            launches[k] += got.get(k, 0)
+
+    per_val = lambda n, b: {"nms": -(-n // b)}
+    mark = [t_phase]
+
+    def report(name, rec):
+        now = time.perf_counter()
+        rec["step_s"], mark[0] = now - mark[0], now
+        emit({"phase": "pose", name: rec})
+        if "ok" in rec and not rec["ok"]:
+            failed.append(name)
+
+    P.PoseValidator.__call__ = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmp, no_cv2():
+            tmp = Path(tmp)
+            data = pose_dataset(tmp / "pose", SEED + 120)
+            data_json = tmp / "pose.json"
+            data_json.write_text(json.dumps(data))
+            yolo = YOLO(POSE["model"], seed=SEED)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = card("train", lambda: yolo.train(
+                data=data, imgsz=POSE["imgsz"], batch=POSE["batch"],
+                epochs=POSE["epochs"], cache="disk", workers=8,
+                project=str(tmp / "runs"), name="pose", plots=False,
+                verbose=False), lambda: {"nms": val_calls[0]})
+            train_s = time.perf_counter() - t0
+            tr = yolo.trainer
+            best = tmp / "runs" / "pose" / "weights" / "best.npz"
+            rows = (tr.csv.read_text().splitlines()
+                    if tr.csv.is_file() else [])
+            head = rows[0].split(",") if rows else []
+            items = [[float(v) for k, v in zip(head, r.split(","))
+                      if k.startswith("train/")] for r in rows[1:]]
+            train = {
+                "seconds": train_s, "metrics": {k: float(v)
+                                                for k, v in res.items()},
+                "images_per_s": [e["batches"] * POSE["batch"] / e["train_s"]
+                                 for e in tr.epoch_stats],
+                "loader_wait_s": [e["loader_wait_s"] for e in tr.epoch_stats],
+                "epoch_train_s": [e["train_s"] for e in tr.epoch_stats],
+                "val_s": [e["val_s"] for e in tr.epoch_stats],
+                "loss_items": dict(zip(tr.loss_names,
+                                       zip(*items))) if items else {},
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "max_boxes": tr.args.max_boxes,
+                "params": sum(p.numel() for p in tr.model.parameters()),
+                "kpt_shape": list(tr.model.kpt_shape),
+                "nc": tr.model.nc, "best_npz": best.is_file()}
+            train["ok"] = (best.is_file() and tr.model.nc == POSE["classes"]
+                           and len(tr.epoch_stats) == POSE["epochs"]
+                           and len(head) == 11 and all(
+                               math.isfinite(v) for r in items for v in r))
+            report("train", train)
+            report("parity", pose_parity(torch, data))
+
+            # val and predict of best.npz, card against CPU (TF32 off), BN
+            # set from the val images first (as the segment phase does)
+            vroot = Path(check_det_dataset(data)["val"])
+            frames = [np.load(vroot / f"{k}.npy") for k in range(POSE["val"])]
+            gpu, cpu = YOLO(str(best)), YOLO(str(best), device="cpu")
+            calibrate_bn(torch, gpu.model, frames, POSE["imgsz"])
+            cpu.load_state_dict({k: v.cpu() for k, v in
+                                 gpu.state_dict().items()})
+            npz = npz_of(torch, gpu, tmp / "calibrated.npz")
+            vkw = {"data": data, "cache": "disk", "batch": POSE["batch"],
+                   "plots": False, "matmul_precision": "float32"}
+            with record_seg("pose") as r0:
+                val_g = card("val", lambda: gpu.val(**vkw),
+                             lambda: per_val(POSE["val"], POSE["batch"]))
+            val_g = {k: float(v) for k, v in val_g.items()}
+            pkw_val = {**vkw, "conf": seg_pair_conf(
+                [d[3] for d in r0.detections()])}
+            with record_seg("pose") as rg:
+                vg = card("val", lambda: gpu.val(**pkw_val),
+                          lambda: per_val(POSE["val"], POSE["batch"]))
+            with record_seg("pose") as rc:
+                vc = cpu.val(device="cpu", **pkw_val)
+            vg = {k: float(v) for k, v in vg.items()}
+            vc = {k: float(v) for k, v in vc.items()}
+            vrec = {"default_conf": val_g, "pair_conf": pkw_val["conf"],
+                    "cuda": vg, "cpu": vc, **compare_images(rg, rc),
+                    "metric_max_abs_err": max(abs(vg[k] - vc[k])
+                                              for k in POSE_METRICS)}
+            if vrec["ok"]:
+                pairs = [pair_detections(g, c) for g, c in
+                         zip(rg.detections(), rc.detections())]
+                vrec["pose_tp_equal"] = all(
+                    np.array_equal(mg[j], mc[i])
+                    for (order, _, _), mg, mc in zip(pairs, rg.mask_tps,
+                                                     rc.mask_tps)
+                    for i, j in enumerate(order))
+                vrec["cpu_pose_tp50"] = int(sum(m[:, 0].sum()
+                                                for m in rc.mask_tps))
+                vrec["oks_max_abs_err"] = max(
+                    (float(np.abs(og[:, j] - oc[:, i]).max())
+                     for (order, _, _), og, oc in zip(pairs, rg.mask_ious,
+                                                      rc.mask_ious)
+                     if oc.size for i, j in enumerate(order)), default=0.0)
+                vrec["cpu_oks_max"] = max((float(o.max()) for o in
+                                           rc.mask_ious if o.size),
+                                          default=0.0)
+            vrec["ok"] = (vrec["ok"] and vrec.get("pose_tp_equal", False)
+                          and all(abs(vg[k] - vc[k])
+                                  <= VAL_METRIC_RTOL * max(abs(vc[k]), 1e-12)
+                                  or vg[k] == vc[k] for k in POSE_METRICS))
+            report("val", vrec)
+
+            pkw = {"batch": POSE["batch"], "imgsz": POSE["imgsz"],
+                   "conf": 0.001, "matmul_precision": "float32"}
+            batches = {"nms": -(-len(frames) // POSE["batch"])}
+            pred_g = card("predict", lambda: gpu.predict(list(frames), **pkw),
+                          lambda: batches)
+            pred_c = cpu.predict(list(frames), device="cpu", **pkw)
+            conf = seg_pair_conf([r.boxes.conf for r in pred_g])
+            prec = pose_predict_pairs(pred_g, pred_c, conf, BOX_TOL_PX,
+                                      SCORE_TOL)
+            prec["keypoints_in_image"] = all(
+                (r.keypoints.xy >= 0).all()
+                and (r.keypoints.xy[..., 0] <= r.orig_shape[1]).all()
+                and (r.keypoints.xy[..., 1] <= r.orig_shape[0]).all()
+                for r in pred_g)
+            for key, half in (("f32", False), ("half", True)):
+                times = []
+                for _ in range(POSE["predict_reps"]):
+                    t0 = time.perf_counter()
+                    card(f"predict {key}", lambda: gpu.predict(
+                        list(frames), batch=POSE["batch"],
+                        imgsz=POSE["imgsz"], half=half), lambda: batches)
+                    times.append(time.perf_counter() - t0)
+                prec[f"{key}_images_per_s"] = [len(frames) / t for t in times]
+            prec["ok"] = (prec["paired"] == len(frames) and prec["pairs"] > 0
+                          and prec["keypoints_in_image"])
+            report("predict", prec)
+
+            # the pt2 artifact at b16/640 against the live model
+            t0 = time.perf_counter()
+            path = card("export", lambda: gpu.export(
+                format="pt2", imgsz=POSE["imgsz"], batch=POSE["batch"],
+                project=str(tmp / "export")))
+            export_s = time.perf_counter() - t0
+            be = AutoBackend(path)
+            u8 = np.stack([letterbox(f, POSE["imgsz"])[0][..., ::-1]
+                           for f in frames])
+            art = card("artifact", lambda: be.forward(u8))
+            with torch.no_grad():
+                live = gpu.model.eval_outputs(
+                    torch.from_numpy(np.ascontiguousarray(u8)).cuda().float()
+                    / 255.0)
+            errs = [float((a - b).abs().max()) for a, b in zip(art, live)]
+            kpt_xy_err = float((art[2][..., :2] - live[2][..., :2]).abs().max())
+            kpt_vis_err = float((art[2][..., 2] - live[2][..., 2]).abs().max())
+            art_yolo = YOLO(path)
+            val_a = card("artifact val", lambda: art_yolo.val(**vkw),
+                         lambda: per_val(POSE["val"], POSE["batch"]))
+            val_a = {k: float(v) for k, v in val_a.items()}
+            pred_a = card("artifact predict", lambda: art_yolo.predict(
+                list(frames), conf=0.001, matmul_precision="float32"),
+                lambda: batches)
+            apairs = pose_predict_pairs(pred_a, pred_g, 0.0,
+                                        EXPORT_BOX_TOL_PX, EXPORT_SCORE_TOL,
+                                        EXPORT_BOX_TOL_PX, EXPORT_SCORE_TOL)
+            ex = {"seconds": export_s,
+                  "mb": Path(path).stat().st_size / 1e6, "task": be.task,
+                  "kpt_shape": list(be.kpt_shape),
+                  "outputs": [list(t.shape) for t in art],
+                  "output_max_abs_err": {"boxes": errs[0], "scores": errs[1],
+                                         "kpts_xy": kpt_xy_err,
+                                         "kpts_vis": kpt_vis_err},
+                  "val": val_a, "val_equal": all(
+                      abs(val_a[k] - val_g[k])
+                      <= VAL_METRIC_RTOL * max(abs(val_g[k]), 1e-12)
+                      for k in POSE_METRICS),
+                  "predict": apairs}
+            ex["ok"] = (be.task == "pose" and len(art) == 3
+                        and errs[0] <= EXPORT_BOX_TOL_PX
+                        and kpt_xy_err <= EXPORT_BOX_TOL_PX
+                        and max(errs[1], kpt_vis_err) <= EXPORT_SCORE_TOL
+                        and ex["val_equal"]
+                        and apairs["paired"] == len(frames))
+            report("export", ex)
+            cli = task_cli_val(torch, "pose", best, data_json)
+            cli["ok"] = cli["equal"]
+            report("cli", cli)
+
+            srv = task_serve(torch, npz, frames, lambda g, c, cf, bt, st:
+                             pose_predict_pairs(g, c, cf, bt, st, bt, st), conf)
+            add(srv["launches"])
+            report("serve", srv)
+            trk = task_track(torch, npz, tmp, "keypoints")
+            add(trk["launches"])
+            report("track", trk)
+
+            dark = synthetic_frames(BATCH)
+            p6 = pose_variant(torch, POSE["p6"], POSE["p6"], frames, card,
+                              batches)
+            report("p6", p6)
+            l0 = pose_variant(
+                torch, "yolov8l-pose.yaml under lowlight_recovery",
+                layer0_graph("yolov8-pose.yaml",
+                             tmp / "yolov8l-pose-dedark.json"),
+                dark, card, {"fused_enhance": 1, "nms": 1})
+            report("layer0", l0)
+    finally:
+        P.PoseValidator.__call__ = val_call
+    summary = {"phase": "pose", "model": POSE["model"],
+               "train_images_per_s": train["images_per_s"],
+               "val_cuda": val_g,
+               "predict_images_per_s": {"f32": prec["f32_images_per_s"],
+                                        "half": prec["half_images_per_s"]},
+               "serve_launches": srv["launches"],
+               "track_launches": trk["launches"],
+               "launches": launches, "seconds": time.perf_counter() - t_phase,
+               "failed": failed}
+    emit(summary)
+    if failed:
+        raise AssertionError(f"pose: {failed}")
     return summary
 
 
@@ -4913,6 +5548,7 @@ def main():
     zoo = phase_zoo(torch, frames)
     cls = phase_classify(torch)
     seg = phase_segment(torch)
+    pose = phase_pose(torch)
     probe_launches = phase_probe(torch)
     train = phase_train(torch)
     val = phase_val(torch, yolo)
@@ -4948,6 +5584,7 @@ def main():
         "zoo_amp_launches": zoo["amp_launches"]["fused_enhance"],
         "classify_launches": cls["launches"]["fused_enhance"],
         "segment_launches": seg["launches"]["fused_enhance"],
+        "pose_launches": pose["launches"]["fused_enhance"],
         "serve_launches": serve["launches"]["fused_enhance"],
         "track_launches": track["launches"]["fused_enhance"],
         "benchmark_launches": bench["launches"]["fused_enhance"],
@@ -4971,6 +5608,7 @@ def main():
         "zoo_launches": zoo["launches"]["usm"],
         "classify_launches": cls["launches"]["usm"],
         "segment_launches": seg["launches"]["usm"],
+        "pose_launches": pose["launches"]["usm"],
         "export_launches": export["launches"]["usm"]}, {
         "name": "int8_conv", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/int8_conv.cu",
@@ -4983,7 +5621,8 @@ def main():
         **{k: int8_timing[k] for k in ("act", "tops", "peak_pct")},
         "val_launches": val["launches"]["int8_conv"],
         "classify_launches": cls["launches"]["int8_conv"],
-        "segment_launches": seg["launches"]["int8_conv"]}, {
+        "segment_launches": seg["launches"]["int8_conv"],
+        "pose_launches": pose["launches"]["int8_conv"]}, {
         "name": "nms", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/nms.cu",
         "replaces": "dedark_yolo_tpu/ops/nms.py:28",
@@ -5005,6 +5644,11 @@ def main():
         "zoo_launches": zoo["launches"]["nms"],
         "classify_launches": cls["launches"]["nms"],
         "segment_launches": seg["launches"]["nms"],
+        "segment_serve_launches": seg["serve_launches"]["nms"],
+        "segment_track_launches": seg["track_launches"]["nms"],
+        "pose_launches": pose["launches"]["nms"],
+        "pose_serve_launches": pose["serve_launches"]["nms"],
+        "pose_track_launches": pose["track_launches"]["nms"],
         "serve_launches": serve["launches"]["nms"],
         "track_launches": track["launches"]["nms"],
         "benchmark_launches": bench["launches"]["nms"],

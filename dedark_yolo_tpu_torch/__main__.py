@@ -7,7 +7,8 @@ the `YOLO` facade on `device` (cuda unless `device=cpu`); each prints its
 outcome as the last line of standard output, `results {json}`: the
 results dict of train and val, the image and detection counts of predict,
 the frame and identity counts of track, the artifact's path of export,
-the rows of benchmark; segment predict also counts its masks. `predict` and `track`
+the rows of benchmark; segment predict also counts its masks, pose predict
+its keypoint instances. `predict` and `track`
 save their annotated images unless `save=False`, as the JAX CLI does (JAX
 `__main__.py:191-201`; drawing needs OpenCV). The task token picks the
 task's default architecture where no `model=` is given (JAX `TASK_MODELS`);
@@ -15,13 +16,15 @@ a model of another task keeps its own, with a warning (JAX
 `__main__.py:176-181`). `classify` trains, validates and predicts a classify
 model (`engine/classify.py`; data is the folder tree's root; predict
 prints the top-1 class of each image); `segment` a segment model
-(`engine/segment.py`; val prints box and mask mAP). `serve` starts the
+(`engine/segment.py`; val prints box and mask mAP); `pose` a pose model
+(`engine/pose.py`; val prints box and pose mAP). `serve` starts the
 dynamic-batching HTTP server (`engine/server.py`; `port` key, `batch` the
-batch size) and serves until interrupted. `model=` takes an exported
-`.pt2` for predict, val and serve. The pose task, and segment's serve
-and track, are not ported and exit with 1, naming their ROADMAP item; a
-bare token that
-is neither a task, a mode nor k=v exits with 2 and a suggestion.
+batch size; a segment model's masks go out as polygons, a pose model's
+keypoints as arrays) and serves until interrupted; `track` tracks detect,
+segment and pose models. `model=` takes an exported `.pt2` for predict,
+val and serve. A bare token that is neither a task, a mode nor k=v exits
+with 2 and a suggestion; a model the port cannot build (an RT-DETR head,
+ROADMAP A12h) exits with 1, naming it.
 Special commands: help, version, cfg (the defaults as JSON), checks,
 settings and copy-cfg (the defaults as a JSON file that `cfg=` reads back).
 """
@@ -41,12 +44,9 @@ from .utils import LOGGER
 MODES = ("train", "val", "predict", "track", "export", "benchmark", "serve")
 TASKS = ("detect", "segment", "pose", "classify")
 SPECIAL = ("help", "version", "cfg", "checks", "settings", "copy-cfg")
-UNPORTED = {"pose": "A12f"}
-# (task, mode) pairs not ported yet
-UNPORTED_MODES = {("segment", "serve"): "A12e-b", ("segment", "track"): "A12e-b"}
 # task token -> its default architecture (JAX __main__.py:18-20)
 TASK_MODELS = {"detect": "yolov8l.yaml", "segment": "yolov8-seg.yaml",
-               "classify": "yolov8-cls.yaml"}
+               "pose": "yolov8-pose.yaml", "classify": "yolov8-cls.yaml"}
 CLI_KEYS = ("model", "source", "cfg")
 # keys of one mode that are arguments of its call, not config keys (JAX
 # __main__.py:143-147)
@@ -58,7 +58,7 @@ HELP = f"""dedark_yolo_tpu_torch CLI (PyTorch/CUDA)
     python -m dedark_yolo_tpu_torch [TASK] MODE k=v ...
 
 modes: {', '.join(MODES)}
-tasks: {', '.join(TASKS)} (ported: detect, segment, classify)
+tasks: {', '.join(TASKS)}
 examples:
     python -m dedark_yolo_tpu_torch train model=yolov8l.yaml data=data.json epochs=5 imgsz=640 batch=16
     python -m dedark_yolo_tpu_torch val model=runs/detect/train/weights/best.npz data=data.json
@@ -73,6 +73,8 @@ examples:
     python -m dedark_yolo_tpu_torch classify val model=runs/classify/train/weights/best.npz
     python -m dedark_yolo_tpu_torch segment train model=yolov8n-seg.yaml data=data.json imgsz=640
     python -m dedark_yolo_tpu_torch segment val model=runs/segment/train/weights/best.npz
+    python -m dedark_yolo_tpu_torch pose train model=yolov8n-pose.yaml data=data.json imgsz=640
+    python -m dedark_yolo_tpu_torch pose val model=runs/pose/train/weights/best.npz
 special:
     python -m dedark_yolo_tpu_torch cfg        # the default config as JSON
     python -m dedark_yolo_tpu_torch checks     # torch, CUDA, the device, nvcc, numpy
@@ -186,14 +188,6 @@ def entrypoint(argv=None) -> int:
     if mode is None:
         mode = overrides.pop("mode", "predict")
     task = task or overrides.pop("task", None)
-    for what in (mode, task, (task, mode)):
-        item = UNPORTED.get(what) or UNPORTED_MODES.get(what)
-        if item:
-            name = " ".join(what) if isinstance(what, tuple) else what
-            LOGGER.error(f"'{name}' is not ported to dedark_yolo_tpu_torch "
-                         f"yet (ROADMAP {item}); use "
-                         "python -m dedark_yolo_tpu for it")
-            return 1
     if mode not in MODES or (task is not None and task not in TASKS):
         LOGGER.error(f"unknown mode '{mode}' or task '{task}' (see 'help')")
         return 2
@@ -247,6 +241,12 @@ def _run(mode, task, overrides) -> int:
             _results({"images": len(results),
                       "detections": int(sum(len(r) for r in results)),
                       "masks": int(sum(len(r.masks) for r in results))})
+            return 0
+        if model.task == "pose":
+            _results({"images": len(results),
+                      "detections": int(sum(len(r) for r in results)),
+                      "keypoints": int(sum(len(r.keypoints)
+                                           for r in results))})
             return 0
         _results({"images": len(results),
                   "detections": int(sum(len(r) for r in results))})

@@ -81,6 +81,8 @@ DEFAULT_CFG = {
     "box": 7.5,                  # loss gains
     "cls": 0.5,
     "dfl": 1.5,
+    "pose": 12.0,                # pose loss gains (engine/pose.py)
+    "kobj": 1.0,
     "lrl": 2.0,                  # recovery-loss weight
     "label_smoothing": 0.0,      # classify: the one-hot targets smoothed
     "lowlight_FLAG": True,       # train on img ** dark_param
@@ -134,6 +136,7 @@ _FLOAT_KEYS = {"conf", "iou", "hsv_h", "hsv_s", "hsv_v", "translate",
                "copy_paste", "fraction"}
 _NUMBER_KEYS = {"lr0", "lrf", "momentum", "weight_decay", "warmup_epochs",
                 "warmup_momentum", "warmup_bias_lr", "box", "cls", "dfl",
+                "pose", "kobj",
                 "lrl", "dark_param", "degrees", "shear", "label_smoothing"}
 _INT_KEYS = {"imgsz", "max_det", "max_nms", "batch", "epochs", "nbs",
              "max_boxes", "workers", "save_period", "ckpt_period",
@@ -154,8 +157,8 @@ _PRECISIONS = ("default", "tensorfloat32", "float32")
 # config is checked.
 UNPORTED_KEYS = frozenset((
     "cfg", "classes", "deterministic", "dnn", "dropout", "dynamic",
-    "fpn_fuse", "int8", "keras", "kobj", "mesh_axes", "mesh_shape", "mode",
-    "model", "nms", "opset", "optimize", "pose", "remat", "simplify",
+    "fpn_fuse", "int8", "keras", "mesh_axes", "mesh_shape", "mode",
+    "model", "nms", "opset", "optimize", "remat", "simplify",
     "source", "stem_s2d", "task", "workspace"))
 
 

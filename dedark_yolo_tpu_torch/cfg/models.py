@@ -3,8 +3,9 @@
 The same `[from, repeats, module, args]` rows as the JAX package's detect
 architectures under `cfg/models/` (the flagship `yolov8.yaml`, stock
 `yolov8ori.yaml` and the fork's variants `yolov8-*.yaml`), its
-classifier `yolov8-cls.yaml` (its own scales) and its instance
-segmentation graph `yolov8-seg.yaml`, kept as dicts so
+classifier `yolov8-cls.yaml` (its own scales), its instance
+segmentation graph `yolov8-seg.yaml` and its keypoint graphs
+`yolov8-pose.yaml` and `yolov8-pose-p6.yaml`, kept as dicts so
 the port needs no YAML parser to build its models; each keeps its yaml's own
 `nc`, which `nc=` overrides. Keyed by the unified file name that
 `model_yaml_load` resolves a scaled name such as `yolov8l.yaml` or
@@ -124,10 +125,21 @@ YOLOV8_SEG = {
     "head": _FPN + [[[15, 18, 21], 1, "Segment", ["nc", 32, 256]]],
 }
 
+# YOLOv8 keypoint estimation: the stock graph with the Pose head (17 COCO
+# keypoints of x, y and visibility an anchor)
+YOLOV8_POSE = {
+    "nc": 1,
+    "kpt_shape": [17, 3],
+    "scales": _SCALES,
+    "backbone": _BACKBONE,
+    "head": _FPN + [[[15, 18, 21], 1, "Pose", ["nc", [17, 3]]]],
+}
+
 MODELS = {
     "yolov8.yaml": YOLOV8,
     "yolov8-cls.yaml": YOLOV8_CLS,
     "yolov8-seg.yaml": YOLOV8_SEG,
+    "yolov8-pose.yaml": YOLOV8_POSE,
     "yolov8ori.yaml": YOLOV8ORI,
     # layer 0 + stock YOLOv8 + Detect
     "yolov8-dedark.yaml": _variant(
@@ -227,3 +239,9 @@ MODELS = {
             [-1, 3, "C2", [1024, False]],            # 29 P6/64
             [[20, 23, 26, 29], 1, "Detect", ["nc"]]]),
 }
+
+# four levels, P3/8 to P6/64, C2 in the FPN, the Pose head
+MODELS["yolov8-pose-p6.yaml"] = {
+    **MODELS["yolov8-p6.yaml"], "nc": 1,
+    "head": MODELS["yolov8-p6.yaml"]["head"][:-1] + [
+        [[20, 23, 26, 29], 1, "Pose", ["nc", [17, 3]]]]}

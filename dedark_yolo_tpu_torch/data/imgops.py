@@ -586,14 +586,47 @@ def _lerp_f32(a, b, f):
     return (d * f + a.astype(np.float64)).astype(np.float32)
 
 
+def _generic_taps_f32(dst, src):
+    """The taps of OpenCV's generic linear resize along one axis: the
+    coordinate (d + 0.5) / (dst / src) - 0.5 rounded to float32, its floor
+    and the float32 fraction; the weights 1 - f and f."""
+    c = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
+    s = np.floor(c)
+    f = c - s
+    return s.astype(np.int64), np.float32(1) - f, f
+
+
+def _resize_linear_generic_f32(src, w, h):
+    """OpenCV's own float INTER_LINEAR (resizeGeneric_), which it takes when
+    a source side is one pixel: a column whose left tap is the last pixel
+    or past it is copied, one left of the image reads the first pixel;
+    other columns are a0 * s0 + a1 * s1, each product rounded. Rows weigh
+    their two clamped source rows the same way, with no copy case."""
+    sh, sw = src.shape
+    sx, a0, a1 = _generic_taps_f32(w, sw)
+    left = sx < 0
+    sx[left], a0[left], a1[left] = 0, 1, 0
+    copy = sx + 1 >= sw
+    sx[copy] = np.minimum(sx[copy], sw - 1)
+    x1 = np.minimum(sx + 1, sw - 1)
+    hp = src[:, sx] * a0 + src[:, x1] * a1
+    hp[:, copy] = src[:, sx[copy]]
+    sy, b0, b1 = _generic_taps_f32(h, sh)
+    return (hp[np.clip(sy, 0, sh - 1)] * b0[:, None]
+            + hp[np.clip(sy + 1, 0, sh - 1)] * b1[:, None])
+
+
 def resize_linear_f32(img, dsize):
     """cv2.resize(img, dsize=(w, h), interpolation=cv2.INTER_LINEAR) of a
-    float32 2-D image of at least 2 x 2 pixels: the horizontal pass, then
+    float32 2-D image. Of at least 2 x 2 pixels: the horizontal pass, then
     the vertical pass over its rows, each a fused a + (b - a) * f between
     the two taps (`_linear_taps_f32`), at every scale (no INTER_AREA
-    shortcut at 2x down, unlike uint8)."""
+    shortcut at 2x down, unlike uint8). A source one pixel wide or high
+    takes OpenCV's generic path (`_resize_linear_generic_f32`)."""
     w, h = int(dsize[0]), int(dsize[1])
     src = np.asarray(img, np.float32)
+    if min(src.shape) == 1:
+        return _resize_linear_generic_f32(src, w, h)
     x0, x1, fx = _linear_taps_f32(w, src.shape[1])
     y0, y1, fy = _linear_taps_f32(h, src.shape[0])
     hp = _lerp_f32(src[:, x0], src[:, x1], fx)

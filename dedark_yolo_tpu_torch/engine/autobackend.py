@@ -16,9 +16,10 @@ own runtimes and raise here.
 
 `forward(img_u8)` takes a (batch, imgsz, imgsz, 3) uint8 RGB batch (numpy
 or a tensor) and returns the task's tuple, detect (boxes_xywh, scores),
-segment (boxes_xywh, scores, coefs (B, N, nm), protos (B, mh, mw, nm)) or
-classify (probs,), f32 on the backend's device, not waited for. `task`
-comes from the sidecar, or from the live model. The outputs come in
+segment (boxes_xywh, scores, coefs (B, N, nm), protos (B, mh, mw, nm)),
+pose (boxes_xywh, scores, kpts (B, N, nk, kdim)) or classify (probs,),
+f32 on the backend's device, not waited for. `task` (and a pose model's
+`kpt_shape`) comes from the sidecar, or from the live model. The outputs come in
 export order from every format, so there is no `_demux`. `warmup()` runs
 one batch.
 The device is cuda unless the caller passes another; cuda without a card
@@ -59,6 +60,7 @@ class AutoBackend:
         self.half = half
         self.names = {}
         self.task = "detect"
+        self.kpt_shape = (17, 3)
         self.nc = None
         self.format = self._model_type(model_spec)
         LOGGER.info(f"AutoBackend: loading {model_spec} as '{self.format}' "
@@ -81,6 +83,8 @@ class AutoBackend:
             self.names = dict(y.names)
             self.nc = model.nc
             self.task = model.task
+            if model.task == "pose":
+                self.kpt_shape = tuple(model.kpt_shape)
             self._fn = U8Program(
                 model, torch.bfloat16 if half else torch.float32,
                 bf16_params(model) if half else None)
@@ -93,6 +97,9 @@ class AutoBackend:
             self.task = meta.get("task", self.task)
             self.nc = meta.get("nc", self.nc)
             self.names = {int(k): v for k, v in meta.get("names", {}).items()}
+            kpts = [o for o in meta.get("outputs", []) if o["name"] == "kpts"]
+            if kpts:       # (B, N, nk, kdim), JAX autobackend.py:166
+                self.kpt_shape = tuple(kpts[0]["shape"][2:])
 
     @staticmethod
     def _model_type(spec):
@@ -112,8 +119,9 @@ class AutoBackend:
     @torch.inference_mode()
     def forward(self, img_u8):
         """(batch, imgsz, imgsz, 3) uint8 RGB -> detect (boxes_xywh (B, N,
-        4), scores (B, N, nc)), segment (boxes_xywh, scores, coefs, protos)
-        or classify (probs (B, nc),), f32 on the device."""
+        4), scores (B, N, nc)), segment (boxes_xywh, scores, coefs, protos),
+        pose (boxes_xywh, scores, kpts) or classify (probs (B, nc),), f32 on
+        the device."""
         x = (torch.from_numpy(np.ascontiguousarray(img_u8))
              if isinstance(img_u8, np.ndarray) else img_u8)
         return tuple(self._fn(x.to(self.device)))

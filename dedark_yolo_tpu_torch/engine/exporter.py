@@ -4,8 +4,8 @@ engine/exporter.py).
 The program is JAX's `infer_u8`: a (batch, imgsz, imgsz, 3) uint8 RGB batch,
 divided by 255 in the compute dtype, through `DetectionModel.eval_outputs`
 (detect: layer 0's enhance chain, the graph, the DFL decode; segment: the
-same with the flattened mask coefficients and the NHWC protos; classify:
-the graph and the softmax), each output cast to f32. Its shapes are fixed, as
+same with the flattened mask coefficients and the NHWC protos; pose: the
+same with the decoded keypoints; classify: the graph and the softmax), each output cast to f32. Its shapes are fixed, as
 JAX's are. NMS stays outside it, as in JAX.
 
 Formats:
@@ -42,6 +42,7 @@ from .predictor import resolve_device
 # each task's outputs, in order (JAX exporter.py:102-105)
 OUTPUTS = {"detect": ("boxes", "scores"),
            "segment": ("boxes", "scores", "coefs", "protos"),
+           "pose": ("boxes", "scores", "kpts"),
            "classify": ("probs",)}
 PROGRAM_FORMATS = ("pt2", "export", "bin", "serialized")
 WEIGHT_FORMATS = ("npz", "weights", "savedmodel_npz")

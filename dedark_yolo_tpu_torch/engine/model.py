@@ -21,8 +21,10 @@ model's task (JAX model.py:132-139, 181-214, 230-262): a classify model
 (`yolov8{n,s,m,l,x}-cls.yaml`, its checkpoint or its `.pt2`) trains,
 validates and predicts through `engine/classify.py`, a segment model
 (`yolov8{n,s,m,l,x}-seg.yaml`, its checkpoint or its `.pt2`) through
-`engine/segment.py`; `track` takes detect models only (segment tracking is
-ROADMAP A12e-b).
+`engine/segment.py`, a pose model (`yolov8{n,s,m,l,x}-pose[-p6].yaml`,
+its checkpoint or its `.pt2`) through `engine/pose.py`; `track` tracks
+detect, segment and pose models, each result's masks or keypoints
+re-indexed to its tracks (JAX model.py:276-340).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..utils.weights import init_weights, state_dict_from_jax
 from .autobackend import refuse_jax_artifact
 from .classify import (ClassificationPredictor, ClassificationTrainer,
                        ClassificationValidator)
+from .pose import PosePredictor, PoseTrainer, PoseValidator
 from .predictor import DetectionPredictor, resolve_device
 from .segment import (SegmentationPredictor, SegmentationTrainer,
                       SegmentationValidator)
@@ -55,6 +58,7 @@ TASK_CLASSES = {
     "detect": (DetectionTrainer, DetectionValidator, DetectionPredictor),
     "segment": (SegmentationTrainer, SegmentationValidator,
                 SegmentationPredictor),
+    "pose": (PoseTrainer, PoseValidator, PosePredictor),
     "classify": (ClassificationTrainer, ClassificationValidator,
                  ClassificationPredictor)}
 
@@ -234,13 +238,14 @@ class YOLO:
         `tracker` config (botsort.yaml by default) starts. Saving runs
         after the ids are stamped: `save` writes annotated frames (a
         video's as one <stem>_track.mp4, through OpenCV), save_txt label
-        files with the id, save_crop crops. A model of another task than
-        detect raises (segment tracking is ROADMAP A12e-b)."""
+        files with the id, save_crop crops. A segment model's masks and a
+        pose model's keypoints follow their detections into the tracks
+        (`Results.update_tracks`); a classify model raises, as JAX's
+        tracker cannot take it."""
         from ..trackers import make_tracker, track_results
-        if self.task != "detect":
-            raise NotImplementedError(
-                f"tracking a {self.task} model is not ported (ROADMAP "
-                "A12e-b)")
+        if self.task == "classify":
+            raise ValueError("track takes detect, segment and pose models; "
+                             "this one is a classify model")
         kwargs.setdefault("conf", 0.1)
         if not (persist and getattr(self, "_tracker", None) is not None):
             self._tracker = make_tracker(kwargs.pop("tracker", None)

@@ -32,9 +32,9 @@ layer 0, the graph and the decode itself at its fixed batch; only NMS runs
 here (`backend_step`, JAX predictor.py:141-160): the short last batch is
 padded to the artifact's batch and its padding's outputs dropped before
 NMS; augment, save_enhanced and visualize are ignored with a warning. A
-task's predictor (`engine/segment.py`) replaces `step` and fills its
-Results through the `readback` and `extra_fields` hooks (JAX
-predictor.py:259-261).
+task's predictor (`engine/segment.py`, `engine/pose.py`) replaces `step`
+and fills its Results through the `readback` and `extra_fields` hooks
+(JAX predictor.py:259-261), which the server's responses use too.
 """
 
 from __future__ import annotations
@@ -222,6 +222,34 @@ def backend_step(backend, img_u8, a, multi_label, extra=None):
             boxes.append(extra[0])
             scores.append(extra[1])
         return joined_nms(boxes, scores, a, multi_label)
+
+
+def task_outputs(model, img_u8):
+    """The task's eval_outputs tuple of a device uint8 batch: an
+    AutoBackend's outputs (the batch padded to its fixed size with zero
+    images, the padding dropped), or the live model's eval_outputs of the
+    image / 255 in f32."""
+    from .autobackend import AutoBackend
+    if isinstance(model, AutoBackend):
+        n = img_u8.shape[0]
+        if n < model.batch:
+            img_u8 = torch.cat([img_u8, img_u8.new_zeros(
+                (model.batch - n, *img_u8.shape[1:]))])
+        return tuple(o[:n] for o in model(img_u8))
+    return model.eval_outputs(img_u8.to(torch.float32) / 255.0)
+
+
+def require_task(model, task, what):
+    """Raise unless `model` is a DetectionModel or an AutoBackend of
+    `task`."""
+    from ..nn.graph import DetectionModel
+    from .autobackend import AutoBackend
+    if not isinstance(model, (AutoBackend, DetectionModel)):
+        raise TypeError(f"{what} takes a DetectionModel or an AutoBackend, "
+                        f"not {type(model).__name__}")
+    if getattr(model, "task", "detect") != task:
+        raise ValueError(f"{what} needs a {task} model; this one is a "
+                         f"{model.task} model")
 
 
 def detect_step(model, img, a, multi_label, extra=None):

@@ -1,6 +1,6 @@
-"""Results, Boxes, Masks and Probs containers, numpy-backed (JAX
-engine/results.py:15-295 and results_extra.py:12-86, the detect, segment
-and classify tasks).
+"""Results, Boxes, Masks, Keypoints and Probs containers, numpy-backed
+(JAX engine/results.py:15-295 and results_extra.py:12-106, the detect,
+segment, pose and classify tasks).
 
 Built after the device readback: one Results holds one image's detections
 in original-image pixels, with the reference's API (`plot`, `save`,
@@ -11,8 +11,10 @@ numpy. `update_tracks` takes a tracker's output (`track`). A classify
 Results holds `probs` (a Probs of the image's class probabilities) and no
 boxes; a segment Results also `masks` (a Masks of (n, h, w) bool masks at
 the original size, one a detection), whose `xy` contours are
-`imgops.find_external_contours` (cv2.findContours without OpenCV).
-Keypoints belong to the pose task (ROADMAP A12f).
+`imgops.find_external_contours` (cv2.findContours without OpenCV); a pose
+Results `keypoints` (a Keypoints of (n, nk, 3) x, y and visibility in
+original-image pixels). `update_tracks` re-indexes the masks and the
+keypoints to the kept tracks.
 """
 
 from __future__ import annotations
@@ -148,6 +150,27 @@ class Masks(NumpyTensorAPI):
         return self.xyn
 
 
+class Keypoints(NumpyTensorAPI):
+    """(n, nk, 3) keypoints [x, y, visibility] of one image in
+    original-image pixels (reference results.py:521-566, JAX
+    results_extra.py:90-106)."""
+
+    def __init__(self, data, orig_shape):
+        self.data = np.asarray(data)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def xy(self):
+        return self.data[..., :2]
+
+    @property
+    def conf(self):
+        return self.data[..., 2] if self.data.shape[-1] == 3 else None
+
+
 class Probs(NumpyTensorAPI):
     """(nc,) class probabilities of one image (reference results.py:569,
     JAX results_extra.py:56-86)."""
@@ -182,13 +205,14 @@ class Results:
     `save_enhanced`: (S, S, 3) f32 in [0, 1], letterboxed) and the batch's
     captured activations on its first image (`visualize`: {layer: (1, h, w,
     <= 32) f32 NHWC}; None on the others), a segment model's Masks
-    (`masks`) and a classify model's Probs (`probs`), None where the task
-    has none."""
+    (`masks`), a pose model's Keypoints (`keypoints`) and a classify
+    model's Probs (`probs`), None where the task has none."""
 
-    _keys = ("boxes", "masks", "probs")
+    _keys = ("boxes", "masks", "probs", "keypoints")
 
     def __init__(self, orig_img, path, names, boxes=None, speed=None,
-                 enhanced_img=None, features=None, probs=None, masks=None):
+                 enhanced_img=None, features=None, probs=None, masks=None,
+                 keypoints=None):
         self.orig_img = orig_img            # RGB uint8
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -201,6 +225,8 @@ class Results:
         self.probs = Probs(probs, names) if probs is not None else None
         self.masks = (Masks(masks, self.orig_shape) if masks is not None
                       else None)
+        self.keypoints = (Keypoints(keypoints, self.orig_shape)
+                          if keypoints is not None else None)
 
     def __len__(self):
         return len(self.boxes)
@@ -235,11 +261,16 @@ class Results:
 
     def update_tracks(self, tracks):
         """Replace the boxes with a tracker's output (m, 8) [x1, y1, x2, y2,
-        id, conf, cls, det_idx] (JAX results.py:218-229; det_idx re-indexes
-        a segment model's masks there, which waits for segment tracking,
-        ROADMAP A12e-b)."""
+        id, conf, cls, det_idx]; the masks and keypoints are re-indexed by
+        det_idx to the tracked detections (JAX results.py:218-229, the
+        reference's results[i][idx])."""
         tracks = np.asarray(tracks, np.float32).reshape(-1, 8)
         self.boxes = Boxes(tracks[:, :7], self.orig_shape)
+        idx = tracks[:, 7].astype(int)
+        if self.masks is not None and len(self.masks):
+            self.masks.data = self.masks.data[idx]
+        if self.keypoints is not None and len(self.keypoints):
+            self.keypoints.data = self.keypoints.data[idx]
         return self
 
     def verbose(self):
@@ -289,6 +320,15 @@ class Results:
                     [(37 * (j + 1)) % 255, (17 * (j + 7)) % 255,
                      (29 * (j + 3)) % 255], np.uint8)
             img = cv2.addWeighted(img, 0.6, overlay, 0.4, 0)
+        if self.keypoints is not None and len(self.keypoints):
+            # JAX results.py:202-205: a green dot at each keypoint whose
+            # visibility is over 0.25
+            cv2 = require("cv2", "drawing keypoints")
+            img = np.ascontiguousarray(img)
+            for inst in self.keypoints.data:
+                for x, y, *v in inst:
+                    if not v or v[0] > 0.25:
+                        cv2.circle(img, (int(x), int(y)), 3, (0, 255, 0), -1)
         return img
 
     def save(self, filename, **plot_kwargs):

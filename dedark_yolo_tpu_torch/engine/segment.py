@@ -58,7 +58,7 @@ from ..utils.metrics import DetMetrics, match_from_iou, match_predictions
 from ..utils.pipeline import pipelined
 from ..utils.plotting import matplotlib_available, plot_images, plot_labels
 from .predictor import (DetectionPredictor, PinnedUpload, matmul_precision,
-                        resolve_device)
+                        require_task, resolve_device, task_outputs)
 from .trainer import BaseTrainer
 
 SEG_AUGMENT_KEYS = ("mosaic", "copy_paste", "hsv_h", "hsv_s", "hsv_v",
@@ -145,32 +145,6 @@ class SegmentationTrainer(BaseTrainer):
         self._plot(plot_images, batch, path, names=self.data.get("names"))
 
 
-def _seg_outputs(model, img_u8):
-    """(boxes_xywh, scores, coef_flat, protos) of a device uint8 batch: an
-    AutoBackend's four outputs (the batch padded to its fixed size with
-    zero images, the padding dropped), or the live model's eval_outputs of
-    the image / 255 in f32."""
-    from .autobackend import AutoBackend
-    if isinstance(model, AutoBackend):
-        n = img_u8.shape[0]
-        if n < model.batch:
-            img_u8 = torch.cat([img_u8, img_u8.new_zeros(
-                (model.batch - n, *img_u8.shape[1:]))])
-        return tuple(o[:n] for o in model(img_u8))
-    return model.eval_outputs(img_u8.to(torch.float32) / 255.0)
-
-
-def _require_segment(model, what):
-    from ..nn.graph import DetectionModel
-    from .autobackend import AutoBackend
-    if not isinstance(model, (AutoBackend, DetectionModel)):
-        raise TypeError(f"{what} takes a DetectionModel or an AutoBackend, "
-                        f"not {type(model).__name__}")
-    if getattr(model, "task", "detect") != "segment":
-        raise ValueError(f"{what} needs a segment model; this one is a "
-                         f"{model.task} model")
-
-
 def _inbox(dets, mh, mw, scale):
     """(B, D, mh, mw) bool: mask pixels inside each detection's xyxy box
     scaled to mask pixels (x1 <= x < x2, y1 <= y < y2)."""
@@ -212,7 +186,7 @@ class SegmentationValidator:
     def __call__(self, model=None):
         from .autobackend import AutoBackend
         from .validator import resolve_val_max_boxes
-        _require_segment(model, "SegmentationValidator")
+        require_task(model, "segment", "SegmentationValidator")
         a = self.args
         backend = isinstance(model, AutoBackend)
         a.imgsz = check_imgsz(a.imgsz, stride=32)
@@ -245,8 +219,8 @@ class SegmentationValidator:
             t_pre += t1 - t0
             dev = self.upload({"img": batch["img"], "masks": batch["masks"]})
             with matmul_precision(a.matmul_precision):
-                boxes, scores, coef_flat, protos = _seg_outputs(model,
-                                                                dev["img"])
+                boxes, scores, coef_flat, protos = task_outputs(
+                    model, dev["img"])
                 dets, counts, aidx = non_max_suppression(
                     boxes.float(), scores.float(), conf_thres=float(a.conf),
                     iou_thres=float(a.iou), max_det=int(a.max_det),
@@ -413,7 +387,7 @@ class SegmentationPredictor(DetectionPredictor):
                            "- using single-scale inference instead")
             args.augment = False
         if model is not None:
-            _require_segment(model, "SegmentationPredictor")
+            require_task(model, "segment", "SegmentationPredictor")
         super().__init__(args=args, model=model, names=names,
                          save_dir=save_dir or increment_dir(
                              Path("runs/segment/predict"), args.exist_ok))
@@ -428,7 +402,7 @@ class SegmentationPredictor(DetectionPredictor):
         img = self.upload({"img": img_u8})["img"]
         with matmul_precision(a.matmul_precision):
             if self.backend:
-                boxes, scores, coef_flat, protos = _seg_outputs(self.model, img)
+                boxes, scores, coef_flat, protos = task_outputs(self.model, img)
             else:
                 x = img.to(torch.bfloat16 if a.half else torch.float32) / 255.0
                 boxes, scores, coef_flat, protos = self.model.eval_outputs(x)

@@ -4,10 +4,13 @@ Requests arriving on independent threads are coalesced into one batch of
 the fixed shape `max_batch` (a short batch is padded with copies of its
 first image), letterboxed by the native host library
 (`native.letterbox_batch`, as the predictor does), run through the
-predictor's device step (`DetectionPredictor.step`: upload, layer 0's
-fused_enhance kernel, the graph, decode, the nms kernel) and demultiplexed
-back to per-request futures, each request's boxes scaled to its own image
-with the letterbox inverse (`ops.boxes.scale_boxes`).
+device step of the model's task predictor (`DetectionPredictor.step`:
+upload, layer 0's fused_enhance kernel, the graph, decode, the nms kernel;
+a segment or pose model's predictor adds its masks or keypoints, JAX
+server.py:121-157) and demultiplexed back to per-request futures, each
+request's boxes scaled to its own image with the letterbox inverse
+(`ops.boxes.scale_boxes`) and its masks or keypoints given by the
+predictor's `extra_fields` (JAX server.py:363-366), as predict gives them.
 
 One worker thread owns all device work: the model's build, the warmup,
 every dispatch and readback (`torch.inference_mode` and the current CUDA
@@ -20,7 +23,10 @@ in flight apart.
 Two front-ends share the batcher:
   - in-process: ``submit(img_bgr) -> Future``;
   - HTTP (stdlib): ``serve(port)`` exposes
-        POST /predict   image bytes (jpg/png, decoded by OpenCV) -> detections JSON
+        POST /predict   image bytes (jpg/png, decoded by OpenCV) -> detections
+                        JSON; a segment model's masks as polygons (each
+                        mask's largest external contour, `imgops`), a pose
+                        model's keypoints
         GET  /healthz   liveness
         GET  /stats     requests, batches, occupancy, latency p50/p95
 
@@ -28,9 +34,8 @@ Batching policy: the worker blocks for the first request, then waits at
 most ``max_wait_ms`` for followers. An exported `.pt2` artifact is served
 through AutoBackend (JAX server.py:110-125): its sidecar's batch, imgsz
 and names win over the arguments, and only NMS runs behind its program.
-Not ported: a mesh (ROADMAP A12) and the segment/pose tasks (their masks
-and keypoints, A12e-A12f). A classify model is refused as JAX refuses it
-(server.py:120-128): its predictions are YOLO.predict's.
+Not ported: a mesh (ROADMAP A12). A classify model is refused as JAX
+refuses it (server.py:125-128): its predictions are YOLO.predict's.
 """
 
 from __future__ import annotations
@@ -48,11 +53,23 @@ import torch
 from .. import native
 from ..cfg import get_cfg
 from ..data.augment import PAD_VALUE
+from ..data.imgops import contour_area, find_external_contours
 from ..ops.boxes import scale_boxes
 from ..utils import LOGGER
 from ..utils.patches import require
 from .autobackend import refuse_jax_artifact
 from .predictor import DetectionPredictor, resolve_device
+
+
+def mask_polygon(mask):
+    """A mask's largest external contour as (m, 2) int32 pixels, the first
+    of equal areas; (0, 2) for an empty mask (JAX server.py:416-426,
+    cv2.findContours RETR_EXTERNAL / CHAIN_APPROX_SIMPLE and contourArea,
+    through `data/imgops.py`)."""
+    cs = find_external_contours(np.asarray(mask, np.uint8))
+    if not cs:
+        return np.zeros((0, 2), np.int32)
+    return cs[int(np.argmax([contour_area(c) for c in cs]))]
 
 
 def _unported(what):
@@ -111,15 +128,12 @@ class InferenceServer:
     @staticmethod
     def _check_task(task):
         if task == "classify":
-            raise NotImplementedError(
-                "InferenceServer serves detect models; use YOLO.predict for "
-                "classify")
-        if task != "detect":
-            raise NotImplementedError(f"serving a {task} model is not ported "
-                                      "(ROADMAP A12e-b, A12f)")
+            raise ValueError(
+                "InferenceServer serves detection-family tasks (detect, "
+                "segment, pose); use YOLO.predict for classify")
 
     def _setup(self):
-        from .model import YOLO
+        from .model import TASK_CLASSES, YOLO
         spec, over, warmup = self._setup_args
         if spec.endswith(".pt2"):
             from .autobackend import AutoBackend
@@ -134,9 +148,12 @@ class InferenceServer:
             model, names, members = y.model, y.names, y.members
             model.to(self.device).eval()
         self.names = {int(k): v for k, v in (names or {}).items()}
-        self._pred = DetectionPredictor(args=get_cfg(over), model=model,
-                                        names=self.names, save_dir=".",
-                                        members=members)
+        # the task's predictor, as YOLO.predict dispatches (JAX :144-157);
+        # only detect takes ensemble members
+        pred_cls = TASK_CLASSES[model.task][2]
+        kw = {"members": members} if pred_cls is DetectionPredictor else {}
+        self._pred = pred_cls(args=get_cfg(over), model=model,
+                              names=self.names, save_dir=".", **kw)
         if warmup:
             z = np.zeros((self.max_batch, self.imgsz, self.imgsz, 3), np.uint8)
             self._pred.step(z)["counts"].cpu()    # a real readback
@@ -146,7 +163,8 @@ class InferenceServer:
         """Enqueue one HWC-BGR uint8 image; resolves to a detections dict:
         {"boxes": (k, 6) float32 [x1, y1, x2, y2, conf, cls] in the image's
         own pixels, "names": the class names, "latency_ms": the server-side
-        latency}."""
+        latency}, and a segment model's "masks" (k, h, w) bool or a pose
+        model's "keypoints" (k, nk, 3), at the image's own size."""
         if self._stop.is_set():
             raise RuntimeError("server is closed")
         fut: Future = Future()
@@ -286,8 +304,8 @@ class InferenceServer:
         return items, shapes, self._pred.step(batch)   # not waited for
 
     def _demux(self, items, shapes, out):
-        dets = out["dets"].cpu().numpy()   # waits for the batch
-        counts = out["counts"].cpu().numpy()
+        host = self._pred.readback(out, len(items))   # waits for the batch
+        dets, counts = host["dets"], host["counts"]
         t_done = time.perf_counter()
         sz = self.imgsz
         with self._lock:
@@ -303,7 +321,9 @@ class InferenceServer:
             with self._lock:
                 self._lat_ms.append(lat)
             fut.set_result({"boxes": det.astype(np.float32),
-                            "names": self.names, "latency_ms": lat})
+                            "names": self.names, "latency_ms": lat,
+                            **self._pred.extra_fields(host, i, k, shapes[i],
+                                                      sz)})
 
     # ------------------------------------------------------------------- HTTP
     def serve(self, port=0, host="127.0.0.1"):
@@ -345,10 +365,17 @@ class InferenceServer:
                     if img is None:
                         return self._json(400, {"error": "undecodable image"})
                     r = server.predict(img)
-                    self._json(200, {
+                    payload = {
                         "boxes": r["boxes"].tolist(),
                         "names": {str(k): v for k, v in r["names"].items()},
-                        "latency_ms": r["latency_ms"]})
+                        "latency_ms": r["latency_ms"]}
+                    if "keypoints" in r:
+                        payload["keypoints"] = np.asarray(
+                            r["keypoints"]).tolist()
+                    if "masks" in r:
+                        payload["masks"] = [mask_polygon(m).tolist()
+                                            for m in r["masks"]]
+                    self._json(200, payload)
                 except Exception as e:
                     self._json(500, {"error": str(e)})
 

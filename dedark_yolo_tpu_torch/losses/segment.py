@@ -1,4 +1,5 @@
-"""The segment loss in fixed shapes (JAX losses/segment.py:30-141).
+"""The segment and pose losses in fixed shapes (JAX losses/segment.py:
+24-219).
 
 Reference: ultralytics/utils/loss.py:196-288 (v8SegmentationLoss,
 single_mask_loss) and utils/ops.py:553-570 (crop_mask). The detect part is
@@ -10,7 +11,11 @@ padding anchors weigh 0. Their mask logits are coefficients @ protos, the
 BCE against the assigned instance's mask is cropped to the target box in
 mask pixels, averaged over the mask and divided by the box's normalised
 area. With max_fg at least the true foreground count the loss is the
-reference's; otherwise the strongest assignments are kept.
+reference's; otherwise the strongest assignments are kept. The pose loss
+(reference loss.py:291-377, v8PoseLoss and KeypointLoss) takes the same
+detect terms and the same top-`max_fg` anchors: the OKS keypoint loss of
+their decoded keypoints against the assigned instance's, in grid units of
+each anchor's stride, and the visibility BCE (`kobj`).
 """
 
 from __future__ import annotations
@@ -25,9 +30,23 @@ from .detection import _bce_logits, _df_loss
 from .tal import task_aligned_assign
 
 
+# COCO keypoint OKS sigmas (reference metrics.py OKS_SIGMA, JAX :24-25)
+OKS_SIGMA = torch.tensor(
+    [0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62, 1.07,
+     1.07, 0.87, 0.87, 0.89, 0.89], dtype=torch.float32) / 10.0
+
+
 class SegLossItems(NamedTuple):
     box: torch.Tensor
     seg: torch.Tensor
+    cls: torch.Tensor
+    dfl: torch.Tensor
+
+
+class PoseLossItems(NamedTuple):
+    box: torch.Tensor
+    pose: torch.Tensor
+    kobj: torch.Tensor
     cls: torch.Tensor
     dfl: torch.Tensor
 
@@ -101,17 +120,9 @@ def segmentation_loss(raw_maps, coef_maps, protos, batch, nc, strides, hyp,
     (assign, pred_scores, pred_distri, pred_bboxes, anchor_points, stride_t,
      (imgsz_h, imgsz_w)) = _assign(raw_maps, batch, nc, strides, reg_max)
     b = pred_scores.shape[0]
-    tss = assign.target_scores.sum().clamp(min=1.0)
-
-    loss_cls = _bce_logits(pred_scores, assign.target_scores).sum() / tss
-    fg = assign.fg_mask.to(pred_scores.dtype)
-    tb = assign.target_bboxes / stride_t[None]
-    weight = assign.target_scores.sum(-1) * fg
-    iou = bbox_iou(pred_bboxes, tb, CIoU=True).squeeze(-1)
-    loss_box = ((1.0 - iou) * weight).sum() / tss
-    target_ltrb = bbox2dist(anchor_points[None], tb, reg_max - 1)
-    loss_dfl = (_df_loss(pred_distri.reshape(b, -1, 4, reg_max), target_ltrb,
-                         reg_max) * weight).sum() / tss
+    loss_box, loss_cls, loss_dfl = _detect_terms(
+        assign, pred_scores, pred_distri, pred_bboxes, anchor_points,
+        stride_t, reg_max)
 
     nm = protos.shape[-1]
     mh, mw = protos.shape[1], protos.shape[2]
@@ -148,3 +159,89 @@ def segmentation_loss(raw_maps, coef_maps, protos, batch, nc, strides, hyp,
     total = (loss_box + loss_seg + loss_cls + loss_dfl) * b
     return total, SegLossItems(loss_box.detach(), loss_seg.detach(),
                                loss_cls.detach(), loss_dfl.detach())
+
+
+def _detect_terms(assign, pred_scores, pred_distri, pred_bboxes,
+                  anchor_points, stride_t, reg_max):
+    """(loss_box, loss_cls, loss_dfl) of the assignment, each / the target
+    score sum, before the gains (JAX :152-167)."""
+    b = pred_scores.shape[0]
+    tss = assign.target_scores.sum().clamp(min=1.0)
+    loss_cls = _bce_logits(pred_scores, assign.target_scores).sum() / tss
+    fg = assign.fg_mask.to(pred_scores.dtype)
+    tb = assign.target_bboxes / stride_t[None]
+    weight = assign.target_scores.sum(-1) * fg
+    iou = bbox_iou(pred_bboxes, tb, CIoU=True).squeeze(-1)
+    loss_box = ((1.0 - iou) * weight).sum() / tss
+    target_ltrb = bbox2dist(anchor_points[None], tb, reg_max - 1)
+    loss_dfl = (_df_loss(pred_distri.reshape(b, -1, 4, reg_max), target_ltrb,
+                         reg_max) * weight).sum() / tss
+    return loss_box, loss_cls, loss_dfl
+
+
+def pose_loss(raw_maps, kpt_maps, batch, nc, strides, hyp, kpt_shape=(17, 3),
+              reg_max=16, max_fg=64):
+    """(total, PoseLossItems) from the Pose head's train-mode outputs (JAX
+    :144-210).
+
+    raw_maps: per-level (B, H, W, 4*reg_max + nc); kpt_maps: per-level (B,
+    H, W, nk * kdim). batch: 'cls', 'bboxes', 'mask_gt' as detect's and
+    'keypoints' (B, M, nk, 3) normalised x, y and visibility. hyp: gains
+    'box', 'cls', 'dfl', 'pose' (12.0 where absent) and 'kobj' (1.0). The
+    items are detached.
+    """
+    (assign, pred_scores, pred_distri, pred_bboxes, anchor_points, stride_t,
+     (imgsz_h, imgsz_w)) = _assign(raw_maps, batch, nc, strides, reg_max)
+    b = pred_scores.shape[0]
+    loss_box, loss_cls, loss_dfl = _detect_terms(
+        assign, pred_scores, pred_distri, pred_bboxes, anchor_points,
+        stride_t, reg_max)
+
+    nk, kdim = kpt_shape
+    kpts = torch.cat([m.reshape(b, -1, nk, kdim) for m in kpt_maps], 1)
+    xy = kpts[..., :2] * 2.0 + (anchor_points[None, :, None, :] - 0.5)
+    pred_kpts = torch.cat([xy, kpts[..., 2:]], -1) if kdim == 3 else xy
+
+    idx, w_fg = _topk_fg(assign, max_fg)                          # (B, K)
+    k = idx.shape[1]
+    sel_gt = torch.gather(assign.target_gt_idx.long(), 1, idx)
+    sel_kpt = torch.gather(pred_kpts.reshape(b, -1, nk * kdim), 1,
+                           idx[..., None].expand(-1, -1, nk * kdim)
+                           ).reshape(b, k, nk, kdim)
+    sel_stride = torch.gather(stride_t[None, :, 0].expand(b, -1), 1, idx)
+    sel_box = torch.gather(assign.target_bboxes, 1,
+                           idx[..., None].expand(-1, -1, 4))
+    gt_k = batch["keypoints"].to(torch.float32) * torch.tensor(
+        [imgsz_w, imgsz_h, 1.0], dtype=torch.float32, device=idx.device)
+    sel_gt_k = torch.gather(gt_k.reshape(b, -1, nk * 3), 1,
+                            sel_gt[..., None].expand(-1, -1, nk * 3)
+                            ).reshape(b, k, nk, 3)
+    sel_gt_xy = sel_gt_k[..., :2] / sel_stride[..., None, None]
+    kpt_mask = (sel_gt_k[..., 2] != 0).to(torch.float32) * w_fg[..., None]
+
+    wh = xyxy2xywh(sel_box / sel_stride[..., None])
+    area = (wh[..., 2] * wh[..., 3]).clamp(min=1e-4)
+    sigmas = (OKS_SIGMA.to(idx.device) if nk == 17
+              else torch.ones(nk, device=idx.device) / nk)
+    d = ((sel_kpt[..., :2] - sel_gt_xy) ** 2).sum(-1)             # (B, K, nk)
+    e = d / (2 * sigmas[None, None, :]) ** 2 / (area[..., None] + 1e-9) / 2
+    n_valid = kpt_mask.sum().clamp(min=1.0)
+    kpt_factor = kpt_mask.numel() / n_valid
+    loss_kpt = kpt_factor * ((1 - torch.exp(-e)) * kpt_mask).sum() \
+        / kpt_mask.numel()
+    if kdim == 3:
+        vis_bce = _bce_logits(sel_kpt[..., 2], (kpt_mask > 0).to(torch.float32))
+        loss_kobj = (vis_bce * w_fg[..., None]).sum() \
+            / (w_fg.sum() * nk).clamp(min=1.0)
+    else:
+        loss_kobj = loss_kpt.new_zeros(())
+
+    loss_box = loss_box * hyp["box"]
+    loss_kpt = loss_kpt * hyp.get("pose", 12.0) / b
+    loss_kobj = loss_kobj * hyp.get("kobj", 1.0) / b
+    loss_cls = loss_cls * hyp["cls"]
+    loss_dfl = loss_dfl * hyp["dfl"]
+    total = (loss_box + loss_kpt + loss_kobj + loss_cls + loss_dfl) * b
+    return total, PoseLossItems(loss_box.detach(), loss_kpt.detach(),
+                                loss_kobj.detach(), loss_cls.detach(),
+                                loss_dfl.detach())

@@ -1,11 +1,13 @@
-"""YOLOv8 Detect, AsffDetect and Segment heads and the eval decode (JAX
-nn/heads.py:28-116, 294-315).
+"""YOLOv8 Detect, AsffDetect, Segment and Pose heads and the eval decodes
+(JAX nn/heads.py:28-140, 275-315).
 
 The head returns raw per-level maps in the JAX layout, (B, H, W, 4*reg_max +
 nc); `decode_detections` turns them into xywh pixel boxes and sigmoid class
 scores. DFL is a fixed arange, not a module, so it has no state_dict key.
 Segment also returns per-level (B, H, W, nm) mask coefficients and the
-(B, 2H0, 2W0, nm) prototypes of the first level, NHWC as in JAX.
+(B, 2H0, 2W0, nm) prototypes of the first level, NHWC as in JAX; Pose the
+per-level (B, H, W, nk * kdim) keypoint maps, which `decode_keypoints`
+turns into pixel keypoints.
 """
 
 from __future__ import annotations
@@ -87,6 +89,44 @@ class Segment(Detect):
         protos = self.proto(xs[0]).permute(0, 2, 3, 1)
         coefs = [c(x).permute(0, 2, 3, 1) for x, c in zip(xs, self.cv4)]
         return super().forward(xs), coefs, protos
+
+
+class Pose(Detect):
+    """Detect plus a keypoint branch a level (reference head.py:203-241, JAX
+    heads.py:119-140): `cv4.{i}` is two Convs to c4 = max(ch0 // 4, nk *
+    kdim) and a biased 1x1 to nk * kdim values an anchor. forward ->
+    (detect maps, keypoint maps), each NHWC."""
+
+    def __init__(self, nc: int, ch: Sequence[int], strides: Sequence[int],
+                 kpt_shape=(17, 3), reg_max: int = 16):
+        super().__init__(nc, ch, strides, reg_max)
+        self.kpt_shape = tuple(kpt_shape)
+        nk = self.kpt_shape[0] * self.kpt_shape[1]
+        c4 = max(ch[0] // 4, nk)
+        self.cv4 = nn.ModuleList(
+            nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3),
+                          BiasConv2d(c4, nk, 1)) for x in ch)
+
+    def forward(self, xs):
+        kpts = [c(x).permute(0, 2, 3, 1) for x, c in zip(xs, self.cv4)]
+        return super().forward(xs), kpts
+
+
+def decode_keypoints(kpt_maps, strides: Sequence[int], kpt_shape=(17, 3)):
+    """Raw keypoint maps -> (B, N, nk, kdim) keypoints in pixels (JAX
+    heads.py:275-291, reference head.py kpts_decode): xy = (2 * offset +
+    anchor - 0.5) * stride, the visibility through a sigmoid."""
+    feat_shapes = [(m.shape[1], m.shape[2]) for m in kpt_maps]
+    anchors, stride_t = make_anchors(feat_shapes, strides, 0.5,
+                                     device=kpt_maps[0].device)
+    b = kpt_maps[0].shape[0]
+    nk, kdim = kpt_shape
+    x = torch.cat([m.reshape(b, -1, nk, kdim) for m in kpt_maps], 1)
+    xy = (x[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) \
+        * stride_t[None, :, None, :]
+    if kdim == 3:
+        return torch.cat([xy, sigmoid(x[..., 2:3])], -1)
+    return xy
 
 
 def flatten_raw(raw_maps):

@@ -52,6 +52,19 @@ def scale_boxes(img1_shape, boxes, img0_shape):
     return clip_boxes(boxes / gain, img0_shape)
 
 
+def scale_coords(img1_shape, coords, img0_shape):
+    """Rescale (..., 2+) points (keypoints x, y[, visibility]) from the
+    letterboxed `img1_shape` back to `img0_shape` (JAX ops/boxes.py:70-87,
+    reference ops.py:699-737): the gain and the unrounded pad of the
+    letterbox, x and y clipped to the image, the other columns untouched."""
+    gain = min(img1_shape[0] / img0_shape[0], img1_shape[1] / img0_shape[1])
+    pad = ((img1_shape[1] - img0_shape[1] * gain) / 2,
+           (img1_shape[0] - img0_shape[0] * gain) / 2)
+    x = ((coords[..., 0:1] - pad[0]) / gain).clamp(0, img0_shape[1])
+    y = ((coords[..., 1:2] - pad[1]) / gain).clamp(0, img0_shape[0])
+    return torch.cat([x, y, coords[..., 2:]], -1)
+
+
 def bbox_iou(box1, box2, CIoU=False, eps=1e-7):
     """Elementwise IoU, or CIoU, of broadcastable xyxy boxes (last dim 4)
     -> (..., 1). The xyxy branch of JAX ops/boxes.py:90-129 (reference

@@ -55,6 +55,8 @@ module itself):
   Segment          detect/<Detect's names> -> the head's own cv2, cv3;
                    Proto_0 -> proto; cv4_{i}_{j} -> cv4.{i}.{j} (j < 2 a
                    Conv, j = 2 the biased 1x1) (torch_import.py:123-139)
+  Pose             Segment's names without Proto_0: detect/ -> cv2, cv3;
+                   cv4_{i}_{j} -> cv4.{i}.{j} (the keypoint branch)
   Proto            Conv_0, ConvTranspose_0, Conv_1, Conv_2 -> cv1,
                    upsample, cv2, cv3
 
@@ -184,7 +186,7 @@ def _torch_base(flax_path: str, spec_name: str, spec_args=(), dims=()) -> str:
     """Map a flax sub-path inside `mods_{i}` to the torch submodule name;
     `dims` are the row's input widths (AsffTribeLevel's align convs)."""
     parts = flax_path.split("/") if flax_path else []
-    if spec_name == "Segment" and parts:
+    if spec_name in ("Segment", "Pose") and parts:
         if parts[0] == "detect":
             return _torch_base("/".join(parts[1:]), "Detect")
         if parts[0] == "Proto_0":
@@ -229,7 +231,7 @@ def _flax_base(sub: str, spec_name: str, spec_args=(), dims=()) -> list:
     `model.{i}` -> the flax path parts inside `mods_{i}`."""
     parts = sub.split(".") if sub else []
     out = None
-    if spec_name == "Segment":
+    if spec_name in ("Segment", "Pose"):
         if parts[0] in ("cv2", "cv3"):
             out = ["detect"] + _flax_base(sub, "Detect")
         elif parts[0] == "proto":
@@ -404,8 +406,9 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
     """Seeded random init: conv, transposed conv and linear weights ~ N(0,
     1/fan_in), biases 0,
     BN, GroupBatchnorm2d and SCConv's SRU scale at identity (ones, as JAX
-    has them), the Detect, AsffDetect and Segment biases of reference
-    head.py:95-102 (Segment's coefficient and proto biases 0, as flax
+    has them), the Detect, AsffDetect, Segment and Pose biases of reference
+    head.py:95-102 (Segment's coefficient and proto biases and Pose's
+    keypoint biases 0, as flax
     initialises them).
     Draws on the CPU from one torch.Generator, so a seed gives the same
     weights on every device."""

@@ -57,6 +57,7 @@ from dedark_yolo_tpu_torch.utils.weights import state_dict_from_jax  # noqa: E40
 from dedark_yolo_tpu.nn import layers as JL  # noqa: E402
 from dedark_yolo_tpu_torch.nn import layers as TL  # noqa: E402
 
+from jax_native import jax_native_letterbox  # noqa: E402,F401
 from test_torch_layers import (  # noqa: E402
     module_state_dict, nchw, nhwc, randomize, to_plain)
 

@@ -30,6 +30,7 @@ from dedark_yolo_tpu_torch.engine import validator  # noqa: E402
 from dedark_yolo_tpu_torch.engine.autobackend import AutoBackend  # noqa: E402
 from dedark_yolo_tpu_torch.engine.server import InferenceServer  # noqa: E402
 
+from jax_native import jax_native_letterbox  # noqa: E402,F401
 from pairing import assert_paired  # noqa: E402
 from synth import make_synth_dataset  # noqa: E402
 from test_torch_val import (BOX_TOL_PX, METRIC_TOL, RESULT_KEYS,  # noqa: E402

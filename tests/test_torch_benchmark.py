@@ -38,6 +38,7 @@ from dedark_yolo_tpu_torch.cfg import get_cfg  # noqa: E402
 from dedark_yolo_tpu_torch.engine import benchmarks  # noqa: E402
 from dedark_yolo_tpu_torch.engine.predictor import DetectionPredictor  # noqa: E402
 
+from jax_native import jax_native_letterbox  # noqa: E402,F401
 from synth import make_synth_dataset  # noqa: E402
 from test_torch_val import TINY, tiny_variables  # noqa: E402
 

@@ -33,6 +33,7 @@ from dedark_yolo_tpu_torch import YOLO  # noqa: E402
 from dedark_yolo_tpu_torch import perform  # noqa: E402
 from dedark_yolo_tpu_torch.utils import tuner  # noqa: E402
 
+from jax_native import jax_native_letterbox  # noqa: E402,F401
 from synth import make_synth_dataset  # noqa: E402
 from test_torch_layers import randomize, to_plain  # noqa: E402
 from test_torch_val import tiny_variables  # noqa: E402

@@ -30,6 +30,7 @@ from dedark_yolo_tpu_torch.nn.graph import DetectionModel  # noqa: E402
 from dedark_yolo_tpu_torch.ops.nms import non_max_suppression  # noqa: E402
 from dedark_yolo_tpu_torch.utils.weights import state_dict_from_jax  # noqa: E402
 
+from jax_native import jax_native_letterbox  # noqa: E402,F401
 from pairing import assert_paired, assert_results_paired  # noqa: E402
 from test_torch_layers import randomize, to_plain  # noqa: E402
 

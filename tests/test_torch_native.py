@@ -36,6 +36,7 @@ from dedark_yolo_tpu_torch.engine.predictor import DetectionPredictor  # noqa: E
 from dedark_yolo_tpu_torch.nn.graph import DetectionModel  # noqa: E402
 from dedark_yolo_tpu_torch.utils.weights import state_dict_from_jax  # noqa: E402
 
+from jax_native import jax_native_letterbox  # noqa: E402,F401
 from pairing import assert_results_paired  # noqa: E402
 from test_torch_val import TINY, tiny_variables  # noqa: E402
 

@@ -96,6 +96,21 @@ def test_resizes_bit_equal_cv2(seed):
         np.testing.assert_array_equal(
             imgops.resize_linear_f32(f, (dw, dh)),
             cv2.resize(f, (dw, dh), interpolation=cv2.INTER_LINEAR))
+    # sources one pixel high, wide or both: OpenCV's generic float path
+    for t in range(60):
+        sh, sw = int(rng.integers(1, 170)), int(rng.integers(1, 170))
+        sh, sw = ((1, sw), (sh, 1), (1, 1))[t % 3]
+        dh, dw = int(rng.integers(1, 400)), int(rng.integers(1, 400))
+        m = (rng.uniform(0, 1, (sh, sw)) > 0.5).astype(np.uint8)
+        np.testing.assert_array_equal(
+            imgops.resize_nearest(m, (dw, dh)),
+            cv2.resize(m, (dw, dh), interpolation=cv2.INTER_NEAREST))
+        f = rng.uniform(0, 1, (sh, sw)).astype(np.float32)
+        f *= rng.uniform(0, 1, (sh, sw)) > 0.3
+        got = imgops.resize_linear_f32(f, (dw, dh))
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(
+            got, cv2.resize(f, (dw, dh), interpolation=cv2.INTER_LINEAR))
 
 
 def _masks(seed, n=80):

@@ -15,7 +15,9 @@ dataset of tests/test_torch_segment_data.py. Bars, each with its reason:
     MASK_PIXELS pixels (a proto pixel whose logit sits within the f32
     rounding of 0 flips, and the nearest upsample repeats it), plain and
     with retina_masks; `Masks.xy` equal to JAX's (cv2's) wherever the two
-    masks are equal;
+    masks are equal; JAX's side letterboxes through its native library,
+    as the port does, also after a failed first load
+    (tests/jax_native.py);
   - a `.pt2` artifact: its four outputs within 1e-5 of the live
     eval_outputs, its sidecar equal to the one JAX's exporter writes, and
     YOLO(pt2).val() and .predict() equal to the live model's;
@@ -42,6 +44,8 @@ from dedark_yolo_tpu_torch.engine import segment as TSeg  # noqa: E402
 from dedark_yolo_tpu_torch.engine.autobackend import AutoBackend  # noqa: E402
 from dedark_yolo_tpu_torch.engine.results import Masks  # noqa: E402
 
+from jax_native import ensure_jax_native, jax_native  # noqa: E402
+from jax_native import jax_native_letterbox  # noqa: E402,F401
 from pairing import assert_paired  # noqa: E402
 from test_segment_task import SEG_TINY  # noqa: E402
 from test_torch_segment_data import make_seg_dataset  # noqa: E402
@@ -155,6 +159,24 @@ def _frames(seed=5):
 @pytest.mark.parametrize("retina", [False, True])
 @pytest.mark.parametrize("graph", ["tiny", "tiny_l0"])
 def test_predictor_masks_match_jax(graph, retina):
+    _check_predictor_masks(graph, retina)
+
+
+@pytest.mark.parametrize("retina", [False, True])
+def test_predictor_masks_match_jax_after_failed_native_load(retina,
+                                                            monkeypatch):
+    """JAX's native library as an xdist worker leaves it when its first
+    load met another worker's half-written build: the failure cached, so
+    JAX's predictor would letterbox through OpenCV (the layer-0 graph's
+    scores then move by ~1e-5, past the bar). The comparison loads the
+    library again first."""
+    monkeypatch.setattr(jax_native, "_tried", True)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    _check_predictor_masks("tiny_l0", retina)
+
+
+def _check_predictor_masks(graph, retina):
+    ensure_jax_native()
     jm, v, tm = seg_pair(SEG_TINY if graph == "tiny" else SEG_TINY_L0,
                          seed=4)
     kw = {"imgsz": IMGSZ, "batch": 2, "conf": 0.05, "max_det": 20,

@@ -37,6 +37,7 @@ from dedark_yolo_tpu.utils.checkpoint import save_checkpoint  # noqa: E402
 from dedark_yolo_tpu_torch import YOLO  # noqa: E402
 from dedark_yolo_tpu_torch.engine.server import InferenceServer  # noqa: E402
 
+from jax_native import jax_native_letterbox  # noqa: E402,F401
 from pairing import assert_paired  # noqa: E402
 from test_torch_val import tiny_variables  # noqa: E402
 

@@ -31,6 +31,7 @@ from dedark_yolo_tpu_torch import YOLO  # noqa: E402
 from dedark_yolo_tpu_torch import __main__ as cli  # noqa: E402
 from dedark_yolo_tpu_torch.trackers import load_tracker_cfg  # noqa: E402
 
+from jax_native import jax_native_letterbox  # noqa: E402,F401
 from test_torch_val import tiny_variables  # noqa: E402
 
 IMGSZ, N_FRAMES = 96, 12

@@ -40,6 +40,7 @@ from dedark_yolo_tpu_torch.utils.checkpoint import (  # noqa: E402
     load_checkpoint, section_tree)
 from dedark_yolo_tpu_torch.utils.weights import state_dict_from_jax  # noqa: E402
 
+from jax_native import jax_native_letterbox  # noqa: E402,F401
 from synth import make_synth_dataset  # noqa: E402
 
 TINY = str(Path(__file__).resolve().parent / "tiny_model.yaml")

@@ -7,10 +7,11 @@ spread of align convs) at every scale token, the others at n (align convs)
 and l (none); with AsffTribeLevel's and MFRU's
 align convs where the widths differ; the port's Python-data copies load as
 JAX's `model_yaml_load` reads the yamls; the facade builds each variant and
-`info()` and `perform.flops_params` carry it; the other tasks' heads still
-raise, naming the head.
+`info()` and `perform.flops_params` carry it; RT-DETR's head and the
+blocks not ported yet still raise, naming them.
 """
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -98,11 +99,26 @@ def test_facade_builds_and_counts(arch):
     assert n == sum(p.numel() for p in own_nc.parameters()) and flops > 0
 
 
+def _with_row(block, args):
+    """A tiny detect graph with one `block` row (of nn/layers.py's blocks
+    that the port has not ported, ROADMAP A12g) before its head."""
+    return {"nc": 3, "backbone": [[-1, 1, "Conv", [16, 3, 2]],
+                                  [-1, 1, "Conv", [32, 3, 2]],
+                                  [-1, 1, block, args],
+                                  [-1, 1, "Conv", [32, 3, 2]]],
+            "head": [[[2, 3], 1, "Detect", ["nc"]]]}
+
+
 @pytest.mark.parametrize("arch,head", [
-    ("yolov8-pose", "Pose"), ("yolov8-pose-p6", "Pose"),
-    ("yolov8-rtdetr", "RTDETRDecoder")])
-def test_other_heads_raise(arch, head):
-    path = JAX_MODELS / f"{arch}.yaml"
+    ("C3", "C3"), ("RepC3", "RepC3"), ("yolov8-rtdetr", "RTDETRDecoder")])
+def test_other_heads_raise(arch, head, tmp_path):
+    """The heads and blocks the port lacks raise, naming them: RT-DETR's
+    head (a JAX yaml) and two of JAX's blocks in a user's graph."""
+    if arch.startswith("yolov8"):
+        path = JAX_MODELS / f"{arch}.yaml"
+    else:
+        path = tmp_path / f"{arch}.json"
+        path.write_text(json.dumps(_with_row(arch, [32])))
     with pytest.raises(NotImplementedError, match=head):
         DetectionModel(model_yaml_load(path), nc=3)
     with pytest.raises(NotImplementedError, match=head):
