@@ -154,6 +154,26 @@ line:
            predicting the 16 low-light frames (one frame card vs CPU); nms
            once a predict, val or served batch, fused_enhance once a batch
            of the layer-0 graph only
+  blocks   user graphs of the rest of nn/layers.py at full width (nc 3,
+           seeded weights, BN set from the predict frames, JSON files):
+           yolov8l-ghost (Ultralytics' yolov8-ghost.yaml rows at scale l)
+           predicting b16/640 in f32 and half (images/s, speed), one frame
+           card vs CPU, b16/640 micro-steps in f32 (zoo_train) and in amp
+           after a warm-up (ms, peak memory, finite loss items), the 128
+           b2 micro-step card vs CPU
+           within TRAIN_TOL, and its rows under a layer-0 row predicting a
+           batch (one frame card vs CPU); the HGNetv2 + RepC3 detector
+           (rtdetr-l.yaml's backbone, a RepC3 neck, a v8 Detect) predicting
+           b16/640 (one frame card vs CPU), exported to pt2 with fuse=True,
+           then YOLO.fuse(): the batch's outputs and its detections at a
+           gap conf fused against unfused (BOX_TOL_PX, SCORE_TOL), fused
+           images/s, the
+           artifact bit-equal to the fused live model; a graph with a row
+           of each other block (Focus, C1, BottleneckCSP, C3, Bottleneck x2,
+           GhostBottleneck s 2, C3x, C3TR at P5, SPP, CBAM, ConvTranspose)
+           predicting a batch and zoo_train's micro-steps, one frame card
+           vs CPU; nms once a batch, fused_enhance once a batch of the layer-0
+           variant only
   probe    tools.int8_probe at its default shape (24 layers, b32, 80x80,
            C=Co=256): bf16 cuDNN chain vs the int8_conv kernel's chain
   train    DetectionTrainer: at imgsz 128, b2, one micro-step on the card
@@ -3764,12 +3784,12 @@ def output_errors(got, want):
             "score_max_abs_err": float((got[1] - want[1]).abs().max())}
 
 
-def nms_rows(torch, outs):
+def nms_rows(torch, outs, conf=CONF):
     """predict's NMS (conf CONF, iou 0.7, max_det 300) of (boxes, scores):
     per image the (k, 6) rows."""
     from dedark_yolo_tpu_torch.ops.nms import non_max_suppression
     dets, counts = non_max_suppression(
-        outs[0].cuda(), outs[1].cuda(), conf_thres=CONF, iou_thres=0.7,
+        outs[0].cuda(), outs[1].cuda(), conf_thres=conf, iou_thres=0.7,
         max_det=300, max_nms=2048, multi_label=False)
     dets, counts = dets.cpu().numpy(), counts.cpu().numpy()
     return [dets[i, :int(k)] for i, k in enumerate(counts)]
@@ -4628,13 +4648,13 @@ def task_cli_val(torch, task, best, data_json):
 
 
 def layer0_graph(base, path):
-    """The rows of the built-in architecture `base` under a
-    lowlight_recovery row 0 (every later index shifted by one), written as
-    JSON at `path` (a scaled name, so model_yaml_load takes its scale from
-    it)."""
+    """The rows of the built-in architecture `base` (or of the graph dict
+    `base`) under a lowlight_recovery row 0 (every later index shifted by
+    one), written as JSON at `path` (a scaled name, so model_yaml_load
+    takes its scale from it)."""
     import copy
     from dedark_yolo_tpu_torch.cfg.models import MODELS
-    d = copy.deepcopy(MODELS[base])
+    d = copy.deepcopy(MODELS[base] if isinstance(base, str) else base)
 
     def shift(f):
         if isinstance(f, list):
@@ -5514,6 +5534,291 @@ def phase_pose(torch):
     return summary
 
 
+# blocks phase: user graphs of the rest of nn/layers.py (nc 3, seeded
+# weights, BN set from the predict frames), written as JSON (the card's
+# machine has no PyYAML). GHOST is the row layout of Ultralytics'
+# yolov8-ghost.yaml at yolov8's scales (run at l); HGNET is rtdetr-l.yaml's
+# HGNetv2 backbone (its rows 0-9) under a RepC3 neck and a v8 Detect
+# (RT-DETR's own AIFI and decoder are ROADMAP A12h); BLOCKS has a row of
+# each other block at widths 64-256: Focus, C1, BottleneckCSP, C3, a
+# Bottleneck x2 row (two modules in a chain), GhostBottleneck s 2, C3x,
+# C3TR at P5 (400 tokens at 640), SPP, CBAM and a ConvTranspose (flax's
+# size: P4's 40 -> 78) as a head level. The random weights of these
+# graphs put few class scores above the predict conf (yolov8l-ghost's
+# largest score over two frames at 640 was 0.054 on the CPU), so the phase
+# adds one constant to the class logits (the Detect head's class-branch
+# biases): the one that lifts the median over the frames of each frame's
+# BLOCKS_RANK-th score to BLOCKS_SCORE.
+BLOCKS_RANK, BLOCKS_SCORE = 50, 0.1
+BLOCKS_UP = [-1, 1, "nn.Upsample", ["None", 2, "nearest"]]
+HGNET = {"nc": 3, "backbone": [
+    [-1, 1, "HGStem", [32, 48]], [-1, 6, "HGBlock", [48, 128, 3]],
+    [-1, 1, "DWConv", [128, 3, 2, 1, False]],
+    [-1, 6, "HGBlock", [96, 512, 3]], [-1, 1, "DWConv", [512, 3, 2, 1, False]],
+    [-1, 6, "HGBlock", [192, 1024, 5, True, False]],
+    [-1, 6, "HGBlock", [192, 1024, 5, True, True]],
+    [-1, 6, "HGBlock", [192, 1024, 5, True, True]],
+    [-1, 1, "DWConv", [1024, 3, 2, 1, False]],
+    [-1, 6, "HGBlock", [384, 2048, 5, True, False]]],
+    "head": [
+    [-1, 1, "Conv", [256, 1, 1]], BLOCKS_UP, [7, 1, "Conv", [256, 1, 1]],
+    [[-2, -1], 1, "Concat", [1]], [-1, 3, "RepC3", [256]],
+    [-1, 1, "Conv", [256, 1, 1]], BLOCKS_UP, [3, 1, "Conv", [256, 1, 1]],
+    [[-2, -1], 1, "Concat", [1]], [-1, 3, "RepC3", [256]],
+    [-1, 1, "Conv", [256, 3, 2]], [[-1, 15], 1, "Concat", [1]],
+    [-1, 3, "RepC3", [256]], [-1, 1, "Conv", [256, 3, 2]],
+    [[-1, 10], 1, "Concat", [1]], [-1, 3, "RepC3", [256]],
+    [[19, 22, 25], 1, "Detect", ["nc"]]]}
+BLOCKS = {"nc": 3, "backbone": [
+    [-1, 1, "Focus", [64, 3]], [-1, 1, "Conv", [128, 3, 2]],
+    [-1, 1, "C1", [128, 1]], [-1, 1, "BottleneckCSP", [128, 1]],
+    [-1, 1, "Conv", [128, 3, 2]], [-1, 1, "C3", [128, 1]],
+    [-1, 2, "Bottleneck", [128]], [-1, 1, "GhostBottleneck", [256, 3, 2]],
+    [-1, 1, "C3x", [256, 1]], [-1, 1, "Conv", [256, 3, 2]],
+    [-1, 1, "C3TR", [256, 1]], [-1, 1, "SPP", [256, [5, 9, 13]]],
+    [-1, 1, "CBAM", [256]]],
+    "head": [[8, 1, "ConvTranspose", [128, 2, 2]],
+             [[6, 13, 12], 1, "Detect", ["nc"]]]}
+
+
+def ghost_graph(scale="l"):
+    """Ultralytics' yolov8-ghost.yaml rows at yolov8's scales, nc 3."""
+    from dedark_yolo_tpu_torch.cfg.models import MODELS
+    return {"nc": 3, "scale": scale,
+            "scales": MODELS["yolov8.yaml"]["scales"], "backbone": [
+                [-1, 1, "Conv", [64, 3, 2]], [-1, 1, "GhostConv", [128, 3, 2]],
+                [-1, 3, "C3Ghost", [128, True]],
+                [-1, 1, "GhostConv", [256, 3, 2]],
+                [-1, 6, "C3Ghost", [256, True]],
+                [-1, 1, "GhostConv", [512, 3, 2]],
+                [-1, 6, "C3Ghost", [512, True]],
+                [-1, 1, "GhostConv", [1024, 3, 2]],
+                [-1, 3, "C3Ghost", [1024, True]], [-1, 1, "SPPF", [1024, 5]]],
+            "head": [
+                BLOCKS_UP, [[-1, 6], 1, "Concat", [1]],
+                [-1, 3, "C3Ghost", [512]], BLOCKS_UP,
+                [[-1, 4], 1, "Concat", [1]], [-1, 3, "C3Ghost", [256]],
+                [-1, 1, "GhostConv", [256, 3, 2]], [[-1, 12], 1, "Concat", [1]],
+                [-1, 3, "C3Ghost", [512]], [-1, 1, "GhostConv", [512, 3, 2]],
+                [[-1, 9], 1, "Concat", [1]], [-1, 3, "C3Ghost", [1024]],
+                [[15, 18, 21], 1, "Detect", ["nc"]]]}
+
+
+def blocks_model(torch, graph, path, frames):
+    """YOLO of `graph` written as JSON at `path` (nc 3, seeded), BN set
+    from the frames, the class logits lifted (see BLOCKS_RANK), and its
+    CPU twin with the same weights."""
+    import math
+    from dedark_yolo_tpu_torch import YOLO
+    Path(path).write_text(json.dumps(graph))
+    gpu = YOLO(str(path), nc=3, seed=SEED)
+    calibrate_bn(torch, gpu.model, frames, IMGSZ)
+    u8 = torch.from_numpy(letterboxed(frames, IMGSZ))
+    with torch.no_grad():
+        scores = gpu.model.eval_outputs(u8.to(gpu.device).float() / 255)[1]
+    top = scores.amax(-1).sort(-1, descending=True).values[:, BLOCKS_RANK - 1]
+    q = min(max(float(top.median()), 1e-6), 1 - 1e-6)
+    logit = lambda p: math.log(p / (1 - p))
+    with torch.no_grad():
+        for branch in gpu.model.model[-1].cv3:
+            branch[-1].bias += logit(BLOCKS_SCORE) - logit(q)
+    cpu = YOLO(str(path), nc=3, device="cpu", seed=SEED)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    return gpu, cpu
+
+
+def blocks_amp_step(torch, yolo):
+    """A warm-up amp=True (bf16) DetectionTrainer micro-step and one timed
+    at b16/640 (the first two of a window of 4), default precision: ms,
+    peak memory, the loss items (finite), no kernel launched (the graph
+    has no layer 0), the state f32 after."""
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.tools.c14_split import train_batch
+    tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64, "amp": True},
+                          nb=1000)
+    batch = train_batch(BATCH, IMGSZ, SEED)
+    with matmul_precision("default"), no_plain_on_cuda():
+        tr.step(batch, 0)
+        zero_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        items = tr.step(batch, 1)[1]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.LAUNCHES)
+    check_launches(f"blocks amp {yolo.model.yaml['yaml_file']}", launches, {})
+    items = items.float().cpu()
+    dtypes = {str(v.dtype) for v in tr.model.state_dict().values()
+              if v.is_floating_point()}
+    rec = {"micro_step_ms": ms,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "loss_items": items.tolist(),
+           "finite": bool(torch.isfinite(items).all()),
+           "state_dtypes": sorted(dtypes), "launches": launches}
+    rec["ok"] = rec["finite"] and dtypes == {"torch.float32"}
+    return rec
+
+
+def live_outputs(torch, model, u8):
+    """eval_outputs of the letterboxed batch on the card, TF32 off."""
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    with torch.inference_mode(), matmul_precision("float32"), \
+            no_plain_on_cuda():
+        return [t.cpu() for t in
+                model.eval_outputs(torch.from_numpy(u8).cuda().float() / 255)]
+
+
+def phase_blocks(torch, frames):
+    """The blocks phase (see BLOCKS_UP): (a) yolov8l-ghost predicting
+    b16/640 in f32 and half (images/s, speed), one frame card vs CPU,
+    zoo_train's micro-steps at b16/640 and an amp micro-step after a
+    warm-up, the 128 b2 step card vs CPU (train_parity, TRAIN_TOL), then
+    its rows under a layer-0 row predicting a batch (one frame card vs
+    CPU); (b) the HGNetv2 + RepC3 detector predicting b16/640 (one frame
+    card vs CPU), exported to pt2 with fuse=True, then YOLO.fuse(): the
+    fused model's outputs on the batch against the unfused ones and its
+    detections at a conf in a gap of the unfused scores (val_pair_conf),
+    its images/s, the artifact against the fused live model bit for bit;
+    (c) BLOCKS predicting a batch and zoo_train's micro-steps, one frame
+    card vs CPU. nms once a batch, fused_enhance once a batch of the
+    layer-0 variant only, no plain version reached with a CUDA tensor."""
+    import tempfile
+    from dedark_yolo_tpu_torch.engine.autobackend import AutoBackend
+    from dedark_yolo_tpu_torch.nn.layers import RepConv
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.tools.c14_split import train_parity
+    t0 = time.perf_counter()
+    kw = dict(imgsz=IMGSZ, batch=BATCH, conf=CONF, half=False)
+    launches = {"fused_enhance": 0, "usm": 0, "nms": 0}
+    repconvs = lambda m, form: sum(isinstance(r, RepConv)
+                                   and hasattr(r, form) for r in m.modules())
+    summary = {"phase": "blocks", "batch": BATCH, "imgsz": IMGSZ,
+               "images_per_s": {}, "micro_step_ms": {}, "peak_memory_gib": {}}
+    failed = []
+
+    def count(run):
+        for k in launches:
+            launches[k] += run["launches"].get(k, 0)
+
+    def predict(name, yolo, expected, reps=2, **extra):
+        _, rec = timed_predict(torch, yolo, frames, reps, expected,
+                               f"blocks {name}", **{**kw, **extra})
+        count(rec)
+        summary["images_per_s"][name] = rec["images_per_s"]
+        return rec
+
+    def pair(name, gpu, cpu, rec):
+        _, _, rec["cpu_pair"] = card_vs_cpu(gpu, cpu, frames[0])
+        if not rec["cpu_pair"]["paired"]:
+            failed.append(f"{name} card vs CPU")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) yolov8l-ghost
+        gpu, cpu = blocks_model(torch, ghost_graph("l"),
+                                tmp / "yolov8l-ghost.json", frames)
+        rec = {"phase": "blocks", "model": "yolov8l-ghost",
+               "params": sum(p.numel() for p in gpu.model.parameters())}
+        rec["predict"] = predict("ghost", gpu, {"nms": 1})
+        rec["predict_half"] = predict("ghost_half", gpu, {"nms": 1},
+                                      half=True)
+        pair("ghost", gpu, cpu, rec)
+        del cpu
+        rec["train"] = zoo_train(torch, gpu)
+        rec["train_amp"] = blocks_amp_step(torch, gpu)
+        if not rec["train_amp"]["ok"]:
+            failed.append("ghost train_amp")
+        for key in ("train", "train_amp"):
+            summary["micro_step_ms"][f"ghost_{key}"] = rec[key]["micro_step_ms"]
+            summary["peak_memory_gib"][f"ghost_{key}"] = \
+                rec[key]["peak_memory_gib"]
+        rec["train_parity"] = train_parity(str(tmp / "yolov8l-ghost.json"))
+        if not rec["train_parity"]["ok"]:
+            failed.append("ghost train_parity")
+        del gpu
+        g0 = layer0_graph(ghost_graph("l"), tmp / "yolov8l-ghost-l0.json")
+        gpu, cpu = blocks_model(torch, json.loads(Path(g0).read_text()),
+                                g0, frames)
+        rec["layer0"] = predict("ghost_layer0", gpu,
+                                {"fused_enhance": 1, "nms": 1}, reps=1)
+        pair("ghost layer0", gpu, cpu, rec["layer0"])
+        emit(rec)
+        del gpu, cpu
+        torch.cuda.empty_cache()
+
+        # (b) HGNetv2 + RepC3
+        gpu, cpu = blocks_model(torch, HGNET, tmp / "hgnet-repc3.json", frames)
+        rec = {"phase": "blocks", "model": "hgnet-repc3",
+               "params": sum(p.numel() for p in gpu.model.parameters())}
+        rec["predict"] = predict("hgnet", gpu, {"nms": 1})
+        pair("hgnet", gpu, cpu, rec)
+        del cpu
+        u8 = letterboxed(frames, IMGSZ)
+        unfused = live_outputs(torch, gpu.model, u8)
+        zero_launches()
+        t1 = time.perf_counter()
+        art = gpu.export(format="pt2", imgsz=IMGSZ, batch=BATCH, fuse=True,
+                         project=str(tmp / "hgnet_pt2"))
+        rec["export_s"] = time.perf_counter() - t1
+        check_launches("blocks export", dict(_build.LAUNCHES), {})
+        reps_before = repconvs(gpu.model, "conv1")
+        gpu.fuse()
+        rec["repconv_fused"] = repconvs(gpu.model, "conv")
+        rec["params_fused"] = sum(p.numel() for p in gpu.model.parameters())
+        fused = live_outputs(torch, gpu.model, u8)
+        # detections paired at a conf in a gap of the unfused scores, with
+        # at most 150 an image (no list cut at max_det: a tie at the cut
+        # would swap a detection out)
+        conf = val_pair_conf([r[:, 4] for r in nms_rows(torch, unfused)])
+        rec["fused_vs_unfused"] = {
+            **output_errors(fused, unfused),
+            "nms": {"conf": conf, **paired_rows(
+                nms_rows(torch, fused, conf), nms_rows(torch, unfused, conf),
+                BOX_TOL_PX, SCORE_TOL)},
+            "box_tol_px": BOX_TOL_PX, "score_tol": SCORE_TOL}
+        f = rec["fused_vs_unfused"]
+        if not (reps_before == rec["repconv_fused"] > 0
+                and f["box_max_abs_err_px"] <= BOX_TOL_PX
+                and f["score_max_abs_err"] <= SCORE_TOL
+                and f["nms"]["paired"] and f["nms"]["dets"] > 0):
+            failed.append("hgnet fused vs unfused")
+        rec["predict_fused"] = predict("hgnet_fused", gpu, {"nms": 1})
+        got = artifact_call(torch, AutoBackend(art), u8, {},
+                            "blocks fused artifact", tally())
+        rec["artifact"] = {**output_errors(got, fused),
+                           "bit_equal": all(torch.equal(a, b)
+                                            for a, b in zip(got, fused)),
+                           "mb": Path(art).stat().st_size / 1e6}
+        if not rec["artifact"]["bit_equal"]:
+            failed.append("hgnet fused pt2 vs live")
+        emit(rec)
+        del gpu
+        torch.cuda.empty_cache()
+
+        # (c) a row of every other block
+        gpu, cpu = blocks_model(torch, BLOCKS, tmp / "blocks.json", frames)
+        rec = {"phase": "blocks", "model": "blocks",
+               "params": sum(p.numel() for p in gpu.model.parameters()),
+               "strides": list(gpu.model.strides)}
+        rec["predict"] = predict("blocks", gpu, {"nms": 1}, reps=1)
+        pair("blocks", gpu, cpu, rec)
+        rec["train"] = zoo_train(torch, gpu)
+        summary["micro_step_ms"]["blocks"] = rec["train"]["micro_step_ms"]
+        summary["peak_memory_gib"]["blocks"] = rec["train"]["peak_memory_gib"]
+        emit(rec)
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    summary.update(launches=launches, seconds=time.perf_counter() - t0,
+                   failed=failed)
+    emit(summary)
+    if failed:
+        raise AssertionError(f"blocks: {failed}")
+    return summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5549,6 +5854,7 @@ def main():
     cls = phase_classify(torch)
     seg = phase_segment(torch)
     pose = phase_pose(torch)
+    blocks = phase_blocks(torch, frames)
     probe_launches = phase_probe(torch)
     train = phase_train(torch)
     val = phase_val(torch, yolo)
@@ -5585,6 +5891,7 @@ def main():
         "classify_launches": cls["launches"]["fused_enhance"],
         "segment_launches": seg["launches"]["fused_enhance"],
         "pose_launches": pose["launches"]["fused_enhance"],
+        "blocks_launches": blocks["launches"]["fused_enhance"],
         "serve_launches": serve["launches"]["fused_enhance"],
         "track_launches": track["launches"]["fused_enhance"],
         "benchmark_launches": bench["launches"]["fused_enhance"],
@@ -5649,6 +5956,7 @@ def main():
         "pose_launches": pose["launches"]["nms"],
         "pose_serve_launches": pose["serve_launches"]["nms"],
         "pose_track_launches": pose["track_launches"]["nms"],
+        "blocks_launches": blocks["launches"]["nms"],
         "serve_launches": serve["launches"]["nms"],
         "track_launches": track["launches"]["nms"],
         "benchmark_launches": bench["launches"]["nms"],

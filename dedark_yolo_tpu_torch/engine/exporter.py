@@ -24,7 +24,9 @@ Formats:
 
 `half=True` casts the float parameters to bf16 (the BN statistics stay f32)
 and computes in bf16, with f32 outputs (JAX exporter.py:86-91). `fuse=True`
-has nothing to fuse: RepConv blocks (`RepC3`) are not ported (ROADMAP A12g).
+exports a copy of the model with every RepConv (RepC3's) in its deploy form,
+one biased 3x3 conv (JAX exporter.py:71-85; the model passed in stays as it
+is); the npz then holds the deploy tree, `RepConv_k/fused`.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from pathlib import Path
 import torch
 from torch import nn
 
+from ..nn.layers import fuse_repconv
 from ..utils import LOGGER
 from .predictor import resolve_device
 
@@ -120,7 +123,9 @@ class Exporter:
             raise ValueError(f"unsupported export format '{fmt}' (supported: "
                              "pt2, npz, onnx)")
         if a.fuse and any(s.name == "RepC3" for s in model.specs):
-            raise NotImplementedError("RepConv fusion is not ported (A12g)")
+            model = copy.deepcopy(model)
+            if fuse_repconv(model):
+                LOGGER.info("export fuse: RepConv -> deploy form")
         out_dir = Path(a.project or "runs/export")
         out_dir.mkdir(parents=True, exist_ok=True)
         device = resolve_device(a.device)

@@ -37,6 +37,7 @@ import torch
 from ..cfg import DEFAULT_CFG, get_cfg, model_yaml_load
 from ..nn.enhance import LowlightRecovery
 from ..nn.graph import DetectionModel
+from ..nn.layers import fuse_repconv
 from ..utils import LOGGER, increment_dir
 from ..utils.checkpoint import (has_section, load_checkpoint, section_tree,
                                 transfer_tree)
@@ -429,12 +430,22 @@ class YOLO:
         return self
 
     def fuse(self):
-        """A logged no-op: eval BN stays a separate op and no ported graph
-        has RepConv blocks (`RepC3` is ROADMAP A12), as JAX model.py:217-235
-        does for graphs without them."""
-        if any(s.name == "RepC3" for s in self.model.specs):
-            raise NotImplementedError("RepConv fusion is not ported (A12)")
-        LOGGER.info("fuse(): no RepConv blocks; nothing to fuse")
+        """Deploy-time fusion (JAX model.py:376-406): every RepConv of the
+        graph (RepC3's) becomes one biased 3x3 conv in place
+        (`nn.layers.fuse_repconv`), and an ensemble collapses to this
+        model's weights. A logged no-op on a graph without RepConv (eval BN
+        stays a separate op) and on one already fused."""
+        self._live("fuse")
+        if not any(s.name == "RepC3" for s in self.model.specs):
+            LOGGER.info("fuse(): no RepConv blocks; nothing to fuse")
+            return self
+        if fuse_repconv(self.model):
+            if self.members:
+                LOGGER.warning("ensemble collapsed to a single member by "
+                               "fuse()")
+                self.members = []
+            LOGGER.info("fuse(): RepConv branches re-parameterized to "
+                        "deploy form (single 3x3 conv per block)")
         return self
 
     def clear_callback(self, event):

@@ -5,10 +5,13 @@
 (ultralytics/nn/tasks.py:803-921). `DetectionModel` builds one torch module
 per row and walks them with the save-list (graph.py:484-551), in the plain
 form only: no lazy upsample/concat, remat, space-to-depth stem or FPN fuse,
-which are exact rewrites of the same params in the JAX package. The
-built heads are Detect and AsffDetect (task 'detect'), Classify (task
-'classify'), Segment (task 'segment') and Pose (task 'pose'); `task` is
-JAX's (graph.py:575-576).
+which are exact rewrites of the same params in the JAX package. Every
+row JAX's `_build_module` takes builds here (graph.py:281-381) but
+RT-DETR's (AIFI and its head, ROADMAP A12h) and the attention rows JAX
+builds no module for (ChannelAttention, SpatialAttention); a non-repeat
+row of n > 1 is n modules in a chain. The built heads are Detect and
+AsffDetect (task 'detect'), Classify (task 'classify'), Segment (task
+'segment') and Pose (task 'pose'); `task` is JAX's (graph.py:575-576).
 
 Layout: the image enters NHWC in [0, 1]; layer 0 (lowlight_recovery) works
 on NHWC, the backbone on NCHW (a permuted view, so channels_last memory);
@@ -210,20 +213,62 @@ def layer_inputs(specs) -> List[List[int]]:
 
 def _build_module(spec: LayerSpec, cins: List[int], head: dict) -> nn.Module:
     """The torch module of one row; `cins` are its inputs' channel counts
-    (JAX graph.py:281-381 for the rows the detect architectures use)."""
+    (JAX graph.py:281-381, with the args JAX's `_build_module` drops dropped
+    here too: Conv's p; DWConv's d and act; ConvTranspose's p; Focus's s;
+    Bottleneck's all but c2; C3Ghost's shortcut; HGBlock's lightconv and
+    shortcut; CBAM's k). A non-repeat row of n > 1 chains n distinct
+    modules (JAX graph.py:469-477). C3TR's position table is sized by
+    `DetectionModel`."""
+    if chained(spec):
+        one = LayerSpec(spec.i, spec.f, 1, spec.name, spec.args, spec.c2,
+                        spec.stride)
+        return nn.Sequential(*(_build_module(one, cins, head)
+                               for _ in range(spec.n)))
     name, a, c1 = spec.name, list(spec.args), cins[0]
-    if spec.n > 1 and name not in _REPEAT_BLOCKS:
-        raise NotImplementedError(f"{name} repeated {spec.n} times is not ported")
+    arg = lambda j, default: a[j] if len(a) > j else default
     if name == "Conv":
-        return L.Conv(c1, a[0], a[1] if len(a) > 1 else 1,
-                      a[2] if len(a) > 2 else 1)
+        return L.Conv(c1, a[0], arg(1, 1), arg(2, 1))
+    if name == "DWConv":
+        return L.DWConv(c1, a[0], arg(1, 1), arg(2, 1))
+    if name == "ConvTranspose":
+        return L.ConvTranspose(c1, a[0], arg(1, 2), arg(2, 2))
+    if name == "Focus":
+        return L.Focus(c1, a[0], arg(1, 1))
+    if name == "GhostConv":
+        return L.GhostConv(c1, a[0], arg(1, 1), arg(2, 1))
     if name in C2F_FAMILY:
-        return L.C2f(c1, a[0], a[1], shortcut=a[2] if len(a) > 2 else False,
+        return L.C2f(c1, a[0], a[1], shortcut=arg(2, False),
                      bottleneck_kind=C2F_FAMILY[name])
+    if name == "C1":
+        return L.C1(c1, a[0], a[1])
     if name == "C2":
-        return L.C2(c1, a[0], a[1], shortcut=a[2] if len(a) > 2 else True)
+        return L.C2(c1, a[0], a[1], shortcut=arg(2, True))
+    if name in ("C3", "C3x", "BottleneckCSP"):
+        return getattr(L, name)(c1, a[0], a[1], arg(2, True))
+    if name == "C3TR":
+        return L.C3TR(c1, a[0], a[1])
+    if name == "C3Ghost":
+        return L.C3Ghost(c1, a[0], a[1])
+    if name == "RepC3":
+        return L.RepC3(c1, a[0], a[1])
+    if name == "Bottleneck":
+        return L.Bottleneck(c1, a[0])
+    if name == "GhostBottleneck":
+        return L.GhostBottleneck(c1, a[0], arg(1, 3), arg(2, 1))
+    if name == "SPP":
+        return L.SPP(c1, a[0], tuple(arg(1, (5, 9, 13))))
     if name == "SPPF":
-        return L.SPPF(c1, a[0], a[1] if len(a) > 1 else 5)
+        return L.SPPF(c1, a[0], arg(1, 5))
+    if name == "HGStem":
+        return L.HGStem(c1, a[0], a[1])
+    if name == "HGBlock":
+        return L.HGBlock(c1, a[0], a[1], arg(2, 3), a[3])
+    if name == "CBAM":
+        return L.CBAM(c1)
+    if name in ("ChannelAttention", "SpatialAttention"):
+        raise NotImplementedError(
+            f"module '{name}' is built by no graph row (the JAX "
+            "package's graph builds none either)")
     if name == "lowlight_recovery":
         if spec.i != 0:
             raise NotImplementedError("lowlight_recovery must be row 0")
@@ -237,12 +282,11 @@ def _build_module(spec: LayerSpec, cins: List[int], head: dict) -> nn.Module:
     if name == "RFBblock":
         return L.RFBblock(c1)
     if name == "PConv":
-        return L.PConv(c1, a[1] if len(a) > 1 else 4)
+        return L.PConv(c1, arg(1, 4))
     if name == "SCConv":
         return L.SCConv(a[0])
     if name == "Classify":
-        return L.Classify(c1, a[0], a[1] if len(a) > 1 else 1,
-                          a[2] if len(a) > 2 else 1)
+        return L.Classify(c1, a[0], arg(1, 1), arg(2, 1))
     if name == "Segment":
         ha = head.get("args", ())
         return Segment(head["nc"], cins, head["strides"],
@@ -262,6 +306,12 @@ def _build_module(spec: LayerSpec, cins: List[int], head: dict) -> nn.Module:
     raise NotImplementedError(f"module '{name}' is not ported to torch yet")
 
 
+def chained(spec: LayerSpec) -> bool:
+    """Whether row `spec` is n distinct modules in a chain (`model.{i}.{k}`,
+    flax `mods_{i}_{k}`)."""
+    return spec.n > 1 and spec.name not in _REPEAT_BLOCKS
+
+
 def require_detect(model, what):
     """Raise for a model (or AutoBackend) of another task than detect:
     `what` reads boxes and scores."""
@@ -279,10 +329,14 @@ class DetectionModel(nn.Module):
     maps (detect), (maps, coefficient maps, protos) (segment), (maps,
     keypoint maps) (pose) or logits (classify, (B, nc)).
 
-    `model.{i}` is row i, so state_dict keys are the reference's.
+    `model.{i}` is row i, so state_dict keys are the reference's. `imgsz`
+    sizes the position tables of C3TR rows, as JAX's init at that imgsz
+    does (the facade builds at JAX's default, 640; a loaded state dict
+    brings its own size).
     """
 
-    def __init__(self, cfg_dict: dict, nc: Optional[int] = None):
+    def __init__(self, cfg_dict: dict, nc: Optional[int] = None,
+                 imgsz: int = 640):
         super().__init__()
         self.yaml = copy.deepcopy(cfg_dict)
         if nc and nc != self.yaml.get("nc"):
@@ -300,6 +354,31 @@ class DetectionModel(nn.Module):
         self.model = nn.ModuleList(
             _build_module(s, cins, self.head)
             for s, cins in zip(self.specs, layer_inputs(self.specs)))
+        self._size_position_tables(imgsz)
+
+    def _size_position_tables(self, imgsz):
+        """Each C3TR's position table sized by the map it gets from an
+        imgsz x imgsz image, as JAX's init sizes it (its rows' strides do
+        not say: parse_model counts no GhostConv or GhostBottleneck
+        stride): one forward of a meta image through meta copies of the
+        weights, each TransformerBlock recording its map and passing its
+        input on."""
+        from .transformer import TransformerBlock
+        blocks = [m for m in self.modules() if isinstance(m, TransformerBlock)]
+        if not blocks:
+            return
+        for b in blocks:
+            b.sizing = []
+        try:
+            meta = {k: torch.empty_like(v, device="meta") for k, v in
+                    [*self.named_parameters(), *self.named_buffers()]}
+            torch.func.functional_call(
+                self, meta, (torch.zeros(1, imgsz, imgsz, 3, device="meta"),))
+            for b in blocks:
+                b.size_for(b.sizing[0])
+        finally:
+            for b in blocks:
+                b.sizing = None
 
     def forward(self, x, dedark_A=None, IcA=None, capture=()):
         """x (B, H, W, 3) in [0, 1]; dedark_A (B, 3) and IcA (B, H, W, 1) are

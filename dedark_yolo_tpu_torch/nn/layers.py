@@ -5,7 +5,12 @@ Conv2d, AddConv, Bottleneck, C2f, SPPF, AsffTribeLevel) and the fork's block
 zoo that its other detect architectures use (PConv and its bottlenecks,
 SCConv = SRU + CRU and its bottlenecks, C2f's bottleneck families, C2,
 RFBblock, AsffDoubLevel, MFRU), the classify head and the Segment head's
-Proto. Module attribute names are the reference
+Proto, and the rest of JAX's blocks that a user's graph may name: Conv2,
+DWConv, LightConv, ConvTranspose, Focus, GhostConv, CrossConv, the
+attention blocks (ChannelAttention, SpatialAttention, CBAM), RepConv (and
+`fuse_repconv`, its deploy form), GhostBottleneck, C1, C3, C3x, C3TR
+(`nn/transformer.py`), C3Ghost, RepC3, BottleneckCSP, SPP, HGStem and
+HGBlock. Module attribute names are the reference
 fork's where `utils/torch_import.py` maps them (`model.{i}.cv1.conv.weight`,
 ...), else plain ones, tabled in `utils/weights.py`. The convs, grouped and
 dilated ones too, go to cuDNN through `F.conv2d`, as the JAX package leaves
@@ -15,6 +20,7 @@ them to XLA.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Sequence
 
 import numpy as np
@@ -133,9 +139,26 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight) + self.bias
 
 
-def autopad(k: int) -> int:
-    """'same'-style pad for odd kernels (reference conv.py:15-21)."""
-    return k // 2
+def autopad(k, p=None, d: int = 1):
+    """'same'-style pad for odd kernels (reference conv.py:15-21, JAX
+    layers.py:28-32): `p` where given, else half the dilated kernel; a
+    (kh, kw) kernel pads each side by its own half (C3x's cross kernels)."""
+    if isinstance(k, (tuple, list)):
+        return tuple(autopad(x, p, d) for x in k)
+    if d > 1:
+        k = d * (k - 1) + 1
+    return k // 2 if p is None else p
+
+
+# the activations of JAX's blocks by JAX's names (layers.py:35-42); True is
+# silu, and any other value that is not a name (False, None) the identity
+ACTS = {"silu": silu, "relu": F.relu, "identity": lambda x: x}
+
+
+def act_name(act) -> str:
+    if act is True:
+        return "silu"
+    return act if isinstance(act, str) else "identity"
 
 
 def max_pool_same(x, k: int, s: int = 1):
@@ -196,15 +219,21 @@ class BatchNorm(nn.Module):
 
 
 class Conv(nn.Module):
-    """Conv2d (no bias) + BN + SiLU. Reference conv.py:38-55."""
+    """Conv2d (no bias) + BN + act (JAX layers.py:165-203, reference
+    conv.py:38-55): padding `p` (None: 'same' for the dilated kernel),
+    groups `g`, dilation `d`, `act` one of ACTS' names. `k` may be a
+    (kh, kw) pair."""
 
-    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+    def __init__(self, c1: int, c2: int, k=1, s: int = 1, p=None, g: int = 1,
+                 d: int = 1, act="silu"):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k), bias=False)
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d,
+                              groups=g, bias=False)
         self.bn = BatchNorm(c2)
+        self.act = act_name(act)
 
     def forward(self, x):
-        return silu(self.bn(self.conv(x)))
+        return ACTS[self.act](self.bn(self.conv(x)))
 
 
 def Conv2d(c1: int, c2: int, k: int = 1, s: int = 1, p=None, g: int = 1,
@@ -230,12 +259,17 @@ class AddConv(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """Reference block.py:553-565, at C2f's expansion e=1.0."""
+    """Reference block.py:553-565 (JAX layers.py:671-684): a k[0] Conv to
+    int(c2 * e), then a k[1] Conv of `g` groups to c2, plus the input where
+    `shortcut` and the widths agree. C2f and C2 take e=1.0, C3 k=(1, 3),
+    C3x the cross kernels ((1, 3), (3, 1))."""
 
-    def __init__(self, c1: int, c2: int, shortcut: bool = True):
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1,
+                 k=(3, 3), e: float = 0.5):
         super().__init__()
-        self.cv1 = Conv(c1, c2, 3, 1)
-        self.cv2 = Conv(c2, c2, 3, 1)
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, k[0], 1)
+        self.cv2 = Conv(c_, c2, k[1], 1, g=g)
         self.add = shortcut and c1 == c2
 
     def forward(self, x):
@@ -397,7 +431,7 @@ class SCBottleneck(nn.Module):
 def bottleneck(kind: str, c: int, shortcut: bool) -> nn.Module:
     """C2f's inner block of family `kind` (JAX layers.py:857-866), c -> c."""
     if kind == "standard":
-        return Bottleneck(c, c, shortcut)
+        return Bottleneck(c, c, shortcut, e=1.0)
     if kind in ("pconv", "pconv_n"):
         return PconvBottleneck(c, c, shortcut, 1.0, kind)
     return SCBottleneck(c, c, shortcut, kind)
@@ -434,7 +468,8 @@ class C2(nn.Module):
         c = c2 // 2
         self.cv1 = Conv(c1, 2 * c, 1)
         self.cv2 = Conv(2 * c, c2, 1)
-        self.m = nn.Sequential(*(Bottleneck(c, c, shortcut) for _ in range(n)))
+        self.m = nn.Sequential(*(Bottleneck(c, c, shortcut, e=1.0)
+                                 for _ in range(n)))
 
     def forward(self, x):
         a, b = self.cv1(x).chunk(2, 1)
@@ -665,3 +700,407 @@ class Classify(nn.Module):
 
     def forward(self, x):
         return self.linear(self.conv(x).mean((2, 3)))
+
+
+# The rest of the JAX package's blocks (layers.py:224-558, 785-1072): the
+# reference's C1/C3/CSP/Ghost/SPP/Focus/CBAM/HGNet families and RepConv.
+
+
+class Conv2(nn.Module):
+    """A k x k and a 1x1 conv summed under one BN and act (JAX layers.py:
+    224-244, reference conv.py:58-76)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, g: int = 1,
+                 act="silu"):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k), groups=g, bias=False)
+        self.cv2 = nn.Conv2d(c1, c2, 1, s, 0, groups=g, bias=False)
+        self.bn = BatchNorm(c2)
+        self.act = act_name(act)
+
+    def forward(self, x):
+        return ACTS[self.act](self.bn(self.conv(x) + self.cv2(x)))
+
+
+class DWConv(Conv):
+    """Conv of gcd(c1, c2) groups (JAX layers.py:257-268): `conv`, `bn` as
+    a Conv's."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, d: int = 1,
+                 act="silu"):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), d=d, act=act)
+
+
+class LightConv(nn.Module):
+    """A 1x1 Conv without act, then a k x k DWConv with ReLU (JAX
+    layers.py:271-279, reference conv.py:79-92)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, 1, act="identity")
+        self.conv2 = DWConv(c2, c2, k, act="relu")
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
+
+
+class ConvTranspose(nn.Module):
+    """Transposed conv + BN + act (JAX layers.py:282-300), at the output
+    size of flax's explicit padding: flax pads the stride-dilated input by
+    p on each side, so H -> (H - 1) * s + 2p - k + 2 (k = s = 2, p = 0:
+    2H - 2, where the reference's torch layer gives 2H). torch's transposed
+    conv with padding k - 1 - p computes that map, its kernel mirrored as
+    Proto's (`utils/weights.py`)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0,
+                 bn: bool = True, act="silu"):
+        super().__init__()
+        if k - 1 - p < 0:
+            raise ValueError(f"ConvTranspose: padding {p} above k - 1 = "
+                             f"{k - 1} has no torch form")
+        cls = nn.ConvTranspose2d if bn else BiasConvTranspose2d
+        self.conv_transpose = cls(c1, c2, k, s, k - 1 - p, bias=not bn)
+        self.bn = BatchNorm(c2) if bn else None
+        self.act = act_name(act)
+
+    def forward(self, x):
+        x = self.conv_transpose(x)
+        return ACTS[self.act](self.bn(x) if self.bn is not None else x)
+
+
+class Focus(nn.Module):
+    """The four pixel phases side by side as channels, then a Conv (JAX
+    layers.py:391-401): (even row, even col), (odd, even), (even, odd),
+    (odd, odd), JAX's order."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+        super().__init__()
+        self.conv = Conv(c1 * 4, c2, k, s)
+
+    def forward(self, x):
+        return self.conv(torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2],
+                                    x[..., ::2, 1::2], x[..., 1::2, 1::2]], 1))
+
+
+class GhostConv(nn.Module):
+    """A Conv to c2 // 2 and its 5x5 depthwise Conv, side by side (JAX
+    layers.py:404-415)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s)
+        self.cv2 = Conv(c_, c_, 5, 1, g=c_)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class CrossConv(Conv):
+    """C3x's rectangular Conv + BN + SiLU, kernel (kh, kw) padded by its
+    halves (JAX layers.py:911-924)."""
+
+    def __init__(self, c1: int, c2: int, k=(1, 3)):
+        super().__init__(c1, c2, tuple(k))
+
+
+class ChannelAttention(nn.Module):
+    """x times the sigmoid of a biased 1x1 conv of its channel means (JAX
+    layers.py:529-536)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.fc = Conv2d(c, c, 1)
+
+    def forward(self, x):
+        return x * sigmoid(self.fc(x.mean((2, 3), keepdim=True)))
+
+
+class SpatialAttention(nn.Module):
+    """x times the sigmoid of a k x k conv of its channel mean and max (JAX
+    layers.py:539-549; padding 3 for k = 7, else 1)."""
+
+    def __init__(self, k: int = 7):
+        super().__init__()
+        self.cv1 = nn.Conv2d(2, 1, k, 1, 3 if k == 7 else 1, bias=False)
+
+    def forward(self, x):
+        s = torch.cat([x.mean(1, keepdim=True), x.amax(1, keepdim=True)], 1)
+        return x * sigmoid(self.cv1(s))
+
+
+class CBAM(nn.Module):
+    """Channel then spatial attention (JAX layers.py:552-558)."""
+
+    def __init__(self, c1: int, k: int = 7):
+        super().__init__()
+        self.channel_attention = ChannelAttention(c1)
+        self.spatial_attention = SpatialAttention(k)
+
+    def forward(self, x):
+        return self.spatial_attention(self.channel_attention(x))
+
+
+class RepConv(nn.Module):
+    """A k x k Conv (padding 1) and a 1x1 Conv, both without act, summed,
+    plus BN of the input where `use_id_bn`, c1 == c2 and s == 1; then the
+    act (JAX layers.py:434-464, reference conv.py:193-291). `fuse_convs`
+    turns it into the deploy form: one biased k x k `conv` (JAX's `fused`)
+    that computes the same map in eval."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1,
+                 use_id_bn: bool = False, act="silu"):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, k, s, p=1, act="identity")
+        self.conv2 = Conv(c1, c2, 1, s, p=0, act="identity")
+        self.bn = BatchNorm(c1) if use_id_bn and c1 == c2 and s == 1 else None
+        self.act = act_name(act)
+
+    def forward(self, x):
+        if hasattr(self, "conv"):
+            return ACTS[self.act](self.conv(x))
+        y = self.conv1(x) + self.conv2(x)
+        if self.bn is not None:
+            y = y + self.bn(x)
+        return ACTS[self.act](y)
+
+    @torch.no_grad()
+    def fuse_convs(self):
+        """The deploy form, as JAX's `_fuse_one_repconv` (layers.py:467-491)
+        folds it: each branch's BN into its kernel (w * gamma / std, beta -
+        mean * gamma / std), the 1x1 kernel at the centre of the k x k, the
+        identity BN's scale on the diagonal of the centre tap."""
+        def fold(kernel, bn):
+            t = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
+            return kernel * t[:, None, None, None], bn.bias - bn.running_mean * t
+        c1 = self.conv1.conv
+        k3, b3 = fold(c1.weight, self.conv1.bn)
+        k1, b1 = fold(self.conv2.conv.weight, self.conv2.bn)
+        kern = k3 + F.pad(k1, (1, 1, 1, 1))
+        bias = b3 + b1
+        if self.bn is not None:
+            t = self.bn.weight / torch.sqrt(self.bn.running_var + BN_EPS)
+            idx = torch.arange(kern.shape[1], device=kern.device)
+            kern[idx, idx, 1, 1] += t
+            bias = bias + self.bn.bias - self.bn.running_mean * t
+        conv = BiasConv2d(c1.in_channels, c1.out_channels, c1.kernel_size,
+                          c1.stride, 1, device=kern.device, dtype=kern.dtype)
+        conv.weight.copy_(kern)
+        conv.bias.copy_(bias)
+        del self.conv1, self.conv2, self.bn
+        self.conv = conv
+
+
+def fuse_repconv(model: nn.Module) -> int:
+    """Every RepConv of `model` in its deploy form, in place (JAX
+    `fuse_repconv_variables`, layers.py:494-526, on the port's modules);
+    returns how many were fused."""
+    reps = [m for m in model.modules()
+            if isinstance(m, RepConv) and not hasattr(m, "conv")]
+    for m in reps:
+        m.fuse_convs()
+    return len(reps)
+
+
+class GhostBottleneck(nn.Module):
+    """GhostConv to c2 // 2, at s = 2 a k x k DWConv without act, GhostConv
+    to c2, plus the input (s = 1, c1 == c2) or its shortcut (s = 2: a DWConv
+    and a 1x1 Conv, both without act) (JAX layers.py:785-803). The second
+    GhostConv keeps its SiLU, as in JAX (the reference's has none)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(
+            GhostConv(c1, c_, 1, 1),
+            DWConv(c_, c_, k, s, act="identity") if s == 2 else nn.Identity(),
+            GhostConv(c_, c2, 1, 1))
+        self.shortcut = (nn.Sequential(DWConv(c1, c1, k, s, act="identity"),
+                                       Conv(c1, c2, 1, 1, act="identity"))
+                         if s == 2 else None)
+        self.add = c1 == c2
+
+    def forward(self, x):
+        y = self.conv(x)
+        if self.shortcut is not None:
+            return y + self.shortcut(x)
+        return y + x if self.add else y
+
+
+class C1(nn.Module):
+    """A 1x1 Conv, then n 3x3 Convs, plus their input (JAX layers.py:
+    806-817)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.m = nn.Sequential(*(Conv(c2, c2, 3) for _ in range(n)))
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return self.m(y) + y
+
+
+class _C3Base(nn.Module):
+    """The C3 frame (JAX layers.py:872-888): cv1 (1x1 Conv to c_) through
+    `m`, beside cv2 (1x1 Conv to c_), then cv3 (1x1 Conv of both to c2)."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(2 * c_, c2, 1)
+        self.c_ = c_
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class C3(_C3Base):
+    """C3 with n Bottlenecks of kernels (1, 3) (JAX layers.py:872-888 built
+    with k=(1, 3), the reference's C3: its bottleneck is a 1x1 Conv then a
+    3x3 Conv; JAX's default k=((1, 1), (3, 3)) raises a TypeError in its
+    Conv, ROADMAP "Known differences")."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, e)
+        self.m = nn.Sequential(*(Bottleneck(self.c_, self.c_, shortcut, g,
+                                            (1, 3), 1.0) for _ in range(n)))
+
+
+class C3x(_C3Base):
+    """C3 whose n bottlenecks are CrossConv (1, 3) then (3, 1), plus their
+    input where `shortcut` (JAX layers.py:891-908)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True):
+        super().__init__(c1, c2)
+        self.m = nn.Sequential(*(Bottleneck(self.c_, self.c_, shortcut,
+                                            k=((1, 3), (3, 1)), e=1.0)
+                                 for _ in range(n)))
+
+
+class C3TR(_C3Base):
+    """C3 whose inner block is a TransformerBlock of 4 heads and n layers
+    (JAX layers.py:927-942); `hw`: the tokens of the map it is built for
+    (nn/transformer.py)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5,
+                 hw: int = 0):
+        super().__init__(c1, c2, e)
+        from .transformer import TransformerBlock
+        self.m = TransformerBlock(self.c_, self.c_, 4, n, hw)
+
+
+class C3Ghost(_C3Base):
+    """C3 with n GhostBottlenecks (JAX layers.py:965-980)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1):
+        super().__init__(c1, c2)
+        self.m = nn.Sequential(*(GhostBottleneck(self.c_, self.c_)
+                                 for _ in range(n)))
+
+
+class RepC3(nn.Module):
+    """cv1 (1x1 Conv to c2) through n RepConvs to c_ = c2 * e, plus cv2
+    (1x1 Conv to c2), then cv3 (1x1 Conv) where c_ != c2 (JAX layers.py:
+    945-962)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.m = nn.Sequential(*(RepConv(c2 if i == 0 else c_, c_)
+                                 for i in range(n)))
+        self.cv2 = Conv(c1, c2, 1, 1)
+        self.cv3 = Conv(c_, c2, 1, 1) if c_ != c2 else None
+
+    def forward(self, x):
+        y = self.m(self.cv1(x)) + self.cv2(x)
+        return self.cv3(y) if self.cv3 is not None else y
+
+
+class BottleneckCSP(nn.Module):
+    """CSP bottleneck (JAX layers.py:983-1002): cv1 through n Bottlenecks
+    (e = 1) and the bare 1x1 cv3, beside the bare 1x1 cv2 of the input; BN
+    and SiLU of both, then the 1x1 Conv cv4."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0)
+                                 for _ in range(n)))
+        self.cv3 = Conv2d(c_, c_, 1, bias=False)
+        self.cv2 = Conv2d(c1, c_, 1, bias=False)
+        self.bn = BatchNorm(2 * c_)
+        self.cv4 = Conv(2 * c_, c2, 1, 1)
+
+    def forward(self, x):
+        y = torch.cat([self.cv3(self.m(self.cv1(x))), self.cv2(x)], 1)
+        return self.cv4(silu(self.bn(y)))
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling (JAX layers.py:1005-1016): a 1x1 Conv to
+    c1 // 2, beside its max pools of each size in `k`, then a 1x1 Conv."""
+
+    def __init__(self, c1: int, c2: int, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = tuple(k)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * (len(self.k) + 1), c2, 1, 1)
+
+    def forward(self, x):
+        x = self.cv1(x)
+        return self.cv2(torch.cat([x] + [max_pool_same(x, k)
+                                         for k in self.k], 1))
+
+
+class HGStem(nn.Module):
+    """HGNetv2's stem, ReLU throughout (JAX layers.py:1035-1050): a 3x3 s2
+    Conv, zero-padded by one at the bottom and right; a 2x2 Conv and a 2x2
+    Conv (each on a map padded the same way) beside a 2x2 stride-1 VALID
+    max pool of it; a 3x3 s2 Conv of both, then a 1x1 Conv."""
+
+    def __init__(self, c1: int, cm: int, c2: int):
+        super().__init__()
+        self.stem1 = Conv(c1, cm, 3, 2, act="relu")
+        self.stem2a = Conv(cm, cm // 2, 2, 1, 0, act="relu")
+        self.stem2b = Conv(cm // 2, cm, 2, 1, 0, act="relu")
+        self.stem3 = Conv(cm * 2, cm, 3, 2, act="relu")
+        self.stem4 = Conv(cm, c2, 1, 1, act="relu")
+
+    def forward(self, x):
+        x = F.pad(self.stem1(x), (0, 1, 0, 1))
+        x2 = self.stem2b(F.pad(self.stem2a(x), (0, 1, 0, 1)))
+        x1 = F.max_pool2d(x, 2, 1)
+        return self.stem4(self.stem3(torch.cat([x1, x2], 1)))
+
+
+class HGBlock(nn.Module):
+    """HGNetv2's block (JAX layers.py:1053-1072): n k x k ReLU Convs (or
+    LightConvs) in a chain, the input and every output side by side through
+    a 1x1 ReLU Conv `sc` to c2 // 2 and a 1x1 ReLU Conv `ec` to c2, plus
+    the input where `shortcut` and c1 == c2."""
+
+    def __init__(self, c1: int, cm: int, c2: int, k: int = 3, n: int = 6,
+                 lightconv: bool = False, shortcut: bool = False):
+        super().__init__()
+        block = ((lambda ci: LightConv(ci, cm, k)) if lightconv
+                 else (lambda ci: Conv(ci, cm, k, act="relu")))
+        self.m = nn.ModuleList(block(c1 if i == 0 else cm) for i in range(n))
+        self.sc = Conv(c1 + n * cm, c2 // 2, 1, 1, act="relu")
+        self.ec = Conv(c2 // 2, c2, 1, 1, act="relu")
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        ys = [x]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        y = self.ec(self.sc(torch.cat(ys, 1)))
+        return y + x if self.add else y

@@ -16,11 +16,13 @@ Names. Flax names a module's unnamed children `<Class>_<k>`, k counting the
 children of that class in the order they are CONSTRUCTED, not called: in
 RFBblock's `Conv2d(i, 3)(Conv2d(i, 1)(x))` the outer 3x3 is built first and
 is Conv2d_1, the inner 1x1 Conv2d_2. The port's Conv and flax's nn.Conv
-share the prefix `Conv`. Where `torch_import.py` names a module (Conv, C2f,
-SPPF, Detect, AsffDetect, AsffTribeLevel at equal widths, AsffDoubLevel,
-layer 0) the port takes its names; for the rest, the table (flax child ->
-port child; a conv's or BN's flax child holds its params on the port
-module itself):
+share the prefix `Conv`. Where `torch_import.py` names a module (Conv,
+DWConv, C2f, SPP, SPPF, GhostConv, C3, C3x, Detect, AsffDetect,
+AsffTribeLevel at equal widths, AsffDoubLevel, layer 0) the port takes its
+names; for the rest, the reference's attribute names where the structure
+matches, in the table (flax child -> port child; a conv's or BN's flax
+child holds its params on the port module itself; `<Class>_2k` and
+`<Class>_2k+1`: every even and odd index):
 
   PConv            Conv_0 -> conv
   Pconv bottleneck PConv_0 -> pconv, Conv_0 -> cv1, Conv2d_0 -> cv2
@@ -59,13 +61,48 @@ module itself):
                    cv4_{i}_{j} -> cv4.{i}.{j} (the keypoint branch)
   Proto            Conv_0, ConvTranspose_0, Conv_1, Conv_2 -> cv1,
                    upsample, cv2, cv3
+  DWConv           Conv_0 -> the port module itself (a Conv: conv, bn)
+  Conv2            Conv_0 -> conv, Conv_1 -> cv2, BatchNorm_0 -> bn
+  LightConv        Conv_0 -> conv1, DWConv_0 -> conv2
+  ConvTranspose    ConvTranspose_0 -> conv_transpose, BatchNorm_0 -> bn
+  Focus            Conv_0 -> conv; CrossConv: Conv_0 -> conv, BatchNorm_0
+                   -> bn
+  GhostConv, SPP   Conv_0 -> cv1, Conv_1 -> cv2
+  CBAM             ChannelAttention_0 -> channel_attention (Conv_0 -> fc),
+                   SpatialAttention_0 -> spatial_attention (Conv_0 -> cv1)
+  RepConv          Conv_0 -> conv1, Conv_1 -> conv2, BatchNorm_0 -> bn;
+                   the deploy form's fused -> conv
+  GhostBottleneck  GhostConv_0 -> conv.0, DWConv_0 -> conv.1 (s = 2),
+                   GhostConv_1 -> conv.2, DWConv_1 -> shortcut.0, Conv_0
+                   -> shortcut.1 (s = 2)
+  C1               Conv_0 -> cv1, Conv_{k+1} -> m.k
+  C3 family        Conv_0, Conv_1, Conv_2 -> cv1, cv2, cv3; C3:
+                   Bottleneck_k -> m.k; C3x: CrossConv_2k, CrossConv_2k+1
+                   -> m.k.cv1, m.k.cv2 (torch_import.py:96-103); C3Ghost:
+                   GhostBottleneck_k -> m.k (JAX builds these where its
+                   torch_import.py names Bottleneck_k); C3TR:
+                   TransformerBlock_0 -> m; RepC3: RepConv_k -> m.k
+  BottleneckCSP    Conv_0 -> cv1, Bottleneck_k -> m.k, Conv2d_0 -> cv3,
+                   Conv2d_1 -> cv2, BatchNorm_0 -> bn, Conv_1 -> cv4
+  HGStem           Conv_0..4 -> stem1, stem2a, stem2b, stem3, stem4
+  HGBlock          Conv_k -> m.k (k < n), Conv_n -> sc, Conv_{n+1} -> ec;
+                   HGBlockLight (lightconv=True, which no row builds):
+                   LightConv_k -> m.k, Conv_0 -> sc, Conv_1 -> ec
+  TransformerBlock Conv_0 -> conv (where c1 != c2), pos (its own
+                   parameter), Dense_0 -> linear, TransformerLayer_k ->
+                   tr.k; TransformerLayer: MultiHeadDotProductAttention_0
+                   -> ma (query, key, value, out), Dense_0, Dense_1 ->
+                   fc1, fc2
+  chained row      mods_{i}_{k} -> model.{i}.{k} (a non-repeat row of n > 1)
 
 Kernels: a conv's OIHW weight is flax's HWIO kernel transposed. Proto's
 transposed conv is not: torch stores it (I, O, kh, kw) and applies it as
 the gradient of a conv, with the kernel mirrored, where flax's
 ConvTranspose applies its (kh, kw, I, O) kernel unmirrored; so its kernel
 is transposed AND flipped in both spatial axes, both ways
-(torch_import.py:196-203, 258-264).
+(torch_import.py:196-203, 258-264); so is ConvTranspose's. The attention's
+DenseGeneral kernels, (c, heads, depth) and out's (heads, depth, c), are a
+Linear's (c, c) weight flattened and transposed.
 
 A module applied twice (MFRU's sc_deep, pw and sc_out) is one flax child and
 one port child, so it has one set of keys. AsffTribeLevel's order depends on
@@ -83,9 +120,10 @@ import torch
 from torch import nn
 
 from ..engine.optim import OptState
-from ..nn.graph import C2F_FAMILY, layer_inputs
+from ..nn.graph import C2F_FAMILY, chained, layer_inputs
 from ..nn.heads import Detect
 from ..nn.layers import BatchNorm, GroupBatchnorm2d, SCConv
+from ..nn.transformer import TransformerBlock
 
 
 def _fc1_permutation(c=32, h=8, w=8):
@@ -144,6 +182,54 @@ _TABLES = {
                   "weight_levels"), 1)}},
 }
 _TABLES["PconvBottleneckN"] = _TABLES["PconvBottleneck"]
+_C3 = {"Conv_0": ("cv1", "Conv"), "Conv_1": ("cv2", "Conv"),
+       "Conv_2": ("cv3", "Conv")}
+_TABLES.update({
+    "DWConv": {"Conv_0": ("", "Conv")},
+    "CrossConv": _PAIR,
+    "Conv2": {"Conv_0": ("conv", None), "Conv_1": ("cv2", None),
+              "BatchNorm_0": ("bn", None)},
+    "LightConv": {"Conv_0": ("conv1", "Conv"), "DWConv_0": ("conv2", "DWConv")},
+    "ConvTranspose": {"ConvTranspose_0": ("conv_transpose", None),
+                      "BatchNorm_0": ("bn", None)},
+    "Focus": {"Conv_0": ("conv", "Conv")},
+    "GhostConv": _CV,
+    "SPP": _CV,
+    "ChannelAttention": {"Conv_0": ("fc", None)},
+    "SpatialAttention": {"Conv_0": ("cv1", None)},
+    "CBAM": {"ChannelAttention_0": ("channel_attention", "ChannelAttention"),
+             "SpatialAttention_0": ("spatial_attention", "SpatialAttention")},
+    "RepConv": {"Conv_0": ("conv1", "Conv"), "Conv_1": ("conv2", "Conv"),
+                "BatchNorm_0": ("bn", None), "fused": ("conv", None)},
+    "GhostBottleneck": {"GhostConv_0": ("conv.0", "GhostConv"),
+                        "DWConv_0": ("conv.1", "DWConv"),
+                        "GhostConv_1": ("conv.2", "GhostConv"),
+                        "DWConv_1": ("shortcut.0", "DWConv"),
+                        "Conv_0": ("shortcut.1", "Conv")},
+    "C1": {"Conv_0": ("cv1", "Conv"), "Conv_*+1": ("m.{k}", "Conv")},
+    "C3": {**_C3, "Bottleneck_*": ("m.{k}", "Bottleneck")},
+    "C3x": {**_C3, "CrossConv_2*": ("m.{k}.cv1", "Conv"),
+            "CrossConv_2*+1": ("m.{k}.cv2", "Conv")},
+    "C3TR": {**_C3, "TransformerBlock_0": ("m", "TransformerBlock")},
+    "C3Ghost": {**_C3, "GhostBottleneck_*": ("m.{k}", "GhostBottleneck")},
+    "RepC3": {**_C3, "RepConv_*": ("m.{k}", "RepConv")},
+    "BottleneckCSP": {"Conv_0": ("cv1", "Conv"),
+                      "Bottleneck_*": ("m.{k}", "Bottleneck"),
+                      "Conv2d_0": ("cv3", "Conv2d"),
+                      "Conv2d_1": ("cv2", "Conv2d"),
+                      "BatchNorm_0": ("bn", None), "Conv_1": ("cv4", "Conv")},
+    "HGStem": {f"Conv_{k}": (n, "Conv") for k, n in enumerate(
+        ("stem1", "stem2a", "stem2b", "stem3", "stem4"))},
+    "HGBlockLight": {"LightConv_*": ("m.{k}", "LightConv"),
+                     "Conv_0": ("sc", "Conv"), "Conv_1": ("ec", "Conv")},
+    "TransformerBlock": {"Conv_0": ("conv", "Conv"), "Dense_0": ("linear", None),
+                         "TransformerLayer_*": ("tr.{k}", "TransformerLayer")},
+    "TransformerLayer": {"MultiHeadDotProductAttention_0": (
+        "ma", "MultiHeadDotProductAttention"), "Dense_0": ("fc1", None),
+        "Dense_1": ("fc2", None)},
+    "MultiHeadDotProductAttention": {n: (n, None) for n in
+                                     ("query", "key", "value", "out")},
+})
 
 
 def _asff_order(spec_name, level, dims):
@@ -163,6 +249,11 @@ def _asff_order(spec_name, level, dims):
 
 
 def _table(kind, spec_args=(), dims=()):
+    if kind == "HGBlock":
+        # the graph's rows: n plain Convs (JAX's _build_module drops lightconv)
+        n = int(spec_args[3])
+        return {"Conv_*": ("m.{k}", "Conv"), f"Conv_{n}": ("sc", "Conv"),
+                f"Conv_{n + 1}": ("ec", "Conv")}
     if kind in ("AsffTribeLevel", "AsffDoubLevel"):
         level = int(spec_args[0]) if spec_args else 0
         order = _asff_order(kind, level, dims)
@@ -171,15 +262,31 @@ def _table(kind, spec_args=(), dims=()):
     return _TABLES.get(kind)
 
 
+_PATTERN = re.compile(r"(.*)_(\d*)\*(?:\+(\d+))?$")
+
+
+def _pattern(key):
+    """(prefix, a, b) of a table key `<Class>_<a>*+<b>`, which matches the
+    flax children <Class>_{a*k+b} (a = 1, b = 0 where left out), or None
+    for an exact name."""
+    m = _PATTERN.match(key)
+    return m and (m.group(1), int(m.group(2) or 1), int(m.group(3) or 0))
+
+
 def _child(table, name):
+    """(port name, kind) of the flax child `name` in `table`: its exact
+    entry, else the pattern entry that its index solves for k >= 0."""
     table = table or {}
     if name in table:
         return table[name]
-    prefix, _, k = name.rpartition("_")
-    sub, kind = table.get(prefix + "_*", (None, None))
-    if sub is None or not k.isdigit():
-        raise KeyError(name)
-    return sub.format(k=k), kind
+    prefix, _, j = name.rpartition("_")
+    if j.isdigit():
+        for key, (sub, kind) in table.items():
+            pat = _pattern(key)
+            if pat and pat[0] == prefix and int(j) >= pat[2] \
+                    and (int(j) - pat[2]) % pat[1] == 0:
+                return sub.format(k=(int(j) - pat[2]) // pat[1]), kind
+    raise KeyError(name)
 
 
 def _torch_base(flax_path: str, spec_name: str, spec_args=(), dims=()) -> str:
@@ -274,8 +381,11 @@ def _flax_walk(parts, table):
                 continue
             k = [p for t, p in zip(tp, parts) if t == "{k}"]
             if all(t == p or (t == "{k}" and p.isdigit())
-                   for t, p in zip(tp, parts)) and (tp or not parts):
-                best = (fname.replace("*", k[0]) if k else fname, kind, tp)
+                   for t, p in zip(tp, parts)) and (tp or not parts or kind):
+                pat = _pattern(fname)
+                if k and pat:
+                    fname = f"{pat[0]}_{pat[1] * int(k[0]) + pat[2]}"
+                best = (fname, kind, tp)
         if best is None:
             return out if not parts else None
         out.append(best[0])
@@ -284,25 +394,33 @@ def _flax_walk(parts, table):
     return out if not parts else None
 
 
+def _row_of(model, key):
+    """(spec, flax top name, the rest of the key) of a port state-dict key
+    `model.{i}[.{k}].<rest>` (k: the module of a chained row)."""
+    _, i, rest = key.split(".", 2)
+    spec = model.specs[int(i)]
+    if chained(spec):
+        k, rest = rest.split(".", 1)
+        return spec, f"mods_{i}_{k}", rest
+    return spec, f"mods_{i}", rest
+
+
 def state_dict_to_jax(state_dict, model) -> dict:
     """The port's state_dict (or any dict keyed like it: the EMA, an
     optimizer buffer) -> {"params", "batch_stats"} flax trees of float32
     numpy arrays, as the JAX package holds them."""
-    specs_by_idx = {s.i: s for s in model.specs}
     dims = layer_inputs(model.specs)
     perm = _fc1_permutation()
     out = {"params": {}, "batch_stats": {}}
     for key, t in state_dict.items():
         arr = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
         arr = arr.astype(np.float32)
-        _, i, rest = key.split(".", 2)
+        spec, top, rest = _row_of(model, key)
         sub, _, leaf = rest.rpartition(".")
-        spec = specs_by_idx[int(i)]
-        path = [f"mods_{i}"] + _flax_base(sub, spec.name, spec.args,
-                                          dims[int(i)])
+        path = [top] + _flax_base(sub, spec.name, spec.args, dims[spec.i])
         if leaf in ("running_mean", "running_var"):
             section, name = "batch_stats", leaf[len("running_"):]
-        elif leaf in ("bias", "sru_weight", "sru_bias"):
+        elif leaf in ("bias", "sru_weight", "sru_bias", "pos"):
             section, name = "params", leaf
         elif arr.ndim == 4 and path[-1].startswith("ConvTranspose"):
             section, name = "params", "kernel"
@@ -310,6 +428,14 @@ def state_dict_to_jax(state_dict, model) -> dict:
         elif arr.ndim == 4:
             section, name = "params", "kernel"
             arr = np.transpose(arr, (2, 3, 1, 0))
+        elif arr.ndim == 2 and path[-2].startswith("MultiHeadDotProductAttention"):
+            # flax's DenseGeneral kernels: (c, heads, depth), out's (heads,
+            # depth, c)
+            section, name = "params", "kernel"
+            heads = model.get_submodule(key.rsplit(".", 2)[0]).num_heads
+            arr = (arr.T.reshape(heads, -1, arr.shape[0])
+                   if path[-1] == "out"
+                   else arr.T.reshape(arr.shape[1], heads, -1))
         elif arr.ndim == 2:
             section, name = "params", "kernel"
             arr = np.transpose(arr, (1, 0))
@@ -333,40 +459,60 @@ def _leaves(tree, path=()):
             yield path + (str(k),), np.asarray(v)
 
 
+def _leaf_from_jax(section, keys, arr, base):
+    """(the port's leaf name, its array) of the flax leaf at `keys` under a
+    row (`base`: the port name of its module), or None for a leaf the port
+    does not hold."""
+    leaf, parent = keys[-1], (keys[-2] if len(keys) > 1 else "")
+    if section == "batch_stats":
+        return (f"running_{leaf}", arr) if leaf in ("mean", "var") else None
+    if leaf in ("sru_weight", "sru_bias", "pos"):
+        return leaf, arr
+    if leaf == "kernel" and parent.startswith("ConvTranspose"):
+        return "weight", np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
+    if leaf == "kernel" and arr.ndim == 4:
+        return "weight", np.transpose(arr, (3, 2, 0, 1))
+    if leaf == "kernel" and arr.ndim == 3:       # attention's DenseGeneral
+        return "weight", (arr.reshape(-1, arr.shape[-1]) if parent == "out"
+                          else arr.reshape(arr.shape[0], -1)).T
+    if leaf == "kernel":
+        if base.endswith("extractor.fc1"):
+            arr = arr[np.argsort(_fc1_permutation()), :]
+        return "weight", np.transpose(arr, (1, 0))
+    return {"scale": "weight", "bias": "bias"}.get(leaf), arr
+
+
+def module_state_from_jax(variables, kind, args=(), dims=()) -> dict:
+    """The state dict of ONE port module of `kind` (a row's module name;
+    `args`, `dims`: its spec's args and input widths) from its flax
+    {"params", "batch_stats"} (CPU f32 tensors)."""
+    sd = {}
+    for section in ("params", "batch_stats"):
+        for keys, arr in _leaves(variables.get(section, {})):
+            base = _torch_base("/".join(keys[:-1]), kind, args, dims)
+            leaf = _leaf_from_jax(section, keys, arr, base)
+            if leaf and leaf[0]:
+                sd[".".join(p for p in (base, leaf[0]) if p)] = leaf[1]
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in sd.items()}
+
+
 def state_dict_from_jax(variables, model) -> dict:
     """{"params", "batch_stats"} flax trees -> the port's state_dict (CPU f32
     tensors). `model` is the port's DetectionModel of the same architecture."""
-    specs_by_idx = {s.i: s for s in model.specs}
     dims = layer_inputs(model.specs)
-    inv_perm = np.argsort(_fc1_permutation())
+    bs = variables.get("batch_stats", {})
     sd = {}
-    for section in ("params", "batch_stats"):
-        for keys, arr in _leaves(variables[section]):
-            spec = specs_by_idx[int(keys[0].split("_")[1])]
-            leaf = keys[-1]
-            base = _torch_base("/".join(keys[1:-1]), spec.name, spec.args,
-                               dims[spec.i])
-            tkey = f"model.{spec.i}" + (f".{base}" if base else "")
-            if section == "params":
-                if leaf in ("sru_weight", "sru_bias"):
-                    sd[f"{tkey}.{leaf}"] = arr
-                elif leaf == "kernel" and keys[-2].startswith("ConvTranspose"):
-                    sd[f"{tkey}.weight"] = np.transpose(arr[::-1, ::-1],
-                                                        (2, 3, 0, 1))
-                elif leaf == "kernel" and arr.ndim == 4:
-                    sd[f"{tkey}.weight"] = np.transpose(arr, (3, 2, 0, 1))
-                elif leaf == "kernel":
-                    if tkey.endswith("extractor.fc1"):
-                        arr = arr[inv_perm, :]
-                    sd[f"{tkey}.weight"] = np.transpose(arr, (1, 0))
-                elif leaf == "scale":
-                    sd[f"{tkey}.weight"] = arr
-                elif leaf == "bias":
-                    sd[f"{tkey}.bias"] = arr
-            elif leaf in ("mean", "var"):
-                sd[f"{tkey}.running_{leaf}"] = arr
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
-            for k, v in sd.items()}
+    for top in sorted(set(variables["params"]) | set(bs)):
+        _, i, *k = top.split("_")
+        spec = model.specs[int(i)]
+        prefix = ".".join(["model", i] + k)
+        row = {"params": variables["params"].get(top, {}),
+               "batch_stats": bs.get(top, {})}
+        for name, t in module_state_from_jax(row, spec.name, spec.args,
+                                             dims[spec.i]).items():
+            sd[f"{prefix}.{name}"] = t
+    return sd
 
 
 OPT_FIELDS = ("step", "micro", "acc", "buf", "buf2")
@@ -406,7 +552,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
     """Seeded random init: conv, transposed conv and linear weights ~ N(0,
     1/fan_in), biases 0,
     BN, GroupBatchnorm2d and SCConv's SRU scale at identity (ones, as JAX
-    has them), the Detect, AsffDetect, Segment and Pose biases of reference
+    has them), a TransformerBlock's position table ~ N(0, 0.02) (flax's
+    init of it), the Detect, AsffDetect, Segment and Pose biases of reference
     head.py:95-102 (Segment's coefficient and proto biases and Pose's
     keypoint biases 0, as flax
     initialises them).
@@ -434,6 +581,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
         elif isinstance(mod, SCConv):
             mod.sru_weight.fill_(1.0)
             mod.sru_bias.zero_()
+        elif isinstance(mod, TransformerBlock):
+            mod.pos.copy_(torch.randn(mod.pos.shape, generator=gen) * 0.02)
     for mod in model.modules():
         if isinstance(mod, Detect):
             mod.bias_init()

@@ -7,8 +7,8 @@ spread of align convs) at every scale token, the others at n (align convs)
 and l (none); with AsffTribeLevel's and MFRU's
 align convs where the widths differ; the port's Python-data copies load as
 JAX's `model_yaml_load` reads the yamls; the facade builds each variant and
-`info()` and `perform.flops_params` carry it; RT-DETR's head and the
-blocks not ported yet still raise, naming them.
+`info()` and `perform.flops_params` carry it; RT-DETR's head, AIFI and
+ChannelAttention still raise, naming them.
 """
 
 import json
@@ -100,8 +100,9 @@ def test_facade_builds_and_counts(arch):
 
 
 def _with_row(block, args):
-    """A tiny detect graph with one `block` row (of nn/layers.py's blocks
-    that the port has not ported, ROADMAP A12g) before its head."""
+    """A tiny detect graph with one `block` row before its head: a row the
+    port does not build (ChannelAttention, which JAX's graph has no
+    module for either; AIFI, RT-DETR's encoder, ROADMAP A12h)."""
     return {"nc": 3, "backbone": [[-1, 1, "Conv", [16, 3, 2]],
                                   [-1, 1, "Conv", [32, 3, 2]],
                                   [-1, 1, block, args],
@@ -110,10 +111,11 @@ def _with_row(block, args):
 
 
 @pytest.mark.parametrize("arch,head", [
-    ("C3", "C3"), ("RepC3", "RepC3"), ("yolov8-rtdetr", "RTDETRDecoder")])
+    ("ChannelAttention", "ChannelAttention"), ("AIFI", "AIFI"),
+    ("yolov8-rtdetr", "RTDETRDecoder")])
 def test_other_heads_raise(arch, head, tmp_path):
-    """The heads and blocks the port lacks raise, naming them: RT-DETR's
-    head (a JAX yaml) and two of JAX's blocks in a user's graph."""
+    """The heads and rows the port does not build raise, naming them:
+    RT-DETR's head (a JAX yaml) and two rows in a user's graph."""
     if arch.startswith("yolov8"):
         path = JAX_MODELS / f"{arch}.yaml"
     else:
