@@ -174,6 +174,22 @@ line:
            predicting a batch and zoo_train's micro-steps, one frame card
            vs CPU; nms once a batch, fused_enhance once a batch of the layer-0
            variant only
+  rtdetr   RT-DETR end to end at full width (nc 3, seeded weights, BN set
+           from each set's own images): yolov8l-rtdetr (the JAX package's
+           yolov8-rtdetr.yaml at l, 45,485,361 parameters) predicting
+           b16/640 in f32 and half (images/s, speed; NMS after the
+           queries), one frame card vs CPU, its NMS-free val of 8 images at
+           128 card vs CPU (paired; R and the mAPs within 1e-6, P reported)
+           and of 64 sidecars at 640, YOLO(...).train(epochs=1) on 64
+           sidecars at b16/640 (images/s, the step's host and device ms,
+           peak memory), the 128 b2 micro-step card vs CPU within TRAIN_TOL
+           (the sampling offsets' gradients reported), an amp micro-step
+           (finite), the pt2 artifact bit-equal to live; its rows under a
+           layer-0 row predicting a batch; Ultralytics' rtdetr-l.yaml as a
+           user graph (HGNetv2 rows, AIFI, the RepC3 FPN/PAN) predicting a
+           batch and one frame card vs CPU; nms once a predict batch and
+           never in val, train or the export, fused_enhance once in the
+           layer-0 batch
   probe    tools.int8_probe at its default shape (24 layers, b32, 80x80,
            C=Co=256): bf16 cuDNN chain vs the int8_conv kernel's chain
   train    DetectionTrainer: at imgsz 128, b2, one micro-step on the card
@@ -5539,7 +5555,7 @@ def phase_pose(torch):
 # machine has no PyYAML). GHOST is the row layout of Ultralytics'
 # yolov8-ghost.yaml at yolov8's scales (run at l); HGNET is rtdetr-l.yaml's
 # HGNetv2 backbone (its rows 0-9) under a RepC3 neck and a v8 Detect
-# (RT-DETR's own AIFI and decoder are ROADMAP A12h); BLOCKS has a row of
+# (RT-DETR's own AIFI and decoder: the rtdetr phase); BLOCKS has a row of
 # each other block at widths 64-256: Focus, C1, BottleneckCSP, C3, a
 # Bottleneck x2 row (two modules in a chain), GhostBottleneck s 2, C3x,
 # C3TR at P5 (400 tokens at 640), SPP, CBAM and a ConvTranspose (flax's
@@ -5819,6 +5835,260 @@ def phase_blocks(torch, frames):
     return summary
 
 
+# rtdetr phase: RT-DETR end to end at full width (nc 3, seeded weights,
+# BN set from each set's own images). yolov8l-rtdetr is the JAX package's
+# yolov8-rtdetr.yaml at scale l (YOLOv8-L's backbone and FPN under the
+# deformable decoder: 300 queries, 6 layers, hd 256); RTDETR_L is
+# Ultralytics' rtdetr-l.yaml as a user graph (HGNET's backbone rows, then
+# its head: the input projections, AIFI on P5, the RepC3 FPN and PAN, the
+# decoder on rows 21, 24 and 27); AIFI runs at JAX's cm 2048 (its builder
+# drops the row's [1024, 8]). Predict runs NMS after the queries (nms once
+# a batch); val is NMS-free (no nms launch).
+RTDETR = {"model": "yolov8l-rtdetr.yaml",
+          "data": {**LOOP_FULL, "n_val": VAL_FULL["n"]}}
+RTDETR_L = {"nc": 3, "backbone": HGNET["backbone"], "head": [
+    [-1, 1, "Conv", [256, 1, 1, None, 1, 1, False]],
+    [-1, 1, "AIFI", [1024, 8]], [-1, 1, "Conv", [256, 1, 1]],
+    BLOCKS_UP, [7, 1, "Conv", [256, 1, 1, None, 1, 1, False]],
+    [[-2, -1], 1, "Concat", [1]], [-1, 3, "RepC3", [256]],
+    [-1, 1, "Conv", [256, 1, 1]], BLOCKS_UP,
+    [3, 1, "Conv", [256, 1, 1, None, 1, 1, False]],
+    [[-2, -1], 1, "Concat", [1]], [-1, 3, "RepC3", [256]],
+    [-1, 1, "Conv", [256, 3, 2]], [[-1, 17], 1, "Concat", [1]],
+    [-1, 3, "RepC3", [256]], [-1, 1, "Conv", [256, 3, 2]],
+    [[-1, 12], 1, "Concat", [1]], [-1, 3, "RepC3", [256]],
+    [[21, 24, 27], 1, "RTDETRDecoder", ["nc"]]]}
+
+
+def rtdetr_pair(torch, spec, frames, twin=True):
+    """YOLO of `spec` on the card, BN set from the frames, and (`twin`) its
+    CPU twin with the same weights."""
+    from dedark_yolo_tpu_torch import YOLO
+    gpu = YOLO(str(spec), nc=3, seed=SEED)
+    calibrate_bn(torch, gpu.model, frames, IMGSZ)
+    if not twin:
+        return gpu, None
+    cpu = YOLO(str(spec), nc=3, device="cpu", seed=SEED)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    return gpu, cpu
+
+
+# RT-DETR's val parity holds R, mAP50 and mAP50-95 to VAL_METRIC_RTOL, and
+# reports P: P at the F1-best point of the conf grid interpolates linearly
+# in the scores between their nodes, and these random weights put 300
+# detections of close scores on each image, so score differences within
+# SCORE_TOL move it (on an H100 80GB HBM3 at 700 W: scores 1.2e-4 apart, P
+# 3.9e-5 relative; tools/rtdetr_split.py's threads split on the CPU: scores
+# 2.5e-5 apart, P 4.6e-7; ROADMAP C16). The mAPs depend on the scores only
+# through their order. Its 128 b2 step holds TRAIN_TOL on every leaf but
+# the deformable sampling offsets', reported: the init puts many sampling
+# points on pixel centres, where bilinear sampling has a kink, so a last-bit
+# difference in a point's position flips its gradient (the split's kinks:
+# anchors moved by 1e-6 of themselves move those leaves by 18-38% and every
+# other leaf by 5.7e-4 at most; ROADMAP C17).
+RTDETR_APART = ("cross_attn.sampling_offsets",)
+RTDETR_VAL_HELD = ("metrics/recall(B)", "metrics/mAP50(B)",
+                   "metrics/mAP50-95(B)")
+
+
+def rtdetr_val_parity(torch, yolo, data):
+    """The card's NMS-free val against the CPU's on VAL_SMALL (TF32 off):
+    image by image (compare_images) and by the metrics of RTDETR_VAL_HELD
+    (VAL_METRIC_RTOL); no kernel launched on the card."""
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.cfg import get_cfg
+    from dedark_yolo_tpu_torch.engine.validator import DetectionValidator
+    from dedark_yolo_tpu_torch.ops import _build
+    cpu = YOLO(RTDETR["model"], nc=3, device="cpu", seed=SEED)
+    cpu.load_state_dict({k: v.cpu() for k, v in yolo.state_dict().items()})
+    kw = {"data": data, "imgsz": VAL_SMALL["imgsz"],
+          "batch": VAL_SMALL["batch"], "cache": "disk", "plots": False,
+          "matmul_precision": "float32", "verbose": False}
+    res, recs = {}, {}
+    for dev, model in (("cuda", yolo), ("cpu", cpu)):
+        zero_launches()
+        with no_plain_on_cuda(), record_detections() as recs[dev]:
+            res[dev] = {k: float(x) for k, x in DetectionValidator(
+                args=get_cfg({**kw, "device": dev}))(model=model.model).items()}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            check_launches("rtdetr val parity", dict(_build.LAUNCHES), {})
+    g, c = res["cuda"], res["cpu"]
+    rel = {k: abs(g[k] - c[k]) / abs(c[k]) if c[k] else abs(g[k])
+           for k in METRICS}
+    rec = {"cuda": g, "cpu": c, **compare_images(recs["cuda"], recs["cpu"]),
+           "metric_rel_err": rel, "held": list(RTDETR_VAL_HELD)}
+    rec["ok"] = (rec["ok"] and rec["images"][1] == VAL_SMALL["n"]
+                 and max(rel[k] for k in RTDETR_VAL_HELD) <= VAL_METRIC_RTOL)
+    return rec
+
+
+def phase_rtdetr(torch, frames):
+    """RT-DETR end to end (see RTDETR): yolov8l-rtdetr predicting b16/640
+    in f32 and half (images/s, speed; nms once a batch), one frame card vs
+    CPU, val of 8 images at 128 card vs CPU and of the 64 sidecars at 640
+    (no launch), YOLO(...).train(epochs=1) on 64 sidecars at b16/640
+    (images/s, the step's ms, peak memory), the 128 b2 micro-step card vs
+    CPU (TRAIN_TOL, RTDETR_APART reported), an amp micro-step (finite), the
+    pt2 artifact bit-equal
+    to the live model (no launch in the export); its rows under a layer-0
+    row predicting a batch (fused_enhance and nms once); the rtdetr-l graph
+    predicting a batch and one frame card vs CPU. No plain version reached
+    with a CUDA tensor."""
+    import tempfile
+    from dedark_yolo_tpu_torch.engine.autobackend import AutoBackend
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.tools.c14_split import train_parity
+    t_phase = time.perf_counter()
+    kw = dict(imgsz=IMGSZ, batch=BATCH, conf=CONF, half=False)
+    launches = {"fused_enhance": 0, "usm": 0, "nms": 0}
+    summary = {"phase": "rtdetr", "batch": BATCH, "imgsz": IMGSZ,
+               "images_per_s": {}, "micro_step_ms": {}, "peak_memory_gib": {}}
+    failed = []
+    mark = [t_phase]
+
+    def count(got):
+        for k in launches:
+            launches[k] += got.get(k, 0)
+
+    def report(rec, ok=None):
+        now = time.perf_counter()
+        rec["step_s"], mark[0] = now - mark[0], now
+        emit({"phase": "rtdetr", **rec})
+        if ok is not None and not ok:
+            failed.append(rec["step"])
+
+    def predict(name, yolo, expected, reps=2, **extra):
+        _, rec = timed_predict(torch, yolo, frames, reps, expected,
+                               f"rtdetr {name}", **{**kw, **extra})
+        count(rec["launches"])
+        summary["images_per_s"][name] = rec["images_per_s"]
+        return rec
+
+    def pair(gpu, cpu):
+        return card_vs_cpu(gpu, cpu, frames[0])[2]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        gpu, cpu = rtdetr_pair(torch, RTDETR["model"], frames)
+        rec = {"step": "predict", "model": RTDETR["model"],
+               "params": sum(p.numel() for p in gpu.model.parameters())}
+        rec["f32"] = predict("f32", gpu, {"nms": 1})
+        rec["half"] = predict("half", gpu, {"nms": 1}, half=True)
+        rec["cpu_pair"] = pair(gpu, cpu)
+        report(rec, rec["cpu_pair"]["paired"])
+        del cpu
+
+        # val: 8 images at 128 card vs CPU, then the 64 at 640, BN set from
+        # each set's own images; neither launches a kernel
+        small = val_dataset(tmp / "small", VAL_SMALL["n"], VAL_SMALL["shapes"],
+                            SEED)
+        calibrate_bn(torch, gpu.model, val_images(small, VAL_SMALL["n"]),
+                     VAL_SMALL["imgsz"])
+        rec = {"step": "val_parity", **rtdetr_val_parity(torch, gpu, small)}
+        report(rec, rec["ok"])
+        full = loop_data(tmp / "full", RTDETR["data"], SEED + 1, SEED + 2)
+        calibrate_bn(torch, gpu.model, val_images(full, BATCH), IMGSZ)
+        vkw = {"data": full, "imgsz": IMGSZ, "batch": BATCH,
+               "cache": "disk", "plots": False, "verbose": False}
+        zero_launches()
+        with no_plain_on_cuda(), record_detections() as vr:
+            t0 = time.perf_counter()
+            res = gpu.val(**vkw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        check_launches("rtdetr val", dict(_build.LAUNCHES), {})
+        rec = {"step": "val", "images": len(vr.counts), "seconds": secs,
+               "images_per_s": len(vr.counts) / secs,
+               "speed_ms_per_image": dict(gpu.validator.speed),
+               "dets_per_image": [min(vr.counts), max(vr.counts)],
+               "results": {k: float(x) for k, x in res.items()}}
+        summary["images_per_s"]["val"] = rec["images_per_s"]
+        report(rec, len(vr.counts) == VAL_FULL["n"]
+               and max(vr.counts) <= 300)
+
+        # train: one epoch at b16/640 (its val NMS-free), then the 128 b2
+        # micro-step card vs CPU and an amp micro-step
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with no_plain_on_cuda(), train_steps(torch) as st:
+            t0 = time.perf_counter()
+            gpu.train(data=full, imgsz=IMGSZ, batch=BATCH, epochs=1,
+                      cache="disk", workers=8, plots=False, verbose=False,
+                      project=str(tmp / "runs"), name="rtdetr")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        check_launches("rtdetr train", dict(_build.LAUNCHES), {})
+        stats = gpu.trainer.epoch_stats
+        rec = {"step": "train", "seconds": secs, "epoch_stats": stats,
+               "images_per_s": [e["batches"] * BATCH / e["train_s"]
+                                for e in stats],
+               "step_host_ms": st.host, "step_device_ms": st.device_ms(),
+               "loss_items": [list(map(float, i)) for i in st.items],
+               "max_boxes": gpu.trainer.args.max_boxes,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        summary["images_per_s"]["train"] = rec["images_per_s"]
+        summary["micro_step_ms"]["train"] = st.device_ms()
+        summary["peak_memory_gib"]["train"] = rec["peak_memory_gib"]
+        import math
+        report(rec, len(stats) == 1 and all(
+            math.isfinite(v) for i in rec["loss_items"] for v in i))
+        rec = {"step": "train_parity", **train_parity(
+            RTDETR["model"], apart=RTDETR_APART)}
+        report(rec, rec["ok"])
+        rec = {"step": "train_amp", **blocks_amp_step(torch, gpu)}
+        summary["micro_step_ms"]["amp"] = rec["micro_step_ms"]
+        summary["peak_memory_gib"]["amp"] = rec["peak_memory_gib"]
+        report(rec, rec["ok"])
+
+        # the pt2 artifact of the calibrated model against the live one
+        u8 = letterboxed(frames, IMGSZ)
+        live = live_outputs(torch, gpu.model, u8)
+        zero_launches()
+        t0 = time.perf_counter()
+        art = gpu.export(format="pt2", imgsz=IMGSZ, batch=BATCH,
+                         project=str(tmp / "pt2"))
+        export_s = time.perf_counter() - t0
+        check_launches("rtdetr export", dict(_build.LAUNCHES), {})
+        got = artifact_call(torch, AutoBackend(art), u8, {},
+                            "rtdetr artifact", tally())
+        rec = {"step": "export", "seconds": export_s,
+               "mb": Path(art).stat().st_size / 1e6,
+               **output_errors(got, live),
+               "bit_equal": all(torch.equal(a, b) for a, b in zip(got, live))}
+        report(rec, rec["bit_equal"])
+        del gpu
+        torch.cuda.empty_cache()
+
+        # the layer-0 variant, then rtdetr-l
+        dark = synthetic_frames(BATCH)
+        gpu, _ = rtdetr_pair(torch, layer0_graph(
+            "yolov8-rtdetr.yaml", tmp / "yolov8l-rtdetr-l0.json"), dark,
+            twin=False)
+        rec = {"step": "layer0",
+               "params": sum(p.numel() for p in gpu.model.parameters()),
+               "predict": predict("layer0", gpu, {"fused_enhance": 1,
+                                                  "nms": 1}, reps=1)}
+        report(rec)
+        del gpu
+        path = tmp / "rtdetr-l.json"
+        path.write_text(json.dumps(RTDETR_L))
+        gpu, cpu = rtdetr_pair(torch, path, frames)
+        rec = {"step": "rtdetr_l",
+               "params": sum(p.numel() for p in gpu.model.parameters()),
+               "predict": predict("rtdetr_l", gpu, {"nms": 1}, reps=1),
+               "cpu_pair": pair(gpu, cpu)}
+        report(rec, rec["cpu_pair"]["paired"])
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    summary.update(launches=launches, seconds=time.perf_counter() - t_phase,
+                   failed=failed)
+    emit(summary)
+    if failed:
+        raise AssertionError(f"rtdetr: {failed}")
+    return summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5855,6 +6125,7 @@ def main():
     seg = phase_segment(torch)
     pose = phase_pose(torch)
     blocks = phase_blocks(torch, frames)
+    rtdetr = phase_rtdetr(torch, frames)
     probe_launches = phase_probe(torch)
     train = phase_train(torch)
     val = phase_val(torch, yolo)
@@ -5892,6 +6163,7 @@ def main():
         "segment_launches": seg["launches"]["fused_enhance"],
         "pose_launches": pose["launches"]["fused_enhance"],
         "blocks_launches": blocks["launches"]["fused_enhance"],
+        "rtdetr_launches": rtdetr["launches"]["fused_enhance"],
         "serve_launches": serve["launches"]["fused_enhance"],
         "track_launches": track["launches"]["fused_enhance"],
         "benchmark_launches": bench["launches"]["fused_enhance"],
@@ -5916,6 +6188,8 @@ def main():
         "classify_launches": cls["launches"]["usm"],
         "segment_launches": seg["launches"]["usm"],
         "pose_launches": pose["launches"]["usm"],
+        "blocks_launches": blocks["launches"]["usm"],
+        "rtdetr_launches": rtdetr["launches"]["usm"],
         "export_launches": export["launches"]["usm"]}, {
         "name": "int8_conv", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/int8_conv.cu",
@@ -5957,6 +6231,7 @@ def main():
         "pose_serve_launches": pose["serve_launches"]["nms"],
         "pose_track_launches": pose["track_launches"]["nms"],
         "blocks_launches": blocks["launches"]["nms"],
+        "rtdetr_launches": rtdetr["launches"]["nms"],
         "serve_launches": serve["launches"]["nms"],
         "track_launches": track["launches"]["nms"],
         "benchmark_launches": bench["launches"]["nms"],

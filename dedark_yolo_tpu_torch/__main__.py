@@ -23,8 +23,8 @@ batch size; a segment model's masks go out as polygons, a pose model's
 keypoints as arrays) and serves until interrupted; `track` tracks detect,
 segment and pose models. `model=` takes an exported `.pt2` for predict,
 val and serve. A bare token that is neither a task, a mode nor k=v exits
-with 2 and a suggestion; a model the port cannot build (an RT-DETR head,
-ROADMAP A12h) exits with 1, naming it.
+with 2 and a suggestion; a model the port cannot build (a graph row that
+no builder takes, such as ChannelAttention) exits with 1, naming it.
 Special commands: help, version, cfg (the defaults as JSON), checks,
 settings and copy-cfg (the defaults as a JSON file that `cfg=` reads back).
 """

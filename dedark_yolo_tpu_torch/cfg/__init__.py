@@ -162,6 +162,10 @@ UNPORTED_KEYS = frozenset((
     "source", "stem_s2d", "task", "workspace"))
 
 
+# the ROADMAP item of an unported key that has one of its own
+UNPORTED_ITEMS = {"mesh_shape": "A12i", "mesh_axes": "A12i", "remat": "A12j"}
+
+
 def check_cfg_alignment(base_keys, custom: dict) -> None:
     """Raise SyntaxError for each key of `custom` not in `base_keys`: a key
     of the JAX package's defaults as not ported, any other as unknown with
@@ -175,7 +179,7 @@ def check_cfg_alignment(base_keys, custom: dict) -> None:
         if k in UNPORTED_KEYS:
             msg.append(f"'{k}' is a config key of the JAX package that is "
                        "not ported to dedark_yolo_tpu_torch (ROADMAP "
-                       "A10b, A12)")
+                       f"{UNPORTED_ITEMS.get(k, 'A10b, A12')})")
             continue
         matches = difflib.get_close_matches(k, known)
         hint = f" Did you mean {matches}?" if matches else ""

@@ -5,7 +5,8 @@ architectures under `cfg/models/` (the flagship `yolov8.yaml`, stock
 `yolov8ori.yaml` and the fork's variants `yolov8-*.yaml`), its
 classifier `yolov8-cls.yaml` (its own scales), its instance
 segmentation graph `yolov8-seg.yaml` and its keypoint graphs
-`yolov8-pose.yaml` and `yolov8-pose-p6.yaml`, kept as dicts so
+`yolov8-pose.yaml` and `yolov8-pose-p6.yaml`, and the RT-DETR hybrid
+`yolov8-rtdetr.yaml`, kept as dicts so
 the port needs no YAML parser to build its models; each keeps its yaml's own
 `nc`, which `nc=` overrides. Keyed by the unified file name that
 `model_yaml_load` resolves a scaled name such as `yolov8l.yaml` or
@@ -245,3 +246,9 @@ MODELS["yolov8-pose-p6.yaml"] = {
     **MODELS["yolov8-p6.yaml"], "nc": 1,
     "head": MODELS["yolov8-p6.yaml"]["head"][:-1] + [
         [[20, 23, 26, 29], 1, "Pose", ["nc", [17, 3]]]]}
+
+# the stock graph with RT-DETR's decoder head over P3-P5 (NMS-free
+# queries; the head's optional args [nc, hd, nq, ndl] at their defaults)
+MODELS["yolov8-rtdetr.yaml"] = {
+    "nc": 80, "scales": _SCALES, "backbone": _BACKBONE,
+    "head": _FPN + [[[15, 18, 21], 1, "RTDETRDecoder", ["nc"]]]}

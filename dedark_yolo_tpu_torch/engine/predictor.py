@@ -50,8 +50,8 @@ from ..cfg import get_cfg
 from .. import native
 from ..data.augment import PAD_VALUE
 from ..nn.graph import require_detect
-from ..ops.boxes import scale_boxes
-from ..ops.nms import non_max_suppression
+from ..ops.boxes import scale_boxes, xywh2xyxy
+from ..ops.nms import non_max_suppression, top_k
 from ..utils import LOGGER, increment_dir
 from ..utils.checks import check_imshow
 from ..utils.patches import imread, require
@@ -252,14 +252,36 @@ def require_task(model, task, what):
                          f"{model.task} model")
 
 
+def query_dets(boxes, scores, a):
+    """RT-DETR's NMS-free detections of its decoded queries, boxes_xywh
+    (B, nq, 4) in pixels and scores (B, nq, nc) (JAX validator.py:103-124,
+    reference RTDETRValidator): each query's best class and score, the
+    max_det best queries (ties to the lower index, as jax.lax.top_k), no
+    IoU suppression -> (dets (B, max_det, 6) xyxy, conf, cls; counts (B,)
+    of those above conf)."""
+    xyxy = xywh2xyxy(boxes)
+    qconf, qcls = scores.max(-1)
+    k = min(int(a.max_det), qconf.shape[-1])
+    conf, top = top_k(qconf, k)
+    dets = torch.cat([xyxy.gather(1, top[..., None].expand(-1, -1, 4)),
+                      conf[..., None],
+                      qcls.gather(1, top)[..., None].to(xyxy.dtype)], -1)
+    dets = torch.nn.functional.pad(dets, (0, 0, 0, int(a.max_det) - k))
+    return dets, (conf > float(a.conf)).sum(-1).to(torch.int32)
+
+
 def detect_step(model, img, a, multi_label, extra=None):
     """The device work of one val batch: img (B, H, W, 3) float on the
     device -> (raw head maps, dets (B, max_det, 6), counts (B,)), none
     waited for. `extra` = (boxes_xywh (B, M, 4), scores (B, M, nc))
-    candidates joined to the decoded ones before NMS (val's save_hybrid)."""
+    candidates joined to the decoded ones before NMS (val's save_hybrid).
+    RT-DETR's queries take `query_dets` (no NMS; `extra` unused, as in
+    JAX)."""
     with matmul_precision(a.matmul_precision):
         raw = model(img)
-        boxes, scores = model.decode(raw)
+        boxes, scores = model.decode(raw, img.shape[1:3])
+        if model.is_rtdetr:
+            return (raw, *query_dets(boxes, scores, a))
         boxes, scores = [boxes.float()], [scores.float()]
         if extra is not None:
             boxes.append(extra[0])
@@ -313,6 +335,10 @@ class DetectionPredictor:
                                    "artifacts (single-scale inference, "
                                    "outputs only)")
                     setattr(a, key, False)
+        if a.augment and model is not None and model.is_rtdetr:
+            LOGGER.warning(f"{model.task} has not supported augment inference"
+                           " yet — using single-scale inference instead")
+            a.augment = False
         self.tta = bool(a.augment)
         if self.tta and (a.save_enhanced or a.visualize):
             LOGGER.warning("augment=True skips save_enhanced/visualize "
@@ -375,7 +401,7 @@ class DetectionPredictor:
                                            for k, v in caps.items()}
                     if kept:
                         out["enhanced"] = kept[0].float().clamp(0, 1)
-                    b, s = self.model.decode(raw)
+                    b, s = self.model.decode(raw, img.shape[1:3])
                 boxes.append(b.float())
                 scores.append(s.float())
             out["dets"], out["counts"] = joined_nms(boxes, scores, a,

@@ -24,8 +24,10 @@ update.
 The loss: u8 / 255, then `img ** dark_param` (lowlight_FLAG), then the
 dark-channel priors of the degraded image when prior_mode is 'computed'
 (and dedark_FLAG), then the graph in train mode (its BN running stats move
-every call), then the v8 loss with the recovery MSE of the degraded image
-against the clean one (which has no gradient in the parameters). With
+every call), then the v8 loss (RT-DETR's head: its set-matching loss,
+`losses/rtdetr.py`, JAX trainer.py:1022-1024) with the recovery MSE of the
+degraded image against the clean one (which has no gradient in the
+parameters). With
 `amp=True` the forward runs in bf16 as the JAX package runs it
 (trainer.py:986-1021; no autocast, no loss scaling): every f32 parameter is
 cast to bf16 for the forward (`torch.func.functional_call` on the casts, so
@@ -92,6 +94,7 @@ from ..data.augment import TrainTransforms
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..data.loader import DataLoader
 from ..losses.detection import detection_loss
+from ..losses.rtdetr import rtdetr_loss
 from ..ops.dark_channel import dark_channel_priors
 from ..ops.degrade import lowlight_degrade
 from ..utils import LOGGER, increment_dir
@@ -743,13 +746,16 @@ class DetectionTrainer(BaseTrainer):
                     for n, p in self.params.items()}
             raw = torch.func.functional_call(self.model, bf16,
                                              (img, dedark_A, IcA))
-            raw = [r.float() for r in raw]
+            raw = ({k: r.float() for k, r in raw.items()}
+                   if isinstance(raw, dict) else [r.float() for r in raw])
         else:
             raw = self.model(img, dedark_A, IcA)
         lbatch = {"cls": batch["cls"], "bboxes": batch["bboxes"],
                   "mask_gt": batch["mask_gt"],
                   "recovery_loss": ((img.float() - clean.float()) ** 2).mean()}
         hyp = {"box": a.box, "cls": a.cls, "dfl": a.dfl, "lrl": a.lrl}
+        if isinstance(raw, dict):       # RT-DETR's set-matching loss
+            return rtdetr_loss(raw, lbatch, nc=self.model.nc, hyp=hyp)
         return detection_loss(raw, lbatch, nc=self.model.nc,
                               strides=self.model.strides, hyp=hyp)
 

@@ -26,6 +26,10 @@ batch i is read back and matched on the host. With `save_hybrid` the
 labels, scaled into the letterbox frame with score 1, join the candidates
 before NMS (autolabelling, detect/val.py:38-39; scaled, not normalised as
 upstream, so they merge). `with_loss` adds the v8 loss of the eval outputs.
+An RT-DETR model's queries are NMS-free (`predictor.query_dets`: each
+query's best class, the max_det best queries, no suppression, no `nms`
+launch; save_hybrid's labels are not joined, as in JAX) and its loss items
+the last layer's matching loss of the eval queries.
 
 The dataset is read with `cache=args.cache` (the JAX validator reads
 without a cache): with 'disk', `.npy` sidecars stand in for the images, so
@@ -34,8 +38,8 @@ a machine without an image decoder can validate.
 An exported artifact (model=AutoBackend, JAX validator.py:71-80) runs its
 own enhance chain, forward and decode at its fixed batch (the last batch
 padded to it, `predictor.backend_step`); NMS, with save_hybrid's
-candidates, runs here as for the live model. Not ported: the RT-DETR
-branch and the multi-device mesh; each raises NotImplementedError.
+candidates, runs here as for the live model. Not ported: the
+multi-device mesh, which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from ..data.augment import ValTransforms
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..data.loader import DataLoader
 from ..losses.detection import detection_loss
+from ..losses.rtdetr import _layer_loss
 from ..nn.graph import DetectionModel, require_detect
 from ..ops.boxes import scale_boxes, xywh2xyxy, xyxy2xywh
 from ..utils import LOGGER, increment_dir
@@ -96,6 +101,17 @@ def hybrid_candidates(dev, nc):
     classes = torch.arange(nc, device=boxes.device)
     one_hot = (dev["cls"].long()[..., None] == classes).float()
     return boxes, one_hot * dev["mask_gt"][..., None]
+
+
+def query_loss_items(raw, dev, nc):
+    """RT-DETR's val loss items (JAX validator.py:157-172): the last
+    layer's matching loss of the eval queries (normalized boxes, the
+    scores' logits recovered from the sigmoid), not a train-mode forward,
+    whose BN would use the batch's statistics."""
+    p = raw[..., 4:].clamp(1e-7, 1.0 - 1e-7)
+    return torch.stack(_layer_loss(
+        raw[..., :4], torch.log(p) - torch.log1p(-p), dev["bboxes"],
+        dev["cls"], dev["mask_gt"].to(raw.dtype), nc))
 
 
 class DetectionValidator:
@@ -201,7 +217,9 @@ class DetectionValidator:
                     model, dev["img"].float() / 255.0,       # f32 forced
                     a, multi_label=True, extra=extra)
             out = {"dets": dets, "counts": counts}
-            if with_loss:
+            if with_loss and model.is_rtdetr:
+                out["loss_items"] = query_loss_items(raw, dev, model.nc)
+            elif with_loss:
                 _, items = detection_loss(
                     raw, {k: dev[k] for k in LABEL_KEYS}, nc=model.nc,
                     strides=model.strides, hyp=hyp)

@@ -6,18 +6,19 @@
 per row and walks them with the save-list (graph.py:484-551), in the plain
 form only: no lazy upsample/concat, remat, space-to-depth stem or FPN fuse,
 which are exact rewrites of the same params in the JAX package. Every
-row JAX's `_build_module` takes builds here (graph.py:281-381) but
-RT-DETR's (AIFI and its head, ROADMAP A12h) and the attention rows JAX
-builds no module for (ChannelAttention, SpatialAttention); a non-repeat
-row of n > 1 is n modules in a chain. The built heads are Detect and
-AsffDetect (task 'detect'), Classify (task 'classify'), Segment (task
-'segment') and Pose (task 'pose'); `task` is JAX's (graph.py:575-576).
+row JAX's `_build_module` takes builds here (graph.py:281-381) but the
+attention rows JAX builds no module for (ChannelAttention,
+SpatialAttention); a non-repeat row of n > 1 is n modules in a chain. The
+heads are Detect, AsffDetect and RTDETRDecoder (task 'detect'), Classify
+(task 'classify'), Segment (task 'segment') and Pose (task 'pose'); `task`
+is JAX's (graph.py:575-576).
 
 Layout: the image enters NHWC in [0, 1]; layer 0 (lowlight_recovery) works
 on NHWC, the backbone on NCHW (a permuted view, so channels_last memory);
 the head returns per-level (B, H, W, 4*reg_max + nc) maps (Segment: also
 the (B, H, W, nm) coefficient maps and the NHWC protos; Pose: also the
-(B, H, W, nk * kdim) keypoint maps). `forward` can
+(B, H, W, nk * kdim) keypoint maps); RTDETRDecoder its (B, nq, 4 + nc)
+queries in eval and its loss's dict in train. `forward` can
 also return layers' activations (`capture`, NHWC as JAX's), and `tta_eval`
 is JAX's test-time augmentation (graph.py:621-665).
 """
@@ -35,8 +36,9 @@ from torch import nn
 
 from . import layers as L
 from .enhance import LowlightRecovery, torch_bilinear_resize
-from .heads import (AsffDetect, Detect, Pose, Segment, decode_detections,
-                    decode_keypoints)
+from .heads import (AsffDetect, Detect, Pose, RTDETRDecoder, Segment,
+                    decode_detections, decode_keypoints)
+from .transformer import AIFI
 
 
 def make_divisible(x, divisor=8):
@@ -73,8 +75,6 @@ C2F_FAMILY = {
     "Conv3_SC_C2f": "conv3_sc", "SC_PW_PW_C2f": "sc_pw_pw",
 }
 _HEADS = {"Detect", "AsffDetect", "Segment", "Pose", "RTDETRDecoder"}
-PORTED_HEADS = {"Detect": Detect, "AsffDetect": AsffDetect,
-                "Segment": Segment, "Pose": Pose, "Classify": L.Classify}
 # head -> task (JAX graph.py:575-576); heads not listed are detect's
 TASKS = {"Classify": "classify", "Segment": "segment", "Pose": "pose"}
 _STRIDE2 = {"Focus", "HGStem"}
@@ -265,6 +265,8 @@ def _build_module(spec: LayerSpec, cins: List[int], head: dict) -> nn.Module:
         return L.HGBlock(c1, a[0], a[1], arg(2, 3), a[3])
     if name == "CBAM":
         return L.CBAM(c1)
+    if name == "AIFI":
+        return AIFI(a[0])
     if name in ("ChannelAttention", "SpatialAttention"):
         raise NotImplementedError(
             f"module '{name}' is built by no graph row (the JAX "
@@ -297,8 +299,17 @@ def _build_module(spec: LayerSpec, cins: List[int], head: dict) -> nn.Module:
         return Pose(head["nc"], cins, head["strides"],
                     kpt_shape=tuple(ha[1]) if len(ha) > 1 and ha[1]
                     else (17, 3))
-    if name in PORTED_HEADS:
-        return PORTED_HEADS[name](head["nc"], cins, head["strides"])
+    if name == "RTDETRDecoder":
+        # the optional args after nc: [nc, hd, nq, ndl] (JAX graph.py:
+        # 369-378; the reference's signature order)
+        ha = head.get("args", ())
+        return RTDETRDecoder(head["nc"], cins, head["strides"],
+                             hd=ha[1] if len(ha) > 1 else 256,
+                             nq=ha[2] if len(ha) > 2 else 300,
+                             ndl=ha[3] if len(ha) > 3 else 6)
+    if name in ("Detect", "AsffDetect"):
+        return (Detect if name == "Detect" else AsffDetect)(
+            head["nc"], cins, head["strides"])
     if name == "nn.Upsample":
         return L.Upsample(int(a[1]) if len(a) > 1 and a[1] else 2)
     if name == "Concat":
@@ -343,10 +354,6 @@ class DetectionModel(nn.Module):
             self.yaml["nc"] = nc
         self.nc = self.yaml["nc"]
         self.specs, self.save, self.head = parse_model(self.yaml, ch=3)
-        if self.head["name"] not in PORTED_HEADS:
-            raise NotImplementedError(
-                f"{self.head['name']} head is not ported to torch yet "
-                "(ROADMAP A12h)")
         self.task = TASKS.get(self.head["name"], "detect")
         self.strides = self.head["strides"]
         self.reg_max = 16
@@ -422,8 +429,14 @@ class DetectionModel(nn.Module):
         args = self.head.get("args", ())
         return tuple(args[1]) if len(args) > 1 else (17, 3)
 
-    def decode(self, raw):
-        """Raw maps -> (boxes_xywh (B, N, 4), scores (B, N, nc)); a
+    @property
+    def is_rtdetr(self) -> bool:
+        return self.head["name"] == "RTDETRDecoder"
+
+    def decode(self, raw, hw=None):
+        """Raw maps -> (boxes_xywh (B, N, 4), scores (B, N, nc)); RT-DETR's
+        (B, nq, 4 + nc) queries -> their normalized boxes times the input's
+        (h, w) `hw` and their scores (JAX graph.py:614-618); a
         classify model's logits -> (probs (B, nc),), their softmax (JAX
         graph.py:612-613); a segment model's (maps, coefficient maps,
         protos) -> (boxes_xywh, scores, coef_flat (B, N, nm), protos (B,
@@ -433,6 +446,11 @@ class DetectionModel(nn.Module):
         graph.py:689-695)."""
         if self.task == "classify":
             return (L.softmax(raw, -1),)
+        if self.is_rtdetr:     # Python scalars: no upload in the step
+            h, w = hw
+            return (torch.cat([raw[..., 0:1] * w, raw[..., 1:2] * h,
+                               raw[..., 2:3] * w, raw[..., 3:4] * h], -1),
+                    raw[..., 4:])
         if self.task == "segment":
             det, coefs, protos = raw
             nm = protos.shape[-1]
@@ -460,7 +478,7 @@ class DetectionModel(nn.Module):
         `torch.func.functional_call`."""
         raw = (self(x) if params is None
                else torch.func.functional_call(self, params, (x,)))
-        return self.decode(raw)
+        return self.decode(raw, x.shape[1:3])
 
     def tta_eval(self, x, forward=None):
         """Test-time-augmented inference (JAX graph.py:621-665; reference
@@ -473,6 +491,9 @@ class DetectionModel(nn.Module):
         the rest concatenate for one NMS. `forward` (default: this module)
         maps an image to raw maps, e.g. one ensemble member's weights."""
         require_detect(self, "test-time augmentation")
+        if self.is_rtdetr:
+            raise ValueError("RT-DETR has no test-time augmentation (the "
+                             "predictor falls back to one scale)")
         forward = forward or self
         h, w = int(x.shape[1]), int(x.shape[2])
         gs = int(max(self.strides))

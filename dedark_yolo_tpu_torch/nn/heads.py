@@ -1,5 +1,5 @@
-"""YOLOv8 Detect, AsffDetect, Segment and Pose heads and the eval decodes
-(JAX nn/heads.py:28-140, 275-315).
+"""YOLOv8 Detect, AsffDetect, Segment and Pose heads, RT-DETR's decoder
+head, and the eval decodes (JAX nn/heads.py:28-315).
 
 The head returns raw per-level maps in the JAX layout, (B, H, W, 4*reg_max +
 nc); `decode_detections` turns them into xywh pixel boxes and sigmoid class
@@ -19,7 +19,11 @@ import torch
 from torch import nn
 
 from ..ops.anchors import dfl_decode, dist2bbox, make_anchors
-from .layers import BiasConv2d, Conv, Proto, sigmoid
+from ..ops.nms import top_k
+from ..utils import device_cache
+from .layers import BatchNorm, BiasConv2d, Conv, Linear, Proto, sigmoid
+from .transformer import (MLP, DeformableTransformerDecoderLayer, LayerNorm,
+                          inverse_sigmoid)
 
 
 class Detect(nn.Module):
@@ -150,3 +154,111 @@ def decode_detections(raw_maps, nc: int, strides: Sequence[int],
     dist = dfl_decode(box, reg_max)
     dbox = dist2bbox(dist, anchors[None], xywh=True) * stride_t[None]
     return dbox, sigmoid(cls)
+
+
+@device_cache(maxsize=16)
+def rtdetr_anchors(shapes, device, eps: float = 1e-2):
+    """RT-DETR's static anchors of level maps of `shapes` ((h, w) each),
+    one a pixel (JAX heads.py:204-217, reference head.py:360-377):
+    inverse-sigmoid cxcywh, the centre at the pixel's centre normalised by
+    its map's w and h, the size 0.05 * 2^level; +inf where a coordinate
+    is not inside (eps, 1 - eps). Also that mask, (1, N, 1) bool. JAX
+    normalises x by w and y by h where the reference swaps them (ROADMAP,
+    known differences). Made on `device`, where an exported program makes
+    them too (the card's log differs from the host's in the last bit).
+    Callers must not write to the tensors."""
+    anchors = []
+    for i, (h, w) in enumerate(shapes):
+        gy, gx = torch.meshgrid(
+            torch.arange(h, dtype=torch.float32, device=device),
+            torch.arange(w, dtype=torch.float32, device=device),
+            indexing="ij")
+        xy = torch.stack([(gx + 0.5) / w, (gy + 0.5) / h], -1)
+        wh = torch.full_like(xy, 0.05 * (2.0 ** i))
+        anchors.append(torch.cat([xy, wh], -1).reshape(-1, 4))
+    anchors = torch.cat(anchors, 0)[None]
+    valid = ((anchors > eps) & (anchors < 1 - eps)).all(-1, keepdim=True)
+    anchors = torch.where(valid, inverse_sigmoid(anchors),
+                          torch.tensor(float("inf"), device=device))
+    return anchors, valid
+
+
+class RTDETRDecoder(nn.Module):
+    """RT-DETR's decoder head (JAX heads.py:144-273, reference head.py:
+    263-457): each level projected to hd by a 1x1 conv and a plain BN
+    (flax's BatchNorm: momentum 0.9, eps 1e-5); an encoder head scores and
+    boxes every pixel of the joined levels (masked to the valid anchors);
+    the nq best by class score are the queries, refined through ndl
+    deformable decoder layers with a shared query-position MLP. Eval
+    returns (B, nq, 4 + nc): the eval_idx layer's normalized cxcywh boxes
+    and its sigmoid scores, NMS-free. Train returns the set-matching
+    loss's dict: `dec_bboxes`, `dec_logits` (ndl, B, nq, .) and
+    `enc_bboxes`, `enc_logits` (B, nq, .) of the selected queries; the
+    queries' boxes and contents are detached before layer 0, each layer's
+    refined boxes before the next. The contrastive denoising branch is
+    not in the JAX package either."""
+
+    def __init__(self, nc: int, ch: Sequence[int], strides: Sequence[int],
+                 hd: int = 256, nq: int = 300, ndp: int = 4, nh: int = 8,
+                 ndl: int = 6, d_ffn: int = 1024, eval_idx: int = -1):
+        super().__init__()
+        self.nc, self.hd, self.nq, self.ndl = nc, hd, nq, ndl
+        self.strides = tuple(strides)
+        self.eval_idx = eval_idx if eval_idx >= 0 else ndl + eval_idx
+        self.input_proj = nn.ModuleList(
+            nn.Sequential(nn.Conv2d(c, hd, 1, bias=False),
+                          BatchNorm(hd, eps=1e-5, momentum=0.1)) for c in ch)
+        self.enc_output = nn.Sequential(Linear(hd, hd), LayerNorm(hd))
+        self.enc_score_head = Linear(hd, nc)
+        self.enc_bbox_head = MLP(hd, hd, 4, 3)
+        self.query_pos_head = MLP(4, 2 * hd, hd, 2)
+        self.decoder = nn.ModuleList(
+            DeformableTransformerDecoderLayer(hd, nh, d_ffn, len(ch), ndp)
+            for _ in range(ndl))
+        self.dec_score_head = nn.ModuleList(Linear(hd, nc) for _ in range(ndl))
+        self.dec_bbox_head = nn.ModuleList(MLP(hd, hd, 4, 3)
+                                           for _ in range(ndl))
+
+    @property
+    def bias_cls(self) -> float:
+        """The score heads' initial bias (JAX heads.py:183)."""
+        return float(-math.log((1 - 0.01) / 0.01)) / 80 * self.nc
+
+    def forward(self, xs):
+        feats = [p(x) for p, x in zip(self.input_proj, xs)]
+        b = feats[0].shape[0]
+        seq = torch.cat([f.flatten(2).transpose(1, 2) for f in feats], 1)
+        anchors, valid = rtdetr_anchors(
+            tuple((f.shape[2], f.shape[3]) for f in feats), seq.device)
+
+        features = self.enc_output(seq * valid.to(seq.dtype))
+        enc_scores = self.enc_score_head(features)
+        enc_bboxes = self.enc_bbox_head(features) + anchors
+
+        nq = min(self.nq, seq.shape[1])
+        topk = top_k(enc_scores.amax(-1), nq)[1]
+        pick = lambda t: torch.gather(
+            t, 1, topk[..., None].expand(-1, -1, t.shape[-1]))
+        refer, embed = pick(enc_bboxes), pick(features)
+        if self.training:
+            refer, embed = refer.detach(), embed.detach()
+        refer = sigmoid(refer)
+
+        dec_bboxes, dec_logits = [], []
+        output = embed
+        last = self.ndl - 1 if self.training else self.eval_idx
+        for i in range(last + 1):
+            qp = self.query_pos_head(refer)
+            output = self.decoder[i](output, refer, feats, query_pos=qp)
+            refined = sigmoid(self.dec_bbox_head[i](output)
+                              + inverse_sigmoid(refer))
+            dec_bboxes.append(refined)
+            if self.training or i == last:
+                dec_logits.append(self.dec_score_head[i](output))
+            refer = refined.detach() if self.training else refined
+        if self.training:
+            return {"dec_bboxes": torch.stack(dec_bboxes),
+                    "dec_logits": torch.stack(dec_logits),
+                    "enc_bboxes": pick(sigmoid(enc_bboxes)),
+                    "enc_logits": pick(enc_scores)}
+        return torch.cat([dec_bboxes[-1], sigmoid(dec_logits[-1])], -1)

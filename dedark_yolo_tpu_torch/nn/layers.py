@@ -83,12 +83,31 @@ def silu(x):
     return _SiluBF16.apply(x)
 
 
+class _SigmoidBF16(torch.autograd.Function):
+    """jax.nn.sigmoid on a bf16 map, forward and backward: XLA's logistic,
+    1 / (1 + exp(-x)) in rounded steps, differentiated by JAX's rule for
+    it (g * (s * (1 - s))), every op rounded to bf16. Autograd through the
+    rounded steps gives another gradient (CBAM's weights drifted to twice
+    JAX's bf16-f32 gap)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
 def sigmoid(x):
-    """jax.nn.sigmoid: on a bf16 map XLA's logistic, 1 / (1 + exp(-x)) in
-    rounded steps (the bf16 decode of the benchmark's bf16 rows)."""
+    """jax.nn.sigmoid: on a bf16 map XLA's logistic (`_SigmoidBF16`; also
+    the bf16 decode of the benchmark's bf16 rows)."""
     if x.dtype != torch.bfloat16:
         return torch.sigmoid(x)
-    return 1.0 / (1.0 + torch.exp(-x))
+    return _SigmoidBF16.apply(x)
 
 
 def leaky_relu(x):
@@ -131,12 +150,19 @@ class BiasConvTranspose2d(nn.ConvTranspose2d):
 
 
 class Linear(nn.Linear):
-    """nn.Linear, which adds its bias to the rounded product of a bf16 row."""
+    """nn.Linear, which adds its bias to the rounded product of a bf16 row.
+    An input of another dtype than the weights meets them in the promoted
+    dtype, as flax's Dense promotes (an f32 row through bf16 weights is an
+    f32 product: RT-DETR's query boxes under bf16 weights)."""
 
     def forward(self, x):
+        w, b = self.weight, self.bias
+        if x.dtype != w.dtype:
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w, b = x.to(dt), w.to(dt), b.to(dt)
         if x.dtype != torch.bfloat16:
-            return super().forward(x)
-        return F.linear(x, self.weight) + self.bias
+            return F.linear(x, w, b)
+        return F.linear(x, w) + b
 
 
 def autopad(k, p=None, d: int = 1):
@@ -190,14 +216,19 @@ class BatchNorm(nn.Module):
     `F.batch_norm` on the bf16 input with the scale and bias cast to f32
     reduces the batch mean and variance in f32, updates the f32 running
     stats, computes the affine in f32 and rounds once back to bf16.
+
+    `eps` and `momentum` are YOLO's tuned BN's (1e-3, 0.03) unless given:
+    RT-DETR's input projection keeps flax's plain BatchNorm (1e-5, 0.1).
     """
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.eps, self.momentum = eps, momentum
 
     def forward(self, x):
         w, b = self.weight, self.bias
@@ -205,16 +236,16 @@ class BatchNorm(nn.Module):
             w, b = w.to(self.running_mean.dtype), b.to(self.running_mean.dtype)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, w, b,
-                                False, 0.0, BN_EPS)
+                                False, 0.0, self.eps)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, mean, var, w, b, True, 1.0, BN_EPS)
+        y = F.batch_norm(x, mean, var, w, b, True, 1.0, self.eps)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
-            keep = 1.0 - BN_MOMENTUM
-            self.running_mean.mul_(keep).add_(mean, alpha=BN_MOMENTUM)
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
             self.running_var.mul_(keep).add_(var * ((n - 1) / n),
-                                             alpha=BN_MOMENTUM)
+                                             alpha=self.momentum)
         return y
 
 

@@ -65,9 +65,9 @@ def scale_coords(img1_shape, coords, img0_shape):
     return torch.cat([x, y, coords[..., 2:]], -1)
 
 
-def bbox_iou(box1, box2, CIoU=False, eps=1e-7):
-    """Elementwise IoU, or CIoU, of broadcastable xyxy boxes (last dim 4)
-    -> (..., 1). The xyxy branch of JAX ops/boxes.py:90-129 (reference
+def bbox_iou(box1, box2, CIoU=False, GIoU=False, eps=1e-7):
+    """Elementwise IoU, CIoU or GIoU of broadcastable xyxy boxes (last dim
+    4) -> (..., 1). The xyxy branch of JAX ops/boxes.py:90-129 (reference
     metrics.py:75-128): eps on h1 and h2, and the CIoU alpha detached."""
     b1_x1, b1_y1, b1_x2, b1_y2 = box1.split(1, -1)
     b2_x1, b2_y1, b2_x2, b2_y2 = box2.split(1, -1)
@@ -79,10 +79,13 @@ def bbox_iou(box1, box2, CIoU=False, eps=1e-7):
              .clamp(min=0))
     union = w1 * h1 + w2 * h2 - inter + eps
     iou = inter / union
-    if not CIoU:
+    if not (CIoU or GIoU):
         return iou
     cw = torch.maximum(b1_x2, b2_x2) - torch.minimum(b1_x1, b2_x1)
     ch = torch.maximum(b1_y2, b2_y2) - torch.minimum(b1_y1, b2_y1)
+    if GIoU:
+        c_area = cw * ch + eps
+        return iou - (c_area - union) / c_area
     c2 = cw ** 2 + ch ** 2 + eps
     rho2 = ((b2_x1 + b2_x2 - b1_x1 - b1_x2) ** 2
             + (b2_y1 + b2_y2 - b1_y1 - b1_y2) ** 2) / 4

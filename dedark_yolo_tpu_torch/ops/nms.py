@@ -152,8 +152,9 @@ def greedy_nms(boxes, scores, iou_thres: float, max_det: int):
     return keep_idx, keep_scores
 
 
-def _top_k(x, k: int):
-    """Largest k along dim 1, lower index first among equal values."""
+def top_k(x, k: int):
+    """Largest k along dim 1, lower index first among equal values (as
+    jax.lax.top_k): (values, indices)."""
     vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
     return vals[:, :k], idx[:, :k]
 
@@ -168,14 +169,14 @@ def nms_candidates(boxes_xywh, class_scores, conf_thres=0.25, max_nms=2048,
     if multi_label and nc > 1:
         flat = class_scores.reshape(b, n * nc)
         flat = torch.where(flat > conf_thres, flat, zero)
-        cand_scores, flat_idx = _top_k(flat, min(max_nms, n * nc))
+        cand_scores, flat_idx = top_k(flat, min(max_nms, n * nc))
         anchor_idx = flat_idx // nc
         cls_idx = (flat_idx % nc).to(torch.float32)
     else:
         conf = class_scores.amax(dim=-1)
         cls_full = class_scores.argmax(dim=-1).to(torch.float32)
         conf = torch.where(conf > conf_thres, conf, zero)
-        cand_scores, anchor_idx = _top_k(conf, min(max_nms, n))
+        cand_scores, anchor_idx = top_k(conf, min(max_nms, n))
         cls_idx = torch.gather(cls_full, 1, anchor_idx)
 
     xyxy = xywh2xyxy(torch.gather(boxes_xywh, 1,

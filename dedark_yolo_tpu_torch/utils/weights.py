@@ -93,6 +93,20 @@ child holds its params on the port module itself; `<Class>_2k` and
                    tr.k; TransformerLayer: MultiHeadDotProductAttention_0
                    -> ma (query, key, value, out), Dense_0, Dense_1 ->
                    fc1, fc2
+  AIFI             TransformerEncoderLayer_0 -> the port module itself
+                   (an encoder layer: MultiHeadDotProductAttention_0 -> ma,
+                   LayerNorm_0, Dense_0, Dense_1, LayerNorm_1 -> norm1,
+                   fc1, fc2, norm2)
+  MLP              Dense_k -> layers.k; LayerNorm2d: LayerNorm_0 -> itself
+  RTDETRDecoder    input_proj_{i}_conv, _bn -> input_proj.{i}.0, .1;
+                   enc_output_0, _1 -> enc_output.0, .1; enc_score_head;
+                   enc_bbox_head_{j}, query_pos_head_{j} -> *.layers.{j};
+                   decoder_layer_{i} -> decoder.{i} (self_attn, norm1,
+                   cross_attn (MSDeformAttn: sampling_offsets,
+                   attention_weights, value_proj, output_proj), norm2,
+                   linear1, linear2, norm3); dec_score_head_{i} ->
+                   dec_score_head.{i}; dec_bbox_head_{i}_{j} ->
+                   dec_bbox_head.{i}.layers.{j}
   chained row      mods_{i}_{k} -> model.{i}.{k} (a non-repeat row of n > 1)
 
 Kernels: a conv's OIHW weight is flax's HWIO kernel transposed. Proto's
@@ -102,7 +116,8 @@ ConvTranspose applies its (kh, kw, I, O) kernel unmirrored; so its kernel
 is transposed AND flipped in both spatial axes, both ways
 (torch_import.py:196-203, 258-264); so is ConvTranspose's. The attention's
 DenseGeneral kernels, (c, heads, depth) and out's (heads, depth, c), are a
-Linear's (c, c) weight flattened and transposed.
+Linear's (c, c) weight flattened and transposed, their (heads, depth)
+biases a Linear's (c,) bias; a LayerNorm's scale its weight.
 
 A module applied twice (MFRU's sc_deep, pw and sc_out) is one flax child and
 one port child, so it has one set of keys. AsffTribeLevel's order depends on
@@ -121,9 +136,10 @@ from torch import nn
 
 from ..engine.optim import OptState
 from ..nn.graph import C2F_FAMILY, chained, layer_inputs
-from ..nn.heads import Detect
+from ..nn.heads import Detect, RTDETRDecoder
 from ..nn.layers import BatchNorm, GroupBatchnorm2d, SCConv
-from ..nn.transformer import TransformerBlock
+from ..nn.transformer import (LayerNorm, MSDeformAttn, MultiHeadAttention,
+                              TransformerBlock)
 
 
 def _fc1_permutation(c=32, h=8, w=8):
@@ -229,7 +245,46 @@ _TABLES.update({
         "Dense_1": ("fc2", None)},
     "MultiHeadDotProductAttention": {n: (n, None) for n in
                                      ("query", "key", "value", "out")},
+    "AIFI": {"TransformerEncoderLayer_0": ("", "TransformerEncoderLayer")},
+    "TransformerEncoderLayer": {
+        "MultiHeadDotProductAttention_0": ("ma", "MultiHeadDotProductAttention"),
+        "LayerNorm_0": ("norm1", None), "Dense_0": ("fc1", None),
+        "Dense_1": ("fc2", None), "LayerNorm_1": ("norm2", None)},
+    "DeformableTransformerDecoderLayer": {
+        "self_attn": ("self_attn", "MultiHeadDotProductAttention"),
+        "cross_attn": ("cross_attn", "MSDeformAttn"),
+        **{n: (n, None) for n in ("norm1", "norm2", "norm3", "linear1",
+                                  "linear2")}},
+    "MLP": {"Dense_*": ("layers.{k}", None)},
+    "LayerNorm2d": {"LayerNorm_0": ("", None)},
+    "MSDeformAttn": {n: (n, None) for n in (
+        "sampling_offsets", "attention_weights", "value_proj", "output_proj")},
 })
+
+
+def _rtdetr_table(spec_args, dims):
+    """RTDETRDecoder's flax children (JAX heads.py:185-262) -> the port's
+    (reference head.py's names): `ndl` from the row's args, one input
+    projection a level of `dims`."""
+    ndl = int(spec_args[3]) if len(spec_args) > 3 else 6
+    t = {"enc_output_0": ("enc_output.0", None),
+         "enc_output_1": ("enc_output.1", None),
+         "enc_score_head": ("enc_score_head", None),
+         **{f"enc_bbox_head_{j}": (f"enc_bbox_head.layers.{j}", None)
+            for j in range(3)},
+         **{f"query_pos_head_{j}": (f"query_pos_head.layers.{j}", None)
+            for j in range(2)}}
+    for i in range(len(dims)):
+        t[f"input_proj_{i}_conv"] = (f"input_proj.{i}.0", None)
+        t[f"input_proj_{i}_bn"] = (f"input_proj.{i}.1", None)
+    for i in range(ndl):
+        t[f"decoder_layer_{i}"] = (f"decoder.{i}",
+                                   "DeformableTransformerDecoderLayer")
+        t[f"dec_score_head_{i}"] = (f"dec_score_head.{i}", None)
+        for j in range(3):
+            t[f"dec_bbox_head_{i}_{j}"] = (f"dec_bbox_head.{i}.layers.{j}",
+                                           None)
+    return t
 
 
 def _asff_order(spec_name, level, dims):
@@ -254,6 +309,8 @@ def _table(kind, spec_args=(), dims=()):
         n = int(spec_args[3])
         return {"Conv_*": ("m.{k}", "Conv"), f"Conv_{n}": ("sc", "Conv"),
                 f"Conv_{n + 1}": ("ec", "Conv")}
+    if kind == "RTDETRDecoder":
+        return _rtdetr_table(spec_args, dims)
     if kind in ("AsffTribeLevel", "AsffDoubLevel"):
         level = int(spec_args[0]) if spec_args else 0
         order = _asff_order(kind, level, dims)
@@ -418,8 +475,14 @@ def state_dict_to_jax(state_dict, model) -> dict:
         spec, top, rest = _row_of(model, key)
         sub, _, leaf = rest.rpartition(".")
         path = [top] + _flax_base(sub, spec.name, spec.args, dims[spec.i])
+        parent = model.get_submodule(key.rsplit(".", 2)[0])
+        attention = (parent if isinstance(parent, MultiHeadAttention)
+                     else None)
         if leaf in ("running_mean", "running_var"):
             section, name = "batch_stats", leaf[len("running_"):]
+        elif leaf == "bias" and attention and path[-1] != "out":
+            section, name = "params", "bias"      # (heads, depth)
+            arr = arr.reshape(attention.num_heads, -1)
         elif leaf in ("bias", "sru_weight", "sru_bias", "pos"):
             section, name = "params", leaf
         elif arr.ndim == 4 and path[-1].startswith("ConvTranspose"):
@@ -428,11 +491,11 @@ def state_dict_to_jax(state_dict, model) -> dict:
         elif arr.ndim == 4:
             section, name = "params", "kernel"
             arr = np.transpose(arr, (2, 3, 1, 0))
-        elif arr.ndim == 2 and path[-2].startswith("MultiHeadDotProductAttention"):
+        elif attention and leaf == "weight":
             # flax's DenseGeneral kernels: (c, heads, depth), out's (heads,
             # depth, c)
             section, name = "params", "kernel"
-            heads = model.get_submodule(key.rsplit(".", 2)[0]).num_heads
+            heads = attention.num_heads
             arr = (arr.T.reshape(heads, -1, arr.shape[0])
                    if path[-1] == "out"
                    else arr.T.reshape(arr.shape[1], heads, -1))
@@ -475,6 +538,8 @@ def _leaf_from_jax(section, keys, arr, base):
     if leaf == "kernel" and arr.ndim == 3:       # attention's DenseGeneral
         return "weight", (arr.reshape(-1, arr.shape[-1]) if parent == "out"
                           else arr.reshape(arr.shape[0], -1)).T
+    if leaf == "bias" and arr.ndim == 2:         # its (heads, depth) bias
+        return "bias", arr.reshape(-1)
     if leaf == "kernel":
         if base.endswith("extractor.fc1"):
             arr = arr[np.argsort(_fc1_permutation()), :]
@@ -551,12 +616,15 @@ def opt_state_to_jax(opt_state, model) -> dict:
 def init_weights(model: nn.Module, seed: int = 0) -> None:
     """Seeded random init: conv, transposed conv and linear weights ~ N(0,
     1/fan_in), biases 0,
-    BN, GroupBatchnorm2d and SCConv's SRU scale at identity (ones, as JAX
-    has them), a TransformerBlock's position table ~ N(0, 0.02) (flax's
-    init of it), the Detect, AsffDetect, Segment and Pose biases of reference
-    head.py:95-102 (Segment's coefficient and proto biases and Pose's
-    keypoint biases 0, as flax
-    initialises them).
+    BN, GroupBatchnorm2d, SCConv's SRU and LayerNorm scale at identity
+    (ones, as JAX has them), a TransformerBlock's position table ~ N(0,
+    0.02) (flax's init of it), the Detect, AsffDetect, Segment and Pose
+    biases of reference head.py:95-102 (Segment's coefficient and proto
+    biases and Pose's keypoint biases 0, as flax initialises them), and
+    RT-DETR's (JAX heads.py:183-262, transformer.py:194-237): the score
+    heads' bias_cls, the box MLPs' last layer 0, the deformable
+    attention's offsets and weights kernels 0, its offsets' ring bias and
+    its projections Xavier-uniform.
     Draws on the CPU from one torch.Generator, so a seed gives the same
     weights on every device."""
     gen = torch.Generator().manual_seed(seed)
@@ -583,6 +651,23 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
             mod.sru_bias.zero_()
         elif isinstance(mod, TransformerBlock):
             mod.pos.copy_(torch.randn(mod.pos.shape, generator=gen) * 0.02)
+        elif isinstance(mod, LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
     for mod in model.modules():
         if isinstance(mod, Detect):
             mod.bias_init()
+        elif isinstance(mod, RTDETRDecoder):
+            for head in [mod.enc_score_head, *mod.dec_score_head]:
+                head.bias.fill_(mod.bias_cls)
+            for mlp in [mod.enc_bbox_head, *mod.dec_bbox_head]:
+                mlp.layers[-1].weight.zero_()
+                mlp.layers[-1].bias.zero_()
+        elif isinstance(mod, MSDeformAttn):
+            mod.sampling_offsets.weight.zero_()
+            mod.sampling_offsets.bias.copy_(mod.offset_bias())
+            mod.attention_weights.weight.zero_()
+            for lin in (mod.value_proj, mod.output_proj):
+                bound = math.sqrt(6.0 / sum(lin.weight.shape))
+                lin.weight.copy_(torch.rand(lin.weight.shape, generator=gen)
+                                 * (2 * bound) - bound)

@@ -94,6 +94,14 @@ def test_unported_keys_refused_as_not_ported():
             check_cfg_alignment(DEFAULT_CFG.keys(), {k: 1})
 
 
+@pytest.mark.parametrize("key,item", [("mesh_shape", "A12i"),
+                                      ("mesh_axes", "A12i"),
+                                      ("remat", "A12j")])
+def test_unported_key_names_its_item(key, item):
+    with pytest.raises(SyntaxError, match=f"not ported.*ROADMAP {item}\\)"):
+        check_cfg_alignment(DEFAULT_CFG.keys(), {key: 1})
+
+
 def test_cli_val_equals_facade_and_jax_cli(setup, capsys, monkeypatch):
     root, data, npz = setup
     rc = cli.entrypoint(["val", f"model={npz}", f"data={data}", "device=cpu",
@@ -144,21 +152,30 @@ def test_cli_train_and_predict(setup, capsys):
     assert cli.entrypoint(["predict", f"model={best}", "device=cpu"]) == 1
 
 
-RTDETR = str(Path(jax_cli.__file__).parent / "cfg" / "models"
-             / "yolov8-rtdetr.yaml")
+# a user graph with a row that no builder takes, in either package
+UNBUILT = {"nc": 3, "backbone": [[-1, 1, "Conv", [16, 3, 2]],
+                                 [-1, 1, "ChannelAttention", [16]],
+                                 [-1, 1, "Conv", [32, 3, 2]]],
+           "head": [[[1, 2], 1, "Detect", ["nc"]]]}
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["val"], "A12h"), (["export"], "A12h"), (["benchmark"], "A12h"),
-    (["serve", "port=0"], "A12h"), (["track", "source=x"], "A12h"),
-    (["train"], "A12h"), (["predict", "source=x"], "A12h"),
-    (["val", "task=detect"], "A12h")])
-def test_unported_modes_and_tasks_exit_nonzero(argv, item, caplog):
-    """Every mode and task is ported; a model the port cannot build yet (an
-    RT-DETR head) exits with 1 in each mode, naming its ROADMAP item."""
+    (["val"], "ChannelAttention"), (["export"], "ChannelAttention"),
+    (["benchmark"], "ChannelAttention"),
+    (["serve", "port=0"], "ChannelAttention"),
+    (["track", "source=x"], "ChannelAttention"),
+    (["train"], "ChannelAttention"), (["predict", "source=x"],
+                                      "ChannelAttention"),
+    (["val", "task=detect"], "ChannelAttention")])
+def test_unported_modes_and_tasks_exit_nonzero(argv, item, caplog, tmp_path):
+    """Every mode and task is ported; a model the port cannot build (a
+    graph row no builder takes) exits with 1 in each mode, naming what it
+    refuses."""
+    path = tmp_path / "unbuilt.json"
+    path.write_text(json.dumps(UNBUILT))
     with caplog.at_level("ERROR", logger="dedark_yolo_tpu_torch"):
-        assert cli.entrypoint([*argv, f"model={RTDETR}", "device=cpu"]) == 1
-    assert f"ROADMAP {item}" in caplog.text and "not ported" in caplog.text
+        assert cli.entrypoint([*argv, f"model={path}", "device=cpu"]) == 1
+    assert f"module '{item}'" in caplog.text
 
 
 def test_bare_token_suggests_and_exits_2(caplog):

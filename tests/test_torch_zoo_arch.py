@@ -7,12 +7,12 @@ spread of align convs) at every scale token, the others at n (align convs)
 and l (none); with AsffTribeLevel's and MFRU's
 align convs where the widths differ; the port's Python-data copies load as
 JAX's `model_yaml_load` reads the yamls; the facade builds each variant and
-`info()` and `perform.flops_params` carry it; RT-DETR's head, AIFI and
-ChannelAttention still raise, naming them.
+`info()` and `perform.flops_params` carry it; the rows no builder takes
+(ChannelAttention, SpatialAttention, an unknown name) raise, naming them
+(RT-DETR's head and AIFI build: tests/test_torch_rtdetr_head.py).
 """
 
 import json
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,7 +32,6 @@ from test_torch_zoo_blocks import few_threads  # noqa: E402,F401
 from test_torch_zoo_graphs import STRIDES  # noqa: E402
 
 ARCHS = list(STRIDES) + ["yolov8ori"]
-JAX_MODELS = Path(__file__).resolve().parents[1] / "dedark_yolo_tpu" / "cfg" / "models"
 
 
 def scaled(arch, scale):
@@ -101,8 +100,8 @@ def test_facade_builds_and_counts(arch):
 
 def _with_row(block, args):
     """A tiny detect graph with one `block` row before its head: a row the
-    port does not build (ChannelAttention, which JAX's graph has no
-    module for either; AIFI, RT-DETR's encoder, ROADMAP A12h)."""
+    port does not build (ChannelAttention and SpatialAttention, which JAX's
+    graph has no module for either; a name neither package knows)."""
     return {"nc": 3, "backbone": [[-1, 1, "Conv", [16, 3, 2]],
                                   [-1, 1, "Conv", [32, 3, 2]],
                                   [-1, 1, block, args],
@@ -111,16 +110,14 @@ def _with_row(block, args):
 
 
 @pytest.mark.parametrize("arch,head", [
-    ("ChannelAttention", "ChannelAttention"), ("AIFI", "AIFI"),
-    ("yolov8-rtdetr", "RTDETRDecoder")])
+    ("ChannelAttention", "ChannelAttention"),
+    ("SpatialAttention", "SpatialAttention"),
+    ("DeformConv", "DeformConv")])
 def test_other_heads_raise(arch, head, tmp_path):
-    """The heads and rows the port does not build raise, naming them:
-    RT-DETR's head (a JAX yaml) and two rows in a user's graph."""
-    if arch.startswith("yolov8"):
-        path = JAX_MODELS / f"{arch}.yaml"
-    else:
-        path = tmp_path / f"{arch}.json"
-        path.write_text(json.dumps(_with_row(arch, [32])))
+    """The rows the port does not build raise when it builds the graph,
+    naming them, from DetectionModel and from YOLO."""
+    path = tmp_path / f"{arch}.json"
+    path.write_text(json.dumps(_with_row(arch, [32])))
     with pytest.raises(NotImplementedError, match=head):
         DetectionModel(model_yaml_load(path), nc=3)
     with pytest.raises(NotImplementedError, match=head):
