@@ -249,6 +249,20 @@ line:
            same weights and batch, then timed windows beside train's f32
            numbers; fused_enhance once a micro-step on a bf16 image, the
            masters, EMA and BN stats f32
+  dist     data-parallel train and val (parallel/): a one-rank NCCL group
+           from init_from_env, the flagship at b16/640 f32, three
+           micro-steps through the mesh path bit-equal to the plain path,
+           each path's ms, the gradient bucket's all-reduce timed; then two
+           gloo ranks on this card (subprocesses, tools/dist_probe.py): the
+           flagship at 128, b2 a rank, one window against one process's b4
+           window leaf by leaf within TRAIN_TOL, the ranks' states
+           bit-equal, and a two-rank val of 8 sidecars at 128 equal to one
+           process's; each rank's launches (fused_enhance once a
+           micro-step and a val batch, nms once a val batch)
+  remat    the flagship at b16/640 f32, one forward and backward at
+           remat=-1 and at remat=5: ms and peak memory of each, gradients
+           within TRAIN_TOL, BN stats moved once, fused_enhance 1 against
+           2; then an amp micro-step at remat=5 (finite)
   cli      python -m dedark_yolo_tpu_torch val and train in subprocesses,
            val's printed metrics against YOLO(npz).val() here
 
@@ -6089,6 +6103,378 @@ def phase_rtdetr(torch, frames):
     return summary
 
 
+# dist phase: data-parallel train and val over a torch.distributed group
+# (parallel/, ROADMAP A12i).
+# (a) a one-rank NCCL group joined through init_from_env on a set-up
+#     environment: the flagship at b16/640, f32, TF32 off and cuDNN
+#     deterministic, after a warm-up micro-step, three micro-steps (nbs 16:
+#     each applies an update) through the plain path and the mesh path (a
+#     mesh of one rank: no collective runs) in turns, plain, mesh, mesh,
+#     plain, each from the same state: loss items and parameters bit-equal,
+#     each run's ms; then the gradient bucket of a multi-rank step
+#     (`all_reduce_sum` of every gradient over the group) timed alone, and
+#     its two parts (the flattening cat; NCCL's all-reduce of the flat
+#     buffer).
+# (b) two ranks on this card in subprocesses, gloo (NCCL refuses two ranks
+#     on one GPU; gloo runs all_reduce and broadcast on CUDA tensors): the
+#     flagship at 128, b2 a rank (nbs 2), one SGD window against one
+#     process's b4 window (nbs 4, the same window, update and decay) on the
+#     card, leaf by leaf within TRAIN_TOL (items; each momentum buffer,
+#     the first step's gradient plus decay, by its norm; each parameter's
+#     and EMA entry's move; BN stats and their EMA), both ranks' states
+#     bit-equal; then the two ranks' val of the val phase's 8 small
+#     sidecars at 128, b4 (each rank 2 rows of each batch) against one
+#     process's on the same calibrated weights: metrics within
+#     VAL_METRIC_RTOL, both ranks the same results. Launches read from each
+#     rank: fused_enhance once a micro-step and a val batch, nms once a val
+#     batch.
+DIST = {"steps": 3, "nbs": 16, "imgsz": 128, "ranks": 2, "per_rank": 2,
+        "step": 1500, "nb": 1000}
+
+
+def dist_one_rank(torch):
+    """(a): the mesh path of a one-rank NCCL group against the plain path."""
+    import os
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.parallel import init_from_env, make_mesh
+    from dedark_yolo_tpu_torch.parallel.mesh import all_reduce_sum
+    from dedark_yolo_tpu_torch.tools._ab import time_ms
+    from dedark_yolo_tpu_torch.tools.c14_split import train_batch
+    from dedark_yolo_tpu_torch.tools.dist_probe import free_port
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        device = init_from_env()
+        backend = torch.distributed.get_backend()
+        yolo = YOLO("yolov8l.yaml", nc=3, seed=SEED)
+        start = {k: v.clone() for k, v in yolo.model.state_dict().items()}
+        batches = [train_batch(BATCH, IMGSZ, SEED + i)
+                   for i in range(DIST["steps"])]
+        runs = []
+        for path in ("warm-up", "plain", "mesh", "mesh", "plain"):
+            yolo.model.load_state_dict(start)
+            tr = DetectionTrainer(yolo.model, {"batch": BATCH,
+                                               "nbs": DIST["nbs"]}, nb=1000)
+            if path == "mesh":
+                tr.mesh = make_mesh()
+            zero_launches()
+            if path == "warm-up":
+                with matmul_precision("float32"):
+                    tr.step(batches[0], 0)
+                torch.cuda.synchronize()
+                continue
+            items = []
+            with matmul_precision("float32"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i, b in enumerate(batches):
+                    items.append(tr.step(b, i)[1])
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            check_launches(f"dist {path}", dict(_build.LAUNCHES),
+                           {"fused_enhance": DIST["steps"]})
+            runs.append({"path": path, "ms": ms,
+                         "items": torch.stack(items).cpu(),
+                         "state": {k: v.clone() for k, v in
+                                   tr.model.state_dict().items()},
+                         "updates": tr.opt_state.step,
+                         "launches": dict(_build.LAUNCHES)})
+        grads = [torch.randn_like(p) for p in tr.params.values()]
+        group = torch.distributed.group.WORLD
+        bucket_ms = time_ms(lambda: all_reduce_sum(grads, group), iters=5,
+                            warmup=2)
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        cat_ms = time_ms(lambda: torch.cat([g.reshape(-1) for g in grads]),
+                         iters=5, warmup=2)
+        nccl_ms = time_ms(lambda: torch.distributed.all_reduce(flat), iters=5,
+                          warmup=2)
+        n_grads = flat.numel()
+        del grads, flat, tr, yolo
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    p = runs[0]
+    state_equal = all(torch.equal(p["state"][k], r["state"][k])
+                      for r in runs[1:] for k in p["state"])
+    moved = sum(not torch.equal(p["state"][k], start[k].to(device))
+                for k in p["state"])
+    rec = {"backend": backend, "device": str(device),
+           "steps": DIST["steps"], "batch": BATCH, "imgsz": IMGSZ,
+           "order": [r["path"] for r in runs],
+           "ms": [r["ms"] for r in runs],
+           "plain_ms": [r["ms"] for r in runs if r["path"] == "plain"],
+           "mesh_ms": [r["ms"] for r in runs if r["path"] == "mesh"],
+           "items_bit_equal": all(torch.equal(p["items"], r["items"])
+                                  for r in runs[1:]),
+           "params_bit_equal": state_equal, "tensors_moved": moved,
+           "updates": [r["updates"] for r in runs],
+           "items": p["items"].tolist(),
+           "grad_bucket_elements": n_grads, "grad_bucket_ms": bucket_ms,
+           "grad_bucket_cat_ms": cat_ms, "grad_bucket_nccl_ms": nccl_ms,
+           "launches": {k: sum(r["launches"].get(k, 0) for r in runs)
+                        for k in p["launches"]}}
+    rec["ok"] = (rec["items_bit_equal"] and state_equal
+                 and rec["updates"] == [DIST["steps"]] * len(runs))
+    return rec
+
+
+def dist_two_ranks(torch, tmp):
+    """(b): two gloo ranks on this card against one process."""
+    import numpy as np
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.cfg import get_cfg
+    from dedark_yolo_tpu_torch.engine.validator import DetectionValidator
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.tools.c14_split import train_batch
+    from dedark_yolo_tpu_torch.tools.dist_probe import (
+        launch, one_window, save_batches, window_errors)
+    n, per, s = DIST["ranks"], DIST["per_rank"], DIST["imgsz"]
+    rec = {"ranks": n, "backend": "gloo", "device": "cuda:0",
+           "imgsz": s, "batch_per_rank": per}
+    batch = train_batch(n * per, s, SEED)
+    save_batches(tmp / "batches.npz", [batch])
+    common = ["--device", "cuda:0", "--backend", "gloo"]
+    t0 = time.perf_counter()
+    res = launch(n, ["step", "--model", "yolov8l.yaml", "--imgsz", s,
+                     "--batches", tmp / "batches.npz", "--steps",
+                     DIST["step"], "--nb", DIST["nb"], "--overrides",
+                     json.dumps({"batch": per, "nbs": per, "optimizer": "SGD",
+                                 "imgsz": s}), "--out", tmp / "step",
+                     *common], timeout=300)
+    rec["step_launch_s"] = time.perf_counter() - t0
+    for r, (rc, text) in enumerate(res):
+        if rc != 0:
+            raise AssertionError(f"dist step rank {r} ({rc}):\n{text[-3000:]}")
+    ranks = [dict(np.load(tmp / f"step_rank{r}.npz")) for r in range(n)]
+    rec["ranks_bit_equal"] = all(
+        np.array_equal(ranks[0][k], x[k]) for x in ranks[1:] for k in ranks[0]
+        if k != "launches")
+    rec["step_launches"] = [json.loads(str(x["launches"])) for x in ranks]
+    rec["counts"] = ranks[0]["counts"].tolist()
+    # one process, b4, the same seeded weights and rows
+    one, start = one_window("yolov8l.yaml", batch, s, DIST["step"],
+                            DIST["nb"], "cuda")
+    rec["window"] = window_errors(ranks[0], one, start)
+    torch.cuda.empty_cache()
+    for r, launches in enumerate(rec["step_launches"]):
+        check_launches(f"dist step rank {r}", launches, {"fused_enhance": 1})
+
+    # val: two ranks against one process on the same calibrated weights
+    data = val_dataset(tmp / "small", VAL_SMALL["n"], VAL_SMALL["shapes"],
+                       SEED)
+    data = {**data, "names": [VAL_NAMES[i] for i in sorted(VAL_NAMES)]}
+    (tmp / "small.json").write_text(json.dumps(data))
+    yolo = YOLO("yolov8l.yaml", nc=3, seed=SEED)
+    calibrate_bn(torch, yolo.model, val_images(data, VAL_SMALL["n"]),
+                 VAL_SMALL["imgsz"])
+    np.savez(tmp / "val_state.npz", **{k: v.cpu().numpy() for k, v in
+                                       yolo.model.state_dict().items()})
+    kw = {"imgsz": VAL_SMALL["imgsz"], "batch": VAL_SMALL["batch"],
+          "cache": "disk", "plots": False, "verbose": False, "workers": 2,
+          "matmul_precision": "float32"}
+    zero_launches()
+    one_res = DetectionValidator(args=get_cfg({**kw, "data": data}),
+                                 save_dir=tmp / "val_one")(model=yolo.model)
+    one_launches = dict(_build.LAUNCHES)
+    del yolo
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = launch(n, ["val", "--model", "yolov8l.yaml", "--state",
+                     tmp / "val_state.npz", "--data", tmp / "small.json",
+                     "--imgsz", VAL_SMALL["imgsz"], "--batch",
+                     VAL_SMALL["batch"], "--cache", "disk", "--overrides",
+                     json.dumps({"matmul_precision": "float32"}), "--out",
+                     tmp / "val", *common], timeout=300)
+    rec["val_launch_s"] = time.perf_counter() - t0
+    for r, (rc, text) in enumerate(res):
+        if rc != 0:
+            raise AssertionError(f"dist val rank {r} ({rc}):\n{text[-3000:]}")
+    vals = [json.loads((tmp / f"val_rank{r}.json").read_text())
+            for r in range(n)]
+    batches = -(-VAL_SMALL["n"] // VAL_SMALL["batch"])
+    for r, v in enumerate(vals):
+        check_launches(f"dist val rank {r}", v["launches"],
+                       {"fused_enhance": batches, "nms": batches})
+    check_launches("dist val one process", one_launches,
+                   {"fused_enhance": batches, "nms": batches})
+    got = vals[0]["results"]
+    err = {k: abs(got[k] - float(one_res[k])) / max(abs(float(one_res[k])),
+                                                    1e-12)
+           for k in one_res}
+    rec["val"] = {"results_two": got,
+                  "results_one": {k: float(x) for k, x in one_res.items()},
+                  "max_rel_err": max(err.values()),
+                  "bit_equal": all(got[k] == float(one_res[k])
+                                   for k in one_res),
+                  "ranks_equal": all(v["results"] == got for v in vals),
+                  "launches": [v["launches"] for v in vals],
+                  "one_process_launches": one_launches}
+    rec["launches"] = {k: sum(x.get(k, 0) for x in rec["step_launches"])
+                       + sum(v["launches"].get(k, 0) for v in vals)
+                       for k in one_launches}
+    rec["ok"] = (rec["ranks_bit_equal"] and not rec["window"]["misses"]
+                 and rec["counts"] == [1, 0, 1]
+                 and rec["val"]["ranks_equal"]
+                 and rec["val"]["max_rel_err"] <= VAL_METRIC_RTOL
+                 and got["metrics/recall(B)"] > 0)
+    return rec
+
+
+def phase_dist(torch):
+    import tempfile
+    t0 = time.perf_counter()
+    one = dist_one_rank(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        two = dist_two_ranks(torch, Path(tmp))
+    launches = {k: one["launches"].get(k, 0) + two["launches"].get(k, 0)
+                for k in set(one["launches"]) | set(two["launches"])}
+    out = {"phase": "dist", "one_rank_nccl": one, "two_ranks_gloo": two,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    emit(out)
+    if not (one["ok"] and two["ok"]):
+        raise AssertionError(f"dist: {out}")
+    return out
+
+
+# remat phase (ROADMAP A12j): the flagship at b16/640, f32, default
+# precision, through a trainer built with remat=REMAT_UPTO (JAX's
+# documented example: layer 0 through the P3 C2f): after a warm-up of each,
+# one forward and backward of the train loss at remat=-1 and at
+# REMAT_UPTO in turns (off, on, on, off), each from the same state: ms and
+# peak memory of each run; the first run of each held to the other: the
+# gradients within TRAIN_TOL of no remat's (by each leaf's norm), the BN
+# running stats equal to no remat's (they move once: the recompute leaves
+# them alone), the loss items equal; fused_enhance launched twice a run
+# (the forward, then the recompute) against once. Then one amp=True
+# micro-step at REMAT_UPTO: a finite loss.
+REMAT_UPTO = 5
+
+
+def phase_remat(torch):
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.tools.c14_split import TRAIN_TOL, train_batch
+    t_phase = time.perf_counter()
+    yolo = YOLO("yolov8l.yaml", nc=3, seed=SEED)
+    model = yolo.model
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(BATCH, IMGSZ, SEED)
+    tr = DetectionTrainer(model, {"batch": BATCH, "nbs": 64,
+                                  "remat": REMAT_UPTO}, nb=1000)
+    if model.remat_upto != REMAT_UPTO:
+        raise AssertionError(f"remat: the key set {model.remat_upto}")
+    names = list(tr.params)
+    dev = tr.to_device(batch)
+
+    def fwd_bwd(upto):
+        model.remat_upto = upto
+        model.train()
+        try:
+            total, items = tr.loss(dev)
+            g = torch.autograd.grad(total, [tr.params[n] for n in names],
+                                    allow_unused=True)
+        finally:
+            model.eval()
+        return items, g
+    runs, first = [], {}
+    with matmul_precision("default"):
+        for upto in (-1, REMAT_UPTO):                    # warm-ups
+            fwd_bwd(upto)
+        for upto in (-1, REMAT_UPTO, REMAT_UPTO, -1):
+            model.load_state_dict(start)
+            torch.cuda.synchronize()
+            zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            items, grads = fwd_bwd(upto)
+            torch.cuda.synchronize()
+            runs.append({"remat": upto,
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "peak_memory_gib":
+                         torch.cuda.max_memory_allocated() / 2 ** 30,
+                         "launches": dict(_build.LAUNCHES)})
+            check_launches(f"remat {upto}", runs[-1]["launches"],
+                           {"fused_enhance": 2 if upto >= 0 else 1})
+            if upto not in first:
+                first[upto] = {
+                    "items": torch.stack(list(items)).cpu(),
+                    "grads": {n: g for n, g in zip(names, grads)
+                              if g is not None},
+                    "stats": {k: v.clone() for k, v in model.named_buffers()}}
+            del items, grads
+    model.load_state_dict(start)
+    model.remat_upto = REMAT_UPTO
+    p, r = first[-1], first[REMAT_UPTO]
+    grad_err = {n: float(torch.linalg.vector_norm(r["grads"][n] - w)
+                         / torch.linalg.vector_norm(w))
+                for n, w in p["grads"].items() if w.abs().max() > 0}
+    worst = max(grad_err, key=grad_err.get)
+    stats_err = max(float((r["stats"][k] - w).abs().max())
+                    for k, w in p["stats"].items())
+    moved = sum(not torch.equal(p["stats"][k], start[k])
+                for k in p["stats"])
+    items_err = float((r["items"] - p["items"]).abs().max()
+                      / p["items"].abs().max())
+    del first, p, r, tr, dev
+    # amp at REMAT_UPTO: one micro-step
+    tr = DetectionTrainer(model, {"batch": BATCH, "nbs": 64, "amp": True,
+                                  "remat": REMAT_UPTO}, nb=1000)
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with matmul_precision("default"):
+        t0 = time.perf_counter()
+        total, items = tr.step(batch, 0)
+        torch.cuda.synchronize()
+        amp_ms = (time.perf_counter() - t0) * 1e3
+    amp = {"ms_first_call": amp_ms, "total": float(total),
+           "items": items.cpu().tolist(),
+           "finite": bool(torch.isfinite(items).all()
+                          and torch.isfinite(total)),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": dict(_build.LAUNCHES)}
+    check_launches("remat amp", amp["launches"], {"fused_enhance": 2})
+    del tr, yolo, model
+    torch.cuda.empty_cache()
+    ms = {u: sorted(x["ms"] for x in runs if x["remat"] == u)
+          for u in (-1, REMAT_UPTO)}
+    peak = {u: max(x["peak_memory_gib"] for x in runs if x["remat"] == u)
+            for u in (-1, REMAT_UPTO)}
+    rec = {"phase": "remat", "model": "yolov8l.yaml", "batch": BATCH,
+           "imgsz": IMGSZ, "precision": "f32, TF32 convs (default)",
+           "remat_upto": REMAT_UPTO, "runs": runs,
+           "ms": {"off": ms[-1], "on": ms[REMAT_UPTO]},
+           "peak_memory_gib": {"off": peak[-1], "on": peak[REMAT_UPTO]},
+           "memory_saved_gib": peak[-1] - peak[REMAT_UPTO],
+           "time_ratio": sum(ms[REMAT_UPTO]) / sum(ms[-1]),
+           "items_max_rel_err": items_err,
+           "grad_norm_rel_err": grad_err[worst], "grad_worst_leaf": worst,
+           "bn_stats_max_abs_err": stats_err,
+           "bn_stats_bit_equal": stats_err == 0.0, "bn_buffers_moved": moved,
+           "launches": {k: sum(x["launches"].get(k, 0) for x in runs)
+                        + amp["launches"].get(k, 0) for k in amp["launches"]},
+           "amp": amp, "tol": TRAIN_TOL,
+           "seconds": time.perf_counter() - t_phase}
+    rec["ok"] = (rec["items_max_rel_err"] <= TRAIN_TOL["items_rel"]
+                 and rec["grad_norm_rel_err"] <= TRAIN_TOL["grad_rel"]
+                 and stats_err <= TRAIN_TOL["stats_abs"] and amp["finite"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"remat: {rec}")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6135,6 +6521,8 @@ def main():
     loop_mp = phase_loop_mp(torch)
     c10 = phase_c10(torch)
     amp = phase_train_amp(torch, train)
+    dist = phase_dist(torch)
+    remat = phase_remat(torch)
     phase_cli(torch)
 
     print(smi)
@@ -6155,6 +6543,8 @@ def main():
                                    for r in loop["runs"]),
         "c10_launches": c10["launches"]["fused_enhance"],
         "train_amp_launches": amp["launches"]["fused_enhance"],
+        "dist_launches": dist["launches"]["fused_enhance"],
+        "remat_launches": remat["launches"]["fused_enhance"],
         "predict_resize_launches": pred_rs["launches"]["fused_enhance"],
         "predict_extras_launches": extras["launches"]["fused_enhance"],
         "zoo_launches": zoo["launches"]["fused_enhance"],
@@ -6218,6 +6608,7 @@ def main():
         **{k: nms_timing[k] for k in
            ("mask_ms", "scan_ms", "walk_depth", "shape", "max_det")},
         "val_launches": val["launches"]["nms"],
+        "dist_launches": dist["launches"]["nms"],
         "train_loop_launches": sum(r["launches"]["nms"] for r in loop["runs"]),
         "c10_launches": c10["launches"]["nms"],
         "predict_resize_launches": pred_rs["launches"]["nms"],

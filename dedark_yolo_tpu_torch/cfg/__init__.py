@@ -90,6 +90,9 @@ DEFAULT_CFG = {
     "dedark_FLAG": True,         # dark-channel priors for the DeDark filter
     "prior_mode": "default",     # default (A=0.8, IcA=0.5) | computed
     "amp": False,                # bf16 training (no loss scaling)
+    "remat": -1,                 # recompute layers <= this index in the backward
+    "mesh_shape": None,          # data-parallel ranks (None: the world size)
+    "mesh_axes": ["data"],       # mesh axis names; the batch is sharded over 'data'
     # train loop (engine/trainer.py DetectionTrainer.train)
     "save": True,                # checkpoints (last, best, epochN)
     "save_period": -1,           # epoch{N}.npz every N epochs (< 1: never)
@@ -141,7 +144,7 @@ _NUMBER_KEYS = {"lr0", "lrf", "momentum", "weight_decay", "warmup_epochs",
 _INT_KEYS = {"imgsz", "max_det", "max_nms", "batch", "epochs", "nbs",
              "max_boxes", "workers", "save_period", "ckpt_period",
              "val_period", "patience", "close_mosaic", "seed", "vid_stride",
-             "line_width", "mask_ratio"}
+             "line_width", "mask_ratio", "remat"}
 _BOOL_KEYS = {"half", "agnostic_nms", "cos_lr", "lowlight_FLAG", "dedark_FLAG",
               "amp", "rect", "save_json", "save_txt", "save_conf",
               "save_hybrid", "plots", "verbose", "single_cls", "exist_ok",
@@ -152,18 +155,19 @@ _BOOL_KEYS = {"half", "agnostic_nms", "cos_lr", "lowlight_FLAG", "dedark_FLAG",
 _PRECISIONS = ("default", "tensorfloat32", "float32")
 
 # Keys of the JAX package's cfg/default.yaml that the port does not carry:
-# the export, mesh and other-task keys (ROADMAP A10b, A12), and
+# the export and other-task keys (ROADMAP A10b, A12), and
 # the CLI's own model/source/mode/task/cfg, which the CLI takes before the
 # config is checked.
 UNPORTED_KEYS = frozenset((
     "cfg", "classes", "deterministic", "dnn", "dropout", "dynamic",
-    "fpn_fuse", "int8", "keras", "mesh_axes", "mesh_shape", "mode",
-    "model", "nms", "opset", "optimize", "remat", "simplify",
-    "source", "stem_s2d", "task", "workspace"))
+    "fpn_fuse", "int8", "keras", "mode", "model", "nms", "opset",
+    "optimize", "simplify", "source", "stem_s2d", "task", "workspace"))
 
 
-# the ROADMAP item of an unported key that has one of its own
-UNPORTED_ITEMS = {"mesh_shape": "A12i", "mesh_axes": "A12i", "remat": "A12j"}
+# the ROADMAP item of an unported key, or of an unported part of a ported
+# one: a mesh's spatial axis (`parallel.make_mesh`) and serving over a mesh
+# (`InferenceServer(mesh=)`)
+UNPORTED_ITEMS = {"spatial": "A12i-b", "serve_mesh": "A12i-b"}
 
 
 def check_cfg_alignment(base_keys, custom: dict) -> None:
@@ -222,6 +226,17 @@ def _coerce(k, v):
         raise TypeError(f"'pretrained={v}' must be a bool or a path")
     elif k in ("project", "name", "tracker") and not isinstance(v, (str, Path)):
         raise TypeError(f"'{k}={v}' must be a path")
+    elif k == "mesh_shape":
+        if not (isinstance(v, (list, tuple)) and v and all(
+                isinstance(d, int) and not isinstance(d, bool) and d > 0
+                for d in v)):
+            raise TypeError(f"'mesh_shape={v}' must be a list of positive ints")
+        v = list(v)
+    elif k == "mesh_axes":
+        if not (isinstance(v, (list, tuple)) and v
+                and all(isinstance(x, str) for x in v)):
+            raise TypeError(f"'mesh_axes={v}' must be a list of axis names")
+        v = list(v)
     elif k == "matmul_precision" and v not in _PRECISIONS:
         raise ValueError(f"matmul_precision '{v}' is not one of "
                          f"{_PRECISIONS}")

@@ -21,9 +21,13 @@ may fork: the children run only numpy (`data/imgops.py`), never a torch
 op, whose thread pool can hang after a fork, and they reset the signal
 handlers they inherit (see `_mp_init`).
 
-One process: the JAX loader's per-host sharding (`process_index` /
-`process_count`) stays at 0 of 1. The validator reads in order (no
-shuffle, seed 0, epoch 0).
+Under a mesh of several ranks each rank reads its own rows, as JAX's
+per-host sharding does (`process_index` / `process_count`, JAX
+data/loader.py:119-139): after the epoch's shuffle the index list is
+wrap-padded to a multiple of the rank count, so every rank gets as many
+rows and enters the step's collectives as often, and rank r takes every
+count-th index from r. `batch_size` is then each rank's rows. The
+validator reads in order (no shuffle, seed 0, epoch 0).
 """
 
 from __future__ import annotations
@@ -92,7 +96,8 @@ class DataLoader:
 
     def __init__(self, dataset, transforms, batch_size, max_boxes=128,
                  workers=8, drop_last=True, indices=None, shuffle=False,
-                 seed=0, use_processes=False, collate_fn=None):
+                 seed=0, use_processes=False, collate_fn=None,
+                 process_index=0, process_count=1):
         self.dataset = dataset
         self.indices = list(indices) if indices is not None else None
         self.transforms = transforms
@@ -108,6 +113,7 @@ class DataLoader:
         self.seed = seed
         self.epoch = 0
         self.use_processes = bool(use_processes)
+        self.process_index, self.process_count = process_index, process_count
         self._mp_pool = None
 
     def _pool(self):
@@ -136,6 +142,13 @@ class DataLoader:
             else list(range(len(self.dataset)))
         if self.shuffle:
             random.Random(self.seed + self.epoch).shuffle(idx)
+        if self.process_count > 1:
+            per = -(-len(idx) // self.process_count)
+            pad = per * self.process_count - len(idx)
+            if pad:
+                reps = -(-pad // len(idx))
+                idx = idx + (idx * reps)[:pad]
+            idx = idx[self.process_index::self.process_count]
         return idx
 
     def __len__(self):

@@ -144,7 +144,7 @@ class ClassificationTrainer(BaseTrainer):
         return DataLoader(self.build_train_dataset(), train_item, a.batch,
                           workers=a.workers, shuffle=True, seed=a.seed,
                           drop_last=True, use_processes=bool(a.loader_mp),
-                          collate_fn=collate_classify)
+                          collate_fn=collate_classify, **self.shard_kw())
 
     def loss(self, batch):
         """(total, (loss,)): the summed cross-entropy of the logits over
@@ -201,7 +201,10 @@ class ClassificationValidator:
             Path("runs/classify/val"), self.args.exist_ok))
         self.data = data
 
-    def __call__(self, model=None):
+    def __call__(self, model=None, mesh=None):
+        """Top-1 and top-5 accuracy of `model`. `mesh` is taken and the
+        val runs whole on this validator's own device, as JAX's classify
+        validator runs (JAX classify.py:154)."""
         from .autobackend import AutoBackend
         a = self.args
         data = self.data or check_cls_dataset(a.data)

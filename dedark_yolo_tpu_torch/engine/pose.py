@@ -44,6 +44,7 @@ from ..data.pose import PoseDataset, PoseTrainTransforms, collate_pose
 from ..losses.segment import OKS_SIGMA, pose_loss
 from ..ops.boxes import scale_boxes, scale_coords
 from ..ops.nms import non_max_suppression
+from ..parallel.mesh import broadcast_object, gather_in_order, rank_rows
 from ..utils import LOGGER, increment_dir
 from ..utils.checks import check_imgsz
 from ..utils.metrics import DetMetrics, match_from_iou, match_predictions
@@ -113,7 +114,8 @@ class PoseTrainer(BaseTrainer):
             self.build_train_dataset(), self.train_tf, a.batch,
             max_boxes=max_boxes, workers=a.workers, shuffle=True, seed=a.seed,
             drop_last=True, use_processes=bool(a.loader_mp),
-            collate_fn=lambda items: collate_pose(items, max_boxes, nk))
+            collate_fn=lambda items: collate_pose(items, max_boxes, nk),
+            **self.shard_kw())
 
     def close_augment(self):
         """close_mosaic: letterboxed samples from now on (forked workers are
@@ -131,7 +133,8 @@ class PoseTrainer(BaseTrainer):
         return pose_loss(det, kpts, batch, nc=self.model.nc,
                          strides=self.model.strides, hyp=hyp,
                          kpt_shape=self.model.kpt_shape,
-                         max_fg=min(int(a.max_boxes) * 4, 128))
+                         max_fg=min(int(a.max_boxes) * 4, 128),
+                         group=self.group)
 
     def get_validator(self, save_dir=None, data=None):
         args = get_cfg({**vars(self.args), "conf": 0.001,
@@ -180,12 +183,19 @@ class PoseValidator:
                       "postprocess": 0.0}
         self.note_no_matplotlib = True
 
-    def __call__(self, model=None):
+    def __call__(self, model=None, mesh=None):
+        """Box and pose mAP of `model`; under a mesh of several ranks each
+        rank runs its rows of every batch and rank 0 gathers the images'
+        stats in image order (JAX :150-156, :266), as `DetectionValidator`
+        does."""
         from .autobackend import AutoBackend
-        from .validator import resolve_val_max_boxes
+        from .validator import check_val_mesh, resolve_val_max_boxes, speed_of
         require_task(model, "pose", "PoseValidator")
         a = self.args
         backend = isinstance(model, AutoBackend)
+        multi = check_val_mesh(mesh, backend)
+        device = mesh.device if multi else self.device
+        upload = PinnedUpload(device) if multi else self.upload
         a.imgsz = check_imgsz(a.imgsz, stride=32)
         data = self.data or check_det_dataset(a.data)
         kpt_shape = self.kpt_shape or tuple(model.kpt_shape)
@@ -194,7 +204,7 @@ class PoseValidator:
                          kpt_shape=kpt_shape, cache=a.cache)
         resolve_val_max_boxes(a, ds)
         if not backend:
-            model.to(self.device).eval()
+            model.to(device).eval()
         sigmas = oks_sigmas(nk)
         orig_shapes = ds.image_shapes()
         save_json = bool(a.save_json)
@@ -205,6 +215,16 @@ class PoseValidator:
         iouv = np.linspace(0.5, 0.95, 10)
         n_images = 0
         t_pre = t_inf = t_post = 0.0
+
+        records = []         # under a mesh: (dataset index, its record)
+
+        def take(rec):
+            for name, (tp, conf, pcls, tcls) in rec["stats"].items():
+                stats[name]["tp"].append(tp)
+                stats[name]["conf"].append(conf)
+                stats[name]["pred_cls"].append(pcls)
+                stats[name]["target_cls"].append(tcls)
+            jdict.extend(rec["json"])
 
         @torch.inference_mode()
         def dispatch(start):
@@ -217,7 +237,10 @@ class PoseValidator:
             batch = collate_pose(items, max_boxes=a.max_boxes, nk=nk)
             t1 = time.perf_counter()
             t_pre += t1 - t0
-            img = self.upload({"img": batch["img"]})["img"]
+            lo, hi = rank_rows(bs, mesh if multi else None)
+            if hi == lo:                 # none of this batch's rows
+                return None, batch, idxs, lo, hi
+            img = upload({"img": batch["img"][lo:hi]})["img"]
             with matmul_precision(a.matmul_precision):
                 boxes, scores, kpts = task_outputs(model, img)
                 dets, counts, aidx = non_max_suppression(
@@ -227,16 +250,19 @@ class PoseValidator:
                 out = {"dets": dets, "counts": counts,
                        "kpts": gather_keypoints(kpts, aidx)}
             t_inf += time.perf_counter() - t1
-            return out, batch, idxs
+            return out, batch, idxs, lo, hi
 
-        def process(out, batch, idxs):
+        def process(out, batch, idxs, lo, hi):
             nonlocal n_images, t_inf, t_post
+            if out is None:
+                return
             t0 = time.perf_counter()
             host = {k: v.cpu().numpy() for k, v in out.items()}
             t1 = time.perf_counter()
             t_inf += t1 - t0
             s = batch["img"].shape[1]
-            for i, idx in enumerate(idxs):
+            for idx in idxs[lo:hi]:
+                i = idx - idxs[0] - lo       # the row in this rank's part
                 n_images += 1
                 h0, w0 = int(orig_shapes[idx][0]), int(orig_shapes[idx][1])
                 k = int(host["counts"][i])
@@ -272,17 +298,28 @@ class PoseValidator:
                     oks = kpt_oks(gt_k, pk_nat, area, sigmas)   # (n_gt, k)
                     oks = oks * (gt_cls[:, None] == det_nat[None, :, 5])
                     tp_pose = match_from_iou(oks, iouv)
-                for name, tp in (("B", tp_box), ("P", tp_pose)):
-                    stats[name]["tp"].append(tp)
-                    stats[name]["conf"].append(det[:, 4])
-                    stats[name]["pred_cls"].append(det[:, 5])
-                    stats[name]["target_cls"].append(gt_cls)
+                rec = {"stats": {name: (tp, det[:, 4], det[:, 5], gt_cls)
+                                 for name, tp in (("B", tp_box),
+                                                  ("P", tp_pose))},
+                       "json": []}
                 if save_json and k:
-                    self._to_json(jdict, Path(ds.im_files[idx]).stem, det_nat,
-                                  pk_nat)
+                    self._to_json(rec["json"], Path(ds.im_files[idx]).stem,
+                                  det_nat, pk_nat)
+                if multi:
+                    records.append((idx, rec))
+                else:
+                    take(rec)
             t_post += time.perf_counter() - t1
 
         pipelined(range(0, len(ds), bs), dispatch, lambda rec: process(*rec))
+        if multi:      # rank 0 takes every image's record in image order
+            merged = gather_in_order(mesh, records)
+            if merged is None:
+                self.speed = speed_of(t_pre, t_inf, t_post, n_images)
+                return broadcast_object(mesh, None)
+            for rec in merged:
+                take(rec)
+            n_images = len(merged)
 
         results, fitness = {}, 0.0
         for name, st in stats.items():
@@ -301,9 +338,7 @@ class PoseValidator:
             fitness += 0.1 * mr[2] + 0.9 * mr[3]
         results["fitness"] = fitness
         if n_images:
-            self.speed = {"preprocess": t_pre / n_images * 1000,
-                          "inference": t_inf / n_images * 1000, "loss": 0.0,
-                          "postprocess": t_post / n_images * 1000}
+            self.speed = speed_of(t_pre, t_inf, t_post, n_images)
         if save_json and jdict:
             self.save_dir.mkdir(parents=True, exist_ok=True)
             jpath = self.save_dir / "predictions.json"
@@ -311,7 +346,7 @@ class PoseValidator:
             LOGGER.info(f"saved {len(jdict)} detections to {jpath}")
         LOGGER.info(f"pose val: {n_images} images "
                     + " ".join(f"{k}={v:.3f}" for k, v in results.items()))
-        return results
+        return broadcast_object(mesh, results) if multi else results
 
     @staticmethod
     def _to_json(jdict, stem, det_nat, pk_nat):

@@ -21,6 +21,10 @@ in float64 as JAX's do. fitness is the sum of the box and mask fitnesses.
 `save_json` writes COCO rows with the mask upsampled to the native image
 (`imgops.resize_nearest`) as an uncompressed column-major RLE.
 
+Under a mesh of several ranks (`mesh=`, JAX :125-131, :228) each rank
+runs its rows of every batch and rank 0 gathers the images' stats in
+image order, as `DetectionValidator` does (`engine/validator.py`).
+
 `SegmentationPredictor` (:332-428) is the detect predictor's stream with
 one device step of its own: NMS (multi_label False, `return_idx`), the
 coefficients gathered, the einsum with the protos in f32, the sigmoid and
@@ -52,6 +56,7 @@ from ..losses.segment import segmentation_loss
 from ..nn.layers import sigmoid
 from ..ops.boxes import scale_boxes
 from ..ops.nms import non_max_suppression
+from ..parallel.mesh import broadcast_object, gather_in_order, rank_rows
 from ..utils import LOGGER, increment_dir
 from ..utils.checks import check_imgsz
 from ..utils.metrics import DetMetrics, match_from_iou, match_predictions
@@ -93,7 +98,8 @@ class SegmentationTrainer(BaseTrainer):
             self.build_train_dataset(), self.train_tf, a.batch,
             max_boxes=max_boxes, workers=a.workers, shuffle=True, seed=a.seed,
             drop_last=True, use_processes=bool(a.loader_mp),
-            collate_fn=lambda items: collate_segment(items, max_boxes, ratio))
+            collate_fn=lambda items: collate_segment(items, max_boxes, ratio),
+            **self.shard_kw())
 
     def close_augment(self):
         """close_mosaic: letterboxed samples from now on (forked workers are
@@ -111,7 +117,7 @@ class SegmentationTrainer(BaseTrainer):
             det, coefs, protos, batch, nc=self.model.nc,
             strides=self.model.strides, hyp=hyp,
             max_fg=min(int(a.max_boxes) * 4, 128),
-            overlap=bool(a.overlap_mask))
+            overlap=bool(a.overlap_mask), group=self.group)
 
     def get_validator(self, save_dir=None, data=None):
         args = get_cfg({**vars(self.args), "conf": 0.001,
@@ -183,19 +189,22 @@ class SegmentationValidator:
                       "postprocess": 0.0}
         self.note_no_matplotlib = True
 
-    def __call__(self, model=None):
+    def __call__(self, model=None, mesh=None):
         from .autobackend import AutoBackend
-        from .validator import resolve_val_max_boxes
+        from .validator import check_val_mesh, resolve_val_max_boxes, speed_of
         require_task(model, "segment", "SegmentationValidator")
         a = self.args
         backend = isinstance(model, AutoBackend)
+        multi = check_val_mesh(mesh, backend)
+        device = mesh.device if multi else self.device
+        upload = PinnedUpload(device) if multi else self.upload
         a.imgsz = check_imgsz(a.imgsz, stride=32)
         data = self.data or check_det_dataset(a.data)
         ds = SegmentDataset(data[a.split], imgsz=a.imgsz, nc=data["nc"],
                             cache=a.cache)
         resolve_val_max_boxes(a, ds)
         if not backend:
-            model.to(self.device).eval()
+            model.to(device).eval()
         orig_shapes = ds.image_shapes()
         save_json = bool(a.save_json)
         jdict = []
@@ -204,6 +213,16 @@ class SegmentationValidator:
                  for n in ("box", "mask")}
         n_images = 0
         t_pre = t_inf = t_post = 0.0
+
+        records = []         # under a mesh: (dataset index, its record)
+
+        def take(rec):
+            for name, (tp, conf, pcls, tcls) in rec["stats"].items():
+                stats[name]["tp"].append(tp)
+                stats[name]["conf"].append(conf)
+                stats[name]["pred_cls"].append(pcls)
+                stats[name]["target_cls"].append(tcls)
+            jdict.extend(rec["json"])
 
         @torch.inference_mode()
         def dispatch(start):
@@ -217,7 +236,11 @@ class SegmentationValidator:
                                     mask_ratio=a.mask_ratio)
             t1 = time.perf_counter()
             t_pre += t1 - t0
-            dev = self.upload({"img": batch["img"], "masks": batch["masks"]})
+            lo, hi = rank_rows(bs, mesh if multi else None)
+            if hi == lo:                 # none of this batch's rows
+                return None, batch, idxs, lo, hi
+            dev = upload({"img": batch["img"][lo:hi],
+                          "masks": batch["masks"][lo:hi]})
             with matmul_precision(a.matmul_precision):
                 boxes, scores, coef_flat, protos = task_outputs(
                     model, dev["img"])
@@ -230,17 +253,20 @@ class SegmentationValidator:
                                         int(a.max_boxes), save_json)
             out.update(dets=dets, counts=counts)
             t_inf += time.perf_counter() - t1
-            return out, batch, idxs
+            return out, batch, idxs, lo, hi
 
-        def process(out, batch, idxs):
+        def process(out, batch, idxs, lo, hi):
             nonlocal n_images, t_inf, t_post
+            if out is None:
+                return
             t0 = time.perf_counter()
             host = {k: v.cpu().numpy() for k, v in out.items()}
             t1 = time.perf_counter()
             t_inf += t1 - t0
             s = batch["img"].shape[1]
             cap = batch["cls"].shape[1]
-            for i, idx in enumerate(idxs):
+            for idx in idxs[lo:hi]:
+                i = idx - idxs[0] - lo       # the row in this rank's part
                 n_images += 1
                 h0, w0 = int(orig_shapes[idx][0]), int(orig_shapes[idx][1])
                 k = int(host["counts"][i])
@@ -264,18 +290,29 @@ class SegmentationValidator:
                 gt_cls_m = gt_cls[:cap]
                 tp_mask = self._mask_tp(det, gt_cls_m, host["inter"][i],
                                         host["gt_area"][i], host["pm_area"][i])
-                for name, tp, tcls in (("box", tp_box, gt_cls),
-                                       ("mask", tp_mask, gt_cls_m)):
-                    stats[name]["tp"].append(tp)
-                    stats[name]["conf"].append(det[:, 4])
-                    stats[name]["pred_cls"].append(det[:, 5])
-                    stats[name]["target_cls"].append(tcls)
+                rec = {"stats": {name: (tp, det[:, 4], det[:, 5], tcls)
+                                 for name, tp, tcls in (
+                                     ("box", tp_box, gt_cls),
+                                     ("mask", tp_mask, gt_cls_m))},
+                       "json": []}
                 if save_json and k:
-                    self._to_json(jdict, Path(ds.im_files[idx]).stem, det_nat,
-                                  host["pm"][i, :k], s, h0, w0)
+                    self._to_json(rec["json"], Path(ds.im_files[idx]).stem,
+                                  det_nat, host["pm"][i, :k], s, h0, w0)
+                if multi:
+                    records.append((idx, rec))
+                else:
+                    take(rec)
             t_post += time.perf_counter() - t1
 
         pipelined(range(0, len(ds), bs), dispatch, lambda rec: process(*rec))
+        if multi:      # rank 0 takes every image's record in image order
+            merged = gather_in_order(mesh, records)
+            if merged is None:
+                self.speed = speed_of(t_pre, t_inf, t_post, n_images)
+                return broadcast_object(mesh, None)
+            for rec in merged:
+                take(rec)
+            n_images = len(merged)
 
         results, fitness = {}, 0.0
         for name, st in stats.items():
@@ -295,9 +332,7 @@ class SegmentationValidator:
             fitness += 0.1 * mr[2] + 0.9 * mr[3]
         results["fitness"] = fitness
         if n_images:
-            self.speed = {"preprocess": t_pre / n_images * 1000,
-                          "inference": t_inf / n_images * 1000, "loss": 0.0,
-                          "postprocess": t_post / n_images * 1000}
+            self.speed = speed_of(t_pre, t_inf, t_post, n_images)
         if save_json and jdict:
             self.save_dir.mkdir(parents=True, exist_ok=True)
             jpath = self.save_dir / "predictions.json"
@@ -305,7 +340,7 @@ class SegmentationValidator:
             LOGGER.info(f"saved {len(jdict)} detections to {jpath}")
         LOGGER.info(f"segment val: {n_images} images "
                     + " ".join(f"{k}={v:.3f}" for k, v in results.items()))
-        return results
+        return broadcast_object(mesh, results) if multi else results
 
     @staticmethod
     def _mask_counts(dets, aidx, coef_flat, protos, gt_raster, imgsz, cap,

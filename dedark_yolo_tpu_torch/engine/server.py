@@ -34,7 +34,8 @@ Batching policy: the worker blocks for the first request, then waits at
 most ``max_wait_ms`` for followers. An exported `.pt2` artifact is served
 through AutoBackend (JAX server.py:110-125): its sidecar's batch, imgsz
 and names win over the arguments, and only NMS runs behind its program.
-Not ported: a mesh (ROADMAP A12). A classify model is refused as JAX
+Not ported: serving over one process's several devices (`mesh=`,
+ROADMAP A12i-b). A classify model is refused as JAX
 refuses it (server.py:125-128): its predictions are YOLO.predict's.
 """
 
@@ -51,7 +52,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..cfg import get_cfg
+from ..cfg import UNPORTED_ITEMS, get_cfg
 from ..data.augment import PAD_VALUE
 from ..data.imgops import contour_area, find_external_contours
 from ..ops.boxes import scale_boxes
@@ -72,11 +73,6 @@ def mask_polygon(mask):
     return cs[int(np.argmax([contour_area(c) for c in cs]))]
 
 
-def _unported(what):
-    return NotImplementedError(f"{what} is not ported to dedark_yolo_tpu_torch "
-                               "(ROADMAP A12)")
-
-
 class InferenceServer:
     """Coalesce concurrent detection requests into fixed-shape device batches.
 
@@ -92,7 +88,9 @@ class InferenceServer:
                  conf=0.25, iou=0.7, max_det=300, max_nms=2048, half=False,
                  warmup=True, mesh=None, device=None):
         if mesh is not None:
-            raise _unported("serving over a mesh")
+            raise NotImplementedError(
+                "serving over a mesh is not ported to dedark_yolo_tpu_torch "
+                f"(ROADMAP {UNPORTED_ITEMS['serve_mesh']})")
         spec = str(model_spec)
         refuse_jax_artifact(spec)
         self.device = resolve_device(device)

@@ -65,7 +65,27 @@ start, `train_batch{0,1,2}.jpg` of the first epoch's first three batches,
 `results.png` of results.csv at the end, and val's curves and confusion
 matrix; where matplotlib is missing one log line says so and only the
 OpenCV mosaics are drawn, and a plot that fails is logged and never ends
-the run. Not ported: the device mesh and multi-process training.
+the run.
+
+Data-parallel training (JAX trainer.py:380-457, 504-508, 611-635): under
+`python -m torch.distributed.run` (WORLD_SIZE > 1) `train` joins the group
+(`parallel/mesh.py::init_from_env`, one rank a device), builds the mesh of
+`mesh_shape` / `mesh_axes` (the batch must divide over its data axis, as in
+JAX) and each rank reads its own rows (`batch` is each rank's, JAX's
+convention; `accumulate` and the decay use it). The step computes JAX's
+global step: BN's moments over the global batch (`nn/layers.py::
+batchnorm_group`), each loss's normalisers summed over the group, and the
+gradients, the total and the items summed over the ranks in one flat
+all-reduce before `opt_update`, so every rank applies the same update.
+The weights go out from rank 0 after the warm start and the resume; rank 0
+alone writes args.yaml, the plots, results.csv, metrics.jsonl and the
+checkpoints and runs the per-epoch val and the final best.npz val on its
+own device, while the others wait in the fitness broadcast (the group's
+timeout, `parallel.GROUP_TIMEOUT`, outlasts a val); the stop flag is an OR
+over the ranks, so a signal to one rank stops all; every rank reads
+last.npz on resume and the ranks leave `train` together. Without
+WORLD_SIZE, or at one rank, no collective runs. `remat` (A12j) sets the
+model's `remat_upto` (`nn/graph.py`).
 
     trainer = DetectionTrainer(model, {"batch": 16}, nb=100)  # model: nn.graph.DetectionModel
     total, items = trainer.step(batch, step_index)
@@ -81,6 +101,7 @@ from __future__ import annotations
 import copy
 import csv
 import math
+import os
 import signal
 import time
 from concurrent.futures import CancelledError, ThreadPoolExecutor
@@ -97,11 +118,15 @@ from ..losses.detection import detection_loss
 from ..losses.rtdetr import rtdetr_loss
 from ..ops.dark_channel import dark_channel_priors
 from ..ops.degrade import lowlight_degrade
+from ..parallel.mesh import (all_reduce_sum, barrier, broadcast_object,
+                             global_sum, init_from_env, make_mesh, mesh_group,
+                             replicate, upload)
 from ..utils import LOGGER, increment_dir
 from ..utils.autobatch import autobatch
 from ..utils.callbacks import add_integration_callbacks, get_default_callbacks
 from ..utils.checkpoint import (has_section, load_checkpoint, save_checkpoint,
                                 section_tree, transfer_tree)
+from ..nn.layers import batchnorm_group
 from ..utils.checks import check_imgsz
 from ..utils.ema import ema_init, ema_update
 from ..utils.plotting import (matplotlib_available, plot_images, plot_labels,
@@ -148,6 +173,8 @@ class BaseTrainer:
         self.device = resolve_device(device if device is not None
                                      else self.args.device)
         self.model = model.to(self.device)
+        self.model.remat_upto = int(self.args.remat)
+        self.mesh = None           # a parallel.Mesh; set by train or the caller
         self.build_optimizer(nb)
         self.init_train_state()
         self.callbacks = get_default_callbacks()
@@ -178,6 +205,23 @@ class BaseTrainer:
     def run_callbacks(self, event):
         for cb in self.callbacks.get(event, []):
             cb(self)
+
+    @property
+    def group(self):
+        """The process group a step reduces over: None without a mesh of
+        several ranks."""
+        return mesh_group(self.mesh)
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes the run's files (rank 0)."""
+        return self.mesh is None or self.mesh.is_main
+
+    def shard_kw(self):
+        """The train loader's rank shard (JAX trainer.py:969-970)."""
+        m = self.mesh
+        return ({"process_index": m.rank, "process_count": m.world}
+                if m is not None else {})
 
     def _get_save_dir(self):
         a = self.args
@@ -305,31 +349,48 @@ class BaseTrainer:
     def to_device(self, batch):
         """The batch's `batch_keys` arrays on the trainer's device; from the
         host through pinned memory, without waiting."""
-        out = {}
-        for k in self.batch_keys:
-            t = torch.as_tensor(batch[k])
-            if self.device.type == "cuda" and t.device.type == "cpu":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t.to(self.device)
-        return out
+        return upload(self.device, batch, self.batch_keys)
+
+    def recovery_loss(self, img, clean):
+        """The recovery MSE of the degraded image against the clean one, in
+        f32; under a mesh of several ranks this rank's share of the global
+        batch's mean (its sum over the global count)."""
+        sq = (img.float() - clean.float()) ** 2
+        if self.group is None:
+            return sq.mean()
+        return sq.sum() / global_sum(self.group,
+                                     sq.new_tensor(float(sq.numel())))
 
     def step(self, batch, step_index):
         """One micro-step at global batch `step_index`: forward and backward
         in train mode, `opt_update` (an update every `accumulate` calls),
         the EMA of parameters and BN stats after an applied update. Returns
         the detached total and the loss items stacked (detect's (3,)); the
-        model is left in eval mode."""
+        model is left in eval mode.
+
+        Under a mesh of several ranks the batch is this rank's rows of the
+        global batch; BN and the loss reduce over the group, and the
+        gradients, the total and the items are summed over the ranks in one
+        flat all-reduce, so the update and the returned values are the
+        global step's on every rank."""
         batch = self.to_device(batch)
         names = list(self.params)
+        group = self.group
         self.model.train()
         try:
-            total, items = self.loss(batch)
-            grads = torch.autograd.grad(
-                total, [self.params[n] for n in names], allow_unused=True)
+            with batchnorm_group(self.model, group):
+                total, items = self.loss(batch)
+                grads = torch.autograd.grad(
+                    total, [self.params[n] for n in names], allow_unused=True)
         finally:
             self.model.eval()
-        grads = {n: torch.zeros_like(self.params[n]) if g is None else g
-                 for n, g in zip(names, grads)}
+        grads = [torch.zeros_like(self.params[n]) if g is None else g
+                 for n, g in zip(names, grads)]
+        total, items = total.detach(), torch.stack(list(items))
+        if group is not None:
+            *grads, total, items = all_reduce_sum([*grads, total, items],
+                                                  group)
+        grads = dict(zip(names, grads))
         applied = opt_update(
             self.params, grads, self.opt_state, self.labels,
             kind=self.opt_name, lr_bias=self.lr_at(step_index, "bias"),
@@ -338,7 +399,7 @@ class BaseTrainer:
         if applied:
             self.ema_updates = ema_update(self.ema, self.model.state_dict(),
                                           self.ema_updates)
-        return total.detach(), torch.stack(list(items))
+        return total, items
 
     # ------------------------------------------------------------------ loop
     def _autobatch(self):
@@ -360,7 +421,7 @@ class BaseTrainer:
                         v.copy_(stats[k])
 
         b, self.autobatch_info = autobatch(measure, self.device)
-        return b
+        return broadcast_object(self.mesh, b)    # rank 0's choice
 
     def _profile_start(self):
         from torch.profiler import ProfilerActivity, profile
@@ -452,6 +513,57 @@ class BaseTrainer:
             model.load_state_dict(state)
         return self._validator(model=model)
 
+    def _setup_mesh(self):
+        """The mesh of the run (JAX trainer.py:380-457): the group from
+        torchrun's variables when WORLD_SIZE > 1, the shape from mesh_shape
+        and mesh_axes, the batch divided over the data axis; under several
+        ranks the model moves to this rank's device and rank 0's run
+        directory is every rank's."""
+        a = self.args
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1 \
+                and not torch.distributed.is_initialized():
+            init_from_env(device=self.device)
+        mesh = self.mesh = make_mesh(shape=a.mesh_shape, axes=a.mesh_axes,
+                                     device=self.device)
+        if a.batch > 0 and a.batch % mesh.world:
+            raise ValueError(f"batch {a.batch} must divide evenly over the "
+                             f"{mesh.world}-way data axis")
+        if mesh.world > 1:
+            if mesh.device != self.device:
+                self.device = mesh.device
+                self.model.to(self.device)
+            self.save_dir = Path(broadcast_object(mesh, str(self.save_dir)))
+            self.wdir = self.save_dir / "weights"
+            self.csv = self.save_dir / "results.csv"
+        LOGGER.info(f"mesh: {mesh.world} rank(s) (data={mesh.world}); rank "
+                    f"{mesh.rank} on {mesh.device}; global batch "
+                    f"{a.batch * mesh.world}")
+
+    def _replicate_state(self):
+        """Rank 0's weights, BN stats, EMA and optimizer buffers on every
+        rank (after the warm start or the resume)."""
+        st = self.opt_state
+        replicate(self.mesh, [*self.model.state_dict().values(),
+                              *self.ema.values(), *st.acc.values(),
+                              *st.buf.values(), *st.buf2.values()])
+
+    def _rank0_value(self, value):
+        """Rank 0's float on every rank (JAX's broadcast_one_to_all)."""
+        if self.group is None:
+            return value
+        t = torch.tensor([value if self.is_main else 0.0],
+                         dtype=torch.float64).to(self.device)
+        torch.distributed.broadcast(t, 0, group=self.group)
+        return float(t.item())
+
+    def _any_rank(self, flag):
+        """True on every rank when `flag` is true on any (the stop)."""
+        if self.group is None:
+            return flag
+        t = torch.tensor([1.0 if flag else 0.0]).to(self.device)
+        torch.distributed.all_reduce(t, group=self.group)
+        return bool(t.item() > 0)
+
     def _on_signal(self, signum, frame):
         if self._interrupted:
             # a second signal aborts at once
@@ -470,9 +582,12 @@ class BaseTrainer:
             raise ValueError("training needs `data` (a dataset yaml or dict)")
         self.data = self.check_data(a.data)
         self.preflight()
+        self._setup_mesh()
+        main = self.is_main
         self.run_callbacks("on_pretrain_routine_start")
-        self.wdir.mkdir(parents=True, exist_ok=True)
-        yaml_save(self.save_dir / "args.yaml", dict(vars(a)))
+        if main:
+            self.wdir.mkdir(parents=True, exist_ok=True)
+            yaml_save(self.save_dir / "args.yaml", dict(vars(a)))
 
         self._warm_start()
         self._resolve_max_boxes()
@@ -482,11 +597,12 @@ class BaseTrainer:
         nb = len(train_dl)
         if nb == 0:
             raise ValueError("empty train loader (batch larger than the dataset?)")
-        if a.plots:
+        if a.plots and main:
             self.plot_train_start()
         self.build_optimizer(nb)
         self.init_train_state()
         start_epoch = self._resume() if a.resume else 0
+        self._replicate_state()
         stopper = EarlyStopping(a.patience)
         stopper.best_fitness = self.best_fitness
         n_params = sum(p.numel() for p in self.params.values())
@@ -522,10 +638,11 @@ class BaseTrainer:
                     if batch is None:
                         break
                     self.run_callbacks("on_train_batch_start")
-                    if a.plots and epoch == start_epoch and len(items_log) < 3:
+                    if a.plots and main and epoch == start_epoch \
+                            and len(items_log) < 3:
                         self.plot_train_batch(batch, self.save_dir / (
                             f"train_batch{len(items_log)}.jpg"))
-                    prof = (self._profile_start() if a.profile
+                    prof = (self._profile_start() if a.profile and main
                             and epoch == start_epoch and len(items_log) == 2
                             else None)
                     with matmul_precision(a.matmul_precision):
@@ -543,12 +660,15 @@ class BaseTrainer:
                 val_this_epoch = ((epoch + 1) % max(1, a.val_period) == 0
                                   or epoch == a.epochs - 1)
                 t_val = time.time()
-                if a.val and val_this_epoch:
+                if a.val and val_this_epoch and main:
                     metrics = self._validate()
                     fitness = float(metrics.get("fitness", 0.0))
+                # every rank's stop decision takes rank 0's fitness
+                fitness = self._rank0_value(fitness)
                 t_val = time.time() - t_val
                 self.metrics = metrics
-                self._save_csv(epoch, mloss, metrics, lr_now)
+                if main:
+                    self._save_csv(epoch, mloss, metrics, lr_now)
 
                 # best and EarlyStopping advance on epochs with a real
                 # fitness: every epoch without val, else validated ones
@@ -566,8 +686,9 @@ class BaseTrainer:
                     LOGGER.info("interrupted: checkpointing and stopping "
                                 f"after epoch {epoch + 1}")
                     stop = True
+                stop = self._any_rank(stop)
                 t_ckpt = time.time()
-                if a.save:
+                if a.save and main:
                     write_last = ((epoch + 1) % max(1, a.ckpt_period) == 0
                                   or stop or epoch == a.epochs - 1)
                     self._save_ckpt(epoch, improved, write_last)
@@ -595,16 +716,17 @@ class BaseTrainer:
         LOGGER.info(f"training done in {(time.time() - t_train) / 3600:.3f}h; "
                     f"results in {self.save_dir}")
         best = self.wdir / "best.npz"
-        if a.val and best.is_file() and self._validator is not None:
+        if a.val and main and best.is_file() and self._validator is not None:
             meta, flat = load_checkpoint(best)
             if meta["epoch"] != epoch:   # else this epoch's val ran already
                 LOGGER.info(f"validating best.npz (epoch {meta['epoch'] + 1})")
                 self.metrics = self._validate(state_dict_from_jax(
                     {"params": section_tree(flat, "ema"),
                      "batch_stats": section_tree(flat, "ema_bs")}, self.model))
-        if a.plots:
+        if a.plots and main:
             self._plot(plot_results, self.csv)
         self.run_callbacks("on_train_end")
+        barrier(self.mesh)             # the ranks leave together
         return self.metrics
 
     @staticmethod
@@ -752,12 +874,14 @@ class DetectionTrainer(BaseTrainer):
             raw = self.model(img, dedark_A, IcA)
         lbatch = {"cls": batch["cls"], "bboxes": batch["bboxes"],
                   "mask_gt": batch["mask_gt"],
-                  "recovery_loss": ((img.float() - clean.float()) ** 2).mean()}
+                  "recovery_loss": self.recovery_loss(img, clean)}
         hyp = {"box": a.box, "cls": a.cls, "dfl": a.dfl, "lrl": a.lrl}
         if isinstance(raw, dict):       # RT-DETR's set-matching loss
-            return rtdetr_loss(raw, lbatch, nc=self.model.nc, hyp=hyp)
+            return rtdetr_loss(raw, lbatch, nc=self.model.nc, hyp=hyp,
+                               group=self.group)
         return detection_loss(raw, lbatch, nc=self.model.nc,
-                              strides=self.model.strides, hyp=hyp)
+                              strides=self.model.strides, hyp=hyp,
+                              group=self.group)
 
     def build_train_dataset(self):
         if getattr(self, "train_ds", None) is None:
@@ -775,7 +899,7 @@ class DetectionTrainer(BaseTrainer):
         return DataLoader(self.build_train_dataset(), self.train_tf, a.batch,
                           max_boxes=a.max_boxes, workers=a.workers,
                           shuffle=True, seed=a.seed, drop_last=True,
-                          use_processes=bool(a.loader_mp))
+                          use_processes=bool(a.loader_mp), **self.shard_kw())
 
     def dummy_batch(self, b):
         """A zero batch of b images at the run's shapes (autobatch)."""

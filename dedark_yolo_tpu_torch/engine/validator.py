@@ -38,8 +38,16 @@ a machine without an image decoder can validate.
 An exported artifact (model=AutoBackend, JAX validator.py:71-80) runs its
 own enhance chain, forward and decode at its fixed batch (the last batch
 padded to it, `predictor.backend_step`); NMS, with save_hybrid's
-candidates, runs here as for the live model. Not ported: the
-multi-device mesh, which raises NotImplementedError.
+candidates, runs here as for the live model.
+
+Under a mesh of several ranks (`parallel.Mesh`, JAX validator.py:233-241,
+:337-341) every rank of the group calls the validator and reads the same
+batches; each runs its rows of a batch on its own device (an even split
+when the rank count divides the batch, else the whole batch on rank 0, as
+JAX shards a batch only when it divides), rank 0 gathers every image's
+stats in image order, computes the metrics and sends the results to every
+rank, so they equal one process's. The loss (`with_loss`) and an exported
+artifact are not run under a mesh (they raise).
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ from ..losses.detection import detection_loss
 from ..losses.rtdetr import _layer_loss
 from ..nn.graph import DetectionModel, require_detect
 from ..ops.boxes import scale_boxes, xywh2xyxy, xyxy2xywh
+from ..parallel.mesh import Mesh, broadcast_object, gather_in_order, rank_rows
 from ..utils import LOGGER, increment_dir
 from ..utils.checks import check_imgsz
 from ..utils.metrics import ConfusionMatrix, DetMetrics, match_predictions
@@ -114,6 +123,28 @@ def query_loss_items(raw, dev, nc):
         dev["cls"], dev["mask_gt"].to(raw.dtype), nc))
 
 
+def check_val_mesh(mesh, refused=False):
+    """Whether `mesh` spans several ranks (a validator's mesh path); a
+    mesh of another kind, or one with the `refused` options, raises."""
+    if mesh is None:
+        return False
+    if not isinstance(mesh, Mesh):
+        raise NotImplementedError(
+            f"a mesh of type {type(mesh).__name__} is not ported: validate "
+            "over a dedark_yolo_tpu_torch.parallel.Mesh")
+    if mesh.world > 1 and refused:
+        raise NotImplementedError("the loss and exported artifacts are not "
+                                  "validated over a mesh of several ranks")
+    return mesh.world > 1
+
+
+def speed_of(t_pre, t_inf, t_post, n_images):
+    """The speed dict: ms an image of loading, inference and matching."""
+    n = max(n_images, 1)
+    return {"preprocess": t_pre / n * 1000, "inference": t_inf / n * 1000,
+            "loss": 0.0, "postprocess": t_post / n * 1000}
+
+
 class DetectionValidator:
     def __init__(self, args=None, save_dir=None, data=None):
         self.args = args if args is not None else get_cfg()
@@ -156,8 +187,9 @@ class DetectionValidator:
         if backend and (with_loss or a.rect):
             raise ValueError("an exported artifact gives no raw maps for "
                              "the loss and has one square shape (rect)")
-        if mesh is not None:
-            raise NotImplementedError("multi-device val (a mesh) is not ported")
+        multi = check_val_mesh(mesh, backend or with_loss)
+        device = mesh.device if multi else self.device
+        upload = PinnedUpload(device) if multi else self.upload
         a.imgsz = check_imgsz(a.imgsz, stride=32)
         data = self.data or check_det_dataset(a.data)
         names = data["names"]
@@ -167,7 +199,7 @@ class DetectionValidator:
         resolve_val_max_boxes(a, ds)
         loaders = self.loaders(ds)
         if not backend:
-            model.to(self.device).eval()
+            model.to(device).eval()
         hyp = {"box": a.box, "cls": a.cls, "dfl": a.dfl, "lrl": a.lrl}
         keys = ("img",) + (LABEL_KEYS if a.save_hybrid or with_loss else ())
 
@@ -185,9 +217,18 @@ class DetectionValidator:
         jdict = []           # COCO-style detections (detect/val.py:221-258)
         txt_written = set()  # stems written this pass: the first write truncates
         orig_shapes = ds.image_shapes()
+        records = []         # under a mesh: (image position, its record)
+
+        def take(rec):
+            for k in stats:
+                stats[k].append(rec[k])
+            if a.plots:
+                cm.process_batch(*rec["cm"])
+            jdict.extend(rec["json"])
 
         def gen_batches():
             nonlocal t_pre
+            pos = 0                  # the batch's first image in val order
             for dl in loaders:
                 order = dl._indices()  # the batches chunk this order
                 cursor = 0
@@ -199,15 +240,19 @@ class DetectionValidator:
                     if batch is None:
                         break
                     bsz = batch["img"].shape[0]
-                    yield batch, order[cursor:cursor + bsz]
+                    yield batch, order[cursor:cursor + bsz], pos
                     cursor += bsz
+                    pos += bsz
 
         @torch.inference_mode()
         def dispatch(item):
             nonlocal t_inf
-            batch, ds_idxs = item
+            batch, ds_idxs, pos = item
+            lo, hi = rank_rows(batch["img"].shape[0], mesh if multi else None)
+            if hi == lo:                 # none of this batch's rows
+                return None, batch, ds_idxs, pos, lo, hi
             t0 = time.perf_counter()
-            dev = self.upload({k: batch[k] for k in keys})
+            dev = upload({k: batch[k][lo:hi] for k in keys})
             extra = hybrid_candidates(dev, model.nc) if a.save_hybrid else None
             if backend:
                 dets, counts = backend_step(model, dev["img"], a,
@@ -225,11 +270,12 @@ class DetectionValidator:
                     strides=model.strides, hyp=hyp)
                 out["loss_items"] = torch.stack(list(items))
             t_inf += time.perf_counter() - t0
-            return out, batch, ds_idxs
+            return out, batch, ds_idxs, pos, lo, hi
 
-        def process(out, batch, ds_idxs):
+        def process(out, batch, ds_idxs, pos, lo, hi):
             nonlocal loss_accum, n_batches, n_images, t_inf, t_post
-            bsz = batch["img"].shape[0]
+            if out is None:
+                return
             t0 = time.perf_counter()
             dets = out["dets"].cpu().numpy()   # waits for the batch
             counts = out["counts"].cpu().numpy()
@@ -240,12 +286,12 @@ class DetectionValidator:
 
             t1 = time.perf_counter()
             bh, bw = batch["img"].shape[1], batch["img"].shape[2]
-            for i in range(bsz):
+            for i in range(lo, hi):
                 n_images += 1
                 idx = ds_idxs[i]
                 h0, w0 = int(orig_shapes[idx][0]), int(orig_shapes[idx][1])
-                k = int(counts[i])
-                det = dets[i, :k].copy()   # (k, 6) xyxy conf cls (letterbox)
+                k = int(counts[i - lo])
+                det = dets[i - lo, :k].copy()  # (k, 6) xyxy conf cls (letterbox)
                 if k:
                     det[:, :4] = scale_boxes(
                         (bh, bw), torch.from_numpy(det[:, :4]), (h0, w0)).numpy()
@@ -260,12 +306,9 @@ class DetectionValidator:
                 else:
                     gt_xyxy = np.zeros((0, 4), np.float32)
                 tp = match_predictions(det[:, :4], det[:, 5], gt_xyxy, gt_cls)
-                stats["tp"].append(tp)
-                stats["conf"].append(det[:, 4])
-                stats["pred_cls"].append(det[:, 5])
-                stats["target_cls"].append(gt_cls)
-                if a.plots:
-                    cm.process_batch(det, gt_xyxy, gt_cls)
+                rec = {"tp": tp, "conf": det[:, 4], "pred_cls": det[:, 5],
+                       "target_cls": gt_cls, "cm": (det, gt_xyxy, gt_cls),
+                       "json": []}
                 stem = Path(ds.im_files[idx]).stem
                 if a.save_txt and len(det):
                     # normalised-xywh label lines (detect/val.py:212-219
@@ -288,7 +331,7 @@ class DetectionValidator:
                     # 221-236 pred_to_json)
                     image_id = int(stem) if stem.isnumeric() else stem
                     for d in det:
-                        jdict.append({
+                        rec["json"].append({
                             "image_id": image_id,
                             "category_id": int(d[5]),
                             "bbox": [round(float(d[0]), 3),
@@ -296,22 +339,31 @@ class DetectionValidator:
                                      round(float(d[2] - d[0]), 3),
                                      round(float(d[3] - d[1]), 3)],
                             "score": round(float(d[4]), 5)})
+                if multi:
+                    records.append((pos + i, rec))
+                else:
+                    take(rec)
             t_post += time.perf_counter() - t1
 
         pipelined(gen_batches(), dispatch, lambda rec: process(*rec))
 
+        if multi:      # rank 0 takes every image's record in image order
+            merged = gather_in_order(mesh, records)
+            if merged is None:
+                self.speed = speed_of(t_pre, t_inf, t_post, n_images)
+                return broadcast_object(mesh, None)
+            for rec in merged:
+                take(rec)
+            n_images = len(merged)
         if n_images == 0:
-            return {}
+            return broadcast_object(mesh, {}) if multi else {}
         tp = np.concatenate(stats["tp"]) if stats["tp"] else np.zeros((0, 10), bool)
         conf = np.concatenate(stats["conf"])
         pred_cls = np.concatenate(stats["pred_cls"])
         target_cls = np.concatenate(stats["target_cls"])
         if tp.shape[0] and target_cls.shape[0]:
             metrics.process(tp, conf, pred_cls, target_cls)
-        self.speed = {"preprocess": t_pre / n_images * 1000,
-                      "inference": t_inf / n_images * 1000,
-                      "loss": 0.0,
-                      "postprocess": t_post / n_images * 1000}
+        self.speed = speed_of(t_pre, t_inf, t_post, n_images)
         metrics.speed = self.speed
 
         results = metrics.results_dict
@@ -342,4 +394,4 @@ class DetectionValidator:
                 LOGGER.info(f"plot_confusion_matrix failed: {e!r}")
         self.confusion_matrix = cm
         self.metrics = metrics
-        return results
+        return broadcast_object(mesh, results) if multi else results

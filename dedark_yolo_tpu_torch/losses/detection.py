@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from ..ops.anchors import bbox2dist, dfl_decode, dist2bbox, make_anchors
 from ..ops.boxes import bbox_iou, xywh2xyxy
+from ..parallel.mesh import global_sum
 from .tal import task_aligned_assign
 
 
@@ -55,13 +56,19 @@ def _df_loss(pred_dist_logits, target, reg_max):
 
 def detection_loss(raw_maps: Sequence[torch.Tensor], batch: dict, nc: int,
                    strides: Sequence[int], hyp: dict, reg_max: int = 16,
-                   tal_topk: int = 10):
+                   tal_topk: int = 10, group=None):
     """(total, LossItems) from the train-mode head maps.
 
     raw_maps: per-level (B, H, W, 4*reg_max + nc). batch: 'cls' (B, M) class
     ids, 'bboxes' (B, M, 4) xywh in [0, 1], 'mask_gt' (B, M), and optionally
     'recovery_loss', a scalar. hyp: gains 'box', 'cls', 'dfl', 'lrl'. The
     items are detached.
+
+    `group` (a mesh's group of several ranks): this rank's share of the
+    global batch's loss, as JAX's sharded step computes it: the target
+    score sum and the batch size are summed over the group (detached)
+    before the clamp and the division (JAX losses/detection.py:110-136),
+    so the ranks' totals and items add up to the global ones.
     """
     b, no = raw_maps[0].shape[0], raw_maps[0].shape[-1]
     feat_shapes = [(m.shape[1], m.shape[2]) for m in raw_maps]
@@ -94,7 +101,8 @@ def detection_loss(raw_maps: Sequence[torch.Tensor], batch: dict, nc: int,
         batch["cls"], gt_bboxes, mask_gt, num_classes=nc, topk=tal_topk,
         alpha=0.5, beta=6.0)
     target_scores = assign.target_scores
-    target_scores_sum = target_scores.sum().clamp(min=1.0)
+    target_scores_sum, gb = global_sum(group, target_scores.sum(), b)
+    target_scores_sum = target_scores_sum.clamp(min=1.0)
 
     loss_cls = _bce_logits(pred_scores, target_scores).sum() / target_scores_sum
 
@@ -110,7 +118,7 @@ def detection_loss(raw_maps: Sequence[torch.Tensor], batch: dict, nc: int,
     loss_box = loss_box * hyp["box"]
     loss_cls = loss_cls * hyp["cls"]
     loss_dfl = loss_dfl * hyp["dfl"]
-    total = (loss_box + loss_cls + loss_dfl) * b
+    total = (loss_box + loss_cls + loss_dfl) * gb
 
     rec = batch.get("recovery_loss")
     if rec is not None:

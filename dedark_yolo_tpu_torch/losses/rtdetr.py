@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.boxes import bbox_iou, xywh2xyxy
+from ..parallel.mesh import global_sum
 from .detection import LossItems, _bce_logits
 
 
@@ -47,7 +48,7 @@ def greedy_assign(cost, gt_mask):
 
 
 def _layer_loss(pred_boxes, pred_logits, gt_boxes, gt_cls, gt_mask, nc,
-                alpha=0.75, gamma=2.0):
+                alpha=0.75, gamma=2.0, group=None):
     """One layer's (giou * 2, vfl, l1 * 5) (JAX rtdetr.py:79-122):
     pred_boxes (B, nq, 4) normalized cxcywh, pred_logits (B, nq, nc),
     gt_boxes (B, M, 4) normalized cxcywh. The matching cost (detached) is
@@ -63,7 +64,7 @@ def _layer_loss(pred_boxes, pred_logits, gt_boxes, gt_cls, gt_mask, nc,
     cost = (-p_at_cls + 5.0 * l1 + 2.0 * (1.0 - giou)).detach()
     assign_q, matched = greedy_assign(cost, gt_mask)
     gt_mask = gt_mask * matched
-    num_gt = gt_mask.sum().clamp(min=1.0)
+    num_gt = global_sum(group, gt_mask.sum()).clamp(min=1.0)
 
     pb = torch.gather(pred_boxes, 1, assign_q[..., None].expand(b, m, 4))
     loss_l1 = ((pb - gt_boxes).abs().sum(-1) * gt_mask).sum() / num_gt
@@ -83,22 +84,28 @@ def _layer_loss(pred_boxes, pred_logits, gt_boxes, gt_cls, gt_mask, nc,
     return loss_giou * 2.0, loss_cls * 1.0, loss_l1 * 5.0
 
 
-def rtdetr_loss(outputs: dict, batch: dict, nc: int, hyp: dict | None = None):
+def rtdetr_loss(outputs: dict, batch: dict, nc: int, hyp: dict | None = None,
+                group=None):
     """(total, LossItems) of RTDETRDecoder's train outputs (JAX
     rtdetr.py:125-165): the sum of every decoder layer's and the encoder
     proposals' losses times the batch size; the items are the last
     layer's (giou, vfl, l1) in the trainer's (box, cls, dfl) slots. The
     recovery MSE times lrl joins the total and the cls item, as in
-    `detection_loss`."""
+    `detection_loss`. `group`: this rank's share of the global batch's
+    loss, `num_gt` (JAX rtdetr.py:99) and the batch size summed over the
+    group."""
     gt_boxes, gt_cls = batch["bboxes"], batch["cls"]
     gt_mask = batch["mask_gt"].to(outputs["dec_bboxes"].dtype)
     b = gt_boxes.shape[0]
+    if group is not None:
+        b = global_sum(group, gt_mask.new_tensor(float(b)))
     total, final = 0.0, None
     for boxes, logits in zip(outputs["dec_bboxes"], outputs["dec_logits"]):
-        final = _layer_loss(boxes, logits, gt_boxes, gt_cls, gt_mask, nc)
+        final = _layer_loss(boxes, logits, gt_boxes, gt_cls, gt_mask, nc,
+                            group=group)
         total = total + final[0] + final[1] + final[2]
     g, c, l = _layer_loss(outputs["enc_bboxes"], outputs["enc_logits"],
-                          gt_boxes, gt_cls, gt_mask, nc)
+                          gt_boxes, gt_cls, gt_mask, nc, group=group)
     total = (total + g + c + l) * b
     loss_box, loss_cls, loss_l1 = final
     rec = batch.get("recovery_loss")

@@ -26,6 +26,7 @@ import torch
 
 from ..ops.anchors import bbox2dist, dfl_decode, dist2bbox, make_anchors
 from ..ops.boxes import bbox_iou, xywh2xyxy, xyxy2xywh
+from ..parallel.mesh import global_sum
 from .detection import _bce_logits, _df_loss
 from .tal import task_aligned_assign
 
@@ -106,7 +107,7 @@ def _topk_fg(assign, max_fg):
 
 
 def segmentation_loss(raw_maps, coef_maps, protos, batch, nc, strides, hyp,
-                      reg_max=16, max_fg=64, overlap=True):
+                      reg_max=16, max_fg=64, overlap=True, group=None):
     """(total, SegLossItems) from the Segment head's train-mode outputs.
 
     raw_maps: per-level (B, H, W, 4*reg_max + nc); coef_maps: per-level (B,
@@ -120,9 +121,9 @@ def segmentation_loss(raw_maps, coef_maps, protos, batch, nc, strides, hyp,
     (assign, pred_scores, pred_distri, pred_bboxes, anchor_points, stride_t,
      (imgsz_h, imgsz_w)) = _assign(raw_maps, batch, nc, strides, reg_max)
     b = pred_scores.shape[0]
-    loss_box, loss_cls, loss_dfl = _detect_terms(
+    loss_box, loss_cls, loss_dfl, gb = _detect_terms(
         assign, pred_scores, pred_distri, pred_bboxes, anchor_points,
-        stride_t, reg_max)
+        stride_t, reg_max, group)
 
     nm = protos.shape[-1]
     mh, mw = protos.shape[1], protos.shape[2]
@@ -153,20 +154,22 @@ def segmentation_loss(raw_maps, coef_maps, protos, batch, nc, strides, hyp,
     loss_seg = ((mloss * w_fg).sum(1) / denom).sum()
 
     loss_box = loss_box * hyp["box"]
-    loss_seg = loss_seg * hyp["box"] / b
+    loss_seg = loss_seg * hyp["box"] / gb
     loss_cls = loss_cls * hyp["cls"]
     loss_dfl = loss_dfl * hyp["dfl"]
-    total = (loss_box + loss_seg + loss_cls + loss_dfl) * b
+    total = (loss_box + loss_seg + loss_cls + loss_dfl) * gb
     return total, SegLossItems(loss_box.detach(), loss_seg.detach(),
                                loss_cls.detach(), loss_dfl.detach())
 
 
 def _detect_terms(assign, pred_scores, pred_distri, pred_bboxes,
-                  anchor_points, stride_t, reg_max):
+                  anchor_points, stride_t, reg_max, group=None):
     """(loss_box, loss_cls, loss_dfl) of the assignment, each / the target
-    score sum, before the gains (JAX :152-167)."""
+    score sum (over `group`'s batch), before the gains (JAX :152-167), and
+    the batch size (over `group`'s batch)."""
     b = pred_scores.shape[0]
-    tss = assign.target_scores.sum().clamp(min=1.0)
+    tss, gb = global_sum(group, assign.target_scores.sum(), b)
+    tss = tss.clamp(min=1.0)
     loss_cls = _bce_logits(pred_scores, assign.target_scores).sum() / tss
     fg = assign.fg_mask.to(pred_scores.dtype)
     tb = assign.target_bboxes / stride_t[None]
@@ -176,11 +179,11 @@ def _detect_terms(assign, pred_scores, pred_distri, pred_bboxes,
     target_ltrb = bbox2dist(anchor_points[None], tb, reg_max - 1)
     loss_dfl = (_df_loss(pred_distri.reshape(b, -1, 4, reg_max), target_ltrb,
                          reg_max) * weight).sum() / tss
-    return loss_box, loss_cls, loss_dfl
+    return loss_box, loss_cls, loss_dfl, gb
 
 
 def pose_loss(raw_maps, kpt_maps, batch, nc, strides, hyp, kpt_shape=(17, 3),
-              reg_max=16, max_fg=64):
+              reg_max=16, max_fg=64, group=None):
     """(total, PoseLossItems) from the Pose head's train-mode outputs (JAX
     :144-210).
 
@@ -193,9 +196,9 @@ def pose_loss(raw_maps, kpt_maps, batch, nc, strides, hyp, kpt_shape=(17, 3),
     (assign, pred_scores, pred_distri, pred_bboxes, anchor_points, stride_t,
      (imgsz_h, imgsz_w)) = _assign(raw_maps, batch, nc, strides, reg_max)
     b = pred_scores.shape[0]
-    loss_box, loss_cls, loss_dfl = _detect_terms(
+    loss_box, loss_cls, loss_dfl, gb = _detect_terms(
         assign, pred_scores, pred_distri, pred_bboxes, anchor_points,
-        stride_t, reg_max)
+        stride_t, reg_max, group)
 
     nk, kdim = kpt_shape
     kpts = torch.cat([m.reshape(b, -1, nk, kdim) for m in kpt_maps], 1)
@@ -225,23 +228,24 @@ def pose_loss(raw_maps, kpt_maps, batch, nc, strides, hyp, kpt_shape=(17, 3),
               else torch.ones(nk, device=idx.device) / nk)
     d = ((sel_kpt[..., :2] - sel_gt_xy) ** 2).sum(-1)             # (B, K, nk)
     e = d / (2 * sigmas[None, None, :]) ** 2 / (area[..., None] + 1e-9) / 2
-    n_valid = kpt_mask.sum().clamp(min=1.0)
-    kpt_factor = kpt_mask.numel() / n_valid
-    loss_kpt = kpt_factor * ((1 - torch.exp(-e)) * kpt_mask).sum() \
-        / kpt_mask.numel()
+    n_valid, slots, n_fg = global_sum(group, kpt_mask.sum(), kpt_mask.numel(),
+                                      w_fg.sum())
+    n_valid = n_valid.clamp(min=1.0)
+    kpt_factor = slots / n_valid
+    loss_kpt = kpt_factor * ((1 - torch.exp(-e)) * kpt_mask).sum() / slots
     if kdim == 3:
         vis_bce = _bce_logits(sel_kpt[..., 2], (kpt_mask > 0).to(torch.float32))
         loss_kobj = (vis_bce * w_fg[..., None]).sum() \
-            / (w_fg.sum() * nk).clamp(min=1.0)
+            / (n_fg * nk).clamp(min=1.0)
     else:
         loss_kobj = loss_kpt.new_zeros(())
 
     loss_box = loss_box * hyp["box"]
-    loss_kpt = loss_kpt * hyp.get("pose", 12.0) / b
-    loss_kobj = loss_kobj * hyp.get("kobj", 1.0) / b
+    loss_kpt = loss_kpt * hyp.get("pose", 12.0) / gb
+    loss_kobj = loss_kobj * hyp.get("kobj", 1.0) / gb
     loss_cls = loss_cls * hyp["cls"]
     loss_dfl = loss_dfl * hyp["dfl"]
-    total = (loss_box + loss_kpt + loss_kobj + loss_cls + loss_dfl) * b
+    total = (loss_box + loss_kpt + loss_kobj + loss_cls + loss_dfl) * gb
     return total, PoseLossItems(loss_box.detach(), loss_kpt.detach(),
                                 loss_kobj.detach(), loss_cls.detach(),
                                 loss_dfl.detach())

@@ -4,8 +4,11 @@
 `[from, repeats, module, args]` schema and channel rules as the reference
 (ultralytics/nn/tasks.py:803-921). `DetectionModel` builds one torch module
 per row and walks them with the save-list (graph.py:484-551), in the plain
-form only: no lazy upsample/concat, remat, space-to-depth stem or FPN fuse,
-which are exact rewrites of the same params in the JAX package. Every
+form: no lazy upsample/concat, space-to-depth stem or FPN fuse, which are
+exact rewrites of the same params in the JAX package. `remat_upto` (the
+trainer's `remat` key, JAX graph.py:384-402, :520-541) recomputes the
+layers up to that index in the backward instead of keeping their
+activations, in training only. Every
 row JAX's `_build_module` takes builds here (graph.py:281-381) but the
 attention rows JAX builds no module for (ChannelAttention,
 SpatialAttention); a non-repeat row of n > 1 is n modules in a chain. The
@@ -25,6 +28,7 @@ is JAX's test-time augmentation (graph.py:621-665).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 from dataclasses import dataclass
@@ -33,6 +37,7 @@ from typing import Any, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .enhance import LowlightRecovery, torch_bilinear_resize
@@ -75,6 +80,9 @@ C2F_FAMILY = {
     "Conv3_SC_C2f": "conv3_sc", "SC_PW_PW_C2f": "sc_pw_pw",
 }
 _HEADS = {"Detect", "AsffDetect", "Segment", "Pose", "RTDETRDecoder"}
+# rows a remat never wraps: the heads and the functional rows (graph.py:
+# 509-541 calls them outside its lifted remat)
+_NO_REMAT = _HEADS | {"nn.Upsample", "Concat", "nn.BatchNorm2d"}
 # head -> task (JAX graph.py:575-576); heads not listed are detect's
 TASKS = {"Classify": "classify", "Segment": "segment", "Pose": "pose"}
 _STRIDE2 = {"Focus", "HGStem"}
@@ -317,6 +325,30 @@ def _build_module(spec: LayerSpec, cins: List[int], head: dict) -> nn.Module:
     raise NotImplementedError(f"module '{name}' is not ported to torch yet")
 
 
+def _remat_contexts():
+    """checkpoint's (forward, recompute) contexts: the recompute runs BN
+    on the batch statistics without moving its running stats, so they
+    move once a step (JAX's lifted remat passes batch_stats through)."""
+    return contextlib.nullcontext(), L.frozen_running_stats()
+
+
+def remat_call(mod, *args):
+    """`mod(*args)` under `torch.utils.checkpoint` (non-reentrant): the
+    backward recomputes the module's activations instead of keeping them.
+    The weights the module holds now (under `torch.func.functional_call`,
+    amp's bf16 casts, which are gone from the module by the backward) go in
+    as inputs, so the recompute runs on them and their gradients flow
+    back through the casts."""
+    names, tensors = zip(*mod.named_parameters())
+    k = len(names)
+
+    def run(*flat):
+        return torch.func.functional_call(mod, dict(zip(names, flat[:k])),
+                                          flat[k:])
+    return checkpoint(run, *tensors, *args, use_reentrant=False,
+                      context_fn=_remat_contexts)
+
+
 def chained(spec: LayerSpec) -> bool:
     """Whether row `spec` is n distinct modules in a chain (`model.{i}.{k}`,
     flax `mods_{i}_{k}`)."""
@@ -344,7 +376,15 @@ class DetectionModel(nn.Module):
     sizes the position tables of C3TR rows, as JAX's init at that imgsz
     does (the facade builds at JAX's default, 640; a loaded state dict
     brings its own size).
+
+    `remat_upto` (-1: off; the trainer sets it from `remat`): in training,
+    each row of index <= remat_upto runs under `remat_call`, layer 0
+    (lowlight_recovery, JAX's _REMAT_ENHANCE) whole, a chained n > 1 row
+    module by module as JAX's loop does; never a head, an Upsample or a
+    Concat (JAX graph.py:520-541). Eval is untouched.
     """
+
+    remat_upto = -1
 
     def __init__(self, cfg_dict: dict, nc: Optional[int] = None,
                  imgsz: int = 640):
@@ -398,8 +438,10 @@ class DetectionModel(nn.Module):
         `apply(..., capture=)` (graph.py:485-551): sliced on the device, so
         a readback stays small. The head's list of maps is not captured."""
         caps = {}
+        upto = self.remat_upto if self.training else -1
         if self.specs[0].name == "lowlight_recovery":
-            x = self.model[0](x, dedark_A, IcA)
+            x = (remat_call(self.model[0], x, dedark_A, IcA) if upto >= 0
+                 else self.model[0](x, dedark_A, IcA))
             if 0 in capture:
                 caps[0] = x[:1, ..., :32]
         # NHWC -> NCHW as a view (channels_last memory); the image is
@@ -415,7 +457,14 @@ class DetectionModel(nn.Module):
                     inp = y if spec.f[0] == -1 else saved[spec.f[0]]
                 else:
                     inp = [y if fi == -1 else saved[fi] for fi in spec.f]
-                y = mod(inp)
+                if spec.i > upto or spec.name in _NO_REMAT:
+                    y = mod(inp)
+                elif chained(spec):
+                    y = inp
+                    for sub in mod:
+                        y = remat_call(sub, y)
+                else:
+                    y = remat_call(mod, inp)
                 if spec.i in capture and torch.is_tensor(y) and y.dim() == 4:
                     caps[spec.i] = y[:1, :32].permute(0, 2, 3, 1)
             if spec.i in self.save:

@@ -19,6 +19,7 @@ them to XLA.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Sequence
@@ -197,6 +198,39 @@ def upsample_nearest(x, scale: int = 2):
     return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
+# > 0 while a remat recompute runs (`frozen_running_stats`): train-mode BN
+# then normalises with the batch statistics and leaves its running stats
+# alone, so they move once a step. A plain counter, not a thread-local:
+# the recompute runs on the autograd engine's thread.
+_FROZEN_STATS = [0]
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Within the block train-mode BatchNorm does not move its running
+    stats (the recompute context of `nn/graph.py`'s remat)."""
+    _FROZEN_STATS[0] += 1
+    try:
+        yield
+    finally:
+        _FROZEN_STATS[0] -= 1
+
+
+@contextlib.contextmanager
+def batchnorm_group(model, group):
+    """Within the block every BatchNorm of `model` in training takes its
+    moments over `group`'s global batch (None: this rank's batch). The
+    trainer sets it around a step under a mesh of several ranks."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.group = None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm holding only weight, bias, running_mean and running_var, as
     flax's BatchNorm does (JAX layers.py:200): stock BatchNorm2d adds a
@@ -217,9 +251,21 @@ class BatchNorm(nn.Module):
     reduces the batch mean and variance in f32, updates the f32 running
     stats, computes the affine in f32 and rounds once back to bf16.
 
+    With `group` set (`batchnorm_group`: training under a mesh of several
+    ranks) the moments are those of the global batch, as GSPMD computes
+    them for JAX's sharded step: the per-channel sum, sum of squares and
+    count, in f32, are all-reduced through
+    `torch.distributed.nn.functional.all_reduce` (whose backward
+    all-reduces the gradient, so it crosses ranks), the variance is flax's
+    E[x^2] - E[x]^2 clipped at 0, the affine is flax's (x - mean) *
+    (rsqrt(var + eps) * scale) + bias in f32 rounded once to the input's
+    dtype, and the running stats move with the global moments.
+
     `eps` and `momentum` are YOLO's tuned BN's (1e-3, 0.03) unless given:
     RT-DETR's input projection keeps flax's plain BatchNorm (1e-5, 0.1).
     """
+
+    group = None     # the mesh's group in a multi-rank step
 
     def __init__(self, c: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM):
@@ -237,16 +283,37 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, w, b,
                                 False, 0.0, self.eps)
-        mean = torch.zeros_like(self.running_mean)
-        var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, mean, var, w, b, True, 1.0, self.eps)
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            keep = 1.0 - self.momentum
-            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(keep).add_(var * ((n - 1) / n),
-                                             alpha=self.momentum)
+        if self.group is not None:
+            y, mean, var = self._global(x, w, b)
+        else:
+            mean = torch.zeros_like(self.running_mean)
+            var = torch.zeros_like(self.running_var)
+            y = F.batch_norm(x, mean, var, w, b, True, 1.0, self.eps)
+            n = x.numel() // x.shape[1]
+            var = var * ((n - 1) / n)
+        if not _FROZEN_STATS[0]:
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+                self.running_var.mul_(keep).add_(var, alpha=self.momentum)
         return y
+
+    def _global(self, x, w, b):
+        """(y, mean, biased var) with the moments over the group's batch."""
+        from torch.distributed.nn.functional import all_reduce
+        c = x.shape[1]
+        dims = [d for d in range(x.dim()) if d != 1]
+        xf = x.float()
+        stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                           xf.new_full((1,), x.numel() // c)])
+        stats = all_reduce(stats, group=self.group)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = (stats[c:2 * c] / n - mean * mean).clamp(min=0.0)
+        shape = [1, c] + [1] * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * w
+        y = (xf - mean.view(shape)) * mul.view(shape) + b.view(shape)
+        return y.to(x.dtype), mean.detach(), var.detach()
 
 
 class Conv(nn.Module):

@@ -1,0 +1,293 @@
+"""The data axis of a device mesh over a torch.distributed group (JAX
+parallel/mesh.py).
+
+JAX's trainer jits one global step over a mesh: the parameters are
+replicated, the batch is sharded over the 'data' axis, and GSPMD computes
+every reduction over the whole batch (BN's moments, the loss's normalisers,
+the gradient). The port runs one process a device, as JAX's multi-process
+run does, and computes the same function by hand: `nn/layers.py::BatchNorm`
+all-reduces its per-channel sums, each loss all-reduces its normalisers
+(`global_sum`), and `BaseTrainer.step` sums the gradients in one flat
+bucket. Stock DistributedDataParallel and SyncBatchNorm are not used: they
+keep per-rank statistics and normalisers and average the gradients, which
+is another function.
+
+    device = init_from_env()                  # torchrun's variables
+    mesh = make_mesh()                        # shape (world,), axes ('data',)
+    dev = shard_batch(mesh, batch)            # this rank's rows, on its device
+    replicate(mesh, model.state_dict())       # rank 0's values everywhere
+
+Launch: `python -m torch.distributed.run --nproc_per_node N -m
+dedark_yolo_tpu_torch train ... mesh_shape=[N]`. At world size 1 there is
+no group and no collective runs, so a mesh of one rank gives the numbers of
+no mesh bit for bit.
+
+JAX's `batch_sharding` and `replicated` name GSPMD shardings, which mean
+nothing without GSPMD; they are left out. The spatial axis (JAX
+`parallel/spatial.py` and `shard_batch`'s data x spatial specs) is ROADMAP
+A12i-b: a mesh naming it raises.
+
+`GROUP_TIMEOUT` is the group's collective timeout: rank 0 validates alone
+between epochs while the other ranks wait in the fitness broadcast, so it
+must outlast the longest val (an hour covers COCO-sized val sets at 640).
+Gloo on CUDA tensors runs only all_reduce and broadcast; Python objects
+(`gather_objects`, `broadcast_object`) go through a gloo group on the CPU.
+"""
+
+from __future__ import annotations
+
+import datetime
+import math
+import os
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+
+from ..cfg import UNPORTED_ITEMS
+
+GROUP_TIMEOUT = datetime.timedelta(hours=1)
+ENV_KEYS = ("RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+# the device init_from_env gave this rank, and the gloo group for objects
+_STATE: dict = {"device": None, "cpu_group": None}
+
+
+@dataclass
+class Mesh:
+    """One rank's view of the mesh: `group` is the process group (None at
+    world size 1), `device` the one device this rank drives."""
+    group: object
+    rank: int
+    world: int
+    device: torch.device
+    axis_names: tuple = ("data",)
+    shape: tuple = (1,)
+    cpu_group: object = None
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
+
+
+def init_from_env(device=None, backend=None, timeout=GROUP_TIMEOUT):
+    """Join the group torchrun's variables describe (WORLD_SIZE, RANK,
+    LOCAL_RANK, MASTER_ADDR, MASTER_PORT); returns this rank's device. The
+    counterpart of JAX's `jax.distributed.initialize` (JAX
+    engine/trainer.py:380-389).
+
+    `device`: None or 'cuda' means cuda:LOCAL_RANK, 'cpu' the CPU, an
+    indexed device itself (two ranks on one card need 'cuda:0' and gloo).
+    `backend`: None means nccl for CUDA, gloo for the CPU. Nothing falls
+    back: missing variables, a missing device or a failed
+    init_process_group raise."""
+    env = os.environ
+    if "WORLD_SIZE" not in env:
+        raise RuntimeError("init_from_env needs WORLD_SIZE (launch with "
+                           "python -m torch.distributed.run)")
+    missing = [k for k in ENV_KEYS if k not in env]
+    if missing:
+        raise RuntimeError(f"WORLD_SIZE={env['WORLD_SIZE']} without "
+                           f"{', '.join(missing)}")
+    world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
+    local = int(env["LOCAL_RANK"])
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", local)
+        if not torch.cuda.is_available() or dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {rank} has no device {dev} "
+                               f"({torch.cuda.device_count()} CUDA devices)")
+        torch.cuda.set_device(dev)
+    elif dev.type != "cpu":
+        raise ValueError(f"a rank drives a cuda device or the cpu, not {dev}")
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(
+        backend, init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+        world_size=world, rank=rank, timeout=timeout, **kw)
+    _STATE["device"] = dev
+    _STATE["cpu_group"] = None
+    return dev
+
+
+def make_mesh(shape=None, axes=("data",), device=None):
+    """The mesh over the current group (none: one rank on `device`, None
+    meaning cuda). `shape` defaults to (world,); its product must be the
+    world size. Only the 'data' axis is ported: 'spatial' is ROADMAP
+    A12i-b."""
+    axes = tuple(axes or ("data",))
+    if "spatial" in axes:
+        raise NotImplementedError(
+            "a spatial mesh axis (row-sharded inference and training) is not "
+            f"ported (ROADMAP {UNPORTED_ITEMS['spatial']})")
+    if axes != ("data",):
+        raise ValueError(f"mesh axes {axes}: the port has the ('data',) "
+                         "axis only")
+    if dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+        # an unindexed 'cuda' (the trainer's default) is the rank's own card
+        dev = None if device is None else torch.device(device)
+        own = _STATE["device"]
+        if dev is None or (dev.type == "cuda" and dev.index is None):
+            dev = own if own is not None and (
+                dev is None or own.type == dev.type) else None
+        if dev is None:
+            raise RuntimeError(f"rank {rank} has no device: join the group "
+                               "with init_from_env or pass an indexed "
+                               "device")
+    else:
+        world, rank = 1, 0
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' to run on the CPU")
+    shape = tuple(int(s) for s in (shape or (world,)))
+    if len(shape) != len(axes) or math.prod(shape) != world:
+        raise ValueError(f"mesh shape {shape} over axes {axes} does not "
+                         f"match the world of {world} rank(s)")
+    if world == 1:
+        return Mesh(None, 0, 1, dev, axes, shape)
+    group = dist.group.WORLD
+    if dist.get_backend() == "gloo":
+        cpu_group = group
+    else:
+        if _STATE["cpu_group"] is None:     # collective: every rank is here
+            _STATE["cpu_group"] = dist.new_group(backend="gloo")
+        cpu_group = _STATE["cpu_group"]
+    return Mesh(group, rank, world, dev, axes, shape, cpu_group)
+
+
+def mesh_group(mesh):
+    """The group whose collectives a step runs: None without a mesh or at
+    world size 1."""
+    return mesh.group if mesh is not None and mesh.world > 1 else None
+
+
+def upload(device, batch, keys=None):
+    """The batch's arrays (`keys`, default all) as tensors on `device`; from
+    the host through pinned memory, without waiting."""
+    out = {}
+    for k in (batch if keys is None else keys):
+        t = torch.as_tensor(batch[k])
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t.to(device)
+    return out
+
+
+def shard_batch(mesh, batch, keys=None):
+    """This rank's rows on its device. Each rank's loader already holds its
+    own rows (`data/loader.py`, JAX mesh.py:45-51: the global batch is the
+    per-rank batch times the world), so this is the upload."""
+    return upload(mesh.device, batch, keys)
+
+
+def _flat_collective(tensors, collective):
+    """`collective` run in place on one flat buffer a dtype of `tensors`;
+    returns each tensor's result, a view into its buffer, in order."""
+    out = [None] * len(tensors)
+    index = {}
+    for i, t in enumerate(tensors):
+        index.setdefault(t.dtype, []).append(i)
+    for idx in index.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        collective(flat)
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[off:off + n].view_as(tensors[i])
+            off += n
+    return out
+
+
+def replicate(mesh, tensors):
+    """Rank 0's values in every rank's tensors (in place; one broadcast a
+    dtype); returns `tensors`. A dict or a sequence of tensors on the
+    rank's device."""
+    group = mesh_group(mesh)
+    if group is None:
+        return tensors
+    vals = list(tensors.values()) if isinstance(tensors, dict) else list(tensors)
+    with torch.no_grad():
+        for t, v in zip(vals, _flat_collective(
+                vals, lambda f: dist.broadcast(f, 0, group=group))):
+            t.copy_(v)
+    return tensors
+
+
+def all_reduce_sum(tensors, group):
+    """The tensors summed over `group`, in one flat bucket a dtype (each
+    rank gets the same sums); returns new tensors. None as group: the
+    tensors themselves."""
+    if group is None:
+        return list(tensors)
+    return _flat_collective(list(tensors),
+                            lambda f: dist.all_reduce(f, group=group))
+
+
+def global_sum(group, *values):
+    """Detached sums over the group of the given scalars (tensors or
+    numbers, on the first tensor's device), in one all-reduce; without a
+    group the values as they are. The losses' normalisers: a reduction JAX
+    takes over the global batch."""
+    if group is None:
+        return values if len(values) > 1 else values[0]
+    ref = next(v for v in values if torch.is_tensor(v))
+    flat = torch.stack([v.detach().to(torch.float32).reshape(())
+                        if torch.is_tensor(v)
+                        else ref.new_tensor(float(v), dtype=torch.float32)
+                        for v in values])
+    dist.all_reduce(flat, group=group)
+    out = tuple(flat.unbind(0))
+    return out if len(out) > 1 else out[0]
+
+
+def barrier(mesh):
+    """Every rank waits here for the others (an all-reduce on the rank's
+    device, which every backend runs)."""
+    group = mesh_group(mesh)
+    if group is not None:
+        dist.all_reduce(torch.zeros(1, device=mesh.device), group=group)
+
+
+def broadcast_object(mesh, obj):
+    """Rank 0's `obj` on every rank (pickled, through the CPU)."""
+    if mesh_group(mesh) is None:
+        return obj
+    box = [obj if mesh.rank == 0 else None]
+    dist.broadcast_object_list(box, src=0, group=mesh.cpu_group)
+    return box[0]
+
+
+def gather_objects(mesh, obj):
+    """Every rank's `obj` in rank order on rank 0, None on the others
+    (pickled, through the CPU)."""
+    if mesh_group(mesh) is None:
+        return [obj]
+    out = [None] * mesh.world if mesh.rank == 0 else None
+    dist.gather_object(obj, out, dst=0, group=mesh.cpu_group)
+    return out
+
+
+def gather_in_order(mesh, records):
+    """Every rank's (position, record) pairs on rank 0, its records sorted
+    by position; None on the other ranks (a validator's per-image stats)."""
+    parts = gather_objects(mesh, records)
+    if parts is None:
+        return None
+    return [rec for _, rec in sorted((r for part in parts for r in part),
+                                     key=lambda r: r[0])]
+
+
+def rank_rows(n, mesh):
+    """The rows [lo, hi) of an n-row batch that this rank runs: an even
+    split when the world divides n, else all of them on rank 0 (JAX's
+    validators shard a batch over the mesh only when it divides,
+    validator.py:337-341)."""
+    if mesh is None or mesh.world == 1:
+        return 0, n
+    if n % mesh.world == 0:
+        per = n // mesh.world
+        return mesh.rank * per, (mesh.rank + 1) * per
+    return (0, n) if mesh.rank == 0 else (0, 0)

@@ -40,7 +40,10 @@ def get_default_callbacks():
 
 
 def jsonl_fit_epoch_end(trainer):
-    """One line of the epoch's metrics under save_dir/metrics.jsonl."""
+    """One line of the epoch's metrics under save_dir/metrics.jsonl (rank
+    0 of a mesh only)."""
+    if not getattr(trainer, "is_main", True):
+        return
     rec = {"epoch": trainer.epoch, "ts": time.time()}
     for k, v in (trainer.metrics or {}).items():
         try:
@@ -62,7 +65,8 @@ class TensorBoardWriter:
         self.writer = None
 
     def on_train_start(self, trainer):
-        if not getattr(trainer.args, "plots", False):
+        if not (getattr(trainer.args, "plots", False)
+                and getattr(trainer, "is_main", True)):
             return
         try:
             from torch.utils.tensorboard import SummaryWriter

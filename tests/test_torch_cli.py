@@ -27,7 +27,7 @@ from dedark_yolo_tpu.utils.checkpoint import save_checkpoint as jax_save  # noqa
 from dedark_yolo_tpu_torch import YOLO  # noqa: E402
 from dedark_yolo_tpu_torch import __main__ as cli  # noqa: E402
 from dedark_yolo_tpu_torch.cfg import (  # noqa: E402
-    DEFAULT_CFG, UNPORTED_KEYS, check_cfg_alignment, get_cfg)
+    DEFAULT_CFG, UNPORTED_ITEMS, UNPORTED_KEYS, check_cfg_alignment, get_cfg)
 
 from synth import make_synth_dataset  # noqa: E402
 from test_torch_val import tiny_variables  # noqa: E402
@@ -98,8 +98,18 @@ def test_unported_keys_refused_as_not_ported():
                                       ("mesh_axes", "A12i"),
                                       ("remat", "A12j")])
 def test_unported_key_names_its_item(key, item):
-    with pytest.raises(SyntaxError, match=f"not ported.*ROADMAP {item}\\)"):
-        check_cfg_alignment(DEFAULT_CFG.keys(), {key: 1})
+    """The keys of A12i (the mesh's data axis) and A12j (remat) are ported:
+    accepted with JAX's defaults and typed; what stays of the mesh, its
+    spatial axis and serving over it, names A12i-b."""
+    check_cfg_alignment(DEFAULT_CFG.keys(), {key: 1})
+    assert key not in UNPORTED_KEYS and item in ("A12i", "A12j")
+    assert DEFAULT_CFG[key] == {"mesh_shape": None, "mesh_axes": ["data"],
+                                "remat": -1}[key]
+    value = {"mesh_shape": [2], "mesh_axes": ["data"], "remat": 5}[key]
+    assert getattr(get_cfg({key: value}), key) == value
+    assert cli._parse_value(str(value).replace("'", "").replace(" ", "")) \
+        == value
+    assert set(UNPORTED_ITEMS.values()) == {"A12i-b"}
 
 
 def test_cli_val_equals_facade_and_jax_cli(setup, capsys, monkeypatch):
