@@ -51,6 +51,25 @@ line:
            PNG where OpenCV imports; fused_enhance and nms once a batch,
            the warmup included, no plain version reached, every future
            resolved
+  spatial  parallel.spatial_infer of the flagship (BN set from the predict
+           frames) against its unsharded eval_outputs on the card, TF32
+           off: a 2160x3840 low-light frame letterboxed to 3840 wide and
+           padded to 2176 rows over 4 slabs, and b16/640 over 2 (also in
+           contrast_mode 'reference'), each slab on cuda:0 (a mesh of the
+           one card repeated): each graph row alone on slabs within 1e-5
+           of its unsharded output; boxes and scores at every anchor and
+           the detections after nms paired within the card's bars (0.5
+           px, 2e-3; whether within 1e-3 px and 1e-5 reported); layer 0's
+           joined output against the unsharded kernel's (bit-equal or not,
+           and its largest difference), fused_enhance (usm in reference
+           mode) once a slab, the ms and peak memory of both
+  serve_mesh  InferenceServer(mesh=make_mesh(devices=["cuda:0"] * 2)) and
+           the single-device server on the flagship's checkpoint
+           (max_batch 16, f32): 8 requests of one client, then a
+           closed-loop window of 16 clients on each (images/s of both);
+           every mesh response paired with the single-device server's
+           answer for its frame; fused_enhance and nms twice a batch, the
+           warmup included
   track    YOLO.track(persist=True) over 24 seeded low-light 720x1280 .npy
            frames of moving rectangles (the class logits lifted by one
            constant, see TRACK_RANK): ByteTrack, BoT-SORT with gmc none and,
@@ -258,7 +277,8 @@ line:
            window leaf by leaf within TRAIN_TOL, the ranks' states
            bit-equal, and a two-rank val of 8 sidecars at 128 equal to one
            process's; each rank's launches (fused_enhance once a
-           micro-step and a val batch, nms once a val batch)
+           micro-step and a val batch, nms once a val batch); the step
+           window and the val run in one launch of the ranks
   remat    the flagship at b16/640 f32, one forward and backward at
            remat=-1 and at remat=5: ms and peak memory of each, gradients
            within TRAIN_TOL, BN stats moved once, fused_enhance 1 against
@@ -266,7 +286,9 @@ line:
   cli      python -m dedark_yolo_tpu_torch val and train in subprocesses,
            val's printed metrics against YOLO(npz).val() here
 
-then the card line, a {"kernels": [...]} line and, last,
+Every phase line carries its own seconds (`phase_seconds`, since the line
+before it) and the run's so far (`elapsed_s`). Then the card line, a
+{"kernels": [...]} line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The parity phases run with TF32 off for cuDNN and matmuls; the predict
 phase and the full-size train run time the default precision (TF32 on).
@@ -321,7 +343,17 @@ INT8_OUT_SCALE = 0.05
 BOX_TOL_PX, SCORE_TOL = 0.5, 2e-3
 
 
+# the clock of the phase lines: each one's own seconds (since the line
+# before it) and the run's seconds so far
+CLOCK = {"start": time.perf_counter(), "last": time.perf_counter()}
+
+
 def emit(obj):
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj = {**obj, "phase_seconds": round(now - CLOCK["last"], 3),
+               "elapsed_s": round(now - CLOCK["start"], 3)}
+        CLOCK["last"] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -3526,6 +3558,280 @@ def phase_serve(torch, yolo, frames):
     return rec
 
 
+# spatial phase (ROADMAP A12i-b): parallel.spatial_infer of the flagship
+# (BN set from the predict frames) against its unsharded eval_outputs on
+# this card, TF32 off, under no_plain_on_cuda. SPATIAL_RUNS: (name, images,
+# (h, w) of the frame, slabs): a 2160x3840 low-light frame letterboxed to
+# 3840 wide and padded to spatial_pad_to(2160, 4) = 2176 rows over 4
+# slabs, and the predict frames at b16/640 over 2, each mesh of the one
+# card repeated (the slabs share it: the partition shows, the memory
+# saving of several cards does not). Each run holds:
+#   - every graph row alone, fed the unsharded forward's input as slabs:
+#     its joined output within SPATIAL_ROW_RTOL of the row's unsharded
+#     output (of its largest magnitude): the slabs compute each row's
+#     function, up to the sum order of the convs;
+#   - the boxes and scores of every anchor, and the detections after nms
+#     (paired, at a conf in a gap of the scores), within the card's bars
+#     (BOX_TOL_PX, SCORE_TOL): cuDNN picks its algorithms by shape, so a
+#     slab's convs may sum in another order than the whole map's (1e-6 of
+#     a row), and the 60-layer random-weight network amplifies that as it
+#     does the card's against the CPU's; whether the outputs also stay
+#     within SPATIAL_TOL (the unsharded export's bars) is reported;
+#   - layer 0's joined output against the unsharded kernel's (bit-equal
+#     expected: the same arithmetic per pixel, its 15 parameters from a
+#     bit-equal resize);
+#   - fused_enhance once a slab; the ms of both (a warm-up, then the
+#     median of SPATIAL_REPS) and the peak memory of one call of each.
+# The b16 run also in contrast_mode 'reference' (usm once a slab).
+SPATIAL_RUNS = [("frame_3840x2176", 1, (2160, 3840), 4),
+                ("b16_640", BATCH, (480, 640), 2)]
+SPATIAL_TOL = (1e-3, 1e-5)      # boxes px, scores (reported)
+SPATIAL_ROW_RTOL = 1e-5
+SPATIAL_REPS = 3
+
+
+def spatial_input(torch, b, hw, frames):
+    """The run's (b, H, W, 3) f32 image on the card: the 4K frame
+    letterboxed to its width and padded (PAD_VALUE rows, top and bottom)
+    to spatial_pad_to(h, 4) rows; the predict frames letterboxed to 640."""
+    import numpy as np
+    from dedark_yolo_tpu_torch.data.augment import PAD_VALUE, letterbox
+    from dedark_yolo_tpu_torch.parallel import spatial_pad_to
+    if b == 1:
+        f = lowlight_frames([hw], 1, SEED + 90)[0][..., ::-1]
+        h = spatial_pad_to(hw[0], 4)
+        top = (h - hw[0]) // 2
+        img = np.full((1, h, hw[1], 3), PAD_VALUE, np.uint8)
+        img[0, top:top + hw[0]] = f
+    else:
+        img = np.stack([letterbox(f, IMGSZ)[0][..., ::-1] for f in frames])
+    return torch.from_numpy(np.ascontiguousarray(img)).cuda().float() / 255
+
+
+def gap_conf(scores, lo=20, hi=200):
+    """A conf midway across the widest gap between consecutive best class
+    scores of the anchors, among ranks lo..hi (the counts then cannot
+    hinge on a score within the bars of the conf)."""
+    import numpy as np
+    s = np.sort(scores.amax(-1).flatten().cpu().numpy())[::-1][:hi + 1]
+    k = lo + int(np.argmax(s[lo:hi] - s[lo + 1:hi + 1]))
+    return float((s[k] + s[k + 1]) / 2)
+
+
+def timed_call(torch, fn, reps):
+    """(median ms of reps calls after a warm-up, peak MiB of one call above
+    what was allocated before it)."""
+    import numpy as np
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    return float(np.median(ms)), peak
+
+
+def spatial_rows(torch, model, img, devices):
+    """Each graph row alone on slabs of its unsharded input: {worst row,
+    its error relative to the row output's largest magnitude, the rows
+    that differ at all}."""
+    from dedark_yolo_tpu_torch.parallel import spatial as S
+    ex = S.Executor(list(devices), {})
+    n = len(devices)
+
+    def slabs(t):                      # an NCHW map's rows as slabs
+        step = t.shape[2] // n
+        return S.RowSlabs([t[:, :, k * step:(k + 1) * step] for k in
+                           range(n)], [k * step for k in range(n + 1)], 2, ex)
+
+    def err(got, want):
+        if isinstance(want, (list, tuple)):
+            return max(err(g, w) for g, w in zip(got, want))
+        got = got.join() if isinstance(got, S.RowSlabs) else got
+        return float((got - want).abs().max() / want.abs().max())
+    errs, saved = [], {}
+    with torch.inference_mode():
+        y = model.model[0](img)
+        x = S.row_slabs(img, devices)
+        x.ex = ex
+        errs.append((0, model.specs[0].name, err(model.model[0](x), y)))
+        y = y.permute(0, 3, 1, 2)
+        for spec, mod in zip(model.specs[1:], model.model[1:]):
+            inp = [y if f == -1 else saved[f] for f in spec.f]
+            one = len(inp) == 1
+            want = mod(inp[0] if one else inp)
+            got = mod(slabs(inp[0]) if one else [slabs(t) for t in inp])
+            errs.append((spec.i, spec.name, err(got, want)))
+            y = want
+            if spec.i in model.save:
+                saved[spec.i] = y
+    worst = max(errs, key=lambda e: e[2])
+    return {"rows": len(errs), "worst": list(worst),
+            "differing": [list(e) for e in errs if e[2] > 0]}
+
+
+def spatial_run(torch, model, img, n):
+    """One spatial_infer run against the unsharded forward (see the
+    phase's comment); returns its record."""
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.parallel import make_mesh, spatial_infer
+    from dedark_yolo_tpu_torch.parallel.spatial import row_slabs
+    mesh = make_mesh(devices=["cuda:0"] * n, axes=("spatial",))
+    with torch.inference_mode():
+        want = model.eval_outputs(img)
+        zero_launches()
+        got = spatial_infer(model, img, mesh)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        y0 = model.model[0](img)
+        y1 = model.model[0](row_slabs(img, mesh.devices)).join()
+    conf = gap_conf(want[1])
+    rec = {"shape": list(img.shape), "slabs": n, "conf": conf,
+           **output_errors(got, want), "launches": launches,
+           "layer0_bit_equal": bool(torch.equal(y0, y1)),
+           "layer0_max_abs_err": float((y0 - y1).abs().max()),
+           "rows": spatial_rows(torch, model, img, mesh.devices),
+           "nms": paired_rows(nms_rows(torch, got, conf),
+                              nms_rows(torch, want, conf), BOX_TOL_PX,
+                              SCORE_TOL)}
+    rec["within_export_bars"] = (rec["box_max_abs_err_px"] <= SPATIAL_TOL[0]
+                                 and rec["score_max_abs_err"]
+                                 <= SPATIAL_TOL[1])
+    with torch.inference_mode():
+        rec["ms"], rec["peak_mib"] = timed_call(
+            torch, lambda: spatial_infer(model, img, mesh), SPATIAL_REPS)
+        rec["unsharded_ms"], rec["unsharded_peak_mib"] = timed_call(
+            torch, lambda: model.eval_outputs(img), SPATIAL_REPS)
+    rec["ok"] = (rec["rows"]["worst"][2] <= SPATIAL_ROW_RTOL
+                 and rec["box_max_abs_err_px"] <= BOX_TOL_PX
+                 and rec["score_max_abs_err"] <= SCORE_TOL
+                 and rec["nms"]["paired"] and rec["nms"]["dets"] > 0)
+    return rec
+
+
+def phase_spatial(torch, yolo, frames):
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    calibrate_bn(torch, yolo.model, frames)
+    model = yolo.model.eval()
+    rec = {"phase": "spatial", "model": "yolov8l.yaml", "nc": 3,
+           "row_rtol": SPATIAL_ROW_RTOL, "tol": [BOX_TOL_PX, SCORE_TOL],
+           "export_bars": list(SPATIAL_TOL), "runs": {}}
+    with matmul_precision("float32"), no_plain_on_cuda():
+        for name, b, hw, n in SPATIAL_RUNS:
+            img = spatial_input(torch, b, hw, frames)
+            r = rec["runs"][name] = spatial_run(torch, model, img, n)
+            check_launches(f"spatial {name}", r["launches"],
+                           {"fused_enhance": n})
+        set_contrast_mode(model, "reference")
+        try:
+            r = rec["runs"]["b16_640_reference"] = spatial_run(
+                torch, model, img, n)
+        finally:
+            set_contrast_mode(model, "channel")
+        check_launches("spatial b16_640_reference", r["launches"],
+                       {"usm": n})
+    del img
+    torch.cuda.empty_cache()
+    runs = rec["runs"].values()
+    rec["launches"] = {k: sum(r["launches"][k] for r in runs)
+                       for k in next(iter(runs))["launches"]}
+    emit(rec)
+    if not all(r["ok"] for r in runs):
+        raise AssertionError(f"spatial: {rec}")
+    return rec
+
+
+# serve_mesh phase (ROADMAP A12i-b): InferenceServer(mesh=make_mesh(
+# devices=["cuda:0", "cuda:0"])) beside the single-device server on the
+# flagship's checkpoint and the 16 predict frames (max_batch 16), both
+# stepping in f32 (TF32 off, as the parity phases: under TF32 a group of 8
+# and a batch of 16 take other cuDNN algorithms whose rounding the random
+# weights amplify past the card's bars): each answers every frame as a
+# lone request, then one closed-loop window of 16 clients (serve_load:
+# SERVE_WINDOW_S and SERVE_MIN_BATCHES); the mesh server's answers for
+# SERVE_MESH_ONE frames of one client and every window response paired
+# (pair_results at BOX_TOL_PX, SCORE_TOL) with the single-device server's
+# answer for its frame; images/s of both windows; the mesh server's
+# fused_enhance and nms launched twice a batch (one a device's group of
+# 8), the warmup included, no plain version reached.
+SERVE_MESH_ONE, SERVE_MESH_CLIENTS = 8, 16
+
+
+def server_precision(srv, name):
+    """Every predictor of `srv` steps at matmul precision `name`."""
+    for p in srv._preds or [srv._pred]:
+        p.args.matmul_precision = name
+
+
+def phase_serve_mesh(torch, yolo, frames):
+    import tempfile
+    import numpy as np
+    from dedark_yolo_tpu_torch.engine.server import InferenceServer
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.parallel import make_mesh
+    calibrate_bn(torch, yolo.model, frames)
+    conf = serve_conf(yolo.predict(frames, conf=CONF, imgsz=IMGSZ,
+                                   batch=BATCH))
+    rec = {"phase": "serve_mesh", "max_batch": BATCH, "imgsz": IMGSZ,
+           "conf": conf, "mesh": ["cuda:0", "cuda:0"],
+           "matmul_precision": "float32"}
+    kw = dict(imgsz=IMGSZ, max_batch=BATCH, max_wait_ms=SERVE_WAIT_MS,
+              conf=conf)
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = npz_of(torch, yolo, Path(tmp) / "flagship.npz")
+        with no_plain_on_cuda():
+            one = InferenceServer(npz, **kw)
+            try:
+                server_precision(one, "float32")
+                refs = [one.predict(f)["boxes"] for f in frames]
+                rec["single_device"], _ = serve_load(one, frames,
+                                                     SERVE_MESH_CLIENTS)
+            finally:
+                one.close()
+            zero_launches()
+            srv = InferenceServer(npz, mesh=make_mesh(devices=rec["mesh"]),
+                                  **kw)
+            try:
+                server_precision(srv, "float32")
+                answers = [srv.predict(f)["boxes"]
+                           for f in frames[:SERVE_MESH_ONE]]
+                leg_batches = srv.stats()["batches"]
+                r, out = serve_load(srv, frames, SERVE_MESH_CLIENTS)
+                rec["mesh_window"] = r
+            finally:
+                srv.close()
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    batches = leg_batches + r["batches"] + 1
+    check_launches("serve_mesh", launches, {"fused_enhance": 2 * batches,
+                                            "nms": 2 * batches})
+    got = [*enumerate(answers), *((i, p["boxes"]) for i, p in out)]
+    pairs = [pair_results(a, refs[i]) for i, a in got]
+    rec.update(launches=launches, batches_with_warmup=batches,
+               one_client_requests=len(answers), responses=len(got),
+               paired=None not in pairs,
+               unpaired=[i for (i, _), p in zip(got, pairs) if p is None][:8],
+               bit_equal_responses=sum(bool(np.array_equal(a, refs[i]))
+                                       for i, a in got),
+               box_max_abs_err_px=max((e for p in pairs if p for e in p[0]),
+                                      default=0.0),
+               score_max_abs_err=max((e for p in pairs if p for e in p[1]),
+                                     default=0.0),
+               images_per_s_ratio=(r["images_per_s"]
+                                   / rec["single_device"]["images_per_s"]))
+    emit(rec)
+    if not (rec["paired"] and not r["errors"]
+            and r["batches"] >= SERVE_MIN_BATCHES
+            and sum(len(x) for x in refs) > 0):
+        raise AssertionError(f"serve_mesh: {rec}")
+    return rec
+
+
 # track phase: YOLO.track with persist=True over a seeded sequence of
 # TRACK_FRAMES low-light 720x1280 frames of moving rectangles, written as
 # .npy files (one sequence across files), b16/640, conf CONF; ByteTrack,
@@ -6229,7 +6535,9 @@ def dist_one_rank(torch):
 
 
 def dist_two_ranks(torch, tmp):
-    """(b): two gloo ranks on this card against one process."""
+    """(b): two gloo ranks on this card against one process, the step
+    window and the val in one launch of the group (tools/dist_probe.py's
+    step_val)."""
     import numpy as np
     from dedark_yolo_tpu_torch import YOLO
     from dedark_yolo_tpu_torch.cfg import get_cfg
@@ -6243,33 +6551,8 @@ def dist_two_ranks(torch, tmp):
            "imgsz": s, "batch_per_rank": per}
     batch = train_batch(n * per, s, SEED)
     save_batches(tmp / "batches.npz", [batch])
-    common = ["--device", "cuda:0", "--backend", "gloo"]
-    t0 = time.perf_counter()
-    res = launch(n, ["step", "--model", "yolov8l.yaml", "--imgsz", s,
-                     "--batches", tmp / "batches.npz", "--steps",
-                     DIST["step"], "--nb", DIST["nb"], "--overrides",
-                     json.dumps({"batch": per, "nbs": per, "optimizer": "SGD",
-                                 "imgsz": s}), "--out", tmp / "step",
-                     *common], timeout=300)
-    rec["step_launch_s"] = time.perf_counter() - t0
-    for r, (rc, text) in enumerate(res):
-        if rc != 0:
-            raise AssertionError(f"dist step rank {r} ({rc}):\n{text[-3000:]}")
-    ranks = [dict(np.load(tmp / f"step_rank{r}.npz")) for r in range(n)]
-    rec["ranks_bit_equal"] = all(
-        np.array_equal(ranks[0][k], x[k]) for x in ranks[1:] for k in ranks[0]
-        if k != "launches")
-    rec["step_launches"] = [json.loads(str(x["launches"])) for x in ranks]
-    rec["counts"] = ranks[0]["counts"].tolist()
-    # one process, b4, the same seeded weights and rows
-    one, start = one_window("yolov8l.yaml", batch, s, DIST["step"],
-                            DIST["nb"], "cuda")
-    rec["window"] = window_errors(ranks[0], one, start)
-    torch.cuda.empty_cache()
-    for r, launches in enumerate(rec["step_launches"]):
-        check_launches(f"dist step rank {r}", launches, {"fused_enhance": 1})
 
-    # val: two ranks against one process on the same calibrated weights
+    # val's data and calibrated weights, and one process's val of them
     data = val_dataset(tmp / "small", VAL_SMALL["n"], VAL_SMALL["shapes"],
                        SEED)
     data = {**data, "names": [VAL_NAMES[i] for i in sorted(VAL_NAMES)]}
@@ -6288,17 +6571,39 @@ def dist_two_ranks(torch, tmp):
     one_launches = dict(_build.LAUNCHES)
     del yolo
     torch.cuda.empty_cache()
+
+    common = ["--device", "cuda:0", "--backend", "gloo"]
     t0 = time.perf_counter()
-    res = launch(n, ["val", "--model", "yolov8l.yaml", "--state",
-                     tmp / "val_state.npz", "--data", tmp / "small.json",
-                     "--imgsz", VAL_SMALL["imgsz"], "--batch",
-                     VAL_SMALL["batch"], "--cache", "disk", "--overrides",
-                     json.dumps({"matmul_precision": "float32"}), "--out",
-                     tmp / "val", *common], timeout=300)
-    rec["val_launch_s"] = time.perf_counter() - t0
+    res = launch(n, ["step_val", "--model", "yolov8l.yaml", "--imgsz", s,
+                     "--batches", tmp / "batches.npz", "--steps",
+                     DIST["step"], "--nb", DIST["nb"], "--overrides",
+                     json.dumps({"batch": per, "nbs": per, "optimizer": "SGD",
+                                 "imgsz": s}), "--out", tmp / "step",
+                     "--val-state", tmp / "val_state.npz", "--data",
+                     tmp / "small.json", "--val-imgsz", VAL_SMALL["imgsz"],
+                     "--batch", VAL_SMALL["batch"], "--cache", "disk",
+                     "--val-overrides",
+                     json.dumps({"matmul_precision": "float32"}),
+                     "--val-out", tmp / "val", *common], timeout=420)
+    rec["launch_s"] = time.perf_counter() - t0
     for r, (rc, text) in enumerate(res):
         if rc != 0:
-            raise AssertionError(f"dist val rank {r} ({rc}):\n{text[-3000:]}")
+            raise AssertionError(f"dist step_val rank {r} ({rc}):\n"
+                                 f"{text[-3000:]}")
+    ranks = [dict(np.load(tmp / f"step_rank{r}.npz")) for r in range(n)]
+    rec["ranks_bit_equal"] = all(
+        np.array_equal(ranks[0][k], x[k]) for x in ranks[1:] for k in ranks[0]
+        if k != "launches")
+    rec["step_launches"] = [json.loads(str(x["launches"])) for x in ranks]
+    rec["counts"] = ranks[0]["counts"].tolist()
+    # one process, b4, the same seeded weights and rows
+    one, start = one_window("yolov8l.yaml", batch, s, DIST["step"],
+                            DIST["nb"], "cuda")
+    rec["window"] = window_errors(ranks[0], one, start)
+    torch.cuda.empty_cache()
+    for r, launches in enumerate(rec["step_launches"]):
+        check_launches(f"dist step rank {r}", launches, {"fused_enhance": 1})
+
     vals = [json.loads((tmp / f"val_rank{r}.json").read_text())
             for r in range(n)]
     batches = -(-VAL_SMALL["n"] // VAL_SMALL["batch"])
@@ -6485,6 +6790,7 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    CLOCK["start"] = CLOCK["last"] = time.perf_counter()
     smi = phase_env(torch)
     ptxas = phase_build()
     torch.backends.cudnn.allow_tf32 = False
@@ -6503,6 +6809,8 @@ def main():
     pred_rs = phase_predict_resize(torch, yolo, pred, frames)
     extras = phase_predict_extras(torch, yolo, frames, pred)
     serve = phase_serve(torch, yolo, frames)
+    spatial = phase_spatial(torch, yolo, frames)
+    serve_mesh = phase_serve_mesh(torch, yolo, frames)
     track = phase_track(torch, yolo)
     bench = phase_benchmark(torch, yolo)
     export = phase_export(torch, yolo, frames, smi)
@@ -6555,6 +6863,8 @@ def main():
         "blocks_launches": blocks["launches"]["fused_enhance"],
         "rtdetr_launches": rtdetr["launches"]["fused_enhance"],
         "serve_launches": serve["launches"]["fused_enhance"],
+        "spatial_launches": spatial["launches"]["fused_enhance"],
+        "serve_mesh_launches": serve_mesh["launches"]["fused_enhance"],
         "track_launches": track["launches"]["fused_enhance"],
         "benchmark_launches": bench["launches"]["fused_enhance"],
         "export_launches": export["launches"]["fused_enhance"],
@@ -6580,6 +6890,7 @@ def main():
         "pose_launches": pose["launches"]["usm"],
         "blocks_launches": blocks["launches"]["usm"],
         "rtdetr_launches": rtdetr["launches"]["usm"],
+        "spatial_launches": spatial["launches"]["usm"],
         "export_launches": export["launches"]["usm"]}, {
         "name": "int8_conv", "route": "cuda",
         "source": "dedark_yolo_tpu_torch/csrc/int8_conv.cu",
@@ -6624,6 +6935,7 @@ def main():
         "blocks_launches": blocks["launches"]["nms"],
         "rtdetr_launches": rtdetr["launches"]["nms"],
         "serve_launches": serve["launches"]["nms"],
+        "serve_mesh_launches": serve_mesh["launches"]["nms"],
         "track_launches": track["launches"]["nms"],
         "benchmark_launches": bench["launches"]["nms"],
         "export_launches": export["launches"]["nms"],

@@ -165,9 +165,9 @@ UNPORTED_KEYS = frozenset((
 
 
 # the ROADMAP item of an unported key, or of an unported part of a ported
-# one: a mesh's spatial axis (`parallel.make_mesh`) and serving over a mesh
-# (`InferenceServer(mesh=)`)
-UNPORTED_ITEMS = {"spatial": "A12i-b", "serve_mesh": "A12i-b"}
+# one: a spatial axis on a process group's mesh, i.e. data x spatial
+# training (`parallel.make_mesh`, the trainer's mesh_axes)
+UNPORTED_ITEMS = {"spatial": "A12i-c"}
 
 
 def check_cfg_alignment(base_keys, custom: dict) -> None:

@@ -34,9 +34,18 @@ Batching policy: the worker blocks for the first request, then waits at
 most ``max_wait_ms`` for followers. An exported `.pt2` artifact is served
 through AutoBackend (JAX server.py:110-125): its sidecar's batch, imgsz
 and names win over the arguments, and only NMS runs behind its program.
-Not ported: serving over one process's several devices (`mesh=`,
-ROADMAP A12i-b). A classify model is refused as JAX
-refuses it (server.py:125-128): its predictions are YOLO.predict's.
+A classify model is refused as JAX refuses it (server.py:125-128): its
+predictions are YOLO.predict's.
+
+Over a mesh of this process's devices (`mesh=make_mesh(devices=[...])`,
+JAX server.py:54-73, :164-175, :335-337, where GSPMD shards the batch over
+the mesh): each padded batch splits into n equal groups of images, one a
+device of the mesh in its order, each run by its own predictor (its own
+pinned upload buffers) on the model's replica on that device, copied once
+at setup with the ensemble members' weights, one copy a distinct device.
+Every group is dispatched before any is read back; each group's NMS runs
+on its device, and the responses keep the batch's order. The warmup takes
+the same path. A device may repeat (`["cuda:0", "cuda:0"]`).
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..cfg import UNPORTED_ITEMS, get_cfg
+from ..cfg import get_cfg
 from ..data.augment import PAD_VALUE
 from ..data.imgops import contour_area, find_external_contours
 from ..ops.boxes import scale_boxes
@@ -73,6 +82,34 @@ def mask_polygon(mask):
     return cs[int(np.argmax([contour_area(c) for c in cs]))]
 
 
+def check_serve_mesh(mesh, spec, max_batch, device):
+    """The mesh a server runs over, or None; refused as JAX refuses it
+    (server.py:60-73): an exported artifact, a max_batch that is not a
+    multiple of the mesh size; and a mesh that is not over this process's
+    devices, or a `device` that is not its first."""
+    if mesh is None:
+        return None
+    from ..parallel import Mesh
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh: a parallel.Mesh, not {type(mesh).__name__}")
+    if not mesh.devices:
+        raise ValueError("InferenceServer(mesh=) takes a mesh over this "
+                         "process's devices: make_mesh(devices=[...])")
+    if spec.endswith(".pt2"):
+        raise ValueError(
+            "exported artifacts (.pt2) carry fixed single-device shapes; "
+            "serve the checkpoint instead to shard over a mesh")
+    if max_batch % mesh.size:
+        raise ValueError(f"max_batch {max_batch} must be a multiple of the "
+                         f"mesh size {mesh.size}")
+    d = None if device is None else torch.device(device)
+    if d is not None and (d.type != mesh.device.type or d.index not in (
+            None, mesh.device.index)):
+        raise ValueError(f"device {device} is not the mesh's first device "
+                         f"{mesh.device}")
+    return mesh
+
+
 class InferenceServer:
     """Coalesce concurrent detection requests into fixed-shape device batches.
 
@@ -81,21 +118,22 @@ class InferenceServer:
     win). max_batch: the one batch shape, also the coalescing cap.
     max_wait_ms: how long the worker holds the first request for followers.
     device: None means cuda (and raises without a CUDA device); "cpu" runs
-    the plain versions of the kernels.
+    the plain versions of the kernels. mesh: a mesh over this process's
+    devices (`parallel.make_mesh(devices=...)`), max_batch a multiple of
+    its size; the devices are then the mesh's.
     """
 
     def __init__(self, model_spec, imgsz=640, max_batch=8, max_wait_ms=5.0,
                  conf=0.25, iou=0.7, max_det=300, max_nms=2048, half=False,
                  warmup=True, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving over a mesh is not ported to dedark_yolo_tpu_torch "
-                f"(ROADMAP {UNPORTED_ITEMS['serve_mesh']})")
         spec = str(model_spec)
         refuse_jax_artifact(spec)
-        self.device = resolve_device(device)
         self.imgsz = int(imgsz)
         self.max_batch = int(max_batch)
+        self._mesh = check_serve_mesh(mesh, spec, self.max_batch, device)
+        self.device = (self._mesh.device if self._mesh is not None
+                       else resolve_device(device))
+        self._preds = None      # a mesh's predictors, one a device
         self.max_wait_s = float(max_wait_ms) / 1000.0
         self._q: Queue = Queue()
         self._stop = threading.Event()
@@ -150,11 +188,60 @@ class InferenceServer:
         # only detect takes ensemble members
         pred_cls = TASK_CLASSES[model.task][2]
         kw = {"members": members} if pred_cls is DetectionPredictor else {}
-        self._pred = pred_cls(args=get_cfg(over), model=model,
-                              names=self.names, save_dir=".", **kw)
+        if self._mesh is None:
+            self._pred = pred_cls(args=get_cfg(over), model=model,
+                                  names=self.names, save_dir=".", **kw)
+        else:
+            self._preds = self._mesh_predictors(pred_cls, model, over, kw)
+            self._pred = self._preds[0]
         if warmup:
             z = np.zeros((self.max_batch, self.imgsz, self.imgsz, 3), np.uint8)
-            self._pred.step(z)["counts"].cpu()    # a real readback
+            out = self._step(z)
+            for o in (out if self._preds else [out]):
+                o["counts"].cpu()                # a real readback
+
+    def _mesh_predictors(self, pred_cls, model, over, kw):
+        """One predictor a device of the mesh, each of a group of max_batch
+        / n images, on the model's replica on its device; the members'
+        weights moved once a distinct device."""
+        from ..parallel.spatial import replicas
+        devices = list(self._mesh.devices)
+        reps = replicas(model, devices)
+        group = self.max_batch // len(devices)
+        preds, states = [], {}
+        for dev in devices:
+            p = pred_cls(args=get_cfg({**over, "batch": group,
+                                       "device": str(dev)}),
+                         model=reps[dev].eval(), names=self.names,
+                         save_dir=".", **kw)
+            if dev in states:
+                p._member_states = states[dev]
+            elif kw.get("members"):
+                p._forwards()
+                states[dev] = p._member_states
+            preds.append(p)
+        return preds
+
+    def _step(self, batch):
+        """Dispatch one padded batch: the predictor's step, or over a mesh
+        each device's step on its group of images, none waited for."""
+        if self._preds is None:
+            return self._pred.step(batch)
+        g = self.max_batch // len(self._preds)
+        return [p.step(batch[k * g:(k + 1) * g])
+                for k, p in enumerate(self._preds)]
+
+    def _readback(self, out, n):
+        """The host outputs of a batch of n images (the wait of a batch) ->
+        at(i) = (host outputs, the index there) of image i."""
+        if self._preds is None:
+            host = self._pred.readback(out, n)
+            return lambda i: (host, i)
+        g = self.max_batch // len(self._preds)
+        hosts = [p.readback(o, min(n - k * g, g))
+                 for k, (p, o) in enumerate(zip(self._preds, out))
+                 if n > k * g]
+        return lambda i: (hosts[i // g], i % g)
 
     # ------------------------------------------------------------- client API
     def submit(self, img_bgr: np.ndarray) -> Future:
@@ -299,19 +386,19 @@ class InferenceServer:
         srcs += [srcs[0]] * (self.max_batch - len(srcs))
         batch = native.letterbox_batch(srcs, self.imgsz, fill=PAD_VALUE,
                                        swap_rb=True)
-        return items, shapes, self._pred.step(batch)   # not waited for
+        return items, shapes, self._step(batch)   # not waited for
 
     def _demux(self, items, shapes, out):
-        host = self._pred.readback(out, len(items))   # waits for the batch
-        dets, counts = host["dets"], host["counts"]
+        at = self._readback(out, len(items))   # waits for the batch
         t_done = time.perf_counter()
         sz = self.imgsz
         with self._lock:
             self._n_batches += 1
             self._n_images += len(items)
         for i, (_, fut, t_in) in enumerate(items):
-            k = int(counts[i])
-            det = dets[i, :k].copy()
+            host, j = at(i)
+            k = int(host["counts"][j])
+            det = host["dets"][j, :k].copy()
             if k:
                 det[:, :4] = scale_boxes((sz, sz), torch.from_numpy(det[:, :4]),
                                          shapes[i]).numpy()
@@ -320,7 +407,7 @@ class InferenceServer:
                 self._lat_ms.append(lat)
             fut.set_result({"boxes": det.astype(np.float32),
                             "names": self.names, "latency_ms": lat,
-                            **self._pred.extra_fields(host, i, k, shapes[i],
+                            **self._pred.extra_fields(host, j, k, shapes[i],
                                                       sz)})
 
     # ------------------------------------------------------------------- HTTP

@@ -132,6 +132,10 @@ def check_val_mesh(mesh, refused=False):
         raise NotImplementedError(
             f"a mesh of type {type(mesh).__name__} is not ported: validate "
             "over a dedark_yolo_tpu_torch.parallel.Mesh")
+    if len(mesh.devices) > 1:
+        raise NotImplementedError(
+            "val over a mesh of one process's devices is not ported (ROADMAP "
+            "A12i-c): validate over a process group's mesh (torchrun)")
     if mesh.world > 1 and refused:
         raise NotImplementedError("the loss and exported artifacts are not "
                                   "validated over a mesh of several ranks")

@@ -240,6 +240,8 @@ class LowlightRecovery(nn.Module):
         self.extractor = ExtractParameters2()
 
     def forward(self, x, dedark_A=None, IcA=None):
+        if not torch.is_tensor(x):     # row slabs (parallel/spatial.py)
+            return x.lowlight(self, dedark_A, IcA)
         b, h, w, _ = x.shape
         if dedark_A is None:
             dedark_A = torch.full((b, 3), DEFAULT_A, dtype=x.dtype,

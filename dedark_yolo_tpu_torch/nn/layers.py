@@ -414,7 +414,10 @@ def _group_norm(x, groups: int, eps: float):
     GroupBatchnorm2d and SRU do (layers.py:577-581). On a bf16 map the
     unbiasing factor n / (n - 1) and eps are rounded to bf16 first, as XLA
     rounds the weak-typed scalars of JAX's formula (`weak_const`); the mean
-    and the variance reduce in f32 and round once in both packages."""
+    and the variance reduce in f32 and round once in both packages. Row
+    slabs (`parallel/spatial.py`) take their statistics over every slab."""
+    if not torch.is_tensor(x):
+        return x.group_norm(groups, eps)
     b, c, h, w = x.shape
     xg = x.reshape(b, groups, -1)
     n = xg.shape[2]

@@ -22,10 +22,17 @@ dedark_yolo_tpu_torch train ... mesh_shape=[N]`. At world size 1 there is
 no group and no collective runs, so a mesh of one rank gives the numbers of
 no mesh bit for bit.
 
+A mesh over this process's own devices (`make_mesh(devices=[...])`, JAX
+`make_mesh(devices=...)`) has no group: row-sharded inference
+(`parallel/spatial.py`) splits one image's rows over its 'spatial' axis,
+and `InferenceServer(mesh=)` a batch over its devices. A device may repeat
+(`["cuda:0"] * 4`, `["cpu"] * 2`), the counterpart of the virtual host
+devices JAX's tests run on: one card then holds every shard.
+
 JAX's `batch_sharding` and `replicated` name GSPMD shardings, which mean
-nothing without GSPMD; they are left out. The spatial axis (JAX
-`parallel/spatial.py` and `shard_batch`'s data x spatial specs) is ROADMAP
-A12i-b: a mesh naming it raises.
+nothing without GSPMD; they are left out. Training over a spatial axis
+(`shard_batch`'s data x spatial specs) is ROADMAP A12i-c: a group mesh
+naming it raises.
 
 `GROUP_TIMEOUT` is the group's collective timeout: rank 0 validates alone
 between epochs while the other ranks wait in the fitness broadcast, so it
@@ -56,7 +63,8 @@ _STATE: dict = {"device": None, "cpu_group": None}
 @dataclass
 class Mesh:
     """One rank's view of the mesh: `group` is the process group (None at
-    world size 1), `device` the one device this rank drives."""
+    world size 1), `device` the one device this rank drives. A local mesh
+    (`devices`, in the mesh's order) has no group; `device` is its first."""
     group: object
     rank: int
     world: int
@@ -64,10 +72,16 @@ class Mesh:
     axis_names: tuple = ("data",)
     shape: tuple = (1,)
     cpu_group: object = None
+    devices: tuple = ()
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def size(self) -> int:
+        """The number of devices of the mesh (JAX `mesh.devices.size`)."""
+        return len(self.devices) or self.world
 
 
 def init_from_env(device=None, backend=None, timeout=GROUP_TIMEOUT):
@@ -111,16 +125,24 @@ def init_from_env(device=None, backend=None, timeout=GROUP_TIMEOUT):
     return dev
 
 
-def make_mesh(shape=None, axes=("data",), device=None):
-    """The mesh over the current group (none: one rank on `device`, None
-    meaning cuda). `shape` defaults to (world,); its product must be the
-    world size. Only the 'data' axis is ported: 'spatial' is ROADMAP
-    A12i-b."""
+LOCAL_AXES = (("data",), ("spatial",), ("data", "spatial"))
+
+
+def make_mesh(devices=None, shape=None, axes=("data",), device=None):
+    """With `devices`: a mesh over those devices of this process (see
+    `local_mesh`). Else the mesh over the current group (none: one rank on
+    `device`, None meaning cuda); `shape` defaults to (world,), its product
+    the world size. A group mesh has the 'data' axis only: training over a
+    'spatial' axis is ROADMAP A12i-c."""
     axes = tuple(axes or ("data",))
+    if devices is not None:
+        return local_mesh(devices, shape, axes)
     if "spatial" in axes:
         raise NotImplementedError(
-            "a spatial mesh axis (row-sharded inference and training) is not "
-            f"ported (ROADMAP {UNPORTED_ITEMS['spatial']})")
+            "a spatial axis on a process group's mesh (data x spatial "
+            "training) is not ported (ROADMAP "
+            f"{UNPORTED_ITEMS['spatial']}); row-sharded inference takes a "
+            "mesh over this process's devices: make_mesh(devices=[...])")
     if axes != ("data",):
         raise ValueError(f"mesh axes {axes}: the port has the ('data',) "
                          "axis only")
@@ -158,6 +180,54 @@ def make_mesh(shape=None, axes=("data",), device=None):
     return Mesh(group, rank, world, dev, axes, shape, cpu_group)
 
 
+def local_mesh(devices, shape=None, axes=("data",)):
+    """A mesh over devices this one process drives (JAX `make_mesh(
+    devices=...)`): axes ('data',), ('spatial',) or ('data', 'spatial'),
+    `shape` (default (len(devices),) on one axis) multiplying to the number
+    of devices. A device may repeat. Every device is CUDA or every one the
+    CPU; a CUDA device that this process does not have raises, and nothing
+    moves to the CPU unless the list says 'cpu'. Refused inside a process
+    group, whose ranks each drive one device."""
+    if dist.is_initialized():
+        raise RuntimeError("make_mesh(devices=...) builds a mesh over one "
+                           "process's devices; inside a process group each "
+                           "rank drives one device: make_mesh() without "
+                           "devices")
+    axes = tuple(axes)
+    if axes not in LOCAL_AXES:
+        raise ValueError(f"mesh axes {axes}: a local mesh takes "
+                         f"{' or '.join(map(str, LOCAL_AXES))}")
+    devs = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"no CUDA device is available for {d}; "
+                                   "name 'cpu' devices to run on the CPU")
+            if d.index is None:
+                d = torch.device("cuda", torch.cuda.current_device())
+            if d.index >= torch.cuda.device_count():
+                raise RuntimeError(f"no device {d} ({torch.cuda.device_count()}"
+                                   " CUDA devices)")
+        elif d.type != "cpu":
+            raise ValueError(f"a mesh device is cuda or cpu, not {d}")
+        devs.append(d)
+    if not devs:
+        raise ValueError("a mesh needs at least one device")
+    if len({d.type for d in devs}) > 1:
+        raise ValueError(f"mesh devices {[str(d) for d in devs]} mix CUDA "
+                         "and the CPU")
+    if shape is None:
+        if len(axes) != 1:
+            raise ValueError(f"mesh axes {axes} need a shape")
+        shape = (len(devs),)
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != len(axes) or math.prod(shape) != len(devs):
+        raise ValueError(f"mesh shape {shape} over axes {axes} does not "
+                         f"match {len(devs)} device(s)")
+    return Mesh(None, 0, 1, devs[0], axes, shape, None, tuple(devs))
+
+
 def mesh_group(mesh):
     """The group whose collectives a step runs: None without a mesh or at
     world size 1."""
@@ -179,8 +249,19 @@ def upload(device, batch, keys=None):
 def shard_batch(mesh, batch, keys=None):
     """This rank's rows on its device. Each rank's loader already holds its
     own rows (`data/loader.py`, JAX mesh.py:45-51: the global batch is the
-    per-rank batch times the world), so this is the upload."""
+    per-rank batch times the world), so this is the upload. A local mesh
+    of several devices splits its batches itself (InferenceServer,
+    spatial_infer) and raises here."""
+    _one_device(mesh, "shard_batch")
     return upload(mesh.device, batch, keys)
+
+
+def _one_device(mesh, what):
+    if len(mesh.devices) > 1:
+        raise ValueError(f"{what} takes a group mesh (one device a rank); "
+                         "a mesh over this process's devices serves "
+                         "(InferenceServer(mesh=)) and shards rows "
+                         "(spatial_infer)")
 
 
 def _flat_collective(tensors, collective):
@@ -205,6 +286,7 @@ def replicate(mesh, tensors):
     """Rank 0's values in every rank's tensors (in place; one broadcast a
     dtype); returns `tensors`. A dict or a sequence of tensors on the
     rank's device."""
+    _one_device(mesh, "replicate")
     group = mesh_group(mesh)
     if group is None:
         return tensors

@@ -1,0 +1,778 @@
+"""Row-sharded inference of one large image over a mesh's devices (JAX
+parallel/spatial.py).
+
+JAX shards one image's rows over the mesh and lets GSPMD partition every
+convolution, inserting the halo exchanges at the shard boundaries. The port
+does the same by hand, as a row-slab executor in lockstep: shard k holds rows
+[k*H/n, (k+1)*H/n) of every activation on its device (`RowSlabs`), and each
+op runs once per slab, in order:
+
+  - an op with a vertical extent (conv, max pool, transposed conv, pad)
+    first takes the rows it reads beyond its slab from the neighbouring
+    slabs (`.to(device, non_blocking=True)` of their edge rows, from
+    further out where a neighbour is shorter than the halo), pads only at
+    the image's true top and bottom (zeros, or -inf under a max pool) and
+    keeps the rows of its slab; a stride-2 op reads a halo above and none
+    below, since slab boundaries stay on the stride;
+  - a row-local op (pointwise, channel slices and concats, BN in eval, the
+    integer nearest upsample) runs on each slab as it is;
+  - a reduction over H x W (CBAM's and CRU's channel means, Classify's
+    mean, SCConv's group statistics through `_group_norm`'s hook) sums
+    over every slab;
+  - a module that mixes every position (AIFI, C3TR's TransformerBlock,
+    RT-DETR's decoder) runs on the map joined by rows on the first device
+    and is split again after: exact, as GSPMD's all-gather there;
+  - layer 0 (`LowlightRecovery`'s hook, `_lowlight`): the 256x256 resize
+    computes each output row from the source rows it reads, the 256 rows
+    join on the first device for ExtractParameters2, and the enhance
+    kernel (or 'reference''s point chain and usm kernel) runs on each slab
+    extended by the blur's 12-row radius of raw input from its neighbours,
+    those rows cropped after;
+  - the head's raw maps join by rows on the first device, where the decode
+    builds its anchors once.
+
+The modules are the model's own: nothing changes in their code, and with
+no slabs in play every forward is what it was. The slabs dispatch torch's
+functions to the per-slab work through `__torch_function__`; an op that
+this executor does not know raises, rather than run on a joined map.
+
+    mesh = make_mesh(devices=["cuda:0", "cuda:1"], axes=("spatial",))
+    h = spatial_pad_to(2160, 2)                     # 2176
+    boxes, scores = spatial_infer(model, img, mesh)  # img (1, h, W, 3)
+
+A device may repeat in the mesh (`["cuda:0"] * 4`): the slabs then share
+it, which shows the partition but not the memory saving of several cards.
+The weights are copied once to each distinct device other than the
+model's and kept per model, refreshed when its state changes.
+"""
+
+from __future__ import annotations
+
+import copy
+import weakref
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .mesh import Mesh, make_mesh
+
+# the ops a slab runs as it is: pointwise, dtype and layout changes
+_LOCAL = frozenset("""
+    add sub mul div true_divide neg exp log sigmoid tanh relu silu
+    leaky_relu gelu hardswish hardsigmoid sqrt rsqrt abs clamp clamp_min
+    clamp_max clip where pow reciprocal ge gt le lt eq ne logical_and
+    logical_or logical_not maximum minimum sign floor round to float half
+    bfloat16 type type_as contiguous clone detach zeros_like ones_like
+    full_like empty_like linear
+    __add__ __radd__ __iadd__ __sub__ __rsub__ __isub__ __mul__ __rmul__
+    __imul__ __truediv__ __rtruediv__ __itruediv__ __neg__ __pow__
+    __rpow__ __ge__ __gt__ __le__ __lt__ __and__ __or__ __xor__
+    __invert__""".split())
+_BINOPS = ("__add__ __radd__ __sub__ __rsub__ __mul__ __rmul__ __truediv__ "
+           "__rtruediv__ __neg__ __pow__ __rpow__ __ge__ __gt__ __le__ "
+           "__lt__ __and__ __or__ __xor__ __invert__ __getitem__").split()
+
+
+def spatial_pad_to(h, n_devices, stride=32):
+    """Smallest height >= h divisible by stride * n_devices."""
+    m = stride * int(n_devices)
+    return int(-(-h // m) * m)
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def _bind(args, kwargs, names, defaults):
+    """`args` and `kwargs` of a call as a list in `names`' order."""
+    vals = list(args) + [None] * (len(names) - len(args))
+    for i, n in enumerate(names):
+        if n in kwargs:
+            vals[i] = kwargs[n]
+        elif i >= len(args):
+            vals[i] = defaults.get(n)
+    return vals
+
+
+class Executor:
+    """The run's devices and weights: `on(t, dev)` is a tensor on `dev`, a
+    weight's copy on that device where the replicas hold one."""
+
+    def __init__(self, devices, copies):
+        self.devices = devices
+        self.copies = copies       # {(id(weight on devices[0]), dev): copy}
+
+    def on(self, t, dev):
+        if not torch.is_tensor(t) or t.device == dev:
+            return t
+        hit = self.copies.get((id(t), dev))
+        return hit if hit is not None else t.to(dev, non_blocking=True)
+
+
+class RowSlabs:
+    """One map as row slabs: `parts[k]` holds rows [bounds[k],
+    bounds[k + 1]) of dimension `hdim` on `ex.devices[k]`. `shape`,
+    `dtype` and `device` (the first slab's) are the whole map's."""
+
+    def __init__(self, parts, bounds, hdim, ex):
+        self.parts, self.bounds, self.hdim, self.ex = (
+            list(parts), list(bounds), hdim, ex)
+
+    # -------------------------------------------------------- the tensor face
+    @property
+    def shape(self):
+        s = list(self.parts[0].shape)
+        s[self.hdim] = self.bounds[-1]
+        return torch.Size(s)
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+    @property
+    def device(self):
+        return self.parts[0].device
+
+    @property
+    def ndim(self):
+        return self.parts[0].dim()
+
+    def dim(self):
+        return self.ndim
+
+    def size(self, d=None):
+        return self.shape if d is None else self.shape[d]
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __repr__(self):
+        return (f"RowSlabs(shape={tuple(self.shape)}, rows={self.bounds}, "
+                f"dim={self.hdim})")
+
+    def __getattr__(self, name):
+        fn = getattr(torch.Tensor, name)
+        return lambda *a, **k: _dispatch(fn, (self, *a), k)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        return _dispatch(func, args, kwargs or {})
+
+    # ------------------------------------------------------------ row access
+    def rows(self, g0, g1, dev):
+        """Global rows [g0, g1) on `dev`, taken from every slab they fall
+        in (one slab's own rows are a view)."""
+        pieces = []
+        for k, p in enumerate(self.parts):
+            a, b = self.bounds[k], self.bounds[k + 1]
+            lo, hi = max(a, g0), min(b, g1)
+            if lo < hi:
+                pieces.append(p.narrow(self.hdim, lo - a, hi - lo).to(
+                    dev, non_blocking=True))
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, self.hdim)
+
+    def join(self, dev=None):
+        """The whole map on `dev` (default: the first device)."""
+        return self.rows(0, self.bounds[-1], dev or self.ex.devices[0])
+
+    def like(self, parts, bounds=None, hdim=None):
+        return RowSlabs(parts, self.bounds if bounds is None else bounds,
+                        self.hdim if hdim is None else hdim, self.ex)
+
+    # ------------------------------------------------------------- the hooks
+    def group_norm(self, groups, eps):
+        """`nn/layers.py::_group_norm` over every slab: each group's mean
+        and biased variance summed in f32 over all slabs, then the same
+        formula per slab."""
+        from ..nn.layers import weak_const
+        b, c = self.shape[:2]
+        dev0 = self.ex.devices[0]
+        n = (c // groups) * self.shape[2] * self.shape[3]
+        xs = [p.reshape(b, groups, -1) for p in self.parts]
+        s1 = sum(x.sum(2, keepdim=True, dtype=torch.float32).to(dev0)
+                 for x in xs)
+        mean = (s1 / n).to(self.dtype)
+        mf = mean.float()
+        s2 = sum(((x.float() - self.ex.on(mf, x.device)) ** 2).sum(
+            2, keepdim=True).to(dev0) for x in xs)
+        var = (s2 / n).to(self.dtype) * weak_const(n / max(n - 1, 1), mean)
+        den = torch.sqrt(var) + weak_const(eps, mean)
+        return self.like([((x - self.ex.on(mean, x.device))
+                           / self.ex.on(den, x.device)).reshape(p.shape)
+                          for x, p in zip(xs, self.parts)])
+
+    def lowlight(self, mod, dedark_A=None, IcA=None):
+        """`LowlightRecovery.forward` on NHWC row slabs: see `_lowlight`."""
+        if dedark_A is not None or IcA is not None:
+            raise ValueError("spatial inference runs layer 0 on its default "
+                             "priors (no dedark_A or IcA)")
+        return _lowlight(mod, self)
+
+
+for _name in _BINOPS:
+    setattr(RowSlabs, _name,
+            (lambda fn: lambda self, *a: _dispatch(fn, (self, *a), {}))(
+                getattr(torch.Tensor, _name)))
+
+
+def _slabs_in(obj, out):
+    if isinstance(obj, RowSlabs):
+        out.append(obj)
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            _slabs_in(o, out)
+    return out
+
+
+def _swap(obj, k, dev, ref):
+    """`obj` with slabs replaced by their k-th part and tensors on `dev`;
+    a plain tensor that spans the rows of `ref` raises."""
+    if isinstance(obj, RowSlabs):
+        return obj.parts[k]
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_swap(o, k, dev, ref) for o in obj)
+    if torch.is_tensor(obj):
+        j = obj.dim() - (ref.ndim - ref.hdim)
+        if j >= 0 and obj.shape[j] != 1:
+            raise NotImplementedError(
+                f"a whole {tuple(obj.shape)} tensor meets row slabs "
+                f"{tuple(ref.shape)} along their rows")
+        return ref.ex.on(obj, dev)
+    return obj
+
+
+def _map(func, args, kwargs, hdim_out=None):
+    """func on each slab in turn; its tensor outputs as slabs of the same
+    rows (a tuple of them for a tuple)."""
+    slabs = _slabs_in(list(args) + list(kwargs.values()), [])
+    ref = slabs[0]
+    for s in slabs[1:]:
+        if s.bounds != ref.bounds or s.ex is not ref.ex:
+            raise NotImplementedError(
+                f"{func.__name__}: slabs of rows {ref.bounds} and "
+                f"{s.bounds} do not line up")
+    outs = []
+    for k, dev in enumerate(ref.ex.devices):
+        outs.append(func(*_swap(args, k, dev, ref),
+                         **{n: _swap(v, k, dev, ref)
+                            for n, v in kwargs.items()}))
+
+    def wrap(parts):
+        if torch.is_tensor(parts[0]):
+            h = (hdim_out if hdim_out is not None
+                 else ref.hdim + parts[0].dim() - ref.ndim)
+            return ref.like(parts, hdim=h)
+        if isinstance(parts[0], (tuple, list)):
+            return type(parts[0])(wrap(list(p)) for p in zip(*parts))
+        raise NotImplementedError(f"{func.__name__} on row slabs returned "
+                                  f"{type(parts[0]).__name__}")
+    return wrap(outs)
+
+
+def _norm_dim(d, ndim):
+    return d + ndim if d < 0 else d
+
+
+def _dispatch(func, args, kwargs):
+    name = getattr(func, "__name__", "")
+    handler = _HANDLERS.get(name)
+    if handler is not None:
+        return handler(func, args, kwargs)
+    if name in _LOCAL:
+        return _map(func, args, kwargs)
+    raise NotImplementedError(
+        f"{name or func} is not run on row slabs (parallel/spatial.py); the "
+        f"modules that mix every row run joined: {JOINED}")
+
+
+# ------------------------------------------------------ ops with a halo
+def _halo(x, k_eff, stride, pad_top, pad_bot, fill, op):
+    """The slabs of an op that reads k_eff rows (stride, H padding) per
+    output row: output row o belongs to the slab that holds input row
+    o * stride; each slab reads its rows and the halo around them, padded
+    with `fill` only past the image's edges, and `op(ext)` runs with no
+    H padding."""
+    H = x.bounds[-1]
+    h_out = (H + pad_top + pad_bot - k_eff) // stride + 1
+    cuts = ([0] + [min(max(-(-b // stride), 0), h_out)
+                   for b in x.bounds[1:-1]] + [h_out])
+    parts = []
+    for k, dev in enumerate(x.ex.devices):
+        o0, o1 = cuts[k], cuts[k + 1]
+        if o1 <= o0:
+            raise ValueError(
+                f"slab {k} of rows {x.bounds} holds no output row of a "
+                f"{k_eff}-row stride-{stride} op: the image is too short "
+                f"for {len(x.parts)} slabs")
+        g0 = o0 * stride - pad_top
+        g1 = (o1 - 1) * stride - pad_top + k_eff
+        ext = x.rows(max(g0, 0), min(g1, H), dev)
+        top, bot = max(-g0, 0), max(g1 - H, 0)
+        if top or bot:
+            pad = [0, 0] * (ext.dim() - 1 - x.hdim) + [top, bot]
+            ext = F.pad(ext, pad, value=fill)
+        parts.append(op(ext))
+    return x.like(parts, cuts)
+
+
+def _conv2d(func, args, kwargs):
+    x, w, b, stride, padding, dilation, groups = _bind(
+        args, kwargs, ("input", "weight", "bias", "stride", "padding",
+                       "dilation", "groups"),
+        {"stride": 1, "padding": 0, "dilation": 1, "groups": 1})
+    if isinstance(padding, str) or x.hdim != 2:
+        raise NotImplementedError("conv2d on row slabs takes NCHW slabs and "
+                                  "integer padding")
+    (sh, sw), (ph, pw), (dh, dw) = _pair(stride), _pair(padding), _pair(dilation)
+    k_eff = dh * (w.shape[2] - 1) + 1
+    ex = x.ex
+    return _halo(x, k_eff, sh, ph, ph, 0.0, lambda ext: F.conv2d(
+        ext, ex.on(w, ext.device), ex.on(b, ext.device), (sh, sw), (0, pw),
+        (dh, dw), groups))
+
+
+def _max_pool2d(func, args, kwargs):
+    x, ks, stride, padding, dilation, ceil_mode, ret = _bind(
+        args, kwargs, ("input", "kernel_size", "stride", "padding",
+                       "dilation", "ceil_mode", "return_indices"),
+        {"padding": 0, "dilation": 1, "ceil_mode": False,
+         "return_indices": False})
+    if ceil_mode or ret or x.hdim != 2:
+        raise NotImplementedError("max_pool2d on row slabs: NCHW, no "
+                                  "ceil_mode, no indices")
+    (kh, kw) = _pair(ks)
+    (sh, sw) = _pair(stride if stride not in (None, []) else ks)
+    (ph, pw), (dh, dw) = _pair(padding), _pair(dilation)
+    return _halo(x, dh * (kh - 1) + 1, sh, ph, ph, float("-inf"),
+                 lambda ext: F.max_pool2d(ext, (kh, kw), (sh, sw),
+                                             (0, pw), (dh, dw)))
+
+
+def _conv_transpose2d(func, args, kwargs):
+    """A transposed conv whose kernel rows equal its stride: each input row
+    makes its own `stride` output rows, so each slab runs alone with no H
+    padding and the padding's rows are cropped at the image's true top and
+    bottom only (flax's 2H - 2 of ConvTranspose and Proto: uneven slabs)."""
+    x, w, b, stride, padding, out_pad, groups, dilation = _bind(
+        args, kwargs, ("input", "weight", "bias", "stride", "padding",
+                       "output_padding", "groups", "dilation"),
+        {"stride": 1, "padding": 0, "output_padding": 0, "groups": 1,
+         "dilation": 1})
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    (oph, opw), (dh, dw) = _pair(out_pad), _pair(dilation)
+    if w.shape[2] != sh or dh != 1 or oph or x.hdim != 2:
+        raise NotImplementedError(
+            "conv_transpose2d on row slabs needs kernel rows == stride, no "
+            "dilation or output padding along H")
+    H = x.bounds[-1]
+    h_out = H * sh - 2 * ph
+    bounds = [min(max(b * sh - ph, 0), h_out) for b in x.bounds]
+    bounds[-1] = h_out
+    parts = []
+    for k, p in enumerate(x.parts):
+        y = F.conv_transpose2d(p, x.ex.on(w, p.device), x.ex.on(b, p.device),
+                               (sh, sw), (0, pw), (0, opw), groups, (1, dw))
+        lo = bounds[k] - (x.bounds[k] * sh - ph)
+        parts.append(y.narrow(2, lo, bounds[k + 1] - bounds[k]))
+    if any(b1 <= b0 for b0, b1 in zip(bounds, bounds[1:])):
+        raise ValueError(f"a transposed conv of rows {x.bounds} leaves an "
+                         "empty slab")
+    return x.like(parts, bounds)
+
+
+def _pad(func, args, kwargs):
+    x, pad, mode, value = _bind(args, kwargs, ("input", "pad", "mode",
+                                               "value"), {"mode": "constant"})
+    pad = list(pad)
+    i = 2 * (x.ndim - 1 - x.hdim)
+    top, bot = (pad[i], pad[i + 1]) if len(pad) > i else (0, 0)
+    if mode != "constant" or min(pad) < 0:
+        raise NotImplementedError("pad on row slabs: constant, >= 0")
+    if len(pad) > i:
+        pad[i] = pad[i + 1] = 0
+    n = len(x.parts)
+    parts = []
+    for k, p in enumerate(x.parts):
+        pk = list(pad)
+        if len(pad) > i:
+            pk[i], pk[i + 1] = (top if k == 0 else 0,
+                                bot if k == n - 1 else 0)
+        parts.append(F.pad(p, pk, mode, value) if any(pk) else p)
+    bounds = [0] + [b + top for b in x.bounds[1:-1]] + [
+        x.bounds[-1] + top + bot]
+    return x.like(parts, bounds)
+
+
+def _interpolate(func, args, kwargs):
+    x, size, scale, mode = _bind(args, kwargs, ("input", "size",
+                                                "scale_factor", "mode"),
+                                 {"mode": "nearest"})
+    sh = _pair(scale)[0] if scale is not None else None
+    if (mode != "nearest" or size is not None or x.hdim != 2
+            or float(sh) != int(sh)):
+        raise NotImplementedError("interpolate on row slabs: nearest, an "
+                                  "integer scale_factor")
+    out = _map(func, args, kwargs)
+    out.bounds = [b * int(sh) for b in x.bounds]
+    return out
+
+
+def _batch_norm(func, args, kwargs):
+    training = _bind(args, kwargs, ("input", "running_mean", "running_var",
+                                    "weight", "bias", "training"), {})[5]
+    if training:
+        raise NotImplementedError("spatial inference runs BatchNorm in eval")
+    return _map(func, args, kwargs)
+
+
+# ---------------------------------------------------- dims and indexing
+def _getitem(func, args, kwargs):
+    x, idx = args
+    idx = idx if isinstance(idx, tuple) else (idx,)
+    if any(not isinstance(i, slice) and i is not Ellipsis for i in idx):
+        raise NotImplementedError("row slabs index by slices only")
+    if Ellipsis in idx:
+        e = idx.index(Ellipsis)
+        idx = idx[:e] + (slice(None),) * (x.ndim - len(idx) + 1) + idx[e + 1:]
+    idx = idx + (slice(None),) * (x.ndim - len(idx))
+    h = idx[x.hdim]
+    step = h.step or 1
+    if h.stop is not None or (h.start or 0) >= step or any(
+            b % step for b in x.bounds):
+        raise NotImplementedError(
+            f"row slabs of rows {x.bounds} index their rows by {h}")
+    out = _map(func, (x, idx), {})
+    out.bounds = [b // step for b in x.bounds]
+    return out
+
+
+def _cat(func, args, kwargs):
+    tensors, dim = _bind(args, kwargs, ("tensors", "dim"), {"dim": 0})
+    ref = _slabs_in(tensors, [])[0]
+    if len(_slabs_in(tensors, [])) != len(tensors):
+        raise NotImplementedError("cat of row slabs and whole tensors")
+    if _norm_dim(dim, ref.ndim) == ref.hdim:
+        raise NotImplementedError("cat of row slabs along their rows")
+    return _map(func, args, kwargs)
+
+
+def _chunk(func, args, kwargs):
+    """chunk / split (x, n or size, dim=0)."""
+    x, _, dim = _bind(args, kwargs, ("input", "n", "dim"), {"dim": 0})
+    if _norm_dim(dim, x.ndim) == x.hdim:
+        raise NotImplementedError(f"{func.__name__} of row slabs along "
+                                  "their rows")
+    return _map(func, args, kwargs)
+
+
+def _permute(func, args, kwargs):
+    x = args[0]
+    dims = args[1] if len(args) == 2 and isinstance(args[1], (tuple, list)) \
+        else (args[1:] or kwargs["dims"])
+    dims = [_norm_dim(d, x.ndim) for d in dims]
+    return _map(func, args, kwargs, hdim_out=dims.index(x.hdim))
+
+
+def _reshape(func, args, kwargs):
+    x = args[0]
+    shape = args[1] if len(args) == 2 and isinstance(args[1], (tuple, list)) \
+        else args[1:]
+    shape = list(shape)
+    full = list(x.shape)
+    if len(shape) <= x.hdim or shape[:x.hdim + 1] != full[:x.hdim + 1]:
+        raise NotImplementedError(f"reshape of row slabs {tuple(full)} to "
+                                  f"{tuple(shape)} moves their rows")
+    parts = []
+    for p in x.parts:
+        s = list(shape)
+        s[x.hdim] = p.shape[x.hdim]
+        parts.append(getattr(p, func.__name__)(s))
+    return x.like(parts)
+
+
+def _flatten(func, args, kwargs):
+    x, start, end = _bind(args, kwargs, ("input", "start_dim", "end_dim"),
+                          {"start_dim": 0, "end_dim": -1})
+    start, end = _norm_dim(start, x.ndim), _norm_dim(end, x.ndim)
+    if start <= x.hdim <= end and start != end:
+        raise NotImplementedError("flatten of row slabs across their rows")
+    return _map(func, args, kwargs, hdim_out=x.hdim - (
+        max(end - start, 0) if end < x.hdim else 0))
+
+
+def _reduce(func, args, kwargs):
+    """mean / sum / amax / amin: over other dims on each slab; over the
+    rows, the slabs' partial results combined on the first device (sums in
+    f32, the mean over the whole count) into one whole tensor."""
+    name = func.__name__
+    x, dims, keepdim = _bind(args, kwargs, ("input", "dim", "keepdim"),
+                             {"keepdim": False})
+    dims = (list(range(x.ndim)) if dims is None else
+            [_norm_dim(d, x.ndim) for d in
+             (dims if isinstance(dims, (tuple, list)) else [dims])])
+    if x.hdim not in dims:
+        return _map(func, args, kwargs, hdim_out=x.hdim if keepdim else
+                    x.hdim - sum(d < x.hdim for d in dims))
+    dev0 = x.ex.devices[0]
+    if name in ("mean", "sum"):
+        acc = torch.float32 if x.dtype.is_floating_point else None
+        total = sum(p.sum(dims, keepdim=True, dtype=acc).to(dev0)
+                    for p in x.parts)
+        if name == "mean":
+            total = total / int(np.prod([x.shape[d] for d in dims]))
+        out = total.to(x.dtype) if acc is not None else total
+    elif name in ("amax", "amin"):
+        red = getattr(torch, name)
+        out = red(torch.cat([red(p, dims, keepdim=True).to(dev0)
+                             for p in x.parts], x.hdim), dims, keepdim=True)
+    else:
+        raise NotImplementedError(f"{name} of row slabs over their rows")
+    return out if keepdim else out.squeeze(dims)
+
+
+def _softmax(func, args, kwargs):
+    x, dim = _bind(args, kwargs, ("input", "dim"), {})
+    if _norm_dim(dim, x.ndim) == x.hdim:
+        raise NotImplementedError("softmax of row slabs along their rows")
+    return _map(func, args, kwargs)
+
+
+_HANDLERS = {
+    "conv2d": _conv2d, "max_pool2d": _max_pool2d,
+    "conv_transpose2d": _conv_transpose2d, "pad": _pad,
+    "interpolate": _interpolate, "batch_norm": _batch_norm,
+    "__getitem__": _getitem, "cat": _cat, "concat": _cat,
+    "chunk": _chunk, "split": _chunk,
+    "permute": _permute, "reshape": _reshape, "view": _reshape,
+    "flatten": _flatten, "mean": _reduce, "sum": _reduce, "amax": _reduce,
+    "amin": _reduce, "softmax": _softmax,
+}
+
+
+# ------------------------------------------------------------- layer 0
+BLUR_HALO = 12   # the USM's 25-tap radius (nn/enhance.py::gaussian_kernel_25)
+
+
+def _resize_rows(x, out=256):
+    """The (B, out, out, 3) torch-convention bilinear resize of NHWC row
+    slabs on the first device, bit-equal to `torch_bilinear_resize` of the
+    whole image. Each output row reads source rows lo and lo + 1; runs of
+    output rows [i0, i1) with i0 a multiple of 8 start on source row i0 *
+    H / out, an integer (H is a multiple of 32), so the same kernel, told
+    the whole image's scale, computes them from just those rows, on the
+    device that holds the first. Below `out` rows the resize upsamples, a
+    band would read the row above its first, and the raw image (3
+    channels, under `out` rows) is joined on the first device instead; so
+    is a bf16 image, whose resize is JAX's two matrices."""
+    from ..nn.enhance import torch_bilinear_resize
+    H, W = x.bounds[-1], x.shape[2]
+    dev0 = x.ex.devices[0]
+    scale = np.float32(H) / np.float32(out)
+    exact = np.float32(1.0 / (out / H)) == scale
+    if H < out or x.dtype != torch.float32 or not exact:
+        return torch_bilinear_resize(x.join(dev0), out, out)
+    src = np.maximum(scale * (np.arange(out, dtype=np.float32)
+                              + np.float32(0.5)) - np.float32(0.5), 0)
+    lo = np.floor(src).astype(np.int64)
+    # each 8-row run of output rows goes to the slab holding its first row
+    owner = [int(np.searchsorted(x.bounds, int(8 * g * scale), "right")) - 1
+             for g in range(out // 8)]
+    pieces, g = [], 0
+    while g < len(owner):
+        e = g
+        while e + 1 < len(owner) and owner[e + 1] == owner[g]:
+            e += 1
+        i0, i1 = 8 * g, 8 * (e + 1)
+        r0, r1 = int(i0 * scale), min(int(lo[i1 - 1]) + 2, H)
+        band = x.rows(r0, r1, x.ex.devices[owner[g]]).contiguous()
+        y = torch._C._nn.upsample_bilinear2d(
+            band.permute(0, 3, 1, 2), [i1 - i0, out], False, out / H, None)
+        pieces.append(y.permute(0, 2, 3, 1).to(dev0, non_blocking=True))
+        g = e + 1
+    return torch.cat(pieces, 1)
+
+
+def _lowlight(mod, x):
+    """Layer 0 on NHWC row slabs: its 15 parameters from the joined 256x256
+    resize on the first device (the same for every slab), then the enhance
+    kernel (or 'reference''s point chain and usm kernel) on each slab
+    extended by BLUR_HALO rows of raw input from its neighbours, which the
+    kernel's reflection reaches only at the image's true top and bottom;
+    the halo rows cropped after. The default priors are made per slab."""
+    from ..nn.enhance import (DEFAULT_A, DEFAULT_ICA, apply_point_filters,
+                              regress_filter_params)
+    from ..ops import enhance_kernel as K
+    small = _resize_rows(x).permute(0, 3, 1, 2)
+    features = mod.extractor(small.to(mod.extractor.fc1.weight.dtype))
+    b, H, W, _ = x.shape
+    parts = []
+    for k, dev in enumerate(x.ex.devices):
+        a0, a1 = x.bounds[k], x.bounds[k + 1]
+        e0, e1 = max(a0 - BLUR_HALO, 0), min(a1 + BLUR_HALO, H)
+        ext = x.rows(e0, e1, dev)
+        feats = features.to(dev, non_blocking=True)
+        A = torch.full((b, 3), DEFAULT_A, dtype=ext.dtype, device=dev)
+        IcA = torch.full((b, e1 - e0, W, 1), DEFAULT_ICA, dtype=ext.dtype,
+                         device=dev)
+        if mod.contrast_mode == "channel":
+            y = K.fused_enhance(ext, feats, A, IcA)
+        else:
+            params = regress_filter_params(feats)
+            y = K.usm(apply_point_filters(ext, params, A, IcA,
+                                          mod.contrast_mode), params["usm"])
+        parts.append(y.narrow(1, a0 - e0, a1 - a0))
+    return x.like(parts)
+
+
+# ---------------------------------------------------------- the executor
+def _joined_types():
+    from ..nn.heads import RTDETRDecoder
+    from ..nn.transformer import AIFI, TransformerBlock
+    return (AIFI, TransformerBlock, RTDETRDecoder)
+
+
+JOINED = "AIFI, TransformerBlock (C3TR), RTDETRDecoder"
+
+
+def _join_tree(obj):
+    if isinstance(obj, RowSlabs):
+        return obj.join()
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_join_tree(o) for o in obj)
+    return obj
+
+
+class _Joined:
+    """Forward hooks that run a module on its inputs joined by rows on the
+    first device and split a map it returns at its input's rows."""
+
+    def __init__(self):
+        self.stack = []
+
+    def pre(self, mod, args):
+        s = _slabs_in(list(args), [])
+        self.stack.append(s[0] if s else None)
+        return _join_tree(tuple(args))
+
+    def post(self, mod, args, out):
+        ref = self.stack.pop()
+        if (ref is None or not torch.is_tensor(out) or out.dim() != ref.ndim
+                or out.shape[ref.hdim] != ref.bounds[-1]):
+            return out
+        return ref.like([out.narrow(ref.hdim, a, b - a).to(
+            dev, non_blocking=True) for a, b, dev in zip(
+                ref.bounds, ref.bounds[1:], ref.ex.devices)])
+
+
+# per model: {device: (replica, state signature)}
+_REPLICAS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _signature(model):
+    return tuple((k, v.data_ptr(), v._version)
+                 for k, v in model.state_dict().items())
+
+
+def replicas(model, devices):
+    """The model on each distinct device of `devices`: itself on its own
+    device, else a copy made once and kept for the model (its weights
+    copied again when the model's state has changed)."""
+    own = next(model.parameters()).device
+    cache = _REPLICAS.setdefault(model, {})
+    sig = None
+    out = {}
+    for dev in dict.fromkeys(devices):
+        if dev == own:
+            out[dev] = model
+            continue
+        sig = sig or _signature(model)
+        hit = cache.get(dev)
+        if hit is None:
+            hit = cache[dev] = [copy.deepcopy(model).to(dev), sig]
+        elif hit[1] != sig:
+            hit[0].load_state_dict(model.state_dict())
+            hit[1] = sig
+        out[dev] = hit[0]
+    return out
+
+
+def row_devices(mesh, axis):
+    """The devices along `axis` of a local mesh (the first of each other
+    axis: the rows are not split over them)."""
+    if not isinstance(mesh, Mesh) or not mesh.devices:
+        raise TypeError("spatial_infer takes a mesh over this process's "
+                        "devices: make_mesh(devices=[...])")
+    axis = axis if axis is not None else mesh.axis_names[0]
+    if axis not in mesh.axis_names:
+        raise ValueError(f"mesh axes {mesh.axis_names} have no '{axis}'")
+    grid = np.empty(len(mesh.devices), object)
+    grid[:] = list(mesh.devices)
+    grid = grid.reshape(mesh.shape)
+    a = mesh.axis_names.index(axis)
+    return list(np.moveaxis(grid, a, 0).reshape(grid.shape[a], -1)[:, 0])
+
+
+def row_slabs(img, devices, copies=None):
+    """An NHWC image as equal row slabs, slab k on devices[k]; `copies`
+    the weights' copies of `Executor` (none where every device is the
+    model's)."""
+    img = torch.as_tensor(img)
+    n = len(devices)
+    step = img.shape[1] // n
+    if step * n != img.shape[1]:
+        raise ValueError(f"{img.shape[1]} rows do not split into {n} slabs")
+    return RowSlabs([img[:, k * step:(k + 1) * step].to(dev, non_blocking=True)
+                     for k, dev in enumerate(devices)],
+                    [k * step for k in range(n + 1)], 1,
+                    Executor(list(devices), copies or {}))
+
+
+@torch.inference_mode()
+def spatial_infer(model, img, mesh=None, axis=None):
+    """Eval-mode inference with the image's rows sharded over the mesh.
+
+    model: a DetectionModel. img: (B, H, W, 3) in [0, 1], a tensor or an
+    array; H must divide 32 * the axis's size (use spatial_pad_to and a
+    letterbox fill). mesh: a local mesh (default: every CUDA device of the
+    process on one 'spatial' axis); axis: the axis the rows split over
+    (default its first). Returns what `model.eval_outputs` returns for the
+    same image on one device ((boxes_xywh, scores) for detect), on the
+    mesh's first device."""
+    if mesh is None:
+        mesh = make_mesh(devices=[f"cuda:{i}" for i in
+                                  range(torch.cuda.device_count())],
+                         axes=("spatial",))
+    devices = row_devices(mesh, axis)
+    n = len(devices)
+    img = torch.as_tensor(img)
+    h = img.shape[1]
+    if h % (32 * n):
+        raise ValueError(f"H={h} must divide 32 * {n} devices (use "
+                         "spatial_pad_to)")
+    reps = replicas(model, devices)
+    first = reps[devices[0]]
+    copies = {}
+    for dev, rep in reps.items():
+        if rep is not first:
+            for (_, t0), (_, t) in zip(
+                    [*first.named_parameters(), *first.named_buffers()],
+                    [*rep.named_parameters(), *rep.named_buffers()]):
+                copies[(id(t0), dev)] = t
+    x = row_slabs(img, devices, copies)
+    modes = {r: r.training for r in reps.values()}
+    joined, hooks = _Joined(), []
+    try:
+        for r in reps.values():
+            r.eval()
+        for m in first.modules():
+            if isinstance(m, _joined_types()):
+                hooks.append(m.register_forward_pre_hook(joined.pre))
+                hooks.append(m.register_forward_hook(joined.post))
+        raw = _join_tree(first(x))
+        return first.decode(raw, (h, img.shape[2]))
+    finally:
+        for hk in hooks:
+            hk.remove()
+        for r, mode in modes.items():
+            r.train(mode)

@@ -15,6 +15,10 @@ backend)` and runs one scenario:
     val   `DetectionValidator(mesh=)` of `--model` (and `--state`) on the
           dataset `--data` (a .json dict or a yaml path); writes the
           results and launches to `--out`_rank{r}.json
+    step_val  `step`, then in the same ranks and group `val` with
+          `--val-state`, `--val-imgsz`, `--val-overrides` and `--val-out`
+          in place of `--state`, `--imgsz`, `--overrides` and `--out`
+          (one launch of the group for both)
 
 Two ranks on one card need `--device cuda:0 --backend gloo` (NCCL refuses
 two ranks on one GPU); on the CPU `--device cpu` (gloo).
@@ -283,7 +287,7 @@ def run_val(a, mesh):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("scenario", choices=("step", "val", "split"))
+    ap.add_argument("scenario", choices=("step", "val", "step_val", "split"))
     ap.add_argument("--model", default="yolov8l.yaml")
     ap.add_argument("--nc", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -300,6 +304,10 @@ def main(argv=None):
     ap.add_argument("--backend", default=None)
     ap.add_argument("--bn-global", action="store_true")
     ap.add_argument("--out", required=True)
+    ap.add_argument("--val-state", default="")
+    ap.add_argument("--val-imgsz", type=int, default=None)
+    ap.add_argument("--val-overrides", default="{}")
+    ap.add_argument("--val-out", default="")
     a = ap.parse_args(argv)
     import torch
     if a.scenario == "split":
@@ -314,7 +322,15 @@ def main(argv=None):
     init_from_env(device=a.device, backend=a.backend)
     mesh = make_mesh()
     a.device = str(mesh.device)
-    (run_step if a.scenario == "step" else run_val)(a, mesh)
+    if a.scenario in ("step", "step_val"):
+        run_step(a, mesh)
+    if a.scenario == "step_val":
+        a = argparse.Namespace(**{
+            **vars(a), "state": a.val_state, "out": a.val_out,
+            "overrides": a.val_overrides,
+            "imgsz": a.val_imgsz or a.imgsz})
+    if a.scenario in ("val", "step_val"):
+        run_val(a, mesh)
     torch.distributed.destroy_process_group()
     print(f"rank {mesh.rank} of {mesh.world} done on {mesh.device}")
     return 0

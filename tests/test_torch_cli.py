@@ -100,7 +100,7 @@ def test_unported_keys_refused_as_not_ported():
 def test_unported_key_names_its_item(key, item):
     """The keys of A12i (the mesh's data axis) and A12j (remat) are ported:
     accepted with JAX's defaults and typed; what stays of the mesh, its
-    spatial axis and serving over it, names A12i-b."""
+    spatial axis on a group (data x spatial training), names A12i-c."""
     check_cfg_alignment(DEFAULT_CFG.keys(), {key: 1})
     assert key not in UNPORTED_KEYS and item in ("A12i", "A12j")
     assert DEFAULT_CFG[key] == {"mesh_shape": None, "mesh_axes": ["data"],
@@ -109,7 +109,7 @@ def test_unported_key_names_its_item(key, item):
     assert getattr(get_cfg({key: value}), key) == value
     assert cli._parse_value(str(value).replace("'", "").replace(" ", "")) \
         == value
-    assert set(UNPORTED_ITEMS.values()) == {"A12i-b"}
+    assert UNPORTED_ITEMS == {"spatial": "A12i-c"}
 
 
 def test_cli_val_equals_facade_and_jax_cli(setup, capsys, monkeypatch):

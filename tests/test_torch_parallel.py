@@ -30,7 +30,10 @@ import flax.linen as fnn  # noqa: E402
 from dedark_yolo_tpu.data.loader import DataLoader as JaxLoader  # noqa: E402
 from dedark_yolo_tpu.nn.layers import BN_EPS, BN_MOMENTUM  # noqa: E402
 
+from dedark_yolo_tpu_torch.cfg import model_yaml_load  # noqa: E402
 from dedark_yolo_tpu_torch.data.loader import DataLoader  # noqa: E402
+from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer  # noqa: E402
+from dedark_yolo_tpu_torch.nn.graph import DetectionModel  # noqa: E402
 from dedark_yolo_tpu_torch.parallel import (  # noqa: E402
     init_from_env, make_mesh, replicate, shard_batch)
 from dedark_yolo_tpu_torch.parallel import mesh as M  # noqa: E402
@@ -39,6 +42,7 @@ from dedark_yolo_tpu_torch.tools.dist_probe import launch  # noqa: E402
 from test_torch_zoo_blocks import few_threads  # noqa: E402,F401
 
 WORKER = str(Path(__file__).resolve().parent / "torch_dist_worker.py")
+TINY = str(Path(__file__).resolve().parent / "tiny_model.yaml")
 TIMEOUT = 120
 
 
@@ -75,8 +79,13 @@ def test_mesh_of_one_rank_runs_no_collective():
 def test_mesh_refusals(monkeypatch):
     with pytest.raises(ValueError, match="does not match the world"):
         make_mesh(shape=(2,), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12i-b"):
+    # a spatial axis on a group mesh is data x spatial training (A12i-c)
+    with pytest.raises(NotImplementedError, match="ROADMAP A12i-c"):
         make_mesh(shape=(1, 1), axes=("data", "spatial"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12i-c"):
+        DetectionTrainer(DetectionModel(model_yaml_load(TINY), nc=3),
+                         {"batch": 2, "mesh_axes": ["data", "spatial"],
+                          "mesh_shape": [1, 1]}, device="cpu")._setup_mesh()
     with pytest.raises(ValueError, match="'data'"):
         make_mesh(axes=("model",), device="cpu")
     for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
@@ -95,6 +104,37 @@ def test_mesh_refusals(monkeypatch):
         with pytest.raises(RuntimeError, match="has no device cuda:3"):
             init_from_env()
     assert not torch.distributed.is_initialized()
+
+
+def test_local_mesh():
+    """A mesh over this process's devices (make_mesh(devices=...), JAX's
+    form): its axes and shapes, repeated devices, the refusals."""
+    m = make_mesh(devices=["cpu", "cpu"])
+    assert (m.group, m.world, m.size, m.axis_names, m.shape, m.device,
+            m.devices) == (None, 1, 2, ("data",), (2,), torch.device("cpu"),
+                           (torch.device("cpu"),) * 2)
+    assert M.mesh_group(m) is None
+    m = make_mesh(devices=["cpu"] * 4, shape=(2, 2), axes=("data", "spatial"))
+    assert (m.size, m.shape, m.axis_names) == (4, (2, 2), ("data", "spatial"))
+    assert make_mesh(devices=["cpu"], axes=("spatial",)).size == 1
+    with pytest.raises(ValueError, match="need a shape"):
+        make_mesh(devices=["cpu"] * 2, axes=("data", "spatial"))
+    with pytest.raises(ValueError, match="does not match 3 device"):
+        make_mesh(devices=["cpu"] * 3, shape=(2, 2), axes=("data", "spatial"))
+    with pytest.raises(ValueError, match="local mesh takes"):
+        make_mesh(devices=["cpu"], axes=("model",))
+    with pytest.raises(ValueError, match="at least one device"):
+        make_mesh(devices=[])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        make_mesh(devices=["meta"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh(devices=["cuda:0", "cuda:0"])
+    # a group mesh's rank tools refuse a mesh of several local devices
+    with pytest.raises(ValueError, match="group mesh"):
+        shard_batch(make_mesh(devices=["cpu"] * 2), {"img": np.ones(2)})
+    with pytest.raises(ValueError, match="group mesh"):
+        replicate(make_mesh(devices=["cpu"] * 2), [torch.ones(1)])
 
 
 # ------------------------------------------------------------ two ranks

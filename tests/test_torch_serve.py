@@ -12,7 +12,9 @@ JAX checkpoint of seeded weights.
   close() failing what is queued, submit after close, no card without
   device='cpu', the HTTP front-end (/healthz, /stats, POST /predict with a
   PNG, 404s, an undecodable body), the CLI's `serve` in a subprocess, and
-  the raises (a mesh, A12; the JAX package's exported artifacts).
+  the raises (a mesh of another type: serving over a mesh is
+  tests/test_torch_serve_mesh.py's; the JAX package's exported
+  artifacts).
 
 JAX's server is built once for the module (its first batch compiles).
 """
@@ -186,7 +188,7 @@ def test_no_card_raises_and_a12_paths(npz, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             InferenceServer(npz, **KW)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         InferenceServer(npz, mesh=object(), device="cpu", **KW)
     for spec in ("model.bin", "model.tflite"):
         with pytest.raises(NotImplementedError, match="JAX package"):
