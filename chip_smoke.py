@@ -255,10 +255,10 @@ line:
            launching fused_enhance once a micro-step and a val batch and
            nms once a val batch; then YOLO("best.npz") predicts one batch
   loop_mp  loop_full's settings at b16/640 on sidecars that need a resize:
-           one epoch with 8 loader threads, one with 8 forked processes
-           (loader_mp), twice in turns, cv2 blocked; the processes' epochs
-           with profile=True: the trace of micro-step 2 and the device's
-           idle share in it
+           one epoch with 8 loader threads, then one with 8 forked
+           processes (loader_mp), cv2 blocked; the processes' epoch with
+           profile=True: the trace of micro-step 2 and the device's idle
+           share in it
   autobatch  batch=-1 at 640 for one epoch: the two trial peaks, the batch
            fitted, each real micro-step's peak under 0.67 of the card
   c10      the tiny architecture at imgsz 96: YOLO(...).val() and then
@@ -278,11 +278,21 @@ line:
            bit-equal, and a two-rank val of 8 sidecars at 128 equal to one
            process's; each rank's launches (fused_enhance once a
            micro-step and a val batch, nms once a val batch); the step
-           window and the val run in one launch of the ranks
+           window and the val run in one launch of the ranks; in the
+           same launch each rank's window again on a data x spatial mesh
+           (two slabs over cuda:0) within TRAIN_TOL of its data-only
+           window, and rank 0's val over a mesh of its two devices within
+           1e-6 of one process's (fused_enhance once a slab and a group)
   remat    the flagship at b16/640 f32, one forward and backward at
            remat=-1 and at remat=5: ms and peak memory of each, gradients
            within TRAIN_TOL, BN stats moved once, fused_enhance 1 against
            2; then an amp micro-step at remat=5 (finite)
+  spatial_train  data x spatial training in one process: the flagship's
+           b16/640 f32 micro-step (TF32 off) on a (1, 2) mesh over cuda:0
+           twice, the image's rows as two slabs, against the plain step
+           from the same state: loss items, gradients, moves and BN stats
+           within TRAIN_TOL, ms and peak memory of both in turns,
+           fused_enhance once a slab
   cli      python -m dedark_yolo_tpu_torch val and train in subprocesses,
            val's printed metrics against YOLO(npz).val() here
 
@@ -2782,8 +2792,8 @@ def loop_mp_run(torch, data, tmp, name, processes):
 
 def phase_loop_mp(torch):
     """loop_full's settings at b16/640 on sidecars that need a resize:
-    one epoch with 8 loader threads, then one with 8 processes, twice in
-    turns, the processes' epochs with profile=True; then the autobatch
+    one epoch with 8 loader threads, then one with 8 processes, the
+    processes' epoch with profile=True; then the autobatch
     phase on the same data. Where the profiler records no device work (its
     CUPTI tracing untried on the card's machine), the idle share is
     reported as None, not failed."""
@@ -2793,7 +2803,7 @@ def phase_loop_mp(torch):
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         data = loop_data(tmp / "mp", cfg, SEED + 70, SEED + 71)
-        for k, processes in enumerate((False, True, False, True)):
+        for k, processes in enumerate((False, True)):
             runs.append(loop_mp_run(torch, data, tmp, f"mp{k}", processes))
         launches = {key: sum(r["launches"].get(key, 0) for r in runs)
                     for key in runs[0]["launches"]}
@@ -6433,9 +6443,21 @@ def phase_rtdetr(torch, frames):
 #     process's on the same calibrated weights: metrics within
 #     VAL_METRIC_RTOL, both ranks the same results. Launches read from each
 #     rank: fused_enhance once a micro-step and a val batch, nms once a val
-#     batch.
+#     batch. In the same launch (ROADMAP A12i-c, tools/dist_probe.py's
+#     --spatial): each rank's window again on a data x spatial mesh (its
+#     rows on DIST["spatial"] slabs over cuda:0 repeated) from the same
+#     state against the data-only window leaf by leaf in TRAIN_TOL's
+#     terms (fused_enhance once a slab), the ranks bit-equal: the loss
+#     items and BN stats held, the gradients and moves reported
+#     (`within_train_tol`; ROADMAP C20: at 128, b2 a rank, they miss, and
+#     the spatial_train phase takes it apart), beside what the data-only
+#     window moves when every parameter starts one ulp up; then rank 0's
+#     val over a
+#     mesh of its DIST["spatial"] devices (each b4 batch in two groups of
+#     2, fused_enhance and nms once a group) within VAL_METRIC_RTOL of one
+#     process's.
 DIST = {"steps": 3, "nbs": 16, "imgsz": 128, "ranks": 2, "per_rank": 2,
-        "step": 1500, "nb": 1000}
+        "step": 1500, "nb": 1000, "spatial": 2}
 
 
 def dist_one_rank(torch):
@@ -6545,8 +6567,9 @@ def dist_two_ranks(torch, tmp):
     from dedark_yolo_tpu_torch.ops import _build
     from dedark_yolo_tpu_torch.tools.c14_split import train_batch
     from dedark_yolo_tpu_torch.tools.dist_probe import (
-        launch, one_window, save_batches, window_errors)
+        as_window, launch, one_window, save_batches, window_errors)
     n, per, s = DIST["ranks"], DIST["per_rank"], DIST["imgsz"]
+    sp = DIST["spatial"]
     rec = {"ranks": n, "backend": "gloo", "device": "cuda:0",
            "imgsz": s, "batch_per_rank": per}
     batch = train_batch(n * per, s, SEED)
@@ -6584,7 +6607,8 @@ def dist_two_ranks(torch, tmp):
                      "--batch", VAL_SMALL["batch"], "--cache", "disk",
                      "--val-overrides",
                      json.dumps({"matmul_precision": "float32"}),
-                     "--val-out", tmp / "val", *common], timeout=420)
+                     "--val-out", tmp / "val", "--spatial", sp, *common],
+                 timeout=420)
     rec["launch_s"] = time.perf_counter() - t0
     for r, (rc, text) in enumerate(res):
         if rc != 0:
@@ -6603,6 +6627,30 @@ def dist_two_ranks(torch, tmp):
     torch.cuda.empty_cache()
     for r, launches in enumerate(rec["step_launches"]):
         check_launches(f"dist step rank {r}", launches, {"fused_enhance": 1})
+    # data x spatial: the same ranks' window on slabs, against data-only's
+    slabs = [dict(np.load(tmp / f"step_spatial_rank{r}.npz"))
+             for r in range(n)]
+    rec["spatial"] = {
+        "slabs": sp, "counts": slabs[0]["counts"].tolist(),
+        "ranks_bit_equal": all(
+            np.array_equal(slabs[0][k], x[k]) for x in slabs[1:]
+            for k in slabs[0] if k != "launches"),
+        "window": window_errors(slabs[0], as_window(ranks[0]), start),
+        "launches": [json.loads(str(x["launches"])) for x in slabs]}
+    for r, launches in enumerate(rec["spatial"]["launches"]):
+        check_launches(f"dist spatial step rank {r}", launches,
+                       {"fused_enhance": sp})
+    # what a rounding-sized change moves: the data-only window from every
+    # parameter one ulp up, against the data-only window
+    ulp = dict(np.load(tmp / "step_ulp_rank0.npz"))
+    rec["spatial"]["ulp_window"] = window_errors(ulp, as_window(ranks[0]),
+                                                 start)
+    check_launches("dist ulp step rank 0", json.loads(str(ulp["launches"])),
+                   {"fused_enhance": 1})
+    misses = rec["spatial"]["window"]["misses"]
+    rec["spatial"]["within_train_tol"] = not misses
+    rec["spatial"]["held_missed"] = [m for m in misses
+                                     if m["kind"] in ("items", "stats")]
 
     vals = [json.loads((tmp / f"val_rank{r}.json").read_text())
             for r in range(n)]
@@ -6624,14 +6672,33 @@ def dist_two_ranks(torch, tmp):
                   "ranks_equal": all(v["results"] == got for v in vals),
                   "launches": [v["launches"] for v in vals],
                   "one_process_launches": one_launches}
+    # rank 0's val over a mesh of its own devices, against one process's
+    local = json.loads((tmp / "val_local_rank0.json").read_text())
+    check_launches("dist val local mesh", local["launches"],
+                   {"fused_enhance": sp * batches, "nms": sp * batches})
+    lres = local["results"]
+    rec["val_local"] = {
+        "devices": ["cuda:0"] * sp, "results": lres,
+        "max_rel_err": max(abs(lres[k] - float(one_res[k]))
+                           / max(abs(float(one_res[k])), 1e-12)
+                           for k in one_res),
+        "bit_equal": all(lres[k] == float(one_res[k]) for k in one_res),
+        "launches": local["launches"]}
     rec["launches"] = {k: sum(x.get(k, 0) for x in rec["step_launches"])
+                       + sum(x.get(k, 0) for x in rec["spatial"]["launches"])
+                       + json.loads(str(ulp["launches"])).get(k, 0) * n
                        + sum(v["launches"].get(k, 0) for v in vals)
+                       + local["launches"].get(k, 0)
                        for k in one_launches}
     rec["ok"] = (rec["ranks_bit_equal"] and not rec["window"]["misses"]
                  and rec["counts"] == [1, 0, 1]
                  and rec["val"]["ranks_equal"]
                  and rec["val"]["max_rel_err"] <= VAL_METRIC_RTOL
-                 and got["metrics/recall(B)"] > 0)
+                 and got["metrics/recall(B)"] > 0
+                 and rec["spatial"]["ranks_bit_equal"]
+                 and not rec["spatial"]["held_missed"]
+                 and rec["spatial"]["counts"] == [1, 0, 1]
+                 and rec["val_local"]["max_rel_err"] <= VAL_METRIC_RTOL)
     return rec
 
 
@@ -6780,6 +6847,151 @@ def phase_remat(torch):
     return rec
 
 
+# spatial_train phase (ROADMAP A12i-c): data x spatial training in one
+# process, the flagship f32, TF32 off: one SGD micro-step (nbs = batch, so
+# the update and the EMA apply) of DetectionTrainer.step on a (1, 2) data x
+# spatial mesh over cuda:0 twice (the image's rows as two slabs,
+# parallel/spatial.py::spatial_train) against the plain step from the same
+# state and batch. At b16/640, after a warm-up of each, in turns (plain,
+# mesh, mesh, plain): ms and peak memory of each; the first of each held
+# leaf by leaf in TRAIN_TOL's terms (tools/dist_probe.py::window_errors:
+# the loss items, each gradient by its norm through the momentum buffer,
+# each parameter's and EMA entry's move, the BN stats and their EMA);
+# fused_enhance once a slab (2 a mesh micro-step), once a plain one. Then
+# the dist phase's size taken apart (ROADMAP C20), 128 b4 in this process:
+# the mesh step against the plain step, the plain step from every
+# parameter one ulp up against the plain step (what a rounding-sized change
+# moves), both reported in TRAIN_TOL's terms; and each graph row alone in
+# train mode (BN's batch moments, running stats frozen) on slabs of its
+# whole input, held within SPATIAL_ROW_RTOL of the whole row.
+SPATIAL_TRAIN = {"slabs": 2, "step": 1500, "nb": 1000}
+
+
+def train_once(torch, model, start, batch, imgsz, mesh=None, nudge=False,
+               keep=True):
+    """One SGD micro-step (nbs = batch) of `model` from `start` (with
+    `nudge`, every float parameter one ulp up), without a mesh or on
+    `mesh`: (its window record on the CPU, None without `keep`; ms, peak
+    MiB, launches)."""
+    from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    from dedark_yolo_tpu_torch.ops import _build
+    model.load_state_dict(start)
+    if nudge:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+    n = batch["img"].shape[0]
+    tr = DetectionTrainer(model, {"batch": n, "nbs": n, "optimizer": "SGD",
+                                  "imgsz": imgsz}, nb=SPATIAL_TRAIN["nb"])
+    tr.mesh = mesh
+    cpu = lambda sd: {k: v.detach().cpu().clone() for k, v in sd.items()}
+    torch.cuda.synchronize()
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, items = tr.step(batch, SPATIAL_TRAIN["step"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rec = ({"items": items.cpu(), "state": cpu(tr.model.state_dict()),
+            "ema": cpu(tr.ema), "buf": cpu(tr.opt_state.buf)} if keep
+           else None)
+    return (rec, ms, torch.cuda.max_memory_allocated() / 2 ** 20,
+            dict(_build.LAUNCHES))
+
+
+def window_of(torch, got, want, start):
+    """`window_errors` of two `train_once` records."""
+    from dedark_yolo_tpu_torch.tools.dist_probe import window_errors
+    two = {"items_0": got["items"].numpy(),
+           **{f"{sec}/{k}": v.numpy() for sec in ("state", "ema", "buf")
+              for k, v in got[sec].items()}}
+    return window_errors(two, want, {k: v.cpu() for k, v in start.items()})
+
+
+def spatial_train_split(torch, model, start, mesh):
+    """The dist phase's size (128, b4) in this process (see the phase's
+    comment): the mesh, the nudged and the plain windows, each row alone."""
+    from dedark_yolo_tpu_torch.nn.layers import frozen_running_stats
+    from dedark_yolo_tpu_torch.tools.c14_split import train_batch
+    s, b = DIST["imgsz"], DIST["ranks"] * DIST["per_rank"]
+    batch = train_batch(b, s, SEED)
+    plain = train_once(torch, model, start, batch, s)[0]
+    slabs = train_once(torch, model, start, batch, s, mesh)[0]
+    nudged = train_once(torch, model, start, batch, s, nudge=True)[0]
+    model.load_state_dict(start)
+    img = torch.from_numpy(batch["img"]).cuda().float() / 255
+    model.train()
+    try:
+        with frozen_running_stats():
+            rows = spatial_rows(torch, model, img, mesh.devices)
+    finally:
+        model.eval()
+    rec = {"imgsz": s, "batch": b,
+           "mesh_vs_plain": window_of(torch, slabs, plain, start),
+           "ulp_vs_plain": window_of(torch, nudged, plain, start),
+           "rows_train_mode": rows, "row_rtol": SPATIAL_ROW_RTOL}
+    rec["ok"] = rows["worst"][2] <= SPATIAL_ROW_RTOL
+    return rec
+
+
+def phase_spatial_train(torch):
+    import numpy as np
+    from dedark_yolo_tpu_torch import YOLO
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.parallel import make_mesh
+    from dedark_yolo_tpu_torch.tools.c14_split import train_batch
+    t_phase = time.perf_counter()
+    n = SPATIAL_TRAIN["slabs"]
+    yolo = YOLO("yolov8l.yaml", nc=3, seed=SEED)
+    model = yolo.model
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(BATCH, IMGSZ, SEED)
+    mesh = make_mesh(shape=(1, n), axes=("data", "spatial"),
+                     devices=["cuda:0"] * n)
+    runs, first = [], {}
+    with matmul_precision("float32"), no_plain_on_cuda():
+        for i, path in enumerate(("plain", "mesh", "plain", "mesh", "mesh",
+                                  "plain")):
+            got, ms, peak, launches = train_once(
+                torch, model, start, batch, IMGSZ,
+                mesh if path == "mesh" else None,
+                keep=i >= 2 and path not in first)
+            check_launches(f"spatial_train {path}", launches,
+                           {"fused_enhance": n if path == "mesh" else 1})
+            if i < 2:                                     # the warm-ups
+                continue
+            runs.append({"path": path, "ms": ms, "peak_mib": peak,
+                         "launches": launches})
+            first.setdefault(path, got)
+            del got
+        errs = window_of(torch, first["mesh"], first["plain"], start)
+        del first
+        split = spatial_train_split(torch, model, start, mesh)
+    model.load_state_dict(start)
+    del yolo, model, start
+    torch.cuda.empty_cache()
+    ms = {p: [r["ms"] for r in runs if r["path"] == p]
+          for p in ("plain", "mesh")}
+    peak = {p: max(r["peak_mib"] for r in runs if r["path"] == p)
+            for p in ("plain", "mesh")}
+    rec = {"phase": "spatial_train", "model": "yolov8l.yaml", "nc": 3,
+           "batch": BATCH, "imgsz": IMGSZ, "slabs": n,
+           "devices": [str(d) for d in mesh.devices],
+           "precision": "f32, TF32 off", "order": [r["path"] for r in runs],
+           "ms": ms, "peak_mib": peak,
+           "time_ratio": float(np.median(ms["mesh"])
+                               / np.median(ms["plain"])),
+           "peak_ratio": peak["mesh"] / peak["plain"], **errs,
+           "launches": {k: sum(r["launches"].get(k, 0) for r in runs)
+                        for k in runs[0]["launches"]},
+           "split_128": split, "seconds": time.perf_counter() - t_phase}
+    rec["ok"] = not errs["misses"] and split["ok"]
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"spatial_train: {rec}")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6831,6 +7043,7 @@ def main():
     amp = phase_train_amp(torch, train)
     dist = phase_dist(torch)
     remat = phase_remat(torch)
+    spatial_train = phase_spatial_train(torch)
     phase_cli(torch)
 
     print(smi)
@@ -6853,6 +7066,8 @@ def main():
         "train_amp_launches": amp["launches"]["fused_enhance"],
         "dist_launches": dist["launches"]["fused_enhance"],
         "remat_launches": remat["launches"]["fused_enhance"],
+        "spatial_train_launches":
+            spatial_train["launches"]["fused_enhance"],
         "predict_resize_launches": pred_rs["launches"]["fused_enhance"],
         "predict_extras_launches": extras["launches"]["fused_enhance"],
         "zoo_launches": zoo["launches"]["fused_enhance"],

@@ -165,9 +165,9 @@ UNPORTED_KEYS = frozenset((
 
 
 # the ROADMAP item of an unported key, or of an unported part of a ported
-# one: a spatial axis on a process group's mesh, i.e. data x spatial
-# training (`parallel.make_mesh`, the trainer's mesh_axes)
-UNPORTED_ITEMS = {"spatial": "A12i-c"}
+# one: a 'spatial' axis across ranks (`parallel.make_mesh`, the trainer's
+# mesh_shape), and `remat` on a spatial mesh (the trainer)
+UNPORTED_ITEMS = {"spatial_ranks": "A12i-d", "spatial_remat": "A12j-b"}
 
 
 def check_cfg_alignment(base_keys, custom: dict) -> None:

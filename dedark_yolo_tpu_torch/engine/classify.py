@@ -38,8 +38,9 @@ from ..data.dataset import IMG_FORMATS, save_sidecar
 from ..data.loader import DataLoader
 from ..utils import LOGGER, increment_dir
 from ..utils.patches import imread
-from .predictor import load_source, resolve_device
+from .predictor import PinnedUpload, load_source, resolve_device
 from .trainer import BaseTrainer
+from .validator import DeviceGroups
 
 
 def check_cls_dataset(root):
@@ -150,7 +151,7 @@ class ClassificationTrainer(BaseTrainer):
         """(total, (loss,)): the summed cross-entropy of the logits over
         nbs (reference v8ClassificationLoss), with label smoothing."""
         a = self.args
-        logits = self.model(batch["img"].to(torch.float32) / 255.0)
+        logits = self.model_forward(batch["img"].to(torch.float32) / 255.0)
         nc = self.model.nc
         onehot = F.one_hot(batch["cls"].long(), nc).to(logits.dtype)
         smoothing = float(a.label_smoothing or 0.0)
@@ -202,7 +203,9 @@ class ClassificationValidator:
         self.data = data
 
     def __call__(self, model=None, mesh=None):
-        """Top-1 and top-5 accuracy of `model`. `mesh` is taken and the
+        """Top-1 and top-5 accuracy of `model`. Over a mesh of this
+        process's devices a batch that divides splits in groups, one a
+        device (`validator.DeviceGroups`); a group mesh is taken and the
         val runs whole on this validator's own device, as JAX's classify
         validator runs (JAX classify.py:154)."""
         from .autobackend import AutoBackend
@@ -215,7 +218,11 @@ class ClassificationValidator:
         batch = max(int(a.batch), 1)
         if isinstance(model, AutoBackend):
             batch = model.batch
-        fwd = _probs_fn(model, self.device)
+        local = (mesh is not None and mesh.world == 1
+                 and len(mesh.devices) > 1
+                 and not isinstance(model, AutoBackend))
+        fwd = (_mesh_probs_fn(model, mesh) if local
+               else _probs_fn(model, self.device))
         k5 = min(5, getattr(model, "nc", None) or len(data["names"]))
         correct1 = correct5 = total = 0
         for bi in range(-(-len(ds) // batch)):
@@ -236,6 +243,22 @@ class ClassificationValidator:
                     f"top5 {top5:.3f}")
         return {"metrics/accuracy_top1": top1, "metrics/accuracy_top5": top5,
                 "fitness": (top1 + top5) / 2}
+
+
+def _mesh_probs_fn(model, mesh):
+    """`_probs_fn` over a mesh of this process's devices: a batch that the
+    mesh's size divides runs in groups, one a device
+    (`validator.DeviceGroups`), the probs joined on its first device."""
+    _probs_fn(model, mesh.device)          # the checks, on the first device
+    groups = DeviceGroups(model, mesh, mesh.device, PinnedUpload(mesh.device))
+
+    def probs(m, dev):
+        return {"p": m.eval_outputs(dev["img"].float() / 255.0)[0]}
+
+    @torch.inference_mode()
+    def fwd(u8):
+        return groups({"img": u8}, 0, len(u8), ("img",), probs)["p"]
+    return fwd
 
 
 class ClassificationPredictor:

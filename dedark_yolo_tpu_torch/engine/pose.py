@@ -127,7 +127,7 @@ class PoseTrainer(BaseTrainer):
     def loss(self, batch):
         """(total, PoseLossItems) of one device batch (JAX :93-106)."""
         a = self.args
-        det, kpts = self.model(batch["img"].to(torch.float32) / 255.0)
+        det, kpts = self.model_forward(batch["img"].to(torch.float32) / 255.0)
         hyp = {"box": a.box, "cls": a.cls, "dfl": a.dfl, "pose": a.pose,
                "kobj": a.kobj}
         return pose_loss(det, kpts, batch, nc=self.model.nc,
@@ -189,13 +189,15 @@ class PoseValidator:
         stats in image order (JAX :150-156, :266), as `DetectionValidator`
         does."""
         from .autobackend import AutoBackend
-        from .validator import check_val_mesh, resolve_val_max_boxes, speed_of
+        from .validator import (DeviceGroups, check_val_mesh,
+                                resolve_val_max_boxes, speed_of)
         require_task(model, "pose", "PoseValidator")
         a = self.args
         backend = isinstance(model, AutoBackend)
         multi = check_val_mesh(mesh, backend)
-        device = mesh.device if multi else self.device
-        upload = PinnedUpload(device) if multi else self.upload
+        device = (mesh.device if mesh is not None and mesh.size > 1
+                  else self.device)
+        upload = self.upload if device == self.device else PinnedUpload(device)
         a.imgsz = check_imgsz(a.imgsz, stride=32)
         data = self.data or check_det_dataset(a.data)
         kpt_shape = self.kpt_shape or tuple(model.kpt_shape)
@@ -205,6 +207,7 @@ class PoseValidator:
         resolve_val_max_boxes(a, ds)
         if not backend:
             model.to(device).eval()
+        groups = DeviceGroups(model, mesh, device, upload)
         sigmas = oks_sigmas(nk)
         orig_shapes = ds.image_shapes()
         save_json = bool(a.save_json)
@@ -226,6 +229,15 @@ class PoseValidator:
                 stats[name]["target_cls"].append(tcls)
             jdict.extend(rec["json"])
 
+        def run(model, dev):
+            boxes, scores, kpts = task_outputs(model, dev["img"])
+            dets, counts, aidx = non_max_suppression(
+                boxes.float(), scores.float(), conf_thres=float(a.conf),
+                iou_thres=float(a.iou), max_det=int(a.max_det),
+                max_nms=int(a.max_nms), multi_label=True, return_idx=True)
+            return {"dets": dets, "counts": counts,
+                    "kpts": gather_keypoints(kpts, aidx)}
+
         @torch.inference_mode()
         def dispatch(start):
             nonlocal t_pre, t_inf
@@ -240,15 +252,8 @@ class PoseValidator:
             lo, hi = rank_rows(bs, mesh if multi else None)
             if hi == lo:                 # none of this batch's rows
                 return None, batch, idxs, lo, hi
-            img = upload({"img": batch["img"][lo:hi]})["img"]
             with matmul_precision(a.matmul_precision):
-                boxes, scores, kpts = task_outputs(model, img)
-                dets, counts, aidx = non_max_suppression(
-                    boxes.float(), scores.float(), conf_thres=float(a.conf),
-                    iou_thres=float(a.iou), max_det=int(a.max_det),
-                    max_nms=int(a.max_nms), multi_label=True, return_idx=True)
-                out = {"dets": dets, "counts": counts,
-                       "kpts": gather_keypoints(kpts, aidx)}
+                out = groups(batch, lo, hi, ("img",), run)
             t_inf += time.perf_counter() - t1
             return out, batch, idxs, lo, hi
 

@@ -111,7 +111,8 @@ class SegmentationTrainer(BaseTrainer):
     def loss(self, batch):
         """(total, SegLossItems) of one device batch (JAX :69-84)."""
         a = self.args
-        det, coefs, protos = self.model(batch["img"].to(torch.float32) / 255.0)
+        det, coefs, protos = self.model_forward(
+            batch["img"].to(torch.float32) / 255.0)
         hyp = {"box": a.box, "cls": a.cls, "dfl": a.dfl}
         return segmentation_loss(
             det, coefs, protos, batch, nc=self.model.nc,
@@ -191,13 +192,15 @@ class SegmentationValidator:
 
     def __call__(self, model=None, mesh=None):
         from .autobackend import AutoBackend
-        from .validator import check_val_mesh, resolve_val_max_boxes, speed_of
+        from .validator import (DeviceGroups, check_val_mesh,
+                                resolve_val_max_boxes, speed_of)
         require_task(model, "segment", "SegmentationValidator")
         a = self.args
         backend = isinstance(model, AutoBackend)
         multi = check_val_mesh(mesh, backend)
-        device = mesh.device if multi else self.device
-        upload = PinnedUpload(device) if multi else self.upload
+        device = (mesh.device if mesh is not None and mesh.size > 1
+                  else self.device)
+        upload = self.upload if device == self.device else PinnedUpload(device)
         a.imgsz = check_imgsz(a.imgsz, stride=32)
         data = self.data or check_det_dataset(a.data)
         ds = SegmentDataset(data[a.split], imgsz=a.imgsz, nc=data["nc"],
@@ -205,6 +208,7 @@ class SegmentationValidator:
         resolve_val_max_boxes(a, ds)
         if not backend:
             model.to(device).eval()
+        groups = DeviceGroups(model, mesh, device, upload)
         orig_shapes = ds.image_shapes()
         save_json = bool(a.save_json)
         jdict = []
@@ -224,6 +228,18 @@ class SegmentationValidator:
                 stats[name]["target_cls"].append(tcls)
             jdict.extend(rec["json"])
 
+        def run(model, dev):
+            boxes, scores, coef_flat, protos = task_outputs(model, dev["img"])
+            dets, counts, aidx = non_max_suppression(
+                boxes.float(), scores.float(), conf_thres=float(a.conf),
+                iou_thres=float(a.iou), max_det=int(a.max_det),
+                max_nms=int(a.max_nms), multi_label=True, return_idx=True)
+            out = self._mask_counts(dets, aidx, coef_flat, protos,
+                                    dev["masks"], a.imgsz, int(a.max_boxes),
+                                    save_json)
+            out.update(dets=dets, counts=counts)
+            return out
+
         @torch.inference_mode()
         def dispatch(start):
             nonlocal t_pre, t_inf
@@ -239,19 +255,8 @@ class SegmentationValidator:
             lo, hi = rank_rows(bs, mesh if multi else None)
             if hi == lo:                 # none of this batch's rows
                 return None, batch, idxs, lo, hi
-            dev = upload({"img": batch["img"][lo:hi],
-                          "masks": batch["masks"][lo:hi]})
             with matmul_precision(a.matmul_precision):
-                boxes, scores, coef_flat, protos = task_outputs(
-                    model, dev["img"])
-                dets, counts, aidx = non_max_suppression(
-                    boxes.float(), scores.float(), conf_thres=float(a.conf),
-                    iou_thres=float(a.iou), max_det=int(a.max_det),
-                    max_nms=int(a.max_nms), multi_label=True, return_idx=True)
-                out = self._mask_counts(dets, aidx, coef_flat, protos,
-                                        dev["masks"], a.imgsz,
-                                        int(a.max_boxes), save_json)
-            out.update(dets=dets, counts=counts)
+                out = groups(batch, lo, hi, ("img", "masks"), run)
             t_inf += time.perf_counter() - t1
             return out, batch, idxs, lo, hi
 

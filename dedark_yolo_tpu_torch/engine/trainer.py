@@ -87,6 +87,19 @@ last.npz on resume and the ranks leave `train` together. Without
 WORLD_SIZE, or at one rank, no collective runs. `remat` (A12j) sets the
 model's `remat_upto` (`nn/graph.py`).
 
+Data x spatial training (JAX trainer.py:416-457, `mesh_shape=[dp, sp]`,
+`mesh_axes=[data, spatial]`): the data axis is the group's dp ranks as
+above, the spatial axis each rank's own sp devices (`parallel/mesh.py::
+spatial_mesh`; at one rank a local mesh). JAX's checks hold: the batch
+divides over dp and imgsz over 32 * sp. The loss's degrade, dark-channel
+priors and recovery MSE run on the rank's whole batch on its first device,
+as the function GSPMD computes; only the graph's forward runs on row slabs
+(`model_forward`, `parallel/spatial.py::spatial_train`), its raw maps
+joined on the first device for the loss. The step is otherwise the same:
+one gradient bucket over the group. Rank 0's per-epoch val runs over a
+mesh of its own devices (JAX's `val_mesh`), a batch that divides split in
+groups, one a device. `remat` on a spatial mesh raises (ROADMAP A12j-b).
+
     trainer = DetectionTrainer(model, {"batch": 16}, nb=100)  # model: nn.graph.DetectionModel
     total, items = trainer.step(batch, step_index)
     metrics = DetectionTrainer(model, {"data": data, "epochs": 3}).train()
@@ -110,7 +123,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..cfg import AUGMENT_KEYS, get_cfg, yaml_save
+from ..cfg import AUGMENT_KEYS, UNPORTED_ITEMS, get_cfg, yaml_save
 from ..data.augment import TrainTransforms
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..data.loader import DataLoader
@@ -119,8 +132,9 @@ from ..losses.rtdetr import rtdetr_loss
 from ..ops.dark_channel import dark_channel_priors
 from ..ops.degrade import lowlight_degrade
 from ..parallel.mesh import (all_reduce_sum, barrier, broadcast_object,
-                             global_sum, init_from_env, make_mesh, mesh_group,
-                             replicate, upload)
+                             global_sum, init_from_env, local_mesh, make_mesh,
+                             mesh_group, replicate, upload)
+from ..parallel.spatial import spatial_train
 from ..utils import LOGGER, increment_dir
 from ..utils.autobatch import autobatch
 from ..utils.callbacks import add_integration_callbacks, get_default_callbacks
@@ -175,6 +189,7 @@ class BaseTrainer:
         self.model = model.to(self.device)
         self.model.remat_upto = int(self.args.remat)
         self.mesh = None           # a parallel.Mesh; set by train or the caller
+        self.val_mesh = None       # rank 0's val mesh (its own devices)
         self.build_optimizer(nb)
         self.init_train_state()
         self.callbacks = get_default_callbacks()
@@ -346,6 +361,24 @@ class BaseTrainer:
     def plot_train_batch(self, batch, path):
         """A plot of one of the first epoch's first three batches."""
 
+    def model_forward(self, *inputs, params=None):
+        """The graph's train forward of one device batch, `inputs` (the
+        image, then what else the task's graph takes): `self.model` or,
+        with `params`, the module run on those tensors
+        (`torch.func.functional_call`: amp's bf16 casts). Under a mesh with
+        a 'spatial' axis the image's rows run as slabs over this rank's
+        devices and the head's raw outputs come back joined on its first
+        (`parallel/spatial.py::spatial_train`)."""
+        if params is None:
+            run = self.model
+        else:
+            def run(*a):
+                return torch.func.functional_call(self.model, params, a)
+        m = self.mesh
+        if m is None or m.spatial == 1:
+            return run(*inputs)
+        return spatial_train(self.model, inputs, list(m.devices), run)
+
     def to_device(self, batch):
         """The batch's `batch_keys` arrays on the trainer's device; from the
         host through pinned memory, without waiting."""
@@ -511,33 +544,58 @@ class BaseTrainer:
         model = self._ema_model()
         if state is not None:
             model.load_state_dict(state)
-        return self._validator(model=model)
+        mesh = {} if self.val_mesh is None else {"mesh": self.val_mesh}
+        return self._validator(model=model, **mesh)
 
     def _setup_mesh(self):
         """The mesh of the run (JAX trainer.py:380-457): the group from
-        torchrun's variables when WORLD_SIZE > 1, the shape from mesh_shape
-        and mesh_axes, the batch divided over the data axis; under several
-        ranks the model moves to this rank's device and rank 0's run
-        directory is every rank's."""
+        torchrun's variables when WORLD_SIZE > 1 (a rank of a spatial mesh
+        joins on its first card), the shape from mesh_shape and mesh_axes,
+        JAX's checks (the batch divided over the data axis, imgsz over 32
+        * the spatial axis); under several ranks the model moves to this
+        rank's device and rank 0's run directory is every rank's; a
+        spatial axis gives rank 0's val a mesh of the rank's devices."""
         a = self.args
-        if int(os.environ.get("WORLD_SIZE", "1")) > 1 \
-                and not torch.distributed.is_initialized():
-            init_from_env(device=self.device)
-        mesh = self.mesh = make_mesh(shape=a.mesh_shape, axes=a.mesh_axes,
-                                     device=self.device)
-        if a.batch > 0 and a.batch % mesh.world:
+        axes = tuple(a.mesh_axes or ("data",))
+        shape = tuple(int(x) for x in a.mesh_shape) if a.mesh_shape else None
+        sizes = dict(zip(axes, shape or ()))
+        sp = sizes.get("spatial", 1)
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        dp = sizes.get("data", world)
+        if a.batch > 0 and a.batch % dp:
             raise ValueError(f"batch {a.batch} must divide evenly over the "
-                             f"{mesh.world}-way data axis")
+                             f"{dp}-way data axis")
+        if sp > 1:
+            if a.imgsz % (32 * sp):
+                raise ValueError(
+                    f"imgsz {a.imgsz} must divide 32 * {sp} spatial shards "
+                    f"(use imgsz={-(-a.imgsz // (32 * sp)) * 32 * sp})")
+            if self.model.remat_upto >= 0:
+                raise NotImplementedError(
+                    "remat on a mesh with a 'spatial' axis is not ported "
+                    f"(ROADMAP {UNPORTED_ITEMS['spatial_remat']}): train "
+                    "with remat=-1")
+        if world > 1 and not torch.distributed.is_initialized():
+            dev = self.device
+            if sp > 1 and dev.type == "cuda" and dev.index is None:
+                dev = torch.device(
+                    "cuda", int(os.environ.get("LOCAL_RANK", "0")) * sp)
+            init_from_env(device=dev)
+        mesh = self.mesh = make_mesh(shape=shape, axes=axes,
+                                     device=self.device)
+        if mesh.device != self.device:
+            self.device = mesh.device
+            self.model.to(self.device)
         if mesh.world > 1:
-            if mesh.device != self.device:
-                self.device = mesh.device
-                self.model.to(self.device)
             self.save_dir = Path(broadcast_object(mesh, str(self.save_dir)))
             self.wdir = self.save_dir / "weights"
             self.csv = self.save_dir / "results.csv"
-        LOGGER.info(f"mesh: {mesh.world} rank(s) (data={mesh.world}); rank "
-                    f"{mesh.rank} on {mesh.device}; global batch "
-                    f"{a.batch * mesh.world}")
+        self.val_mesh = (local_mesh(mesh.devices) if mesh.spatial > 1
+                         else None)
+        LOGGER.info(f"mesh: {mesh.size} device(s) (data={mesh.world} x "
+                    f"spatial={mesh.spatial}); rank {mesh.rank} on "
+                    f"{', '.join(map(str, mesh.devices or [mesh.device]))}; "
+                    f"global batch {a.batch * mesh.world}")
 
     def _replicate_state(self):
         """Rank 0's weights, BN stats, EMA and optimizer buffers on every
@@ -866,12 +924,11 @@ class DetectionTrainer(BaseTrainer):
         if amp:
             bf16 = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
                     for n, p in self.params.items()}
-            raw = torch.func.functional_call(self.model, bf16,
-                                             (img, dedark_A, IcA))
+            raw = self.model_forward(img, dedark_A, IcA, params=bf16)
             raw = ({k: r.float() for k, r in raw.items()}
                    if isinstance(raw, dict) else [r.float() for r in raw])
         else:
-            raw = self.model(img, dedark_A, IcA)
+            raw = self.model_forward(img, dedark_A, IcA)
         lbatch = {"cls": batch["cls"], "bboxes": batch["bboxes"],
                   "mask_gt": batch["mask_gt"],
                   "recovery_loss": self.recovery_loss(img, clean)}

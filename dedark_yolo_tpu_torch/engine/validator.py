@@ -48,6 +48,13 @@ JAX shards a batch only when it divides), rank 0 gathers every image's
 stats in image order, computes the metrics and sends the results to every
 rank, so they equal one process's. The loss (`with_loss`) and an exported
 artifact are not run under a mesh (they raise).
+
+Over a mesh of this process's devices (`make_mesh(devices=[...])`, rank
+0's per-epoch val in data x spatial training, JAX validator.py:337-343) a
+batch whose size the mesh's divides splits into equal groups, one a device
+in the mesh's order, each run by the model's copy on its device
+(`DeviceGroups`); another batch runs whole on the first device. The
+outputs join on the first device, so the metrics are the plain val's.
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ from ..losses.rtdetr import _layer_loss
 from ..nn.graph import DetectionModel, require_detect
 from ..ops.boxes import scale_boxes, xywh2xyxy, xyxy2xywh
 from ..parallel.mesh import Mesh, broadcast_object, gather_in_order, rank_rows
+from ..parallel.spatial import replicas
 from ..utils import LOGGER, increment_dir
 from ..utils.checks import check_imgsz
 from ..utils.metrics import ConfusionMatrix, DetMetrics, match_predictions
@@ -124,22 +132,52 @@ def query_loss_items(raw, dev, nc):
 
 
 def check_val_mesh(mesh, refused=False):
-    """Whether `mesh` spans several ranks (a validator's mesh path); a
-    mesh of another kind, or one with the `refused` options, raises."""
+    """Whether `mesh` spans several ranks (a validator's group path); a mesh
+    over this process's devices is taken too (`DeviceGroups`); a mesh of
+    another kind, or one with the `refused` options, raises."""
     if mesh is None:
         return False
     if not isinstance(mesh, Mesh):
         raise NotImplementedError(
             f"a mesh of type {type(mesh).__name__} is not ported: validate "
             "over a dedark_yolo_tpu_torch.parallel.Mesh")
-    if len(mesh.devices) > 1:
-        raise NotImplementedError(
-            "val over a mesh of one process's devices is not ported (ROADMAP "
-            "A12i-c): validate over a process group's mesh (torchrun)")
-    if mesh.world > 1 and refused:
+    if mesh.size > 1 and refused:
         raise NotImplementedError("the loss and exported artifacts are not "
-                                  "validated over a mesh of several ranks")
+                                  "validated over a mesh of several ranks "
+                                  "or devices")
     return mesh.world > 1
+
+
+class DeviceGroups:
+    """The devices a validator runs a batch's rows on: over a mesh of this
+    process's devices each device with the model's copy on it
+    (`parallel/spatial.py::replicas`) and its own upload; else `device`
+    with the model and `upload` as they are."""
+
+    def __init__(self, model, mesh, device, upload):
+        local = mesh is not None and mesh.world == 1 and len(mesh.devices) > 1
+        self.devices = list(mesh.devices) if local else [device]
+        self.models = (replicas(model, self.devices) if local
+                       else {device: model})
+        self.uploads = ({d: PinnedUpload(d) for d in dict.fromkeys(
+            self.devices)} if local else {device: upload})
+
+    def __call__(self, batch, lo, hi, keys, fn):
+        """fn(model, {key: its rows on the device}) -> a dict of tensors,
+        for rows [lo, hi) of `batch`: in equal groups, one a device, when
+        the devices divide the rows, else whole on the first; the dicts
+        joined along dim 0 on the first device."""
+        n, k = hi - lo, len(self.devices)
+        cuts = ([(self.devices[0], lo, hi)] if k == 1 or n % k else
+                [(d, lo + i * (n // k), lo + (i + 1) * (n // k))
+                 for i, d in enumerate(self.devices)])
+        outs = [fn(self.models[d], self.uploads[d](
+            {key: batch[key][a:b] for key in keys})) for d, a, b in cuts]
+        if len(outs) == 1:
+            return outs[0]
+        dev0 = self.devices[0]
+        return {key: torch.cat([o[key].to(dev0) for o in outs])
+                for key in outs[0]}
 
 
 def speed_of(t_pre, t_inf, t_post, n_images):
@@ -192,8 +230,9 @@ class DetectionValidator:
             raise ValueError("an exported artifact gives no raw maps for "
                              "the loss and has one square shape (rect)")
         multi = check_val_mesh(mesh, backend or with_loss)
-        device = mesh.device if multi else self.device
-        upload = PinnedUpload(device) if multi else self.upload
+        device = (mesh.device if mesh is not None and mesh.size > 1
+                  else self.device)
+        upload = self.upload if device == self.device else PinnedUpload(device)
         a.imgsz = check_imgsz(a.imgsz, stride=32)
         data = self.data or check_det_dataset(a.data)
         names = data["names"]
@@ -204,6 +243,7 @@ class DetectionValidator:
         loaders = self.loaders(ds)
         if not backend:
             model.to(device).eval()
+        groups = DeviceGroups(model, mesh, device, upload)
         hyp = {"box": a.box, "cls": a.cls, "dfl": a.dfl, "lrl": a.lrl}
         keys = ("img",) + (LABEL_KEYS if a.save_hybrid or with_loss else ())
 
@@ -248,15 +288,7 @@ class DetectionValidator:
                     cursor += bsz
                     pos += bsz
 
-        @torch.inference_mode()
-        def dispatch(item):
-            nonlocal t_inf
-            batch, ds_idxs, pos = item
-            lo, hi = rank_rows(batch["img"].shape[0], mesh if multi else None)
-            if hi == lo:                 # none of this batch's rows
-                return None, batch, ds_idxs, pos, lo, hi
-            t0 = time.perf_counter()
-            dev = upload({k: batch[k][lo:hi] for k in keys})
+        def run(model, dev):
             extra = hybrid_candidates(dev, model.nc) if a.save_hybrid else None
             if backend:
                 dets, counts = backend_step(model, dev["img"], a,
@@ -273,8 +305,20 @@ class DetectionValidator:
                     raw, {k: dev[k] for k in LABEL_KEYS}, nc=model.nc,
                     strides=model.strides, hyp=hyp)
                 out["loss_items"] = torch.stack(list(items))
+            return out
+
+        @torch.inference_mode()
+        def dispatch(item):
+            nonlocal t_inf
+            batch, ds_idxs, pos = item
+            lo, hi = rank_rows(batch["img"].shape[0], mesh if multi else None)
+            if hi == lo:                 # none of this batch's rows
+                return None, batch, ds_idxs, pos, lo, hi
+            t0 = time.perf_counter()
+            out = groups(batch, lo, hi, keys, run)
             t_inf += time.perf_counter() - t0
             return out, batch, ds_idxs, pos, lo, hi
+
 
         def process(out, batch, ds_idxs, pos, lo, hi):
             nonlocal loss_accum, n_batches, n_images, t_inf, t_post

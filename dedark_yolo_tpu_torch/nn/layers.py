@@ -81,6 +81,8 @@ class _SiluBF16(torch.autograd.Function):
 def silu(x):
     if x.dtype != torch.bfloat16:
         return F.silu(x)
+    if not torch.is_tensor(x):     # row slabs (parallel/spatial.py)
+        return x.each(silu)
     return _SiluBF16.apply(x)
 
 
@@ -108,6 +110,8 @@ def sigmoid(x):
     the bf16 decode of the benchmark's bf16 rows)."""
     if x.dtype != torch.bfloat16:
         return torch.sigmoid(x)
+    if not torch.is_tensor(x):     # row slabs (parallel/spatial.py)
+        return x.each(sigmoid)
     return _SigmoidBF16.apply(x)
 
 
@@ -259,7 +263,9 @@ class BatchNorm(nn.Module):
     all-reduces the gradient, so it crosses ranks), the variance is flax's
     E[x^2] - E[x]^2 clipped at 0, the affine is flax's (x - mean) *
     (rsqrt(var + eps) * scale) + bias in f32 rounded once to the input's
-    dtype, and the running stats move with the global moments.
+    dtype, and the running stats move with the global moments. Row slabs
+    (data x spatial training, `parallel/spatial.py`) take the same form,
+    their sums taken over every slab before the group's all-reduce.
 
     `eps` and `momentum` are YOLO's tuned BN's (1e-3, 0.03) unless given:
     RT-DETR's input projection keeps flax's plain BatchNorm (1e-5, 0.1).
@@ -283,7 +289,7 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, w, b,
                                 False, 0.0, self.eps)
-        if self.group is not None:
+        if self.group is not None or not torch.is_tensor(x):
             y, mean, var = self._global(x, w, b)
         else:
             mean = torch.zeros_like(self.running_mean)
@@ -299,14 +305,17 @@ class BatchNorm(nn.Module):
         return y
 
     def _global(self, x, w, b):
-        """(y, mean, biased var) with the moments over the group's batch."""
+        """(y, mean, biased var) with the moments over the group's batch
+        (this process's, without a group)."""
         from torch.distributed.nn.functional import all_reduce
         c = x.shape[1]
         dims = [d for d in range(x.dim()) if d != 1]
         xf = x.float()
-        stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
-                           xf.new_full((1,), x.numel() // c)])
-        stats = all_reduce(stats, group=self.group)
+        s1 = xf.sum(dims)
+        stats = torch.cat([s1, (xf * xf).sum(dims),
+                           s1.new_full((1,), math.prod(x.shape) // c)])
+        if self.group is not None:
+            stats = all_reduce(stats, group=self.group)
         n = stats[2 * c]
         mean = stats[:c] / n
         var = (stats[c:2 * c] / n - mean * mean).clamp(min=0.0)

@@ -25,14 +25,24 @@ no mesh bit for bit.
 A mesh over this process's own devices (`make_mesh(devices=[...])`, JAX
 `make_mesh(devices=...)`) has no group: row-sharded inference
 (`parallel/spatial.py`) splits one image's rows over its 'spatial' axis,
-and `InferenceServer(mesh=)` a batch over its devices. A device may repeat
-(`["cuda:0"] * 4`, `["cpu"] * 2`), the counterpart of the virtual host
-devices JAX's tests run on: one card then holds every shard.
+and `InferenceServer(mesh=)` and the validators a batch over its devices.
+A device may repeat (`["cuda:0"] * 4`, `["cpu"] * 2`), the counterpart of
+the virtual host devices JAX's tests run on: one card then holds every
+shard.
+
+Data x spatial training (JAX `shard_batch`'s P(data, spatial) image
+leaves): `make_mesh(shape=(dp, sp), axes=("data", "spatial"))` inside a
+group of dp ranks gives each rank its own sp devices (`devices=`, else the
+cards cuda:LOCAL_RANK*sp + k); at world size 1, shape (1, sp) is a local
+mesh. The rank's batch goes to its first device, where the loss runs; the
+trainer runs the graph on row slabs over the rank's devices
+(`parallel/spatial.py::spatial_train`), so the halo exchanges stay inside
+the process and only the data axis crosses ranks. A 'spatial' axis that
+spans ranks (one device a rank) is not ported: make_mesh raises and names
+the launch this layout needs.
 
 JAX's `batch_sharding` and `replicated` name GSPMD shardings, which mean
-nothing without GSPMD; they are left out. Training over a spatial axis
-(`shard_batch`'s data x spatial specs) is ROADMAP A12i-c: a group mesh
-naming it raises.
+nothing without GSPMD; they are left out.
 
 `GROUP_TIMEOUT` is the group's collective timeout: rank 0 validates alone
 between epochs while the other ranks wait in the fitness broadcast, so it
@@ -63,8 +73,10 @@ _STATE: dict = {"device": None, "cpu_group": None}
 @dataclass
 class Mesh:
     """One rank's view of the mesh: `group` is the process group (None at
-    world size 1), `device` the one device this rank drives. A local mesh
-    (`devices`, in the mesh's order) has no group; `device` is its first."""
+    world size 1), `device` the device this rank drives. A local mesh
+    (`devices`, in the mesh's order) has no group; a data x spatial group
+    mesh holds the rank's own spatial devices. `device` is then the
+    first of `devices`."""
     group: object
     rank: int
     world: int
@@ -81,7 +93,12 @@ class Mesh:
     @property
     def size(self) -> int:
         """The number of devices of the mesh (JAX `mesh.devices.size`)."""
-        return len(self.devices) or self.world
+        return self.world * max(len(self.devices), 1)
+
+    @property
+    def spatial(self) -> int:
+        """The size of the 'spatial' axis (1 without one)."""
+        return dict(zip(self.axis_names, self.shape)).get("spatial", 1)
 
 
 def init_from_env(device=None, backend=None, timeout=GROUP_TIMEOUT):
@@ -129,23 +146,40 @@ LOCAL_AXES = (("data",), ("spatial",), ("data", "spatial"))
 
 
 def make_mesh(devices=None, shape=None, axes=("data",), device=None):
-    """With `devices`: a mesh over those devices of this process (see
+    """With axes ('data', 'spatial') and a shape (dp, sp) inside a group, or
+    without `devices`: the data x spatial mesh (`spatial_mesh`). Else with
+    `devices`: a mesh over those devices of this process (see
     `local_mesh`). Else the mesh over the current group (none: one rank on
-    `device`, None meaning cuda); `shape` defaults to (world,), its product
-    the world size. A group mesh has the 'data' axis only: training over a
-    'spatial' axis is ROADMAP A12i-c."""
+    `device`, None meaning cuda) on the 'data' axis; `shape` defaults to
+    (world,), its product the world size."""
     axes = tuple(axes or ("data",))
+    grouped = dist.is_initialized() and dist.get_world_size() > 1
+    if axes == ("data", "spatial") and shape is not None and (
+            grouped or devices is None):
+        return spatial_mesh(shape, devices, device)
     if devices is not None:
         return local_mesh(devices, shape, axes)
     if "spatial" in axes:
-        raise NotImplementedError(
-            "a spatial axis on a process group's mesh (data x spatial "
-            "training) is not ported (ROADMAP "
-            f"{UNPORTED_ITEMS['spatial']}); row-sharded inference takes a "
-            "mesh over this process's devices: make_mesh(devices=[...])")
+        raise ValueError(f"mesh axes {axes}: a spatial axis takes a shape "
+                         "(dp, sp) over ('data', 'spatial'), or a mesh over "
+                         "this process's devices: make_mesh(devices=[...])")
     if axes != ("data",):
         raise ValueError(f"mesh axes {axes}: the port has the ('data',) "
                          "axis only")
+    world, rank, dev = _rank_device(device)
+    shape = tuple(int(s) for s in (shape or (world,)))
+    if len(shape) != len(axes) or math.prod(shape) != world:
+        raise ValueError(f"mesh shape {shape} over axes {axes} does not "
+                         f"match the world of {world} rank(s)")
+    if world == 1:
+        return Mesh(None, 0, 1, dev, axes, shape)
+    return Mesh(dist.group.WORLD, rank, world, dev, axes, shape, _cpu_group())
+
+
+def _rank_device(device):
+    """(world, rank, this rank's device): in a group the device it joined
+    with (or `device` where indexed), else one rank on `device` (None:
+    cuda)."""
     if dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
         # an unindexed 'cuda' (the trainer's default) is the rank's own card
@@ -158,26 +192,73 @@ def make_mesh(devices=None, shape=None, axes=("data",), device=None):
             raise RuntimeError(f"rank {rank} has no device: join the group "
                                "with init_from_env or pass an indexed "
                                "device")
-    else:
-        world, rank = 1, 0
-        dev = torch.device("cuda" if device is None else device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' to run on the CPU")
-    shape = tuple(int(s) for s in (shape or (world,)))
-    if len(shape) != len(axes) or math.prod(shape) != world:
-        raise ValueError(f"mesh shape {shape} over axes {axes} does not "
-                         f"match the world of {world} rank(s)")
-    if world == 1:
-        return Mesh(None, 0, 1, dev, axes, shape)
-    group = dist.group.WORLD
+        return world, rank, dev
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass "
+                           "device='cpu' to run on the CPU")
+    return 1, 0, dev
+
+
+def _cpu_group():
+    """The gloo group for Python objects: the world's own under gloo, else
+    one made once (a collective: every rank is here)."""
     if dist.get_backend() == "gloo":
-        cpu_group = group
-    else:
-        if _STATE["cpu_group"] is None:     # collective: every rank is here
-            _STATE["cpu_group"] = dist.new_group(backend="gloo")
-        cpu_group = _STATE["cpu_group"]
-    return Mesh(group, rank, world, dev, axes, shape, cpu_group)
+        return dist.group.WORLD
+    if _STATE["cpu_group"] is None:
+        _STATE["cpu_group"] = dist.new_group(backend="gloo")
+    return _STATE["cpu_group"]
+
+
+def spatial_mesh(shape, devices=None, device=None):
+    """The data x spatial mesh (JAX `make_mesh(shape=(dp, sp), axes=(
+    'data', 'spatial'))`, trainer.py:416-440) as this rank sees it: the
+    'data' axis over the dp ranks of the group (one process at world size
+    1, a local mesh), the 'spatial' axis over this rank's own sp devices:
+    `devices` (sp of them; one may repeat), else the cards
+    cuda:LOCAL_RANK*sp + k for a cuda `device` without an index (None
+    too), sp times an indexed one, or the CPU sp times. A host without
+    those cards raises; nothing falls back."""
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != 2 or min(shape) < 1:
+        raise ValueError(f"mesh shape {shape} over ('data', 'spatial') "
+                         "needs two sizes (dp, sp)")
+    dp, sp = shape
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if dp != world:
+        if dp * sp == world:
+            raise NotImplementedError(
+                f"mesh {shape}: a 'spatial' axis across ranks (one device a "
+                "rank) is not ported (ROADMAP "
+                f"{UNPORTED_ITEMS['spatial_ranks']}); launch {dp} rank(s) "
+                f"(python -m torch.distributed.run --nproc_per_node {dp}), "
+                f"each driving its {sp} spatial devices")
+        raise ValueError(
+            f"mesh {shape}: its {dp}-way data axis needs {dp} rank(s) "
+            f"(python -m torch.distributed.run --nproc_per_node {dp}); this "
+            f"run has {world}")
+    if devices is None:
+        d = torch.device("cuda" if device is None else device)
+        if d.type == "cuda" and d.index is None:
+            local = int(os.environ.get("LOCAL_RANK", "0")) if world > 1 else 0
+            devices = [f"cuda:{local * sp + k}" for k in range(sp)]
+        else:
+            devices = [d] * sp
+    if len(devices) != sp:
+        raise ValueError(f"mesh {shape}: a rank takes its {sp} spatial "
+                         f"devices, not {len(devices)}")
+    mesh = local_mesh(devices, (1, sp), ("data", "spatial"))
+    if world == 1:
+        return mesh
+    own = _STATE["device"]
+    if dist.get_backend() == "nccl" and own is not None \
+            and own != mesh.device:
+        raise RuntimeError(f"rank {dist.get_rank()} joined the group on "
+                           f"{own} but its spatial devices start at "
+                           f"{mesh.device}: init_from_env(device="
+                           f"'{mesh.device}')")
+    return Mesh(dist.group.WORLD, dist.get_rank(), world, mesh.device,
+                ("data", "spatial"), shape, _cpu_group(), mesh.devices)
 
 
 def local_mesh(devices, shape=None, axes=("data",)):
@@ -186,13 +267,8 @@ def local_mesh(devices, shape=None, axes=("data",)):
     `shape` (default (len(devices),) on one axis) multiplying to the number
     of devices. A device may repeat. Every device is CUDA or every one the
     CPU; a CUDA device that this process does not have raises, and nothing
-    moves to the CPU unless the list says 'cpu'. Refused inside a process
-    group, whose ranks each drive one device."""
-    if dist.is_initialized():
-        raise RuntimeError("make_mesh(devices=...) builds a mesh over one "
-                           "process's devices; inside a process group each "
-                           "rank drives one device: make_mesh() without "
-                           "devices")
+    moves to the CPU unless the list says 'cpu'. It has no group, also
+    inside one (a rank's own devices: rank 0's per-epoch val)."""
     axes = tuple(axes)
     if axes not in LOCAL_AXES:
         raise ValueError(f"mesh axes {axes}: a local mesh takes "
@@ -247,21 +323,22 @@ def upload(device, batch, keys=None):
 
 
 def shard_batch(mesh, batch, keys=None):
-    """This rank's rows on its device. Each rank's loader already holds its
-    own rows (`data/loader.py`, JAX mesh.py:45-51: the global batch is the
-    per-rank batch times the world), so this is the upload. A local mesh
-    of several devices splits its batches itself (InferenceServer,
-    spatial_infer) and raises here."""
+    """This rank's rows on its device (its first under a 'spatial' axis,
+    whose rows the trainer splits into slabs itself). Each rank's loader
+    already holds its own rows (`data/loader.py`, JAX mesh.py:45-51: the
+    global batch is the per-rank batch times the world), so this is the
+    upload. A local mesh whose data axis spans several devices splits its
+    batches itself (InferenceServer, the validators) and raises here."""
     _one_device(mesh, "shard_batch")
     return upload(mesh.device, batch, keys)
 
 
 def _one_device(mesh, what):
-    if len(mesh.devices) > 1:
-        raise ValueError(f"{what} takes a group mesh (one device a rank); "
-                         "a mesh over this process's devices serves "
-                         "(InferenceServer(mesh=)) and shards rows "
-                         "(spatial_infer)")
+    if len(mesh.devices) > mesh.spatial:
+        raise ValueError(f"{what} takes a group mesh (one process a data "
+                         "coordinate, its rows on its first device); a data "
+                         "axis over this process's devices serves "
+                         "(InferenceServer(mesh=)) and validates")
 
 
 def _flat_collective(tensors, collective):

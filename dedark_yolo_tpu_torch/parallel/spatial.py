@@ -1,5 +1,5 @@
 """Row-sharded inference of one large image over a mesh's devices (JAX
-parallel/spatial.py).
+parallel/spatial.py), and the train forward of data x spatial training.
 
 JAX shards one image's rows over the mesh and lets GSPMD partition every
 convolution, inserting the halo exchanges at the shard boundaries. The port
@@ -44,10 +44,23 @@ A device may repeat in the mesh (`["cuda:0"] * 4`): the slabs then share
 it, which shows the partition but not the memory saving of several cards.
 The weights are copied once to each distinct device other than the
 model's and kept per model, refreshed when its state changes.
+
+Training (`spatial_train`, JAX `shard_batch`'s P(data, spatial) image
+leaves under GSPMD) runs the same executor with autograd on: the halo
+rows are `.to` and `cat`, which autograd differentiates, and a weight
+reaches a slab's device by `.to` inside the graph (no replica: a copy's
+gradient would never reach the model's), so every gradient sums over the
+slabs on the model's device; train-mode BatchNorm takes its moments over
+every slab (`nn/layers.py::BatchNorm._global`, then over the group's
+ranks); layer 0 takes the trainer's priors, dedark_A whole and IcA cut
+with each slab's extended rows; the head's raw maps join on the first
+device for the loss, and the backward of the join splits their gradient
+back, counting it once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import weakref
 
@@ -204,10 +217,12 @@ class RowSlabs:
 
     def lowlight(self, mod, dedark_A=None, IcA=None):
         """`LowlightRecovery.forward` on NHWC row slabs: see `_lowlight`."""
-        if dedark_A is not None or IcA is not None:
-            raise ValueError("spatial inference runs layer 0 on its default "
-                             "priors (no dedark_A or IcA)")
-        return _lowlight(mod, self)
+        return _lowlight(mod, self, dedark_A, IcA)
+
+    def each(self, fn):
+        """fn on each slab (an op of the model's own that is row-local but
+        no torch function: bf16 training's autograd Functions)."""
+        return _map(fn, (self,), {})
 
 
 for _name in _BINOPS:
@@ -422,7 +437,9 @@ def _batch_norm(func, args, kwargs):
     training = _bind(args, kwargs, ("input", "running_mean", "running_var",
                                     "weight", "bias", "training"), {})[5]
     if training:
-        raise NotImplementedError("spatial inference runs BatchNorm in eval")
+        raise NotImplementedError(
+            "train-mode batch_norm on row slabs: nn/layers.py::BatchNorm "
+            "takes its moments over every slab (BatchNorm._global)")
     return _map(func, args, kwargs)
 
 
@@ -593,13 +610,16 @@ def _resize_rows(x, out=256):
     return torch.cat(pieces, 1)
 
 
-def _lowlight(mod, x):
+def _lowlight(mod, x, dedark_A=None, IcA=None):
     """Layer 0 on NHWC row slabs: its 15 parameters from the joined 256x256
     resize on the first device (the same for every slab), then the enhance
     kernel (or 'reference''s point chain and usm kernel) on each slab
     extended by BLUR_HALO rows of raw input from its neighbours, which the
     kernel's reflection reaches only at the image's true top and bottom;
-    the halo rows cropped after. The default priors are made per slab."""
+    the halo rows cropped after (their outputs take no gradient; the
+    features' gradient is the sum over the slabs). The priors: dedark_A
+    (B, 3) whole on every slab, IcA (B, H, W, 1) cut with each slab's
+    extended rows; the defaults where None, made per slab."""
     from ..nn.enhance import (DEFAULT_A, DEFAULT_ICA, apply_point_filters,
                               regress_filter_params)
     from ..ops import enhance_kernel as K
@@ -612,14 +632,16 @@ def _lowlight(mod, x):
         e0, e1 = max(a0 - BLUR_HALO, 0), min(a1 + BLUR_HALO, H)
         ext = x.rows(e0, e1, dev)
         feats = features.to(dev, non_blocking=True)
-        A = torch.full((b, 3), DEFAULT_A, dtype=ext.dtype, device=dev)
-        IcA = torch.full((b, e1 - e0, W, 1), DEFAULT_ICA, dtype=ext.dtype,
-                         device=dev)
+        A = (torch.full((b, 3), DEFAULT_A, dtype=ext.dtype, device=dev)
+             if dedark_A is None else dedark_A.to(dev, non_blocking=True))
+        ica = (torch.full((b, e1 - e0, W, 1), DEFAULT_ICA, dtype=ext.dtype,
+                          device=dev) if IcA is None else
+               IcA[:, e0:e1].to(dev, non_blocking=True).contiguous())
         if mod.contrast_mode == "channel":
-            y = K.fused_enhance(ext, feats, A, IcA)
+            y = K.fused_enhance(ext, feats, A, ica)
         else:
             params = regress_filter_params(feats)
-            y = K.usm(apply_point_filters(ext, params, A, IcA,
+            y = K.usm(apply_point_filters(ext, params, A, ica,
                                           mod.contrast_mode), params["usm"])
         parts.append(y.narrow(1, a0 - e0, a1 - a0))
     return x.like(parts)
@@ -645,7 +667,8 @@ def _join_tree(obj):
 
 class _Joined:
     """Forward hooks that run a module on its inputs joined by rows on the
-    first device and split a map it returns at its input's rows."""
+    first device and split a map it returns at its input's rows; `hooks`
+    puts them on every such module of a model for a block."""
 
     def __init__(self):
         self.stack = []
@@ -663,6 +686,20 @@ class _Joined:
         return ref.like([out.narrow(ref.hdim, a, b - a).to(
             dev, non_blocking=True) for a, b, dev in zip(
                 ref.bounds, ref.bounds[1:], ref.ex.devices)])
+
+    @classmethod
+    @contextlib.contextmanager
+    def hooks(cls, model):
+        joined, hooks = cls(), []
+        try:
+            for m in model.modules():
+                if isinstance(m, _joined_types()):
+                    hooks.append(m.register_forward_pre_hook(joined.pre))
+                    hooks.append(m.register_forward_hook(joined.post))
+            yield
+        finally:
+            for hk in hooks:
+                hk.remove()
 
 
 # per model: {device: (replica, state signature)}
@@ -744,12 +781,9 @@ def spatial_infer(model, img, mesh=None, axis=None):
                                   range(torch.cuda.device_count())],
                          axes=("spatial",))
     devices = row_devices(mesh, axis)
-    n = len(devices)
     img = torch.as_tensor(img)
     h = img.shape[1]
-    if h % (32 * n):
-        raise ValueError(f"H={h} must divide 32 * {n} devices (use "
-                         "spatial_pad_to)")
+    check_rows(h, len(devices))
     reps = replicas(model, devices)
     first = reps[devices[0]]
     copies = {}
@@ -761,18 +795,36 @@ def spatial_infer(model, img, mesh=None, axis=None):
                 copies[(id(t0), dev)] = t
     x = row_slabs(img, devices, copies)
     modes = {r: r.training for r in reps.values()}
-    joined, hooks = _Joined(), []
     try:
         for r in reps.values():
             r.eval()
-        for m in first.modules():
-            if isinstance(m, _joined_types()):
-                hooks.append(m.register_forward_pre_hook(joined.pre))
-                hooks.append(m.register_forward_hook(joined.post))
-        raw = _join_tree(first(x))
+        with _Joined.hooks(first):
+            raw = _join_tree(first(x))
         return first.decode(raw, (h, img.shape[2]))
     finally:
-        for hk in hooks:
-            hk.remove()
         for r, mode in modes.items():
             r.train(mode)
+
+
+def check_rows(h, n):
+    if h % (32 * n):
+        raise ValueError(f"H={h} must divide 32 * {n} devices (use "
+                         "spatial_pad_to)")
+
+
+def spatial_train(model, inputs, devices, run=None):
+    """The train forward of data x spatial training on one rank: the
+    image's rows as slabs over `devices` (the rank's spatial devices, in
+    order; one may repeat), with autograd on (see the module docstring).
+
+    model: a DetectionModel in the mode the caller set, on devices[0].
+    inputs: (img (B, H, W, 3) in [0, 1] on devices[0], H a multiple of 32
+    * len(devices); then layer 0's priors dedark_A and IcA, whole, or
+    None). run: what calls the model on (slabs, *priors) (default the
+    model itself; amp's `torch.func.functional_call` on the bf16 casts).
+    Returns the head's raw outputs, joined on devices[0]."""
+    img = inputs[0]
+    check_rows(img.shape[1], len(devices))
+    x = row_slabs(img, devices)
+    with _Joined.hooks(model):
+        return _join_tree((run or model)(x, *inputs[1:]))

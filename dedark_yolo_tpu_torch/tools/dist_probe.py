@@ -20,6 +20,14 @@ backend)` and runs one scenario:
           in place of `--state`, `--imgsz`, `--overrides` and `--out`
           (one launch of the group for both)
 
+`--spatial N` (N > 1) adds a 'spatial' axis of N devices a rank (the
+rank's device N times): `step` then runs on the data x spatial mesh;
+`step_val` runs the data-only step, then the data x spatial step from the
+same state to `--out`_spatial and the data-only step from every float
+parameter one ulp up to `--out`_ulp (what a rounding-sized change moves),
+the group's val, then rank 0's val over a mesh of its N devices to
+`--val-out`_local.
+
 Two ranks on one card need `--device cuda:0 --backend gloo` (NCCL refuses
 two ranks on one GPU); on the CPU `--device cpu` (gloo).
 
@@ -125,6 +133,10 @@ def run_step(a, mesh):
     from ..engine.trainer import DetectionTrainer
     from ..ops import _build
     model = _model(a, mesh).model
+    if getattr(a, "ulp", False):
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
     over = json.loads(a.overrides)
     tr = DetectionTrainer(model, over, nb=a.nb, device=mesh.device)
     tr.mesh = mesh
@@ -174,6 +186,15 @@ def one_window(model, batch, imgsz, step, nb, device):
         _, items = tr.step(batch, step)
     return ({"items": items.cpu(), "state": cpu(tr.model.state_dict()),
              "ema": cpu(tr.ema), "buf": cpu(tr.opt_state.buf)}, start)
+
+
+def as_window(z):
+    """A rank's `step` npz as `one_window`'s record (its first items)."""
+    import torch
+    return {"items": torch.from_numpy(np.asarray(z["items_0"])),
+            **{sec: {k[len(sec) + 1:]: torch.from_numpy(np.asarray(v))
+                     for k, v in z.items() if k.startswith(sec + "/")}
+               for sec in ("state", "ema", "buf")}}
 
 
 def window_errors(two, one, start):
@@ -229,7 +250,6 @@ def split(out, device="cuda:0", imgsz=128, ranks=2, per=2, step=1500,
     """The flagship's window on `ranks` gloo ranks, on one rank in the
     group's BN form and in one process, pair by pair (see the module
     docstring); a list of records."""
-    import torch
     from .c14_split import train_batch
     out = Path(out)
     out.mkdir(parents=True, exist_ok=True)
@@ -252,15 +272,11 @@ def split(out, device="cuda:0", imgsz=128, ranks=2, per=2, step=1500,
         runs[name] = dict(np.load(out / f"{name}_rank0.npz"))
     one, start = one_window("yolov8l.yaml", batch, imgsz, step, nb,
                             device.split(":")[0])
-    as_one = lambda z: {
-        "items": torch.from_numpy(z["items_0"]),
-        **{sec: {k[len(sec) + 1:]: torch.from_numpy(v) for k, v in z.items()
-                 if k.startswith(sec + "/")} for sec in ("state", "ema", "buf")}}
     return [{"pair": "two_ranks vs one_process",
              **window_errors(runs["two_ranks"], one, start)},
             {"pair": "two_ranks vs one_rank_group_form",
              **window_errors(runs["two_ranks"],
-                             as_one(runs["one_rank_group_form"]), start)},
+                             as_window(runs["one_rank_group_form"]), start)},
             {"pair": "one_rank_group_form vs one_process",
              **window_errors(runs["one_rank_group_form"], one, start)}]
 
@@ -303,6 +319,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default=None)
     ap.add_argument("--bn-global", action="store_true")
+    ap.add_argument("--spatial", type=int, default=1)
     ap.add_argument("--out", required=True)
     ap.add_argument("--val-state", default="")
     ap.add_argument("--val-imgsz", type=int, default=None)
@@ -317,20 +334,33 @@ def main(argv=None):
             print(json.dumps(rec), flush=True)
         return 0
     from ..parallel import init_from_env, make_mesh
+    from ..parallel.mesh import barrier, local_mesh
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     init_from_env(device=a.device, backend=a.backend)
     mesh = make_mesh()
     a.device = str(mesh.device)
+    spatial = (make_mesh(shape=(mesh.world, a.spatial),
+                         axes=("data", "spatial"),
+                         devices=[mesh.device] * a.spatial)
+               if a.spatial > 1 else None)
+    with_ = lambda **kw: argparse.Namespace(**{**vars(a), **kw})
     if a.scenario in ("step", "step_val"):
-        run_step(a, mesh)
+        run_step(a, spatial if a.scenario == "step" and spatial else mesh)
     if a.scenario == "step_val":
-        a = argparse.Namespace(**{
-            **vars(a), "state": a.val_state, "out": a.val_out,
-            "overrides": a.val_overrides,
-            "imgsz": a.val_imgsz or a.imgsz})
-    if a.scenario in ("val", "step_val"):
+        if spatial is not None:
+            run_step(with_(out=f"{a.out}_spatial"), spatial)
+            run_step(with_(out=f"{a.out}_ulp", ulp=True), mesh)
+        a = with_(state=a.val_state, out=a.val_out, overrides=a.val_overrides,
+                  imgsz=a.val_imgsz or a.imgsz, scenario="val")
+    if a.scenario == "val":
         run_val(a, mesh)
+        if spatial is not None:
+            if mesh.is_main:      # rank 0's val over its own devices
+                run_val(with_(out=f"{a.out}_local"),
+                        local_mesh(spatial.devices))
+    # every rank's collectives done before any rank tears the group down
+    barrier(mesh)
     torch.distributed.destroy_process_group()
     print(f"rank {mesh.rank} of {mesh.world} done on {mesh.device}")
     return 0

@@ -24,6 +24,7 @@ blocks and ASFF levels are held alone too, where the port's bf16 rounds as
 JAX's does (`nn/layers.py`).
 """
 
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -81,6 +82,19 @@ def _batch(seed=0):
 SEEDS = (0, 1, 2, 3, 4)     # seed 0 is held on every quantity, all on two
 
 
+@functools.partial(jax.jit,
+                   static_argnames=("kind", "weight_decay", "accumulate"))
+def jax_opt_update_jit(params, grads, state, lr_bias, lr, momentum, *, kind,
+                       weight_decay, accumulate):
+    """JAX's `opt_update` with its labels, jitted as the train step runs it
+    inside its program (one compile a parameter tree; called eagerly it
+    dispatches every op of the tree alone, 14.6 s against 8.4 for a zoo
+    model's first call on the CPU)."""
+    return jax_opt_update(params, grads, state, jax_labels(params), kind=kind,
+                          lr_bias=lr_bias, lr=lr, momentum=momentum,
+                          weight_decay=weight_decay, accumulate=accumulate)
+
+
 class _Jax:
     """The JAX trainer's loss (`make_loss_fn`) at amp=True and amp=False,
     each differentiated and jitted once for every seed's run."""
@@ -111,11 +125,10 @@ class _Jax:
         (total, (items, stats)), grads = self.fns[amp](
             v["params"], v["batch_stats"],
             {k: jnp.asarray(a) for k, a in batch.items()})
-        params, _, applied = jax_opt_update(
+        params, _, applied = jax_opt_update_jit(
             v["params"], grads, jax_init_opt(v["params"]),
-            jax_labels(v["params"]), kind=t.opt_name,
-            lr_bias=port.lr_at(STEP, "bias"), lr=port.lr_at(STEP),
-            momentum=port.momentum_at(STEP), weight_decay=t.weight_decay,
+            port.lr_at(STEP, "bias"), port.lr_at(STEP), port.momentum_at(STEP),
+            kind=t.opt_name, weight_decay=t.weight_decay,
             accumulate=t.accumulate)
         assert bool(applied)
         ema = {"params": jax_ema_init(v["params"]),

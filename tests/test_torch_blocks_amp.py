@@ -41,9 +41,7 @@ import jax.numpy as jnp
 torch = pytest.importorskip("torch")
 
 from dedark_yolo_tpu.cfg import DEFAULT_CFG_DICT, get_cfg as jax_get_cfg  # noqa: E402
-from dedark_yolo_tpu.engine.optim import (  # noqa: E402
-    init_opt_state as jax_init_opt, label_params as jax_labels,
-    opt_update as jax_opt_update)
+from dedark_yolo_tpu.engine.optim import init_opt_state as jax_init_opt  # noqa: E402
 from dedark_yolo_tpu.engine.trainer import DetectionTrainer as JaxTrainer  # noqa: E402
 from dedark_yolo_tpu.nn import layers as JL  # noqa: E402
 from dedark_yolo_tpu.nn import transformer as JT  # noqa: E402
@@ -57,7 +55,8 @@ from dedark_yolo_tpu_torch.utils.weights import (  # noqa: E402
     module_state_from_jax, state_dict_from_jax)
 
 import test_torch_zoo_amp as ZA  # noqa: E402
-from test_torch_amp import NB, STEP, _batch, _gaps, _relnorm  # noqa: E402
+from test_torch_amp import (NB, STEP, _batch, _gaps, _relnorm,  # noqa: E402
+                            jax_opt_update_jit)
 from test_torch_layers import randomize, to_plain  # noqa: E402
 from test_torch_layers_rest_graphs import EVERY  # noqa: E402
 from test_torch_zoo_blocks import few_threads  # noqa: E402,F401
@@ -270,11 +269,10 @@ def _jax_step(graph, v, batch, amp, port, jit=True):
     (_, (items, stats)), grads = (jax.jit(fn) if jit else fn)(
         v["params"], v["batch_stats"],
         {k: jnp.asarray(a) for k, a in batch.items()})
-    params, _, applied = jax_opt_update(
-        v["params"], grads, jax_init_opt(v["params"]), jax_labels(v["params"]),
-        kind=t.opt_name, lr_bias=port.lr_at(STEP, "bias"), lr=port.lr_at(STEP),
-        momentum=port.momentum_at(STEP), weight_decay=t.weight_decay,
-        accumulate=t.accumulate)
+    params, _, applied = jax_opt_update_jit(
+        v["params"], grads, jax_init_opt(v["params"]),
+        port.lr_at(STEP, "bias"), port.lr_at(STEP), port.momentum_at(STEP),
+        kind=t.opt_name, weight_decay=t.weight_decay, accumulate=t.accumulate)
     assert bool(applied)
     tm = port.model
     return {"items": np.asarray(items, np.float64),

@@ -98,9 +98,10 @@ def test_unported_keys_refused_as_not_ported():
                                       ("mesh_axes", "A12i"),
                                       ("remat", "A12j")])
 def test_unported_key_names_its_item(key, item):
-    """The keys of A12i (the mesh's data axis) and A12j (remat) are ported:
-    accepted with JAX's defaults and typed; what stays of the mesh, its
-    spatial axis on a group (data x spatial training), names A12i-c."""
+    """The keys of A12i (the mesh's data and spatial axes) and A12j (remat)
+    are ported: accepted with JAX's defaults and typed; what stays of them,
+    a spatial axis across ranks and remat on a spatial mesh, names A12i-d
+    and A12j-b."""
     check_cfg_alignment(DEFAULT_CFG.keys(), {key: 1})
     assert key not in UNPORTED_KEYS and item in ("A12i", "A12j")
     assert DEFAULT_CFG[key] == {"mesh_shape": None, "mesh_axes": ["data"],
@@ -109,7 +110,8 @@ def test_unported_key_names_its_item(key, item):
     assert getattr(get_cfg({key: value}), key) == value
     assert cli._parse_value(str(value).replace("'", "").replace(" ", "")) \
         == value
-    assert UNPORTED_ITEMS == {"spatial": "A12i-c"}
+    assert UNPORTED_ITEMS == {"spatial_ranks": "A12i-d",
+                              "spatial_remat": "A12j-b"}
 
 
 def test_cli_val_equals_facade_and_jax_cli(setup, capsys, monkeypatch):

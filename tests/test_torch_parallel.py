@@ -79,13 +79,20 @@ def test_mesh_of_one_rank_runs_no_collective():
 def test_mesh_refusals(monkeypatch):
     with pytest.raises(ValueError, match="does not match the world"):
         make_mesh(shape=(2,), device="cpu")
-    # a spatial axis on a group mesh is data x spatial training (A12i-c)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12i-c"):
-        make_mesh(shape=(1, 1), axes=("data", "spatial"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12i-c"):
-        DetectionTrainer(DetectionModel(model_yaml_load(TINY), nc=3),
-                         {"batch": 2, "mesh_axes": ["data", "spatial"],
-                          "mesh_shape": [1, 1]}, device="cpu")._setup_mesh()
+    # data x spatial (A12i-c): at one rank, (1, sp) is a local mesh, and a
+    # data axis of more ranks than the run has names the launch it needs
+    m = make_mesh(shape=(1, 1), axes=("data", "spatial"), device="cpu")
+    assert (m.group, m.world, m.shape, m.spatial, m.devices) == (
+        None, 1, (1, 1), 1, (torch.device("cpu"),))
+    tr = DetectionTrainer(DetectionModel(model_yaml_load(TINY), nc=3),
+                          {"batch": 2, "mesh_axes": ["data", "spatial"],
+                           "mesh_shape": [1, 1]}, device="cpu")
+    tr._setup_mesh()
+    assert tr.mesh.shape == (1, 1) and tr.val_mesh is None
+    with pytest.raises(ValueError, match="--nproc_per_node 2"):
+        make_mesh(shape=(2, 1), axes=("data", "spatial"), device="cpu")
+    with pytest.raises(ValueError, match="takes a shape"):
+        make_mesh(axes=("data", "spatial"), device="cpu")
     with pytest.raises(ValueError, match="'data'"):
         make_mesh(axes=("model",), device="cpu")
     for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",

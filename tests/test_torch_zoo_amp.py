@@ -33,9 +33,7 @@ torch = pytest.importorskip("torch")
 
 from dedark_yolo_tpu.cfg import DEFAULT_CFG_DICT, get_cfg as jax_get_cfg  # noqa: E402
 from dedark_yolo_tpu.cfg import model_yaml_load as jax_yaml_load  # noqa: E402
-from dedark_yolo_tpu.engine.optim import (  # noqa: E402
-    init_opt_state as jax_init_opt, label_params as jax_labels,
-    opt_update as jax_opt_update)
+from dedark_yolo_tpu.engine.optim import init_opt_state as jax_init_opt  # noqa: E402
 from dedark_yolo_tpu.engine.trainer import DetectionTrainer as JaxTrainer  # noqa: E402
 from dedark_yolo_tpu.nn import heads as JH  # noqa: E402
 from dedark_yolo_tpu.nn import layers as JL  # noqa: E402
@@ -48,7 +46,8 @@ from dedark_yolo_tpu_torch.nn import layers as TL  # noqa: E402
 from dedark_yolo_tpu_torch.nn.graph import DetectionModel  # noqa: E402
 from dedark_yolo_tpu_torch.utils.weights import state_dict_from_jax  # noqa: E402
 
-from test_torch_amp import NB, STEP, _batch, _gaps, _relnorm  # noqa: E402
+from test_torch_amp import (NB, STEP, _batch, _gaps, _relnorm,  # noqa: E402
+                            jax_opt_update_jit)
 from test_torch_layers import randomize, to_plain  # noqa: E402
 from test_torch_zoo_blocks import few_threads, module_sd  # noqa: E402,F401
 
@@ -305,11 +304,10 @@ def _jax_step(name, v, batch, amp, port):
     (_, (items, stats)), grads = fn(
         v["params"], v["batch_stats"],
         {k: jnp.asarray(a) for k, a in batch.items()})
-    params, _, applied = jax_opt_update(
-        v["params"], grads, jax_init_opt(v["params"]), jax_labels(v["params"]),
-        kind=t.opt_name, lr_bias=port.lr_at(STEP, "bias"), lr=port.lr_at(STEP),
-        momentum=port.momentum_at(STEP), weight_decay=t.weight_decay,
-        accumulate=t.accumulate)
+    params, _, applied = jax_opt_update_jit(
+        v["params"], grads, jax_init_opt(v["params"]),
+        port.lr_at(STEP, "bias"), port.lr_at(STEP), port.momentum_at(STEP),
+        kind=t.opt_name, weight_decay=t.weight_decay, accumulate=t.accumulate)
     assert bool(applied)
     tm = port.model
     return {"items": np.asarray(items, np.float64),

@@ -166,6 +166,8 @@ def main():
     z = np.load(inp) if inp != "-" else None
     {"mesh": scenario_mesh, "bn": scenario_bn,
      "loss": scenario_loss}[scenario](z, mesh, out)
+    # every rank's collectives done before any rank tears the group down
+    torch.distributed.barrier()
     torch.distributed.destroy_process_group()
 
 
