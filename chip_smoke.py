@@ -42,7 +42,7 @@ line:
            import, and each one's saving call writes or raises naming it
   serve    InferenceServer(max_batch=16) on the flagship's checkpoint (the
            predict weights as an .npz), TF32, the predict frames plus four
-           721x1280: the warmup, two windows of closed-loop clients (3 s
+           721x1280: the warmup, two windows of closed-loop clients (2 s
            and 50 batches at least) at each of 1, 4 and 16 threads
            (images/s, p50/p95 latency, occupancy, batches, the windows'
            spread), every response bit-equal to or paired with
@@ -79,7 +79,7 @@ line:
            untracked detections of the same frames through a fresh host
            tracker give the same ids and boxes
   benchmark  YOLO.benchmark(imgsz=640) twice: fp32 and bf16 rows at
-           b1/8/32 (5 warm-up and 30 timed calls a row), the two runs'
+           b1/8/32 (5 warm-up and 15 timed calls a row), the two runs'
            spread, no "error" row, fused_enhance and nms once a call
            (warm-ups included)
   export   the predict phase's flagship exported on the card (pt2, b16/640:
@@ -90,7 +90,7 @@ line:
            against AutoBackend(npz, half=True) at one bf16 ulp), the
            detections after nms paired, fused_enhance (usm in reference
            mode) once a call; YOLO(pt2).predict against the live predict
-           (images/s of both over 4 timed batches, paired); YOLO(pt2).val
+           (images/s of both over 2 timed batches, paired); YOLO(pt2).val
            at 128, b3 on val_parity's 8 images against the live val, paired,
            metrics within 1e-6; InferenceServer(pt2) answering 8 requests
            of one client, each paired with predict of its frame;
@@ -199,11 +199,12 @@ line:
            b16/640 in f32 and half (images/s, speed; NMS after the
            queries), one frame card vs CPU, its NMS-free val of 8 images at
            128 card vs CPU (paired; R and the mAPs within 1e-6, P reported)
-           and of 64 sidecars at 640, YOLO(...).train(epochs=1) on 64
+           and of 64 sidecars at 640, YOLO(...).train(epochs=1) on 32
            sidecars at b16/640 (images/s, the step's host and device ms,
            peak memory), the 128 b2 micro-step card vs CPU within TRAIN_TOL
            (the sampling offsets' gradients reported), an amp micro-step
-           (finite), the pt2 artifact bit-equal to live; its rows under a
+           (finite; its gaps to the f32 step reported), the pt2 artifact
+           bit-equal to live; its rows under a
            layer-0 row predicting a batch; Ultralytics' rtdetr-l.yaml as a
            user graph (HGNetv2 rows, AIFI, the RepC3 FPN/PAN) predicting a
            batch and one frame card vs CPU; nms once a predict batch and
@@ -269,7 +270,7 @@ line:
            numbers; fused_enhance once a micro-step on a bf16 image, the
            masters, EMA and BN stats f32
   dist     data-parallel train and val (parallel/): a one-rank NCCL group
-           from init_from_env, the flagship at b16/640 f32, three
+           from init_from_env, the flagship at b16/640 f32, two
            micro-steps through the mesh path bit-equal to the plain path,
            each path's ms, the gradient bucket's all-reduce timed; then two
            gloo ranks on this card (subprocesses, tools/dist_probe.py): the
@@ -282,11 +283,18 @@ line:
            same launch each rank's window again on a data x spatial mesh
            (two slabs over cuda:0) within TRAIN_TOL of its data-only
            window, and rank 0's val over a mesh of its two devices within
-           1e-6 of one process's (fused_enhance once a slab and a group)
+           1e-6 of one process's (fused_enhance once a slab and a group);
+           the two ranks as one (1, 2) mesh, one slab a rank: the 128 b2
+           window against rank 0's local (1, 2) window (items and BN
+           stats 1e-6, gradients 1e-4 of each norm) and spatial_infer of
+           a frame at 640 paired with the local mesh's; one process's
+           references computed while the ranks run
   remat    the flagship at b16/640 f32, one forward and backward at
            remat=-1 and at remat=5: ms and peak memory of each, gradients
            within TRAIN_TOL, BN stats moved once, fused_enhance 1 against
-           2; then an amp micro-step at remat=5 (finite)
+           2; then an amp micro-step at remat=5 (finite); then on a (1, 2)
+           mesh over cuda:0 twice, TF32 off, 5 against -1 (TRAIN_TOL,
+           ms, peak memory, fused_enhance 4 against 2)
   spatial_train  data x spatial training in one process: the flagship's
            b16/640 f32 micro-step (TF32 off) on a (1, 2) mesh over cuda:0
            twice, the image's rows as two slabs, against the plain step
@@ -294,7 +302,8 @@ line:
            within TRAIN_TOL, ms and peak memory of both in turns,
            fused_enhance once a slab
   cli      python -m dedark_yolo_tpu_torch val and train in subprocesses,
-           val's printed metrics against YOLO(npz).val() here
+           val's printed metrics against YOLO(npz).val() here, the three
+           at once
 
 Every phase line carries its own seconds (`phase_seconds`, since the line
 before it) and the run's so far (`elapsed_s`). Then the card line, a
@@ -873,6 +882,30 @@ def check_launches(path, launches, expected):
     if launches != want:
         raise AssertionError(f"{path}: kernel launches {launches}, "
                              f"expected {want}")
+
+
+def run_beside(args, fn, env=None):
+    """`python -m dedark_yolo_tpu_torch *args` in a subprocess while `fn()`
+    runs here (a process's start and imports are host work; both hold the
+    card): (returncode, stdout, stderr, seconds, what fn returned). The
+    subprocess never outlives the call."""
+    import os
+    import subprocess
+    env = env or {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, "-m", "dedark_yolo_tpu_torch",
+                          *map(str, args)], stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True, cwd=str(ROOT),
+                         env=env)
+    try:
+        here = fn()
+        stdout, stderr = p.communicate(timeout=600)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return p.returncode, stdout, stderr, time.perf_counter() - t0, here
 
 
 # predict runs: (key, predict options, layer 0's kernel; nms runs in each)
@@ -1605,7 +1638,7 @@ def phase_val(torch, yolo):
 # image is resized).
 LOOP_SMALL = {"n_train": 4, "n_val": 8, "imgsz": 128, "batch": 2,
               "shapes": [(96, 128), (128, 128), (128, 80)]}
-LOOP_FULL = {"n_train": 64, "n_val": 16, "imgsz": 640, "batch": BATCH,
+LOOP_FULL = {"n_train": 32, "n_val": 16, "imgsz": 640, "batch": BATCH,
              "shapes": VAL_FULL["shapes"]}
 # Card against CPU over two epochs of the small loop (4 micro-steps, 2 SGD
 # updates), TF32 off, from one seeded .npz whose BN stats are set from the
@@ -2119,10 +2152,10 @@ def phase_cli(torch):
     """`python -m dedark_yolo_tpu_torch val model=<npz> data=<json>` in a
     subprocess (the flagship at 128, BN set from the val images), its
     printed metrics against YOLO(npz).val() here under the subprocess's
-    TF32 defaults (cuDNN on, matmuls off); then `train ... epochs=1` on 4
-    train images. Both must exit 0."""
+    TF32 defaults (cuDNN on, matmuls off); beside them `train ...
+    epochs=1` on 4 train images, the three at once. Both commands must
+    exit 0."""
     import os
-    import subprocess
     import tempfile
     from dedark_yolo_tpu_torch import YOLO
     cfg = {**LOOP_SMALL, "n_train": 4}
@@ -2142,31 +2175,38 @@ def phase_cli(torch):
         cmds = {"val": ["val", *common, "batch=4"],
                 "train": ["train", *common, "epochs=1", f"batch={cfg['batch']}",
                           f"project={tmp / 'runs'}", "name=cli"]}
-        for key, args in cmds.items():
-            t0 = time.perf_counter()
-            p = subprocess.run([sys.executable, "-m", "dedark_yolo_tpu_torch",
-                                *args], capture_output=True, text=True,
-                               cwd=str(ROOT), env=env, timeout=600)
-            lines = [ln for ln in p.stdout.splitlines()
+
+        def facade_val():
+            prev = (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                with no_plain_on_cuda():
+                    return YOLO(npz).val(data=str(data_json),
+                                         imgsz=cfg["imgsz"], batch=4,
+                                         cache="disk", workers=2,
+                                         verbose=False)
+            finally:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = prev
+
+        # the two commands and the facade's val at once (each process's
+        # start and imports are host work; the card holds all three at 128)
+        runs = {}
+        runs["train"] = run_beside(cmds["train"], lambda: run_beside(
+            cmds["val"], facade_val, env))
+        runs["val"] = runs["train"][4]
+        want = runs["val"][4]
+        for key, (rc, stdout, stderr, secs, _) in runs.items():
+            lines = [ln for ln in stdout.splitlines()
                      if ln.startswith("results ")]
-            out[key] = {"rc": p.returncode,
-                        "seconds": time.perf_counter() - t0,
-                        "results": json.loads(lines[-1][8:]) if lines else None}
-            if p.returncode or not lines:
-                raise AssertionError(f"cli {key}: rc {p.returncode}\n"
-                                     f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
-        prev = (torch.backends.cudnn.allow_tf32,
-                torch.backends.cuda.matmul.allow_tf32)
-        torch.backends.cudnn.allow_tf32 = True
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            with no_plain_on_cuda():
-                want = YOLO(npz).val(data=str(data_json), imgsz=cfg["imgsz"],
-                                     batch=4, cache="disk", workers=2,
-                                     verbose=False)
-        finally:
-            (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32) = prev
+            out[key] = {"rc": rc, "seconds": secs,
+                        "results": (json.loads(lines[-1][8:]) if lines
+                                    else None)}
+            if rc or not lines:
+                raise AssertionError(f"cli {key}: rc {rc}\n{stdout[-3000:]}"
+                                     f"\n{stderr[-3000:]}")
         best = (tmp / "runs" / "cli" / "weights" / "best.npz").is_file()
     got = out["val"]["results"]
     err = {k: abs(got[k] - float(v)) / max(abs(float(v)), 1e-12)
@@ -2199,7 +2239,7 @@ PAIR_RANKS, MAX_DET = (20, 100), 300
 # H100 80GB HBM3, 700 W) moves them by its product with the local slope,
 # which with 0-3 detections an image read 1.3e-5 of P.
 VAL_RESIZE_PR_RTOL = 1e-3
-LOOP_MP = {"n_train": 64, "n_val": 16, "imgsz": 640, "batch": BATCH,
+LOOP_MP = {"n_train": 48, "n_val": 16, "imgsz": 640, "batch": BATCH,
            "shapes": [(720, 1280), (1080, 1920), (768, 1024), (1000, 1500)]}
 
 
@@ -2286,13 +2326,13 @@ def pair_results(g, c, box_tol=BOX_TOL_PX, score_tol=SCORE_TOL):
 def phase_predict_resize(torch, yolo, pred, frames640):
     """Flagship predict at b16/640 f32 on 16 frames of four sizes that
     need a resize (the native letterbox), with cv2 blocked, BN set from
-    these frames: 4 timed batches, fused_enhance and nms once a batch,
+    these frames: 2 timed batches, fused_enhance and nms once a batch,
     beside the predict phase's 480x640 f32 run of this call; then one
     721x1280 frame on the card (TF32 off) against the port on the CPU."""
     from dedark_yolo_tpu_torch import YOLO
     from dedark_yolo_tpu_torch.ops import _build
     frames = lowlight_frames(RESIZE_SHAPES, BATCH, SEED + 50)
-    reps = 4
+    reps = 2
     kw = dict(imgsz=IMGSZ, batch=BATCH, conf=CONF, half=False)
     with no_cv2():
         # BN from these frames, as the predict phase's from its own (set
@@ -2476,7 +2516,7 @@ def phase_val_resize(torch, yolo):
 # and the unlabelled counts read something.
 DARKSET = {"shapes": [(480, 640), (720, 1280), (1080, 1920)], "per_shape": 16,
            "batch": BATCH, "imgsz": IMGSZ, "params": (7.5, 5.0),
-           "split_param": 7.5, "labelless": 8, "reps": 3}
+           "split_param": 7.5, "labelless": 8, "reps": 2}
 DARKSET_NAMES = {0: "person", 1: "debrisflow", 2: "rockfall"}   # tielu.yaml's
 VAL_PLOTS = ["F1_curve.png", "PR_curve.png", "P_curve.png", "R_curve.png",
              "confusion_matrix.png"]
@@ -3021,7 +3061,7 @@ def phase_predict_extras(torch, yolo, frames, pred):
     from dedark_yolo_tpu_torch import YOLO
     from dedark_yolo_tpu_torch.ops import _build
     from dedark_yolo_tpu_torch.tools.enhance_ab import compare
-    reps = 4
+    reps = 2
     kw = dict(imgsz=IMGSZ, batch=BATCH, conf=CONF, half=False)
     calibrate_bn(torch, yolo.model, frames)
     rec = {"phase": "predict_extras", "batch": BATCH, "imgsz": IMGSZ,
@@ -3270,6 +3310,7 @@ def phase_zoo(torch, frames):
     zoo_val. One line a model, one for the val, one summary line; any
     failed check raises after the lines are printed."""
     from dedark_yolo_tpu_torch.tools.c14_split import train_parity
+    import copy
     import tempfile
     from dedark_yolo_tpu_torch import YOLO
     t0 = time.perf_counter()
@@ -3281,7 +3322,10 @@ def phase_zoo(torch, frames):
                "amp_launches": {"fused_enhance": 0, "usm": 0, "nms": 0}}
     failed = []
     for name in ZOO_PREDICT:
-        yolo = YOLO(name, nc=3, seed=SEED)
+        # one seeded build: the card's copy of the CPU twin (the same
+        # weights as a seeded build on the card)
+        cpu = YOLO(name, nc=3, device="cpu", seed=SEED)
+        yolo = copy.deepcopy(cpu).to("cuda")
         calibrate_bn(torch, yolo.model, frames)
         has_l0 = yolo.model.specs[0].name == "lowlight_recovery"
         expected = {"nms": 1, **({"fused_enhance": 1} if has_l0 else {})}
@@ -3296,7 +3340,6 @@ def phase_zoo(torch, frames):
                 torch, yolo, frames, 1, {"usm": 1, "nms": 1},
                 f"zoo {name} reference", contrast_mode="reference", **kw)
             runs.append(rec["predict_reference"])
-        cpu = YOLO(name, nc=3, device="cpu", seed=SEED)
         cpu.load_state_dict({k: v.cpu() for k, v in yolo.state_dict().items()})
         _, _, rec["cpu_pair"] = card_vs_cpu(yolo, cpu, frames[0])
         del cpu
@@ -3356,7 +3399,7 @@ def phase_zoo(torch, frames):
 # bars. The conf is set midway across the widest gap between the predict
 # run's pooled scores (ranked within the middle half, at conf CONF).
 SERVE_CLIENTS = (1, 4, 16)
-SERVE_WINDOWS, SERVE_WINDOW_S, SERVE_MIN_BATCHES = 2, 3.0, 50
+SERVE_WINDOWS, SERVE_WINDOW_S, SERVE_MIN_BATCHES = 2, 2.0, 50
 SERVE_WAIT_MS = 5.0
 
 
@@ -3597,7 +3640,7 @@ SPATIAL_RUNS = [("frame_3840x2176", 1, (2160, 3840), 4),
                 ("b16_640", BATCH, (480, 640), 2)]
 SPATIAL_TOL = (1e-3, 1e-5)      # boxes px, scores (reported)
 SPATIAL_ROW_RTOL = 1e-5
-SPATIAL_REPS = 3
+SPATIAL_REPS = 2
 
 
 def spatial_input(torch, b, hw, frames):
@@ -4026,7 +4069,7 @@ def phase_track(torch, yolo):
 # bf16 at batches 1, 8 and 32, BENCH_WARMUP warm-up calls and BENCH_ITERS
 # timed a row; the whole table BENCH_RUNS times, each row reported per run
 # with the runs' spread.
-BENCH_BATCHES, BENCH_WARMUP, BENCH_ITERS, BENCH_RUNS = (1, 8, 32), 5, 30, 2
+BENCH_BATCHES, BENCH_WARMUP, BENCH_ITERS, BENCH_RUNS = (1, 8, 32), 5, 15, 2
 
 
 def phase_benchmark(torch, yolo):
@@ -4075,7 +4118,7 @@ EXPORT_BOX_TOL_PX, EXPORT_SCORE_TOL = 1e-3, 1e-5
 EXPORT_HALF_BOX_TOL_PX, EXPORT_HALF_SCORE_TOL = 4.0, 2.0 ** -8
 EXPORT_VAL_BATCH = 3        # VAL_SMALL's 8 images: batches 3, 3 and 2 + 1 pad
 EXPORT_REQUESTS = 8         # serve: one client, one request at a time
-EXPORT_REPS = 4             # predict: timed batches
+EXPORT_REPS = 2             # predict: timed batches
 EXPORT_TINY = {"imgsz": 64, "batch": 2}
 
 
@@ -4301,33 +4344,32 @@ def export_serve_bench(torch, yolo, art, frames, tmp, counts):
 def export_tiny(torch, tmp, counts):
     """The tiny architecture exported on the CPU, run on the card through
     AutoBackend (fused_enhance launched) against the CPU at the cpu phase's
-    bars; then `python -m dedark_yolo_tpu_torch export` of its npz."""
-    import subprocess
+    bars; beside it `python -m dedark_yolo_tpu_torch export` of its npz."""
     from dedark_yolo_tpu_torch import YOLO
     from dedark_yolo_tpu_torch.engine.autobackend import AutoBackend
     arch = tmp / "tiny.json"
     arch.write_text(json.dumps(TINY_ARCH))
     y = YOLO(str(arch), device="cpu", seed=SEED)
     cfg = EXPORT_TINY
-    pt2 = y.export(format="pt2", device="cpu", project=str(tmp / "tiny"),
-                   **cfg)
-    u8 = letterboxed(synthetic_frames(cfg["batch"]), cfg["imgsz"])
-    got = artifact_call(torch, AutoBackend(pt2), u8, {"fused_enhance": 1},
-                        "export cross-device", counts)
-    want = [t.cpu() for t in AutoBackend(pt2, device="cpu")(u8)]
-    rec = {**output_errors(got, want), "box_tol_px": BOX_TOL_PX,
-           "score_tol": SCORE_TOL, **cfg}
     npz = npz_of(torch, y, tmp / "tiny.npz")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "dedark_yolo_tpu_torch", "export",
-         f"model={npz}", "format=pt2", f"imgsz={cfg['imgsz']}",
-         f"batch={cfg['batch']}", f"project={tmp / 'cli'}"],
-        capture_output=True, text=True, timeout=600, cwd=str(ROOT))
-    cli = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+
+    def here():
+        pt2 = y.export(format="pt2", device="cpu",
+                       project=str(tmp / "tiny"), **cfg)
+        u8 = letterboxed(synthetic_frames(cfg["batch"]), cfg["imgsz"])
+        got = artifact_call(torch, AutoBackend(pt2), u8,
+                            {"fused_enhance": 1}, "export cross-device",
+                            counts)
+        want = [t.cpu() for t in AutoBackend(pt2, device="cpu")(u8)]
+        return output_errors(got, want)
+    rc, _, stderr, secs, errs = run_beside(
+        ["export", f"model={npz}", "format=pt2", f"imgsz={cfg['imgsz']}",
+         f"batch={cfg['batch']}", f"project={tmp / 'cli'}"], here)
+    rec = {**errs, "box_tol_px": BOX_TOL_PX, "score_tol": SCORE_TOL, **cfg}
+    cli = {"rc": rc, "seconds": secs,
            "written": (tmp / "cli" / "model.pt2").is_file()}
-    if proc.returncode:
-        cli["stderr"] = proc.stderr[-2000:]
+    if rc:
+        cli["stderr"] = stderr[-2000:]
     rec["cli"] = cli
     rec["ok"] = (rec["box_max_abs_err_px"] <= BOX_TOL_PX
                  and rec["score_max_abs_err"] <= SCORE_TOL
@@ -4451,35 +4493,32 @@ def classify_parity(torch):
 
 def cls_cli_val(torch, best, root):
     """`python -m dedark_yolo_tpu_torch classify val model=<best>` in a
-    subprocess, its printed metrics against YOLO(best).val() here under the
-    subprocess's TF32 defaults (cuDNN on, matmuls off)."""
-    import os
-    import subprocess
+    subprocess, its printed metrics against YOLO(best).val() run here
+    meanwhile under the subprocess's TF32 defaults (cuDNN on, matmuls
+    off)."""
     from dedark_yolo_tpu_torch import YOLO
-    env = {**os.environ,
-           "PYTHONPATH": os.pathsep.join([str(ROOT),
-                                          os.environ.get("PYTHONPATH", "")])}
-    t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, "-m", "dedark_yolo_tpu_torch",
-                        "classify", "val", f"model={best}", f"data={root}",
-                        "cache=disk", "batch=16"], capture_output=True,
-                       text=True, cwd=str(ROOT), env=env, timeout=600)
-    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("results ")]
-    if p.returncode or not lines:
-        raise AssertionError(f"classify cli: rc {p.returncode}\n"
-                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+
+    def facade_val():
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return YOLO(str(best)).val(data=str(root), cache="disk",
+                                       batch=16)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+    rc, stdout, stderr, secs, want = run_beside(
+        ["classify", "val", f"model={best}", f"data={root}", "cache=disk",
+         "batch=16"], facade_val)
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("results ")]
+    if rc or not lines:
+        raise AssertionError(f"classify cli: rc {rc}\n{stdout[-3000:]}\n"
+                             f"{stderr[-3000:]}")
     got = json.loads(lines[-1][8:])
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        want = YOLO(str(best)).val(data=str(root), cache="disk", batch=16)
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
-    return {"rc": p.returncode, "seconds": time.perf_counter() - t0,
-            "results": got, "facade_val": want, "equal": got == want}
+    return {"rc": rc, "seconds": secs, "results": got, "facade_val": want,
+            "equal": got == want}
 
 
 def phase_classify(torch):
@@ -4632,7 +4671,7 @@ def phase_classify(torch):
 SEG = {"model": "yolov8l-seg.yaml", "classes": 3, "train": 64, "val": 16,
        "imgsz": 640, "batch": 16, "epochs": 2, "copy_paste": 0.5,
        "sides": (320, 641), "instances": (1, 7), "parity_imgsz": 128,
-       "parity_batch": 2, "predict_reps": 2, "logit_frames": 8}
+       "parity_batch": 2, "predict_reps": 1, "logit_frames": 4}
 SEG_MASK_PIXELS = 256
 SEG_LOGIT_RTOL = 1e-3
 SEG_EXPORT_TOL = 1e-5
@@ -4959,38 +4998,33 @@ def seg_parity(torch, data):
 
 def task_cli_val(torch, task, best, data_json):
     """`python -m dedark_yolo_tpu_torch <task> val model=<best>` in a
-    subprocess, its printed metrics against YOLO(best).val() here under the
-    subprocess's TF32 defaults (cuDNN on, matmuls off)."""
-    import os
-    import subprocess
+    subprocess, its printed metrics against YOLO(best).val() run here
+    meanwhile under the subprocess's TF32 defaults (cuDNN on, matmuls
+    off)."""
     from dedark_yolo_tpu_torch import YOLO
-    env = {**os.environ,
-           "PYTHONPATH": os.pathsep.join([str(ROOT),
-                                          os.environ.get("PYTHONPATH", "")])}
-    t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, "-m", "dedark_yolo_tpu_torch",
-                        task, "val", f"model={best}",
-                        f"data={data_json}", "cache=disk", "batch=16",
-                        "plots=False"], capture_output=True, text=True,
-                       cwd=str(ROOT), env=env, timeout=600)
-    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("results ")]
-    if p.returncode or not lines:
-        raise AssertionError(f"{task} cli: rc {p.returncode}\n"
-                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+
+    def facade_val():
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return YOLO(str(best)).val(data=str(data_json), cache="disk",
+                                       batch=16, plots=False)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+    rc, stdout, stderr, secs, want = run_beside(
+        [task, "val", f"model={best}", f"data={data_json}", "cache=disk",
+         "batch=16", "plots=False"], facade_val)
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("results ")]
+    if rc or not lines:
+        raise AssertionError(f"{task} cli: rc {rc}\n{stdout[-3000:]}\n"
+                             f"{stderr[-3000:]}")
     got = json.loads(lines[-1][8:])
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        want = YOLO(str(best)).val(data=str(data_json), cache="disk",
-                                   batch=16, plots=False)
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
     want = {k: float(v) for k, v in want.items()}
-    return {"rc": p.returncode, "seconds": time.perf_counter() - t0,
-            "results": got, "facade_val": want, "equal": got == want}
+    return {"rc": rc, "seconds": secs, "results": got, "facade_val": want,
+            "equal": got == want}
 
 
 def layer0_graph(base, path):
@@ -5167,9 +5201,11 @@ def phase_segment(torch):
             batches = {"nms": -(-len(frames) // SEG["batch"])}
             pred_g = card("predict", lambda: gpu.predict(list(frames), **pkw),
                           lambda: batches)
-            pred_c = cpu.predict(list(frames), device="cpu", **pkw)
+            # the CPU predicts the first TASK_PAIR_FRAMES frames to pair
+            npair = min(TASK_PAIR_FRAMES, len(frames))
+            pred_c = cpu.predict(list(frames[:npair]), device="cpu", **pkw)
             conf = seg_pair_conf([r.boxes.conf for r in pred_g])
-            prec = seg_predict_pairs(pred_g, pred_c, conf, BOX_TOL_PX,
+            prec = seg_predict_pairs(pred_g[:npair], pred_c, conf, BOX_TOL_PX,
                                      SCORE_TOL)
             prec["logits"] = seg_logit_parity(torch, gpu, cpu,
                                               frames[:SEG["logit_frames"]], conf)
@@ -5196,7 +5232,7 @@ def phase_segment(torch):
                 "at_original_size": all(r.masks.data.shape[1:] == r.orig_shape
                                         for r in retina)}
             report("predict", prec)
-            if not (prec["paired"] == len(frames) and prec["pairs"] > 0
+            if not (prec["paired"] == npair and prec["pairs"] > 0
                     and prec["mask_max_excess_px"] <= 0 and prec["logits"]["ok"]
                     and prec["masks_at_original_size"]
                     and prec["retina_masks"]["at_original_size"]
@@ -5321,6 +5357,7 @@ def phase_segment(torch):
 # at TASK_TRACK_MAX_DET detections a frame (each mask is a full frame on the
 # host)
 TASK_REQUESTS = 8
+TASK_PAIR_FRAMES = 8        # predict frames paired card vs CPU
 TASK_TRACK_MAX_DET = 20
 
 
@@ -5434,7 +5471,7 @@ def task_track(torch, spec, tmp, extra):
 POSE = {"model": "yolov8l-pose.yaml", "p6": "yolov8l-pose-p6.yaml",
         "classes": 1, "kpts": 17, "train": 64, "val": 16, "imgsz": 640,
         "batch": 16, "epochs": 2, "sides": (320, 641), "instances": (1, 7),
-        "parity_imgsz": 128, "parity_batch": 2, "predict_reps": 2}
+        "parity_imgsz": 128, "parity_batch": 2, "predict_reps": 1}
 POSE_KPT_TOL_PX = BOX_TOL_PX
 POSE_METRICS = ("metrics/mAP50(B)", "metrics/mAP50-95(B)",
                 "metrics/mAP50(P)", "metrics/mAP50-95(P)")
@@ -5773,9 +5810,10 @@ def phase_pose(torch):
             batches = {"nms": -(-len(frames) // POSE["batch"])}
             pred_g = card("predict", lambda: gpu.predict(list(frames), **pkw),
                           lambda: batches)
-            pred_c = cpu.predict(list(frames), device="cpu", **pkw)
+            npair = min(TASK_PAIR_FRAMES, len(frames))
+            pred_c = cpu.predict(list(frames[:npair]), device="cpu", **pkw)
             conf = seg_pair_conf([r.boxes.conf for r in pred_g])
-            prec = pose_predict_pairs(pred_g, pred_c, conf, BOX_TOL_PX,
+            prec = pose_predict_pairs(pred_g[:npair], pred_c, conf, BOX_TOL_PX,
                                       SCORE_TOL)
             prec["keypoints_in_image"] = all(
                 (r.keypoints.xy >= 0).all()
@@ -5791,7 +5829,7 @@ def phase_pose(torch):
                         imgsz=POSE["imgsz"], half=half), lambda: batches)
                     times.append(time.perf_counter() - t0)
                 prec[f"{key}_images_per_s"] = [len(frames) / t for t in times]
-            prec["ok"] = (prec["paired"] == len(frames) and prec["pairs"] > 0
+            prec["ok"] = (prec["paired"] == npair and prec["pairs"] > 0
                           and prec["keypoints_in_image"])
             report("predict", prec)
 
@@ -6005,6 +6043,57 @@ def blocks_amp_step(torch, yolo):
            "finite": bool(torch.isfinite(items).all()),
            "state_dtypes": sorted(dtypes), "launches": launches}
     rec["ok"] = rec["finite"] and dtypes == {"torch.float32"}
+    return rec
+
+
+def amp_gaps(torch, yolo):
+    """The amp=True loss and its gradients against the f32 loss's from the
+    same state and batch (b16/640, TF32 off; on the card there is no JAX
+    to hold the bf16 to, so this reads the port's own bf16 gap: the loss
+    items' largest relative gap, the gradients' ||bf16 - f32|| / ||f32||
+    over every leaf and the worst leaf's); the state put back after."""
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    from dedark_yolo_tpu_torch.tools.c14_split import train_batch
+    model = yolo.model
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(BATCH, IMGSZ, SEED)
+    out = {}
+    with matmul_precision("float32"), no_plain_on_cuda():
+        for amp in (False, True):
+            model.load_state_dict(start)
+            tr = DetectionTrainer(model, {"batch": BATCH, "nbs": 64,
+                                          "amp": amp}, nb=1000)
+            names = list(tr.params)
+            model.train()
+            try:
+                total, items = tr.loss(tr.to_device(batch))
+                grads = torch.autograd.grad(
+                    total, [tr.params[n] for n in names], allow_unused=True)
+            finally:
+                model.eval()
+            out[amp] = (torch.stack(list(items)).float().cpu(),
+                        {n: g.float() for n, g in zip(names, grads)
+                         if g is not None})
+    model.load_state_dict(start)
+    (i32, g32), (i16, g16) = out[False], out[True]
+    keys = [k for k in g32 if k in g16 and float(g32[k].abs().max()) > 0]
+    num = sum(float(torch.sum((g16[k] - g32[k]) ** 2)) for k in keys)
+    den = sum(float(torch.sum(g32[k] ** 2)) for k in keys)
+    per = {k: float(torch.linalg.vector_norm(g16[k] - g32[k])
+                    / torch.linalg.vector_norm(g32[k])) for k in keys}
+    worst = max(per, key=per.get)
+    rec = {"items_f32": i32.tolist(), "items_bf16": i16.tolist(),
+           "items_max_rel_gap": float(((i16 - i32).abs()
+                                       / i32.abs().clamp(min=1e-12)).max()),
+           "grad_norm_rel_gap": (num / den) ** 0.5,
+           "grad_worst_leaf": worst, "grad_worst_leaf_gap": per[worst],
+           "leaves": len(keys),
+           "finite": bool(torch.isfinite(i16).all()
+                          and all(torch.isfinite(g16[k]).all()
+                                  for k in keys))}
+    del out, g16, g32
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -6257,9 +6346,11 @@ def phase_rtdetr(torch, frames):
     """RT-DETR end to end (see RTDETR): yolov8l-rtdetr predicting b16/640
     in f32 and half (images/s, speed; nms once a batch), one frame card vs
     CPU, val of 8 images at 128 card vs CPU and of the 64 sidecars at 640
-    (no launch), YOLO(...).train(epochs=1) on 64 sidecars at b16/640
+    (no launch), YOLO(...).train(epochs=1) on 32 sidecars at b16/640
     (images/s, the step's ms, peak memory), the 128 b2 micro-step card vs
-    CPU (TRAIN_TOL, RTDETR_APART reported), an amp micro-step (finite), the
+    CPU (TRAIN_TOL, RTDETR_APART reported), an amp micro-step (finite; its
+    loss items' and gradients' gaps to the f32 loss's from the same state
+    reported, `amp_gaps`: the CPU tests hold the bf16 to JAX's), the
     pt2 artifact bit-equal
     to the live model (no launch in the export); its rows under a layer-0
     row predicting a batch (fused_enhance and nms once); the rtdetr-l graph
@@ -6366,10 +6457,12 @@ def phase_rtdetr(torch, frames):
         rec = {"step": "train_parity", **train_parity(
             RTDETR["model"], apart=RTDETR_APART)}
         report(rec, rec["ok"])
-        rec = {"step": "train_amp", **blocks_amp_step(torch, gpu)}
+        rec = {"step": "train_amp", **blocks_amp_step(torch, gpu),
+               "gaps_against_f32": amp_gaps(torch, gpu)}
         summary["micro_step_ms"]["amp"] = rec["micro_step_ms"]
         summary["peak_memory_gib"]["amp"] = rec["peak_memory_gib"]
-        report(rec, rec["ok"])
+        summary["amp_gaps"] = rec["gaps_against_f32"]
+        report(rec, rec["ok"] and rec["gaps_against_f32"]["finite"])
 
         # the pt2 artifact of the calibrated model against the live one
         u8 = letterboxed(frames, IMGSZ)
@@ -6423,7 +6516,7 @@ def phase_rtdetr(torch, frames):
 # (parallel/, ROADMAP A12i).
 # (a) a one-rank NCCL group joined through init_from_env on a set-up
 #     environment: the flagship at b16/640, f32, TF32 off and cuDNN
-#     deterministic, after a warm-up micro-step, three micro-steps (nbs 16:
+#     deterministic, after a warm-up micro-step, DIST["steps"] micro-steps (nbs 16:
 #     each applies an update) through the plain path and the mesh path (a
 #     mesh of one rank: no collective runs) in turns, plain, mesh, mesh,
 #     plain, each from the same state: loss items and parameters bit-equal,
@@ -6455,9 +6548,17 @@ def phase_rtdetr(torch, frames):
 #     val over a
 #     mesh of its DIST["spatial"] devices (each b4 batch in two groups of
 #     2, fused_enhance and nms once a group) within VAL_METRIC_RTOL of one
-#     process's.
-DIST = {"steps": 3, "nbs": 16, "imgsz": 128, "ranks": 2, "per_rank": 2,
-        "step": 1500, "nb": 1000, "spatial": 2}
+#     process's. Then the 'spatial' axis across the two ranks (ROADMAP
+#     A12i-d, tools/dist_probe.py's --spatial-ranks): the 128 b2 window on
+#     the (1, 2) mesh, one slab a rank, against rank 0's window on a local
+#     (1, 2) mesh of cuda:0 twice from the same state and rows (the same
+#     slabs and cuDNN shapes): items and BN stats within 1e-6, gradients
+#     within DIST["ranks_grad_rel"] of each norm, bit-equality reported;
+#     and spatial_infer of DIST["infer_frames"] frames at 640 over the two
+#     ranks against rank 0's over the local mesh, detections paired.
+DIST = {"steps": 2, "nbs": 16, "imgsz": 128, "ranks": 2, "per_rank": 2,
+        "step": 1500, "nb": 1000, "spatial": 2, "infer_frames": 1,
+        "ranks_grad_rel": 1e-4}
 
 
 def dist_one_rank(torch):
@@ -6560,6 +6661,7 @@ def dist_two_ranks(torch, tmp):
     """(b): two gloo ranks on this card against one process, the step
     window and the val in one launch of the group (tools/dist_probe.py's
     step_val)."""
+    from concurrent.futures import ThreadPoolExecutor
     import numpy as np
     from dedark_yolo_tpu_torch import YOLO
     from dedark_yolo_tpu_torch.cfg import get_cfg
@@ -6588,27 +6690,39 @@ def dist_two_ranks(torch, tmp):
     kw = {"imgsz": VAL_SMALL["imgsz"], "batch": VAL_SMALL["batch"],
           "cache": "disk", "plots": False, "verbose": False, "workers": 2,
           "matmul_precision": "float32"}
-    zero_launches()
-    one_res = DetectionValidator(args=get_cfg({**kw, "data": data}),
-                                 save_dir=tmp / "val_one")(model=yolo.model)
-    one_launches = dict(_build.LAUNCHES)
-    del yolo
-    torch.cuda.empty_cache()
-
+    # the frames spatial_infer runs over the two ranks (letterboxed at 640)
+    np.savez(tmp / "frames.npz", img=(letterboxed(synthetic_frames(
+        DIST["infer_frames"])).astype(np.float32) / 255))
     common = ["--device", "cuda:0", "--backend", "gloo"]
     t0 = time.perf_counter()
-    res = launch(n, ["step_val", "--model", "yolov8l.yaml", "--imgsz", s,
-                     "--batches", tmp / "batches.npz", "--steps",
-                     DIST["step"], "--nb", DIST["nb"], "--overrides",
-                     json.dumps({"batch": per, "nbs": per, "optimizer": "SGD",
-                                 "imgsz": s}), "--out", tmp / "step",
-                     "--val-state", tmp / "val_state.npz", "--data",
-                     tmp / "small.json", "--val-imgsz", VAL_SMALL["imgsz"],
-                     "--batch", VAL_SMALL["batch"], "--cache", "disk",
-                     "--val-overrides",
-                     json.dumps({"matmul_precision": "float32"}),
-                     "--val-out", tmp / "val", "--spatial", sp, *common],
-                 timeout=420)
+    # the ranks run while this process computes its references (one
+    # process's val and window); the ranks count their own launches
+    pool = ThreadPoolExecutor(max_workers=1)
+    ranks = pool.submit(launch, n, [
+        "step_val", "--model", "yolov8l.yaml", "--imgsz", s, "--batches",
+        tmp / "batches.npz", "--steps", DIST["step"], "--nb", DIST["nb"],
+        "--overrides", json.dumps({"batch": per, "nbs": per,
+                                   "optimizer": "SGD", "imgsz": s}),
+        "--out", tmp / "step", "--val-state", tmp / "val_state.npz",
+        "--data", tmp / "small.json", "--val-imgsz", VAL_SMALL["imgsz"],
+        "--batch", VAL_SMALL["batch"], "--cache", "disk", "--val-overrides",
+        json.dumps({"matmul_precision": "float32"}), "--val-out",
+        tmp / "val", "--spatial", sp, "--spatial-ranks", n, "--rows", per,
+        "--frames", tmp / "frames.npz", *common], timeout=480)
+    pool.shutdown(wait=False)
+    try:
+        zero_launches()
+        one_res = DetectionValidator(args=get_cfg({**kw, "data": data}),
+                                     save_dir=tmp / "val_one")(
+                                         model=yolo.model)
+        one_launches = dict(_build.LAUNCHES)
+        del yolo
+        torch.cuda.empty_cache()
+        # one process, b4, the same seeded weights and rows
+        one, start = one_window("yolov8l.yaml", batch, s, DIST["step"],
+                                DIST["nb"], "cuda")
+    finally:
+        res = ranks.result()
     rec["launch_s"] = time.perf_counter() - t0
     for r, (rc, text) in enumerate(res):
         if rc != 0:
@@ -6620,9 +6734,6 @@ def dist_two_ranks(torch, tmp):
         if k != "launches")
     rec["step_launches"] = [json.loads(str(x["launches"])) for x in ranks]
     rec["counts"] = ranks[0]["counts"].tolist()
-    # one process, b4, the same seeded weights and rows
-    one, start = one_window("yolov8l.yaml", batch, s, DIST["step"],
-                            DIST["nb"], "cuda")
     rec["window"] = window_errors(ranks[0], one, start)
     torch.cuda.empty_cache()
     for r, launches in enumerate(rec["step_launches"]):
@@ -6651,6 +6762,9 @@ def dist_two_ranks(torch, tmp):
     rec["spatial"]["within_train_tol"] = not misses
     rec["spatial"]["held_missed"] = [m for m in misses
                                      if m["kind"] in ("items", "stats")]
+
+    rec["spatial_ranks"] = spatial_ranks_window(tmp, n, per)
+    rec["spatial_infer_ranks"] = spatial_ranks_infer(torch, tmp, n)
 
     vals = [json.loads((tmp / f"val_rank{r}.json").read_text())
             for r in range(n)]
@@ -6689,6 +6803,8 @@ def dist_two_ranks(torch, tmp):
                        + json.loads(str(ulp["launches"])).get(k, 0) * n
                        + sum(v["launches"].get(k, 0) for v in vals)
                        + local["launches"].get(k, 0)
+                       + rec["spatial_ranks"]["launches"].get(k, 0)
+                       + rec["spatial_infer_ranks"]["launches"].get(k, 0)
                        for k in one_launches}
     rec["ok"] = (rec["ranks_bit_equal"] and not rec["window"]["misses"]
                  and rec["counts"] == [1, 0, 1]
@@ -6698,7 +6814,98 @@ def dist_two_ranks(torch, tmp):
                  and rec["spatial"]["ranks_bit_equal"]
                  and not rec["spatial"]["held_missed"]
                  and rec["spatial"]["counts"] == [1, 0, 1]
-                 and rec["val_local"]["max_rel_err"] <= VAL_METRIC_RTOL)
+                 and rec["val_local"]["max_rel_err"] <= VAL_METRIC_RTOL
+                 and rec["spatial_ranks"]["ok"]
+                 and rec["spatial_infer_ranks"]["ok"])
+    return rec
+
+
+def spatial_ranks_window(tmp, n, per):
+    """The ranks' window on the rank-spanning (1, n) mesh (one slab a rank,
+    the first `per` rows of the global batch) against rank 0's window on a
+    local (1, n) mesh of cuda:0 n times, from the same state and rows:
+    loss items and BN stats within 1e-6, each gradient (the momentum
+    buffer) within DIST["ranks_grad_rel"] of its norm; the ranks
+    bit-equal; fused_enhance once a rank (its slab), n times locally."""
+    import numpy as np
+    ranks = [dict(np.load(tmp / f"step_ranks_rank{r}.npz")) for r in range(n)]
+    local = dict(np.load(tmp / "step_local_rank0.npz"))
+    got = ranks[0]
+    worst = {"items": 0.0, "bn_stats": 0.0, "grad": 0.0}
+    leaf, equal = "", True
+    for k, w in local.items():
+        if k == "launches" or k.startswith(("counts", "total_", "buf2/")):
+            continue
+        g, w = np.asarray(got[k], np.float64), np.asarray(w, np.float64)
+        equal = equal and bool(np.array_equal(g, w))
+        if k.startswith("items_"):
+            kind, err = "items", float(np.abs(g - w).max())
+        elif "running_" in k:
+            kind, err = "bn_stats", float(np.abs(g - w).max())
+        elif k.startswith("buf/") and np.linalg.norm(w) > 0:
+            kind = "grad"
+            err = float(np.linalg.norm(g - w) / np.linalg.norm(w))
+        else:
+            continue
+        if err > worst[kind]:
+            worst[kind] = err
+            leaf = k if kind == "grad" else leaf
+    launches = [json.loads(str(x["launches"])) for x in ranks]
+    local_launches = json.loads(str(local["launches"]))
+    for r, got_l in enumerate(launches):
+        check_launches(f"dist spatial ranks rank {r}", got_l,
+                       {"fused_enhance": 1})
+    check_launches("dist spatial ranks local", local_launches,
+                   {"fused_enhance": n})
+    rec = {"mesh": [1, n], "rows": per, "items": got["items_0"].tolist(),
+           "items_max_abs_err": worst["items"],
+           "bn_stats_max_abs_err": worst["bn_stats"],
+           "grad_norm_rel_err": worst["grad"], "grad_worst_leaf": leaf,
+           "bit_equal": equal,
+           "ranks_bit_equal": all(np.array_equal(ranks[0][k], x[k])
+                                  for x in ranks[1:] for k in ranks[0]
+                                  if k != "launches"),
+           "counts": got["counts"].tolist(), "launches": {
+               k: sum(x.get(k, 0) for x in launches) + local_launches.get(k, 0)
+               for k in local_launches}}
+    rec["ok"] = (rec["ranks_bit_equal"] and worst["items"] <= 1e-6
+                 and worst["bn_stats"] <= 1e-6
+                 and worst["grad"] <= DIST["ranks_grad_rel"]
+                 and rec["counts"] == [1, 0, 1])
+    return rec
+
+
+def spatial_ranks_infer(torch, tmp, n):
+    """spatial_infer over the n ranks (each its slab, outputs joined on
+    every rank) against rank 0's over a local mesh of cuda:0 n times, on
+    the val's calibrated weights: outputs, the ranks' equality, and the
+    detections paired (predict's NMS here, outside the counted calls);
+    fused_enhance once a rank, n times locally."""
+    import numpy as np
+    runs = [dict(np.load(tmp / f"val_infer_rank{r}.npz")) for r in range(n)]
+    t = lambda z, k: torch.from_numpy(np.asarray(z[k]))
+    got = (t(runs[0], "ranks/boxes"), t(runs[0], "ranks/scores"))
+    want = (t(runs[0], "local/boxes"), t(runs[0], "local/scores"))
+    conf = gap_conf(want[1])
+    launches = [json.loads(str(x["ranks/launches"])) for x in runs]
+    local_launches = json.loads(str(runs[0]["local/launches"]))
+    for r, got_l in enumerate(launches):
+        check_launches(f"dist spatial_infer rank {r}", got_l,
+                       {"fused_enhance": 1})
+    check_launches("dist spatial_infer local", local_launches,
+                   {"fused_enhance": n})
+    rec = {"shape": list(runs[0]["ranks/boxes"].shape), "conf": conf,
+           **output_errors(got, want),
+           "ranks_equal": all(np.array_equal(runs[0][f"ranks/{k}"],
+                                             x[f"ranks/{k}"])
+                              for x in runs[1:] for k in ("boxes", "scores")),
+           "nms": paired_rows(nms_rows(torch, got, conf),
+                              nms_rows(torch, want, conf), BOX_TOL_PX,
+                              SCORE_TOL),
+           "launches": {k: sum(x.get(k, 0) for x in launches)
+                        + local_launches.get(k, 0) for k in local_launches}}
+    rec["ok"] = (rec["ranks_equal"] and rec["nms"]["paired"]
+                 and rec["nms"]["dets"] > 0)
     return rec
 
 
@@ -6728,7 +6935,11 @@ def phase_dist(torch):
 # running stats equal to no remat's (they move once: the recompute leaves
 # them alone), the loss items equal; fused_enhance launched twice a run
 # (the forward, then the recompute) against once. Then one amp=True
-# micro-step at REMAT_UPTO: a finite loss.
+# micro-step at REMAT_UPTO: a finite loss. Then remat on a spatial mesh
+# (ROADMAP A12j-b, `remat_on_mesh`): the same forward and backward, f32
+# with TF32 off, on a local (1, 2) mesh over cuda:0 twice, REMAT_UPTO
+# against -1, TRAIN_TOL readings, ms, peak memory, fused_enhance 4
+# against 2 a run.
 REMAT_UPTO = 5
 
 
@@ -6817,7 +7028,9 @@ def phase_remat(torch):
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "launches": dict(_build.LAUNCHES)}
     check_launches("remat amp", amp["launches"], {"fused_enhance": 2})
-    del tr, yolo, model
+    del tr
+    mesh_rec = remat_on_mesh(torch, model, start, batch)
+    del yolo, model
     torch.cuda.empty_cache()
     ms = {u: sorted(x["ms"] for x in runs if x["remat"] == u)
           for u in (-1, REMAT_UPTO)}
@@ -6835,15 +7048,111 @@ def phase_remat(torch):
            "bn_stats_max_abs_err": stats_err,
            "bn_stats_bit_equal": stats_err == 0.0, "bn_buffers_moved": moved,
            "launches": {k: sum(x["launches"].get(k, 0) for x in runs)
-                        + amp["launches"].get(k, 0) for k in amp["launches"]},
-           "amp": amp, "tol": TRAIN_TOL,
+                        + amp["launches"].get(k, 0)
+                        + mesh_rec["launches"].get(k, 0)
+                        for k in amp["launches"]},
+           "amp": amp, "spatial_mesh": mesh_rec, "tol": TRAIN_TOL,
            "seconds": time.perf_counter() - t_phase}
     rec["ok"] = (rec["items_max_rel_err"] <= TRAIN_TOL["items_rel"]
                  and rec["grad_norm_rel_err"] <= TRAIN_TOL["grad_rel"]
-                 and stats_err <= TRAIN_TOL["stats_abs"] and amp["finite"])
+                 and stats_err <= TRAIN_TOL["stats_abs"] and amp["finite"]
+                 and mesh_rec["ok"])
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"remat: {rec}")
+    return rec
+
+
+def remat_on_mesh(torch, model, start, batch):
+    """remat on a spatial mesh (ROADMAP A12j-b): one b16/640 f32 forward
+    and backward (TF32 off) of the train loss on a local (1, 2) mesh over
+    cuda:0 twice at remat=REMAT_UPTO against -1, each from `start`, after
+    a warm-up of each, in turns (off, on, on, off): TRAIN_TOL readings of
+    the first of each (loss items, each gradient by its norm, BN stats),
+    ms and peak memory of each; fused_enhance 4 a run at REMAT_UPTO (each
+    slab's forward and its recompute) against 2."""
+    from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
+    from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    from dedark_yolo_tpu_torch.ops import _build
+    from dedark_yolo_tpu_torch.parallel import make_mesh
+    from dedark_yolo_tpu_torch.parallel.spatial import joined_hooks
+    from dedark_yolo_tpu_torch.tools.c14_split import TRAIN_TOL
+    n = SPATIAL_TRAIN["slabs"]
+    mesh = make_mesh(shape=(1, n), axes=("data", "spatial"),
+                     devices=["cuda:0"] * n)
+    tr = DetectionTrainer(model, {"batch": BATCH, "nbs": 64,
+                                  "remat": REMAT_UPTO}, nb=1000)
+    tr.mesh = mesh
+    names = list(tr.params)
+    dev = tr.to_device(batch)
+
+    def fwd_bwd(upto):
+        model.load_state_dict(start)
+        model.remat_upto = upto
+        model.train()
+        try:
+            with joined_hooks(model):
+                total, items = tr.loss(dev)
+                g = torch.autograd.grad(total, [tr.params[k] for k in names],
+                                        allow_unused=True)
+        finally:
+            model.eval()
+        return items, g
+    runs, first = [], {}
+    with matmul_precision("float32"), no_plain_on_cuda():
+        for upto in (-1, REMAT_UPTO):                    # warm-ups
+            fwd_bwd(upto)
+        for upto in (-1, REMAT_UPTO, REMAT_UPTO, -1):
+            torch.cuda.synchronize()
+            zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            items, grads = fwd_bwd(upto)
+            torch.cuda.synchronize()
+            runs.append({"remat": upto,
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                         "launches": dict(_build.LAUNCHES)})
+            check_launches(f"remat {upto} on a (1, {n}) mesh",
+                           runs[-1]["launches"],
+                           {"fused_enhance": 2 * n if upto >= 0 else n})
+            if upto not in first:
+                first[upto] = {
+                    "items": torch.stack(list(items)).cpu(),
+                    "grads": {k: g for k, g in zip(names, grads)
+                              if g is not None},
+                    "stats": {k: v.clone() for k, v in model.named_buffers()}}
+            del items, grads
+    model.load_state_dict(start)
+    model.remat_upto = REMAT_UPTO
+    p, r = first[-1], first[REMAT_UPTO]
+    grad_err = {k: float(torch.linalg.vector_norm(r["grads"][k] - w)
+                         / torch.linalg.vector_norm(w))
+                for k, w in p["grads"].items() if w.abs().max() > 0}
+    worst = max(grad_err, key=grad_err.get)
+    stats_err = max(float((r["stats"][k] - w).abs().max())
+                    for k, w in p["stats"].items())
+    items_err = float((r["items"] - p["items"]).abs().max()
+                      / p["items"].abs().max())
+    del first, p, r, tr, dev
+    torch.cuda.empty_cache()
+    ms = {u: sorted(x["ms"] for x in runs if x["remat"] == u)
+          for u in (-1, REMAT_UPTO)}
+    peak = {u: max(x["peak_mib"] for x in runs if x["remat"] == u)
+            for u in (-1, REMAT_UPTO)}
+    rec = {"mesh": [1, n], "devices": ["cuda:0"] * n, "batch": BATCH,
+           "imgsz": IMGSZ, "precision": "f32, TF32 off", "runs": runs,
+           "ms": {"off": ms[-1], "on": ms[REMAT_UPTO]},
+           "peak_mib": {"off": peak[-1], "on": peak[REMAT_UPTO]},
+           "time_ratio": sum(ms[REMAT_UPTO]) / sum(ms[-1]),
+           "items_max_rel_err": items_err,
+           "grad_norm_rel_err": grad_err[worst], "grad_worst_leaf": worst,
+           "bn_stats_max_abs_err": stats_err,
+           "launches": {k: sum(x["launches"].get(k, 0) for x in runs)
+                        for k in runs[0]["launches"]}}
+    rec["ok"] = (items_err <= TRAIN_TOL["items_rel"]
+                 and grad_err[worst] <= TRAIN_TOL["grad_rel"]
+                 and stats_err <= TRAIN_TOL["stats_abs"])
     return rec
 
 

@@ -164,11 +164,6 @@ UNPORTED_KEYS = frozenset((
     "optimize", "simplify", "source", "stem_s2d", "task", "workspace"))
 
 
-# the ROADMAP item of an unported key, or of an unported part of a ported
-# one: a 'spatial' axis across ranks (`parallel.make_mesh`, the trainer's
-# mesh_shape), and `remat` on a spatial mesh (the trainer)
-UNPORTED_ITEMS = {"spatial_ranks": "A12i-d", "spatial_remat": "A12j-b"}
-
 
 def check_cfg_alignment(base_keys, custom: dict) -> None:
     """Raise SyntaxError for each key of `custom` not in `base_keys`: a key
@@ -183,7 +178,7 @@ def check_cfg_alignment(base_keys, custom: dict) -> None:
         if k in UNPORTED_KEYS:
             msg.append(f"'{k}' is a config key of the JAX package that is "
                        "not ported to dedark_yolo_tpu_torch (ROADMAP "
-                       f"{UNPORTED_ITEMS.get(k, 'A10b, A12')})")
+                       "A10b, A12)")
             continue
         matches = difflib.get_close_matches(k, known)
         hint = f" Did you mean {matches}?" if matches else ""

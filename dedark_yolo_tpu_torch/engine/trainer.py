@@ -98,7 +98,21 @@ as the function GSPMD computes; only the graph's forward runs on row slabs
 joined on the first device for the loss. The step is otherwise the same:
 one gradient bucket over the group. Rank 0's per-epoch val runs over a
 mesh of its own devices (JAX's `val_mesh`), a batch that divides split in
-groups, one a device. `remat` on a spatial mesh raises (ROADMAP A12j-b).
+groups, one a device.
+
+With the 'spatial' axis across ranks (dp * sp ranks, one device a rank:
+`parallel/mesh.py::rank_spatial_mesh`) the loader shards by data index
+(rank // sp), so the sp ranks of a data coordinate read the same images;
+each rank degrades them and takes their priors whole, then runs its own
+rows' slab. BN's moments on slabs sum over every slab of the spatial
+group, then over the data group, and on maps every rank computes alike
+(layer 0's parameter CNN, what follows a join) over the data group only;
+the losses' normalisers reduce over the data group. Every rank computes
+its data coordinate's loss, so summed over the world each gradient, the
+total and the items would count sp times: each rank's share goes into the
+bucket times 1 / sp. Rank 0 validates on its own device. `remat` runs on
+every mesh: the recompute of a slab's layers runs their halo exchanges
+again, in the same order on every rank.
 
     trainer = DetectionTrainer(model, {"batch": 16}, nb=100)  # model: nn.graph.DetectionModel
     total, items = trainer.step(batch, step_index)
@@ -111,6 +125,7 @@ torch.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import math
@@ -123,7 +138,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..cfg import AUGMENT_KEYS, UNPORTED_ITEMS, get_cfg, yaml_save
+from ..cfg import AUGMENT_KEYS, get_cfg, yaml_save
 from ..data.augment import TrainTransforms
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..data.loader import DataLoader
@@ -134,7 +149,7 @@ from ..ops.degrade import lowlight_degrade
 from ..parallel.mesh import (all_reduce_sum, barrier, broadcast_object,
                              global_sum, init_from_env, local_mesh, make_mesh,
                              mesh_group, replicate, upload)
-from ..parallel.spatial import spatial_train
+from ..parallel.spatial import joined_hooks, spatial_train
 from ..utils import LOGGER, increment_dir
 from ..utils.autobatch import autobatch
 from ..utils.callbacks import add_integration_callbacks, get_default_callbacks
@@ -223,9 +238,12 @@ class BaseTrainer:
 
     @property
     def group(self):
-        """The process group a step reduces over: None without a mesh of
-        several ranks."""
-        return mesh_group(self.mesh)
+        """The process group a step's losses and BN reduce over: None
+        without a mesh of several ranks; the data group where the 'spatial'
+        axis runs over ranks (None at dp 1)."""
+        m = self.mesh
+        return m.data_group if m is not None and m.spans_ranks \
+            else mesh_group(m)
 
     @property
     def is_main(self) -> bool:
@@ -235,7 +253,7 @@ class BaseTrainer:
     def shard_kw(self):
         """The train loader's rank shard (JAX trainer.py:969-970)."""
         m = self.mesh
-        return ({"process_index": m.rank, "process_count": m.world}
+        return ({"process_index": m.data_index, "process_count": m.data_size}
                 if m is not None else {})
 
     def _get_save_dir(self):
@@ -377,7 +395,7 @@ class BaseTrainer:
         m = self.mesh
         if m is None or m.spatial == 1:
             return run(*inputs)
-        return spatial_train(self.model, inputs, list(m.devices), run)
+        return spatial_train(self.model, inputs, m, run)
 
     def to_device(self, batch):
         """The batch's `batch_keys` arrays on the trainer's device; from the
@@ -408,10 +426,15 @@ class BaseTrainer:
         global step's on every rank."""
         batch = self.to_device(batch)
         names = list(self.params)
-        group = self.group
+        m = self.mesh
+        spatial = m is not None and m.spatial > 1
         self.model.train()
         try:
-            with batchnorm_group(self.model, group):
+            # the joined modules' hooks stay on over the backward, where a
+            # remat recompute runs them again
+            with batchnorm_group(self.model, self.group), (
+                    joined_hooks(self.model) if spatial
+                    else contextlib.nullcontext()):
                 total, items = self.loss(batch)
                 grads = torch.autograd.grad(
                     total, [self.params[n] for n in names], allow_unused=True)
@@ -420,9 +443,14 @@ class BaseTrainer:
         grads = [torch.zeros_like(self.params[n]) if g is None else g
                  for n, g in zip(names, grads)]
         total, items = total.detach(), torch.stack(list(items))
-        if group is not None:
+        world = mesh_group(m)
+        if world is not None:
+            if m.spans_ranks:   # each of sp ranks holds its data share whole
+                share = 1.0 / m.spatial
+                grads = [g * share for g in grads]
+                total, items = total * share, items * share
             *grads, total, items = all_reduce_sum([*grads, total, items],
-                                                  group)
+                                                  world)
         grads = dict(zip(names, grads))
         applied = opt_update(
             self.params, grads, self.opt_state, self.labels,
@@ -565,19 +593,15 @@ class BaseTrainer:
         if a.batch > 0 and a.batch % dp:
             raise ValueError(f"batch {a.batch} must divide evenly over the "
                              f"{dp}-way data axis")
-        if sp > 1:
-            if a.imgsz % (32 * sp):
-                raise ValueError(
-                    f"imgsz {a.imgsz} must divide 32 * {sp} spatial shards "
-                    f"(use imgsz={-(-a.imgsz // (32 * sp)) * 32 * sp})")
-            if self.model.remat_upto >= 0:
-                raise NotImplementedError(
-                    "remat on a mesh with a 'spatial' axis is not ported "
-                    f"(ROADMAP {UNPORTED_ITEMS['spatial_remat']}): train "
-                    "with remat=-1")
+        if sp > 1 and a.imgsz % (32 * sp):
+            raise ValueError(
+                f"imgsz {a.imgsz} must divide 32 * {sp} spatial shards "
+                f"(use imgsz={-(-a.imgsz // (32 * sp)) * 32 * sp})")
         if world > 1 and not torch.distributed.is_initialized():
             dev = self.device
-            if sp > 1 and dev.type == "cuda" and dev.index is None:
+            # a rank drives sp cards, unless the spatial axis is the ranks'
+            if sp > 1 and dp == world and dev.type == "cuda" \
+                    and dev.index is None:
                 dev = torch.device(
                     "cuda", int(os.environ.get("LOCAL_RANK", "0")) * sp)
             init_from_env(device=dev)
@@ -590,12 +614,13 @@ class BaseTrainer:
             self.save_dir = Path(broadcast_object(mesh, str(self.save_dir)))
             self.wdir = self.save_dir / "weights"
             self.csv = self.save_dir / "results.csv"
-        self.val_mesh = (local_mesh(mesh.devices) if mesh.spatial > 1
+        self.val_mesh = (local_mesh(mesh.devices)
+                         if mesh.spatial > 1 and not mesh.spans_ranks
                          else None)
-        LOGGER.info(f"mesh: {mesh.size} device(s) (data={mesh.world} x "
+        LOGGER.info(f"mesh: {mesh.size} device(s) (data={mesh.data_size} x "
                     f"spatial={mesh.spatial}); rank {mesh.rank} on "
                     f"{', '.join(map(str, mesh.devices or [mesh.device]))}; "
-                    f"global batch {a.batch * mesh.world}")
+                    f"global batch {a.batch * mesh.data_size}")
 
     def _replicate_state(self):
         """Rank 0's weights, BN stats, EMA and optimizer buffers on every
@@ -607,19 +632,21 @@ class BaseTrainer:
 
     def _rank0_value(self, value):
         """Rank 0's float on every rank (JAX's broadcast_one_to_all)."""
-        if self.group is None:
+        world = mesh_group(self.mesh)
+        if world is None:
             return value
         t = torch.tensor([value if self.is_main else 0.0],
                          dtype=torch.float64).to(self.device)
-        torch.distributed.broadcast(t, 0, group=self.group)
+        torch.distributed.broadcast(t, 0, group=world)
         return float(t.item())
 
     def _any_rank(self, flag):
         """True on every rank when `flag` is true on any (the stop)."""
-        if self.group is None:
+        world = mesh_group(self.mesh)
+        if world is None:
             return flag
         t = torch.tensor([1.0 if flag else 0.0]).to(self.device)
-        torch.distributed.all_reduce(t, group=self.group)
+        torch.distributed.all_reduce(t, group=world)
         return bool(t.item() > 0)
 
     def _on_signal(self, signum, frame):

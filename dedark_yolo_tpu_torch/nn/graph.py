@@ -338,7 +338,11 @@ def remat_call(mod, *args):
     The weights the module holds now (under `torch.func.functional_call`,
     amp's bf16 casts, which are gone from the module by the backward) go in
     as inputs, so the recompute runs on them and their gradients flow
-    back through the casts."""
+    back through the casts. Row slabs (`parallel/spatial.py`) go in as
+    they are: the recompute runs the module on them again, halo exchanges
+    and BN's moment sums included (across ranks every rank reaches its
+    recompute at the same point of the backward, so the collectives
+    match), its BN running stats frozen."""
     names, tensors = zip(*mod.named_parameters())
     k = len(names)
 

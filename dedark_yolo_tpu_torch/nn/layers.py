@@ -265,7 +265,12 @@ class BatchNorm(nn.Module):
     (rsqrt(var + eps) * scale) + bias in f32 rounded once to the input's
     dtype, and the running stats move with the global moments. Row slabs
     (data x spatial training, `parallel/spatial.py`) take the same form,
-    their sums taken over every slab before the group's all-reduce.
+    their sums taken over every slab before the group's all-reduce; where
+    the 'spatial' axis runs over ranks the slabs' sums are all-reduced over
+    the spatial group and `group` is the data group, so a slab map's
+    moments sum over the whole world and a map every rank computes alike
+    (layer 0's parameter CNN, what follows a join) over the data group
+    only.
 
     `eps` and `momentum` are YOLO's tuned BN's (1e-3, 0.03) unless given:
     RT-DETR's input projection keeps flax's plain BatchNorm (1e-5, 0.1).

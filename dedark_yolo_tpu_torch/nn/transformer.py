@@ -258,7 +258,10 @@ def sample_level(value, loc, h: int, w: int):
     146-177): value (B, h * w, nh, hd), loc (B, Lq, nh, np, 2) in [0, 1]
     as (x, y) -> (B, Lq, nh, np, hd); F.grid_sample with bilinear weights,
     zero padding and align_corners=False (pixel = loc * size - 0.5), the
-    reference's multi_scale_deformable_attn."""
+    reference's multi_scale_deformable_attn. bf16 values (amp) take JAX's
+    own form, `_sample_corners`."""
+    if value.dtype == torch.bfloat16:
+        return _sample_corners(value, loc, h, w)
     b, _, nh, hd = value.shape
     lq, npts = loc.shape[1], loc.shape[3]
     v = value.reshape(b, h, w, nh, hd).permute(0, 3, 4, 1, 2).reshape(
@@ -268,6 +271,35 @@ def sample_level(value, loc, h: int, w: int):
     out = F.grid_sample(v.to(dt), grid.to(dt), mode="bilinear",
                         padding_mode="zeros", align_corners=False)
     return out.reshape(b, nh, hd, lq, npts).permute(0, 3, 1, 4, 2)
+
+
+def _sample_corners(value, loc, h: int, w: int):
+    """`sample_level` as JAX computes it: four masked gathers of the corners
+    in the values' dtype, each times its weight (x and y fractions in the
+    points' dtype, times the in-bounds mask), summed in the order (0, 0),
+    (0, 1), (1, 0), (1, 1). On bf16 values the corners are bf16 and the sum
+    f32, so each corner's gradient rounds to bf16 before the gathers'
+    scatter-add, as XLA's does; `F.grid_sample` of the values in f32 rounds
+    the value gradient once, which sits farther from JAX's bf16 than JAX's
+    bf16 from its f32 (tests/test_torch_rtdetr_amp.py)."""
+    b, _, nh, hd = value.shape
+    lq, npts = loc.shape[1], loc.shape[3]
+    x = loc[..., 0] * w - 0.5
+    y = loc[..., 1] * h - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx1, wy1 = x - x0, y - y0
+    out = 0.0
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        xi, yi = x0 + dx, y0 + dy
+        wgt = (wx1 if dx else 1.0 - wx1) * (wy1 if dy else 1.0 - wy1)
+        inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        xi = xi.clamp(0, w - 1).long()
+        yi = yi.clamp(0, h - 1).long()
+        flat = (yi * w + xi).permute(0, 1, 3, 2).reshape(b, lq * npts, nh, 1)
+        corner = torch.take_along_dim(value, flat.expand(-1, -1, -1, hd), 1)
+        corner = corner.reshape(b, lq, npts, nh, hd).permute(0, 1, 3, 2, 4)
+        out = out + corner * (wgt * inb)[..., None]
+    return out
 
 
 class MSDeformAttn(nn.Module):

@@ -31,15 +31,24 @@ the virtual host devices JAX's tests run on: one card then holds every
 shard.
 
 Data x spatial training (JAX `shard_batch`'s P(data, spatial) image
-leaves): `make_mesh(shape=(dp, sp), axes=("data", "spatial"))` inside a
-group of dp ranks gives each rank its own sp devices (`devices=`, else the
-cards cuda:LOCAL_RANK*sp + k); at world size 1, shape (1, sp) is a local
-mesh. The rank's batch goes to its first device, where the loss runs; the
-trainer runs the graph on row slabs over the rank's devices
-(`parallel/spatial.py::spatial_train`), so the halo exchanges stay inside
-the process and only the data axis crosses ranks. A 'spatial' axis that
-spans ranks (one device a rank) is not ported: make_mesh raises and names
-the launch this layout needs.
+leaves): `make_mesh(shape=(dp, sp), axes=("data", "spatial"))` takes one
+of two layouts.
+  - Inside a group of dp ranks each rank has its own sp devices
+    (`devices=`, else the cards cuda:LOCAL_RANK*sp + k); at world size 1,
+    shape (1, sp) is a local mesh. The rank's batch goes to its first
+    device, where the loss runs; the trainer runs the graph on row slabs
+    over the rank's devices (`parallel/spatial.py::spatial_train`), so the
+    halo exchanges stay inside the process and only the data axis crosses
+    ranks.
+  - Inside a group of dp * sp ranks, one device a rank (JAX's
+    multi-process mesh: `devices[:n]` reshaped to (dp, sp)), rank r sits at
+    data index r // sp and spatial index r % sp. The ranks r // sp == k
+    form data coordinate k's spatial group, the ranks r % sp == j spatial
+    index j's data group; both kinds are made with `dist.new_group` in the
+    same order on every rank and kept (`Mesh.spatial_group`,
+    `Mesh.data_group`). Each rank holds its own row slab, and the slabs'
+    halos, joins and reductions are collectives over the spatial group
+    (`parallel/spatial.py`).
 
 JAX's `batch_sharding` and `replicated` name GSPMD shardings, which mean
 nothing without GSPMD; they are left out.
@@ -61,13 +70,12 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-from ..cfg import UNPORTED_ITEMS
-
 GROUP_TIMEOUT = datetime.timedelta(hours=1)
 ENV_KEYS = ("RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 # the device init_from_env gave this rank, and the gloo group for objects
-_STATE: dict = {"device": None, "cpu_group": None}
+_STATE: dict = {"device": None, "cpu_group": None, "subgroups": {},
+                "timeout": GROUP_TIMEOUT}
 
 
 @dataclass
@@ -85,6 +93,11 @@ class Mesh:
     shape: tuple = (1,)
     cpu_group: object = None
     devices: tuple = ()
+    # a 'spatial' axis across ranks: this rank's spatial group (the slabs'
+    # collectives), its data group (None at dp 1) and its spatial index
+    spatial_group: object = None
+    data_group: object = None
+    spatial_index: int = 0
 
     @property
     def is_main(self) -> bool:
@@ -99,6 +112,21 @@ class Mesh:
     def spatial(self) -> int:
         """The size of the 'spatial' axis (1 without one)."""
         return dict(zip(self.axis_names, self.shape)).get("spatial", 1)
+
+    @property
+    def spans_ranks(self) -> bool:
+        """Whether the 'spatial' axis runs over ranks (one slab a rank)."""
+        return self.spatial_group is not None
+
+    @property
+    def data_index(self) -> int:
+        """This rank's coordinate on the data axis (its loader shard)."""
+        return self.rank // self.spatial if self.spans_ranks else self.rank
+
+    @property
+    def data_size(self) -> int:
+        """The number of data coordinates over the group's ranks."""
+        return self.world // self.spatial if self.spans_ranks else self.world
 
 
 def init_from_env(device=None, backend=None, timeout=GROUP_TIMEOUT):
@@ -137,8 +165,7 @@ def init_from_env(device=None, backend=None, timeout=GROUP_TIMEOUT):
     dist.init_process_group(
         backend, init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
         world_size=world, rank=rank, timeout=timeout, **kw)
-    _STATE["device"] = dev
-    _STATE["cpu_group"] = None
+    _STATE.update(device=dev, cpu_group=None, subgroups={}, timeout=timeout)
     return dev
 
 
@@ -206,19 +233,21 @@ def _cpu_group():
     if dist.get_backend() == "gloo":
         return dist.group.WORLD
     if _STATE["cpu_group"] is None:
-        _STATE["cpu_group"] = dist.new_group(backend="gloo")
+        _STATE["cpu_group"] = dist.new_group(backend="gloo",
+                                             timeout=_STATE["timeout"])
     return _STATE["cpu_group"]
 
 
 def spatial_mesh(shape, devices=None, device=None):
     """The data x spatial mesh (JAX `make_mesh(shape=(dp, sp), axes=(
-    'data', 'spatial'))`, trainer.py:416-440) as this rank sees it: the
-    'data' axis over the dp ranks of the group (one process at world size
-    1, a local mesh), the 'spatial' axis over this rank's own sp devices:
-    `devices` (sp of them; one may repeat), else the cards
-    cuda:LOCAL_RANK*sp + k for a cuda `device` without an index (None
-    too), sp times an indexed one, or the CPU sp times. A host without
-    those cards raises; nothing falls back."""
+    'data', 'spatial'))`, trainer.py:416-440) as this rank sees it. In a
+    group of dp * sp ranks (sp > 1) the 'spatial' axis runs over ranks, one
+    device a rank (`rank_spatial_mesh`). Else the 'data' axis is the dp
+    ranks of the group (one process at world size 1, a local mesh) and the
+    'spatial' axis this rank's own sp devices: `devices` (sp of them; one
+    may repeat), else the cards cuda:LOCAL_RANK*sp + k for a cuda `device`
+    without an index (None too), sp times an indexed one, or the CPU sp
+    times. A host without those cards raises; nothing falls back."""
     shape = tuple(int(s) for s in shape)
     if len(shape) != 2 or min(shape) < 1:
         raise ValueError(f"mesh shape {shape} over ('data', 'spatial') "
@@ -227,16 +256,11 @@ def spatial_mesh(shape, devices=None, device=None):
     world = dist.get_world_size() if dist.is_initialized() else 1
     if dp != world:
         if dp * sp == world:
-            raise NotImplementedError(
-                f"mesh {shape}: a 'spatial' axis across ranks (one device a "
-                "rank) is not ported (ROADMAP "
-                f"{UNPORTED_ITEMS['spatial_ranks']}); launch {dp} rank(s) "
-                f"(python -m torch.distributed.run --nproc_per_node {dp}), "
-                f"each driving its {sp} spatial devices")
+            return rank_spatial_mesh(shape, devices, device)
         raise ValueError(
             f"mesh {shape}: its {dp}-way data axis needs {dp} rank(s) "
-            f"(python -m torch.distributed.run --nproc_per_node {dp}); this "
-            f"run has {world}")
+            f"(python -m torch.distributed.run --nproc_per_node {dp}), or "
+            f"{dp * sp} with one device each; this run has {world}")
     if devices is None:
         d = torch.device("cuda" if device is None else device)
         if d.type == "cuda" and d.index is None:
@@ -259,6 +283,42 @@ def spatial_mesh(shape, devices=None, device=None):
                            f"'{mesh.device}')")
     return Mesh(dist.group.WORLD, dist.get_rank(), world, mesh.device,
                 ("data", "spatial"), shape, _cpu_group(), mesh.devices)
+
+
+def rank_spatial_mesh(shape, devices=None, device=None):
+    """The (dp, sp) data x spatial mesh over a group of dp * sp ranks, one
+    device a rank, laid out as JAX lays `devices[:n]` out: rank r at data
+    index r // sp and spatial index r % sp. The rank's device is the one it
+    joined the group with (`devices` may name it, one device); the
+    subgroups are made once a shape (collectives: every rank is here)."""
+    dp, sp = shape
+    world, rank, dev = _rank_device(device)
+    if devices is not None:
+        devs = [torch.device(d) for d in devices]
+        if len(devs) != 1 or devs[0] != dev:
+            raise ValueError(f"mesh {shape} over {world} ranks: each rank "
+                             f"drives its own device ({dev}), not "
+                             f"{[str(d) for d in devs]}")
+    spatial_groups, data_groups = _subgroups(dp, sp)
+    return Mesh(dist.group.WORLD, rank, world, dev, ("data", "spatial"),
+                (dp, sp), _cpu_group(), (dev,),
+                spatial_group=spatial_groups[rank // sp],
+                data_group=data_groups[rank % sp] if dp > 1 else None,
+                spatial_index=rank % sp)
+
+
+def _subgroups(dp, sp):
+    """Every data coordinate's spatial group (ranks k*sp .. k*sp + sp - 1)
+    and every spatial index's data group (ranks j, j + sp, ...), made once
+    a (dp, sp) in this order on every rank."""
+    key = (dp, sp)
+    if key not in _STATE["subgroups"]:
+        new = lambda ranks: dist.new_group(ranks, timeout=_STATE["timeout"])
+        spatial = [new(list(range(k * sp, (k + 1) * sp))) for k in range(dp)]
+        data = ([new(list(range(j, dp * sp, sp))) for j in range(sp)]
+                if dp > 1 else [])
+        _STATE["subgroups"][key] = (spatial, data)
+    return _STATE["subgroups"][key]
 
 
 def local_mesh(devices, shape=None, axes=("data",)):

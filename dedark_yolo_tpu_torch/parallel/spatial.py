@@ -56,6 +56,24 @@ ranks); layer 0 takes the trainer's priors, dedark_A whole and IcA cut
 with each slab's extended rows; the head's raw maps join on the first
 device for the loss, and the backward of the join splits their gradient
 back, counting it once.
+
+Across ranks (a mesh whose 'spatial' axis runs over ranks, one device a
+rank: `parallel/mesh.py::rank_spatial_mesh`) each rank holds its own slab
+only (`rank_slab`), and every operation that reads another slab is a sum
+all-reduce over the spatial group of a zeroed buffer in which each rank
+has placed its part (`_placed`): a halo is the rows the other slabs read
+of each rank's slab (`_Halo`, one autograd node a halo op, within one
+process too), a join the whole map, a reduction over H x W the stack of
+the slabs' partial results, summed in slab order as the local executor
+sums them. A sum all-reduce's backward is an
+all-reduce of the gradient (`_AllReduce`), so each slab's gradient is the
+sum of what every rank's use of its rows gives back, and every rank builds
+the same autograd graph (no op depends on the slab's place), so the
+backward's collectives come in the same order on every rank. What is
+computed alike on every rank (after a join: the heads, RT-DETR's decoder;
+layer 0's parameter CNN) gives every rank the whole of its gradient:
+summed over the spatial group, every gradient is sp times the step's,
+which the trainer's gradient bucket divides back (`BaseTrainer.step`).
 """
 
 from __future__ import annotations
@@ -66,6 +84,7 @@ import weakref
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .mesh import Mesh, make_mesh
@@ -110,11 +129,17 @@ def _bind(args, kwargs, names, defaults):
 
 class Executor:
     """The run's devices and weights: `on(t, dev)` is a tensor on `dev`, a
-    weight's copy on that device where the replicas hold one."""
+    weight's copy on that device where the replicas hold one. `devices`
+    are those of the slabs this process holds, `slabs` their indices among
+    the `n` slabs; across ranks `group` is the spatial group (None
+    within one process, where every slab is here)."""
 
-    def __init__(self, devices, copies):
+    def __init__(self, devices, copies, slabs=None, n=None, group=None):
         self.devices = devices
         self.copies = copies       # {(id(weight on devices[0]), dev): copy}
+        self.slabs = list(range(len(devices)) if slabs is None else slabs)
+        self.n = len(devices) if n is None else n
+        self.group = group
 
     def on(self, t, dev):
         if not torch.is_tensor(t) or t.device == dev:
@@ -175,19 +200,53 @@ class RowSlabs:
     # ------------------------------------------------------------ row access
     def rows(self, g0, g1, dev):
         """Global rows [g0, g1) on `dev`, taken from every slab they fall
-        in (one slab's own rows are a view)."""
+        in (one slab's own rows are a view); within one process."""
         pieces = []
-        for k, p in enumerate(self.parts):
-            a, b = self.bounds[k], self.bounds[k + 1]
+        for p, s in zip(self.parts, self.ex.slabs):
+            a, b = self.bounds[s], self.bounds[s + 1]
             lo, hi = max(a, g0), min(b, g1)
             if lo < hi:
                 pieces.append(p.narrow(self.hdim, lo - a, hi - lo).to(
                     dev, non_blocking=True))
         return pieces[0] if len(pieces) == 1 else torch.cat(pieces, self.hdim)
 
+    def fetch(self, need, fill=0.0):
+        """Each held slab's global rows need[s] = (g0, g1) (every slab's
+        range; rows outside the image are `fill`) on its device: its own
+        rows and those of the slabs around it, in one autograd node
+        (`_Halo`); the held slabs themselves where every slab needs just
+        its own rows."""
+        if all(need[k] == (self.bounds[k], self.bounds[k + 1])
+               for k in range(self.ex.n)):
+            return list(self.parts)
+        return list(_Halo.apply(self, need, fill, *self.parts))
+
     def join(self, dev=None):
-        """The whole map on `dev` (default: the first device)."""
-        return self.rows(0, self.bounds[-1], dev or self.ex.devices[0])
+        """The whole map on `dev` (default: the first device); across ranks
+        on every rank's device."""
+        if self.ex.group is None:
+            return self.rows(0, self.bounds[-1], dev or self.ex.devices[0])
+        return _placed(self.parts[0], self.ex.slabs[0], np.diff(self.bounds),
+                       self.hdim, self.ex.group)
+
+    def sum_over(self, partials):
+        """The sum of one whole partial result a held slab, over every
+        slab, in slab order, on the first device (across ranks on every
+        rank's)."""
+        if self.ex.group is None:
+            return sum(p.to(self.ex.devices[0]) for p in partials)
+        stack = _stack(partials[0], self.ex)
+        out = stack[0]
+        for k in range(1, self.ex.n):
+            out = out + stack[k]
+        return out
+
+    def each_partial(self, partials):
+        """Every slab's partial result (one a held slab) on the first
+        device, in slab order."""
+        if self.ex.group is None:
+            return [p.to(self.ex.devices[0]) for p in partials]
+        return list(_stack(partials[0], self.ex).unbind(0))
 
     def like(self, parts, bounds=None, hdim=None):
         return RowSlabs(parts, self.bounds if bounds is None else bounds,
@@ -200,17 +259,17 @@ class RowSlabs:
         formula per slab."""
         from ..nn.layers import weak_const
         b, c = self.shape[:2]
-        dev0 = self.ex.devices[0]
         n = (c // groups) * self.shape[2] * self.shape[3]
         xs = [p.reshape(b, groups, -1) for p in self.parts]
-        s1 = sum(x.sum(2, keepdim=True, dtype=torch.float32).to(dev0)
-                 for x in xs)
+        s1 = self.sum_over([x.sum(2, keepdim=True, dtype=torch.float32)
+                            for x in xs])
         mean = (s1 / n).to(self.dtype)
         mf = mean.float()
-        s2 = sum(((x.float() - self.ex.on(mf, x.device)) ** 2).sum(
-            2, keepdim=True).to(dev0) for x in xs)
+        s2 = self.sum_over([((x.float() - self.ex.on(mf, x.device)) ** 2).sum(
+            2, keepdim=True) for x in xs])
         var = (s2 / n).to(self.dtype) * weak_const(n / max(n - 1, 1), mean)
         den = torch.sqrt(var) + weak_const(eps, mean)
+        mean, den = _alike(mean, self.ex), _alike(den, self.ex)
         return self.like([((x - self.ex.on(mean, x.device))
                            / self.ex.on(den, x.device)).reshape(p.shape)
                           for x, p in zip(xs, self.parts)])
@@ -253,7 +312,7 @@ def _swap(obj, k, dev, ref):
             raise NotImplementedError(
                 f"a whole {tuple(obj.shape)} tensor meets row slabs "
                 f"{tuple(ref.shape)} along their rows")
-        return ref.ex.on(obj, dev)
+        return ref.ex.on(_alike(obj, ref.ex), dev)
     return obj
 
 
@@ -301,6 +360,196 @@ def _dispatch(func, args, kwargs):
         f"modules that mix every row run joined: {JOINED}")
 
 
+# ------------------------------------------------- slabs across ranks
+class _AllReduce(torch.autograd.Function):
+    """A sum all-reduce over `group` whose backward all-reduces the
+    gradient (each rank's input reaches every rank's output)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Alike(torch.autograd.Function):
+    """Identity on a tensor every rank of the spatial group computes alike
+    and then uses for its own slab only (layer 0's parameters, a joined
+    module's output): its gradient is averaged over the group, so every
+    rank carries the whole of it back through the same computation, as
+    the local executor does once (and the gradients, summed over the
+    group, stay sp times the step's, as on every other path)."""
+
+    @staticmethod
+    def forward(ctx, t, group, n):
+        ctx.group, ctx.n = group, n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g / ctx.n, None, None
+
+
+def _alike(t, ex):
+    """`t` (computed alike on every rank) before its use on the held slabs;
+    within one process `t` itself."""
+    if ex.group is None or not (torch.is_grad_enabled() and t.requires_grad):
+        return t
+    return _Alike.apply(t, ex.group, ex.n)
+
+
+def _all_reduce(t, group):
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _AllReduce.apply(t, group)
+    t = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def _layout(t):
+    """The memory format of `t` (an NCHW map may be a channels_last view,
+    `nn/graph.py`), which the slabs' exchanges keep: the local executor's
+    cuts and joins keep it, and the ops after them round the same only on
+    the same layout."""
+    return (torch.channels_last if t.dim() == 4 and t.stride(1) < t.stride(3)
+            else torch.contiguous_format)
+
+
+def _placed(t, me, sizes, dim, group):
+    """Every rank's `t` joined along `dim` in rank order, on every rank:
+    rank `me` puts its `t` (sizes[me] along dim) at its offset in a zeroed
+    buffer of sum(sizes), summed over the group."""
+    out = _all_reduce(_zeros_around(t, dim, sum(sizes[:me]),
+                                    sum(sizes[me + 1:])), group)
+    return out.contiguous(memory_format=_layout(t))
+
+
+def _stack(t, ex):
+    """(n, *t.shape): every slab's whole `t` stacked in slab order, on
+    every rank."""
+    return _placed(t[None], ex.slabs[0], [1] * ex.n, 0, ex.group)
+
+
+class _Halo(torch.autograd.Function):
+    """`RowSlabs.fetch`: each held slab's rows need[s] of the map, from its
+    own slab and the others (within one process by `.to` and `cat`; across
+    ranks one exchange over the spatial group: every rank places the rows
+    of its slab that another slab reads in a zeroed buffer, summed over the
+    group). The backward gives each slab one gradient: its own rows' part,
+    then what the other slabs' reads of its rows give back, in slab order
+    (across ranks summed over the group in one all-reduce), so a slab's
+    gradient adds up the same way in one process and across ranks, and
+    every rank's graph is the same."""
+
+    @staticmethod
+    def forward(ctx, x, need, fill, *parts):
+        # the slabs' metadata only: keeping the slabs would keep every halo
+        # op's input alive until its backward
+        ctx.need, ctx.meta = need, (x.ex, x.hdim, list(x.bounds))
+        ctx.parts = [(p.shape, p.dtype, p.device, _layout(p)) for p in parts]
+        ex, hd, b = x.ex, x.hdim, x.bounds
+        H = b[-1]
+        layout = _layout(parts[0])
+        if ex.group is None:
+            outs = []
+            for dev, s in zip(ex.devices, ex.slabs):
+                g0, g1 = need[s]
+                pieces = [p.narrow(hd, lo - b[j], hi - lo).to(dev)
+                          for j, p in zip(ex.slabs, parts)
+                          for lo, hi in [(max(b[j], g0), min(b[j + 1], g1))]
+                          if lo < hi]
+                outs.append(_pad_rows(torch.cat(pieces, hd), hd, -g0,
+                                      g1 - H, fill).contiguous(
+                                          memory_format=layout))
+            return tuple(outs)
+        me, part = ex.slabs[0], parts[0]
+        ctx.sends = sends = [sorted({g for q in range(ex.n) if q != r
+                                     for g in range(max(need[q][0], b[r]),
+                                                    min(need[q][1], b[r + 1]))})
+                             for r in range(ex.n)]
+        offs = np.cumsum([0] + [len(r) for r in sends])
+        g0, g1 = max(need[me][0], 0), min(need[me][1], H)
+        owner = np.searchsorted(b, np.arange(g0, g1), "right") - 1
+        ctx.pos = [offs[-1] + g - b[me] if r == me
+                   else offs[r] + sends[r].index(g)
+                   for g, r in zip(range(g0, g1), owner)]
+        src = part
+        if any(sends):
+            send = part.index_select(hd, _rows_index(sends[me], b[me], part))
+            buf = _zeros_around(send, hd, offs[me], offs[-1] - offs[me + 1])
+            dist.all_reduce(buf, group=ex.group)
+            src = torch.cat([buf, part], hd)
+        ext = src.index_select(hd, torch.tensor(ctx.pos, device=part.device))
+        return (_pad_rows(ext, hd, -need[me][0], need[me][1] - H,
+                          fill).contiguous(memory_format=layout),)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need, (ex, hd, b) = ctx.need, ctx.meta
+        zeros = [torch.empty(shape, dtype=dt, device=dev,
+                             memory_format=fmt).zero_()
+                 for shape, dt, dev, fmt in ctx.parts]
+        out = []
+        if ex.group is None:
+            for j, g in zip(ex.slabs, zeros):
+                order = [ex.slabs.index(j)] + [k for k in range(len(grads))
+                                               if ex.slabs[k] != j]
+                for k in order:
+                    s, gk = ex.slabs[k], grads[k]
+                    lo, hi = max(b[j], need[s][0]), min(b[j + 1], need[s][1])
+                    if gk is None or lo >= hi:
+                        continue
+                    g.narrow(hd, lo - b[j], hi - lo).add_(gk.narrow(
+                        hd, lo - need[s][0], hi - lo).to(g.device))
+                out.append(g)
+            return (None, None, None, *out)
+        me, g, g_ext = ex.slabs[0], zeros[0], grads[0]
+        sends = ctx.sends
+        n_buf = sum(len(r) for r in sends)
+        shape = list(g.shape)
+        shape[hd] += n_buf
+        src = g.new_zeros(shape)          # the forward's [buffer, slab]
+        if g_ext is not None:
+            top = max(-need[me][0], 0)
+            src.index_add_(hd, torch.tensor(ctx.pos, device=g.device),
+                           g_ext.narrow(hd, top, len(ctx.pos)))
+        g.add_(src.narrow(hd, n_buf, g.shape[hd]))
+        if any(sends):         # the other slabs' reads of this one's rows
+            buf = src.narrow(hd, 0, n_buf).contiguous()
+            dist.all_reduce(buf, group=ex.group)
+            g.index_add_(hd, _rows_index(sends[me], b[me], g), buf.narrow(
+                hd, sum(len(r) for r in sends[:me]), len(sends[me])))
+        return (None, None, None, g)
+
+
+def _rows_index(rows, first, t):
+    return torch.tensor([g - first for g in rows], dtype=torch.long,
+                        device=t.device)
+
+
+def _zeros_around(t, dim, before, after):
+    shape = list(t.shape)
+    zeros = lambda k: t.new_zeros(shape[:dim] + [int(k)] + shape[dim + 1:])
+    return torch.cat([zeros(before), t, zeros(after)], dim)
+
+
+def _pad_rows(t, dim, top, bot, fill):
+    """`t` with max(top, 0) rows of `fill` above and max(bot, 0) below."""
+    top, bot = max(top, 0), max(bot, 0)
+    if not (top or bot):
+        return t
+    return F.pad(t, [0, 0] * (t.dim() - 1 - dim) + [top, bot], value=fill)
+
+
 # ------------------------------------------------------ ops with a halo
 def _halo(x, k_eff, stride, pad_top, pad_bot, fill, op):
     """The slabs of an op that reads k_eff rows (stride, H padding) per
@@ -312,23 +561,17 @@ def _halo(x, k_eff, stride, pad_top, pad_bot, fill, op):
     h_out = (H + pad_top + pad_bot - k_eff) // stride + 1
     cuts = ([0] + [min(max(-(-b // stride), 0), h_out)
                    for b in x.bounds[1:-1]] + [h_out])
-    parts = []
-    for k, dev in enumerate(x.ex.devices):
+    spans = []
+    for k in range(x.ex.n):
         o0, o1 = cuts[k], cuts[k + 1]
         if o1 <= o0:
             raise ValueError(
                 f"slab {k} of rows {x.bounds} holds no output row of a "
                 f"{k_eff}-row stride-{stride} op: the image is too short "
-                f"for {len(x.parts)} slabs")
-        g0 = o0 * stride - pad_top
-        g1 = (o1 - 1) * stride - pad_top + k_eff
-        ext = x.rows(max(g0, 0), min(g1, H), dev)
-        top, bot = max(-g0, 0), max(g1 - H, 0)
-        if top or bot:
-            pad = [0, 0] * (ext.dim() - 1 - x.hdim) + [top, bot]
-            ext = F.pad(ext, pad, value=fill)
-        parts.append(op(ext))
-    return x.like(parts, cuts)
+                f"for {x.ex.n} slabs")
+        spans.append((o0 * stride - pad_top,
+                      (o1 - 1) * stride - pad_top + k_eff))
+    return x.like([op(ext) for ext in x.fetch(spans, fill)], cuts)
 
 
 def _conv2d(func, args, kwargs):
@@ -385,7 +628,7 @@ def _conv_transpose2d(func, args, kwargs):
     bounds = [min(max(b * sh - ph, 0), h_out) for b in x.bounds]
     bounds[-1] = h_out
     parts = []
-    for k, p in enumerate(x.parts):
+    for k, p in zip(x.ex.slabs, x.parts):
         y = F.conv_transpose2d(p, x.ex.on(w, p.device), x.ex.on(b, p.device),
                                (sh, sw), (0, pw), (0, opw), groups, (1, dw))
         lo = bounds[k] - (x.bounds[k] * sh - ph)
@@ -406,14 +649,15 @@ def _pad(func, args, kwargs):
         raise NotImplementedError("pad on row slabs: constant, >= 0")
     if len(pad) > i:
         pad[i] = pad[i + 1] = 0
-    n = len(x.parts)
+    n = x.ex.n
     parts = []
-    for k, p in enumerate(x.parts):
+    for k, p in zip(x.ex.slabs, x.parts):
         pk = list(pad)
         if len(pad) > i:
             pk[i], pk[i + 1] = (top if k == 0 else 0,
                                 bot if k == n - 1 else 0)
-        parts.append(F.pad(p, pk, mode, value) if any(pk) else p)
+        parts.append(F.pad(p, pk, mode, value)
+                     if any(pk) or x.ex.group is not None else p)
     bounds = [0] + [b + top for b in x.bounds[1:-1]] + [
         x.bounds[-1] + top + bot]
     return x.like(parts, bounds)
@@ -531,18 +775,18 @@ def _reduce(func, args, kwargs):
     if x.hdim not in dims:
         return _map(func, args, kwargs, hdim_out=x.hdim if keepdim else
                     x.hdim - sum(d < x.hdim for d in dims))
-    dev0 = x.ex.devices[0]
     if name in ("mean", "sum"):
         acc = torch.float32 if x.dtype.is_floating_point else None
-        total = sum(p.sum(dims, keepdim=True, dtype=acc).to(dev0)
-                    for p in x.parts)
+        total = x.sum_over([p.sum(dims, keepdim=True, dtype=acc)
+                            for p in x.parts])
         if name == "mean":
             total = total / int(np.prod([x.shape[d] for d in dims]))
         out = total.to(x.dtype) if acc is not None else total
     elif name in ("amax", "amin"):
         red = getattr(torch, name)
-        out = red(torch.cat([red(p, dims, keepdim=True).to(dev0)
-                             for p in x.parts], x.hdim), dims, keepdim=True)
+        out = red(torch.cat(x.each_partial([red(p, dims, keepdim=True)
+                                            for p in x.parts]), x.hdim),
+                  dims, keepdim=True)
     else:
         raise NotImplementedError(f"{name} of row slabs over their rows")
     return out if keepdim else out.squeeze(dims)
@@ -583,7 +827,7 @@ def _resize_rows(x, out=256):
     channels, under `out` rows) is joined on the first device instead; so
     is a bf16 image, whose resize is JAX's two matrices."""
     from ..nn.enhance import torch_bilinear_resize
-    H, W = x.bounds[-1], x.shape[2]
+    H = x.bounds[-1]
     dev0 = x.ex.devices[0]
     scale = np.float32(H) / np.float32(out)
     exact = np.float32(1.0 / (out / H)) == scale
@@ -592,22 +836,30 @@ def _resize_rows(x, out=256):
     src = np.maximum(scale * (np.arange(out, dtype=np.float32)
                               + np.float32(0.5)) - np.float32(0.5), 0)
     lo = np.floor(src).astype(np.int64)
-    # each 8-row run of output rows goes to the slab holding its first row
+    # each 8-row run of output rows goes to the slab holding its first row;
+    # the owners rise with the rows, so a slab owns one band [i0, i1) of
+    # output rows, which reads its source rows [r0, r1)
     owner = [int(np.searchsorted(x.bounds, int(8 * g * scale), "right")) - 1
              for g in range(out // 8)]
-    pieces, g = [], 0
-    while g < len(owner):
-        e = g
-        while e + 1 < len(owner) and owner[e + 1] == owner[g]:
-            e += 1
-        i0, i1 = 8 * g, 8 * (e + 1)
-        r0, r1 = int(i0 * scale), min(int(lo[i1 - 1]) + 2, H)
-        band = x.rows(r0, r1, x.ex.devices[owner[g]]).contiguous()
+    bands = {}
+    for g, k in enumerate(owner):
+        bands.setdefault(k, [8 * g, 8 * g + 8])[1] = 8 * g + 8
+    if len(bands) != x.ex.n:
+        raise ValueError(f"{x.ex.n} slabs of {H} rows: a slab owns no band "
+                         f"of the {out}-row resize")
+    need = [(int(i0 * scale), min(int(lo[i1 - 1]) + 2, H))
+            for i0, i1 in (bands[k] for k in range(x.ex.n))]
+    pieces = []
+    for k, band in zip(x.ex.slabs, x.fetch(need)):
+        i0, i1 = bands[k]
         y = torch._C._nn.upsample_bilinear2d(
-            band.permute(0, 3, 1, 2), [i1 - i0, out], False, out / H, None)
-        pieces.append(y.permute(0, 2, 3, 1).to(dev0, non_blocking=True))
-        g = e + 1
-    return torch.cat(pieces, 1)
+            band.contiguous().permute(0, 3, 1, 2), [i1 - i0, out], False,
+            out / H, None)
+        pieces.append(y.permute(0, 2, 3, 1))
+    if x.ex.group is not None:
+        return _placed(pieces[0], x.ex.slabs[0],
+                       [i1 - i0 for i0, i1 in bands.values()], 1, x.ex.group)
+    return torch.cat([p.to(dev0, non_blocking=True) for p in pieces], 1)
 
 
 def _lowlight(mod, x, dedark_A=None, IcA=None):
@@ -626,12 +878,13 @@ def _lowlight(mod, x, dedark_A=None, IcA=None):
     small = _resize_rows(x).permute(0, 3, 1, 2)
     features = mod.extractor(small.to(mod.extractor.fc1.weight.dtype))
     b, H, W, _ = x.shape
+    need = [(max(x.bounds[k] - BLUR_HALO, 0),
+             min(x.bounds[k + 1] + BLUR_HALO, H)) for k in range(x.ex.n)]
     parts = []
-    for k, dev in enumerate(x.ex.devices):
+    for k, dev, ext in zip(x.ex.slabs, x.ex.devices, x.fetch(need)):
         a0, a1 = x.bounds[k], x.bounds[k + 1]
-        e0, e1 = max(a0 - BLUR_HALO, 0), min(a1 + BLUR_HALO, H)
-        ext = x.rows(e0, e1, dev)
-        feats = features.to(dev, non_blocking=True)
+        e0, e1 = need[k]
+        feats = _alike(features, x.ex).to(dev, non_blocking=True)
         A = (torch.full((b, 3), DEFAULT_A, dtype=ext.dtype, device=dev)
              if dedark_A is None else dedark_A.to(dev, non_blocking=True))
         ica = (torch.full((b, e1 - e0, W, 1), DEFAULT_ICA, dtype=ext.dtype,
@@ -667,8 +920,9 @@ def _join_tree(obj):
 
 class _Joined:
     """Forward hooks that run a module on its inputs joined by rows on the
-    first device and split a map it returns at its input's rows; `hooks`
-    puts them on every such module of a model for a block."""
+    first device and split a map it returns at its input's rows;
+    `joined_hooks` puts them on every such module of a model for a
+    block."""
 
     def __init__(self):
         self.stack = []
@@ -683,23 +937,39 @@ class _Joined:
         if (ref is None or not torch.is_tensor(out) or out.dim() != ref.ndim
                 or out.shape[ref.hdim] != ref.bounds[-1]):
             return out
-        return ref.like([out.narrow(ref.hdim, a, b - a).to(
-            dev, non_blocking=True) for a, b, dev in zip(
-                ref.bounds, ref.bounds[1:], ref.ex.devices)])
+        b = ref.bounds
+        out = _alike(out, ref.ex)
+        return ref.like([out.narrow(ref.hdim, b[k], b[k + 1] - b[k]).to(
+            dev, non_blocking=True) for k, dev in zip(ref.ex.slabs,
+                                                      ref.ex.devices)])
 
-    @classmethod
-    @contextlib.contextmanager
-    def hooks(cls, model):
-        joined, hooks = cls(), []
-        try:
-            for m in model.modules():
-                if isinstance(m, _joined_types()):
-                    hooks.append(m.register_forward_pre_hook(joined.pre))
-                    hooks.append(m.register_forward_hook(joined.post))
-            yield
-        finally:
-            for hk in hooks:
-                hk.remove()
+
+# the models whose joined modules have their hooks on
+_ACTIVE: "weakref.WeakSet" = weakref.WeakSet()
+
+
+@contextlib.contextmanager
+def joined_hooks(model):
+    """A block within which the model's attention modules (`JOINED`) run
+    joined on row slabs: `_Joined`'s hooks on each. A block inside another
+    on the same model keeps the outer one's (the trainer holds them over
+    the step's backward, where a remat recompute runs the modules
+    again)."""
+    if model in _ACTIVE:
+        yield
+        return
+    joined, hooks = _Joined(), []
+    _ACTIVE.add(model)
+    try:
+        for m in model.modules():
+            if isinstance(m, _joined_types()):
+                hooks.append(m.register_forward_pre_hook(joined.pre))
+                hooks.append(m.register_forward_hook(joined.post))
+        yield
+    finally:
+        _ACTIVE.discard(model)
+        for hk in hooks:
+            hk.remove()
 
 
 # per model: {device: (replica, state signature)}
@@ -737,7 +1007,7 @@ def replicas(model, devices):
 def row_devices(mesh, axis):
     """The devices along `axis` of a local mesh (the first of each other
     axis: the rows are not split over them)."""
-    if not isinstance(mesh, Mesh) or not mesh.devices:
+    if not isinstance(mesh, Mesh) or not mesh.devices or mesh.spans_ranks:
         raise TypeError("spatial_infer takes a mesh over this process's "
                         "devices: make_mesh(devices=[...])")
     axis = axis if axis is not None else mesh.axis_names[0]
@@ -765,6 +1035,19 @@ def row_slabs(img, devices, copies=None):
                     Executor(list(devices), copies or {}))
 
 
+def rank_slab(img, mesh):
+    """This rank's rows of an NHWC image (every rank holds the whole) as
+    its one slab of a mesh whose 'spatial' axis runs over ranks."""
+    img = torch.as_tensor(img)
+    n, k = mesh.spatial, mesh.spatial_index
+    step = img.shape[1] // n
+    if step * n != img.shape[1]:
+        raise ValueError(f"{img.shape[1]} rows do not split into {n} slabs")
+    return RowSlabs([img[:, k * step:(k + 1) * step].to(mesh.device)],
+                    [j * step for j in range(n + 1)], 1,
+                    Executor([mesh.device], {}, [k], n, mesh.spatial_group))
+
+
 @torch.inference_mode()
 def spatial_infer(model, img, mesh=None, axis=None):
     """Eval-mode inference with the image's rows sharded over the mesh.
@@ -775,7 +1058,23 @@ def spatial_infer(model, img, mesh=None, axis=None):
     process on one 'spatial' axis); axis: the axis the rows split over
     (default its first). Returns what `model.eval_outputs` returns for the
     same image on one device ((boxes_xywh, scores) for detect), on the
-    mesh's first device."""
+    mesh's first device.
+
+    On a mesh whose 'spatial' axis runs over ranks (JAX's spatial_infer
+    over every process's devices) every rank of a spatial group passes the
+    same image and gets the joined outputs on its own device, as JAX's
+    replicated output; the model is on that device."""
+    if isinstance(mesh, Mesh) and mesh.spans_ranks:
+        check_rows(torch.as_tensor(img).shape[1], mesh.spatial)
+        h, w = img.shape[1], img.shape[2]
+        mode = model.training
+        try:
+            model.eval()
+            with joined_hooks(model):
+                raw = _join_tree(model(rank_slab(img, mesh)))
+            return model.decode(raw, (h, w))
+        finally:
+            model.train(mode)
     if mesh is None:
         mesh = make_mesh(devices=[f"cuda:{i}" for i in
                                   range(torch.cuda.device_count())],
@@ -798,7 +1097,7 @@ def spatial_infer(model, img, mesh=None, axis=None):
     try:
         for r in reps.values():
             r.eval()
-        with _Joined.hooks(first):
+        with joined_hooks(first):
             raw = _join_tree(first(x))
         return first.decode(raw, (h, img.shape[2]))
     finally:
@@ -812,19 +1111,28 @@ def check_rows(h, n):
                          "spatial_pad_to)")
 
 
-def spatial_train(model, inputs, devices, run=None):
-    """The train forward of data x spatial training on one rank: the
-    image's rows as slabs over `devices` (the rank's spatial devices, in
-    order; one may repeat), with autograd on (see the module docstring).
+def spatial_train(model, inputs, mesh, run=None):
+    """The train forward of data x spatial training on one rank, with
+    autograd on (see the module docstring): the image's rows as slabs over
+    the rank's spatial devices (`mesh.devices`, in order; one may repeat;
+    or a list of devices), or, on a mesh whose 'spatial' axis runs over
+    ranks, this rank's slab.
 
-    model: a DetectionModel in the mode the caller set, on devices[0].
-    inputs: (img (B, H, W, 3) in [0, 1] on devices[0], H a multiple of 32
-    * len(devices); then layer 0's priors dedark_A and IcA, whole, or
-    None). run: what calls the model on (slabs, *priors) (default the
+    model: a DetectionModel in the mode the caller set, on the first
+    device. inputs: (img (B, H, W, 3) in [0, 1] on that device, the whole
+    image (every rank of a spatial group holds the same), H a multiple of
+    32 * the spatial size; then layer 0's priors dedark_A and IcA, whole,
+    or None). run: what calls the model on (slabs, *priors) (default the
     model itself; amp's `torch.func.functional_call` on the bf16 casts).
-    Returns the head's raw outputs, joined on devices[0]."""
+    Returns the head's raw outputs, joined on the first device (on every
+    rank)."""
     img = inputs[0]
-    check_rows(img.shape[1], len(devices))
-    x = row_slabs(img, devices)
-    with _Joined.hooks(model):
+    if isinstance(mesh, Mesh) and mesh.spans_ranks:
+        check_rows(img.shape[1], mesh.spatial)
+        x = rank_slab(img, mesh)
+    else:
+        devices = list(mesh.devices if isinstance(mesh, Mesh) else mesh)
+        check_rows(img.shape[1], len(devices))
+        x = row_slabs(img, devices)
+    with joined_hooks(model):
         return _join_tree((run or model)(x, *inputs[1:]))

@@ -28,6 +28,23 @@ parameter one ulp up to `--out`_ulp (what a rounding-sized change moves),
 the group's val, then rank 0's val over a mesh of its N devices to
 `--val-out`_local.
 
+`--spatial-ranks N` (N > 1) puts the 'spatial' axis over N ranks instead
+(the group's dp * N ranks, one device a rank: JAX's multi-process mesh,
+`parallel.mesh.rank_spatial_mesh`): `step` runs on that mesh (each data
+coordinate's rows of the global batch, each rank its slab of them);
+`infer` runs `spatial_infer` of `--frames` (an .npz of `img` (B, H, W, 3)
+in [0, 1]) over the ranks and, on rank 0, over a local mesh of its device
+N times, to `--out`_rank{r}.npz (`step` with `--frames` runs it after its
+window, to `--out`_infer); `step --also-remat K` runs its window again with
+`remat=K` to `--out`_remat; `step_val` adds, after its other runs,
+the window on that mesh to `--out`_ranks and rank 0's window on a local
+(1, N) mesh of its device N times from the same state and rows to
+`--out`_local, and, after the val, `infer` with the val's state to
+`--out`_infer. `--rows K` takes the first K rows of each global batch
+for those windows (all by default). `--group-timeout S` is the group's
+collective timeout (a rank that waits longer on a mismatched collective
+fails instead of hanging).
+
 Two ranks on one card need `--device cuda:0 --backend gloo` (NCCL refuses
 two ranks on one GPU); on the CPU `--device cpu` (gloo).
 
@@ -106,10 +123,19 @@ def save_batches(path, batches):
                       for k in BATCH_KEYS})
 
 
-def _rows(batch, mesh):
-    per = batch["img"].shape[0] // mesh.world
-    return {k: v[mesh.rank * per:(mesh.rank + 1) * per]
-            for k, v in batch.items()}
+def _rows(batch, mesh, rows=0):
+    """This rank's data coordinate's rows of the global batch (of its
+    first `rows` rows, where given)."""
+    if rows:
+        batch = {k: v[:rows] for k, v in batch.items()}
+    per = batch["img"].shape[0] // mesh.data_size
+    i = mesh.data_index
+    return {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+
+
+# {(model, nc, seed, device): (facade, its state as built)}: the runs of one
+# launch build each model once and start each from its state as built
+_BUILT: dict = {}
 
 
 def _model(a, mesh):
@@ -118,8 +144,14 @@ def _model(a, mesh):
     import torch
     from ..engine.model import YOLO
     spec = str(a.model)
-    yolo = (YOLO(spec, device=a.device) if spec.endswith(".npz")
-            else YOLO(spec, nc=a.nc, device=a.device, seed=a.seed))
+    key = (spec, a.nc, a.seed, str(a.device))
+    if key not in _BUILT:
+        yolo = (YOLO(spec, device=a.device) if spec.endswith(".npz")
+                else YOLO(spec, nc=a.nc, device=a.device, seed=a.seed))
+        _BUILT[key] = (yolo, {k: v.clone() for k, v in
+                              yolo.model.state_dict().items()})
+    yolo, built = _BUILT[key]
+    yolo.model.load_state_dict(built)
     if a.state:
         with np.load(a.state) as z:
             yolo.model.load_state_dict({k: torch.from_numpy(z[k])
@@ -151,7 +183,7 @@ def run_step(a, mesh):
         _build.LAUNCHES[v] = 0
     out = {}
     for j, (i, batch) in enumerate(zip(steps, batches)):
-        total, items = tr.step(_rows(batch, mesh), i)
+        total, items = tr.step(_rows(batch, mesh, a.rows), i)
         out[f"total_{j}"] = total.cpu().numpy()
         out[f"items_{j}"] = items.cpu().numpy()
     for k, v in tr.model.state_dict().items():
@@ -281,6 +313,32 @@ def split(out, device="cuda:0", imgsz=128, ranks=2, per=2, step=1500,
              **window_errors(runs["one_rank_group_form"], one, start)}]
 
 
+def run_infer(a, mesh, ranks):
+    """`spatial_infer` of `--frames` over the rank-spanning mesh `ranks`
+    and, on rank 0, over a local mesh of its device as many times: each
+    output and its launches to `--out`_rank{r}.npz."""
+    import torch
+    from ..ops import _build
+    from ..parallel.mesh import local_mesh
+    from ..parallel.spatial import spatial_infer
+    model = _model(a, mesh).model.to(mesh.device)
+    with np.load(a.frames) as z:
+        img = torch.from_numpy(z["img"]).to(mesh.device)
+    runs = {"ranks": ranks}
+    if mesh.is_main:
+        runs["local"] = local_mesh([mesh.device] * ranks.spatial,
+                                   axes=("spatial",))
+    out = {}
+    for name, m in runs.items():
+        for v in _build.LAUNCHES:
+            _build.LAUNCHES[v] = 0
+        boxes, scores = spatial_infer(model, img, m)
+        out[f"{name}/boxes"] = boxes.cpu().numpy()
+        out[f"{name}/scores"] = scores.cpu().numpy()
+        out[f"{name}/launches"] = np.asarray(json.dumps(dict(_build.LAUNCHES)))
+    np.savez(f"{a.out}_rank{mesh.rank}.npz", **out)
+
+
 def run_val(a, mesh):
     from ..cfg import get_cfg
     from ..engine.validator import DetectionValidator
@@ -303,7 +361,8 @@ def run_val(a, mesh):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("scenario", choices=("step", "val", "step_val", "split"))
+    ap.add_argument("scenario", choices=("step", "val", "step_val", "infer",
+                                         "split"))
     ap.add_argument("--model", default="yolov8l.yaml")
     ap.add_argument("--nc", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -320,6 +379,11 @@ def main(argv=None):
     ap.add_argument("--backend", default=None)
     ap.add_argument("--bn-global", action="store_true")
     ap.add_argument("--spatial", type=int, default=1)
+    ap.add_argument("--spatial-ranks", type=int, default=1)
+    ap.add_argument("--rows", type=int, default=0)
+    ap.add_argument("--frames", default="")
+    ap.add_argument("--group-timeout", type=float, default=3600.0)
+    ap.add_argument("--also-remat", type=int, default=-1)
     ap.add_argument("--out", required=True)
     ap.add_argument("--val-state", default="")
     ap.add_argument("--val-imgsz", type=int, default=None)
@@ -333,24 +397,44 @@ def main(argv=None):
         for rec in split(a.out):
             print(json.dumps(rec), flush=True)
         return 0
+    import datetime
     from ..parallel import init_from_env, make_mesh
     from ..parallel.mesh import barrier, local_mesh
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    init_from_env(device=a.device, backend=a.backend)
+    init_from_env(device=a.device, backend=a.backend,
+                  timeout=datetime.timedelta(seconds=a.group_timeout))
     mesh = make_mesh()
     a.device = str(mesh.device)
     spatial = (make_mesh(shape=(mesh.world, a.spatial),
                          axes=("data", "spatial"),
                          devices=[mesh.device] * a.spatial)
                if a.spatial > 1 else None)
+    n = a.spatial_ranks
+    ranks = (make_mesh(shape=(mesh.world // n, n), axes=("data", "spatial"))
+             if n > 1 else None)
     with_ = lambda **kw: argparse.Namespace(**{**vars(a), **kw})
-    if a.scenario in ("step", "step_val"):
-        run_step(a, spatial if a.scenario == "step" and spatial else mesh)
+    if a.scenario == "step":
+        run_step(a, ranks or spatial or mesh)
+        if a.also_remat >= 0:
+            over = {**json.loads(a.overrides), "remat": a.also_remat}
+            run_step(with_(out=f"{a.out}_remat", overrides=json.dumps(over)),
+                     ranks or spatial or mesh)
+        if ranks is not None and a.frames:
+            run_infer(with_(out=f"{a.out}_infer"), mesh, ranks)
+    if a.scenario == "step_val":
+        run_step(with_(rows=0), mesh)
+    if a.scenario == "infer":
+        run_infer(a, mesh, ranks)
     if a.scenario == "step_val":
         if spatial is not None:
-            run_step(with_(out=f"{a.out}_spatial"), spatial)
-            run_step(with_(out=f"{a.out}_ulp", ulp=True), mesh)
+            run_step(with_(out=f"{a.out}_spatial", rows=0), spatial)
+            run_step(with_(out=f"{a.out}_ulp", ulp=True, rows=0), mesh)
+        if ranks is not None:
+            run_step(with_(out=f"{a.out}_ranks"), ranks)
+            if mesh.is_main:      # the same rows' window on local slabs
+                run_step(with_(out=f"{a.out}_local"), local_mesh(
+                    [mesh.device] * n, (1, n), ("data", "spatial")))
         a = with_(state=a.val_state, out=a.val_out, overrides=a.val_overrides,
                   imgsz=a.val_imgsz or a.imgsz, scenario="val")
     if a.scenario == "val":
@@ -359,6 +443,8 @@ def main(argv=None):
             if mesh.is_main:      # rank 0's val over its own devices
                 run_val(with_(out=f"{a.out}_local"),
                         local_mesh(spatial.devices))
+        if ranks is not None and a.frames:
+            run_infer(with_(out=f"{a.out}_infer"), mesh, ranks)
     # every rank's collectives done before any rank tears the group down
     barrier(mesh)
     torch.distributed.destroy_process_group()

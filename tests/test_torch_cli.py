@@ -26,8 +26,12 @@ from dedark_yolo_tpu.utils.checkpoint import save_checkpoint as jax_save  # noqa
 
 from dedark_yolo_tpu_torch import YOLO  # noqa: E402
 from dedark_yolo_tpu_torch import __main__ as cli  # noqa: E402
+from dedark_yolo_tpu_torch import cfg as cfg_module  # noqa: E402
 from dedark_yolo_tpu_torch.cfg import (  # noqa: E402
-    DEFAULT_CFG, UNPORTED_ITEMS, UNPORTED_KEYS, check_cfg_alignment, get_cfg)
+    DEFAULT_CFG, UNPORTED_KEYS, check_cfg_alignment, get_cfg,
+    model_yaml_load)
+from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer  # noqa: E402
+from dedark_yolo_tpu_torch.nn.graph import DetectionModel  # noqa: E402
 
 from synth import make_synth_dataset  # noqa: E402
 from test_torch_val import tiny_variables  # noqa: E402
@@ -99,9 +103,9 @@ def test_unported_keys_refused_as_not_ported():
                                       ("remat", "A12j")])
 def test_unported_key_names_its_item(key, item):
     """The keys of A12i (the mesh's data and spatial axes) and A12j (remat)
-    are ported: accepted with JAX's defaults and typed; what stays of them,
-    a spatial axis across ranks and remat on a spatial mesh, names A12i-d
-    and A12j-b."""
+    are ported: accepted with JAX's defaults and typed; with A12i-d and
+    A12j-b nothing of them stays unported: a trainer takes remat on a
+    data x spatial mesh (its mesh and remat as set)."""
     check_cfg_alignment(DEFAULT_CFG.keys(), {key: 1})
     assert key not in UNPORTED_KEYS and item in ("A12i", "A12j")
     assert DEFAULT_CFG[key] == {"mesh_shape": None, "mesh_axes": ["data"],
@@ -110,8 +114,14 @@ def test_unported_key_names_its_item(key, item):
     assert getattr(get_cfg({key: value}), key) == value
     assert cli._parse_value(str(value).replace("'", "").replace(" ", "")) \
         == value
-    assert UNPORTED_ITEMS == {"spatial_ranks": "A12i-d",
-                              "spatial_remat": "A12j-b"}
+    over = {"mesh_shape": [1, 2], "mesh_axes": ["data", "spatial"],
+            "remat": 4, "batch": 2, "imgsz": 64}
+    tr = DetectionTrainer(DetectionModel(model_yaml_load(TINY), nc=3), over,
+                          device="cpu")
+    tr._setup_mesh()
+    assert (tr.model.remat_upto, tr.mesh.shape, tr.mesh.spatial,
+            tr.mesh.spans_ranks) == (4, (1, 2), 2, False)
+    assert not hasattr(cfg_module, "UNPORTED_ITEMS")
 
 
 def test_cli_val_equals_facade_and_jax_cli(setup, capsys, monkeypatch):

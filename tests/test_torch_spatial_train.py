@@ -29,8 +29,9 @@ tests shard over conftest's virtual host devices. The tiny model at imgsz
   - layer 0 in training on two slabs with the trainer's priors: output
     and gradients equal to the whole image's (float64);
   - (d) JAX's refusals (imgsz not a multiple of 32 * sp, the batch over the
-    data axis) and the port's (a data axis that is not the world, a spatial
-    axis across ranks, remat on a spatial mesh);
+    data axis) and the port's (a data axis that is neither the world nor
+    the world over sp); the setups that work: remat on a spatial mesh, and
+    a spatial axis across ranks (its shape, subgroups and indices);
   - (e) `DetectionValidator` over `make_mesh(devices=["cpu"] * 2)`: the
     metrics equal the plain val's (a batch of 4 split in two groups, the
     last batch of 3 whole);
@@ -421,18 +422,40 @@ def test_refusals(monkeypatch):
         _setup(batch=3, mesh_shape=[2, 2])
     with pytest.raises(ValueError, match="--nproc_per_node 2"):
         _setup(batch=4, mesh_shape=[2, 2])
-    with pytest.raises(NotImplementedError, match="ROADMAP A12j-b"):
-        _setup(remat=4)
+    # remat on a spatial mesh (ROADMAP A12j-b) builds
+    tr = _setup(remat=4)
+    assert tr.model.remat_upto == 4 and tr.mesh.spatial == 2
     tr = _setup()
     assert (tr.mesh.shape, tr.mesh.spatial, tr.mesh.size, tr.mesh.world,
             len(tr.mesh.devices)) == ((1, 2), 2, 2, 1, 2)
     assert tr.val_mesh.axis_names == ("data",) and tr.val_mesh.size == 2
-    # a spatial axis across ranks (one device a rank) is not ported
+    # a spatial axis across ranks (ROADMAP A12i-d), one device a rank, laid
+    # out as JAX reshapes devices[:n] to (dp, sp): rank r at data index
+    # r // sp and spatial index r % sp, its subgroups made in one order
+    made = []
     monkeypatch.setattr(M.dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(M.dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12i-d.*"
-                       "--nproc_per_node 1"):
-        make_mesh(shape=(1, 2), axes=("data", "spatial"), device="cpu")
+    monkeypatch.setattr(M.dist, "get_backend", lambda *a: "gloo")
+    monkeypatch.setattr(M.dist, "new_group", lambda ranks, **kw: (
+        made.append(tuple(ranks)) or tuple(ranks)))
+    monkeypatch.setitem(M._STATE, "device", torch.device("cpu"))
+    for world, rank, shape, want in (
+            (2, 1, (1, 2), ((0, 1), None, 1, 0, 1)),
+            (4, 3, (2, 2), ((2, 3), (1, 3), 1, 1, 2)),
+            (4, 2, (2, 2), ((2, 3), (0, 2), 0, 1, 2))):
+        monkeypatch.setattr(M.dist, "get_world_size", lambda w=world: w)
+        monkeypatch.setattr(M.dist, "get_rank", lambda r=rank: r)
+        monkeypatch.setitem(M._STATE, "subgroups", {})
+        made.clear()
+        m = make_mesh(shape=shape, axes=("data", "spatial"), device="cpu")
+        assert (m.spatial_group, m.data_group, m.spatial_index,
+                m.data_index, m.data_size) == want
+        assert (m.shape, m.world, m.rank, m.spatial, m.size, m.devices,
+                m.spans_ranks) == (shape, world, rank, 2, world,
+                                   (torch.device("cpu"),), True)
+        dp = shape[0]
+        assert made == ([tuple(range(k * 2, k * 2 + 2)) for k in range(dp)]
+                        + ([tuple(range(j, world, 2)) for j in range(2)]
+                           if dp > 1 else []))
 
 
 # ---------------------------------------------- (e) val over a local mesh

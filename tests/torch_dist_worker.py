@@ -8,6 +8,12 @@ Usage: python tests/torch_dist_worker.py SCENARIO IN.npz OUT
           input gradient, weight gradients, running stats
     loss  the RT-DETR, segment and pose losses with the group's normalisers
           on this rank's rows of IN's inputs: total, items, gradients
+    ranks the 'spatial' axis over the group's ranks (mesh (world // sp, sp),
+          IN's sp, one slab a rank): the mesh's indices and subgroups, then on IN's
+          map x (every rank the same) a 3x3 conv, a 5x5 max pool (its halo
+          past a one-row neighbour), a mean and an amax over H x W and a
+          join, and the gradients of a seeded cotangent to x and the conv's
+          weight (summed over the spatial group), written by rank
     train YOLO.train of the tiny model on the dataset yaml IN under OUT/
           (argv[4]: full = two epochs, interrupt = stopped after epoch 0
           as a SIGTERM on this rank would, resume = resume=True)
@@ -15,6 +21,7 @@ Usage: python tests/torch_dist_worker.py SCENARIO IN.npz OUT
 Writes OUT_rank{r}.npz (OUT_rank{r}.json for mesh).
 """
 
+import datetime
 import json
 import sys
 from pathlib import Path
@@ -27,6 +34,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from dedark_yolo_tpu_torch.parallel import (  # noqa: E402
     init_from_env, make_mesh, replicate, shard_batch)
 from dedark_yolo_tpu_torch.parallel import mesh as M  # noqa: E402
+
+GROUP_TIMEOUT = 120      # a collective that does not match fails, not hangs
 
 
 def rows(a, mesh):
@@ -123,6 +132,34 @@ def scenario_loss(z, mesh, out):
     np.savez(f"{out}_rank{mesh.rank}.npz", **res)
 
 
+def scenario_ranks(z, mesh, out):
+    import torch.nn.functional as F
+    from torch.distributed import get_process_group_ranks
+    from dedark_yolo_tpu_torch.parallel import spatial as S
+    sp = int(z["sp"])
+    m = make_mesh(shape=(mesh.world // sp, sp), axes=("data", "spatial"),
+                  device="cpu")
+    info = {"spatial_index": m.spatial_index, "data_index": m.data_index,
+            "data_size": m.data_size,
+            "spatial_group": get_process_group_ranks(m.spatial_group),
+            "data_group": (None if m.data_group is None
+                           else get_process_group_ranks(m.data_group))}
+    x = torch.from_numpy(z["x"]).requires_grad_(True)          # NHWC
+    w = torch.from_numpy(z["w"]).requires_grad_(True)
+    slab = S.rank_slab(x, m).permute(0, 3, 1, 2)
+    y = F.max_pool2d(F.conv2d(slab, w, padding=1), 5, 1, 2)
+    whole = y.join()
+    red = y.mean((2, 3), keepdim=True) + y.amax((2, 3), keepdim=True)
+    loss = ((whole * torch.from_numpy(z["g"])).sum()
+            + (red * torch.from_numpy(z["gr"])).sum()) / m.spatial
+    gx, gw = torch.autograd.grad(loss, [x, w])
+    # each rank holds its share: summed over the spatial group
+    gx, gw = (S._all_reduce(g, m.spatial_group) for g in (gx, gw))
+    np.savez(f"{out}_rank{mesh.rank}.npz", y=whole.detach().numpy(),
+             red=red.detach().numpy(), gx=gx.numpy(), gw=gw.numpy(),
+             info=np.asarray(json.dumps(info)))
+
+
 def _dec_rows(a, mesh):
     per = a.shape[1] // mesh.world
     return a[:, mesh.rank * per:(mesh.rank + 1) * per]
@@ -161,11 +198,12 @@ def main():
     torch.set_num_threads(2)
     if scenario == "train":
         return train(inp, out, sys.argv[4])
-    init_from_env(device="cpu")
+    init_from_env(device="cpu",
+                  timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
     mesh = make_mesh(device="cpu")
     z = np.load(inp) if inp != "-" else None
-    {"mesh": scenario_mesh, "bn": scenario_bn,
-     "loss": scenario_loss}[scenario](z, mesh, out)
+    {"mesh": scenario_mesh, "bn": scenario_bn, "loss": scenario_loss,
+     "ranks": scenario_ranks}[scenario](z, mesh, out)
     # every rank's collectives done before any rank tears the group down
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
