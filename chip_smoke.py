@@ -1111,7 +1111,8 @@ def train_full(torch):
     from dedark_yolo_tpu_torch.ops import _build
     from dedark_yolo_tpu_torch.tools._ab import CLOCKS_QUERY, nvidia_smi, time_ms
     yolo = YOLO("yolov8l.yaml", nc=3, seed=SEED)
-    tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64}, nb=1000)
+    tr = DetectionTrainer({"batch": BATCH, "nbs": 64}, model=yolo.model,
+                          nb=1000)
     batches = [train_batch(BATCH, IMGSZ, SEED + i) for i in range(3)]
     with matmul_precision("default"):
         for i in range(tr.accumulate):                       # warm-up window
@@ -1512,7 +1513,7 @@ def val_parity(torch, yolo, data):
                                    ("with_loss", {}, True)):
         res, recs, cms = {}, {}, {}
         for dev, model in (("cuda", yolo), ("cpu", cpu)):
-            v = DetectionValidator(args=get_cfg({**kw, **extra, "device": dev}))
+            v = DetectionValidator(args=get_cfg(overrides={**kw, **extra, "device": dev}))
             zero_launches()
             with no_plain_on_cuda(), record_detections() as recs[dev]:
                 res[dev] = {k: float(x) for k, x in
@@ -2079,8 +2080,8 @@ def phase_train_amp(torch, f32):
     items = {}
     with matmul_precision("float32"):
         for amp in (False, True):
-            tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64,
-                                               "amp": amp}, nb=1000)
+            tr = DetectionTrainer({"batch": BATCH, "nbs": 64, "amp": amp},
+                                  model=yolo.model, nb=1000)
             tr.model.train()
             with torch.no_grad():
                 items[amp] = torch.stack(list(tr.loss(tr.to_device(
@@ -2095,8 +2096,8 @@ def phase_train_amp(torch, f32):
     def recorded(img, *args):
         dtypes.append(str(img.dtype))
         return fused(img, *args)
-    tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64, "amp": True},
-                          nb=1000)
+    tr = DetectionTrainer({"batch": BATCH, "nbs": 64, "amp": True},
+                          model=yolo.model, nb=1000)
     K.fused_enhance = recorded
     try:
         with matmul_precision("default"), no_plain_on_cuda():
@@ -2153,8 +2154,9 @@ def phase_cli(torch):
     subprocess (the flagship at 128, BN set from the val images), its
     printed metrics against YOLO(npz).val() here under the subprocess's
     TF32 defaults (cuDNN on, matmuls off); beside them `train ...
-    epochs=1` on 4 train images, the three at once. Both commands must
-    exit 0."""
+    epochs=1` on 4 train images, the three at once, the facade's val
+    followed by `cfg_keys` (JAX's config keys and aliases). Both commands
+    must exit 0."""
     import os
     import tempfile
     from dedark_yolo_tpu_torch import YOLO
@@ -2183,21 +2185,33 @@ def phase_cli(torch):
             torch.backends.cuda.matmul.allow_tf32 = False
             try:
                 with no_plain_on_cuda():
-                    return YOLO(npz).val(data=str(data_json),
-                                         imgsz=cfg["imgsz"], batch=4,
-                                         cache="disk", workers=2,
-                                         verbose=False)
+                    y = YOLO(npz)
+                    return y, y.val(data=str(data_json), imgsz=cfg["imgsz"],
+                                    batch=4, cache="disk", workers=2,
+                                    verbose=False)
             finally:
                 (torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32) = prev
 
-        # the two commands and the facade's val at once (each process's
-        # start and imports are host work; the card holds all three at 128)
+        def facade():
+            """The facade's val, then the config keys' predicts on the
+            same facade, each timed (the phase waits for the slower of this
+            and the two commands)."""
+            t0 = time.perf_counter()
+            y, metrics = facade_val()
+            t1 = time.perf_counter()
+            keys = cfg_keys(torch, y, val_images(data, 4), cfg["imgsz"])
+            keys.update(seconds=time.perf_counter() - t1, val_seconds=t1 - t0)
+            return metrics, keys
+
+        # the two commands and the facade's val and predicts at once (each
+        # process's start and imports are host work; the card holds all
+        # three at 128)
         runs = {}
         runs["train"] = run_beside(cmds["train"], lambda: run_beside(
-            cmds["val"], facade_val, env))
+            cmds["val"], facade, env))
         runs["val"] = runs["train"][4]
-        want = runs["val"][4]
+        want, keys = runs["val"][4]
         for key, (rc, stdout, stderr, secs, _) in runs.items():
             lines = [ln for ln in stdout.splitlines()
                      if ln.startswith("results ")]
@@ -2213,12 +2227,47 @@ def phase_cli(torch):
            for k, v in want.items()}
     rec = {**out, "facade_val": {k: float(v) for k, v in want.items()},
            "val_rel_err": err, "tol_rel": VAL_METRIC_RTOL,
-           "train_best_npz": best}
+           "train_best_npz": best, "cfg_keys": keys}
     emit({"phase": "cli", **rec})
     if not (set(got) == set(want) and max(err.values()) <= VAL_METRIC_RTOL
-            and want["metrics/mAP50(B)"] > 0 and best):
+            and want["metrics/mAP50(B)"] > 0 and best
+            and keys["predict_equal"] and keys["aliases_mapped"]):
         raise AssertionError(f"cli: {rec}")
     return rec
+
+
+# every key of the JAX package's default.yaml that has no effect in either
+# package, and the CLI's own keys, with JAX's defaults
+JAX_ONLY_KEYS = {"classes": None, "deterministic": True, "dnn": False,
+                 "dropout": 0.0, "keras": False, "optimize": False,
+                 "int8": False, "dynamic": False, "simplify": False,
+                 "opset": None, "workspace": 4, "nms": False,
+                 "stem_s2d": True, "fpn_fuse": True, "task": "detect",
+                 "mode": "predict", "source": None}
+
+
+def cfg_keys(torch, y, images, imgsz):
+    """`get_cfg` from a dict of the keys the port carries for JAX and of
+    JAX's three deprecated aliases (no yaml: the card has no PyYAML), then
+    one predict batch through the facade `y` with hide_labels=True and
+    classes=None, its detections held equal to the same batch without
+    them."""
+    import numpy as np
+    from dedark_yolo_tpu_torch.cfg import get_cfg
+    args = get_cfg(overrides={**JAX_ONLY_KEYS, "hide_labels": True,
+                              "hide_conf": False, "line_thickness": 2})
+    mapped = (args.show_labels is False and args.show_conf is True
+              and args.line_width == 2
+              and all(args.get(k) == v for k, v in JAX_ONLY_KEYS.items()))
+    kw = {"imgsz": imgsz, "batch": len(images), "conf": 0.001}
+    with no_plain_on_cuda():
+        plain = y.predict(images, **kw)
+        alias = y.predict(images, hide_labels=True, classes=None, **kw)
+    equal = all(np.array_equal(a.boxes.data, b.boxes.data)
+                for a, b in zip(plain, alias)) and len(plain) == len(alias)
+    return {"aliases_mapped": bool(mapped), "predict_equal": bool(equal),
+            "detections": int(sum(len(r) for r in plain)),
+            "device": str(y.device)}
 
 
 # predict_resize, val_resize, loop_mp, autobatch: frames and sidecars that
@@ -2460,7 +2509,7 @@ def phase_val_resize(torch, yolo):
                 if run == "cuda":
                     kw["conf"] = val_pair_conf(
                         [d[3] for d in recs["default"].detections()])
-                v = DetectionValidator(args=get_cfg({**kw, "device": dev}))
+                v = DetectionValidator(args=get_cfg(overrides={**kw, "device": dev}))
                 zero_launches()
                 t0 = time.perf_counter()
                 with no_plain_on_cuda(), record_detections() as recs[run], \
@@ -3156,7 +3205,8 @@ def zoo_train(torch, yolo):
     from dedark_yolo_tpu_torch.engine.predictor import matmul_precision
     from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
     from dedark_yolo_tpu_torch.ops import _build
-    tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64}, nb=1000)
+    tr = DetectionTrainer({"batch": BATCH, "nbs": 64}, model=yolo.model,
+                          nb=1000)
     batches = [train_batch(BATCH, IMGSZ, SEED + i) for i in range(2)]
     has_l0 = yolo.model.specs[0].name == "lowlight_recovery"
     with matmul_precision("default"), no_plain_on_cuda():
@@ -3203,8 +3253,8 @@ def zoo_train_amp(torch, yolo):
     items = {}
     with matmul_precision("float32"), no_plain_on_cuda():
         for amp in (False, True):
-            tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64,
-                                               "amp": amp}, nb=1000)
+            tr = DetectionTrainer({"batch": BATCH, "nbs": 64, "amp": amp},
+                                  model=yolo.model, nb=1000)
             tr.model.train()
             with torch.no_grad():
                 items[amp] = torch.stack(list(tr.loss(tr.to_device(
@@ -3218,8 +3268,8 @@ def zoo_train_amp(torch, yolo):
     def recorded(img, *args):
         dtypes.append(str(img.dtype))
         return fused(img, *args)
-    tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64, "amp": True},
-                          nb=1000)
+    tr = DetectionTrainer({"batch": BATCH, "nbs": 64, "amp": True},
+                          model=yolo.model, nb=1000)
     K.fused_enhance = recorded
     try:
         with matmul_precision("default"), no_plain_on_cuda():
@@ -3280,7 +3330,7 @@ def zoo_val(torch, tmp):
     batches = -(-VAL_SMALL["n"] // VAL_SMALL["batch"])
     res, recs = {}, {}
     for dev, model in (("cuda", gpu), ("cpu", cpu)):
-        v = DetectionValidator(args=get_cfg({**kw, "device": dev}))
+        v = DetectionValidator(args=get_cfg(overrides={**kw, "device": dev}))
         zero_launches()
         with no_plain_on_cuda(), record_detections() as recs[dev]:
             res[dev] = {k: float(x) for k, x in
@@ -4473,7 +4523,8 @@ def classify_parity(torch):
     got = {}
     with matmul_precision("float32"), no_plain_on_cuda():
         for key, yolo, dev in (("gpu", gpu, None), ("cpu", cpu, "cpu")):
-            tr = ClassificationTrainer(yolo.model, over, nb=1000, device=dev)
+            tr = ClassificationTrainer(over, model=yolo.model, nb=1000,
+                                       device=dev)
             names = list(tr.params)
             tr.model.train()
             total, items = tr.loss(tr.to_device(batch))
@@ -4939,7 +4990,7 @@ def seg_loader_split(data, max_boxes):
     s = SEG["imgsz"]
     ds = SegmentDataset(check_det_dataset(data)["train"], imgsz=s,
                         nc=SEG["classes"], cache="disk")
-    a = get_cfg({"copy_paste": SEG["copy_paste"]})
+    a = get_cfg(overrides={"copy_paste": SEG["copy_paste"]})
     tf = SegTrainTransforms({k: getattr(a, k) for k in SEG_AUGMENT_KEYS}, s)
     t0 = time.perf_counter()
     items = [tf(ds, i, random.Random(SEED + i)) for i in range(SEG["batch"])]
@@ -4977,7 +5028,8 @@ def seg_parity(torch, data):
     got = {}
     with matmul_precision("float32"), no_plain_on_cuda():
         for key, yolo, dev in (("gpu", gpu, None), ("cpu", cpu, "cpu")):
-            tr = SegmentationTrainer(yolo.model, over, nb=1000, device=dev)
+            tr = SegmentationTrainer(over, model=yolo.model, nb=1000,
+                                     device=dev)
             names = list(tr.params)
             tr.model.train()
             total, items = tr.loss(tr.to_device(batch))
@@ -5601,7 +5653,7 @@ def pose_parity(torch, data):
     got = {}
     with matmul_precision("float32"), no_plain_on_cuda():
         for key, yolo, dev in (("gpu", gpu, None), ("cpu", cpu, "cpu")):
-            tr = PoseTrainer(yolo.model, over, nb=1000, device=dev)
+            tr = PoseTrainer(over, model=yolo.model, nb=1000, device=dev)
             names = list(tr.params)
             tr.model.train()
             total, items = tr.loss(tr.to_device(batch))
@@ -6020,8 +6072,8 @@ def blocks_amp_step(torch, yolo):
     from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer
     from dedark_yolo_tpu_torch.ops import _build
     from dedark_yolo_tpu_torch.tools.c14_split import train_batch
-    tr = DetectionTrainer(yolo.model, {"batch": BATCH, "nbs": 64, "amp": True},
-                          nb=1000)
+    tr = DetectionTrainer({"batch": BATCH, "nbs": 64, "amp": True},
+                          model=yolo.model, nb=1000)
     batch = train_batch(BATCH, IMGSZ, SEED)
     with matmul_precision("default"), no_plain_on_cuda():
         tr.step(batch, 0)
@@ -6062,8 +6114,8 @@ def amp_gaps(torch, yolo):
     with matmul_precision("float32"), no_plain_on_cuda():
         for amp in (False, True):
             model.load_state_dict(start)
-            tr = DetectionTrainer(model, {"batch": BATCH, "nbs": 64,
-                                          "amp": amp}, nb=1000)
+            tr = DetectionTrainer({"batch": BATCH, "nbs": 64, "amp": amp},
+                                  model=model, nb=1000)
             names = list(tr.params)
             model.train()
             try:
@@ -6328,7 +6380,7 @@ def rtdetr_val_parity(torch, yolo, data):
         zero_launches()
         with no_plain_on_cuda(), record_detections() as recs[dev]:
             res[dev] = {k: float(x) for k, x in DetectionValidator(
-                args=get_cfg({**kw, "device": dev}))(model=model.model).items()}
+                args=get_cfg(overrides={**kw, "device": dev}))(model=model.model).items()}
         if dev == "cuda":
             torch.cuda.synchronize()
             check_launches("rtdetr val parity", dict(_build.LAUNCHES), {})
@@ -6588,8 +6640,8 @@ def dist_one_rank(torch):
         runs = []
         for path in ("warm-up", "plain", "mesh", "mesh", "plain"):
             yolo.model.load_state_dict(start)
-            tr = DetectionTrainer(yolo.model, {"batch": BATCH,
-                                               "nbs": DIST["nbs"]}, nb=1000)
+            tr = DetectionTrainer({"batch": BATCH, "nbs": DIST["nbs"]},
+                                  model=yolo.model, nb=1000)
             if path == "mesh":
                 tr.mesh = make_mesh()
             zero_launches()
@@ -6712,7 +6764,7 @@ def dist_two_ranks(torch, tmp):
     pool.shutdown(wait=False)
     try:
         zero_launches()
-        one_res = DetectionValidator(args=get_cfg({**kw, "data": data}),
+        one_res = DetectionValidator(args=get_cfg(overrides={**kw, "data": data}),
                                      save_dir=tmp / "val_one")(
                                          model=yolo.model)
         one_launches = dict(_build.LAUNCHES)
@@ -6954,8 +7006,8 @@ def phase_remat(torch):
     model = yolo.model
     start = {k: v.clone() for k, v in model.state_dict().items()}
     batch = train_batch(BATCH, IMGSZ, SEED)
-    tr = DetectionTrainer(model, {"batch": BATCH, "nbs": 64,
-                                  "remat": REMAT_UPTO}, nb=1000)
+    tr = DetectionTrainer({"batch": BATCH, "nbs": 64, "remat": REMAT_UPTO},
+                          model=model, nb=1000)
     if model.remat_upto != REMAT_UPTO:
         raise AssertionError(f"remat: the key set {model.remat_upto}")
     names = list(tr.params)
@@ -7012,8 +7064,9 @@ def phase_remat(torch):
                       / p["items"].abs().max())
     del first, p, r, tr, dev
     # amp at REMAT_UPTO: one micro-step
-    tr = DetectionTrainer(model, {"batch": BATCH, "nbs": 64, "amp": True,
-                                  "remat": REMAT_UPTO}, nb=1000)
+    tr = DetectionTrainer(
+        {"batch": BATCH, "nbs": 64, "amp": True, "remat": REMAT_UPTO},
+        model=model, nb=1000)
     zero_launches()
     torch.cuda.reset_peak_memory_stats()
     with matmul_precision("default"):
@@ -7080,8 +7133,8 @@ def remat_on_mesh(torch, model, start, batch):
     n = SPATIAL_TRAIN["slabs"]
     mesh = make_mesh(shape=(1, n), axes=("data", "spatial"),
                      devices=["cuda:0"] * n)
-    tr = DetectionTrainer(model, {"batch": BATCH, "nbs": 64,
-                                  "remat": REMAT_UPTO}, nb=1000)
+    tr = DetectionTrainer({"batch": BATCH, "nbs": 64, "remat": REMAT_UPTO},
+                          model=model, nb=1000)
     tr.mesh = mesh
     names = list(tr.params)
     dev = tr.to_device(batch)
@@ -7190,8 +7243,9 @@ def train_once(torch, model, start, batch, imgsz, mesh=None, nudge=False,
             for p in model.parameters():
                 p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
     n = batch["img"].shape[0]
-    tr = DetectionTrainer(model, {"batch": n, "nbs": n, "optimizer": "SGD",
-                                  "imgsz": imgsz}, nb=SPATIAL_TRAIN["nb"])
+    tr = DetectionTrainer(
+        {"batch": n, "nbs": n, "optimizer": "SGD", "imgsz": imgsz},
+        model=model, nb=SPATIAL_TRAIN["nb"])
     tr.mesh = mesh
     cpu = lambda sd: {k: v.detach().cpu().clone() for k, v in sd.items()}
     torch.cuda.synchronize()

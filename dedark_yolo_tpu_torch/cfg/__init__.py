@@ -1,11 +1,14 @@
 """Predict, val and train configuration and model-architecture lookup.
 
-The predict keys (TTA, save_enhanced, visualize, the plot and saving keys,
-vid_stride among them) and the keys the validator, the train step and the
-train loop read of the JAX package's `cfg/default.yaml`, with the same
-defaults, plus `device`. A key of the JAX package's defaults that the port does not
-carry (`UNPORTED_KEYS`) is refused as not ported; any other unknown key as
-unknown, with `difflib` suggestions (JAX cfg/__init__.py:80-90).
+Every key of the JAX package's `cfg/default.yaml`, with its defaults but
+`format` ('pt2'; the port writes no stablehlo), kept here as data: the
+port reads no yaml at run time. `get_cfg` is JAX's (cfg/__init__.py:
+121-149): a base config (the defaults, a dict, a namespace or a config
+file) under the overrides, the overrides' keys checked, an unknown key
+refused with `difflib` suggestions (JAX :80-90), the deprecated hide_* and
+line_thickness keys mapped with JAX's warnings, every value typed; the
+port adds its checks of its own string keys and that imgsz is a multiple
+of 32. A few keys are carried with no effect, as in JAX (see DEFAULT_CFG).
 `model_yaml_load` resolves a scaled name such as `yolov8l.yaml` to the
 unified architecture at scale `l`, as the JAX package does; the built-in
 architectures live in `cfg/models.py`. `yaml_load` reads a `.json` file
@@ -23,9 +26,16 @@ import re
 from pathlib import Path
 from types import SimpleNamespace
 
+from ..utils import LOGGER
 from .models import MODELS
 
 DEFAULT_CFG = {
+    # the CLI's own (JAX __main__.py takes them from the arguments first)
+    "task": "detect",            # detect | segment | pose | classify
+    "mode": "train",             # train, val, predict, track, export, ...
+    "model": None,               # architecture, checkpoint or .pt2
+    "source": None,              # predict/track source
+    "cfg": None,                 # a config file whose keys apply first
     "imgsz": 640,                # square letterbox size, a multiple of 32
     "conf": None,                # None = 0.25 for predict, 0.001 for val
     "iou": 0.7,                  # NMS IoU threshold
@@ -128,59 +138,89 @@ DEFAULT_CFG = {
     "overlap_mask": True,        # GT masks overlap-encoded in one raster
     "retina_masks": False,       # predict: masks upsampled from probabilities
     "photometric": True,         # Blur/MedianBlur/ToGray/CLAHE, each p=0.01
+    # Carried with JAX's defaults and no effect, as in JAX, where no module
+    # reads them: the reference's keys (classes, deterministic, dnn, dropout)
+    # and the TF/ONNX export keys, read only by those formats (JAX
+    # engine/exporter.py:167, :218), which the exporter refuses by name.
+    "classes": None,
+    "deterministic": True,
+    "dnn": False,
+    "dropout": 0.0,
+    "keras": False,
+    "optimize": False,
+    "int8": False,
+    "dynamic": False,
+    "simplify": False,
+    "opset": None,
+    "workspace": 4,
+    "nms": False,
+    # JAX's TPU layouts of the same graph (JAX default.yaml:44-53): exact
+    # algebra with identical checkpoints (tests/test_stem_s2d.py
+    # test_eval_forward_exact), so the port takes them and keeps its graph
+    "stem_s2d": True,
+    "fpn_fuse": True,
 }
 
 AUGMENT_KEYS = ("mosaic", "mixup", "copy_paste", "hsv_h", "hsv_s", "hsv_v",
                 "degrees", "translate", "scale", "shear", "perspective",
                 "flipud", "fliplr", "photometric")
 
-_FLOAT_KEYS = {"conf", "iou", "hsv_h", "hsv_s", "hsv_v", "translate",
-               "scale", "perspective", "flipud", "fliplr", "mosaic", "mixup",
-               "copy_paste", "fraction"}
-_NUMBER_KEYS = {"lr0", "lrf", "momentum", "weight_decay", "warmup_epochs",
-                "warmup_momentum", "warmup_bias_lr", "box", "cls", "dfl",
-                "pose", "kobj",
-                "lrl", "dark_param", "degrees", "shear", "label_smoothing"}
-_INT_KEYS = {"imgsz", "max_det", "max_nms", "batch", "epochs", "nbs",
-             "max_boxes", "workers", "save_period", "ckpt_period",
-             "val_period", "patience", "close_mosaic", "seed", "vid_stride",
-             "line_width", "mask_ratio", "remat"}
-_BOOL_KEYS = {"half", "agnostic_nms", "cos_lr", "lowlight_FLAG", "dedark_FLAG",
-              "amp", "rect", "save_json", "save_txt", "save_conf",
-              "save_hybrid", "plots", "verbose", "single_cls", "exist_ok",
-              "save", "val", "resume", "photometric", "loader_mp", "profile",
-              "augment", "save_enhanced", "visualize", "save_crop", "show",
-              "show_labels", "show_conf", "boxes", "fuse", "overlap_mask",
-              "retina_masks"}
+# JAX's typed key sets (JAX cfg/__init__.py:21-43), and the port's own keys
+# of each type
+CFG_FLOAT_KEYS = {
+    "warmup_epochs", "box", "cls", "dfl", "degrees", "shear", "dark_param", "lrl",
+}
+CFG_FRACTION_KEYS = {
+    "dropout", "iou", "lr0", "lrf", "momentum", "weight_decay", "warmup_momentum",
+    "warmup_bias_lr", "label_smoothing", "hsv_h", "hsv_s", "hsv_v", "translate",
+    "scale", "perspective", "flipud", "fliplr", "mosaic", "mixup", "copy_paste",
+    "conf", "fraction",
+}
+CFG_INT_KEYS = {
+    "epochs", "patience", "batch", "workers", "seed", "close_mosaic", "mask_ratio",
+    "max_det", "vid_stride", "line_width", "workspace", "nbs", "save_period",
+    "max_boxes", "max_nms",
+}
+CFG_BOOL_KEYS = {
+    "save", "exist_ok", "verbose", "deterministic", "single_cls", "rect", "cos_lr",
+    "overlap_mask", "val", "save_json", "save_hybrid", "half", "plots", "show",
+    "save_txt", "save_conf", "save_crop", "show_labels", "show_conf", "visualize",
+    "augment", "agnostic_nms", "retina_masks", "boxes", "keras", "optimize", "int8",
+    "dynamic", "simplify", "nms", "profile", "lowlight_FLAG", "dedark_FLAG",
+    "save_enhanced", "photometric", "fuse",
+}
+_NUMBER_KEYS = CFG_FLOAT_KEYS | {"pose", "kobj"}
+_INT_KEYS = CFG_INT_KEYS | {"imgsz", "ckpt_period", "val_period", "remat"}
+_BOOL_KEYS = CFG_BOOL_KEYS | {"amp", "resume", "loader_mp"}
 _PRECISIONS = ("default", "tensorfloat32", "float32")
 
-# Keys of the JAX package's cfg/default.yaml that the port does not carry:
-# the export and other-task keys (ROADMAP A10b, A12), and
-# the CLI's own model/source/mode/task/cfg, which the CLI takes before the
-# config is checked.
-UNPORTED_KEYS = frozenset((
-    "cfg", "classes", "deterministic", "dnn", "dropout", "dynamic",
-    "fpn_fuse", "int8", "keras", "mode", "model", "nms", "opset",
-    "optimize", "simplify", "source", "stem_s2d", "task", "workspace"))
+DEFAULT_CFG_DICT = DEFAULT_CFG
+DEFAULT_CFG_KEYS = set(DEFAULT_CFG)
 
+
+class IterableSimpleNamespace(SimpleNamespace):
+    """SimpleNamespace that iterates its (key, value) pairs and has `get`
+    (JAX cfg/__init__.py:46-56)."""
+
+    def __iter__(self):
+        return iter(vars(self).items())
+
+    def __str__(self):
+        return "\n".join(f"{k}={v}" for k, v in vars(self).items())
+
+    def get(self, key, default=None):
+        return getattr(self, key, default)
 
 
 def check_cfg_alignment(base_keys, custom: dict) -> None:
-    """Raise SyntaxError for each key of `custom` not in `base_keys`: a key
-    of the JAX package's defaults as not ported, any other as unknown with
-    the near-misses `difflib` finds among every key the JAX package knows
-    (JAX cfg/__init__.py:80-90, the same suggestions)."""
-    known = set(base_keys) | UNPORTED_KEYS
+    """Raise SyntaxError for each key of `custom` not in `base_keys`, with
+    the near-misses `difflib` finds among them (JAX cfg/__init__.py:80-90,
+    the same message)."""
     msg = []
     for k in custom:
         if k in base_keys:
             continue
-        if k in UNPORTED_KEYS:
-            msg.append(f"'{k}' is a config key of the JAX package that is "
-                       "not ported to dedark_yolo_tpu_torch (ROADMAP "
-                       "A10b, A12)")
-            continue
-        matches = difflib.get_close_matches(k, known)
+        matches = difflib.get_close_matches(k, set(base_keys))
         hint = f" Did you mean {matches}?" if matches else ""
         msg.append(f"'{k}' is not a valid config key.{hint}")
     if msg:
@@ -192,7 +232,7 @@ def _coerce(k, v):
     with the port's checks of its own string keys)."""
     if v is None:
         return v
-    if k in _FLOAT_KEYS:
+    if k in CFG_FRACTION_KEYS:
         if not isinstance(v, (int, float)) or isinstance(v, bool):
             raise TypeError(f"'{k}={v}' must be a number")
         v = float(v)
@@ -238,23 +278,46 @@ def _coerce(k, v):
     return v
 
 
-def get_cfg(overrides: dict | None = None) -> SimpleNamespace:
-    """Merge `overrides` into the defaults, type-checked. A `cfg` key names
-    a config file (.json, or yaml) whose keys apply first, under the other
-    overrides (JAX cfg/__init__.py:128-136)."""
-    cfg = dict(DEFAULT_CFG)
-    overrides = dict(overrides or {})
-    sub = overrides.pop("cfg", None)
-    if sub:
-        overrides = {**yaml_load(sub), **overrides}
-    check_cfg_alignment(DEFAULT_CFG.keys(), overrides)
-    for k, v in overrides.items():
+def get_cfg(cfg=DEFAULT_CFG_DICT, overrides: dict | None = None
+            ) -> IterableSimpleNamespace:
+    """`overrides` merged into the base config `cfg` (a dict, a namespace,
+    or a config file: .json, or yaml where PyYAML is installed), typed (JAX
+    cfg/__init__.py:121-149). As in JAX, the base's keys are taken as they
+    are and only the overrides' are checked; a `cfg` key among the
+    overrides names a file whose keys apply first, under the other
+    overrides; hide_labels, hide_conf and line_thickness map to
+    show_labels, show_conf and line_width with JAX's warnings."""
+    if isinstance(cfg, (str, Path)):
+        cfg = yaml_load(cfg)
+    elif isinstance(cfg, SimpleNamespace):
+        cfg = vars(cfg)
+    cfg = dict(cfg)
+    if overrides:
+        overrides = dict(overrides)
+        sub = overrides.pop("cfg", None)
+        if sub:
+            cfg.update(yaml_load(sub))
+        # deprecation shims (JAX cfg/__init__.py:139-147): hide_* keys
+        # invert into their show_* replacements
+        for old, new in (("hide_labels", "show_labels"),
+                         ("hide_conf", "show_conf")):
+            if old in overrides:
+                LOGGER.warning(f"'{old}' is deprecated — use '{new}' instead")
+                v = overrides.pop(old)
+                overrides[new] = not (v if isinstance(v, bool) else v != "False")
+        if "line_thickness" in overrides:
+            LOGGER.warning("'line_thickness' is deprecated — use 'line_width'")
+            overrides["line_width"] = overrides.pop("line_thickness")
+        check_cfg_alignment(DEFAULT_CFG_KEYS, overrides)
+        cfg.update(overrides)
+    for k, v in list(cfg.items()):
         if isinstance(v, str) and v.lower() == "none":
             v = None
         cfg[k] = _coerce(k, v)
-    if cfg["imgsz"] % 32:
-        raise ValueError(f"imgsz={cfg['imgsz']} must be a multiple of 32")
-    return SimpleNamespace(**cfg)
+    imgsz = cfg.get("imgsz")
+    if isinstance(imgsz, int) and imgsz % 32:
+        raise ValueError(f"imgsz={imgsz} must be a multiple of 32")
+    return IterableSimpleNamespace(**cfg)
 
 
 def yaml_load(path) -> dict:

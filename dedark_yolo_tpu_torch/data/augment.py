@@ -27,13 +27,14 @@ from . import imgops
 PAD_VALUE = 114
 
 
-def letterbox(img, new_shape=640, color=PAD_VALUE, scaleup=True, center=True,
-              stride=32, auto=False):
+def letterbox(img, new_shape=(640, 640), color=PAD_VALUE, scaleup=True,
+              center=True, stride=32, auto=False, scale_fill=False):
     """Ratio-preserving resize + pad of an HWC uint8 image to `new_shape`,
     an int (square) or (h, w). `scaleup=False` only shrinks; `auto` pads
     only up to the next multiple of `stride`; `center` splits the pad
     between both sides (with `center=False` each side gets the whole pad, as
-    in the JAX package).
+    in the JAX package). `scale_fill` is taken and, as in the JAX package
+    (data/augment.py:24-49), not applied: the ratio is always kept.
 
     Returns (img, ratio, (dw, dh)).
     """

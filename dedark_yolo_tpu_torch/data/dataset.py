@@ -156,10 +156,11 @@ def verify_label(label_path, nc) -> np.ndarray:
 class YOLODataset:
     """Detection dataset with label cache and max-side image loading.
     cache: False, True or 'ram' (decoded images kept), 'disk' (.npy
-    sidecars)."""
+    sidecars). `rank` is taken and unused, as in the JAX package
+    (data/dataset.py:130-131): the loader shards by rank."""
 
-    def __init__(self, img_path, imgsz=640, nc=80, cache=False,
-                 single_cls=False, fraction=1.0):
+    def __init__(self, img_path, imgsz=640, nc=80, cache=False, fraction=1.0,
+                 single_cls=False, rank=0):
         self.imgsz = imgsz
         self.nc = nc
         self.single_cls = single_cls
@@ -238,6 +239,10 @@ class YOLODataset:
                 shapes[i] = tuple(hw)
             self._shapes = np.asarray(shapes, np.int32)
         return self._shapes
+
+    def orig_shape(self, index):
+        """(h, w) of image `index` as read (JAX data/dataset.py:189-191)."""
+        return self._read(index).shape[:2]
 
     def _read(self, index):
         if self._ram is not None and index in self._ram:

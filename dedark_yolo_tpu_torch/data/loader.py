@@ -41,7 +41,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-PREFETCH = 2    # batches made ahead of the consumer
 # seconds the process workers may take for one batch; past that a worker
 # is taken as stuck (a fork that inherited a held lock) and the pass raises
 # multiprocessing.TimeoutError instead of waiting for ever
@@ -92,12 +91,13 @@ def collate(items, max_boxes=128):
 
 
 class DataLoader:
-    """Iterable over fixed-shape batches with threaded decode/transform."""
+    """Iterable over fixed-shape batches with threaded decode/transform;
+    `prefetch` batches are made ahead of the consumer (JAX loader.py:73)."""
 
     def __init__(self, dataset, transforms, batch_size, max_boxes=128,
-                 workers=8, drop_last=True, indices=None, shuffle=False,
-                 seed=0, use_processes=False, collate_fn=None,
-                 process_index=0, process_count=1):
+                 shuffle=True, seed=0, workers=8, drop_last=True,
+                 process_index=0, process_count=1, prefetch=2, indices=None,
+                 collate_fn=None, use_processes=False):
         self.dataset = dataset
         self.indices = list(indices) if indices is not None else None
         self.transforms = transforms
@@ -114,6 +114,7 @@ class DataLoader:
         self.epoch = 0
         self.use_processes = bool(use_processes)
         self.process_index, self.process_count = process_index, process_count
+        self.prefetch = prefetch
         self._mp_pool = None
 
     def _pool(self):
@@ -164,7 +165,7 @@ class DataLoader:
             rng = random.Random(base_seed + pos * 7919 + i)
             return self.transforms(self.dataset, i, rng)
 
-        out_q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
+        out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def put(item):

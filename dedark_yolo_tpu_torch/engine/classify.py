@@ -126,7 +126,10 @@ class ClassificationTrainer(BaseTrainer):
     loss_names = ("loss",)
     metric_keys = ("metrics/accuracy_top1", "metrics/accuracy_top5")
     batch_keys = ("img", "cls")
-    check_data = staticmethod(check_cls_dataset)
+    default_model = "yolov8-cls.yaml"
+
+    def check_data(self, path):
+        return check_cls_dataset(path)
 
     def preflight(self):
         # a plain square resize: no stride rounding
@@ -162,7 +165,7 @@ class ClassificationTrainer(BaseTrainer):
         return total, (total.detach(),)
 
     def get_validator(self, save_dir=None, data=None):
-        args = get_cfg({**vars(self.args), "device": str(self.device)})
+        args = get_cfg(overrides={**vars(self.args), "device": str(self.device)})
         return ClassificationValidator(args=args, save_dir=save_dir, data=data)
 
     def dummy_batch(self, b):
@@ -266,7 +269,12 @@ class ClassificationPredictor:
     (reference models/yolo/classify/predict.py). A partial last batch is
     padded with its first frame to the fixed batch."""
 
-    def __init__(self, args=None, model=None, names=None, save_dir=None):
+    def __init__(self, args=None, model=None, names=None, save_dir=None,
+                 members=None):
+        """`members` (JAX's parameter) must be empty: a classify predict
+        runs the model alone, as JAX's does."""
+        if members:
+            raise ValueError("ClassificationPredictor takes no ensemble members")
         self.args = args if args is not None else get_cfg()
         self.device = resolve_device(self.args.device)
         self.model = model

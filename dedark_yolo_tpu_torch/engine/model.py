@@ -68,10 +68,14 @@ CARRIED_ARGS = ("imgsz", "data", "single_cls", "contrast_mode")
 
 
 class YOLO:
-    def __init__(self, model="yolov8l.yaml", nc=None, device=None, seed=0):
+    def __init__(self, model="yolov8l.yaml", task="detect", nc=None,
+                 device=None, seed=0):
         """model: an architecture (a built-in name such as 'yolov8l.yaml' or
         a yaml file) with `seed`ed weights, a JAX `.npz` checkpoint, or a
-        list of checkpoints of one architecture (an ensemble)."""
+        list of checkpoints of one architecture (an ensemble). `task` is
+        taken as the JAX facade takes it; the engines follow the model's
+        own head (`YOLO.task`), as JAX's dispatch does (JAX
+        model.py:132-139)."""
         self.device = resolve_device(device)
         self.overrides = {}
         self.predictor = self.validator = self.trainer = self.metrics = None
@@ -91,6 +95,7 @@ class YOLO:
             return
         refuse_jax_artifact(model)
         self.model_yaml = model_yaml_load(model)
+        self.overrides["model"] = model
         self._build(nc)
         init_weights(self.model, seed)
 
@@ -119,6 +124,7 @@ class YOLO:
                                    strict=True)
         self.overrides = {k: train_args[k] for k in CARRIED_ARGS
                           if k in train_args}
+        self.overrides["model"] = str(path)
         names = train_args.get("names")
         if isinstance(names, (list, tuple)):
             names = dict(enumerate(names))
@@ -155,7 +161,7 @@ class YOLO:
         train_args under the call's kwargs. contrast_mode changes layer 0's
         filter math, not the params (JAX model.py _sync_model_opts rebuilds
         the graph for it)."""
-        args = get_cfg({**self.overrides, **kwargs})
+        args = get_cfg(overrides={**self.overrides, **kwargs})
         for m in self.model.modules() if self.model is not None else ():
             if isinstance(m, LowlightRecovery):
                 m.contrast_mode = args.contrast_mode
@@ -328,10 +334,10 @@ class YOLO:
         self.device = resolve_device(args.device)
         return Exporter(args)(self.model)
 
-    def add_callback(self, event, fn):
-        """Run fn(trainer) at `event` (utils.callbacks.HOOKS) of the next
+    def add_callback(self, event: str, func):
+        """Run func(trainer) at `event` (utils.callbacks.HOOKS) of the next
         `train` calls."""
-        self._user_callbacks.setdefault(event, []).append(fn)
+        self._user_callbacks.setdefault(event, []).append(func)
 
     def train(self, **kwargs):
         """Train on `data` (a dataset yaml path or dict; for classify a
@@ -348,15 +354,9 @@ class YOLO:
         best.npz (its EMA weights) when the run wrote one."""
         self._live("train")
         args = self._args(kwargs)
-        trainer_cls = TASK_CLASSES[self.model.task][0]
-        data = trainer_cls.check_data(args.data) if args.data else None
-        if data is None:
-            raise ValueError("training needs `data` (a dataset yaml or dict)")
-        net = trainer_cls.get_model(self.model_yaml, data["nc"], args.seed)
-        for m in net.modules():
-            if isinstance(m, LowlightRecovery):
-                m.contrast_mode = args.contrast_mode
-        trainer = trainer_cls(net, {**self.overrides, **kwargs})
+        # the trainer builds the `model` key's architecture at data's nc
+        trainer = TASK_CLASSES[self.model.task][0]({**self.overrides,
+                                                    **kwargs})
         named = isinstance(args.pretrained, (str, Path)) and args.pretrained
         if not args.resume and (self.ckpt_path is not None or not named):
             trainer.init_state = self.model.state_dict()
@@ -380,7 +380,8 @@ class YOLO:
         device."""
         args = self._args(kwargs)
         model = self._make_backend(args) if self._backend_spec else self.model
-        self.validator = TASK_CLASSES[model.task][1](args=args)
+        kw = {"kpt_shape": model.kpt_shape} if model.task == "pose" else {}
+        self.validator = TASK_CLASSES[model.task][1](args=args, **kw)
         self.device = self.validator.device
         self.metrics = self.validator(model=model)
         return self.metrics
@@ -393,7 +394,7 @@ class YOLO:
     @property
     def names(self):
         if self._backend_spec:
-            return self._make_backend(get_cfg({"device": str(self.device)})).names
+            return self._make_backend(get_cfg(overrides={"device": str(self.device)})).names
         return self.model.names
 
     @property

@@ -85,13 +85,19 @@ def gather_keypoints(kpts, aidx):
         ..., None, None].expand(-1, -1, nk, kdim))
 
 
+def model_kpt_shape(model):
+    """(nk, dims) of the model's Pose head (JAX engine/pose.py:42-45):
+    `DetectionModel.kpt_shape`."""
+    return model.kpt_shape
+
+
 class PoseTrainer(BaseTrainer):
     task = "pose"
     loss_names = ("box", "pose", "kobj", "cls", "dfl")
     metric_keys = ("metrics/mAP50(B)", "metrics/mAP50-95(B)",
                    "metrics/mAP50(P)", "metrics/mAP50-95(P)")
     batch_keys = ("img", "cls", "bboxes", "mask_gt", "keypoints")
-    check_data = staticmethod(check_det_dataset)
+    default_model = "yolov8-pose.yaml"
 
     def preflight(self):
         self.args.imgsz = check_imgsz(self.args.imgsz, stride=32)
@@ -137,7 +143,7 @@ class PoseTrainer(BaseTrainer):
                          group=self.group)
 
     def get_validator(self, save_dir=None, data=None):
-        args = get_cfg({**vars(self.args), "conf": 0.001,
+        args = get_cfg(overrides={**vars(self.args), "conf": 0.001,
                         "device": str(self.device)})
         return PoseValidator(args=args, save_dir=save_dir, data=data,
                              kpt_shape=self.model.kpt_shape)
@@ -169,14 +175,15 @@ class PoseTrainer(BaseTrainer):
 class PoseValidator:
     """Box mAP and pose (OKS) mAP of a pose model (reference PoseMetrics)."""
 
-    def __init__(self, args=None, save_dir=None, data=None, kpt_shape=None):
+    def __init__(self, args=None, save_dir=None, data=None,
+                 kpt_shape=(17, 3)):
         self.args = args if args is not None else get_cfg()
         if self.args.conf is None:
             self.args.conf = 0.001
         self.save_dir = (Path(save_dir) if save_dir else increment_dir(
             Path("runs/pose/val"), self.args.exist_ok))
         self.data = data
-        self.kpt_shape = tuple(kpt_shape) if kpt_shape else None
+        self.kpt_shape = tuple(kpt_shape)
         self.device = resolve_device(self.args.device)
         self.upload = PinnedUpload(self.device)
         self.speed = {"preprocess": 0.0, "inference": 0.0, "loss": 0.0,
@@ -187,7 +194,7 @@ class PoseValidator:
         """Box and pose mAP of `model`; under a mesh of several ranks each
         rank runs its rows of every batch and rank 0 gathers the images'
         stats in image order (JAX :150-156, :266), as `DetectionValidator`
-        does."""
+        does. A validator's kpt_shape that is not the model's raises."""
         from .autobackend import AutoBackend
         from .validator import (DeviceGroups, check_val_mesh,
                                 resolve_val_max_boxes, speed_of)
@@ -200,7 +207,10 @@ class PoseValidator:
         upload = self.upload if device == self.device else PinnedUpload(device)
         a.imgsz = check_imgsz(a.imgsz, stride=32)
         data = self.data or check_det_dataset(a.data)
-        kpt_shape = self.kpt_shape or tuple(model.kpt_shape)
+        kpt_shape = self.kpt_shape
+        if tuple(model.kpt_shape) != kpt_shape:
+            raise ValueError(f"PoseValidator's kpt_shape {kpt_shape} is not "
+                             f"the model's {tuple(model.kpt_shape)}")
         nk = kpt_shape[0]
         ds = PoseDataset(data[a.split], imgsz=a.imgsz, nc=data["nc"],
                          kpt_shape=kpt_shape, cache=a.cache)
@@ -375,7 +385,13 @@ class PosePredictor(DetectionPredictor):
 
     task = "pose"
 
-    def __init__(self, args=None, model=None, names=None, save_dir=None):
+    def __init__(self, args=None, model=None, names=None, save_dir=None,
+                 members=None):
+        """As DetectionPredictor's; `members` (JAX's parameter) must be
+        empty: a pose predict runs the model alone, as JAX's runs its
+        first member alone."""
+        if members:
+            raise ValueError("PosePredictor takes no ensemble members")
         args = args if args is not None else get_cfg()
         if args.augment:
             LOGGER.warning("pose has not supported augment inference yet - "
@@ -409,11 +425,11 @@ class PosePredictor(DetectionPredictor):
         return {"dets": dets, "counts": counts,
                 "kpts": gather_keypoints(kpts, aidx)}
 
-    def extra_fields(self, host, i, k, orig_shape, imgsz):
+    def extra_fields(self, out, i, k, orig_shape, imgsz):
         """Image i's keypoints in its original pixels (JAX :351-360): the
         letterbox inverted as `scale_boxes` inverts it, x and y clipped to
         the image."""
-        kpts = np.asarray(host["kpts"][i][:k]).copy()
+        kpts = np.asarray(out["kpts"][i][:k]).copy()
         h0, w0 = orig_shape
         r = min(imgsz / h0, imgsz / w0)
         dw, dh = (imgsz - w0 * r) / 2, (imgsz - h0 * r) / 2

@@ -421,7 +421,7 @@ class DetectionPredictor:
                                 for k, v in out["features"].items()}
         return host
 
-    def extra_fields(self, host, i, k, orig_shape, imgsz):
+    def extra_fields(self, out, i, k, orig_shape, imgsz):
         """A task's further Results fields of image i with k detections
         (JAX predictor.py:259-261): none for detect."""
         return {}

@@ -72,6 +72,13 @@ class Boxes(NumpyTensorAPI):
         return len(self.data)
 
     @property
+    def boxes(self):
+        """Deprecated alias of .data (JAX engine/results.py:94-99)."""
+        from ..utils import LOGGER
+        LOGGER.warning("'Boxes.boxes' is deprecated — use 'Boxes.data'")
+        return self.data
+
+    @property
     def xyxy(self):
         return self.data[:, :4]
 
@@ -211,8 +218,8 @@ class Results:
     _keys = ("boxes", "masks", "probs", "keypoints")
 
     def __init__(self, orig_img, path, names, boxes=None, speed=None,
-                 enhanced_img=None, features=None, probs=None, masks=None,
-                 keypoints=None):
+                 enhanced_img=None, masks=None, keypoints=None, probs=None,
+                 features=None):
         self.orig_img = orig_img            # RGB uint8
         self.orig_shape = orig_img.shape[:2]
         self.path = path

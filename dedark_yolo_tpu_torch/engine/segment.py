@@ -77,7 +77,7 @@ class SegmentationTrainer(BaseTrainer):
     metric_keys = ("metrics/mAP50(B)", "metrics/mAP50-95(B)",
                    "metrics/mAP50(M)", "metrics/mAP50-95(M)")
     batch_keys = ("img", "cls", "bboxes", "mask_gt", "masks")
-    check_data = staticmethod(check_det_dataset)
+    default_model = "yolov8-seg.yaml"
 
     def preflight(self):
         self.args.imgsz = check_imgsz(self.args.imgsz, stride=32)
@@ -121,7 +121,7 @@ class SegmentationTrainer(BaseTrainer):
             overlap=bool(a.overlap_mask), group=self.group)
 
     def get_validator(self, save_dir=None, data=None):
-        args = get_cfg({**vars(self.args), "conf": 0.001,
+        args = get_cfg(overrides={**vars(self.args), "conf": 0.001,
                         "device": str(self.device)})
         return SegmentationValidator(args=args, save_dir=save_dir, data=data)
 
@@ -420,7 +420,13 @@ class SegmentationPredictor(DetectionPredictor):
 
     task = "segment"
 
-    def __init__(self, args=None, model=None, names=None, save_dir=None):
+    def __init__(self, args=None, model=None, names=None, save_dir=None,
+                 members=None):
+        """As DetectionPredictor's; `members` (JAX's parameter) must be
+        empty: a segment predict runs the model alone, as JAX's runs its
+        first member alone."""
+        if members:
+            raise ValueError("SegmentationPredictor takes no ensemble members")
         args = args if args is not None else get_cfg()
         if args.augment:
             LOGGER.warning("segment has not supported augment inference yet "
@@ -466,12 +472,12 @@ class SegmentationPredictor(DetectionPredictor):
         host["masks"] = out["masks"][:n, :kmax].cpu().numpy()
         return host
 
-    def extra_fields(self, host, i, k, orig_shape, imgsz):
+    def extra_fields(self, out, i, k, orig_shape, imgsz):
         """Image i's masks at its original size (JAX :408-428): the
         letterbox padding cut off the proto-space masks, then the nearest
         upsample of the binary mask, or with retina_masks the bilinear
         upsample of the probabilities > 0.5."""
-        masks = host["masks"][i][:k]
+        masks = out["masks"][i][:k]
         h0, w0 = orig_shape
         r = min(imgsz / h0, imgsz / w0)
         dw, dh = (imgsz - w0 * r) / 2, (imgsz - h0 * r) / 2

@@ -189,7 +189,7 @@ class InferenceServer:
         pred_cls = TASK_CLASSES[model.task][2]
         kw = {"members": members} if pred_cls is DetectionPredictor else {}
         if self._mesh is None:
-            self._pred = pred_cls(args=get_cfg(over), model=model,
+            self._pred = pred_cls(args=get_cfg(overrides=over), model=model,
                                   names=self.names, save_dir=".", **kw)
         else:
             self._preds = self._mesh_predictors(pred_cls, model, over, kw)
@@ -210,7 +210,7 @@ class InferenceServer:
         group = self.max_batch // len(devices)
         preds, states = [], {}
         for dev in devices:
-            p = pred_cls(args=get_cfg({**over, "batch": group,
+            p = pred_cls(args=get_cfg(overrides={**over, "batch": group,
                                        "device": str(dev)}),
                          model=reps[dev].eval(), names=self.names,
                          save_dir=".", **kw)

@@ -114,9 +114,10 @@ bucket times 1 / sp. Rank 0 validates on its own device. `remat` runs on
 every mesh: the recompute of a slab's layers runs their halo exchanges
 again, in the same order on every rank.
 
-    trainer = DetectionTrainer(model, {"batch": 16}, nb=100)  # model: nn.graph.DetectionModel
+    # model: nn.graph.DetectionModel, or None to build the `model` key's
+    trainer = DetectionTrainer({"batch": 16}, model=model, nb=100)
     total, items = trainer.step(batch, step_index)
-    metrics = DetectionTrainer(model, {"data": data, "epochs": 3}).train()
+    metrics = DetectionTrainer({"data": data, "epochs": 3}).train()
 
 The detect `batch` is the loader's dict: 'img' (B, S, S, 3) uint8, 'cls'
 (B, M), 'bboxes' (B, M, 4) normalised xywh, 'mask_gt' (B, M); numpy or
@@ -138,7 +139,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..cfg import AUGMENT_KEYS, get_cfg, yaml_save
+from ..cfg import AUGMENT_KEYS, get_cfg, model_yaml_load, yaml_save
 from ..data.augment import TrainTransforms
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..data.loader import DataLoader
@@ -188,26 +189,38 @@ class BaseTrainer:
     (see the module docstring)."""
 
     task = "detect"
+    default_model = "yolov8l.yaml"
     loss_names: tuple = ()
     metric_keys: tuple = ()
     batch_keys: tuple = ()
 
-    def __init__(self, model, overrides=None, nb=1, device=None):
-        """model: the port's DetectionModel of this task; overrides:
-        config keys (cfg.DEFAULT_CFG); nb: batches an epoch, which sets the
-        schedule (`train` sets it from its loader); device None means the
-        `device` key, and None there cuda, which raises without a CUDA
-        device."""
-        self.args = get_cfg(overrides)
+    def __init__(self, overrides=None, _callbacks=None, model=None, nb=1,
+                 device=None):
+        """overrides: config keys (cfg.DEFAULT_CFG); _callbacks: event ->
+        callables, else the defaults (JAX trainer.py:82-87); model: the
+        port's DetectionModel of this task, or None to build `get_model()`
+        from the `model` key at the nc of `data`, as JAX's trainer does;
+        nb: batches an epoch, which sets the schedule (`train` sets it from
+        its loader); device None means the `device` key, and None there
+        cuda, which raises without a CUDA device."""
+        self.args = get_cfg(overrides=overrides)
         self.device = resolve_device(device if device is not None
                                      else self.args.device)
+        self.data = None
+        self.init_state = None     # a state_dict to warm-start from
+        if model is None:
+            if not self.args.data:
+                raise ValueError("training needs `data` (a dataset yaml or "
+                                 "dict)")
+            self.data = self.check_data(self.args.data)
+            model = self.get_model()
         self.model = model.to(self.device)
         self.model.remat_upto = int(self.args.remat)
         self.mesh = None           # a parallel.Mesh; set by train or the caller
         self.val_mesh = None       # rank 0's val mesh (its own devices)
         self.build_optimizer(nb)
         self.init_train_state()
-        self.callbacks = get_default_callbacks()
+        self.callbacks = _callbacks or get_default_callbacks()
         add_integration_callbacks(self)
         self.save_dir = self._get_save_dir()
         self.wdir = self.save_dir / "weights"
@@ -215,8 +228,6 @@ class BaseTrainer:
         self.best_fitness = 0.0
         self.epoch = 0
         self.metrics = {}
-        self.data = None
-        self.init_state = None     # a state_dict to warm-start from
         self.transferred = None    # (n, total) after a warm start
         self.epoch_stats = []      # per epoch: seconds of train, val, ckpt
         self.train_dl = self.profile_trace = self.autobatch_info = None
@@ -307,26 +318,43 @@ class BaseTrainer:
         return float(self.momentum)
 
     # ------------------------------------------------------------ task hooks
-    @staticmethod
-    def check_data(data):
-        """The dataset dict of `data` (JAX trainer.py:163-164)."""
-        raise NotImplementedError
+    def check_data(self, path):
+        """The dataset dict of `path` (JAX trainer.py:163-164)."""
+        return check_det_dataset(path)
 
     def preflight(self):
         """Arg fixups before the run (JAX trainer.py:166-169)."""
 
-    @classmethod
-    def get_model(cls, cfg, nc, seed=0):
-        """The architecture dict `cfg` at `nc` classes, built on the CPU
-        with `seed`ed weights (JAX trainer.py:198-207)."""
+    def model_cfg_dict(self):
+        """The architecture of the `model` key, else `default_model`: a
+        built-in name or yaml file, or an .npz checkpoint's saved yaml,
+        whose weights then warm-start the run as `pretrained` unless
+        `init_state` or a `pretrained` path is set, or the run resumes
+        (JAX trainer.py:182-196)."""
+        a = self.args
+        spec = str(a.model or self.default_model)
+        if spec.endswith(".npz"):
+            meta, _ = load_checkpoint(spec)
+            if self.init_state is None and not a.resume and \
+                    not isinstance(a.pretrained, (str, Path)):
+                a.pretrained = spec
+            return meta["model_yaml"]
+        return model_yaml_load(spec)
+
+    def get_model(self):
+        """This task's model of `model_cfg_dict()` at the nc of `data`,
+        with layer 0's `contrast_mode`, built on the CPU with `seed`ed
+        weights (JAX trainer.py:198-207)."""
         from ..nn.graph import DetectionModel
         with torch.device("meta"):
-            net = DetectionModel(cfg, nc=nc)
-        if net.task != cls.task:
-            raise ValueError(f"{cls.__name__} trains {cls.task} models; this "
-                             f"architecture is a {net.task} model")
+            net = DetectionModel(self.model_cfg_dict(), nc=self.data["nc"],
+                                 contrast_mode=self.args.contrast_mode)
+        if net.task != self.task:
+            raise ValueError(f"{type(self).__name__} trains {self.task} "
+                             f"models; this architecture is a {net.task} "
+                             "model")
         net = net.to_empty(device="cpu")
-        init_weights(net, seed)
+        init_weights(net, self.args.seed)
         return net
 
     def build_train_dataset(self):
@@ -916,7 +944,6 @@ class DetectionTrainer(BaseTrainer):
     metric_keys = ("metrics/precision(B)", "metrics/recall(B)",
                    "metrics/mAP50(B)", "metrics/mAP50-95(B)")
     batch_keys = ("img", "cls", "bboxes", "mask_gt")
-    check_data = staticmethod(check_det_dataset)
 
     def preflight(self):
         a = self.args
@@ -932,7 +959,7 @@ class DetectionTrainer(BaseTrainer):
     def get_validator(self, save_dir=None, data=None):
         """The validator an epoch's val runs (JAX trainer.py:1032-1036): this
         trainer's config with conf 0.001, on the trainer's device."""
-        args = get_cfg({**vars(self.args), "conf": 0.001,
+        args = get_cfg(overrides={**vars(self.args), "conf": 0.001,
                         "device": str(self.device)})
         return DetectionValidator(args=args, save_dir=save_dir, data=data)
 

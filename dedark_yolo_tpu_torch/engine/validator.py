@@ -206,7 +206,8 @@ class DetectionValidator:
         """One loader over the dataset in order, or with `rect` one per
         aspect bucket, in sorted bucket order."""
         a = self.args
-        kw = dict(max_boxes=a.max_boxes, workers=a.workers, drop_last=False)
+        kw = dict(max_boxes=a.max_boxes, shuffle=False, workers=a.workers,
+                  drop_last=False)
         if not a.rect:
             return [DataLoader(ds, ValTransforms(imgsz=a.imgsz), a.batch, **kw)]
         buckets = {}

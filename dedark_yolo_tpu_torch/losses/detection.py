@@ -108,7 +108,7 @@ def detection_loss(raw_maps: Sequence[torch.Tensor], batch: dict, nc: int,
 
     tb = assign.target_bboxes / stride_t[None]             # grid units
     weight = target_scores.sum(-1) * assign.fg_mask.to(x.dtype)   # (B,N)
-    iou = bbox_iou(pred_bboxes, tb, CIoU=True).squeeze(-1)
+    iou = bbox_iou(pred_bboxes, tb, xywh=False, CIoU=True).squeeze(-1)
     loss_box = ((1.0 - iou) * weight).sum() / target_scores_sum
 
     target_ltrb = bbox2dist(anchor_points[None], tb, reg_max - 1)

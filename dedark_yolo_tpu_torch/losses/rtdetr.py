@@ -60,7 +60,8 @@ def _layer_loss(pred_boxes, pred_logits, gt_boxes, gt_cls, gt_mask, nc,
     p_at_cls = torch.gather(p, 2, gt_cls[:, None, :].expand(b, nq, m))
     l1 = (pred_boxes[:, :, None, :] - gt_boxes[:, None, :, :]).abs().sum(-1)
     giou = bbox_iou(xywh2xyxy(pred_boxes)[:, :, None, :],
-                    xywh2xyxy(gt_boxes)[:, None, :, :], GIoU=True).squeeze(-1)
+                    xywh2xyxy(gt_boxes)[:, None, :, :], xywh=False,
+                    GIoU=True).squeeze(-1)
     cost = (-p_at_cls + 5.0 * l1 + 2.0 * (1.0 - giou)).detach()
     assign_q, matched = greedy_assign(cost, gt_mask)
     gt_mask = gt_mask * matched
@@ -69,12 +70,12 @@ def _layer_loss(pred_boxes, pred_logits, gt_boxes, gt_cls, gt_mask, nc,
     pb = torch.gather(pred_boxes, 1, assign_q[..., None].expand(b, m, 4))
     loss_l1 = ((pb - gt_boxes).abs().sum(-1) * gt_mask).sum() / num_gt
     pxy, gxy = xywh2xyxy(pb), xywh2xyxy(gt_boxes)
-    giou_m = bbox_iou(pxy, gxy, GIoU=True).squeeze(-1)
+    giou_m = bbox_iou(pxy, gxy, xywh=False, GIoU=True).squeeze(-1)
     loss_giou = ((1.0 - giou_m) * gt_mask).sum() / num_gt
 
     # varifocal: the matched pair's IoU at the gt's class, max over gts
     # that share a query (JAX's .at[].max), 0 elsewhere
-    iou_m = bbox_iou(pxy, gxy).squeeze(-1).detach() * gt_mask
+    iou_m = bbox_iou(pxy, gxy, xywh=False).squeeze(-1).detach() * gt_mask
     tgt = p.new_zeros(b, nq * nc).scatter_reduce(
         1, assign_q * nc + gt_cls, iou_m.clamp(min=0.0), "amax",
         include_self=True).reshape(b, nq, nc)

@@ -174,7 +174,7 @@ def _detect_terms(assign, pred_scores, pred_distri, pred_bboxes,
     fg = assign.fg_mask.to(pred_scores.dtype)
     tb = assign.target_bboxes / stride_t[None]
     weight = assign.target_scores.sum(-1) * fg
-    iou = bbox_iou(pred_bboxes, tb, CIoU=True).squeeze(-1)
+    iou = bbox_iou(pred_bboxes, tb, xywh=False, CIoU=True).squeeze(-1)
     loss_box = ((1.0 - iou) * weight).sum() / tss
     target_ltrb = bbox2dist(anchor_points[None], tb, reg_max - 1)
     loss_dfl = (_df_loss(pred_distri.reshape(b, -1, 4, reg_max), target_ltrb,
@@ -249,3 +249,13 @@ def pose_loss(raw_maps, kpt_maps, batch, nc, strides, hyp, kpt_shape=(17, 3),
     return total, PoseLossItems(loss_box.detach(), loss_kpt.detach(),
                                 loss_kobj.detach(), loss_cls.detach(),
                                 loss_dfl.detach())
+
+
+def classification_loss(logits, labels, nbs=64):
+    """(loss, loss detached): the cross-entropy of (B, nc) logits against
+    int labels, summed over the batch and divided by `nbs` (JAX
+    losses/segment.py:217-222, reference loss.py:380-385)."""
+    onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1])
+    ce = -(torch.log_softmax(logits, -1) * onehot.to(logits.dtype)).sum(-1)
+    loss = ce.sum() / nbs
+    return loss, loss.detach()

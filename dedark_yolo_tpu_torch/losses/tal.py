@@ -71,7 +71,7 @@ def align_metrics(pd_scores, pd_bboxes, anc_points, labels, gt_bboxes,
     pre_mask = mask_in_gts * mask_gt_f[..., None]
     bbox_scores = bbox_scores * pre_mask
     overlaps = bbox_iou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :],
-                        CIoU=True).squeeze(-1)
+                        xywh=False, CIoU=True).squeeze(-1)
     overlaps = overlaps.clamp(min=0.0) * pre_mask
     if alpha == 0.5 and beta == 6.0:
         o2 = overlaps * overlaps

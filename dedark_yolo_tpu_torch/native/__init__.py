@@ -94,6 +94,19 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def available() -> bool:
+    """True when the letterbox library builds and loads (JAX native
+    `available`): the library predict needs. It builds at the first call,
+    as `load` does; a failed build answers False here and raises in
+    `load`. The decode library is not asked for (`decode_*` raise where
+    libjpeg is missing)."""
+    try:
+        load("letterbox")
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def letterbox_batch(images, size, fill=114, swap_rb=True, n_threads=0):
     """Letterbox a list of HWC uint8 (BGR) images into one (N, size, size,
     3) uint8 batch (RGB when swap_rb) in the native thread pool."""

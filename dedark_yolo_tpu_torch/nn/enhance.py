@@ -45,8 +45,8 @@ DEFAULT_A = 0.8
 DEFAULT_ICA = 0.5
 
 
-def tanh_range(x, lo, hi):
-    return torch.tanh(x) * (hi - lo) / 2.0 + (hi + lo) / 2.0
+def tanh_range(x, l, r):  # noqa: E741 (JAX's names)
+    return torch.tanh(x) * (r - l) / 2.0 + (r + l) / 2.0
 
 
 def rgb2lum(img):
@@ -101,18 +101,19 @@ def apply_point_filters(img, params, dedark_A, IcA, contrast_mode="channel"):
     return (1.0 - p) * x + p * (x / (lum + 1e-6) * clum)
 
 
-def gaussian_kernel_25(sigma=5.0):
-    """1-D 25-tap Gaussian, normalised in float64 (reference filtersB.py:155-161)."""
+def gaussian_kernel_25(sigma=5.0, dtype=np.float32):
+    """1-D 25-tap Gaussian, normalised in float64, then cast to `dtype`
+    (reference filtersB.py:155-161)."""
     x = np.arange(-12, 13, dtype=np.float64)
     k = np.exp(-0.5 * np.square(x / sigma))
-    return k / k.sum()
+    return (k / k.sum()).astype(dtype)
 
 
 @lru_cache(maxsize=16)
 def _usm_blur_matrix(n: int):
     """(n, n) matrix of the 25-tap blur along one axis with 'reflect'
     boundary folded in: B[o, reflect(o + k - 12)] += g[k]."""
-    g = gaussian_kernel_25()
+    g = gaussian_kernel_25(dtype=np.float64)
     B = np.zeros((n, n), np.float64)
     for o in range(n):
         for k in range(25):
@@ -143,6 +144,11 @@ def usm_filter(img, usm_param):
     blur = torch.einsum("oh,bhwc->bowc", Bv, img)
     blur = torch.einsum("ow,bhwc->bhoc", Bh, blur)
     return (img - blur) * usm_param[:, None, None, :] + img
+
+
+# JAX's name for the conv form of the same blur and sharpen (JAX
+# enhance.py:193-214); the port computes it in one form
+usm_filter_conv = usm_filter
 
 
 def apply_filter_chain(img, features, dedark_A, IcA, contrast_mode="channel"):

@@ -88,8 +88,9 @@ TASKS = {"Classify": "classify", "Segment": "segment", "Pose": "pose"}
 _STRIDE2 = {"Focus", "HGStem"}
 
 
-def parse_model(d: dict, ch: int = 3):
-    """Parse a model dict into (specs, savelist, head_info)."""
+def parse_model(d: dict, ch: int = 3, verbose: bool = False):
+    """Parse a model dict into (specs, savelist, head_info); `verbose`
+    prints a row a layer, as JAX's does (nn/graph.py:273-274)."""
     nc = d.get("nc", 80)
     scales = d.get("scales")
     depth, width, max_channels = d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0), float("inf")
@@ -197,6 +198,9 @@ def parse_model(d: dict, ch: int = 3):
 
         specs.append(LayerSpec(i=i, f=f_tuple, n=n_eff, name=m,
                                args=tuple(args), c2=c2, stride=stride))
+        if verbose:
+            print(f"{i:>3} {str(f_tuple):>18} {n_eff:>3} {m:<20} {args} "
+                  f"-> c2={c2} s={stride}")
         save.extend(x % i for x in f_tuple if x != -1)
         if i == 0:
             ch_list = []
@@ -386,18 +390,32 @@ class DetectionModel(nn.Module):
     (lowlight_recovery, JAX's _REMAT_ENHANCE) whole, a chained n > 1 row
     module by module as JAX's loop does; never a head, an Upsample or a
     Concat (JAX graph.py:520-541). Eval is untouched.
+
+    The parameters are JAX's (graph.py:561-564), then `imgsz`.
+    `contrast_mode` is layer 0's, `repconv_deploy` builds every RepConv in
+    its fused deploy form. `enhance_impl` ('xla' or 'pallas') picks no
+    path here: layer 0 runs its CUDA kernel on a card and the plain chain
+    on the CPU. `stem_s2d` and `fpn_fuse` are TPU layouts that leave the
+    function and the checkpoint as they are, so the graph ignores them.
     """
 
     remat_upto = -1
 
     def __init__(self, cfg_dict: dict, nc: Optional[int] = None,
-                 imgsz: int = 640):
+                 verbose: bool = False, enhance_impl: str = "xla",
+                 contrast_mode: str = "channel", repconv_deploy: bool = False,
+                 remat_upto: int = -1, stem_s2d: bool = False,
+                 fpn_fuse: Optional[bool] = None, imgsz: int = 640):
         super().__init__()
+        if enhance_impl not in ("xla", "pallas"):
+            raise ValueError(f"enhance_impl must be 'xla' or 'pallas', not "
+                             f"{enhance_impl!r}")
         self.yaml = copy.deepcopy(cfg_dict)
         if nc and nc != self.yaml.get("nc"):
             self.yaml["nc"] = nc
         self.nc = self.yaml["nc"]
-        self.specs, self.save, self.head = parse_model(self.yaml, ch=3)
+        self.specs, self.save, self.head = parse_model(self.yaml, ch=3,
+                                                       verbose=verbose)
         self.task = TASKS.get(self.head["name"], "detect")
         self.strides = self.head["strides"]
         self.reg_max = 16
@@ -406,6 +424,12 @@ class DetectionModel(nn.Module):
             _build_module(s, cins, self.head)
             for s, cins in zip(self.specs, layer_inputs(self.specs)))
         self._size_position_tables(imgsz)
+        for m in self.modules():
+            if isinstance(m, LowlightRecovery):
+                m.contrast_mode = contrast_mode
+        if repconv_deploy:
+            L.fuse_repconv(self)
+        self.remat_upto = int(remat_upto)
 
     def _size_position_tables(self, imgsz):
         """Each C3TR's position table sized by the map it gets from an

@@ -186,6 +186,11 @@ def autopad(k, p=None, d: int = 1):
 ACTS = {"silu": silu, "relu": F.relu, "identity": lambda x: x}
 
 
+def get_act(name):
+    """The activation of JAX's name (JAX layers.py:35-42)."""
+    return {**ACTS, "relu6": F.relu6, "leaky": leaky_relu}[name]
+
+
 def act_name(act) -> str:
     if act is True:
         return "silu"
@@ -422,6 +427,14 @@ class PconvBottleneck(nn.Module):
         return x + y if self.add else y
 
 
+class PconvBottleneckN(PconvBottleneck):
+    """PConv -> 1x1 Conv to twice c2 * e -> bare 1x1 (JAX layers.py:703-716)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True,
+                 e: float = 0.5):
+        super().__init__(c1, c2, shortcut, e, "pconv_n")
+
+
 def _group_norm(x, groups: int, eps: float):
     """Normalise each of `groups` channel groups of an NCHW map over its
     (C/G, H, W) values, by the unbiased std plus eps, as the JAX package's
@@ -541,6 +554,42 @@ class SCBottleneck(nn.Module):
         if hasattr(self, "cv2"):
             y = self.cv2(y)
         return x + y if self.add else y
+
+
+class SCConvBottleneck(SCBottleneck):
+    """SCConv -> 1x1 Conv (JAX layers.py:719-728)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True):
+        super().__init__(c1, c2, shortcut, "scconv")
+
+
+class SCPWBottleneck(SCBottleneck):
+    """SCConv -> bare biased 1x1 (JAX layers.py:731-741)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True):
+        super().__init__(c1, c2, shortcut, "sc_pw")
+
+
+class SCConv3Bottleneck(SCBottleneck):
+    """SCConv -> 3x3 Conv (JAX layers.py:744-754)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True):
+        super().__init__(c1, c2, shortcut, "sc_conv3")
+
+
+class Conv3SCBottleneck(SCBottleneck):
+    """3x3 Conv -> SCConv (JAX layers.py:757-767)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True):
+        super().__init__(c1, c2, shortcut, "conv3_sc")
+
+
+class SCPWPWBottleneck(SCBottleneck):
+    """SCConv -> 1x1 Conv to twice the width -> bare 1x1 without bias (JAX
+    layers.py:770-782)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True):
+        super().__init__(c1, c2, shortcut, "sc_pw_pw")
 
 
 def bottleneck(kind: str, c: int, shortcut: bool) -> nn.Module:

@@ -48,14 +48,15 @@ def make_anchors(feat_shapes, strides, grid_cell_offset=0.5, device="cpu"):
                        grid_cell_offset, torch.device(device))
 
 
-def dist2bbox(distance, anchor_points, xywh=True, dim=-1):
-    """ltrb distances -> boxes around anchor points. Reference tal.py:262-271."""
-    lt, rb = distance.chunk(2, dim)
+def dist2bbox(distance, anchor_points, xywh=True, axis=-1):
+    """ltrb distances -> boxes around anchor points, the sides along `axis`.
+    Reference tal.py:262-271."""
+    lt, rb = distance.chunk(2, axis)
     x1y1 = anchor_points - lt
     x2y2 = anchor_points + rb
     if xywh:
-        return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim)
-    return torch.cat([x1y1, x2y2], dim)
+        return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], axis)
+    return torch.cat([x1y1, x2y2], axis)
 
 
 def dfl_decode(pred_dist, reg_max=16):

@@ -190,15 +190,21 @@ def nms_candidates(boxes_xywh, class_scores, conf_thres=0.25, max_nms=2048,
 def non_max_suppression(boxes_xywh, class_scores, conf_thres=0.25,
                         iou_thres=0.45, max_det=300, max_nms=2048,
                         multi_label=True, agnostic=False, max_wh=7680.0,
-                        return_idx=False):
+                        class_mask=None, return_idx=False):
     """Batched fixed-shape NMS.
 
     boxes_xywh (B, N, 4) pixels (cx, cy, w, h); class_scores (B, N, nc)
-    sigmoid probabilities.
+    sigmoid probabilities; class_mask an optional (nc,) 0/1 mask that
+    multiplies the scores first (JAX ops/nms.py:94-95, reference
+    ops.py:244-245).
     Returns dets (B, max_det, 6) with conf 0 and cls -1 in invalid rows,
     counts (B,), and with return_idx the kept anchor indices (B, max_det),
     -1 where invalid.
     """
+    if class_mask is not None:
+        class_scores = class_scores * torch.as_tensor(
+            class_mask, dtype=class_scores.dtype,
+            device=class_scores.device)[None, None, :]
     xyxy, cls_idx, anchor_idx, shifted, cand_scores = nms_candidates(
         boxes_xywh, class_scores, conf_thres, max_nms, multi_label, agnostic,
         max_wh)

@@ -124,7 +124,7 @@ def _parity(name, imgsz, seed, device, plain_layer0, apart=()):
     got = {}
     with matmul_precision("float32"):
         for key, yolo, dev in (("gpu", gpu, device), ("cpu", cpu, "cpu")):
-            tr = DetectionTrainer(yolo.model, over, nb=nb, device=dev)
+            tr = DetectionTrainer(over, model=yolo.model, nb=nb, device=dev)
             names = list(tr.params)
             with (plain_layer0_forward() if plain_layer0 and key == "gpu"
                   else contextlib.nullcontext()), \

@@ -170,7 +170,7 @@ def run_step(a, mesh):
             for p in model.parameters():
                 p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
     over = json.loads(a.overrides)
-    tr = DetectionTrainer(model, over, nb=a.nb, device=mesh.device)
+    tr = DetectionTrainer(over, model=model, nb=a.nb, device=mesh.device)
     tr.mesh = mesh
     if a.bn_global:     # the group's forms even at one rank (split only)
         DetectionTrainer.group = property(
@@ -211,9 +211,9 @@ def one_window(model, batch, imgsz, step, nb, device):
     cpu = lambda sd: {k: v.detach().cpu().clone() for k, v in sd.items()}
     start = cpu(yolo.model.state_dict())
     n = batch["img"].shape[0]
-    tr = DetectionTrainer(yolo.model, {"batch": n, "nbs": n,
-                                       "optimizer": "SGD", "imgsz": imgsz},
-                          nb=nb, device=device)
+    tr = DetectionTrainer(
+        {"batch": n, "nbs": n, "optimizer": "SGD", "imgsz": imgsz},
+        model=yolo.model, nb=nb, device=device)
     with matmul_precision("float32"):
         _, items = tr.step(batch, step)
     return ({"items": items.cpu(), "state": cpu(tr.model.state_dict()),
@@ -346,7 +346,7 @@ def run_val(a, mesh):
     yolo = _model(a, mesh)
     data = (json.loads(Path(a.data).read_text()) if a.data.endswith(".json")
             else a.data)
-    args = get_cfg({"data": data, "imgsz": a.imgsz, "batch": a.batch,
+    args = get_cfg(overrides={"data": data, "imgsz": a.imgsz, "batch": a.batch,
                     "device": str(mesh.device), "plots": False,
                     "verbose": False, "workers": 2, "cache": a.cache or False,
                     **json.loads(a.overrides)})

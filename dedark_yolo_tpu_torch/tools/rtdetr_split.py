@@ -41,10 +41,9 @@ MODEL = "yolov8l-rtdetr.yaml"
 
 def _grads(yolo, batch, device):
     from ..engine.trainer import DetectionTrainer
-    tr = DetectionTrainer(yolo.model, {"batch": 2, "nbs": 2,
-                                       "optimizer": "SGD",
-                                       "imgsz": TRAIN_SMALL},
-                          nb=1000, device=device)
+    tr = DetectionTrainer(
+        {"batch": 2, "nbs": 2, "optimizer": "SGD", "imgsz": TRAIN_SMALL},
+        model=yolo.model, nb=1000, device=device)
     names = list(tr.params)
     tr.model.train()
     total, _ = tr.loss(tr.to_device(batch))
@@ -172,7 +171,7 @@ def threads(seed=0):
             with _patched(V.DetMetrics, "process", lambda p: lambda m, tp,
                           conf, *a: (confs.append(np.array(conf)),
                                      p(m, tp, conf, *a))[1]):
-                res = V.DetectionValidator(args=get_cfg(kw))(
+                res = V.DetectionValidator(args=get_cfg(overrides=kw))(
                     model=yolo.model)
             runs.append(({k: float(v) for k, v in res.items()}, confs[0]))
         torch.set_num_threads(n)

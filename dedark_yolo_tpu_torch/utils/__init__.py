@@ -1,5 +1,7 @@
-"""Logging and run directories (JAX utils/__init__.py)."""
+"""Logging and run directories, and the JAX package's `utils` names
+(JAX utils/__init__.py), each imported from its module at first use."""
 
+import importlib
 import logging
 import sys
 from pathlib import Path
@@ -44,3 +46,28 @@ def device_cache(maxsize):
         call.cache_clear, call.cache_info = cached.cache_clear, cached.cache_info
         return call
     return wrap
+
+
+# name -> the module of this package that defines it (JAX's __all__)
+_EXPORTS = {
+    "ap_per_class": "metrics", "compute_ap": "metrics",
+    "match_predictions": "metrics", "match_from_iou": "metrics",
+    "ConfusionMatrix": "metrics", "Metric": "metrics",
+    "DetMetrics": "metrics", "smooth": "metrics",
+    "ema_init": "ema", "ema_update": "ema", "ema_decay": "ema",
+    "save_checkpoint": "checkpoint", "load_checkpoint": "checkpoint",
+}
+__all__ = ["LOGGER", "increment_dir", "device_cache", *_EXPORTS]
+
+
+def __getattr__(name):
+    """Import a re-exported name at its first use (PEP 562): the modules
+    import this one for LOGGER."""
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -89,11 +89,11 @@ class TensorBoardWriter:
             self.writer = None
 
 
-def add_integration_callbacks(trainer):
+def add_integration_callbacks(instance):
     """Attach the JSONL metrics stream and the TensorBoard writer to the
-    trainer's callbacks."""
-    trainer.callbacks["on_fit_epoch_end"].append(jsonl_fit_epoch_end)
+    callbacks of `instance`, a trainer."""
+    instance.callbacks["on_fit_epoch_end"].append(jsonl_fit_epoch_end)
     tb = TensorBoardWriter()
     for event in ("on_train_start", "on_fit_epoch_end", "on_train_end"):
-        trainer.callbacks[event].append(getattr(tb, event))
-    return trainer.callbacks
+        instance.callbacks[event].append(getattr(tb, event))
+    return instance.callbacks

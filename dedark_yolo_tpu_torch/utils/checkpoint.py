@@ -94,19 +94,19 @@ def save_checkpoint(path, *, params=None, batch_stats=None, ema_params=None,
     return path
 
 
-def transfer_tree(src, dst):
-    """Entries of `src` copied into `dst` (flat dicts of tensors keyed
+def transfer_tree(src_tree, dst_tree):
+    """Entries of `src_tree` copied into `dst_tree` (flat dicts of tensors keyed
     alike, e.g. state_dicts) wherever the key exists in both and the shapes
     agree; returns (merged, n_transferred, n_total) (JAX
     utils/checkpoint.py:67-90, the reference's intersect_dicts): a new nc
     keeps every backbone and neck weight and re-initialises only the head
     entries whose shape changed."""
     out, n = {}, 0
-    for k, d in dst.items():
-        s = src.get(k)
+    for k, d in dst_tree.items():
+        s = src_tree.get(k)
         if s is not None and tuple(s.shape) == tuple(d.shape):
             out[k] = s.detach().to(device=d.device, dtype=d.dtype).clone()
             n += 1
         else:
             out[k] = d
-    return out, n, len(dst)
+    return out, n, len(dst_tree)

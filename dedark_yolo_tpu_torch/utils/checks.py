@@ -7,12 +7,19 @@ import math
 from . import LOGGER
 
 
-def check_imgsz(imgsz, stride=32):
-    """Round an int imgsz UP to a multiple of stride (reference
-    checks.py:45): the FPN's concats need imgsz % max_stride == 0. The
-    JAX package's [h, w] form has no caller in the port."""
-    out = math.ceil(imgsz / stride) * stride
-    if out != imgsz:
+def check_imgsz(imgsz, stride=32, min_dim=1, floor=0):
+    """Round imgsz (an int or [h, w]) UP to a multiple of stride, and to at
+    least `floor` (JAX utils/checks.py:19-32, reference checks.py:45): the
+    FPN's concats need imgsz % max_stride == 0. A list comes back a list
+    where `min_dim` is 2 or it holds more than one size, else an int."""
+    if isinstance(imgsz, (list, tuple)):
+        sz = [max(math.ceil(x / stride) * stride, floor) for x in imgsz]
+        changed = list(imgsz) != sz
+        out = sz if min_dim == 2 or len(sz) > 1 else sz[0]
+    else:
+        out = max(math.ceil(imgsz / stride) * stride, floor)
+        changed = out != imgsz
+    if changed:
         LOGGER.info(f"imgsz {imgsz} is not a multiple of stride {stride}; "
                     f"updated to {out}")
     return out

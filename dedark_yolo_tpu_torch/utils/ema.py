@@ -13,9 +13,9 @@ import math
 import torch
 
 
-def ema_init(state: dict) -> dict:
-    """A copy of `state` (a state_dict: parameters and buffers)."""
-    return {k: v.detach().clone() for k, v in state.items()}
+def ema_init(params: dict) -> dict:
+    """A copy of `params` (a state_dict: parameters and buffers)."""
+    return {k: v.detach().clone() for k, v in params.items()}
 
 
 def ema_decay(updates: int, base_decay=0.9999, tau=2000.0) -> float:
@@ -23,15 +23,17 @@ def ema_decay(updates: int, base_decay=0.9999, tau=2000.0) -> float:
 
 
 @torch.no_grad()
-def ema_update(ema: dict, state: dict, updates: int, base_decay=0.9999,
-               tau=2000.0) -> int:
-    """One EMA step in place: e = e * d + s * (1 - d) for every entry, with
-    the decay of the new update count. Returns that count."""
+def ema_update(ema_params: dict, params: dict, updates: int,
+               base_decay=0.9999, tau=2000.0) -> int:
+    """One EMA step in place on `ema_params`: e = e * d + p * (1 - d) for
+    every entry of the state_dict `params`, with the decay of the new
+    update count. Returns that count (JAX returns the new tree with it)."""
     updates += 1
     d = ema_decay(updates, base_decay, tau)
-    keys = list(ema)
-    e = [ema[k] for k in keys]
+    keys = list(ema_params)
+    e = [ema_params[k] for k in keys]
     torch._foreach_mul_(e, d)
-    torch._foreach_add_(e, [state[k].detach().to(ema[k].dtype) for k in keys],
-                        alpha=1.0 - d)
+    torch._foreach_add_(
+        e, [params[k].detach().to(ema_params[k].dtype) for k in keys],
+        alpha=1.0 - d)
     return updates

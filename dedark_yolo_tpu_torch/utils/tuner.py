@@ -79,11 +79,11 @@ def pick_parent(results, rng):
     return rng.choices(elites, weights=weights, k=1)[0]["cfg"]
 
 
-def run_tune(model, data, space=None, trials=10, epochs_per_trial=5, seed=0,
+def run_tune(model_yaml, data, space=None, trials=10, epochs_per_trial=5, seed=0,
              strategy="evolve", warmup_trials=3, results_file=None,
              **train_kwargs):
     """Tune hyperparameters; returns (best_cfg, results sorted by fitness).
-    `model` is what `YOLO(model)` takes; `train_kwargs` go to every
+    `model_yaml` is what `YOLO(model_yaml)` takes; `train_kwargs` go to every
     trial's `train`."""
     from ..engine.model import YOLO
 
@@ -101,7 +101,7 @@ def run_tune(model, data, space=None, trials=10, epochs_per_trial=5, seed=0,
         LOGGER.info(f"tune trial {t + 1}/{trials}: "
                     + ", ".join(f"{k}={v:.4g}" for k, v in cfg.items()))
         try:
-            metrics = YOLO(model, device=train_kwargs.get("device")).train(
+            metrics = YOLO(model_yaml, device=train_kwargs.get("device")).train(
                 data=data, epochs=epochs_per_trial, name=f"tune{t}",
                 exist_ok=True, **cfg, **train_kwargs)
             fitness = float(metrics.get("fitness", 0.0))

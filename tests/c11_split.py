@@ -95,8 +95,9 @@ def main(seeds, variants):
         return out
     jax_kernel.fused_enhance_diff = recorded
     side = _Jax()
-    sched = DetectionTrainer(DetectionModel(model_yaml_load(TINY), nc=3),
-                             {**OVERRIDES, "amp": True}, nb=NB, device="cpu")
+    sched = DetectionTrainer({**OVERRIDES, "amp": True},
+                             model=DetectionModel(model_yaml_load(TINY), nc=3),
+                             nb=NB, device="cpu")
     forward, plain = E.LowlightRecovery.forward, port_kernel.fused_enhance_reference
     for s in seeds:
         v = to_plain(randomize(side.template,

@@ -149,7 +149,8 @@ def _port_step(v, batch):
     tm = DetectionModel(model_yaml_load(TINY), nc=3)
     start = state_dict_from_jax(v, tm)
     tm.load_state_dict(start, strict=True)
-    tt = DetectionTrainer(tm, {**OVERRIDES, "amp": True}, nb=NB, device="cpu")
+    tt = DetectionTrainer({**OVERRIDES, "amp": True}, model=tm, nb=NB,
+                          device="cpu")
     tm.train()
     total, items = tt.loss(tt.to_device(batch))
     names = list(tt.params)

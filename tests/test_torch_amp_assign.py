@@ -93,8 +93,9 @@ def seeds():
     side = _Jax()
     # lr, momentum and the state_dict names for `_Jax.step`: the port
     # trainer's, the same at every seed
-    sched = DetectionTrainer(DetectionModel(model_yaml_load(TINY), nc=3),
-                             {**OVERRIDES, "amp": True}, nb=NB, device="cpu")
+    sched = DetectionTrainer({**OVERRIDES, "amp": True},
+                             model=DetectionModel(model_yaml_load(TINY), nc=3),
+                             nb=NB, device="cpu")
     out = []
     try:
         for s in SEEDS:

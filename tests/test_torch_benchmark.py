@@ -78,7 +78,7 @@ def test_fp32_step_is_the_predictors(tiny):
     dets, counts = benchmarks.bench_step(model, None, torch.from_numpy(u8),
                                          torch.float32)
     pred = DetectionPredictor(
-        args=get_cfg({"conf": benchmarks.NMS_CONF, "iou": benchmarks.NMS_IOU,
+        args=get_cfg(overrides={"conf": benchmarks.NMS_CONF, "iou": benchmarks.NMS_IOU,
                       "device": "cpu", "imgsz": IMGSZ}),
         model=model, save_dir=".")
     out = pred.step(u8)

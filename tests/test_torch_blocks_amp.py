@@ -301,7 +301,7 @@ def run_every_step():
         tm = DetectionModel(copy.deepcopy(EVERY), imgsz=64)
         start = state_dict_from_jax(v, tm)
         tm.load_state_dict(start, strict=True)
-        tt = DetectionTrainer(tm, {**OVERRIDES, "amp": True}, nb=NB,
+        tt = DetectionTrainer({**OVERRIDES, "amp": True}, model=tm, nb=NB,
                               device="cpu")
         names = list(tt.params)
         tm.train()

@@ -201,7 +201,7 @@ def test_train_window_matches_jax(smoothing):
 
     tm = DetectionModel(dict(CLS_TINY))
     tm.load_state_dict(state_dict_from_jax(v, tm), strict=True)
-    tt = TC.ClassificationTrainer(tm, overrides, nb=NB, device="cpu")
+    tt = TC.ClassificationTrainer(overrides, model=tm, nb=NB, device="cpu")
     assert (tt.opt_name, tt.accumulate) == (jt.opt_name, jt.accumulate)
     for i, batch in zip(STEPS, _batches()):
         jp, jbs, jopt, jema, jeu, jtotal, jitems = step(
@@ -244,7 +244,7 @@ def test_validator_matches_jax(pair, cls_data):
     jres = JC.ClassificationValidator(args=_jax_args(data=str(cls_data),
                                                      batch=4))(
         model=jm, params=v["params"], batch_stats=v["batch_stats"])
-    args = get_cfg({"data": str(cls_data), "imgsz": IMGSZ, "batch": 4,
+    args = get_cfg(overrides={"data": str(cls_data), "imgsz": IMGSZ, "batch": 4,
                     "device": "cpu"})
     tres = TC.ClassificationValidator(args=args)(model=tm)
     assert tres == jres
@@ -264,7 +264,7 @@ def test_predictor_probs_match_jax(pair):
                                     names={0: "a", 1: "b", 2: "c"})
     want = jp(list(frames))
     got = TC.ClassificationPredictor(
-        args=get_cfg({"imgsz": IMGSZ, "batch": 2, "device": "cpu"}),
+        args=get_cfg(overrides={"imgsz": IMGSZ, "batch": 2, "device": "cpu"}),
         model=tm, names={0: "a", 1: "b", 2: "c"})(list(frames))
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):

@@ -28,8 +28,7 @@ from dedark_yolo_tpu_torch import YOLO  # noqa: E402
 from dedark_yolo_tpu_torch import __main__ as cli  # noqa: E402
 from dedark_yolo_tpu_torch import cfg as cfg_module  # noqa: E402
 from dedark_yolo_tpu_torch.cfg import (  # noqa: E402
-    DEFAULT_CFG, UNPORTED_KEYS, check_cfg_alignment, get_cfg,
-    model_yaml_load)
+    DEFAULT_CFG, check_cfg_alignment, get_cfg, model_yaml_load)
 from dedark_yolo_tpu_torch.engine.trainer import DetectionTrainer  # noqa: E402
 from dedark_yolo_tpu_torch.nn.graph import DetectionModel  # noqa: E402
 
@@ -87,15 +86,25 @@ def test_alignment_refuses_typos_as_jax(typo):
         check_cfg_alignment(DEFAULT_CFG.keys(), {typo: 1})
     assert str(err.value) == str(jax_err.value)
     with pytest.raises(SyntaxError):
-        get_cfg({typo: 1})
+        get_cfg(overrides={typo: 1})
 
 
 def test_unported_keys_refused_as_not_ported():
-    assert UNPORTED_KEYS == JAX_KEYS - set(DEFAULT_CFG)
-    for k in sorted(UNPORTED_KEYS):
-        jax_alignment(JAX_KEYS, {k: 1})          # a JAX key
-        with pytest.raises(SyntaxError, match="not ported"):
-            check_cfg_alignment(DEFAULT_CFG.keys(), {k: 1})
+    """Every key of the JAX package's defaults is a key of the port's: none
+    is refused as not ported any more (the `UNPORTED_KEYS` set is gone).
+    What the port still refuses is a value, named with its reason: the
+    export formats of JAX's toolchain, by the exporter."""
+    assert set(DEFAULT_CFG) == JAX_KEYS
+    assert not hasattr(cfg_module, "UNPORTED_KEYS")
+    for k in sorted(JAX_KEYS):
+        jax_alignment(JAX_KEYS, {k: 1})
+        check_cfg_alignment(DEFAULT_CFG.keys(), {k: 1})
+    from dedark_yolo_tpu_torch.engine.exporter import Exporter
+    for fmt, why in (("stablehlo", "JAX package"), ("saved_model", "JAX package"),
+                     ("onnx", "ONNX")):
+        with pytest.raises((NotImplementedError, RuntimeError), match=why):
+            Exporter(get_cfg(overrides={"format": fmt, "device": "cpu"}))(
+                DetectionModel(model_yaml_load(TINY), nc=3))
 
 
 @pytest.mark.parametrize("key,item", [("mesh_shape", "A12i"),
@@ -107,16 +116,17 @@ def test_unported_key_names_its_item(key, item):
     A12j-b nothing of them stays unported: a trainer takes remat on a
     data x spatial mesh (its mesh and remat as set)."""
     check_cfg_alignment(DEFAULT_CFG.keys(), {key: 1})
-    assert key not in UNPORTED_KEYS and item in ("A12i", "A12j")
+    assert key in DEFAULT_CFG and item in ("A12i", "A12j")
     assert DEFAULT_CFG[key] == {"mesh_shape": None, "mesh_axes": ["data"],
                                 "remat": -1}[key]
     value = {"mesh_shape": [2], "mesh_axes": ["data"], "remat": 5}[key]
-    assert getattr(get_cfg({key: value}), key) == value
+    assert getattr(get_cfg(overrides={key: value}), key) == value
     assert cli._parse_value(str(value).replace("'", "").replace(" ", "")) \
         == value
     over = {"mesh_shape": [1, 2], "mesh_axes": ["data", "spatial"],
             "remat": 4, "batch": 2, "imgsz": 64}
-    tr = DetectionTrainer(DetectionModel(model_yaml_load(TINY), nc=3), over,
+    tr = DetectionTrainer(over,
+                          model=DetectionModel(model_yaml_load(TINY), nc=3),
                           device="cpu")
     tr._setup_mesh()
     assert (tr.model.remat_upto, tr.mesh.shape, tr.mesh.spatial,
@@ -217,9 +227,9 @@ def test_special_commands(tmp_path, capsys, monkeypatch):
     assert json.loads(capsys.readouterr().out) == DEFAULT_CFG
     assert cli.entrypoint(["copy-cfg"]) == 0
     copied = tmp_path / "default_copy.json"
-    assert vars(get_cfg({"cfg": str(copied)})) == DEFAULT_CFG
+    assert vars(get_cfg(overrides={"cfg": str(copied)})) == DEFAULT_CFG
     copied.write_text(json.dumps({**DEFAULT_CFG, "epochs": 7}))
-    assert get_cfg({"cfg": str(copied), "batch": 4}).epochs == 7
+    assert get_cfg(overrides={"cfg": str(copied), "batch": 4}).epochs == 7
     capsys.readouterr()
     assert cli.entrypoint(["settings"]) == 0
     out = capsys.readouterr().out

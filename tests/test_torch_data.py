@@ -123,11 +123,11 @@ def test_val_transforms_match_jax(data_yaml, imgsz):
 @pytest.mark.parametrize("indices", [None, [5, 0, 3, 1, 6], [6, 2]])
 def test_loader_batches_match_jax(data_yaml, indices):
     jd, td = datasets(data_yaml)
-    kw = dict(max_boxes=8, workers=3, drop_last=False, indices=indices)
-    jkw = dict(kw, shuffle=False)       # the JAX validator's call
-    j = list(JL.DataLoader(jd, JA.ValTransforms(96), 3, **jkw))
+    kw = dict(max_boxes=8, shuffle=False, workers=3, drop_last=False,
+              indices=indices)          # the validators' call
+    j = list(JL.DataLoader(jd, JA.ValTransforms(96), 3, **kw))
     t = TL.DataLoader(td, TA.ValTransforms(96), 3, **kw)
-    assert t._indices() == JL.DataLoader(jd, None, 3, **jkw)._indices()
+    assert t._indices() == JL.DataLoader(jd, None, 3, **kw)._indices()
     got = list(t)
     assert len(got) == len(j) == len(t)
     for a, b in zip(got, j):

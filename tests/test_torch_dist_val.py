@@ -72,7 +72,7 @@ def test_two_rank_val_equals_one_process_and_jax(tmp_path):
     sd = state_dict_from_jax(v, tm)
     tm.load_state_dict(sd, strict=True)
     one = validator.DetectionValidator(
-        args=get_cfg({**kw, "device": "cpu"}), save_dir=tmp_path / "one")(
+        args=get_cfg(overrides={**kw, "device": "cpu"}), save_dir=tmp_path / "one")(
         model=tm)
     np.savez(tmp_path / "state.npz", **{k: t.numpy() for k, t in sd.items()})
     _ok(launch(2, ["val", "--model", TINY, "--state", tmp_path / "state.npz",

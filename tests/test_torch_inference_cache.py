@@ -49,8 +49,9 @@ if first == "predict_val":
           max_det=20, max_nms=256, plots=False)
 net = DetectionModel(model_yaml_load(tiny), nc=3)
 init_weights(net, 0)
-tr = DetectionTrainer(net, {"batch": 2, "nbs": 4, "imgsz": imgsz,
-                            "prior_mode": "computed"}, nb=10, device="cpu")
+tr = DetectionTrainer(
+    {"batch": 2, "nbs": 4, "imgsz": imgsz, "prior_mode": "computed"},
+    model=net, nb=10, device="cpu")
 rng = np.random.default_rng(7)
 batch = {"img": rng.integers(0, 256, (2, imgsz, imgsz, 3), np.uint8),
          "cls": rng.integers(0, 3, (2, 4)).astype(np.float32),

@@ -107,7 +107,7 @@ def test_predictors_match_jax(flagship, tmp_path):
     jp = JaxPredictor(args=jargs, model=jm, params=variables["params"],
                       batch_stats=variables["batch_stats"], names=jm.names,
                       save_dir=str(tmp_path))
-    tp = DetectionPredictor(args=get_cfg(dict(over, device="cpu")), model=tm)
+    tp = DetectionPredictor(args=get_cfg(overrides=dict(over, device="cpu")), model=tm)
     want, got = jp(frames), tp(frames)
     assert len(got) == len(want) == 3
     assert sum(len(r) for r in got) > 0

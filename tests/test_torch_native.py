@@ -200,7 +200,7 @@ def test_predict_matches_jax_on_resized_frames(tiny, tmp_path, batch):
                       model=jm, params=v["params"],
                       batch_stats=v["batch_stats"], names=jm.names,
                       save_dir=str(tmp_path))
-    tp = DetectionPredictor(args=get_cfg(dict(over, device="cpu")), model=tm)
+    tp = DetectionPredictor(args=get_cfg(overrides=dict(over, device="cpu")), model=tm)
     want, got = jp(imgs), tp(imgs)
     assert len(got) == len(want) == len(imgs)
     assert all(len(r) > 0 for r in got)

@@ -84,9 +84,9 @@ def test_mesh_refusals(monkeypatch):
     m = make_mesh(shape=(1, 1), axes=("data", "spatial"), device="cpu")
     assert (m.group, m.world, m.shape, m.spatial, m.devices) == (
         None, 1, (1, 1), 1, (torch.device("cpu"),))
-    tr = DetectionTrainer(DetectionModel(model_yaml_load(TINY), nc=3),
-                          {"batch": 2, "mesh_axes": ["data", "spatial"],
-                           "mesh_shape": [1, 1]}, device="cpu")
+    tr = DetectionTrainer(
+        {"batch": 2, "mesh_axes": ["data", "spatial"], "mesh_shape": [1, 1]},
+        model=DetectionModel(model_yaml_load(TINY), nc=3), device="cpu")
     tr._setup_mesh()
     assert tr.mesh.shape == (1, 1) and tr.val_mesh is None
     with pytest.raises(ValueError, match="--nproc_per_node 2"):

@@ -87,16 +87,16 @@ def test_model_yaml_load_resolves_scale():
 
 
 def test_get_cfg_checks_keys_and_types():
-    a = get_cfg({"conf": 0.1, "half": True, "imgsz": 320})
+    a = get_cfg(overrides={"conf": 0.1, "half": True, "imgsz": 320})
     assert a.conf == 0.1 and a.half and a.iou == 0.7 and a.max_nms == 2048
     with pytest.raises(SyntaxError):
-        get_cfg({"confidence": 0.1})
+        get_cfg(overrides={"confidence": 0.1})
     with pytest.raises(TypeError):
-        get_cfg({"half": 1})
+        get_cfg(overrides={"half": 1})
     with pytest.raises(ValueError):
-        get_cfg({"imgsz": 100})
+        get_cfg(overrides={"imgsz": 100})
     with pytest.raises(ValueError):
-        get_cfg({"matmul_precision": "bfloat8"})
+        get_cfg(overrides={"matmul_precision": "bfloat8"})
 
 
 def test_matmul_precision_sets_and_restores_tf32():

@@ -129,7 +129,7 @@ def test_train_window_matches_jax(graph):
     jema = {"params": jax_ema_init(jp), "batch_stats": jax_ema_init(jbs)}
     jeu = jnp.int32(0)
 
-    tt = PoseTrainer(tm, overrides, nb=nb, device="cpu")
+    tt = PoseTrainer(overrides, model=tm, nb=nb, device="cpu")
     assert (tt.opt_name, tt.accumulate) == (jt.opt_name, jt.accumulate)
     for i, batch in zip(steps, _pose_batches()):
         jp, jbs, jopt, jema, jeu, jtotal, jitems = step(

@@ -68,7 +68,7 @@ def _jax_args(**kw):
 
 
 def _port_args(**kw):
-    return get_cfg({**VAL_KW, "device": "cpu", **kw})
+    return get_cfg(overrides={**VAL_KW, "device": "cpu", **kw})
 
 
 def _recorder(monkeypatch, mod):
@@ -104,11 +104,15 @@ def test_validator_matches_jax(pair, data, tmp_path, monkeypatch):
         data=data, kpt_shape=(3, 3))(model=jm, params=v["params"],
                                      batch_stats=v["batch_stats"])
     val = TPose.PoseValidator(args=_port_args(save_json=True),
-                              save_dir=tmp_path / "port", data=data)
+                              save_dir=tmp_path / "port", data=data,
+                              kpt_shape=(3, 3))
     got = val(model=tm)
     assert set(got) == set(want)
     for k in want:
         assert abs(float(got[k]) - float(want[k])) <= 1e-9, k
+    with pytest.raises(ValueError, match="kpt_shape"):   # JAX's (17, 3)
+        TPose.PoseValidator(args=_port_args(), save_dir=tmp_path / "bad",
+                            data=data)(model=tm)
     assert [c[0] for c in tcalls] == [c[0] for c in jcalls]
     assert [c[0] for c in jcalls].count("pose") > 0
     pending = None
@@ -179,7 +183,7 @@ def test_predictor_keypoints_match_jax(graph):
     want = JPose.PosePredictor(
         args=jax_get_cfg(DEFAULT_CFG_DICT, kw), model=jm, params=v["params"],
         batch_stats=v["batch_stats"], names={0: "p"})(list(frames))
-    got = TPose.PosePredictor(args=get_cfg({**kw, "device": "cpu"}),
+    got = TPose.PosePredictor(args=get_cfg(overrides={**kw, "device": "cpu"}),
                               model=tm, names={0: "p"})(list(frames))
     assert len(got) == len(want) == 3
     n = sum(assert_keypoints_paired(w, g, str(k))

@@ -89,7 +89,7 @@ def predict_both(tmp_path, tiny, frames, members=1, **over):
         names=NAMES, save_dir=str(tmp_path / "jax"),
         members=[(v["params"], v["batch_stats"]) for v in vs[:members]])
     tp = DetectionPredictor(
-        args=get_cfg({**kw, "device": "cpu"}), model=tms[0], names=NAMES,
+        args=get_cfg(overrides={**kw, "device": "cpu"}), model=tms[0], names=NAMES,
         save_dir=tmp_path / "torch",
         members=[tm.state_dict() for tm in tms[1:members]])
     return jp(frames), tp(frames)
@@ -166,7 +166,7 @@ def test_augment_skips_captures_with_jaxs_warning(tiny, frames, caplog):
     _, _, tms = tiny
     with caplog.at_level("WARNING", logger="dedark_yolo_tpu_torch"):
         got = DetectionPredictor(
-            args=get_cfg({**OVER, "device": "cpu", "augment": True,
+            args=get_cfg(overrides={**OVER, "device": "cpu", "augment": True,
                           "save_enhanced": True, "visualize": True}),
             model=tms[0], names=NAMES)(frames[:1])
     assert "augment=True skips save_enhanced/visualize" in caplog.text
@@ -181,7 +181,7 @@ def test_pil_and_tensor_sources(tiny, frames):
     from dedark_yolo_tpu.engine.predictor import load_source as jax_load
     from dedark_yolo_tpu_torch.engine.predictor import load_source
     _, _, tms = tiny
-    tp = DetectionPredictor(args=get_cfg({**OVER, "device": "cpu"}),
+    tp = DetectionPredictor(args=get_cfg(overrides={**OVER, "device": "cpu"}),
                             model=tms[0], names=NAMES)
     bgr = frames[0]
     rgb = np.ascontiguousarray(bgr[..., ::-1])
@@ -358,7 +358,7 @@ def test_saving_needs_its_packages_and_memory_does_not(tmp_path, tiny, frames,
     kw = {**OVER, "device": "cpu", "save_enhanced": True, "visualize": True}
 
     def run(save, out):
-        return DetectionPredictor(args=get_cfg({**kw, "save": save}),
+        return DetectionPredictor(args=get_cfg(overrides={**kw, "save": save}),
                                   model=tms[0], names=NAMES,
                                   save_dir=tmp_path / out)(frames[:2])
     run(True, "s")

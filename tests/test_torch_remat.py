@@ -131,8 +131,8 @@ def test_remat_amp_step_matches_plain(setup):
     out = []
     for upto in (-1, UPTO):
         tm = port_model(v, -1)
-        tr = DetectionTrainer(tm, {"amp": True, "remat": upto, "batch": 2},
-                              device="cpu")
+        tr = DetectionTrainer({"amp": True, "remat": upto, "batch": 2},
+                              model=tm, device="cpu")
         assert tm.remat_upto == upto
         tm.train()
         total, items = tr.loss(tr.to_device(batch))
@@ -160,6 +160,6 @@ def test_remat_eval_unaffected(setup):
 
 def test_remat_key_is_ported():
     check_cfg_alignment(DEFAULT_CFG.keys(), {"remat": 5})
-    assert get_cfg({"remat": 5}).remat == 5 and get_cfg().remat == -1
+    assert get_cfg(overrides={"remat": 5}).remat == 5 and get_cfg().remat == -1
     with pytest.raises(TypeError, match="remat"):
-        get_cfg({"remat": "5"})
+        get_cfg(overrides={"remat": "5"})

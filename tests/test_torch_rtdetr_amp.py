@@ -399,7 +399,8 @@ def run_step(name):
     tm = DetectionModel(model_yaml_load(GRAPHS[name]), imgsz=64)
     start = state_dict_from_jax(v, tm)
     tm.load_state_dict(start, strict=True)
-    tt = DetectionTrainer(tm, {**OVERRIDES, "amp": True}, nb=NB, device="cpu")
+    tt = DetectionTrainer({**OVERRIDES, "amp": True}, model=tm, nb=NB,
+                          device="cpu")
     names = list(tt.params)
     tm.train()
     total, _ = tt.loss(tt.to_device(batch))

@@ -154,7 +154,7 @@ def test_train_step_matches_jax(weights):
     batch = _batch(0)
     tm = port_model(v)
     start = {k: t.clone() for k, t in tm.state_dict().items()}
-    tt = DetectionTrainer(tm, OVERRIDES, nb=NB, device="cpu")
+    tt = DetectionTrainer(OVERRIDES, model=tm, nb=NB, device="cpu")
     names = list(tt.params)
     tm.train()
     total, _ = tt.loss(tt.to_device(batch))
@@ -234,7 +234,7 @@ def test_val_matches_jax(tmp_path, monkeypatch, dataset, weights, with_loss):
         model=jm, params=v["params"], batch_stats=v["batch_stats"],
         with_loss=with_loss)
     got = validator.DetectionValidator(
-        args=get_cfg({**kw, "device": "cpu"}), save_dir=tmp_path / "t")(
+        args=get_cfg(overrides={**kw, "device": "cpu"}), save_dir=tmp_path / "t")(
         model=port_model(v), with_loss=with_loss)
     assert_same_images(jrec, trec)
     assert sum(len(c) for _, c, _ in trec) == 6 * 16   # every query kept
@@ -258,12 +258,12 @@ def test_predict_matches_jax_and_tta_falls_back(weights, frames, tmp_path,
                       save_dir=str(tmp_path))
     tm = port_model(v)
     want = jp(frames)
-    got = DetectionPredictor(args=get_cfg(dict(over, device="cpu")),
+    got = DetectionPredictor(args=get_cfg(overrides=dict(over, device="cpu")),
                              model=tm)(frames)
     assert sum(len(r) for r in got) > 0
     assert_results_paired(want, got, BOX_TOL, SCORE_TOL)
     with caplog.at_level(logging.WARNING, logger="dedark_yolo_tpu_torch"):
-        tta = DetectionPredictor(args=get_cfg(dict(over, device="cpu",
+        tta = DetectionPredictor(args=get_cfg(overrides=dict(over, device="cpu",
                                                    augment=True)),
                                  model=tm)(frames)
     assert "single-scale inference" in caplog.text

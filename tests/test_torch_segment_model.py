@@ -274,7 +274,7 @@ def test_train_window_matches_jax(graph):
     jema = {"params": jax_ema_init(jp), "batch_stats": jax_ema_init(jbs)}
     jeu = jnp.int32(0)
 
-    tt = SegmentationTrainer(tm, overrides, nb=nb, device="cpu")
+    tt = SegmentationTrainer(overrides, model=tm, nb=nb, device="cpu")
     assert (tt.opt_name, tt.accumulate) == (jt.opt_name, jt.accumulate)
     for i, batch in zip(steps, _seg_batches()):
         jp, jbs, jopt, jema, jeu, jtotal, jitems = step(
@@ -307,11 +307,14 @@ def test_train_window_matches_jax(graph):
 
 
 def test_get_model_seeds_and_refuses_other_tasks():
-    net = SegmentationTrainer.get_model(model_yaml_load("yolov8n-seg.yaml"), 3)
+    """JAX's form: the trainer builds the `model` key's architecture at the
+    nc of `data` with seeded weights; another task's architecture raises."""
+    over = {"model": "yolov8n-seg.yaml", "data": {"nc": 3}, "device": "cpu"}
+    net = SegmentationTrainer(over).model
     assert net.task == "segment" and net.nc == 3
     ref = DetectionModel(model_yaml_load("yolov8n-seg.yaml"), nc=3)
     init_weights(ref, 0)
     for k, t in ref.state_dict().items():
         assert torch.equal(net.state_dict()[k], t), k
     with pytest.raises(ValueError, match="segment"):
-        SegmentationTrainer.get_model(model_yaml_load("yolov8n.yaml"), 3)
+        SegmentationTrainer({**over, "model": "yolov8n.yaml"})

@@ -74,7 +74,7 @@ def _jax_args(**kw):
 
 
 def _port_args(**kw):
-    return get_cfg({**VAL_KW, "device": "cpu", **kw})
+    return get_cfg(overrides={**VAL_KW, "device": "cpu", **kw})
 
 
 def _recorder(monkeypatch, mod):
@@ -186,7 +186,7 @@ def _check_predictor_masks(graph, retina):
         args=jax_get_cfg(DEFAULT_CFG_DICT, kw), model=jm, params=v["params"],
         batch_stats=v["batch_stats"], names={0: "a", 1: "b"})(list(frames))
     got = TSeg.SegmentationPredictor(
-        args=get_cfg({**kw, "device": "cpu"}), model=tm,
+        args=get_cfg(overrides={**kw, "device": "cpu"}), model=tm,
         names={0: "a", 1: "b"})(list(frames))
     assert len(got) == len(want) == 3
     n_masks = 0

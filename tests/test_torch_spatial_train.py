@@ -276,7 +276,7 @@ def _window(mesh, batches, start, overrides, trainer=DetectionTrainer,
     tm = DetectionModel(model_yaml_load(graph) if isinstance(graph, str)
                         else copy.deepcopy(graph))
     tm.load_state_dict(start)
-    tr = trainer(tm, overrides, nb=NB, device="cpu")
+    tr = trainer(overrides, model=tm, nb=NB, device="cpu")
     tr.mesh = mesh
     items = [tr.step(b, i)[1] for i, b in zip(STEPS, batches)]
     return snapshot(tr, items)
@@ -334,7 +334,7 @@ def _one_step(trainer, graph, batch, start, mesh, over):
     tm = DetectionModel(model_yaml_load(graph) if isinstance(graph, str)
                         else copy.deepcopy(graph))
     tm.load_state_dict(start)
-    tr = trainer(tm, over, nb=NB, device="cpu")
+    tr = trainer(over, model=tm, nb=NB, device="cpu")
     tr.mesh = mesh
     return snapshot(tr, [tr.step(batch, STEPS[0])[1]])
 
@@ -406,8 +406,8 @@ def test_layer0_slabs_backward_matches_whole(mode):
 
 # ----------------------------------------------------------- (d) refusals
 def _setup(monkeypatch=None, **over):
-    tr = DetectionTrainer(DetectionModel(model_yaml_load(TINY), nc=3),
-                          {"batch": 2, "imgsz": IMGSZ, **SPATIAL, **over},
+    tr = DetectionTrainer({"batch": 2, "imgsz": IMGSZ, **SPATIAL, **over},
+                          model=DetectionModel(model_yaml_load(TINY), nc=3),
                           device="cpu")
     tr._setup_mesh()
     return tr
@@ -467,14 +467,14 @@ def test_val_over_local_mesh_equals_plain(tmp_path):
     kw = {"data": str(data), "imgsz": 96, "batch": 4, "workers": 2,
           "plots": False, "verbose": False, "device": "cpu"}
     plain = validator.DetectionValidator(
-        args=get_cfg(kw), save_dir=tmp_path / "one")(model=tm)
+        args=get_cfg(overrides=kw), save_dir=tmp_path / "one")(model=tm)
     calls = []
     orig = validator.detect_step
     validator.detect_step = lambda m, img, *a, **k: (
         calls.append(img.shape[0]) or orig(m, img, *a, **k))
     try:
         got = validator.DetectionValidator(
-            args=get_cfg(kw), save_dir=tmp_path / "mesh")(
+            args=get_cfg(overrides=kw), save_dir=tmp_path / "mesh")(
             model=tm, mesh=make_mesh(devices=["cpu"] * 2))
     finally:
         validator.detect_step = orig
@@ -484,7 +484,7 @@ def test_val_over_local_mesh_equals_plain(tmp_path):
         {k: float(x) for k, x in plain.items()}
     assert float(plain["metrics/recall(B)"]) > 0
     with pytest.raises(NotImplementedError, match="several ranks or devices"):
-        validator.DetectionValidator(args=get_cfg(kw))(
+        validator.DetectionValidator(args=get_cfg(overrides=kw))(
             model=tm, mesh=make_mesh(devices=["cpu"] * 2), with_loss=True)
 
 
@@ -518,17 +518,18 @@ def test_task_val_over_local_mesh_equals_plain(task, tmp_path):
     if task == "segment":
         data = make_seg_dataset(tmp_path / "ds", n_train=0, n_val=6, seed=3)
         graph = with_layer0(SEG_TINY)
-        make = lambda: G.SegmentationValidator(args=get_cfg(kw), data=data,
+        make = lambda: G.SegmentationValidator(args=get_cfg(overrides=kw), data=data,
                                                save_dir=tmp_path / "v")
     elif task == "pose":
         data = make_pose_dataset(tmp_path / "ds", n_train=0, n_val=6, seed=3)
         graph = with_layer0(POSE_TINY)
-        make = lambda: P.PoseValidator(args=get_cfg(kw), data=data,
-                                       save_dir=tmp_path / "v")
+        make = lambda: P.PoseValidator(args=get_cfg(overrides=kw), data=data,
+                                       save_dir=tmp_path / "v",
+                                       kpt_shape=POSE_TINY["kpt_shape"])
     else:
         graph, root = CLS_TINY, _cls_folder(tmp_path / "cls")
         make = lambda: C.ClassificationValidator(
-            args=get_cfg({**kw, "data": root}), save_dir=tmp_path / "v")
+            args=get_cfg(overrides={**kw, "data": root}), save_dir=tmp_path / "v")
     tm = DetectionModel(copy.deepcopy(graph))
     init_weights(tm, 0)
     plain = make()(model=tm)

@@ -78,7 +78,7 @@ def test_bbox_iou_ciou_and_its_gradient_match_jax():
     b1, b2 = _xyxy(rng, (5, 1)), _xyxy(rng, (1, 40))
     for ciou in (False, True):
         t1 = T(b1).requires_grad_(True)
-        got = bbox_iou(t1, T(b2), CIoU=ciou)
+        got = bbox_iou(t1, T(b2), xywh=False, CIoU=ciou)
         got.sum().backward()
 
         def f(a):

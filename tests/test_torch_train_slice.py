@@ -104,7 +104,7 @@ def test_train_step_window_matches_jax(optimizer, prior_mode):
 
     tm = DetectionModel(model_yaml_load(TINY), nc=3)
     tm.load_state_dict(state_dict_from_jax(v, tm), strict=True)
-    tt = DetectionTrainer(tm, overrides, nb=NB, device="cpu")
+    tt = DetectionTrainer(overrides, model=tm, nb=NB, device="cpu")
     assert (tt.opt_name, tt.accumulate, tt.lr0) == (jt.opt_name, jt.accumulate,
                                                     jt.lr0)
     assert tt.weight_decay == jt.weight_decay

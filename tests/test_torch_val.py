@@ -167,7 +167,7 @@ def run_both(tmp_path, monkeypatch, dataset, weights, overrides,
               with_loss=with_loss)
     tm = DetectionModel(model_yaml_load(TINY), nc=3)
     tm.load_state_dict(state_dict_from_jax(v, tm), strict=True)
-    tv = validator.DetectionValidator(args=get_cfg({**kw, "device": "cpu"}),
+    tv = validator.DetectionValidator(args=get_cfg(overrides={**kw, "device": "cpu"}),
                                       save_dir=tmp_path / "torch")
     got = tv(model=tm, with_loss=with_loss)
     return want, got, jrec, trec, jv, tv
@@ -249,7 +249,7 @@ def test_validator_matches_jax(tmp_path, monkeypatch, dataset, weights,
 
 def test_get_validator_and_unported_branches():
     tm = DetectionModel(model_yaml_load(TINY), nc=3)
-    tr = DetectionTrainer(tm, {"batch": 2}, device="cpu")
+    tr = DetectionTrainer({"batch": 2}, model=tm, device="cpu")
     v = tr.get_validator(save_dir="unused")
     assert v.args.conf == 0.001 and v.device.type == "cpu"
     assert v.args.batch == 2 and v.save_dir == Path("unused")

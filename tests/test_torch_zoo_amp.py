@@ -331,7 +331,7 @@ def zoo_step(request):
     tm = DetectionModel(model_yaml_load(name), nc=3)
     start = state_dict_from_jax(v, tm)
     tm.load_state_dict(start, strict=True)
-    tt = DetectionTrainer(tm, {**ZOO_OVERRIDES, "amp": True}, nb=NB,
+    tt = DetectionTrainer({**ZOO_OVERRIDES, "amp": True}, model=tm, nb=NB,
                           device="cpu")
     names = list(tt.params)
     tm.train()

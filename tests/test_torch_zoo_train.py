@@ -58,7 +58,7 @@ def test_train_window_matches_jax(name):
 
     tm = DetectionModel(model_yaml_load(name), nc=3)
     tm.load_state_dict(state_dict_from_jax(v, tm), strict=True)
-    tt = DetectionTrainer(tm, overrides, nb=NB, device="cpu")
+    tt = DetectionTrainer(overrides, model=tm, nb=NB, device="cpu")
     for i, batch in zip(STEPS, _batches()):
         jp, jbs, jopt, jema, jeu, jtotal, jitems = step(
             jp, jbs, jopt, jema, jeu,
@@ -99,8 +99,8 @@ def test_amp_step_runs(name):
     tm = DetectionModel(model_yaml_load(name), nc=3)
     from dedark_yolo_tpu_torch.utils.weights import init_weights
     init_weights(tm, 0)
-    tt = DetectionTrainer(tm, {"batch": 2, "nbs": 4, "imgsz": IMGSZ,
-                               "amp": True}, nb=NB, device="cpu")
+    tt = DetectionTrainer({"batch": 2, "nbs": 4, "imgsz": IMGSZ, "amp": True},
+                          model=tm, nb=NB, device="cpu")
     for i, batch in zip(STEPS, _batches()):
         total, items = tt.step(batch, i)
         assert torch.isfinite(items).all() and torch.isfinite(total)
